@@ -1,0 +1,111 @@
+"""Build the package's CUDA kernels at first use and bind them with ctypes.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+interface, for ``sm_90a`` (Hopper). The library lands in ``_build/`` next to
+this file, named by a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is. The compiler's resource
+report (``-Xptxas -v``: registers, shared memory, spills) is kept beside it
+as ``.log``.
+
+Nothing is downloaded. If ``nvcc`` is missing or fails, :func:`library`
+raises: a CUDA tensor never falls back to the plain PyTorch path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int64
+# name -> argument types; every function returns a cudaError_t as int
+_SIGNATURES = {
+    # x, y, seed, n, window, channels, lead, tile_frames, seg_frames, segs,
+    # smem_bytes, stream
+    "dsp_windowed_i16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x32, y32, n32, window, channels, lead, tile_frames, seg_frames, segs,
+    # smem_bytes, stream
+    "dsp_windowed_packed": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, y, totals, n, channels, tile_frames, seg_frames, segs, smem_bytes,
+    # stream
+    "dsp_cumsum_i16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA "
+        "kernels cannot be built"
+    )
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libdsp_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources if no library for them exists; return its path."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n{proc.stdout}{proc.stderr}"
+        )
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
+    return so
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.dsp_error_string.argtypes = (ctypes.c_int,)
+    lib.dsp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error."""
+    if err != 0:
+        msg = library().dsp_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "library_path", "build", "library", "check"]

@@ -1,0 +1,150 @@
+"""Phase-split profiling harness (reference analog: benchmark.h:9-132).
+
+Counterpart of ``digital_signal_processsing_tpu/harness/profile.py``. The
+reference times four phases with cudaEvents, init (allocation), H2D,
+kernel and D2H, averaged over 5 warm-up and 10 measured rounds
+(gpu_utils.h:31-32). Here:
+
+    init    = first host-to-device copy and first call (kernel build included)
+    h2d     = host clock around a synchronised copy of the NumPy input
+    compute = CUDA events around the call, on the current stream
+    d2h     = host clock around the copy of the output back to NumPy
+
+Timing needs a card: on any other device :func:`time_phases` raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+
+WARMUP_ROUNDS = 5  # gpu_utils.h:31
+MEASUREMENT_ROUNDS = 10  # gpu_utils.h:32
+
+
+@dataclasses.dataclass
+class ProfileResult:
+    """Accumulated phase timings in milliseconds (benchmark.h:9-31 analog)."""
+
+    initialization_ms: float = 0.0
+    h2d_ms: float = 0.0
+    compute_ms: float = 0.0
+    d2h_ms: float = 0.0
+    rounds: int = 0
+
+    @property
+    def total_ms(self) -> float:
+        return self.h2d_ms + self.compute_ms + self.d2h_ms
+
+    @property
+    def cold_total_ms(self) -> float:
+        return self.initialization_ms + self.total_ms
+
+    def accumulate(self, h2d: float, compute: float, d2h: float) -> None:
+        self.h2d_ms += h2d
+        self.compute_ms += compute
+        self.d2h_ms += d2h
+        self.rounds += 1
+
+    def averaged(self) -> "ProfileResult":
+        n = max(self.rounds, 1)
+        return ProfileResult(
+            initialization_ms=self.initialization_ms,
+            h2d_ms=self.h2d_ms / n,
+            compute_ms=self.compute_ms / n,
+            d2h_ms=self.d2h_ms / n,
+            rounds=1,
+        )
+
+    # --- derived metrics (benchmark.h:56-67 analog) ---
+    def bandwidth_gbs(self, num_samples: int, bytes_per_sample: int) -> float:
+        """App-level GB/s: input+output traffic over total time."""
+        if self.total_ms <= 0:
+            return 0.0
+        return num_samples * 2 * bytes_per_sample / (self.total_ms * 1e-3) / 1e9
+
+    def throughput_msps(self, num_samples: int) -> float:
+        if self.total_ms <= 0:
+            return 0.0
+        return num_samples / (self.total_ms * 1e-3) / 1e6
+
+    def compute_throughput_msps(self, num_samples: int) -> float:
+        if self.compute_ms <= 0:
+            return 0.0
+        return num_samples / (self.compute_ms * 1e-3) / 1e6
+
+    def cold_throughput_msps(self, num_samples: int) -> float:
+        if self.cold_total_ms <= 0:
+            return 0.0
+        return num_samples / (self.cold_total_ms * 1e-3) / 1e6
+
+    def print_stats(self, num_samples: int, bytes_per_sample: int) -> None:
+        r = self.averaged()
+        print(
+            f"  init (cold) : {r.initialization_ms:10.3f} ms\n"
+            f"  host->device: {r.h2d_ms:10.3f} ms\n"
+            f"  compute     : {r.compute_ms:10.3f} ms\n"
+            f"  device->host: {r.d2h_ms:10.3f} ms\n"
+            f"  total       : {r.total_ms:10.3f} ms\n"
+            f"  bandwidth   : {r.bandwidth_gbs(num_samples, bytes_per_sample):10.3f} GB/s\n"
+            f"  throughput  : {r.throughput_msps(num_samples):10.3f} MS/s "
+            f"(kernel {r.compute_throughput_msps(num_samples):.3f}, "
+            f"cold {r.cold_throughput_msps(num_samples):.3f})"
+        )
+
+
+def time_phases(
+    fn: Callable[[torch.Tensor], torch.Tensor],
+    host_input: np.ndarray,
+    *,
+    device="cuda",
+    warmup: int = WARMUP_ROUNDS,
+    rounds: int = MEASUREMENT_ROUNDS,
+) -> ProfileResult:
+    """Warm-up-then-average phase-split benchmark (benchmark.h:116-132 analog).
+
+    Every round copies the host buffer to the card (the reference's Standard
+    memory mode).
+    """
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError(f"time_phases measures a CUDA device, got {dev}")
+    res = ProfileResult()
+
+    def put() -> torch.Tensor:
+        return torch.from_numpy(host_input).to(dev)
+
+    t0 = time.perf_counter()
+    x = put()
+    fn(x)
+    torch.cuda.synchronize(dev)
+    res.initialization_ms = (time.perf_counter() - t0) * 1e3
+
+    for _ in range(warmup):
+        fn(put()).cpu()
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        x = put()
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        start.record()
+        out = fn(x)
+        end.record()
+        end.synchronize()
+        t2 = time.perf_counter()
+        out.cpu().numpy()
+        t3 = time.perf_counter()
+        res.accumulate((t1 - t0) * 1e3, start.elapsed_time(end), (t3 - t2) * 1e3)
+    return res
+
+
+__all__ = ["ProfileResult", "time_phases", "WARMUP_ROUNDS", "MEASUREMENT_ROUNDS"]

@@ -1,0 +1,122 @@
+"""The port imports no JAX, and never moves to the CPU or the plain path on its own."""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from digital_signal_processsing_tpu_torch import _build
+from digital_signal_processsing_tpu_torch.io import write_wav
+from digital_signal_processsing_tpu_torch.ops import (
+    cumsum,
+    moving_average,
+    moving_average_init,
+    moving_average_two_pass,
+    windowed_averager,
+    windowed_averager_packed,
+)
+from digital_signal_processsing_tpu_torch.ops import pallas_scan as ps
+from digital_signal_processsing_tpu_torch.serve import stream_moving_average
+
+REPO = Path(__file__).resolve().parents[1]
+
+NO_JAX = """
+import sys
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+import numpy as np, torch
+import digital_signal_processsing_tpu_torch as port
+from digital_signal_processsing_tpu_torch.golden import moving_average_golden
+from digital_signal_processsing_tpu_torch.io import write_wav, read_wav
+from digital_signal_processsing_tpu_torch.ops import moving_average
+from digital_signal_processsing_tpu_torch.serve import stream_moving_average
+import chip_smoke  # noqa: F401  (its imports only; main() is not run)
+x = np.random.default_rng(0).integers(-32768, 32768, size=4000, dtype=np.int16)
+y = moving_average(torch.from_numpy(x), 64, 2).numpy()
+assert (y == moving_average_golden(x, 64, 2)).all()
+write_wav(sys.argv[1] + "/in.wav", x, 8000, 2)
+n = stream_moving_average([sys.argv[1] + "/in.wav"], sys.argv[1] + "/out.wav", 64,
+                          chunk_samples=1000, device="cpu")
+assert n == x.size and (read_wav(sys.argv[1] + "/out.wav")[1] == y).all()
+assert not [m for m in sys.modules if m.startswith("jax") and sys.modules[m] is not None]
+print("NO_JAX_OK")
+"""
+
+
+def run_python(args, cwd, env_extra=None):
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    env.update(env_extra or {})
+    return subprocess.run(
+        [sys.executable, *args], cwd=cwd, env=env, capture_output=True, text=True, timeout=300
+    )
+
+
+def test_port_runs_without_jax(tmp_path):
+    r = run_python(["-c", NO_JAX, str(tmp_path)], REPO, {"PYTHONPATH": str(REPO)})
+    assert r.returncode == 0, r.stderr
+    assert "NO_JAX_OK" in r.stdout
+
+
+def test_cuda_device_without_a_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    write_wav(tmp_path / "in.wav", np.zeros(64, np.int16), 8000, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stream_moving_average([tmp_path / "in.wav"], tmp_path / "out.wav", 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        moving_average_init(4, 2)
+    from digital_signal_processsing_tpu_torch.__main__ import main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([str(tmp_path / "in.wav"), "4", "--out", str(tmp_path / "o.wav")])
+
+
+def test_cpu_tensors_never_build_kernels(monkeypatch, rng):
+    def refuse(*a, **k):
+        raise AssertionError("a CPU tensor reached the kernel build")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "library", refuse)
+    ps.reset_launch_counts()
+    x = torch.from_numpy(rng.integers(-32768, 32768, size=4096, dtype=np.int16))
+    windowed_averager(x, 16, 2)
+    windowed_averager(x, 16, 2, seed=torch.zeros(32, dtype=torch.int16))
+    windowed_averager_packed(x.view(torch.int32), 16, 2)
+    cumsum(x, 2)
+    moving_average_two_pass(x, 4000, 2)
+    moving_average(x, 16, 2)
+    assert all(fn.launches == 0 for fn in ps.KERNEL_WRAPPERS)
+
+
+def test_other_devices_are_refused():
+    x = torch.zeros(8, dtype=torch.int16, device="meta")
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        windowed_averager(x, 2, 1)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = run_python(["chip_smoke.py"], REPO)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    r = run_python(["chip_smoke.py"], tmp_path)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_build_is_keyed_by_the_sources():
+    path = _build.library_path()
+    assert path.parent == _build.BUILD_DIR
+    assert path == _build.library_path()  # stable for unchanged sources
+    assert {p.name for p in _build.CSRC.glob("*.cu")} == {"windowed.cu", "cumsum.cu"}
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
