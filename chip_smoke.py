@@ -9,30 +9,37 @@ failure exits non-zero:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the kernels compiled from ``digital_signal_processsing_tpu_torch/csrc``;
-3. corners: each kernel (B1 windowed, B2 packed, B4 cumsum and the two-pass
-   route) against its plain PyTorch version on the card, bit-exact, over
-   k in {1, 16, 1024, 65535}, C in {1, 2, 3, 16}, frames in
-   {1, 127, 129, 2^20+C}, all-INT16_MIN input, seeded calls and an int32
-   wrap; B1 also against the NumPy golden model on a slice;
+3. corners: each kernel (B1 windowed, B2 packed, B3 scan in its three
+   variants, B4 cumsum and the two-pass route, B5 direct) against its plain
+   PyTorch version on the card, bit-exact, over k in {1, 16, 1024, 65535}
+   (B5: {1, 16, 64, 256}), C in {1, 2, 3, 16} (the tensor-core B3 refuses
+   C=3, which is checked), frames in {1, 127, 129, 2^20+C}, all-INT16_MIN
+   input, seeded calls, an int32 wrap, B3 with many short spans and at the
+   largest halo it takes; B1 also against the NumPy golden model on a slice;
 4. main path, through the entry points a user calls, with the kernels'
    launch counts reset just before and read just after:
    ``moving_average`` on a 64M-sample stereo stream at k=1024 (B1), the same
    stream as 16 channels at k=65535 (two-pass, B4), its int32 pair view
-   (B2), ``stream_moving_average`` over two WAVs (~16M samples, the second
-   of odd frame count) and the CLI; every output bit-exact against the
-   plain version or the one-shot result;
+   (B2), the methods ``scan``, ``scan_hillis`` and ``scan_mxu`` at k=1024
+   (B3), ``direct`` at k=64 and k=256 (B5), ``xla_scan`` and ``xla_direct``,
+   ``stream_moving_average`` over two WAVs (~16M samples, the second of odd
+   frame count) and the CLI; every route name asserted and every output
+   bit-exact against its plain version, B1 or the one-shot result; then
+   ``harness.sweep.run_suite`` over the ``--smoke`` grid and a 64M row at
+   k=1024 for the scan variants, with 0 failures;
 5. times: each kernel against its plain version at the main path's shapes
    (CUDA events between back-to-back calls, median of 10 after 5 warm-ups,
    in turns plain, kernel, kernel, plain), with a device-to-device copy of
-   the same bytes; then B1 against the two-pass route at halos on both
-   sides of the bound that sends ``windowed`` to two-pass
-   (``WINDOWED_SMEM_MAX``);
+   the same bytes and B4's library call (``torch.cumsum``); then B1 and B3
+   against the two-pass route at halos on both sides of the bounds that
+   send ``windowed`` and ``scan*`` to two-pass (``TWO_BLOCKS_SMEM_MAX``);
 6. serving loop: wall time of three ``stream_moving_average`` runs over
    phase 4's WAVs and of decoding them alone, and the device time of one
    run under ``torch.profiler``, by kernel and copy.
 
-The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.
+The last two lines are the kernels' JSON record (B1-B5, each with its
+launches on the main path, device ms, plain ms, bound ms and library ms)
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -51,26 +58,49 @@ import torch
 from digital_signal_processsing_tpu_torch import _build
 from digital_signal_processsing_tpu_torch.__main__ import main as cli_main
 from digital_signal_processsing_tpu_torch.golden import moving_average_golden
+from digital_signal_processsing_tpu_torch.harness import CSV_COLUMNS, sweep
 from digital_signal_processsing_tpu_torch.io import WavChunkLoader, write_wav
-from digital_signal_processsing_tpu_torch.ops import moving_average
+from digital_signal_processsing_tpu_torch.ops import (
+    launch_counts,
+    moving_average,
+    reset_launch_counts,
+)
+from digital_signal_processsing_tpu_torch.ops import pallas_direct as pd
 from digital_signal_processsing_tpu_torch.ops import pallas_scan as ps
-from digital_signal_processsing_tpu_torch.ops.scan_xla import cumsum_ref, moving_average_ref
+from digital_signal_processsing_tpu_torch.ops.direct_xla import moving_average_reduce_window
+from digital_signal_processsing_tpu_torch.ops.scan_xla import cumsum_ref, moving_average_xla
 from digital_signal_processsing_tpu_torch.serve import stream_moving_average
 from digital_signal_processsing_tpu_torch.utils import last_choice
 
 MAIN_SAMPLES = 64 * 2**20  # bench.py's headline stream: 64M stereo int16 samples
 MAIN_WINDOW = 1024
 TWO_PASS_WINDOW, TWO_PASS_CHANNELS = 65535, 16
+DIRECT_WINDOWS = (64, 256)
+SCAN_METHODS = {"scan": "blelloch", "scan_hillis": "hillis_steele", "scan_mxu": "mxu"}
+VARIANTS = tuple(SCAN_METHODS.values())
+KERNELS = ("B1", "B2", *(f"B3/{v}" for v in VARIANTS), "B4", "B5")
 SOURCE = "digital_signal_processsing_tpu_torch/csrc/"
 REPLACES = "digital_signal_processsing_tpu/ops/pallas_scan.py:"
+REPLACES_DIRECT = "digital_signal_processsing_tpu/ops/pallas_direct.py:"
+# The H100 SXM's memory rate, and its peak rate of int32 adds outside the
+# tensor cores: a clock of an SM issues 64 lanes of IADD3, two adds each
+# (three operands), and 64 lanes of IMAD on the FMA pipe, one add each
+# (a * 1 + c); 132 SMs at 1.98 GHz (NVIDIA's data sheet, the Hopper
+# architecture white paper, and the CUDA programming guide's throughput
+# table for compute capability 9.0). Other int32 operations are counted at
+# this rate too, so the bound stays a least time.
+HBM_BYTES_PER_S = 3.35e12
+INT32_ADDS_PER_S = 132 * (64 * 2 + 64) * 1.98e9
+# Shared-memory words an SM loads a clock (128 bytes): B5 loads one a tap.
+SMEM_WORDS_PER_S = 132 * 32 * 1.98e9
 
 
 class Checker:
     """Bit-exact comparisons on the card, keeping the largest error per kernel."""
 
     def __init__(self) -> None:
-        self.max_err = {"B1": 0, "B2": 0, "B4": 0}
-        self.count = {"B1": 0, "B2": 0, "B4": 0}
+        self.max_err = dict.fromkeys(KERNELS, 0)
+        self.count = dict.fromkeys(KERNELS, 0)
 
     def same(self, kernel: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
         torch.cuda.synchronize()
@@ -87,29 +117,45 @@ class Checker:
             raise AssertionError(f"{what}: max abs error {err}, want 0 (bit-exact)")
 
 
-def time_pair(kernel_fn, plain_fn, warmup: int = 5, reps: int = 10) -> tuple[float, float]:
-    """Median device ms of each, timed in turns plain, kernel, kernel, plain.
+def device_ms(fn, warmup: int, reps: int) -> list[float]:
+    """Device ms of each of ``reps`` calls queued back to back after ``warmup``.
 
-    A turn queues its calls back to back, warm-ups first, with an event
-    after each, so an interval is the card's time for one call and not the
-    host's time to issue it.
+    An event after each call, so an interval is the card's time for one call
+    and not the host's time to issue it.
     """
+    for _ in range(warmup):
+        fn()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    events[0].record()
+    for ev in events[1:]:
+        fn()
+        ev.record()
+    events[-1].synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
 
-    def run(fn) -> list[float]:
-        for _ in range(warmup):
-            fn()
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-        events[0].record()
-        for ev in events[1:]:
-            fn()
-            ev.record()
-        events[-1].synchronize()
-        return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
 
-    plain = run(plain_fn)
-    kernel = run(kernel_fn) + run(kernel_fn)
-    plain += run(plain_fn)
+def time_pair(kernel_fn, plain_fn, warmup: int = 5, reps: int = 10) -> tuple[float, float]:
+    """Median device ms of each, timed in turns plain, kernel, kernel, plain."""
+    plain = device_ms(plain_fn, warmup, reps)
+    kernel = device_ms(kernel_fn, warmup, reps) + device_ms(kernel_fn, warmup, reps)
+    plain += device_ms(plain_fn, warmup, reps)
     return statistics.median(kernel), statistics.median(plain)
+
+
+def bound(bytes_moved: float, int32_ops: float) -> tuple[float, str]:
+    """Least ms the card could take: the larger of bytes and operations over their peaks."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = int32_ops / INT32_ADDS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def largest_window(fits) -> int:
+    """Largest window in [1, 65535] for which ``fits(window)`` holds, by bisection."""
+    lo, hi = 0, 65535
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
 
 
 def phase_corners(rng, dev, check: Checker) -> None:
@@ -118,7 +164,7 @@ def phase_corners(rng, dev, check: Checker) -> None:
         return torch.from_numpy(rng.integers(-32768, 32768, size=n, dtype=np.int16)).to(dev)
 
     def averagers(x: torch.Tensor, k: int, c: int, label: str) -> None:
-        want = moving_average_ref(x, k, c)
+        want = moving_average_xla(x, k, c)
         if ps.windowed_supported(k, c):
             check.same("B1", ps.windowed_averager(x, k, c), want, f"B1 {label}")
         else:
@@ -126,7 +172,15 @@ def phase_corners(rng, dev, check: Checker) -> None:
         xp = x if x.numel() % 2 == 0 else x[: x.numel() - c]  # whole frames, whole words
         if xp.numel() and ps.packed_supported(k, c):
             got = ps.windowed_averager_packed(xp.view(torch.int32), k, c).view(torch.int16)
-            check.same("B2", got, moving_average_ref(xp, k, c), f"B2 {label}")
+            check.same("B2", got, moving_average_xla(xp, k, c), f"B2 {label}")
+        for v in VARIANTS:
+            if (v != "mxu" or ps.TC_ROW % c == 0) and ps.scan_supported(k, c, v):
+                got = ps.scan_averager(x, k, c, variant=v)
+                check.same(f"B3/{v}", got, want, f"B3 {v} {label}")
+
+    def direct(x: torch.Tensor, k: int, c: int, label: str) -> None:
+        got = pd.direct_averager(x, k, c)
+        check.same("B5", got, moving_average_reduce_window(x, k, c), f"B5 {label}")
 
     for c in (1, 2, 3, 16):
         for frames in (1, 127, 129, 2**20 + c):
@@ -134,13 +188,16 @@ def phase_corners(rng, dev, check: Checker) -> None:
             check.same("B4", ps.cumsum(x, c), cumsum_ref(x, c), f"cumsum C={c} frames={frames}")
             for k in (1, 16, 1024, 65535):
                 averagers(x, k, c, f"k={k} C={c} frames={frames}")
+            for k in (1, 16, 64, 256):
+                direct(x, k, c, f"k={k} C={c} frames={frames}")
     for k, c in ((65535, 1), (1024, 16), (16, 3), (1, 2)):
         x = torch.full(((2**17 + 1) * c,), -32768, dtype=torch.int16, device=dev)
         averagers(x, k, c, f"INT16_MIN k={k} C={c}")
+        direct(x, min(k, pd.MAX_DIRECT_WINDOW), c, f"INT16_MIN k={min(k, 256)} C={c}")
         check.same("B4", ps.cumsum(x, c), cumsum_ref(x, c), f"cumsum INT16_MIN C={c}")
     for k, c, frames in ((1024, 2, 129), (1024, 2, 2**20 + 2), (1024, 16, 4099), (7, 3, 1)):
         x, seed = stream(frames, c), stream(k, c)
-        want = moving_average_ref(torch.cat([seed, x]), k, c)[k * c :]
+        want = moving_average_xla(torch.cat([seed, x]), k, c)[k * c :]
         check.same("B1", ps.windowed_averager(x, k, c, seed=seed), want, f"B1 seeded k={k} C={c}")
     x = torch.full((2**21,), 32767, dtype=torch.int16, device=dev)  # sum reaches 2^36: wraps
     got = ps.cumsum(x, 1)
@@ -148,6 +205,26 @@ def phase_corners(rng, dev, check: Checker) -> None:
     wrapped = (np.arange(1, 2**21 + 1, dtype=np.int64) * 32767).astype(np.int32)  # mod 2^32
     if not np.array_equal(got.cpu().numpy(), wrapped):
         raise AssertionError("cumsum int32 wrap disagrees with NumPy's modular sum")
+    try:
+        ps.scan_averager(stream(100, 3), 4, 3, variant="mxu")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("the tensor-core B3 took C=3, which does not divide its rows")
+    # short tiles: spans of a few tiles each, so a window crosses every span
+    # boundary; then each variant at the largest halo it takes, C=2 and 16
+    x = stream(2**20 + 2, 2)
+    want = moving_average_xla(x, 255, 2)
+    for v in VARIANTS:
+        got = ps.scan_averager(x, 255, 2, variant=v, tile_samples=1024)
+        check.same(f"B3/{v}", got, want, f"B3 {v} span boundaries k=255 C=2 tile 1024")
+    largest = {}
+    for v in VARIANTS:
+        for c in (2, 16):
+            k = largest[v, c] = largest_window(lambda w, c=c, v=v: ps.scan_supported(w, c, v))
+            x = stream(2**18 + 1, c)
+            got = ps.scan_averager(x, k, c, variant=v)
+            check.same(f"B3/{v}", got, moving_average_xla(x, k, c), f"B3 {v} largest k={k} C={c}")
     x = stream(2**20 + 2, 2)
     got = ps.windowed_averager(x, 1024, 2)[: 1 << 18].cpu().numpy()
     want = moving_average_golden(x[: 1 << 18].cpu().numpy(), 1024, 2)
@@ -156,15 +233,16 @@ def phase_corners(rng, dev, check: Checker) -> None:
     print(
         "[3 corners] bit-exact: "
         + ", ".join(f"{k} {n} checks" for k, n in check.count.items())
-        + "; B1 against golden on 262144 samples"
+        + "; B1 against golden on 262144 samples; tensor-core B3 refused C=3; B3's largest "
+        + "windows: " + ", ".join(f"{v} C={c} k={k}" for (v, c), k in largest.items())
     )
 
 
 def phase_halo_bound(x: torch.Tensor, check: Checker) -> None:
-    """B1 against the two-pass route on both sides of the windowed route's bound, at 64M."""
+    """B1 and B3 against the two-pass route on both sides of their bounds, at 64M."""
     print(
         "[5 halo bound] B1 vs two-pass, 64M samples; `windowed` takes B1 while its buffer "
-        f"is <= {ps.WINDOWED_SMEM_MAX} bytes (two blocks an SM):"
+        f"is <= {ps.TWO_BLOCKS_SMEM_MAX} bytes (two blocks an SM):"
     )
     for c, ks in (
         (2, (4096, 8192, 8193, 10118, 10119, 16384, 24000)),
@@ -172,7 +250,7 @@ def phase_halo_bound(x: torch.Tensor, check: Checker) -> None:
     ):
         for k in ks:
             check.same(
-                "B1", ps.launch_windowed(x, k, c), moving_average_ref(x, k, c),
+                "B1", ps.launch_windowed(x, k, c), moving_average_xla(x, k, c),
                 f"B1 halo {k * c} k={k} C={c}",
             )
             b1, two = time_pair(
@@ -184,6 +262,32 @@ def phase_halo_bound(x: torch.Tensor, check: Checker) -> None:
                 f"  k={k} C={c} halo {k * c} ({side}): B1 {b1:.4f} ms, two-pass {two:.4f} ms, "
                 f"B1/two-pass {b1 / two:.3f}"
             )
+    print(
+        "[5 halo bound] B3 vs two-pass, 64M samples; `scan*` take B3 while its buffers are "
+        f"<= {ps.TWO_BLOCKS_SMEM_MAX} bytes (two blocks an SM):"
+    )
+    for v in VARIANTS:
+        for c in (2, 16):
+            inside = largest_window(lambda w, c=c, v=v: ps.scan_supported(w, c, v))
+            launchable = largest_window(
+                lambda w, c=c, v=v: ps.scan_geometry(w, c, v).smem_bytes <= ps.SMEM_MAX
+            )
+            for k in sorted({inside // 2, inside, inside + 1, launchable}):
+                g = ps.scan_geometry(k, c, v)
+                check.same(
+                    f"B3/{v}", ps.launch_scan(x, k, c, v), moving_average_xla(x, k, c),
+                    f"B3 {v} halo {k * c} k={k} C={c}",
+                )
+                b3, two = time_pair(
+                    lambda: ps.launch_scan(x, k, c, v),
+                    lambda: ps.moving_average_two_pass(x, k, c),
+                )
+                side = "inside" if ps.scan_supported(k, c, v) else "beyond"
+                print(
+                    f"  {v} k={k} C={c} halo {k * c} ({side}, {g.smem_bytes} B, "
+                    f"{g.blocks_per_sm} blocks an SM): B3 {b3:.4f} ms, two-pass {two:.4f} ms, "
+                    f"B3/two-pass {b3 / two:.3f}"
+                )
 
 
 def phase_serve_profile(wav: np.ndarray, split: int) -> None:
@@ -214,7 +318,7 @@ def phase_serve_profile(wav: np.ndarray, split: int) -> None:
          if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation),
         key=lambda r: -r[2],
     )
-    device_ms = sum(r[2] for r in rows)
+    device_ms_total = sum(r[2] for r in rows)
     print(
         f"[6 serve] {wav.size} samples in {chunks} chunks of 2^20, k={MAIN_WINDOW}: wall "
         + ", ".join(f"{w:.1f}" for w in walls)
@@ -224,11 +328,43 @@ def phase_serve_profile(wav: np.ndarray, split: int) -> None:
         print("  profiler saw no device time: device split not measured")
         return
     print(
-        f"  profiled: wall {profiled_ms:.1f} ms, device {device_ms:.3f} ms, "
-        f"device idle {1 - device_ms / profiled_ms:.3f} of the wall time"
+        f"  profiled: wall {profiled_ms:.1f} ms, device {device_ms_total:.3f} ms, "
+        f"device idle {1 - device_ms_total / profiled_ms:.3f} of the wall time"
     )
     for key, count, ms in rows:
         print(f"  {ms:9.3f} ms  {count:4d} x  {key[:80]}")
+
+
+def phase_sweep(tmp: Path) -> None:
+    """The sweep entry point on the card: the --smoke grid, then 64M at k=1024 for B3."""
+    csv = tmp / "sweep.csv"
+    reset_launch_counts()
+    smoke = [v for v in sweep.VARIANTS if v != "golden_cpu"] + ["golden_cpu"]
+    failures = sweep.run_suite([100_000], [1, 16, 128], smoke, [None], str(csv), verbose=False)
+    failures += sweep.run_suite(
+        [MAIN_SAMPLES], [MAIN_WINDOW], list(SCAN_METHODS), [None], str(csv), verbose=False
+    )
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    lines = csv.read_text().splitlines()
+    rows = [r.split(",") for r in lines]
+    if failures:
+        raise AssertionError(f"sweep: {failures} failed configs")
+    # smoke: 6 timed variants at k=1 and 16, 4 at k=128 (direct and xla_direct
+    # stop at 64), staged and resident, and 3 golden rows; 64M: 3 x 2 rows
+    want = 1 + (6 + 6 + 4) * 2 + 3 + 3 * 2
+    if lines[0] != CSV_COLUMNS or any(len(r) != 14 for r in rows) or len(rows) != want:
+        raise AssertionError(f"sweep CSV has {len(rows)} lines, want {want} of 14 columns")
+    for n in ("B1", "B3/blelloch", "B3/hillis_steele", "B3/mxu", "B5"):
+        if launches[n] < 1:
+            raise AssertionError(f"the sweep never launched {n}: {launches}")
+    print(f"[4 sweep] run_suite: {len(rows) - 1} CSV rows, 0 failures; launches {launches}")
+    for r in rows[1:]:
+        if r[2] == str(MAIN_SAMPLES):
+            print(
+                f"  {r[0]:12s} {r[1]:8s} 64M k={r[3]}: h2d {r[5]} ms, compute {r[6]} ms, "
+                f"d2h {r[7]} ms"
+            )
 
 
 def main() -> int:
@@ -275,13 +411,22 @@ def main() -> int:
         write_wav(tmp / "ab.wav", wav, 48000, 2)
         torch.cuda.synchronize()
 
-        ps.reset_launch_counts()
-        y_main = moving_average(x, MAIN_WINDOW, 2)
-        route_main = last_choice("moving_average")
-        y_two = moving_average(x, TWO_PASS_WINDOW, TWO_PASS_CHANNELS)
-        route_two = last_choice("moving_average")
-        y_packed = moving_average(x32, MAIN_WINDOW, 2)
-        route_packed = last_choice("moving_average")
+        routes, ys = [], {}
+
+        def call(label: str, *args, **kw) -> None:
+            ys[label] = moving_average(*args, **kw)
+            routes.append(last_choice("moving_average"))
+
+        reset_launch_counts()
+        call("main", x, MAIN_WINDOW, 2)
+        call("two", x, TWO_PASS_WINDOW, TWO_PASS_CHANNELS)
+        call("packed", x32, MAIN_WINDOW, 2)
+        for method in SCAN_METHODS:
+            call(method, x, MAIN_WINDOW, 2, method=method)
+        for k in DIRECT_WINDOWS:
+            call(f"direct{k}", x, k, 2, method="direct")
+        call("xla_scan", x, MAIN_WINDOW, 2, method="xla_scan")
+        call("xla_direct", x, DIRECT_WINDOWS[0], 2, method="xla_direct")
         written = stream_moving_average(
             [tmp / "a.wav", tmp / "b.wav"], tmp / "served.wav", MAIN_WINDOW,
             chunk_samples=1 << 20, device="cuda",
@@ -289,20 +434,33 @@ def main() -> int:
         if cli_main([str(tmp / "ab.wav"), str(MAIN_WINDOW), "--out", str(tmp / "cli.wav")]) != 0:
             raise AssertionError("CLI exited non-zero")
         torch.cuda.synchronize()
-        launches = {fn.__name__: fn.launches for fn in ps.KERNEL_WRAPPERS}
+        launches = launch_counts()
 
-        print(f"[4 main path] routes {route_main!r}, {route_two!r}, {route_packed!r}; launches {launches}")
-        want_routes = ["windowed", "windowed:two_pass_fallback", "windowed_packed"]
-        if [route_main, route_two, route_packed] != want_routes:
-            raise AssertionError(f"routes {route_main}, {route_two}, {route_packed}; want {want_routes}")
+        print(f"[4 main path] routes {routes}; launches {launches}")
+        want_routes = [
+            "windowed", "windowed:two_pass_fallback", "windowed_packed", *SCAN_METHODS,
+            "direct", "direct", "xla_scan", "xla_direct",
+        ]
+        if routes != want_routes:
+            raise AssertionError(f"routes {routes}; want {want_routes}")
         if min(launches.values()) < 1:
             raise AssertionError(f"a kernel of the main path was never launched: {launches}")
-        check.same("B1", y_main, moving_average_ref(x, MAIN_WINDOW, 2), "main 64M k=1024 C=2")
+        y_main = ys["main"]
+        check.same("B1", y_main, ys["xla_scan"], "main 64M k=1024 C=2 against xla_scan")
         check.same(
-            "B4", y_two, moving_average_ref(x, TWO_PASS_WINDOW, TWO_PASS_CHANNELS),
+            "B4", ys["two"], moving_average_xla(x, TWO_PASS_WINDOW, TWO_PASS_CHANNELS),
             "two-pass 64M k=65535 C=16",
         )
-        check.same("B2", y_packed.view(torch.int16), y_main, "packed 64M k=1024 C=2")
+        check.same("B2", ys["packed"].view(torch.int16), y_main, "packed 64M k=1024 C=2")
+        for method, v in SCAN_METHODS.items():
+            check.same(f"B3/{v}", ys[method], y_main, f"{method} 64M k=1024 C=2 against B1")
+        for k in DIRECT_WINDOWS:  # xla_direct's output is the plain version at the first k
+            plain = ys["xla_direct"]
+            if k != DIRECT_WINDOWS[0]:
+                plain = moving_average_reduce_window(x, k, 2)
+            check.same("B5", ys[f"direct{k}"], plain, f"direct 64M k={k} C=2 against plain")
+            b1 = ps.windowed_averager(x, k, 2)
+            check.same("B1", b1, plain, f"B1 64M k={k} C=2 against plain")
 
         one_shot = moving_average(torch.from_numpy(wav).to(dev), MAIN_WINDOW, 2).cpu().numpy()
         write_wav(tmp / "one_shot.wav", one_shot, 48000, 2)
@@ -312,29 +470,60 @@ def main() -> int:
         if (tmp / "cli.wav").read_bytes() != expected:
             raise AssertionError("CLI WAV differs from the one-shot result")
         print(
-            f"[4 main path] bit-exact: 64M k=1024 C=2, 64M k=65535 C=16 (two-pass), packed 64M; "
-            f"served {written} samples and the CLI WAV byte-identical to one shot"
+            "[4 main path] bit-exact: 64M k=1024 C=2 (B1, xla_scan, packed, scan, scan_hillis, "
+            "scan_mxu), 64M k=65535 C=16 (two-pass), direct and B1 at k=64 and 256 against "
+            f"the plain shifted adds (xla_direct at k=64); served {written} samples and the CLI "
+            "WAV byte-identical to one shot"
         )
+        phase_sweep(tmp)
 
     # 5. times
     n = MAIN_SAMPLES
     copy_dst = torch.empty_like(x)
     copy_ms, _ = time_pair(lambda: copy_dst.copy_(x), lambda: copy_dst.copy_(x))
-    b1_ms, b1_plain = time_pair(
-        lambda: ps.windowed_averager(x, MAIN_WINDOW, 2),
-        lambda: moving_average_ref(x, MAIN_WINDOW, 2),
-    )
+    plain_main = lambda: moving_average_xla(x, MAIN_WINDOW, 2)  # noqa: E731
+    b1_ms, b1_plain = time_pair(lambda: ps.windowed_averager(x, MAIN_WINDOW, 2), plain_main)
     b2_ms, b2_plain = time_pair(
         lambda: ps.windowed_averager_packed(x32, MAIN_WINDOW, 2),
-        lambda: moving_average_ref(x32.view(torch.int16), MAIN_WINDOW, 2).view(torch.int32),
+        lambda: moving_average_xla(x32.view(torch.int16), MAIN_WINDOW, 2).view(torch.int32),
     )
+    b3 = {
+        v: time_pair(lambda v=v: ps.scan_averager(x, MAIN_WINDOW, 2, variant=v), plain_main)
+        for v in VARIANTS
+    }
     b4_ms, b4_plain = time_pair(
         lambda: ps.cumsum(x, TWO_PASS_CHANNELS), lambda: cumsum_ref(x, TWO_PASS_CHANNELS)
     )
+    b4_library = statistics.median(device_ms(
+        lambda: torch.cumsum(x.view(-1, TWO_PASS_CHANNELS), dim=0, dtype=torch.int32), 1, 3
+    ))
     tp_ms, tp_plain = time_pair(
         lambda: ps.moving_average_two_pass(x, TWO_PASS_WINDOW, TWO_PASS_CHANNELS),
-        lambda: moving_average_ref(x, TWO_PASS_WINDOW, TWO_PASS_CHANNELS),
+        lambda: moving_average_xla(x, TWO_PASS_WINDOW, TWO_PASS_CHANNELS),
     )
+    b5 = {
+        k: time_pair(
+            lambda k=k: pd.direct_averager(x, k, 2),
+            lambda k=k: moving_average_reduce_window(x, k, 2),
+        )
+        for k in DIRECT_WINDOWS
+    }
+
+    # bounds: each input byte read once, each output byte written once; int32
+    # operations a sample as the kernel does them (divisions counted as one)
+    hs_passes = (ps.scan_geometry(MAIN_WINDOW, 2, "hillis_steele").tile_samples // 2 - 1).bit_length()
+    bounds = {
+        "B1": bound(4 * n, 4 * n),  # two prefix adds, a subtract, a divide
+        "B2": bound(4 * n, 4 * n),
+        "B3/blelloch": bound(4 * n, 5 * n),  # up- and down-sweep, carry, subtract, divide
+        "B3/hillis_steele": bound(4 * n, (hs_passes + 3) * n),
+        "B3/mxu": bound(4 * n, 5 * n),  # the products run on the tensor cores
+        "B4": bound(6 * n, 3 * n),
+        "B5": bound(4 * n, DIRECT_WINDOWS[-1] * n),  # k - 1 adds and a divide
+    }
+    b5_bound64 = bound(4 * n, DIRECT_WINDOWS[0] * n)
+    # not a bound of the work but of B5's design: one shared-memory load a tap
+    b5_smem = {k: n * k / SMEM_WORDS_PER_S * 1e3 for k in DIRECT_WINDOWS}
 
     def gss(ms: float) -> str:
         return f"{ms:.4f} ms = {n / ms / 1e6:.2f} GS/s"
@@ -343,31 +532,52 @@ def main() -> int:
     print(f"  copy d2d (same bytes)         {gss(copy_ms)}")
     print(f"  B1 windowed k=1024 C=2        {gss(b1_ms)}; plain {gss(b1_plain)}")
     print(f"  B2 packed k=1024 C=2          {gss(b2_ms)}; plain {gss(b2_plain)}")
-    print(f"  B4 cumsum C=16                {gss(b4_ms)}; plain {gss(b4_plain)}")
+    for v, (ms, plain) in b3.items():
+        print(f"  B3 {v:13s} k=1024 C=2  {gss(ms)}; plain {gss(plain)}; /B1 {ms / b1_ms:.3f}")
+    print(
+        f"  B4 cumsum C=16                {gss(b4_ms)}; plain {gss(b4_plain)}; "
+        f"library torch.cumsum {b4_library:.4f} ms"
+    )
     print(f"  two-pass k=65535 C=16         {gss(tp_ms)}; plain {gss(tp_plain)}")
+    for k, (ms, plain) in b5.items():
+        print(f"  B5 direct k={k:<3d} C=2          {gss(ms)}; plain {gss(plain)}")
+    print(
+        "  bounds (ms, by): "
+        + ", ".join(f"{name} {b:.4f} {by}" for name, (b, by) in bounds.items())
+        + f", B5 k=64 {b5_bound64[0]:.4f} {b5_bound64[1]}"
+    )
+    print(
+        "  B5's design limit, one shared-memory load a tap at 32 words a clock an SM (ms): "
+        + ", ".join(f"k={k} {ms:.4f}" for k, ms in b5_smem.items())
+    )
     phase_halo_bound(x, check)
 
     # 6. serving loop
     phase_serve_profile(wav, 2 * frames_a)
 
+    def entry(name, kernel, source, replaces, ms, plain_ms, library_ms=None):
+        return {
+            "name": name, "route": "cuda", "source": SOURCE + source, "replaces": replaces,
+            "launches": launches[kernel], "max_abs_err": check.max_err[kernel], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bounds[kernel][0], "bound_by": bounds[kernel][1],
+            "library_ms": library_ms,
+        }
+
     record = {
         "kernels": [
-            {
-                "name": "windowed_averager", "route": "cuda", "source": SOURCE + "windowed.cu",
-                "replaces": REPLACES + "492", "launches": launches["windowed_averager"],
-                "max_abs_err": check.max_err["B1"], "ms": b1_ms, "plain_ms": b1_plain,
-            },
-            {
-                "name": "windowed_averager_packed", "route": "cuda",
-                "source": SOURCE + "windowed.cu", "replaces": REPLACES + "530",
-                "launches": launches["windowed_averager_packed"],
-                "max_abs_err": check.max_err["B2"], "ms": b2_ms, "plain_ms": b2_plain,
-            },
-            {
-                "name": "cumsum", "route": "cuda", "source": SOURCE + "cumsum.cu",
-                "replaces": REPLACES + "971", "launches": launches["cumsum"],
-                "max_abs_err": check.max_err["B4"], "ms": b4_ms, "plain_ms": b4_plain,
-            },
+            entry("windowed_averager", "B1", "windowed.cu", REPLACES + "492", b1_ms, b1_plain),
+            entry(
+                "windowed_averager_packed", "B2", "windowed.cu", REPLACES + "530", b2_ms, b2_plain
+            ),
+            *(
+                entry(f"scan_averager[{v}]", f"B3/{v}", "scan.cu", REPLACES + "847", *b3[v])
+                for v in VARIANTS
+            ),
+            entry("cumsum", "B4", "cumsum.cu", REPLACES + "971", b4_ms, b4_plain, b4_library),
+            entry(
+                "direct_averager", "B5", "direct.cu", REPLACES_DIRECT + "59",
+                *b5[DIRECT_WINDOWS[-1]],
+            ),
         ]
     }
     print(json.dumps(record))

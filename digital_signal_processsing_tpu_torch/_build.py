@@ -1,8 +1,9 @@
 """Build the package's CUDA kernels at first use and bind them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, for ``sm_90a`` (Hopper). The library lands in ``_build/`` next to
-this file, named by a hash of the sources and flags, so an edited source is
+``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` (Hopper), one process a
+source, all started together, and links the objects into one shared library
+with a plain C interface. The library lands in ``_build/`` next to this
+file, named by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is. The compiler's resource
 report (``-Xptxas -v``: registers, shared memory, spills) is kept beside it
 as ``.log``.
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -41,6 +42,11 @@ _SIGNATURES = {
     # x, y, totals, n, channels, tile_frames, seg_frames, segs, smem_bytes,
     # stream
     "dsp_cumsum_i16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, y, n, window, channels, variant, tile_frames, span_tiles,
+    # smem_bytes, stream
+    "dsp_scan_i16": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, y, n, window, channels, tile_frames, smem_bytes, stream
+    "dsp_direct_i16": (_P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -75,16 +81,40 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stdout}{proc.stderr}"
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = {src: BUILD_DIR / f"{tag}.{src.stem}.o" for src in sorted(CSRC.glob("*.cu"))}
+    tmp = so.with_name(f"{tag}.so.tmp")
+    try:
+        procs = [
+            (src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+            for src, obj in objs.items()
+        ]
+        log, failed = [], []
+        for src, proc in procs:
+            out = proc.communicate()[0]
+            log.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{src.name} (exit code {proc.returncode})")
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n" + "".join(log))
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs.values())],
+            capture_output=True, text=True,
         )
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to link, exit code {link.returncode}:\n{link.stdout}{link.stderr}"
+            )
+        so.with_suffix(".log").write_text("".join(log))
+        os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
+    finally:
+        tmp.unlink(missing_ok=True)
+        for obj in objs.values():
+            obj.unlink(missing_ok=True)
     return so
 
 

@@ -34,12 +34,6 @@
 
 namespace dsp {
 
-static __device__ __forceinline__ int16_t window_mean(uint32_t wsum, int window) {
-  // |true window sum| <= 65535 * 32768 < 2^31, so the int32 reading is the
-  // true sum; C++ signed division truncates toward zero.
-  return static_cast<int16_t>(static_cast<int32_t>(wsum) / window);
-}
-
 // n: samples in the stream (2 * words for B2). lead >= window frames of
 // halo are loaded before the tile; lead*C and tf*C are even for B2.
 template <bool kPacked>

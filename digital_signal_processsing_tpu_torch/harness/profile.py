@@ -7,6 +7,7 @@ kernel and D2H, averaged over 5 warm-up and 10 measured rounds
 
     init    = first host-to-device copy and first call (kernel build included)
     h2d     = host clock around a synchronised copy of the NumPy input
+              (0 when the input stays resident on the card)
     compute = CUDA events around the call, on the current stream
     d2h     = host clock around the copy of the output back to NumPy
 
@@ -106,11 +107,16 @@ def time_phases(
     device="cuda",
     warmup: int = WARMUP_ROUNDS,
     rounds: int = MEASUREMENT_ROUNDS,
+    resident: bool = False,
 ) -> ProfileResult:
     """Warm-up-then-average phase-split benchmark (benchmark.h:116-132 analog).
 
-    Every round copies the host buffer to the card (the reference's Standard
-    memory mode).
+    ``resident=False`` copies the host buffer to the card every round (the
+    reference's Standard memory mode); ``resident=True`` copies it once,
+    before the rounds, which then time only the compute and the fetch of
+    the output, and ``h2d`` reads 0 (the serving steady state that the
+    reference's Unified mode approximated, gpu_utils.h:26-65). The sweep
+    logs both.
     """
     dev = resolve_device(device)
     if dev.type != "cuda":
@@ -127,14 +133,15 @@ def time_phases(
     res.initialization_ms = (time.perf_counter() - t0) * 1e3
 
     for _ in range(warmup):
-        fn(put()).cpu()
+        fn(x if resident else put()).cpu()
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     for _ in range(rounds):
         t0 = time.perf_counter()
-        x = put()
-        torch.cuda.synchronize(dev)
+        if not resident:
+            x = put()
+            torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
         start.record()
         out = fn(x)
@@ -143,8 +150,24 @@ def time_phases(
         t2 = time.perf_counter()
         out.cpu().numpy()
         t3 = time.perf_counter()
-        res.accumulate((t1 - t0) * 1e3, start.elapsed_time(end), (t3 - t2) * 1e3)
+        h2d_ms = 0.0 if resident else (t1 - t0) * 1e3
+        res.accumulate(h2d_ms, start.elapsed_time(end), (t3 - t2) * 1e3)
     return res
 
 
-__all__ = ["ProfileResult", "time_phases", "WARMUP_ROUNDS", "MEASUREMENT_ROUNDS"]
+def benchmark(
+    fn: Callable[[], object],
+    *,
+    warmup: int = WARMUP_ROUNDS,
+    rounds: int = MEASUREMENT_ROUNDS,
+) -> float:
+    """Plain warm-up-then-average wall timer of a host function; mean ms."""
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / rounds
+
+
+__all__ = ["ProfileResult", "time_phases", "benchmark", "WARMUP_ROUNDS", "MEASUREMENT_ROUNDS"]

@@ -1,28 +1,30 @@
-"""WAV codec and chunk loader, shared with the reference package.
+"""WAV codec and chunk loader: the port's own NumPy-only copies.
 
-``digital_signal_processsing_tpu.io.wav``, ``.native`` and ``.dataset`` are
-NumPy-only and import no JAX, so the port re-exports them rather than
-keeping a second copy of the codec.
+``wav`` and ``dataset`` are copies of the JAX package's ``io/wav.py`` and
+``io/dataset.py`` (the loader and ``prefetch``), which the port does not
+import. The native C++ codec and ``device_chunks`` are not ported.
 """
 
-from digital_signal_processsing_tpu.io import dataset, native, wav  # noqa: F401
-from digital_signal_processsing_tpu.io.dataset import WavChunkLoader  # noqa: F401
-from digital_signal_processsing_tpu.io.wav import (  # noqa: F401
+from . import dataset, wav  # noqa: F401
+from .dataset import WavChunkLoader, prefetch  # noqa: F401
+from .wav import (  # noqa: F401
     WavInfo,
     WavWriter,
     read_wav,
     read_wav_info,
+    read_wav_widened,
     write_wav,
 )
 
 __all__ = [
     "wav",
-    "native",
     "dataset",
     "WavChunkLoader",
+    "prefetch",
     "WavInfo",
     "WavWriter",
     "read_wav",
     "read_wav_info",
+    "read_wav_widened",
     "write_wav",
 ]

@@ -4,16 +4,21 @@ Counterpart of ``digital_signal_processsing_tpu/ops/pallas_scan.py``:
 
 - :func:`windowed_averager`        B1, ``csrc/windowed.cu``
 - :func:`windowed_averager_packed` B2, ``csrc/windowed.cu`` on int32 pair words
+- :func:`scan_averager`            B3, ``csrc/scan.cu`` (three in-tile scans)
 - :func:`cumsum`                   B4, ``csrc/cumsum.cu`` (three launches)
 - :func:`moving_average_two_pass`  B4, then the difference in plain PyTorch
 
 Each wrapper takes its plain version (``scan_xla.py``) for a tensor on the
 CPU. For a CUDA tensor it builds the kernels if needed (``_build.py``),
-launches, and adds one to its ``launches`` count; it raises if the build or
-the launch fails, and never falls back to the plain version.
+launches, and adds one to its ``launches`` count (B3 keeps one count per
+variant); it raises if the build or the launch fails, and never falls back
+to the plain version.
 
-The tile geometry (frames per block, segments of the in-block scan, shared
-memory) is computed here, in Python, so the CPU tests reach it.
+The tile geometry (frames per block, segments of the in-block scan, spans,
+shared memory) is computed here, in Python, so the CPU tests reach it.
+``tile_samples`` on B1 and B3 is the counterpart of the reference's
+``tile_rows`` (``tile_rows * 128`` samples); by default a tile is about
+TILE_SAMPLES.
 """
 
 from __future__ import annotations
@@ -23,8 +28,8 @@ import dataclasses
 import torch
 
 from .. import _build
-from ..utils.layout import cdiv, validate_window
-from .scan_xla import cumsum_ref, moving_average_ref, windowed_difference
+from ..utils.layout import cdiv, round_up, validate_window
+from .scan_xla import cumsum_ref, moving_average_xla, windowed_difference
 
 # Output samples a block owns (rounded up to whole frames).
 TILE_SAMPLES = 8192
@@ -35,11 +40,13 @@ SEG_ITEMS = 4096
 SMEM_MAX = 232448
 # Shared memory of one H100 SM (228 KB); each resident block also holds 1 KB.
 SMEM_PER_SM = 233472
-# The windowed kernels' buffer (halo k*C plus tile, 4 bytes a sample) grows
-# with the halo. Measured at 64M samples, C=2 and C=16 (PERF.md), they beat
-# the two-pass route while two blocks fit on an SM and lose from the first
-# window at which only one does, so that is where `windowed` switches route.
-WINDOWED_SMEM_MAX = SMEM_PER_SM // 2 - 1024
+THREADS_PER_SM = 2048
+# The buffers of the windowed kernels (B1, B2) and of the scan kernel (B3)
+# grow with the halo k*C. Measured at 64M samples, C=2 and C=16 (PERF.md),
+# they beat the two-pass route while two blocks fit on an SM and lose from
+# the first window at which only one does, so that is where `windowed` and
+# `scan*` switch route; phase 5 of chip_smoke.py times both sides.
+TWO_BLOCKS_SMEM_MAX = SMEM_PER_SM // 2 - 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,14 +78,16 @@ class TileGeometry:
         return cdiv(n, self.tile_samples)
 
 
-def tile_geometry(lead_frames: int, channels: int, *, even: bool = False) -> TileGeometry:
-    """Geometry for a tile of about TILE_SAMPLES with ``lead_frames`` of halo.
+def tile_geometry(
+    lead_frames: int, channels: int, *, even: bool = False, tile_samples: int | None = None
+) -> TileGeometry:
+    """Geometry for a tile of about ``tile_samples`` with ``lead_frames`` of halo.
 
     ``even`` keeps the tile an even number of samples (B2 moves pairs).
     The segment length is odd so that one warp's segment starts fall on
     distinct shared-memory banks.
     """
-    tf = cdiv(TILE_SAMPLES, channels)
+    tf = cdiv(TILE_SAMPLES if tile_samples is None else tile_samples, channels)
     if even and (tf * channels) % 2:
         tf += 1
     nf = lead_frames + tf
@@ -87,8 +96,8 @@ def tile_geometry(lead_frames: int, channels: int, *, even: bool = False) -> Til
     return TileGeometry(channels, lead_frames, tf, r, cdiv(nf, r))
 
 
-def windowed_geometry(window: int, channels: int) -> TileGeometry:
-    return tile_geometry(window, channels)
+def windowed_geometry(window: int, channels: int, tile_samples: int | None = None) -> TileGeometry:
+    return tile_geometry(window, channels, tile_samples=tile_samples)
 
 
 def packed_geometry(window: int, channels: int) -> TileGeometry:
@@ -103,12 +112,12 @@ def cumsum_geometry(channels: int) -> TileGeometry:
     return tile_geometry(0, channels)
 
 
-def windowed_supported(window: int, channels: int) -> bool:
+def windowed_supported(window: int, channels: int, tile_samples: int | None = None) -> bool:
     """True iff B1 takes this configuration: any C, while two blocks fit on an SM."""
     return (
         channels >= 1
         and 1 <= window
-        and windowed_geometry(window, channels).smem_bytes <= WINDOWED_SMEM_MAX
+        and windowed_geometry(window, channels, tile_samples).smem_bytes <= TWO_BLOCKS_SMEM_MAX
     )
 
 
@@ -117,7 +126,7 @@ def packed_supported(window: int, channels: int) -> bool:
     return (
         channels >= 1
         and 1 <= window
-        and packed_geometry(window, channels).smem_bytes <= WINDOWED_SMEM_MAX
+        and packed_geometry(window, channels).smem_bytes <= TWO_BLOCKS_SMEM_MAX
     )
 
 
@@ -165,18 +174,19 @@ def windowed_averager(
     channels: int = 1,
     *,
     seed: torch.Tensor | None = None,
+    tile_samples: int | None = None,
 ) -> torch.Tensor:
     """Causal moving average of an interleaved int16 stream (B1).
 
     ``seed``: the ``window * channels`` int16 samples that precede ``x`` in
     the stream (the streaming state's tail); without it the positions
     before the start read zero, the golden model's ramp-up. Needs
-    ``windowed_supported(window, channels)``.
+    ``windowed_supported(window, channels, tile_samples)``.
     """
     validate_window(window)
     _check_stream(x, torch.int16, channels, "x", x.numel())
     halo = window * channels
-    if not windowed_supported(window, channels):
+    if not windowed_supported(window, channels, tile_samples):
         raise ValueError(
             f"windowed kernel takes halos whose buffer leaves two blocks an SM, "
             f"got window*channels = {halo}; use moving_average_two_pass"
@@ -190,22 +200,26 @@ def windowed_averager(
             )
     if not _on_cuda(x):
         if seed is None:
-            return moving_average_ref(x, window, channels)
-        return moving_average_ref(torch.cat([seed, x]), window, channels)[halo:]
-    return launch_windowed(x, window, channels, seed)
+            return moving_average_xla(x, window, channels)
+        return moving_average_xla(torch.cat([seed, x]), window, channels)[halo:]
+    return launch_windowed(x, window, channels, seed, tile_samples)
 
 
 def launch_windowed(
-    x: torch.Tensor, window: int, channels: int, seed: torch.Tensor | None = None
+    x: torch.Tensor,
+    window: int,
+    channels: int,
+    seed: torch.Tensor | None = None,
+    tile_samples: int | None = None,
 ) -> torch.Tensor:
     """Launch B1 on a CUDA stream the caller has checked, at any halo that fits.
 
-    :func:`windowed_averager` holds the buffer to WINDOWED_SMEM_MAX;
+    :func:`windowed_averager` holds the buffer to TWO_BLOCKS_SMEM_MAX;
     ``chip_smoke.py`` also launches beyond it, to time B1 against the
     two-pass route on both sides of the bound. Raises if the buffer exceeds
     shared memory.
     """
-    g = windowed_geometry(window, channels)
+    g = windowed_geometry(window, channels, tile_samples)
     if g.smem_bytes > SMEM_MAX:
         raise ValueError(f"windowed kernel needs {g.smem_bytes} bytes of shared memory")
     n = x.numel()
@@ -243,7 +257,7 @@ def windowed_averager_packed(x32: torch.Tensor, window: int, channels: int = 2) 
             "on the int16 view"
         )
     if not _on_cuda(x32):
-        return moving_average_ref(x32.view(torch.int16), window, channels).view(torch.int32)
+        return moving_average_xla(x32.view(torch.int16), window, channels).view(torch.int32)
     n32 = x32.numel()
     y = torch.empty_like(x32)
     if n32 == 0:
@@ -261,6 +275,165 @@ def windowed_averager_packed(x32: torch.Tensor, window: int, channels: int = 2) 
 
 
 windowed_averager_packed.launches = 0
+
+
+# B3's in-tile scans, and their codes in csrc/scan.cu (dsp::ScanVariant)
+SCAN_VARIANTS = {"blelloch": 0, "hillis_steele": 1, "mxu": 2}
+TC_ROW = 16  # samples in a tensor-core row (WMMA 16x16x16): mxu needs C | 16
+TC_ROW_BLOCK = TC_ROW * TC_ROW  # the mxu tile is whole 16 x 16 row blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanGeometry:
+    """Launch geometry of B3 (``csrc/scan.cu``).
+
+    A block walks a span of tiles of ``tile_frames`` frames in order. Its
+    shared memory holds the tile's prefix (``res``), the previous
+    ``window * channels`` prefix values (``tail``) and a double carry of
+    ``channels`` words; Hillis-Steele adds a second tile buffer, the
+    tensor-core scan the 16 x 16 matrix, the tile's two 8-bit limbs and a
+    scratch of the rows' per-channel totals.
+    """
+
+    window: int
+    channels: int
+    tile_frames: int
+    variant: str
+
+    @property
+    def tile_samples(self) -> int:
+        return self.tile_frames * self.channels
+
+    @property
+    def smem_bytes(self) -> int:
+        t, c = self.tile_samples, self.channels
+        words = t + self.window * c + 2 * c
+        extra = 0
+        if self.variant == "hillis_steele":
+            words += t
+        elif self.variant == "mxu":
+            words += (t // TC_ROW) * c
+            extra = TC_ROW_BLOCK + 2 * t
+        return 4 * words + extra
+
+    @property
+    def blocks_per_sm(self) -> int:
+        return max(1, min(THREADS_PER_SM // THREADS, SMEM_PER_SM // (self.smem_bytes + 1024)))
+
+    def span_tiles(self, n: int, sm_count: int) -> int:
+        """Tiles a block walks: one wave of resident blocks covers the stream."""
+        tiles = cdiv(n, self.tile_samples)
+        return cdiv(tiles, max(1, min(tiles, sm_count * self.blocks_per_sm)))
+
+
+def _check_scan_variant(variant: str, channels: int) -> None:
+    if variant not in SCAN_VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; options {sorted(SCAN_VARIANTS)}")
+    if channels < 1:
+        raise ValueError(f"channels must be >= 1, got {channels}")
+    if variant == "mxu" and TC_ROW % channels != 0:
+        raise ValueError(
+            f"the tensor-core scan needs channels dividing its {TC_ROW}-sample rows, "
+            f"got {channels}; use method='scan' (any channel count)"
+        )
+
+
+def scan_geometry(
+    window: int, channels: int, variant: str = "blelloch", tile_samples: int | None = None
+) -> ScanGeometry:
+    """B3's tile: about ``tile_samples``, grown to the halo when that is None.
+
+    An explicit tile smaller than the halo raises, as the reference's
+    ``tile_rows`` does. The tensor-core tile is whole 256-sample row blocks.
+    """
+    _check_scan_variant(variant, channels)
+    tf = cdiv(TILE_SAMPLES if tile_samples is None else tile_samples, channels)
+    if window > tf:
+        if tile_samples is not None:
+            raise ValueError(
+                f"window*channels = {window * channels} exceeds one tile "
+                f"({tf * channels} samples); raise tile_samples"
+            )
+        tf = window
+    if variant == "mxu":
+        tf = round_up(tf, TC_ROW_BLOCK // channels)
+    return ScanGeometry(window, channels, tf, variant)
+
+
+def scan_supported(
+    window: int, channels: int, variant: str = "blelloch", tile_samples: int | None = None
+) -> bool:
+    """True iff B3 takes this configuration: its buffers leave two blocks an SM.
+
+    ``variant`` must be known and, for ``mxu``, take the channel count.
+    """
+    _check_scan_variant(variant, channels)
+    if window < 1 or (tile_samples is not None and window > cdiv(tile_samples, channels)):
+        return False
+    return scan_geometry(window, channels, variant, tile_samples).smem_bytes <= TWO_BLOCKS_SMEM_MAX
+
+
+def scan_averager(
+    x: torch.Tensor,
+    window: int,
+    channels: int = 1,
+    *,
+    variant: str = "blelloch",
+    tile_samples: int | None = None,
+) -> torch.Tensor:
+    """Causal moving average of an interleaved int16 stream by a carried scan (B3).
+
+    ``variant`` is the in-tile scan: ``blelloch``, ``hillis_steele`` or
+    ``mxu`` (the tensor cores; channels must divide 16). Bit-exact with
+    :func:`windowed_averager`. Needs ``scan_supported(window, channels,
+    variant, tile_samples)``.
+    """
+    validate_window(window)
+    _check_stream(x, torch.int16, channels, "x", x.numel())
+    if scan_geometry(window, channels, variant, tile_samples).smem_bytes > TWO_BLOCKS_SMEM_MAX:
+        raise ValueError(
+            f"scan kernel takes halos whose buffers leave two blocks an SM, got "
+            f"window*channels = {window * channels}; use moving_average_two_pass"
+        )
+    if not _on_cuda(x):
+        return moving_average_xla(x, window, channels)
+    return launch_scan(x, window, channels, variant, tile_samples)
+
+
+def launch_scan(
+    x: torch.Tensor,
+    window: int,
+    channels: int,
+    variant: str = "blelloch",
+    tile_samples: int | None = None,
+) -> torch.Tensor:
+    """Launch B3 on a CUDA stream the caller has checked, at any halo that fits.
+
+    :func:`scan_averager` holds the buffers to TWO_BLOCKS_SMEM_MAX;
+    ``chip_smoke.py`` also launches beyond it, to time B3 against the
+    two-pass route on both sides of the bound. Raises if the buffers exceed
+    shared memory.
+    """
+    g = scan_geometry(window, channels, variant, tile_samples)
+    if g.smem_bytes > SMEM_MAX:
+        raise ValueError(f"scan kernel needs {g.smem_bytes} bytes of shared memory")
+    n = x.numel()
+    y = torch.empty_like(x)
+    if n == 0:
+        return y
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.dsp_scan_i16(
+            x.data_ptr(), y.data_ptr(), n, window, channels, SCAN_VARIANTS[variant],
+            g.tile_frames, g.span_tiles(n, sms), g.smem_bytes, _stream(x),
+        )
+    _build.check(err, f"scan_averager[{variant}]")
+    scan_averager.launches[variant] += 1
+    return y
+
+
+scan_averager.launches = dict.fromkeys(SCAN_VARIANTS, 0)  # by variant
 
 
 def cumsum(x: torch.Tensor, channels: int = 1) -> torch.Tensor:
@@ -302,30 +475,26 @@ def moving_average_two_pass(x: torch.Tensor, window: int, channels: int = 1) -> 
     return windowed_difference(cumsum(x, channels), window, channels)
 
 
-KERNEL_WRAPPERS = (windowed_averager, windowed_averager_packed, cumsum)
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS:
-        fn.launches = 0
-
-
 __all__ = [
     "TILE_SAMPLES",
-    "WINDOWED_SMEM_MAX",
+    "TWO_BLOCKS_SMEM_MAX",
+    "SCAN_VARIANTS",
     "TileGeometry",
+    "ScanGeometry",
     "tile_geometry",
     "windowed_geometry",
     "packed_geometry",
     "cumsum_geometry",
+    "scan_geometry",
     "windowed_supported",
     "packed_supported",
     "cumsum_supported",
+    "scan_supported",
     "windowed_averager",
     "launch_windowed",
     "windowed_averager_packed",
+    "scan_averager",
+    "launch_scan",
     "cumsum",
     "moving_average_two_pass",
-    "KERNEL_WRAPPERS",
-    "reset_launch_counts",
 ]

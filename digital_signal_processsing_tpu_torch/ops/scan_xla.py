@@ -9,7 +9,9 @@ at frame stride ``window`` (hillis_steele_averager.cu:87-100):
 Here the prefix is an int64 ``torch.cumsum`` per channel, the reference's
 own widening. These functions launch no kernel of this package: the
 wrappers in ``pallas_scan.py`` run them for CPU tensors, and the chip smoke
-holds each CUDA kernel against them on the card.
+holds each CUDA kernel against them on the card. :func:`moving_average_xla`
+is also the ``xla_scan`` method of ``moving_average``, as its namesake is in
+the reference package.
 """
 
 from __future__ import annotations
@@ -30,11 +32,12 @@ def channel_cumsum(x: torch.Tensor, channels: int) -> torch.Tensor:
     return torch.stack([torch.cumsum(row, dim=0, dtype=torch.int64) for row in planar])
 
 
-def moving_average_ref(x: torch.Tensor, window: int, channels: int = 1) -> torch.Tensor:
+def moving_average_xla(x: torch.Tensor, window: int, channels: int = 1) -> torch.Tensor:
     """Causal moving average of a flat interleaved int16 stream (int64 sums).
 
-    The plain version of the windowed kernels (B1, and B2 on the int16
-    view). Bit-exact with ``golden.moving_average_golden``.
+    The ``xla_scan`` anchor, and the plain version of the windowed kernels
+    (B1, and B2 on the int16 view) and of the scan averager (B3). Bit-exact
+    with ``golden.moving_average_golden``.
     """
     csum = channel_cumsum(x, channels)
     wsum = csum.clone()
@@ -66,4 +69,4 @@ def windowed_difference(cum: torch.Tensor, window: int, channels: int = 1) -> to
     return trunc_div(wrap_int32(wsum), window).to(torch.int16)
 
 
-__all__ = ["channel_cumsum", "moving_average_ref", "cumsum_ref", "windowed_difference"]
+__all__ = ["channel_cumsum", "moving_average_xla", "cumsum_ref", "windowed_difference"]

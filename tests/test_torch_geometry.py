@@ -155,7 +155,7 @@ def test_geometry_fits_the_card(channels):
                 assert g.lead_frames >= window
         if window <= largest:  # B1 takes every window up to its largest
             assert ps.windowed_supported(window, channels)
-            assert ps.windowed_geometry(window, channels).smem_bytes <= ps.WINDOWED_SMEM_MAX
+            assert ps.windowed_geometry(window, channels).smem_bytes <= ps.TWO_BLOCKS_SMEM_MAX
             assert 2 * (ps.windowed_geometry(window, channels).smem_bytes + 1024) <= ps.SMEM_PER_SM
         else:
             assert not ps.windowed_supported(window, channels)

@@ -1,4 +1,5 @@
-"""The port imports no JAX, and never moves to the CPU or the plain path on its own."""
+"""The port imports neither JAX nor the JAX package, and never moves to the CPU
+or the plain path on its own."""
 
 import os
 import shutil
@@ -13,14 +14,18 @@ import torch
 from digital_signal_processsing_tpu_torch import _build
 from digital_signal_processsing_tpu_torch.io import write_wav
 from digital_signal_processsing_tpu_torch.ops import (
+    METHODS,
     cumsum,
+    direct_averager,
+    launch_counts,
     moving_average,
     moving_average_init,
     moving_average_two_pass,
+    reset_launch_counts,
+    scan_averager,
     windowed_averager,
     windowed_averager_packed,
 )
-from digital_signal_processsing_tpu_torch.ops import pallas_scan as ps
 from digital_signal_processsing_tpu_torch.serve import stream_moving_average
 
 REPO = Path(__file__).resolve().parents[1]
@@ -32,17 +37,26 @@ import numpy as np, torch
 import digital_signal_processsing_tpu_torch as port
 from digital_signal_processsing_tpu_torch.golden import moving_average_golden
 from digital_signal_processsing_tpu_torch.io import write_wav, read_wav
-from digital_signal_processsing_tpu_torch.ops import moving_average
+from digital_signal_processsing_tpu_torch.ops import METHODS, moving_average
 from digital_signal_processsing_tpu_torch.serve import stream_moving_average
+from digital_signal_processsing_tpu_torch.models import run_variant
+from digital_signal_processsing_tpu_torch.harness import sweep  # noqa: F401
+import digital_signal_processsing_tpu_torch.__main__  # noqa: F401
 import chip_smoke  # noqa: F401  (its imports only; main() is not run)
 x = np.random.default_rng(0).integers(-32768, 32768, size=4000, dtype=np.int16)
 y = moving_average(torch.from_numpy(x), 64, 2).numpy()
 assert (y == moving_average_golden(x, 64, 2)).all()
+for method in METHODS:
+    assert (moving_average(torch.from_numpy(x), 64, 2, method=method).numpy() == y).all()
+assert (run_variant("scan", torch.from_numpy(x), 64, 2).numpy() == y).all()
 write_wav(sys.argv[1] + "/in.wav", x, 8000, 2)
 n = stream_moving_average([sys.argv[1] + "/in.wav"], sys.argv[1] + "/out.wav", 64,
                           chunk_samples=1000, device="cpu")
 assert n == x.size and (read_wav(sys.argv[1] + "/out.wav")[1] == y).all()
 assert not [m for m in sys.modules if m.startswith("jax") and sys.modules[m] is not None]
+reference = [m for m in sys.modules
+             if m == "digital_signal_processsing_tpu" or m.startswith("digital_signal_processsing_tpu.")]
+assert not reference, reference
 print("NO_JAX_OK")
 """
 
@@ -82,21 +96,29 @@ def test_cpu_tensors_never_build_kernels(monkeypatch, rng):
 
     monkeypatch.setattr(_build, "build", refuse)
     monkeypatch.setattr(_build, "library", refuse)
-    ps.reset_launch_counts()
+    reset_launch_counts()
     x = torch.from_numpy(rng.integers(-32768, 32768, size=4096, dtype=np.int16))
     windowed_averager(x, 16, 2)
     windowed_averager(x, 16, 2, seed=torch.zeros(32, dtype=torch.int16))
+    windowed_averager(x, 16, 2, tile_samples=1024)
     windowed_averager_packed(x.view(torch.int32), 16, 2)
+    for variant in ("blelloch", "hillis_steele", "mxu"):
+        scan_averager(x, 16, 2, variant=variant)
+        scan_averager(x, 16, 2, variant=variant, tile_samples=2048)
+    direct_averager(x, 16, 2)
+    direct_averager(x, 16, 2, tile_samples=1024)
     cumsum(x, 2)
     moving_average_two_pass(x, 4000, 2)
-    moving_average(x, 16, 2)
-    assert all(fn.launches == 0 for fn in ps.KERNEL_WRAPPERS)
+    for method in METHODS:
+        moving_average(x, 16, 2, method=method)
+    assert not any(launch_counts().values()), launch_counts()
 
 
 def test_other_devices_are_refused():
     x = torch.zeros(8, dtype=torch.int16, device="meta")
-    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
-        windowed_averager(x, 2, 1)
+    for wrapper in (windowed_averager, scan_averager, direct_averager):
+        with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+            wrapper(x, 2, 1)
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -118,5 +140,7 @@ def test_build_is_keyed_by_the_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()  # stable for unchanged sources
-    assert {p.name for p in _build.CSRC.glob("*.cu")} == {"windowed.cu", "cumsum.cu"}
+    assert {p.name for p in _build.CSRC.glob("*.cu")} == {
+        "windowed.cu", "cumsum.cu", "scan.cu", "direct.cu"
+    }
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

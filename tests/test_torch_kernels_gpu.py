@@ -14,8 +14,10 @@ import torch
 
 from digital_signal_processsing_tpu_torch.golden import moving_average_golden
 from digital_signal_processsing_tpu_torch.ops import moving_average
+from digital_signal_processsing_tpu_torch.ops import pallas_direct as pd
 from digital_signal_processsing_tpu_torch.ops import pallas_scan as ps
-from digital_signal_processsing_tpu_torch.ops.scan_xla import cumsum_ref, moving_average_ref
+from digital_signal_processsing_tpu_torch.ops.direct_xla import moving_average_reduce_window
+from digital_signal_processsing_tpu_torch.ops.scan_xla import cumsum_ref, moving_average_xla
 from digital_signal_processsing_tpu_torch.ops.streaming import (
     moving_average_chunk,
     moving_average_init,
@@ -45,7 +47,7 @@ def test_windowed_matches_plain(dev, window, channels, frames):
     before = ps.windowed_averager.launches
     got = ps.windowed_averager(x, window, channels)
     assert ps.windowed_averager.launches == before + 1
-    assert torch.equal(got, moving_average_ref(x, window, channels))
+    assert torch.equal(got, moving_average_xla(x, window, channels))
 
 
 @pytest.mark.parametrize("frames", [2, 128, 130, 20002])
@@ -54,7 +56,7 @@ def test_windowed_matches_plain(dev, window, channels, frames):
 def test_packed_matches_plain(dev, window, channels, frames):
     x = stream(dev, frames, channels)
     got = ps.windowed_averager_packed(x.view(torch.int32), window, channels)
-    assert torch.equal(got.view(torch.int16), moving_average_ref(x, window, channels))
+    assert torch.equal(got.view(torch.int16), moving_average_xla(x, window, channels))
 
 
 @pytest.mark.parametrize("frames", [1, 127, 8193, 300001])
@@ -74,7 +76,7 @@ def test_cumsum_wraps_like_int32(dev):
 def test_two_pass_matches_plain(dev, window, channels):
     x = stream(dev, 70000, channels)
     got = ps.moving_average_two_pass(x, window, channels)
-    assert torch.equal(got, moving_average_ref(x, window, channels))
+    assert torch.equal(got, moving_average_xla(x, window, channels))
 
 
 @pytest.mark.parametrize("window,channels", [(65535, 1), (1024, 16), (3, 3)])
@@ -90,7 +92,7 @@ def test_seeded_matches_suffix(dev):
     cut = 20000 * channels
     seed = x[cut - window * channels : cut]
     got = ps.windowed_averager(x[cut:], window, channels, seed=seed)
-    assert torch.equal(got, moving_average_ref(x, window, channels)[cut:])
+    assert torch.equal(got, moving_average_xla(x, window, channels)[cut:])
 
 
 def test_streaming_on_the_card(dev):
@@ -102,4 +104,81 @@ def test_streaming_on_the_card(dev):
         state, y = moving_average_chunk(state, x[i : i + ln], window, channels)
         outs.append(y)
         i += ln
-    assert torch.equal(torch.cat(outs), moving_average_ref(x, window, channels))
+    assert torch.equal(torch.cat(outs), moving_average_xla(x, window, channels))
+
+
+def largest_scan_window(channels, variant):
+    return max(k for k in range(1, 16385) if k * channels <= 16384 and ps.scan_supported(k, channels, variant))
+
+
+SCAN_CASES = [(v, c) for v in ps.SCAN_VARIANTS for c in (1, 2, 3, 16) if v != "mxu" or 16 % c == 0]
+
+
+@pytest.mark.parametrize("frames", [1, 127, 129, 20001])
+@pytest.mark.parametrize("window", [1, 16, 1024, "largest"])
+@pytest.mark.parametrize("variant,channels", SCAN_CASES)
+def test_scan_matches_plain(dev, variant, channels, window, frames):
+    if window == "largest":
+        window = largest_scan_window(channels, variant)
+    if not ps.scan_supported(window, channels, variant):
+        window = largest_scan_window(channels, variant)
+    x = stream(dev, frames, channels)
+    before = ps.scan_averager.launches[variant]
+    got = ps.scan_averager(x, window, channels, variant=variant)
+    assert ps.scan_averager.launches[variant] == before + 1
+    assert torch.equal(got, moving_average_xla(x, window, channels))
+
+
+@pytest.mark.parametrize("variant", list(ps.SCAN_VARIANTS))
+@pytest.mark.parametrize("window,channels", [(1024, 2), (255, 16), (7, 1)])
+def test_scan_spans_and_int16_min(dev, variant, window, channels):
+    # many spans of many tiles (span boundaries fall inside windows), then INT16_MIN
+    x = stream(dev, (1 << 20) + 3, channels)
+    assert torch.equal(
+        ps.scan_averager(x, window, channels, variant=variant), moving_average_xla(x, window, channels)
+    )
+    x = torch.full(((1 << 18) * channels,), -32768, dtype=torch.int16, device=dev)
+    assert torch.equal(
+        ps.scan_averager(x, window, channels, variant=variant), moving_average_xla(x, window, channels)
+    )
+
+
+def test_scan_mxu_refuses_three_channels(dev):
+    with pytest.raises(ValueError, match="16-sample rows"):
+        ps.scan_averager(stream(dev, 100, 3), 4, 3, variant="mxu")
+
+
+@pytest.mark.parametrize("method", ["scan", "scan_hillis", "scan_mxu"])
+def test_scan_methods_route(dev, method):
+    x = stream(dev, 30000, 16)
+    assert torch.equal(moving_average(x, 65535, 16, method=method), moving_average_xla(x, 65535, 16))
+
+
+@pytest.mark.parametrize("frames", [1, 127, 129, 20001])
+@pytest.mark.parametrize("channels", [1, 2, 3, 16])
+@pytest.mark.parametrize("window", [1, 16, 64, 256])
+def test_direct_matches_plain(dev, window, channels, frames):
+    x = stream(dev, frames, channels)
+    before = pd.direct_averager.launches
+    got = pd.direct_averager(x, window, channels)
+    assert pd.direct_averager.launches == before + 1
+    assert torch.equal(got, moving_average_reduce_window(x, window, channels))
+
+
+@pytest.mark.parametrize("window,channels", [(256, 1), (64, 16), (3, 3)])
+def test_direct_int16_min(dev, window, channels):
+    x = torch.full((100000 * channels,), -32768, dtype=torch.int16, device=dev)
+    want = torch.from_numpy(moving_average_golden(x.cpu().numpy(), window, channels))
+    assert torch.equal(pd.direct_averager(x, window, channels).cpu(), want)
+
+
+@pytest.mark.parametrize("tile_rows", [16, 64])
+def test_tile_samples_matches_plain(dev, tile_rows):
+    # the sweep's tile axis and the CLI's block size: tile_rows * 128 samples
+    x = stream(dev, 100003, 2)
+    tile = tile_rows * 128
+    want = moving_average_xla(x, 255, 2)
+    assert torch.equal(ps.windowed_averager(x, 255, 2, tile_samples=tile), want)
+    for variant in ps.SCAN_VARIANTS:
+        assert torch.equal(ps.scan_averager(x, 255, 2, variant=variant, tile_samples=tile), want)
+    assert torch.equal(pd.direct_averager(x, 255, 2, tile_samples=tile), want)
