@@ -16,6 +16,11 @@ failure exits non-zero:
    C=3, which is checked), frames in {1, 127, 129, 2^20+C}, all-INT16_MIN
    input, seeded calls, an int32 wrap, B3 with many short spans and at the
    largest halo it takes; B1 also against the NumPy golden model on a slice;
+   then B8 and B9 (the fused overlap-save FIR) against their plain versions
+   (within 1e-5 of max|y|) and a float64 FIR on a slice (1e-4) over taps
+   {1, 2, 63, 257, the crossover +- 1, the largest B8 takes, the first B9
+   takes, 65537, the largest B9 takes}, C in {1, 3, 16} and five lengths;
+   impulses across segment edges, zeros exact; conv1d's error in IEEE fp32;
 4. main path, through the entry points a user calls, with the kernels'
    launch counts reset just before and read just after:
    ``moving_average`` on a 64M-sample stereo stream at k=1024 (B1), the same
@@ -26,20 +31,32 @@ failure exits non-zero:
    frame count) and the CLI; every route name asserted and every output
    bit-exact against its plain version, B1 or the one-shot result; then
    ``harness.sweep.run_suite`` over the ``--smoke`` grid and a 64M row at
-   k=1024 for the scan variants, with 0 failures;
+   k=1024 for the scan variants, with 0 failures; then, counts reset again,
+   the receiver chain on 16 x 2^22 samples: the flagship ``DspChain``
+   (16 channels, decimation 8), the same with 8193 channel taps (B8), the
+   fused frontend, ``fir_filter`` at 8193 (B8) and 8194 taps (B9), and the
+   flagship streamed in 8 chunks; routes asserted, B8 and B9 launched, each
+   chain against the chain on the CPU over the first 2^16 samples, the
+   stream against one shot;
 5. times: each kernel against its plain version at the main path's shapes
    (CUDA events between back-to-back calls, median of 10 after 5 warm-ups,
    in turns plain, kernel, kernel, plain), with a device-to-device copy of
    the same bytes and B4's library call (``torch.cumsum``); then B1 and B3
    against the two-pass route at halos on both sides of the bounds that
    send ``windowed`` and ``scan*`` to two-pass (``TWO_BLOCKS_SMEM_MAX``);
+   B8 and B9 at phase 4's shapes against their plain versions, bounds and
+   one IEEE-fp32 ``conv1d`` (the library call), and the crossover table of
+   ``conv1d`` against B8 by taps;
 6. serving loop: wall time of three ``stream_moving_average`` runs over
    phase 4's WAVs and of decoding them alone, and the device time of one
-   run under ``torch.profiler``, by kernel and copy.
+   run under ``torch.profiler``, by kernel and copy;
+7. the flagship chain's wall time, and its device time under
+   ``torch.profiler``, whole and by stage (LO bank, mix, channel FIR,
+   decimate, FM demod, audio FIR), with the device's idle share.
 
-The last two lines are the kernels' JSON record (B1-B5, each with its
-launches on the main path, device ms, plain ms, bound ms and library ms)
-and ``{"ok": true, "device": {...}}``.
+The last two lines are the kernels' JSON record (B1-B5, B8, B9, each with
+its launches on the main path, max abs error, device ms, plain ms, bound ms
+and library ms) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -60,14 +77,24 @@ from digital_signal_processsing_tpu_torch.__main__ import main as cli_main
 from digital_signal_processsing_tpu_torch.golden import moving_average_golden
 from digital_signal_processsing_tpu_torch.harness import CSV_COLUMNS, sweep
 from digital_signal_processsing_tpu_torch.io import WavChunkLoader, write_wav
+from digital_signal_processsing_tpu_torch.models import (
+    ChainConfig,
+    DspChain,
+    chain_stream_chunk,
+    chain_stream_init,
+)
 from digital_signal_processsing_tpu_torch.ops import (
     launch_counts,
     moving_average,
     reset_launch_counts,
 )
+from digital_signal_processsing_tpu_torch.ops import fft_mxu as fm
+from digital_signal_processsing_tpu_torch.ops import fir
 from digital_signal_processsing_tpu_torch.ops import pallas_direct as pd
 from digital_signal_processsing_tpu_torch.ops import pallas_scan as ps
+from digital_signal_processsing_tpu_torch.ops.demod import fm_demodulate, oscillator_bank
 from digital_signal_processsing_tpu_torch.ops.direct_xla import moving_average_reduce_window
+from digital_signal_processsing_tpu_torch.ops.resample import decimate
 from digital_signal_processsing_tpu_torch.ops.scan_xla import cumsum_ref, moving_average_xla
 from digital_signal_processsing_tpu_torch.serve import stream_moving_average
 from digital_signal_processsing_tpu_torch.utils import last_choice
@@ -78,10 +105,24 @@ TWO_PASS_WINDOW, TWO_PASS_CHANNELS = 65535, 16
 DIRECT_WINDOWS = (64, 256)
 SCAN_METHODS = {"scan": "blelloch", "scan_hillis": "hillis_steele", "scan_mxu": "mxu"}
 VARIANTS = tuple(SCAN_METHODS.values())
-KERNELS = ("B1", "B2", *(f"B3/{v}" for v in VARIANTS), "B4", "B5")
+AVERAGER_KERNELS = ("B1", "B2", *(f"B3/{v}" for v in VARIANTS), "B4", "B5")
+KERNELS = (*AVERAGER_KERNELS, "B8", "B9")
 SOURCE = "digital_signal_processsing_tpu_torch/csrc/"
 REPLACES = "digital_signal_processsing_tpu/ops/pallas_scan.py:"
 REPLACES_DIRECT = "digital_signal_processsing_tpu/ops/pallas_direct.py:"
+REPLACES_FFT = "digital_signal_processsing_tpu/ops/fft_mxu.py:"
+# The receiver chain's main path: the flagship of __graft_entry__.py (16
+# channels, decimation 8) on 2^22 samples a channel, the 16ch x 4.2M point of
+# the reference's benchmark notes.
+CHAIN_T = 1 << 22
+LAST_B8 = fm.FUSED_MAX_NFFT // 2 + 1  # the longest taps B8 takes under fir_filter
+LAST_B9 = fm.FUSED3_MAX_NFFT // 2 + 1
+CROSSOVER_TAPS = (1, 3, 5, 7, 9, 13, 17, 25, 33, 65, 129, 257, 513, 1025, 2049, 4097, 8193)
+# Against the plain version on the same segments: the JAX package's bound
+# between its fused and composed overlap-save (tests/test_fft_mxu.py:97);
+# against a float64 direct FIR, its bound against direct (:42). Relative to
+# max|y|.
+FIR_RTOL, FIR64_RTOL = 1e-5, 1e-4
 # The H100 SXM's memory rate, and its peak rate of int32 adds outside the
 # tensor cores: a clock of an SM issues 64 lanes of IADD3, two adds each
 # (three operands), and 64 lanes of IMAD on the FMA pipe, one add each
@@ -93,6 +134,9 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_ADDS_PER_S = 132 * (64 * 2 + 64) * 1.98e9
 # Shared-memory words an SM loads a clock (128 bytes): B5 loads one a tap.
 SMEM_WORDS_PER_S = 132 * 32 * 1.98e9
+# float32 operations outside the tensor cores: 132 SMs x 128 lanes x 2 (FMA)
+# x 1.98 GHz (NVIDIA's data sheet: 67 TFLOP/s fp32 outside the tensor cores).
+FP32_FLOPS_PER_S = 132 * 128 * 2 * 1.98e9
 
 
 class Checker:
@@ -101,6 +145,23 @@ class Checker:
     def __init__(self) -> None:
         self.max_err = dict.fromkeys(KERNELS, 0)
         self.count = dict.fromkeys(KERNELS, 0)
+
+    def close(self, kernel: str, got: torch.Tensor, want: torch.Tensor, what: str,
+              rtol: float = FIR_RTOL) -> None:
+        """Float comparison: max|got - want| <= rtol * max|want| (exact zeros stay zero)."""
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(
+                f"{what}: got {got.dtype}{tuple(got.shape)}, want {want.dtype}{tuple(want.shape)}"
+            )
+        err = scale = 0.0
+        if got.numel():
+            err = (got.double() - want.double()).abs().max().item()
+            scale = want.abs().max().item()
+        self.max_err[kernel] = max(self.max_err[kernel], err)
+        self.count[kernel] += 1
+        if not err <= rtol * scale:  # also fails on NaN
+            raise AssertionError(f"{what}: max abs error {err:.3e} > {rtol} x max|want| {scale:.3e}")
 
     def same(self, kernel: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
         torch.cuda.synchronize()
@@ -142,10 +203,10 @@ def time_pair(kernel_fn, plain_fn, warmup: int = 5, reps: int = 10) -> tuple[flo
     return statistics.median(kernel), statistics.median(plain)
 
 
-def bound(bytes_moved: float, int32_ops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, ops: float, ops_per_s: float = INT32_ADDS_PER_S) -> tuple[float, str]:
     """Least ms the card could take: the larger of bytes and operations over their peaks."""
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    by_ops = int32_ops / INT32_ADDS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -232,7 +293,7 @@ def phase_corners(rng, dev, check: Checker) -> None:
         raise AssertionError("B1 disagrees with the NumPy golden model")
     print(
         "[3 corners] bit-exact: "
-        + ", ".join(f"{k} {n} checks" for k, n in check.count.items())
+        + ", ".join(f"{k} {check.count[k]} checks" for k in AVERAGER_KERNELS)
         + "; B1 against golden on 262144 samples; tensor-core B3 refused C=3; B3's largest "
         + "windows: " + ", ".join(f"{v} C={c} k={k}" for (v, c), k in largest.items())
     )
@@ -367,6 +428,312 @@ def phase_sweep(tmp: Path) -> None:
             )
 
 
+def fir64_tail(x: torch.Tensor, h: np.ndarray, outputs: int) -> np.ndarray:
+    """The last ``outputs`` samples of each channel's causal FIR, in float64 on the host."""
+    k = h.size
+    xs = x[:, max(0, x.shape[1] - outputs - k + 1):].double().cpu().numpy()
+    xs = np.pad(xs, ((0, 0), (max(0, outputs + k - 1 - xs.shape[1]), 0)))
+    return np.stack([np.convolve(row, h.astype(np.float64), "valid") for row in xs])
+
+
+def fused_case(rng, dev, k: int, channels: int, t: int):
+    x = torch.from_numpy(rng.standard_normal((channels, t), dtype=np.float32)).to(dev)
+    h = (rng.standard_normal(k) / np.sqrt(k)).astype(np.float32)
+    g = fm.fused_geometry(k, fm.pick_fused_block(k))
+    return x, h, fm.tap_response(h, g, dev)
+
+
+def fused_call(x: torch.Tensor, r: fm.TapResponse) -> torch.Tensor:
+    return (fm.fused_fir if r.geometry.kernel == "B8" else fm.fused_fir3)(x, r)
+
+
+def phase_fir_corners(rng, dev, check: Checker) -> None:
+    """B8 and B9 against their plain versions and a float64 FIR at their corners."""
+    xo = fir.FIR_FFT_CROSSOVER
+    taps = sorted({1, 2, 63, 257, max(1, xo - 1), xo + 1, LAST_B8, LAST_B8 + 1, 65537, LAST_B9})
+    for k in taps:
+        block = fm.pick_fused_block(k)
+        kernel = fm.fused_geometry(k, block).kernel
+        for c in (1, 3, 16):
+            for t in sorted({1, max(1, k - 1), block, block + 1, 3 * block // 2 + 1}):
+                x, h, r = fused_case(rng, dev, k, c, t)
+                y = fused_call(x, r)
+                label = f"{kernel} k={k} C={c} T={t}"
+                check.close(kernel, y, fm.overlap_save_plain(x, r), f"{label} against plain")
+                n = min(t, 64)
+                want = torch.from_numpy(fir64_tail(x[-1:], h, n)).float().to(dev)
+                check.close(kernel, y[-1:, t - n:], want, f"{label} against float64", FIR64_RTOL)
+    # impulses (alignment across segment edges) and zeros (exactly zero out)
+    for k in (257, LAST_B8, LAST_B8 + 1, 65537):
+        _, h, r = fused_case(rng, dev, k, 1, 1)
+        block = r.geometry.block
+        t = 3 * block + 5
+        starts = (0, block - 1, block, t - k // 2 - 1)
+        x = torch.zeros(len(starts), t, device=dev)
+        want = torch.zeros_like(x)
+        for c, p in enumerate(starts):
+            x[c, p] = 1.0
+            n = min(k, t - p)
+            want[c, p : p + n] = torch.from_numpy(h[:n]).to(dev)
+        check.close(r.geometry.kernel, fused_call(x, r), want, f"impulse k={k}")
+        zero = fused_call(torch.zeros_like(x), r)
+        torch.cuda.synchronize()
+        if torch.count_nonzero(zero).item():
+            raise AssertionError(f"zero input gave a nonzero output at k={k}")
+    # the direct route's conv1d runs in IEEE float32: its error against float64
+    # is far below TF32's (10 mantissa bits); cuDNN's default shown beside it
+    x, h, _ = fused_case(rng, dev, 257, 16, 1 << 16)
+    want = fir64_tail(x, h, 4096)
+    got = fir.fir_direct(x, h)[:, -4096:].double().cpu().numpy()
+    err = np.abs(got - want).max() / np.abs(want).max()
+    w = torch.from_numpy(h.copy()).to(dev).flip(0).view(1, 1, -1)
+    default = torch.nn.functional.conv1d(torch.nn.functional.pad(x[:, None], (256, 0)), w)
+    derr = np.abs(default[:, 0, -4096:].double().cpu().numpy() - want).max() / np.abs(want).max()
+    if not err < 1e-5:
+        raise AssertionError(f"fir_direct's conv1d is not IEEE float32: relative error {err:.2e}")
+    print(
+        f"[3 FIR corners] taps {taps}: B8 {check.count['B8']} and B9 {check.count['B9']} "
+        f"checks within {FIR_RTOL} of plain and {FIR64_RTOL} of float64 (x max|y|), impulses "
+        f"at segment edges, zeros exact; max abs error B8 {check.max_err['B8']:.3e}, "
+        f"B9 {check.max_err['B9']:.3e}; conv1d relative error against float64 {err:.2e} "
+        f"(cuDNN's default setting {derr:.2e})"
+    )
+
+
+def fm_tones(rng, dev) -> tuple[torch.Tensor, torch.Tensor, np.ndarray]:
+    """I and Q of 16 channels, each an FM tone at its LO frequency plus noise.
+
+    Channel c carries a sine message of 0.0005 * (c + 1) cycles a sample at
+    deviation 0.05 rad a sample (the reference's tone test, test_models.py:
+    50-79, on every channel), with Gaussian noise of 0.01 from ``rng``. Its
+    phasors stay away from zero, where the discriminator's atan2 would turn
+    float rounding into jumps of 2*pi.
+    """
+    lo = torch.from_numpy(ChainConfig().lo_frequencies().astype(np.float64)).to(dev)[:, None]
+    msg_f = 0.0005 * (1 + np.arange(16))
+    n = torch.arange(CHAIN_T, dtype=torch.float64, device=dev)
+    msg = torch.sin(2 * np.pi * torch.from_numpy(msg_f).to(dev)[:, None] * n)
+    phase = 2 * np.pi * torch.remainder(lo * n, 1.0) + 0.05 * torch.cumsum(msg, dim=1)
+    noise = torch.from_numpy(rng.standard_normal((2, 16, CHAIN_T), dtype=np.float32)).to(dev)
+    i = torch.cos(phase).float() + 0.01 * noise[0]
+    q = torch.sin(phase).float() + 0.01 * noise[1]
+    return i, q, msg_f
+
+
+def phase_chain_main(rng, dev, check: Checker) -> tuple[dict, dict]:
+    """The chain and the FIR through their entry points at full width, counts reset around."""
+    i, q, msg_f = fm_tones(rng, dev)
+    h8 = (rng.standard_normal(LAST_B8) / np.sqrt(LAST_B8)).astype(np.float32)
+    h9 = (rng.standard_normal(LAST_B8 + 1) / np.sqrt(LAST_B8)).astype(np.float32)
+    configs = {
+        "flagship": ChainConfig(channels=16, decimation=8),
+        "long_taps": ChainConfig(channels=16, decimation=8, channel_taps=LAST_B8),  # nfft 16384
+        "fused_frontend": ChainConfig(channels=16, decimation=8, fused_frontend=True),
+    }
+    chains = {name: DspChain(cfg, device=dev) for name, cfg in configs.items()}
+    torch.cuda.synchronize()
+    routes, ys = {}, {}
+    reset_launch_counts()
+    for name, chain in chains.items():
+        ys[name] = chain.forward_planar(i, q)
+        # the fused frontend's one decimating conv1d calls no fir_filter
+        routes[name] = "decimate" if chain.config.fused_frontend else last_choice("fir_filter")
+    ys["fir_b8"] = fir.fir_filter(i, h8)
+    routes["fir_b8"] = last_choice("fir_filter")
+    ys["fir_b9"] = fir.fir_filter(i, h9)
+    routes["fir_b9"] = last_choice("fir_filter")
+    state = chain_stream_init(chains["flagship"])
+    chunks = []
+    for part in range(8):
+        sl = slice(part * CHAIN_T // 8, (part + 1) * CHAIN_T // 8)
+        state, y = chain_stream_chunk(chains["flagship"], state, i[:, sl], q[:, sl])
+        chunks.append(y)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"[4 chain] routes {routes}; launches {launches}")
+
+    flagship_route = "direct" if 257 <= fir.FIR_FFT_CROSSOVER else "overlap_save_fused"
+    want_routes = {
+        "flagship": flagship_route, "long_taps": "overlap_save_fused",
+        "fused_frontend": "decimate",
+        "fir_b8": "overlap_save_fused", "fir_b9": "overlap_save_fused",
+    }
+    if routes != want_routes:
+        raise AssertionError(f"routes {routes}; want {want_routes}")
+    if launches["B8"] < 1 or launches["B9"] < 1:
+        raise AssertionError(f"the chain's main path never launched B8 or B9: {launches}")
+    for name in configs:
+        y = ys[name]
+        if y.shape != (16, CHAIN_T // 8) or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{name}: shape {tuple(y.shape)} or non-finite output")
+    # causal: the first 2^16 input samples fix the first 2^13 outputs; the
+    # same prefix through the chain on the CPU (its plain versions)
+    prefix = 1 << 16
+    for name, cfg in configs.items():
+        cpu = DspChain(cfg, device="cpu").forward_planar(i[:, :prefix].cpu(), q[:, :prefix].cpu())
+        ramp = (cfg.channel_taps + 8 * cfg.decimation) // cfg.decimation + cfg.audio_taps
+        got = ys[name][:, ramp : prefix // 8].cpu().numpy()
+        np.testing.assert_allclose(got, cpu[:, ramp:].numpy(), rtol=1e-3, atol=1e-4)
+    streamed = torch.cat(chunks, dim=-1)
+    ramp = (257 + 64) // 8 + 63
+    np.testing.assert_allclose(
+        streamed[:, ramp:].cpu().numpy(), ys["flagship"][:, ramp:].cpu().numpy(),
+        rtol=1e-3, atol=1e-4,
+    )
+    for name, h in (("fir_b8", h8), ("fir_b9", h9)):
+        g = fm.fused_geometry(h.size, fm.pick_fused_block(h.size))
+        kernel = g.kernel
+        plain = fm.overlap_save_plain(i, fm.tap_response(h, g, dev))
+        check.close(kernel, ys[name], plain, f"{name} 16x2^22 against plain")
+        want = torch.from_numpy(fir64_tail(i, h, 256)).float().to(dev)
+        check.close(kernel, ys[name][:, -256:], want, f"{name} against float64", FIR64_RTOL)
+    # each channel demodulates its own message: the audio's spectral peak
+    audio = ys["flagship"][:, ramp:]
+    spec = torch.fft.rfft(audio - audio.mean(dim=1, keepdim=True), dim=1).abs()
+    peaks = spec.argmax(dim=1).cpu().numpy()
+    want = np.round(msg_f * 8 * audio.shape[1]).astype(np.int64)  # 8: the decimation
+    if np.abs(peaks - want).max() > 3:
+        raise AssertionError(f"message tones at bins {peaks.tolist()}, want {want.tolist()}")
+    print(
+        "[4 chain] 16 x 2^22 FM tones: flagship, long taps and fused frontend finite and "
+        "within rtol 1e-3 / atol 1e-4 of the chain on the CPU over the first 2^16 samples; "
+        "8 chunks within the same of one shot; every channel's message tone at its bin; "
+        f"fir_filter at k={LAST_B8} (B8) and k={LAST_B8 + 1} (B9) within {FIR_RTOL} of "
+        f"plain and {FIR64_RTOL} of float64"
+    )
+    return launches, {"i": i, "q": q, "h8": h8, "h9": h9, "chain": chains["flagship"]}
+
+
+def phase_fir_times(main: dict) -> dict:
+    """B8 and B9 against plain, bound and conv1d at the main path's shapes; the crossover."""
+    x = main["i"]
+    dev = x.device
+    c, t = x.shape
+    out = {}
+    for kernel, h in (("B8", main["h8"]), ("B9", main["h9"])):
+        g = fm.fused_geometry(h.size, fm.pick_fused_block(h.size))
+        r = fm.tap_response(h, g, dev)
+        hd = torch.from_numpy(h).to(dev)
+        ms, plain = time_pair(lambda r=r: fused_call(x, r), lambda r=r: fm.overlap_save_plain(x, r))
+        library = statistics.median(device_ms(lambda hd=hd: fir.fir_direct(x, hd), 1, 3))
+        pairs = g.pairs(c, t)
+        n = g.nfft
+        flops = pairs * (2 * 5 * n * np.log2(n) + 6 * n)  # two complex FFTs and the product a pair
+        b = bound(8 * c * t, flops, FP32_FLOPS_PER_S)
+        # the design's own limit: every radix-4 pass (csrc/fft.cuh) reads and
+        # writes each point of shared memory once (16 bytes), ceil(log2(m) / 2)
+        # passes a transform of m points, at 128 bytes a clock an SM. B8: one
+        # forward and one inverse transform of n; B9: n1-point columns twice,
+        # n2-point rows twice, each over all n points.
+        def passes(m: int) -> int:
+            return -(-(m.bit_length() - 1) // 2)
+
+        if kernel == "B8":
+            sweeps = 2 * passes(n)
+        else:
+            sweeps = 2 * passes(g.n1) + 2 * passes(g.n2)
+        smem = pairs * sweeps * n * 16 / (132 * 128 * 1.98e9) * 1e3
+        out[kernel] = {"ms": ms, "plain": plain, "library": library, "bound": b, "smem": smem,
+                       "k": h.size, "nfft": n, "block": g.block}
+    print(f"[5 FIR times] 16 x 2^22 float32, median of 10 after 5 warm-ups (conv1d 3 after 1):")
+    for kernel, v in out.items():
+        print(
+            f"  {kernel} k={v['k']} nfft {v['nfft']} block {v['block']}: {v['ms']:.4f} ms; plain "
+            f"{v['plain']:.4f}; bound {v['bound'][0]:.4f} ({v['bound'][1]}); shared-memory "
+            f"limit of the design {v['smem']:.4f}; library conv1d (IEEE fp32) {v['library']:.4f}"
+        )
+    # crossover: conv1d (the direct route) against B8 (the fused route) by taps
+    print("[5 crossover] conv1d (IEEE fp32) against B8 on 16 x 2^22, ms:")
+    faster_direct = []
+    for k in CROSSOVER_TAPS:
+        rng = np.random.default_rng(k)
+        h = (rng.standard_normal(k) / np.sqrt(k)).astype(np.float32)
+        hd = torch.from_numpy(h).to(dev)
+        g = fm.fused_geometry(k, fm.pick_fused_block(k))
+        r = fm.tap_response(h, g, dev)
+        b8 = statistics.median(device_ms(lambda r=r: fm.fused_fir(x, r), 3, 5))
+        reps = (2, 5) if k <= 513 else (1, 2)  # conv1d grows with k: fewer repetitions
+        direct = statistics.median(device_ms(lambda hd=hd: fir.fir_direct(x, hd), *reps))
+        if direct < b8:
+            faster_direct.append(k)
+        print(f"  k={k:5d} nfft {g.nfft:5d}: conv1d {direct:10.4f}  B8 {b8:8.4f}  conv1d/B8 {direct / b8:8.3f}")
+    print(
+        f"  conv1d faster at k in {faster_direct}; FIR_FFT_CROSSOVER = {fir.FIR_FFT_CROSSOVER} "
+        f"(conv1d repetitions: 5 after 2 up to k=513, 2 after 1 beyond)"
+    )
+    return out
+
+
+def phase_chain_profile(main: dict) -> None:
+    """The flagship's wall time, and its device time by stage under torch.profiler."""
+    chain, i, q = main["chain"], main["i"], main["q"]
+    cfg = chain.config
+
+    def forward() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chain.forward_planar(i, q)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    forward()
+    walls = [forward() for _ in range(3)]
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def profiled(fn) -> tuple[float, float, list]:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = [
+            (e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+        ]
+        return wall, sum(r[2] for r in rows), rows
+
+    wall, device, rows = profiled(lambda: chain.forward_planar(i, q))
+    print(
+        f"[7 chain] flagship 16 x 2^22: wall {', '.join(f'{w:.2f}' for w in walls)} ms; profiled "
+        f"wall {wall:.2f} ms, device {device:.3f} ms, device idle {1 - device / wall:.3f}"
+    )
+    # each stage alone, on the inputs the forward gives it
+    iq = torch.complex(i, q)
+    lo_c, lo_s = oscillator_bank(chain.lo, CHAIN_T, 0)
+    mixed = iq * torch.complex(lo_c, lo_s)
+    response = chain.channel_response()
+    fi = fir.fir_filter(mixed.real, chain.channel_taps, response=response)
+    fq = fir.fir_filter(mixed.imag, chain.channel_taps, response=response)
+    di = decimate(fi, cfg.decimation, taps=chain.decimation_taps)
+    dq = decimate(fq, cfg.decimation, taps=chain.decimation_taps)
+    audio = fm_demodulate(torch.complex(di, dq), gain=cfg.fm_gain)
+    stages = {
+        "LO bank": lambda: oscillator_bank(chain.lo, CHAIN_T, 0),
+        "mix": lambda: iq * torch.complex(lo_c, lo_s),
+        "channel FIR": lambda: (
+            fir.fir_filter(mixed.real, chain.channel_taps, response=response),
+            fir.fir_filter(mixed.imag, chain.channel_taps, response=response),
+        ),
+        "decimate": lambda: (
+            decimate(fi, cfg.decimation, taps=chain.decimation_taps),
+            decimate(fq, cfg.decimation, taps=chain.decimation_taps),
+        ),
+        "FM demod": lambda: fm_demodulate(torch.complex(di, dq), gain=cfg.fm_gain),
+        "audio FIR": lambda: fir.fir_direct(audio, chain.audio_taps),
+    }
+    for name, fn in stages.items():
+        fn()
+        _, dev_ms, stage_rows = profiled(fn)
+        top = max(stage_rows, key=lambda r: r[2]) if stage_rows else ("none", 0, 0.0)
+        print(
+            f"  {name:12s} device {dev_ms:8.3f} ms in {sum(r[1] for r in stage_rows):3d} "
+            f"kernels; largest {top[2]:.3f} ms {top[0][:60]}"
+        )
+    for key, count, ms in sorted(rows, key=lambda r: -r[2])[:8]:
+        print(f"  {ms:9.3f} ms  {count:4d} x  {key[:80]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -398,6 +765,7 @@ def main() -> int:
     # 3. corners
     check = Checker()
     phase_corners(rng, dev, check)
+    phase_fir_corners(rng, dev, check)
 
     # 4. main path
     x = torch.from_numpy(rng.integers(-32768, 32768, size=MAIN_SAMPLES, dtype=np.int16)).to(dev)
@@ -443,7 +811,7 @@ def main() -> int:
         ]
         if routes != want_routes:
             raise AssertionError(f"routes {routes}; want {want_routes}")
-        if min(launches.values()) < 1:
+        if min(launches[n] for n in AVERAGER_KERNELS) < 1:
             raise AssertionError(f"a kernel of the main path was never launched: {launches}")
         y_main = ys["main"]
         check.same("B1", y_main, ys["xla_scan"], "main 64M k=1024 C=2 against xla_scan")
@@ -476,6 +844,9 @@ def main() -> int:
             "WAV byte-identical to one shot"
         )
         phase_sweep(tmp)
+
+    # 4. main path of the receiver chain and the FIR
+    chain_launches, chain_main = phase_chain_main(rng, dev, check)
 
     # 5. times
     n = MAIN_SAMPLES
@@ -551,9 +922,13 @@ def main() -> int:
         + ", ".join(f"k={k} {ms:.4f}" for k, ms in b5_smem.items())
     )
     phase_halo_bound(x, check)
+    fir_times = phase_fir_times(chain_main)
 
     # 6. serving loop
     phase_serve_profile(wav, 2 * frames_a)
+
+    # 7. the receiver chain's wall and device time
+    phase_chain_profile(chain_main)
 
     def entry(name, kernel, source, replaces, ms, plain_ms, library_ms=None):
         return {
@@ -577,6 +952,21 @@ def main() -> int:
             entry(
                 "direct_averager", "B5", "direct.cu", REPLACES_DIRECT + "59",
                 *b5[DIRECT_WINDOWS[-1]],
+            ),
+            *(
+                {
+                    "name": name, "route": "cuda", "source": SOURCE + source,
+                    "replaces": REPLACES_FFT + line, "launches": chain_launches[kernel],
+                    "max_abs_err": check.max_err[kernel], "ms": fir_times[kernel]["ms"],
+                    "plain_ms": fir_times[kernel]["plain"],
+                    "bound_ms": fir_times[kernel]["bound"][0],
+                    "bound_by": fir_times[kernel]["bound"][1],
+                    "library_ms": fir_times[kernel]["library"],
+                }
+                for name, kernel, source, line in (
+                    ("fused_fir", "B8", "fused_fir.cu", "411"),
+                    ("fused_fir3", "B9", "fused_fir3.cu", "537"),
+                )
             ),
         ]
     }

@@ -47,6 +47,12 @@ _SIGNATURES = {
     "dsp_scan_i16": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, y, n, window, channels, tile_frames, smem_bytes, stream
     "dsp_direct_i16": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # x, y, twiddles, response, t, channels, k, block, log2n, threads,
+    # smem_bytes, stream
+    "dsp_fused_fir": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, y, scratch, twiddles, permuted response, t, channels, k, block,
+    # log2n1, log2n2, g1, g2, wave_pairs, threads, smem_bytes, stream
+    "dsp_fused_fir3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,3 +1,23 @@
 from .averager_zoo import AVERAGER_ZOO, VariantInfo, run_variant  # noqa: F401
+from .chain import (  # noqa: F401
+    ChainConfig,
+    ChainStreamState,
+    DspChain,
+    chain_from_jax,
+    chain_state_from_jax,
+    chain_stream_chunk,
+    chain_stream_init,
+)
 
-__all__ = ["AVERAGER_ZOO", "VariantInfo", "run_variant"]
+__all__ = [
+    "AVERAGER_ZOO",
+    "VariantInfo",
+    "run_variant",
+    "ChainConfig",
+    "ChainStreamState",
+    "DspChain",
+    "chain_from_jax",
+    "chain_state_from_jax",
+    "chain_stream_chunk",
+    "chain_stream_init",
+]

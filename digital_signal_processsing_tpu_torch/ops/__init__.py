@@ -1,4 +1,31 @@
+from .demod import (  # noqa: F401
+    am_demodulate,
+    fm_demodulate,
+    fm_modulate,
+    frequency_translate,
+    oscillator_bank,
+)
 from .direct_xla import moving_average_reduce_window  # noqa: F401
+from .fft_mxu import (  # noqa: F401
+    FUSED3_MAX_NFFT,
+    FUSED_MAX_NFFT,
+    fused_fir,
+    fused_fir3,
+    overlap_save_fused,
+    overlap_save_mxu,
+    pick_factored_nfft,
+    pick_fused_block,
+)
+from .fir import (  # noqa: F401
+    FIR_FFT_CROSSOVER,
+    box_taps,
+    design_lowpass,
+    fir_direct,
+    fir_filter,
+    fir_overlap_save,
+    kaiser_beta,
+    kaiser_num_taps,
+)
 from .moving_average import METHODS, moving_average  # noqa: F401
 from .pallas_direct import MAX_DIRECT_WINDOW, direct_averager  # noqa: F401
 from .pallas_scan import (  # noqa: F401
@@ -9,6 +36,7 @@ from .pallas_scan import (  # noqa: F401
     windowed_averager,
     windowed_averager_packed,
 )
+from .resample import decimate, interpolate, resample_poly  # noqa: F401
 from .scan_xla import cumsum_ref, moving_average_xla  # noqa: F401
 from .streaming import (  # noqa: F401
     MovingAverageState,
@@ -26,11 +54,15 @@ def launch_counts() -> dict[str, int]:
         **{f"B3/{v}": n for v, n in scan_averager.launches.items()},
         "B4": cumsum.launches,
         "B5": direct_averager.launches,
+        "B8": fused_fir.launches,
+        "B9": fused_fir3.launches,
     }
 
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    for fn in (windowed_averager, windowed_averager_packed, cumsum, direct_averager):
+    for fn in (
+        windowed_averager, windowed_averager_packed, cumsum, direct_averager, fused_fir, fused_fir3
+    ):
         fn.launches = 0
     scan_averager.launches = dict.fromkeys(SCAN_VARIANTS, 0)

@@ -1,0 +1,358 @@
+"""Fused overlap-save FIR on the card (B8, B9) and the plain overlap-save route.
+
+Counterpart of the overlap-save part of
+``digital_signal_processsing_tpu/ops/fft_mxu.py``. The reference runs each
+segment's DFT, tap multiply and inverse DFT as matmuls on the TPU's matrix
+unit, all in VMEM (``_fused_kernel``, ``_fused3_kernel``). The port computes
+the same causal FIR with radix-4 FFTs in shared memory, in its own segments:
+
+- :func:`fused_fir`  B8, ``csrc/fused_fir.cu``: one block transforms two
+  segments at once (packed as ``a + i*b``) in its shared memory, nfft up to
+  FUSED_MAX_NFFT;
+- :func:`fused_fir3` B9, ``csrc/fused_fir3.cu``: the four-step split
+  nfft = n1 * n2 in three launches through a scratch in device memory, nfft
+  up to FUSED3_MAX_NFFT;
+- :func:`overlap_save_fused` picks one of the two by the segment's nfft;
+- :func:`overlap_save_plain` the plain version of both, the same segments
+  and the same spectrum of the taps with ``torch.fft``;
+- :func:`overlap_save_mxu` the reference's XLA-composed matmul DFT route,
+  here the plain ``torch.fft`` overlap-save (the matmul DFT engines
+  ``dft_factored``, ``fft_large``, ``rfft_dense`` are not ported).
+
+A segment of ``block`` kept samples reads the k-1 samples before it too, so
+nfft is the power of two >= block + k - 1. Each wrapper takes its plain
+version for a tensor on the CPU; for a CUDA tensor it launches its kernel,
+adds one to its ``launches`` count, and raises if the build or the launch
+fails.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..utils.layout import cdiv
+from .fir import _as_planar, _pick_block, _taps_on, overlap_save_frames
+from .pallas_scan import SMEM_MAX, _on_cuda, _stream
+
+# Largest nfft of B8: nfft complex float32 values held in place in one
+# block's shared memory, 136 KB at 16384 with the padding. 32768 would need
+# 272 KB, past the 227 KB a block may have.
+FUSED_MAX_NFFT = 16384
+# Largest nfft of B9 (the reference's cap too): n1 = n2 = 1024.
+FUSED3_MAX_NFFT = 1 << 20
+FUSED_THREADS = 1024
+FUSED3_THREADS = 256
+# Complex points in one B9 block's shared memory: g lines of n1 or n2.
+LINE_POINTS = 8192
+# Bound on B9's scratch in device memory: one nfft-point complex buffer per
+# pair of segments in flight; the pairs go in waves of at most this much.
+FUSED3_SCRATCH_BYTES = 1 << 28
+
+
+def line_slots(m: int) -> int:
+    """Complex slots a line of m points takes in shared memory: one pad after every 16
+    and one after the line (``slot()`` in ``csrc/fft.cuh``)."""
+    return m + m // 16 + 1
+
+
+def pick_factored_nfft(min_n: int, n1: int = 128) -> int:
+    """Smallest multiple of ``n1`` >= min_n (the reference's factored-DFT grid)."""
+    return -(-min_n // n1) * n1
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedGeometry:
+    """Segments and launch geometry of B8 and B9 for k taps.
+
+    Segment s of a row keeps outputs [s*block, (s+1)*block) and transforms
+    the nfft samples from s*block - (k-1) on (zeros outside the signal).
+    Two segments (rows of the flattened (channels, segments) grid, in
+    order) form a pair: one complex transform of ``a + i*b``.
+    """
+
+    k: int
+    block: int
+    nfft: int
+
+    @property
+    def kernel(self) -> str:
+        return "B8" if self.nfft <= FUSED_MAX_NFFT else "B9"
+
+    @property
+    def log2n(self) -> int:
+        return self.nfft.bit_length() - 1
+
+    @property
+    def n1(self) -> int:
+        """B9's column length: transform point n = n2*i1 + i2 (``csrc/fused_fir3.cu``)."""
+        return 1 << (self.log2n // 2)
+
+    @property
+    def n2(self) -> int:
+        return self.nfft // self.n1
+
+    @property
+    def g1(self) -> int:
+        """Lines of n1 points a block of B9's column passes holds."""
+        return min(LINE_POINTS // self.n1, self.n2)
+
+    @property
+    def g2(self) -> int:
+        """Lines of n2 points a block of B9's row pass holds."""
+        return min(LINE_POINTS // self.n2, self.n1)
+
+    @property
+    def threads(self) -> int:
+        if self.kernel == "B8":
+            return max(32, min(FUSED_THREADS, self.nfft // 2))
+        return FUSED3_THREADS
+
+    @property
+    def smem_bytes(self) -> int:
+        """Bytes of dynamic shared memory a block takes (``csrc/fft.cuh`` pads its lines)."""
+        if self.kernel == "B8":
+            return 8 * line_slots(self.nfft)
+        return 8 * max(self.g1 * line_slots(self.n1), self.g2 * line_slots(self.n2))
+
+    @property
+    def wave_pairs(self) -> int:
+        """Pairs of segments B9 keeps in its scratch at once."""
+        return max(1, min(65535, FUSED3_SCRATCH_BYTES // (8 * self.nfft)))
+
+    def segments(self, t: int) -> int:
+        return cdiv(t, self.block)
+
+    def pairs(self, channels: int, t: int) -> int:
+        return cdiv(channels * self.segments(t), 2)
+
+
+def fused_geometry(k: int, block: int) -> FusedGeometry:
+    """The geometry for k taps and ``block`` kept samples a segment."""
+    if k < 1:
+        raise ValueError(f"need at least one tap, got {k}")
+    if block < 128 or block % 128 != 0:
+        raise ValueError(f"block must be a positive multiple of 128, got {block}")
+    nfft = _next_pow2(block + k - 1)
+    if nfft > FUSED3_MAX_NFFT:
+        raise ValueError(
+            f"no 3-factor split for nfft {nfft} (cap {FUSED3_MAX_NFFT}); "
+            "shrink block or use overlap_save_mxu"
+        )
+    g = FusedGeometry(k, block, nfft)
+    if g.smem_bytes > SMEM_MAX:
+        raise AssertionError(f"{g} needs {g.smem_bytes} bytes of shared memory")
+    return g
+
+
+def pick_fused_block(k: int) -> int | None:
+    """The block ``fir_filter`` gives ``overlap_save_fused`` for k taps.
+
+    The port's counterpart of the reference's ``pick_fused3_block``: the
+    reference's nfft (the power of two >= 8k) capped at B8's envelope, and
+    the largest 128-multiple block that fits with the k-1 overlap. B8 takes
+    it while the block is at least half the transform (at most twice the
+    work of a transform with no overlap, the reference's ``block >= k``
+    rule), so k up to FUSED_MAX_NFFT/2 + 1; then B9 under the same rule up
+    to FUSED3_MAX_NFFT/2 + 1; beyond, None (the plain ``overlap_save_mxu``).
+    """
+    for cap in (FUSED_MAX_NFFT, FUSED3_MAX_NFFT):
+        nfft = min(cap, _pick_block(k))
+        block = (nfft - (k - 1)) // 128 * 128
+        if block >= nfft // 2:
+            return block
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class TapResponse:
+    """The taps' spectrum at a geometry's nfft, as B8, B9 and the plain version read it.
+
+    ``h`` is in natural bin order (complex64); ``h_kernel`` is ``h`` in the
+    order the kernel's forward FFT leaves the spectrum: for B8
+    ``h_kernel[q] = h[bitrev(q)]``, for B9 ``h_kernel[f1 * n2 + q] =
+    h[f1 + n1 * bitrev(q)]`` (``csrc/fft.cuh``, ``csrc/fused_fir3.cu``).
+    """
+
+    geometry: FusedGeometry
+    h: torch.Tensor
+    h_kernel: torch.Tensor
+
+
+def tap_response(taps, geometry: FusedGeometry, device) -> TapResponse:
+    """The spectrum of ``taps`` in float64, rounded to complex64, on ``device``.
+
+    The reference takes it on the host with NumPy in float64; here
+    ``torch.fft`` does it in float64 on the taps' device, so CUDA taps are
+    never copied to the host.
+    """
+    if isinstance(taps, torch.Tensor):
+        t64 = taps.to(device=device, dtype=torch.float64)
+    else:
+        t64 = torch.from_numpy(np.asarray(taps, np.float64)).to(device)
+    if t64.dim() != 1 or t64.numel() != geometry.k:
+        raise ValueError(f"taps of shape {tuple(t64.shape)} for a geometry of {geometry.k} taps")
+    g = geometry
+    h = torch.fft.fft(t64, n=g.nfft).to(torch.complex64)
+    if g.kernel == "B8":
+        hk = h[torch.from_numpy(bit_reverse(np.arange(g.nfft), g.log2n)).to(h.device)]
+    else:
+        f1 = np.arange(g.n1)[:, None]
+        q = bit_reverse(np.arange(g.n2), g.n2.bit_length() - 1)[None, :]
+        hk = h[torch.from_numpy((f1 + g.n1 * q).reshape(-1)).to(h.device)]
+    return TapResponse(g, h, hk)
+
+
+def bit_reverse(i: np.ndarray, bits: int) -> np.ndarray:
+    """Each of ``i`` with its low ``bits`` bits reversed."""
+    r = np.zeros_like(i)
+    for b in range(bits):
+        r |= ((i >> b) & 1) << (bits - 1 - b)
+    return r
+
+
+@functools.lru_cache(maxsize=16)
+def _twiddles(nfft: int, device: str) -> torch.Tensor:
+    """exp(-2*pi*i*q/nfft) for q in [0, nfft), in float64 rounded to complex64."""
+    w = np.exp(-2j * np.pi * np.arange(nfft) / nfft).astype(np.complex64)
+    return torch.from_numpy(w).to(device)
+
+
+def overlap_save_plain(xp: torch.Tensor, response: TapResponse) -> torch.Tensor:
+    """Plain PyTorch version of B8 and B9: their segments, with ``torch.fft``."""
+    g = response.geometry
+    return overlap_save_frames(xp, response.h[: g.nfft // 2 + 1], g.k, g.block, g.nfft)
+
+
+def _check_launch(x: torch.Tensor, response: TapResponse, kernel: str) -> None:
+    g = response.geometry
+    if g.kernel != kernel:
+        raise ValueError(f"nfft {g.nfft} is {g.kernel}'s, not {kernel}'s")
+    if not isinstance(x, torch.Tensor) or x.dim() != 2:
+        raise ValueError("x must be a (channels, time) tensor")
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be float32, got {x.dtype}")
+    if x.device.type == "cuda":
+        if not x.is_contiguous():
+            raise ValueError("x must be contiguous")
+        if response.h_kernel.device != x.device or response.h_kernel.dtype != torch.complex64:
+            raise ValueError(
+                f"the taps' response is {response.h_kernel.dtype} on "
+                f"{response.h_kernel.device}, the signal on {x.device}"
+            )
+
+
+def fused_fir(x: torch.Tensor, response: TapResponse) -> torch.Tensor:
+    """Causal FIR of (channels, time) float32 by B8 (nfft <= FUSED_MAX_NFFT)."""
+    _check_launch(x, response, "B8")
+    if not _on_cuda(x):
+        return overlap_save_plain(x, response)
+    g = response.geometry
+    c, t = x.shape
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y
+    tw = _twiddles(g.nfft, str(x.device))
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.dsp_fused_fir(
+            x.data_ptr(), y.data_ptr(), tw.data_ptr(), response.h_kernel.data_ptr(),
+            t, c, g.k, g.block, g.log2n, g.threads, g.smem_bytes, _stream(x),
+        )
+    _build.check(err, "fused_fir")
+    fused_fir.launches += 1
+    return y
+
+
+fused_fir.launches = 0
+
+
+def fused_fir3(x: torch.Tensor, response: TapResponse) -> torch.Tensor:
+    """Causal FIR of (channels, time) float32 by B9 (FUSED_MAX_NFFT < nfft <= 2^20)."""
+    _check_launch(x, response, "B9")
+    if not _on_cuda(x):
+        return overlap_save_plain(x, response)
+    g = response.geometry
+    c, t = x.shape
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y
+    wave = min(g.pairs(c, t), g.wave_pairs)
+    scratch = torch.empty(wave * g.nfft, dtype=torch.complex64, device=x.device)
+    tw = _twiddles(g.nfft, str(x.device))
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.dsp_fused_fir3(
+            x.data_ptr(), y.data_ptr(), scratch.data_ptr(), tw.data_ptr(),
+            response.h_kernel.data_ptr(), t, c, g.k, g.block, g.n1.bit_length() - 1,
+            g.n2.bit_length() - 1, g.g1, g.g2, wave, g.threads, g.smem_bytes, _stream(x),
+        )
+    _build.check(err, "fused_fir3")
+    fused_fir3.launches += 1
+    return y
+
+
+fused_fir3.launches = 0
+
+
+def overlap_save_fused(
+    x: torch.Tensor, taps, *, block: int = 8192, response: TapResponse | None = None
+) -> torch.Tensor:
+    """Fused overlap-save FIR: B8, or B9 once nfft passes FUSED_MAX_NFFT.
+
+    ``block`` (kept samples a segment, a multiple of 128) plus the k-1
+    overlap sets nfft, the next power of two; past FUSED3_MAX_NFFT it
+    raises. ``response`` is the taps' ``TapResponse`` for this geometry,
+    computed here when not given.
+    """
+    xp, squeeze = _as_planar(x)
+    k = int(taps.shape[0])
+    g = fused_geometry(k, block)
+    if response is None:
+        response = tap_response(taps, g, xp.device)
+    elif response.geometry != g:
+        raise ValueError(f"response is for {response.geometry}, the call needs {g}")
+    xp = xp.to(torch.float32).contiguous()
+    y = (fused_fir if g.kernel == "B8" else fused_fir3)(xp, response)
+    return y[0] if squeeze else y
+
+
+def overlap_save_mxu(x: torch.Tensor, taps, *, block: int, n1: int = 128) -> torch.Tensor:
+    """Causal FIR via overlap-save with ``torch.fft`` at the reference's nfft.
+
+    The reference's route of the same name runs its matmul DFT; nfft is
+    ``block + k`` rounded up to a multiple of ``n1``, and the taps' spectrum
+    is taken in float64.
+    """
+    xp, squeeze = _as_planar(x)
+    k = int(taps.shape[0])
+    nfft = pick_factored_nfft(block + k, n1)
+    h64 = _taps_on(taps, xp.device).to(torch.float64)
+    h = torch.fft.rfft(h64, n=nfft).to(torch.complex64)
+    y = overlap_save_frames(xp, h, k, block, nfft)
+    return y[0] if squeeze else y
+
+
+__all__ = [
+    "FUSED_MAX_NFFT",
+    "FUSED3_MAX_NFFT",
+    "FusedGeometry",
+    "TapResponse",
+    "fused_geometry",
+    "pick_fused_block",
+    "pick_factored_nfft",
+    "tap_response",
+    "fused_fir",
+    "fused_fir3",
+    "overlap_save_fused",
+    "overlap_save_plain",
+    "overlap_save_mxu",
+]

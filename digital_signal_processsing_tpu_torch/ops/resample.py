@@ -1,0 +1,105 @@
+"""Polyphase resampling: decimate / interpolate / rational resample.
+
+Counterpart of ``decimate``, ``interpolate`` and ``resample_poly`` of
+``digital_signal_processsing_tpu/ops/resample.py``. Conventions match
+``ops/fir.py``: planar ``(channels, time)`` float32, causal. The decimating
+FIR is one strided ``conv1d`` (``fir.causal_conv``), output m at input
+``m * q`` and ``t // q`` outputs, as the reference's; the interpolating FIR
+is one ``conv_transpose1d`` (``fir.interp_conv``). Both run in IEEE float32.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .fir import _as_planar, _taps_on, causal_conv, design_lowpass, interp_conv
+
+
+def decimate(
+    x: torch.Tensor,
+    factor: int,
+    *,
+    taps=None,
+    taps_per_phase: int = 8,
+    ftype: str = "fir",
+) -> torch.Tensor:
+    """Anti-aliased downsampling by an integer factor.
+
+    ``ftype='fir'``: polyphase FIR, a windowed-sinc lowpass at 0.8/factor
+    Nyquist with ``taps_per_phase * factor`` taps unless ``taps`` is given:
+    ``y[m] = sum_j h[j] x[m*factor - j]``, ``t // factor`` outputs.
+    ``ftype='iir'`` (the reference's Chebyshev-I cascade) is not ported yet.
+    """
+    if factor < 1:
+        raise ValueError(f"factor must be >= 1, got {factor}")
+    if ftype == "iir":
+        raise NotImplementedError("decimate(ftype='iir') is not yet ported (IIR slice)")
+    if ftype != "fir":
+        raise ValueError(f"ftype must be 'fir' or 'iir', got {ftype!r}")
+    xp, squeeze = _as_planar(x)
+    if factor == 1:
+        y = xp.to(torch.float32)
+        return y[0] if squeeze else y
+    if taps is None:
+        taps = design_lowpass(taps_per_phase * factor, 0.8 / factor)
+    y = causal_conv(xp, _taps_on(taps, xp.device), stride=factor)
+    return y[0] if squeeze else y
+
+
+def interpolate(
+    x: torch.Tensor,
+    factor: int,
+    *,
+    taps=None,
+    taps_per_phase: int = 8,
+) -> torch.Tensor:
+    """Anti-imaged upsampling by an integer factor (polyphase zero-stuff)."""
+    if factor < 1:
+        raise ValueError(f"factor must be >= 1, got {factor}")
+    xp, squeeze = _as_planar(x)
+    if factor == 1:
+        y = xp.to(torch.float32)
+        return y[0] if squeeze else y
+    if taps is None:
+        # gain `factor` compensates the zero-stuffing energy loss
+        taps = design_lowpass(taps_per_phase * factor, 0.8 / factor) * factor
+    y = interp_conv(xp, _taps_on(taps, xp.device), up=factor)
+    return y[0] if squeeze else y
+
+
+def resample_poly(
+    x: torch.Tensor,
+    up: int,
+    down: int,
+    *,
+    taps=None,
+    taps_per_phase: int = 8,
+) -> torch.Tensor:
+    """Rational-rate resample by up/down with ONE combined filter.
+
+    scipy.signal.resample_poly semantics as in the reference: one lowpass at
+    min(1/up, 1/down) of Nyquist, gain ``up``, applied once.
+    """
+    if up < 1 or down < 1:
+        raise ValueError(f"up/down must be >= 1, got {up}/{down}")
+    g = np.gcd(up, down)
+    up, down = up // g, down // g
+    xp, squeeze = _as_planar(x)
+    xp = xp.to(torch.float32)
+    if up == 1 and down == 1:
+        return xp[0] if squeeze else xp
+    q = max(up, down)
+    if taps is None:
+        taps = design_lowpass(taps_per_phase * q, 0.8 / q)
+    h = _taps_on(taps, xp.device)
+    if up > 1:
+        y = interp_conv(xp, h * up, up=up)
+        if down > 1:
+            y = y[:, ::down]  # the combined filter already anti-aliased
+    else:
+        y = causal_conv(xp, h, stride=down)
+    return y[0] if squeeze else y
+
+
+__all__ = ["decimate", "interpolate", "resample_poly"]

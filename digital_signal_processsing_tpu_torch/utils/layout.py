@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+import torch
+import torch.nn.functional as F
+
 from .numerics import MAX_EXACT_WINDOW
 
 
@@ -23,4 +26,18 @@ def validate_window(window: int, max_window: int | None = None) -> None:
         )
 
 
-__all__ = ["round_up", "cdiv", "validate_window"]
+def overlapping_frames(x: torch.Tensor, num_frames: int, hop: int, frame_len: int) -> torch.Tensor:
+    """Overlapping frames of the last axis: frame i = x[..., i*hop : i*hop + frame_len].
+
+    The reference's padding contract: a last axis shorter than
+    ``(num_frames + ceil(frame_len / hop) - 1) * hop`` is zero-padded to
+    that length first. The frames are ``Tensor.unfold`` of the (padded)
+    input, a view with no copy when no padding is needed.
+    """
+    need = (num_frames + cdiv(frame_len, hop) - 1) * hop
+    if x.shape[-1] < need:
+        x = F.pad(x, (0, need - x.shape[-1]))
+    return x.unfold(-1, frame_len, hop)[..., :num_frames, :]
+
+
+__all__ = ["round_up", "cdiv", "validate_window", "overlapping_frames"]

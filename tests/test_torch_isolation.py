@@ -13,10 +13,14 @@ import torch
 
 from digital_signal_processsing_tpu_torch import _build
 from digital_signal_processsing_tpu_torch.io import write_wav
+from digital_signal_processsing_tpu_torch.models import ChainConfig, DspChain
 from digital_signal_processsing_tpu_torch.ops import (
     METHODS,
     cumsum,
     direct_averager,
+    fir_filter,
+    fused_fir,
+    fused_fir3,
     launch_counts,
     moving_average,
     moving_average_init,
@@ -25,6 +29,13 @@ from digital_signal_processsing_tpu_torch.ops import (
     scan_averager,
     windowed_averager,
     windowed_averager_packed,
+)
+from digital_signal_processsing_tpu_torch.ops.demod import oscillator_bank
+from digital_signal_processsing_tpu_torch.ops.fir import FIR_FFT_CROSSOVER as fir_crossover
+from digital_signal_processsing_tpu_torch.ops.fft_mxu import (
+    fused_geometry,
+    pick_fused_block,
+    tap_response,
 )
 from digital_signal_processsing_tpu_torch.serve import stream_moving_average
 
@@ -43,6 +54,13 @@ from digital_signal_processsing_tpu_torch.models import run_variant
 from digital_signal_processsing_tpu_torch.harness import sweep  # noqa: F401
 import digital_signal_processsing_tpu_torch.__main__  # noqa: F401
 import chip_smoke  # noqa: F401  (its imports only; main() is not run)
+from digital_signal_processsing_tpu_torch.ops import fir, fft_mxu, resample, demod  # noqa: F401
+from digital_signal_processsing_tpu_torch.models.chain import ChainConfig, DspChain
+from digital_signal_processsing_tpu_torch.parallel.pipeline import chain_halo  # noqa: F401
+chain = DspChain(ChainConfig(channels=2, decimation=4, channel_taps=4097, audio_taps=17), device="cpu")
+i, q = chain.example_planar_input(t=8192)
+audio = chain.forward_planar(torch.from_numpy(i), torch.from_numpy(q))
+assert audio.shape == (2, 2048) and bool(torch.isfinite(audio).all())
 x = np.random.default_rng(0).integers(-32768, 32768, size=4000, dtype=np.int16)
 y = moving_average(torch.from_numpy(x), 64, 2).numpy()
 assert (y == moving_average_golden(x, 64, 2)).all()
@@ -84,6 +102,12 @@ def test_cuda_device_without_a_card_raises(tmp_path):
         stream_moving_average([tmp_path / "in.wav"], tmp_path / "out.wav", 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         moving_average_init(4, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DspChain()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DspChain(ChainConfig(channels=2, channel_taps=8193))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        oscillator_bank(np.array([0.1], np.float32), 16)
     from digital_signal_processsing_tpu_torch.__main__ import main
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -111,6 +135,13 @@ def test_cpu_tensors_never_build_kernels(monkeypatch, rng):
     moving_average_two_pass(x, 4000, 2)
     for method in METHODS:
         moving_average(x, 16, 2, method=method)
+    xf = torch.from_numpy(rng.normal(size=(3, 5000)).astype(np.float32))
+    for k in (fir_crossover, 8193, 8194):  # direct, then B8's and B9's routes
+        taps = np.ones(k, np.float32) / k
+        for method in ("auto", "direct", "overlap_save", "overlap_save_mxu", "overlap_save_fused"):
+            fir_filter(xf, taps, method=method)
+    chain = DspChain(ChainConfig(channels=3, decimation=4, channel_taps=8193), device="cpu")
+    chain.forward_planar(xf, xf)
     assert not any(launch_counts().values()), launch_counts()
 
 
@@ -119,6 +150,12 @@ def test_other_devices_are_refused():
     for wrapper in (windowed_averager, scan_averager, direct_averager):
         with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
             wrapper(x, 2, 1)
+    xf = torch.zeros(2, 8, device="meta")
+    for k, wrapper in ((5, fused_fir), (8194, fused_fir3)):
+        g = fused_geometry(k, pick_fused_block(k))
+        response = tap_response(np.ones(k, np.float32), g, "cpu")
+        with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+            wrapper(xf, response)
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -141,6 +178,6 @@ def test_build_is_keyed_by_the_sources():
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()  # stable for unchanged sources
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "windowed.cu", "cumsum.cu", "scan.cu", "direct.cu"
+        "windowed.cu", "cumsum.cu", "scan.cu", "direct.cu", "fused_fir.cu", "fused_fir3.cu"
     }
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
