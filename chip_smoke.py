@@ -21,6 +21,12 @@ failure exits non-zero:
    {1, 2, 63, 257, the crossover +- 1, the largest B8 takes, the first B9
    takes, 65537, the largest B9 takes}, C in {1, 3, 16} and five lengths;
    impulses across segment edges, zeros exact; conv1d's error in IEEE fp32;
+   then the IIR kernels B10, B12 (seeded and not), B13 and B15 against their
+   plain versions (1e-5 of max|y|) and scipy's float64 filter (1e-4) over
+   sections {1, 2, 4, 8}, C {1, 3, 16}, T {1, 4095, 4096, 4097, odd, 100003}
+   and 16 x 2^22, first-order a {0.5, -0.3, 0.99, 0.9999}; seeded chunks
+   whose end states match the float64 state at their last sample, impulses
+   across sub-tile edges, zeros exact, B13 refusing 9 sections;
 4. main path, through the entry points a user calls, with the kernels'
    launch counts reset just before and read just after:
    ``moving_average`` on a 64M-sample stereo stream at k=1024 (B1), the same
@@ -37,7 +43,13 @@ failure exits non-zero:
    fused frontend, ``fir_filter`` at 8193 (B8) and 8194 taps (B9), and the
    flagship streamed in 8 chunks; routes asserted, B8 and B9 launched, each
    chain against the chain on the CPU over the first 2^16 samples, the
-   stream against one shot;
+   stream against one shot; then, counts reset again, the IIR family on
+   16 x 2^22 float32 through butter(8, 0.1): ``sosfilt`` auto (B12), method
+   ``pallas`` (B15), ``unroll_sections=True`` (B13), ``dc_block`` and ``agc``
+   (B10), ``sosfiltfilt`` and ``decimate(..., ftype="iir")`` on one channel,
+   and ``stream_sosfilt`` over the two WAVs above in chunks of 2^20; routes
+   asserted, the four kernels launched, outputs against their plain versions
+   and float64, the served stream within 1 LSB of one shot on < 0.2%;
 5. times: each kernel against its plain version at the main path's shapes
    (CUDA events between back-to-back calls, median of 10 after 5 warm-ups,
    in turns plain, kernel, kernel, plain), with a device-to-device copy of
@@ -46,15 +58,20 @@ failure exits non-zero:
    send ``windowed`` and ``scan*`` to two-pass (``TWO_BLOCKS_SMEM_MAX``);
    B8 and B9 at phase 4's shapes against their plain versions, bounds and
    one IEEE-fp32 ``conv1d`` (the library call), and the crossover table of
-   ``conv1d`` against B8 by taps;
-6. serving loop: wall time of three ``stream_moving_average`` runs over
+   ``conv1d`` against B8 by taps; B10, B12, B13 and B15 at the IIR main
+   path's shape against their plain versions and bounds, the library call
+   where ``torchaudio`` exists, and the kernel-against-plain table by T that
+   sets ``ops.iir.PALLAS_IIR_MIN_T``;
+6. serving loops: wall time of three ``stream_moving_average`` runs over
    phase 4's WAVs and of decoding them alone, and the device time of one
-   run under ``torch.profiler``, by kernel and copy;
+   run under ``torch.profiler``, by kernel and copy; the same for
+   ``stream_sosfilt``;
 7. the flagship chain's wall time, and its device time under
    ``torch.profiler``, whole and by stage (LO bank, mix, channel FIR,
    decimate, FM demod, audio FIR), with the device's idle share.
 
-The last two lines are the kernels' JSON record (B1-B5, B8, B9, each with
+Each phase prints its seconds. The last two lines are the kernels' JSON
+record (B1-B5, B8, B9, B10, B12, B13, B15, each with
 its launches on the main path, max abs error, device ms, plain ms, bound ms
 and library ms) and ``{"ok": true, "device": {...}}``.
 """
@@ -70,13 +87,14 @@ import time
 from pathlib import Path
 
 import numpy as np
+import scipy.signal as sps
 import torch
 
 from digital_signal_processsing_tpu_torch import _build
 from digital_signal_processsing_tpu_torch.__main__ import main as cli_main
 from digital_signal_processsing_tpu_torch.golden import moving_average_golden
 from digital_signal_processsing_tpu_torch.harness import CSV_COLUMNS, sweep
-from digital_signal_processsing_tpu_torch.io import WavChunkLoader, write_wav
+from digital_signal_processsing_tpu_torch.io import WavChunkLoader, read_wav, write_wav
 from digital_signal_processsing_tpu_torch.models import (
     ChainConfig,
     DspChain,
@@ -89,14 +107,14 @@ from digital_signal_processsing_tpu_torch.ops import (
     reset_launch_counts,
 )
 from digital_signal_processsing_tpu_torch.ops import fft_mxu as fm
-from digital_signal_processsing_tpu_torch.ops import fir
+from digital_signal_processsing_tpu_torch.ops import fir, gain, iir
 from digital_signal_processsing_tpu_torch.ops import pallas_direct as pd
 from digital_signal_processsing_tpu_torch.ops import pallas_scan as ps
 from digital_signal_processsing_tpu_torch.ops.demod import fm_demodulate, oscillator_bank
 from digital_signal_processsing_tpu_torch.ops.direct_xla import moving_average_reduce_window
 from digital_signal_processsing_tpu_torch.ops.resample import decimate
 from digital_signal_processsing_tpu_torch.ops.scan_xla import cumsum_ref, moving_average_xla
-from digital_signal_processsing_tpu_torch.serve import stream_moving_average
+from digital_signal_processsing_tpu_torch.serve import stream_moving_average, stream_sosfilt
 from digital_signal_processsing_tpu_torch.utils import last_choice
 
 MAIN_SAMPLES = 64 * 2**20  # bench.py's headline stream: 64M stereo int16 samples
@@ -106,11 +124,13 @@ DIRECT_WINDOWS = (64, 256)
 SCAN_METHODS = {"scan": "blelloch", "scan_hillis": "hillis_steele", "scan_mxu": "mxu"}
 VARIANTS = tuple(SCAN_METHODS.values())
 AVERAGER_KERNELS = ("B1", "B2", *(f"B3/{v}" for v in VARIANTS), "B4", "B5")
-KERNELS = (*AVERAGER_KERNELS, "B8", "B9")
+IIR_KERNELS = ("B10", "B12", "B13", "B15")
+KERNELS = (*AVERAGER_KERNELS, "B8", "B9", *IIR_KERNELS)
 SOURCE = "digital_signal_processsing_tpu_torch/csrc/"
 REPLACES = "digital_signal_processsing_tpu/ops/pallas_scan.py:"
 REPLACES_DIRECT = "digital_signal_processsing_tpu/ops/pallas_direct.py:"
 REPLACES_FFT = "digital_signal_processsing_tpu/ops/fft_mxu.py:"
+REPLACES_IIR = "digital_signal_processsing_tpu/ops/iir.py:"
 # The receiver chain's main path: the flagship of __graft_entry__.py (16
 # channels, decimation 8) on 2^22 samples a channel, the 16ch x 4.2M point of
 # the reference's benchmark notes.
@@ -123,6 +143,16 @@ CROSSOVER_TAPS = (1, 3, 5, 7, 9, 13, 17, 25, 33, 65, 129, 257, 513, 1025, 2049, 
 # against a float64 direct FIR, its bound against direct (:42). Relative to
 # max|y|.
 FIR_RTOL, FIR64_RTOL = 1e-5, 1e-4
+# The IIR main path: the JAX package's benchmark point (BENCH_NOTES.md:149,
+# :223-224), 16 channels x 2^22 float32 through butter(8, 0.1), 4 sections.
+# Each kernel within 1e-5 of max|y| of its plain version and 1e-4 of scipy's
+# float64 filter with the same float32 coefficients.
+IIR_T = 1 << 22
+IIR_SOS = iir.design_butterworth(8, 0.1)
+IIR_RTOL, IIR64_RTOL = 1e-5, 1e-4
+IIR_POLES = (0.5, -0.3, 0.99, 0.9999)  # first-order a at the corners
+# T of the crossover table that sets iir.PALLAS_IIR_MIN_T
+IIR_CROSSOVER_T = (1, 64, 512, 4096, 16384, 65536, 262144, 1 << 20, 1 << 22)
 # The H100 SXM's memory rate, and its peak rate of int32 adds outside the
 # tensor cores: a clock of an SM issues 64 lanes of IADD3, two adds each
 # (three operands), and 64 lanes of IMAD on the FMA pipe, one add each
@@ -147,8 +177,12 @@ class Checker:
         self.count = dict.fromkeys(KERNELS, 0)
 
     def close(self, kernel: str, got: torch.Tensor, want: torch.Tensor, what: str,
-              rtol: float = FIR_RTOL) -> None:
-        """Float comparison: max|got - want| <= rtol * max|want| (exact zeros stay zero)."""
+              rtol: float = FIR_RTOL, scale_of: torch.Tensor | None = None) -> None:
+        """Float comparison: max|got - want| <= rtol * max|want| (exact zeros stay zero).
+
+        ``scale_of``: take the scale from this tensor instead (a filter's end
+        state against the size of its output).
+        """
         torch.cuda.synchronize()
         if got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(
@@ -157,7 +191,7 @@ class Checker:
         err = scale = 0.0
         if got.numel():
             err = (got.double() - want.double()).abs().max().item()
-            scale = want.abs().max().item()
+            scale = (want if scale_of is None else scale_of).abs().max().item()
         self.max_err[kernel] = max(self.max_err[kernel], err)
         self.count[kernel] += 1
         if not err <= rtol * scale:  # also fails on NaN
@@ -208,6 +242,17 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = INT32_ADDS_PER_S) -
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     by_ops = ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def device_rows(prof) -> list[tuple[str, int, float]]:
+    """(name, count, device ms) of each kernel and copy a ``torch.profiler`` run saw,
+    longest first; device-side events only, as the host ops that launch them
+    repeat their time."""
+    rows = [
+        (e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+    ]
+    return sorted(rows, key=lambda r: -r[2])
 
 
 def largest_window(fits) -> int:
@@ -374,11 +419,7 @@ def phase_serve_profile(wav: np.ndarray, split: int) -> None:
         activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=activities) as prof:
             profiled_ms = serve()
-    rows = sorted(  # device-side events only: the host ops that launch them repeat their time
-        ((e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation),
-        key=lambda r: -r[2],
-    )
+    rows = device_rows(prof)
     device_ms_total = sum(r[2] for r in rows)
     print(
         f"[6 serve] {wav.size} samples in {chunks} chunks of 2^20, k={MAIN_WINDOW}: wall "
@@ -687,10 +728,7 @@ def phase_chain_profile(main: dict) -> None:
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        rows = [
-            (e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
-        ]
+        rows = device_rows(prof)
         return wall, sum(r[2] for r in rows), rows
 
     wall, device, rows = profiled(lambda: chain.forward_planar(i, q))
@@ -730,7 +768,318 @@ def phase_chain_profile(main: dict) -> None:
             f"  {name:12s} device {dev_ms:8.3f} ms in {sum(r[1] for r in stage_rows):3d} "
             f"kernels; largest {top[2]:.3f} ms {top[0][:60]}"
         )
-    for key, count, ms in sorted(rows, key=lambda r: -r[2])[:8]:
+    for key, count, ms in rows[:8]:
+        print(f"  {ms:9.3f} ms  {count:4d} x  {key[:80]}")
+
+
+def sos64(sos, x: torch.Tensor, zi: torch.Tensor | None = None):
+    """scipy's float64 cascade of (C, T), with the float32 coefficients, on the host:
+    (y float32 on x's device, end state float32 on x's device or None)."""
+    s64 = np.asarray(sos, np.float32).astype(np.float64)
+    x64 = x.double().cpu().numpy()
+    if zi is None:
+        return torch.from_numpy(sps.sosfilt(s64, x64, axis=-1)).float().to(x.device), None
+    y, zf = sps.sosfilt(s64, x64, axis=-1, zi=zi.double().cpu().numpy())
+    return torch.from_numpy(y).float().to(x.device), torch.from_numpy(zf).float().to(x.device)
+
+
+def iir1_64(x: torch.Tensor, a: float, b: float) -> torch.Tensor:
+    """y = a*y + b*x in float64 on the host, with the float32 coefficients."""
+    a32, b32 = float(np.float32(a)), float(np.float32(b))
+    y = sps.lfilter([b32], [1.0, -a32], x.double().cpu().numpy(), axis=-1)
+    return torch.from_numpy(y).float().to(x.device)
+
+
+def phase_iir_corners(rng, dev, check: Checker) -> None:
+    """B10, B12 (seeded and not), B13 and B15 against their plain versions and float64."""
+    sub = iir.SUB_TILE
+    lengths = (1, sub - 1, sub, sub + 1, 3 * sub + 77, 100_003)
+
+    def sig(c: int, t: int) -> torch.Tensor:
+        return torch.from_numpy(rng.standard_normal((c, t), dtype=np.float32)).to(dev)
+
+    def cascade(x, sos, st, label, ref64: bool) -> None:
+        y12, _ = iir.sos_cascade(x, sos)
+        y13 = iir.sos_cascade_unrolled(x, sos)
+        plain, _ = iir._sos_plain(x, sos, None)
+        check.close("B12", y12, plain, f"B12 {label} against plain", IIR_RTOL)
+        check.close("B13", y13, plain, f"B13 {label} against plain", IIR_RTOL)
+        ys, end = iir.sos_cascade(x, sos, st)
+        ys_plain, end_plain = iir._sos_plain(x, sos, st)
+        check.close("B12", ys, ys_plain, f"B12 seeded {label}", IIR_RTOL)
+        check.close("B12", end, end_plain, f"B12 end state {label}", IIR_RTOL, ys_plain)
+        y15, e15 = iir.sos_sections(x, sos, st)
+        y15_plain, e15_plain = iir._sections_plain(x, sos, st)
+        check.close("B15", y15, y15_plain, f"B15 seeded {label}", IIR_RTOL)
+        check.close("B15", e15, e15_plain, f"B15 end state {label}", IIR_RTOL, y15_plain)
+        # float64: every channel, or the first where the stream is long
+        c = x.shape[0] if ref64 else 1
+        want, zf = sos64(sos, x[:c], st[:, :c].contiguous())
+        check.close("B12", ys[:c], want, f"B12 {label} against float64", IIR64_RTOL)
+        check.close("B12", end[:, :c], zf, f"B12 end {label} against float64", IIR64_RTOL, want)
+        check.close("B15", y15[:c], want, f"B15 {label} against float64", IIR64_RTOL)
+        want0, _ = sos64(sos, x[:c])
+        check.close("B12", y12[:c], want0, f"B12 unseeded {label} against float64", IIR64_RTOL)
+        check.close("B13", y13[:c], want0, f"B13 {label} against float64", IIR64_RTOL)
+
+    for s in (1, 2, 4, 8):
+        sos = iir.design_butterworth(2 * s, 0.1)
+        cases = [(c, t) for c in (1, 3, 16) for t in lengths] + [(16, IIR_T)]
+        for c, t in cases:
+            st = torch.from_numpy((0.3 * rng.standard_normal((s, c, 2))).astype(np.float32)).to(dev)
+            cascade(sig(c, t), sos, st, f"S={s} C={c} T={t}", t < IIR_T)
+    for a in IIR_POLES:
+        for c, t in [(c, t) for c in (1, 3, 16) for t in lengths] + [(16, IIR_T)]:
+            x = sig(c, t)
+            y = iir.iir1_block_scan(x, a, 0.7)
+            label = f"a={a} C={c} T={t}"
+            check.close("B10", y, iir._iir1_plain(x, a, 0.7), f"B10 {label} against plain", IIR_RTOL)
+            k = c if t < IIR_T else 1
+            check.close("B10", y[:k], iir1_64(x[:k], a, 0.7), f"B10 {label} against float64",
+                        IIR64_RTOL)
+    # seeded chunks: the state after each chunk is the one-shot state at that sample
+    sos = IIR_SOS
+    x = sig(16, 1 << 20)
+    st = torch.zeros(4, 16, 2, device=dev)
+    cuts = (0, 1, sub + 3, 500_001, 1 << 20)
+    outs = []
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        st, y = iir.sosfilt_chunk_pallas_fused(st, sos, x[:, a:b])
+        outs.append(y)
+        want, zf = sos64(sos, x[:, :b], torch.zeros(4, 16, 2))
+        scale = torch.cat([zf.flatten(), want.flatten()])
+        check.close("B12", st, zf, f"B12 state after sample {b - 1}", IIR64_RTOL, scale)
+    want, _ = sos64(sos, x)
+    check.close("B12", torch.cat(outs, 1), want, "B12 chunks against float64 one shot", IIR64_RTOL)
+    # impulses across sub-tile edges give the filter's impulse response; zeros stay zero
+    t = 3 * sub + 5
+    x = torch.zeros(4, t, device=dev)
+    for c, p in enumerate((0, sub - 1, sub, t - 100)):
+        x[c, p] = 1.0
+    want, _ = sos64(sos, x)
+    check.close("B12", iir.sos_cascade(x, sos)[0], want, "B12 impulses", IIR_RTOL)
+    check.close("B13", iir.sos_cascade_unrolled(x, sos), want, "B13 impulses", IIR_RTOL)
+    check.close("B15", iir.sos_sections(x, sos)[0], want, "B15 impulses", IIR_RTOL)
+    check.close("B10", iir.iir1_block_scan(x, 0.99), iir1_64(x, 0.99, 1.0), "B10 impulses", IIR_RTOL)
+    zero = torch.zeros_like(x)
+    outs = (iir.sos_cascade(zero, sos)[0], iir.sos_cascade_unrolled(zero, sos),
+            iir.sos_sections(zero, sos)[0], iir.iir1_block_scan(zero, 0.9999),
+            iir.sos_cascade(zero, sos, torch.zeros(4, 4, 2, device=dev))[1])
+    torch.cuda.synchronize()
+    if any(torch.count_nonzero(o).item() for o in outs):
+        raise AssertionError("a zero input gave a nonzero IIR output or state")
+    try:
+        iir.sos_cascade_unrolled(x, iir.design_butterworth(18, 0.1))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("B13 took 9 sections, past its instantiations")
+    print(
+        f"[3 IIR corners] sections {{1, 2, 4, 8}}, C {{1, 3, 16}}, T {{1, {sub - 1}, {sub}, "
+        f"{sub + 1}, {3 * sub + 77}, 100003}} and 16 x 2^22, a {IIR_POLES}: "
+        + ", ".join(f"{k} {check.count[k]} checks" for k in IIR_KERNELS)
+        + f" within {IIR_RTOL} of plain and {IIR64_RTOL} of float64 (x max|y|), seeded chunk "
+        "states against the float64 state at their last sample, impulses at sub-tile edges, "
+        "zeros exact, B13 refused 9 sections; max abs error "
+        + ", ".join(f"{k} {check.max_err[k]:.3e}" for k in IIR_KERNELS)
+    )
+
+
+def phase_iir_main(rng, dev, check: Checker, wav: np.ndarray, split: int) -> tuple[dict, dict]:
+    """The IIR serving path through its entry points at 16 x 2^22, counts reset around."""
+    x = torch.from_numpy(rng.standard_normal((16, IIR_T), dtype=np.float32)).to(dev)
+    sos = IIR_SOS
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        paths = [tmp / "a.wav", tmp / "b.wav"]
+        write_wav(paths[0], wav[:split], 48000, 2)
+        write_wav(paths[1], wav[split:], 48000, 2)
+        torch.cuda.synchronize()
+        ys, routes = {}, {}
+        reset_launch_counts()
+        ys["auto"] = iir.sosfilt(sos, x)
+        routes["sosfilt"] = last_choice("sosfilt")
+        ys["pallas"] = iir.sosfilt(sos, x, method="pallas")
+        routes["sosfilt pallas"] = last_choice("sosfilt")
+        ys["unrolled"] = iir.sosfilt_pallas_fused(sos, x, unroll_sections=True)
+        ys["dc_block"] = gain.dc_block(x)
+        routes["dc_block"] = last_choice("iir_first_order")
+        ys["agc"] = gain.agc(x)
+        routes["agc"] = last_choice("iir_first_order")
+        ys["sosfiltfilt"] = iir.sosfiltfilt(sos, x[0])
+        routes["sosfiltfilt"] = last_choice("sosfilt_chunk")
+        ys["decimate"] = decimate(x[0], 8, ftype="iir")
+        routes["decimate iir"] = last_choice("sosfilt_chunk")
+        written = stream_sosfilt(paths, tmp / "served.wav", sos, chunk_samples=1 << 20, device="cuda")
+        routes["stream_sosfilt"] = last_choice("sosfilt_chunk")
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        served = read_wav(tmp / "served.wav")[1]
+    print(f"[4 IIR] routes {routes}; launches {launches}")
+    want_routes = {
+        "sosfilt": "pallas_fused", "sosfilt pallas": "pallas", "dc_block": "pallas",
+        "agc": "pallas", "sosfiltfilt": "pallas_fused", "decimate iir": "pallas_fused",
+        "stream_sosfilt": "pallas_fused",
+    }
+    if routes != want_routes:
+        raise AssertionError(f"routes {routes}; want {want_routes}")
+    if min(launches[k] for k in IIR_KERNELS) < 1:
+        raise AssertionError(f"the IIR main path never launched one of {IIR_KERNELS}: {launches}")
+    plain, _ = iir._sos_plain(x, sos, None)
+    check.close("B12", ys["auto"], plain, "sosfilt 16x2^22 against plain", IIR_RTOL)
+    check.close("B13", ys["unrolled"], plain, "unrolled 16x2^22 against plain", IIR_RTOL)
+    check.close("B15", ys["pallas"], iir._sections_plain(x, sos, None)[0],
+                "sosfilt pallas 16x2^22 against plain", IIR_RTOL)
+    want, _ = sos64(sos, x[:1])
+    for kernel, key in (("B12", "auto"), ("B13", "unrolled"), ("B15", "pallas")):
+        check.close(kernel, ys[key][:1], want, f"{key} channel 0 against float64", IIR64_RTOL)
+    xc = x[:2].cpu()
+    check.close("B10", ys["dc_block"][:2], gain.dc_block(xc).to(dev), "dc_block against the CPU",
+                IIR_RTOL)
+    check.close("B10", ys["agc"][:2], gain.agc(xc).to(dev), "agc against the CPU", IIR_RTOL)
+    x0 = x[0].double().cpu().numpy()
+    s64 = sos.astype(np.float64)
+    want = torch.from_numpy(np.ascontiguousarray(sps.sosfiltfilt(s64, x0))).float().to(dev)
+    check.close("B12", ys["sosfiltfilt"], want, "sosfiltfilt against float64", IIR64_RTOL)
+    want = torch.from_numpy(np.ascontiguousarray(sps.decimate(x0, 8))).float().to(dev)
+    check.close("B12", ys["decimate"], want, "decimate(ftype='iir') against float64", IIR64_RTOL)
+    for key in ("auto", "dc_block", "agc", "sosfiltfilt", "decimate"):
+        if not bool(torch.isfinite(ys[key]).all()):
+            raise AssertionError(f"{key}: non-finite output")
+    # the served stream against one-shot sosfilt of the concatenated stream
+    planar = torch.from_numpy(wav.reshape(-1, 2).T.astype(np.float32)).to(dev)
+    one = torch.round(iir.sosfilt(sos, planar).T.reshape(-1)).clamp_(-32768, 32767)
+    diff = np.abs(served.astype(np.int64) - one.to(torch.int16).cpu().numpy().astype(np.int64))
+    if written != wav.size or diff.max() > 1 or (diff > 0).mean() >= 2e-3:
+        raise AssertionError(
+            f"served {written} of {wav.size} samples; max diff {diff.max()} LSB on "
+            f"{(diff > 0).mean():.2e} of samples (rule: 1 LSB on < 0.2%)"
+        )
+    print(
+        f"[4 IIR] 16 x 2^22, butter(8, 0.1): sosfilt (B12), pallas (B15), unrolled (B13) within "
+        f"{IIR_RTOL} of plain and {IIR64_RTOL} of float64 on channel 0; dc_block and agc (B10) "
+        f"within {IIR_RTOL} of the CPU; sosfiltfilt and decimate(8, 'iir') within {IIR64_RTOL} "
+        f"of scipy float64; stream_sosfilt {written} samples, {int((diff > 0).sum())} off by "
+        "1 LSB from one shot"
+    )
+    return launches, {"x": x, "paths_wav": (wav, split)}
+
+
+def time_iir(kernel_fn, plain_fn) -> tuple[float, float]:
+    """Median device ms: the kernel of 10 after 5 warm-ups, the plain version (thousands
+    of small launches) of 3 after 1, in turns plain, kernel, kernel, plain."""
+    plain = device_ms(plain_fn, 1, 3)
+    kernel = device_ms(kernel_fn, 5, 10) + device_ms(kernel_fn, 5, 10)
+    plain += device_ms(plain_fn, 1, 3)
+    return statistics.median(kernel), statistics.median(plain)
+
+
+def phase_iir_times(main: dict) -> dict:
+    """The IIR kernels at the main path's shapes, bounds, library call, and the crossover."""
+    x = main["x"]
+    n = x.numel()
+    rows = iir._sos_rows(IIR_SOS)
+    s = rows.shape[0]
+    st = torch.zeros(s, x.shape[0], 2, device=x.device)
+    out = {
+        "B10": time_iir(lambda: iir.iir1_block_scan(x, 0.995), lambda: iir._iir1_plain(x, 0.995, 1.0)),
+        "B12": time_iir(lambda: iir.sos_cascade(x, rows), lambda: iir._sos_plain(x, rows, None)),
+        "B12 seeded": time_iir(lambda: iir.sos_cascade(x, rows, st),
+                               lambda: iir._sos_plain(x, rows, st)),
+        "B13": time_iir(lambda: iir.sos_cascade_unrolled(x, rows),
+                        lambda: iir._sos_plain(x, rows, None)),
+        "B15": time_iir(lambda: iir.sos_sections(x, rows), lambda: iir._sections_plain(x, rows, None)),
+    }
+    copy_dst = torch.empty_like(x)
+    copy_ms = statistics.median(device_ms(lambda: copy_dst.copy_(x), 5, 10))
+    # bounds: x read once and y written once (B15: once a section); each
+    # section's five FMAs a sample, B10's product and FMA
+    bounds = {
+        "B10": bound(8 * n, 3 * n, FP32_FLOPS_PER_S),
+        "B12": bound(8 * n, s * 10 * n, FP32_FLOPS_PER_S),
+        "B13": bound(8 * n, s * 10 * n, FP32_FLOPS_PER_S),
+        "B15": bound(s * 8 * n, s * 10 * n, FP32_FLOPS_PER_S),
+    }
+    try:
+        import torchaudio.functional as taf
+    except ImportError:
+        library = dict.fromkeys(IIR_KERNELS)
+        library_note = "none: no PyTorch call computes an IIR (torchaudio is not installed)"
+    else:
+        b, a = sps.sos2tf(rows.astype(np.float64))
+        bt, at = (torch.tensor(v, dtype=torch.float32, device=x.device) for v in (b, a))
+        ms = statistics.median(device_ms(lambda: taf.lfilter(x, at, bt, clamp=False), 1, 3))
+        b1 = torch.tensor([1.0, 0.0], device=x.device)
+        a1 = torch.tensor([1.0, -0.995], device=x.device)
+        ms1 = statistics.median(device_ms(lambda: taf.lfilter(x, a1, b1, clamp=False), 1, 3))
+        library = {"B10": ms1, "B12": ms, "B13": ms, "B15": ms}
+        library_note = f"torchaudio.functional.lfilter (order {s * 2} transfer function)"
+    print(f"[5 IIR times] 16 x 2^22 float32, butter(8, 0.1); kernels median of 10 after 5 "
+          f"warm-ups, plain 3 after 1; copy of the same bytes {copy_ms:.4f} ms:")
+    for name, (ms, plain) in out.items():
+        key = name.split()[0]
+        b, by = bounds[key]
+        print(f"  {name:10s} {ms:.4f} ms = {n / ms / 1e6:.2f} GS/s; plain {plain:.4f} ms; "
+              f"bound {b:.4f} ({by}); kernel/bound {ms / b:.2f}")
+    print(f"  library: {library_note}"
+          + ("" if library["B12"] is None else f": cascade {library['B12']:.4f} ms, "
+             f"first order {library['B10']:.4f} ms"))
+    # where a call's device time goes: its launches one by one
+    for name, fn in (("B12", lambda: iir.sos_cascade(x, rows)),
+                     ("B10", lambda: iir.iir1_block_scan(x, 0.995))):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        split = device_rows(prof)
+        print(f"  {name} by launch (torch.profiler): "
+              + "; ".join(f"{k[:48]} x{c} {ms:.4f} ms" for k, c, ms in split))
+    # crossover: the kernels against their plain versions by T, C = 16
+    print("[5 IIR crossover] kernel against plain by T, 16 channels, ms (kernel median of 5 "
+          "after 2, plain 3 after 1):")
+    faster = {"B12": [], "B10": []}
+    for t in IIR_CROSSOVER_T:
+        xt = x[:, :t].contiguous()
+        k12 = statistics.median(device_ms(lambda: iir.sos_cascade(xt, rows), 2, 5))
+        p12 = statistics.median(device_ms(lambda: iir._sos_plain(xt, rows, None), 1, 3))
+        k10 = statistics.median(device_ms(lambda: iir.iir1_block_scan(xt, 0.995), 2, 5))
+        p10 = statistics.median(device_ms(lambda: iir._iir1_plain(xt, 0.995, 1.0), 1, 3))
+        faster["B12"].append(k12 < p12)
+        faster["B10"].append(k10 < p10)
+        print(f"  T={t:8d}: B12 {k12:9.4f} plain {p12:10.4f} ({p12 / k12:8.1f}x); "
+              f"B10 {k10:9.4f} plain {p10:10.4f} ({p10 / k10:8.1f}x)")
+    for k, fast in faster.items():
+        from_t = next((t for i, t in enumerate(IIR_CROSSOVER_T) if all(fast[i:])), None)
+        print(f"  {k} faster than plain from T={from_t} on; PALLAS_IIR_MIN_T = {iir.PALLAS_IIR_MIN_T}")
+    return {"times": out, "bounds": bounds, "library": library}
+
+
+def phase_iir_serve(wav: np.ndarray, split: int) -> None:
+    """Wall time of stream_sosfilt over phase 4's two WAVs, and its device time by kernel."""
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [Path(tmp) / "a.wav", Path(tmp) / "b.wav"]
+        write_wav(paths[0], wav[:split], 48000, 2)
+        write_wav(paths[1], wav[split:], 48000, 2)
+
+        def serve() -> float:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stream_sosfilt(paths, Path(tmp) / "out.wav", IIR_SOS, chunk_samples=1 << 20,
+                           device="cuda")
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        walls = [serve() for _ in range(3)]
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            profiled_ms = serve()
+    rows = device_rows(prof)
+    device = sum(r[2] for r in rows)
+    print(f"[6 IIR serve] stream_sosfilt, {wav.size} samples in chunks of 2^20, butter(8, 0.1): "
+          f"wall {', '.join(f'{w:.1f}' for w in walls)} ms; profiled wall {profiled_ms:.1f} ms, "
+          f"device {device:.3f} ms, device idle {1 - device / profiled_ms:.3f}")
+    for key, count, ms in rows[:8]:
         print(f"  {ms:9.3f} ms  {count:4d} x  {key[:80]}")
 
 
@@ -753,6 +1102,14 @@ def main() -> int:
     )
     print(smi)
 
+    start = last = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        nonlocal last
+        now = time.perf_counter()
+        print(f"[time] {phase}: {now - last:.1f} s (total {now - start:.1f} s)")
+        last = now
+
     # 2. build
     t0 = time.perf_counter()
     so = _build.build()
@@ -761,11 +1118,15 @@ def main() -> int:
     print(f"[2 build] {so.name} in {time.perf_counter() - t0:.1f} s")
     for ln in ptxas:
         print(f"  {ln}")
+    mark("1-2 device and build")
 
     # 3. corners
     check = Checker()
     phase_corners(rng, dev, check)
     phase_fir_corners(rng, dev, check)
+    mark("3 corners")
+    phase_iir_corners(rng, dev, check)
+    mark("3 IIR corners")
 
     # 4. main path
     x = torch.from_numpy(rng.integers(-32768, 32768, size=MAIN_SAMPLES, dtype=np.int16)).to(dev)
@@ -845,8 +1206,13 @@ def main() -> int:
         )
         phase_sweep(tmp)
 
+    mark("4 averager main path and sweep")
     # 4. main path of the receiver chain and the FIR
     chain_launches, chain_main = phase_chain_main(rng, dev, check)
+    mark("4 chain main path")
+    # 4. main path of the IIR family: sosfilt, dc_block/agc, filtfilt, decimate, serving
+    iir_launches, iir_main = phase_iir_main(rng, dev, check, wav, 2 * frames_a)
+    mark("4 IIR main path")
 
     # 5. times
     n = MAIN_SAMPLES
@@ -923,12 +1289,18 @@ def main() -> int:
     )
     phase_halo_bound(x, check)
     fir_times = phase_fir_times(chain_main)
+    mark("5 averager and FIR times")
+    iir_times = phase_iir_times(iir_main)
+    mark("5 IIR times")
 
-    # 6. serving loop
+    # 6. serving loops
     phase_serve_profile(wav, 2 * frames_a)
+    phase_iir_serve(wav, 2 * frames_a)
+    mark("6 serving")
 
     # 7. the receiver chain's wall and device time
     phase_chain_profile(chain_main)
+    mark("7 chain profile")
 
     def entry(name, kernel, source, replaces, ms, plain_ms, library_ms=None):
         return {
@@ -966,6 +1338,23 @@ def main() -> int:
                 for name, kernel, source, line in (
                     ("fused_fir", "B8", "fused_fir.cu", "411"),
                     ("fused_fir3", "B9", "fused_fir3.cu", "537"),
+                )
+            ),
+            *(
+                {
+                    "name": name, "route": "cuda", "source": SOURCE + "iir.cu",
+                    "replaces": REPLACES_IIR + line, "launches": iir_launches[kernel],
+                    "max_abs_err": check.max_err[kernel], "ms": iir_times["times"][kernel][0],
+                    "plain_ms": iir_times["times"][kernel][1],
+                    "bound_ms": iir_times["bounds"][kernel][0],
+                    "bound_by": iir_times["bounds"][kernel][1],
+                    "library_ms": iir_times["library"][kernel],
+                }
+                for name, kernel, line in (
+                    ("iir1_block_scan", "B10", "608"),
+                    ("sos_cascade", "B12", "1249"),
+                    ("sos_cascade_unrolled", "B13", "1114"),
+                    ("sos_sections", "B15", "761"),
                 )
             ),
         ]

@@ -53,6 +53,14 @@ _SIGNATURES = {
     # x, y, scratch, twiddles, permuted response, t, channels, k, block,
     # log2n1, log2n2, g1, g2, wave_pairs, threads, smem_bytes, stream
     "dsp_fused_fir3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, y, table, carry, M, seed, state_out, n, channels, sections, tile,
+    # unrolled, stream
+    "dsp_sos_cascade": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, y, scratch, table, carry, M, seed, state_out, n, channels, sections,
+    # tile, stream
+    "dsp_sos_sections": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, y, table, carry, M, n, channels, tile, stream
+    "dsp_iir1": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

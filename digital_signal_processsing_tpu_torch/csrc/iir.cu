@@ -1,0 +1,539 @@
+// IIR block scans over planar (channels, t) float32: the first-order
+// recurrence (B10), the cascade of second-order sections with a runtime loop
+// over sections (B12) or unrolled for 1..8 sections (B13), and one section a
+// launch (B15).
+//
+// Replaces, in digital_signal_processsing_tpu/ops/iir.py:
+//   B10 _iir1_scalar_kernel        y[t] = a*y[t-1] + b*x[t], zero initial state;
+//   B12 _biquad_fused_loop_kernel  the whole SOS cascade per tile, seeded or not;
+//   B13 _biquad_fused_kernel       B12 with the sections unrolled;
+//   B15 _biquad_kernel             one section's block scan, launched per section.
+// A section is the JAX package's direct form II transposed:
+//   y = b0*x + s1;  s1' = b1*x - a1*y + s2;  s2' = b2*x - a2*y.
+// With zero input its state moves by Phi = [[-a1, 1], [-a2, 0]] and y reads s1.
+//
+// The TPU kernels walk their grid in order and carry the state in VMEM
+// scratch. CUDA blocks run in no order, so the carry takes three launches
+// (the design of cumsum.cu):
+//   1. tile kernel, ends   every tile but the last runs the cascade from zero
+//                          state and writes its end state z_t (D floats, D = 2S
+//                          for S sections, 1 for the first order);
+//   2. carry_kernel        a warp a channel scans s_{t+1} = M s_t + z_t from the
+//                          seed (zero, or the chunk's incoming state) and leaves
+//                          s_t, the state entering tile t, in place of z_t. M is
+//                          the zero-input transition of the whole cascade over
+//                          one tile: D x D and block lower triangular (a
+//                          section's zero-input response drives the sections
+//                          after it). The wrapper computes it once in float64
+//                          from the sos rows and rounds it once;
+//   3. tile kernel, apply  every tile runs the cascade from s_t and writes y;
+//                          the thread holding sample n-1 writes the state after
+//                          it, the chunk's end state (the samples past n are
+//                          zeros and never reach it).
+// Inside a tile a block walks sub-tiles of kSub samples in order, carrying
+// each section's state in shared memory. In a sub-tile, thread i owns kSeg
+// consecutive samples: the block loads the sub-tile with coalesced 16-byte
+// loads into a shared buffer whose rows (one a thread) are padded to kRow
+// floats, so that a warp's reads of one column fall on distinct banks, and
+// each thread keeps its row in registers through every section. Per section:
+//   a. the thread runs its samples from zero state (5 FMAs a sample), keeping
+//      y and its end state z_i;
+//   b. a block scan of the z_i. Every segment has the same transition
+//      Phi^kSeg, so a warp's Hillis-Steele steps take the powers Phi^(kSeg d)
+//      from the section's table, and thread 0 chains the warp totals from the
+//      section's carry with Phi^(32 kSeg);
+//   c. the thread adds the zero-input response of its true start state s,
+//      y_j += (Phi^j s)[0], iterating s <- Phi s (3 operations a sample).
+// A section's output is the next section's input in place in registers: x is
+// read once and y written once a launch, each sample through shared memory
+// once each way. Coefficients and powers come
+// from a table the wrapper builds (float64, rounded once): a changed sos
+// rebuilds nothing. Every operation is an IEEE fp32 FMA or product, never a
+// tensor core (TF32 would keep 10 mantissa bits).
+//
+// What bounds it on the H100: memory bytes. The function reads x once and
+// writes y once, 8 bytes a sample (0.160 ms for 16 x 2^22 samples at
+// 3.35 TB/s); this design reads x twice (launches 1 and 3), 12 bytes a
+// sample. Its operations, about 2 x 8 a sample and section, stay below that
+// at 66.9 TFLOP/s. B15 moves 8 bytes a sample and section through device
+// memory, as the TPU anchor does. A single pass with a decoupled look-back
+// would read x once.
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace dsp {
+namespace iir {
+
+constexpr int kThreads = 256;          // threads a block
+constexpr int kWarps = kThreads / 32;
+constexpr int kSeg = 16;               // consecutive samples a thread
+constexpr int kRow = kSeg + 1;         // a thread's row of the shared buffer
+constexpr int kSub = kThreads * kSeg;  // samples a sub-tile
+constexpr int kTab = 144;              // floats of a section's table
+constexpr int kTab1 = 40;              // floats of the first-order table
+constexpr int kPow = 8;                // where a section's powers start
+constexpr int kPow1 = 4;               // where the first-order powers start
+constexpr int kMaxSections = 16;       // 2S state lanes of one carry warp
+constexpr int kMaxUnrolled = 8;        // B13: butter(16) is 8 sections
+constexpr int kChunkTiles = 64;        // tile states a carry warp stages at once
+constexpr unsigned kFull = 0xffffffffu;
+
+// A section's table (kTab floats): b0, b1, b2, a1, a2 at 0..4; at kPow + 4m
+// the 2x2 Phi^(kSeg m), row-major, for m = 0..32.
+// The first-order table (kTab1 floats): a, b at 0, 1; a^(kSeg m) at kPow1 + m.
+
+static __device__ __forceinline__ int slot(int k) { return (k / kSeg) * kRow + k % kSeg; }
+
+// buf[slot(k)] = x[k] for k < count, 0 beyond; 16-byte loads when `vec`.
+static __device__ void load_sub(const float* x, float* buf, int count, bool vec) {
+  if (vec && count == kSub) {
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    for (int q = threadIdx.x; q < kSub / 4; q += kThreads) {
+      const float4 v = x4[q];
+      float* p = buf + slot(4 * q);  // kSeg % 4 == 0: the four share a row
+      p[0] = v.x;
+      p[1] = v.y;
+      p[2] = v.z;
+      p[3] = v.w;
+    }
+  } else {
+    for (int k = threadIdx.x; k < kSub; k += kThreads) buf[slot(k)] = k < count ? x[k] : 0.0f;
+  }
+}
+
+static __device__ void store_sub(float* y, const float* buf, int count, bool vec) {
+  if (vec && count == kSub) {
+    float4* y4 = reinterpret_cast<float4*>(y);
+    for (int q = threadIdx.x; q < kSub / 4; q += kThreads) {
+      const float* p = buf + slot(4 * q);
+      y4[q] = make_float4(p[0], p[1], p[2], p[3]);
+    }
+  } else {
+    for (int k = threadIdx.x; k < count; k += kThreads) y[k] = buf[slot(k)];
+  }
+}
+
+struct Coef {
+  float b0, b1, b2, a1, a2;
+};
+
+static __device__ __forceinline__ Coef coef_of(const float* t) {
+  return Coef{t[0], t[1], t[2], t[3], t[4]};
+}
+
+// One section over the sub-tile, in place in `v` (this thread's samples, in
+// registers). `pw`: the section's powers in shared memory; `car`: its carry
+// (2 floats, the state at the sub-tile's start, left at its end); `jlast`:
+// the index in `v` of sample n-1 when its state is the chunk's end state,
+// else -1.
+static __device__ __forceinline__ void section_pass(float (&v)[kSeg], const float* pw, Coef k,
+                                                    float* car, float* wtot, float* wbeg,
+                                                    int jlast, float* end) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // a. zero-state run of this thread's samples
+  float s1 = 0.0f, s2 = 0.0f, p1 = 0.0f, p2 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kSeg; ++j) {
+    const float xv = v[j];
+    const float yv = fmaf(k.b0, xv, s1);
+    s1 = fmaf(k.b1, xv, fmaf(-k.a1, yv, s2));
+    s2 = fmaf(k.b2, xv, -k.a2 * yv);
+    v[j] = yv;
+    if (j == jlast) {
+      p1 = s1;
+      p2 = s2;
+    }
+  }
+  // b. w_i = sum over the warp's segments j <= i of Phi^(kSeg (i - j)) z_j
+  float w1 = s1, w2 = s2;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float u1 = __shfl_up_sync(kFull, w1, d);
+    const float u2 = __shfl_up_sync(kFull, w2, d);
+    if (lane >= d) {
+      const float* P = pw + 4 * d;
+      w1 = fmaf(P[0], u1, fmaf(P[1], u2, w1));
+      w2 = fmaf(P[2], u1, fmaf(P[3], u2, w2));
+    }
+  }
+  float e1 = __shfl_up_sync(kFull, w1, 1);
+  float e2 = __shfl_up_sync(kFull, w2, 1);
+  if (lane == 0) {
+    e1 = 0.0f;
+    e2 = 0.0f;
+  }
+  if (lane == 31) {
+    wtot[2 * warp] = w1;
+    wtot[2 * warp + 1] = w2;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const float* P = pw + 4 * 32;
+    float c1 = car[0], c2 = car[1];
+    for (int w = 0; w < kWarps; ++w) {
+      wbeg[2 * w] = c1;
+      wbeg[2 * w + 1] = c2;
+      const float n1 = fmaf(P[0], c1, fmaf(P[1], c2, wtot[2 * w]));
+      const float n2 = fmaf(P[2], c1, fmaf(P[3], c2, wtot[2 * w + 1]));
+      c1 = n1;
+      c2 = n2;
+    }
+    car[0] = c1;
+    car[1] = c2;
+  }
+  __syncthreads();
+  // the true state entering this thread's samples
+  const float* P = pw + 4 * lane;
+  const float c1 = wbeg[2 * warp], c2 = wbeg[2 * warp + 1];
+  float r1 = fmaf(P[0], c1, fmaf(P[1], c2, e1));
+  float r2 = fmaf(P[2], c1, fmaf(P[3], c2, e2));
+  // c. add its zero-input response
+#pragma unroll
+  for (int j = 0; j < kSeg; ++j) {
+    v[j] += r1;
+    const float n1 = fmaf(-k.a1, r1, r2);
+    r2 = -k.a2 * r1;
+    r1 = n1;
+    if (j == jlast) {
+      end[0] = r1 + p1;
+      end[1] = r2 + p2;
+    }
+  }
+}
+
+// Launches 1 and 3 of the cascade. Block (t, c) runs tile t of channel c.
+// `ends` != 0: launch 1, from zero state, writing the tile's end state to
+// carry[c, t]; y and state_out are null. Else launch 3, from carry[c, t],
+// writing y and, where it holds sample n-1, state_out[(k C + c) 2 + j].
+// NS > 0 unrolls NS sections with their coefficients in registers (B13, and
+// B15 at NS = 1); NS = 0 loops over S sections (B12).
+template <int NS>
+__global__ void __launch_bounds__(kThreads)
+sos_tile_kernel(const float* x, float* y, const float* __restrict__ tab, int sections,
+                float* __restrict__ carry, float* __restrict__ state_out, int64_t n,
+                int64_t tile, int64_t ntiles, int C, int ends) {
+  __shared__ float buf[kThreads * kRow];
+  __shared__ float stab[kMaxSections * kTab];
+  __shared__ float scar[2 * kMaxSections];
+  __shared__ float wtot[2 * kWarps];
+  __shared__ float wbeg[2 * kWarps];
+  const int S = NS > 0 ? NS : sections;
+  const int D = 2 * S;
+  const int tid = threadIdx.x;
+  const int c = blockIdx.y;
+  const int64_t t = blockIdx.x;
+  for (int i = tid; i < S * kTab; i += kThreads) stab[i] = tab[i];
+  float* cst = carry + (static_cast<int64_t>(c) * ntiles + t) * D;
+  if (tid < D) scar[tid] = ends ? 0.0f : cst[tid];
+  __syncthreads();
+  Coef reg[NS > 0 ? NS : 1];
+  if constexpr (NS > 0) {
+#pragma unroll
+    for (int k = 0; k < NS; ++k) reg[k] = coef_of(stab + k * kTab);
+  }
+  const float* xr = x + static_cast<int64_t>(c) * n;
+  float* yr = y != nullptr ? y + static_cast<int64_t>(c) * n : nullptr;
+  const bool vec =
+      ((reinterpret_cast<uintptr_t>(xr) | reinterpret_cast<uintptr_t>(yr)) & 15) == 0;
+  const int64_t t0 = t * tile;
+  const int64_t t1 = t0 + tile < n ? t0 + tile : n;
+  const bool writes_state = state_out != nullptr && t == ntiles - 1;
+  float* seg = buf + tid * kRow;
+  for (int64_t s0 = t0; s0 < t1; s0 += kSub) {
+    const int count = static_cast<int>(t1 - s0 < kSub ? t1 - s0 : kSub);
+    load_sub(xr + s0, buf, count, vec);
+    __syncthreads();
+    int jlast = -1;
+    if (writes_state && n - 1 - s0 < kSub) {
+      const int p = static_cast<int>(n - 1 - s0);
+      if (p / kSeg == tid) jlast = p % kSeg;
+    }
+    // the thread's samples stay in registers through every section
+    float v[kSeg];
+#pragma unroll
+    for (int j = 0; j < kSeg; ++j) v[j] = seg[j];
+    if constexpr (NS > 0) {
+#pragma unroll
+      for (int k = 0; k < NS; ++k) {
+        float* end = jlast >= 0 ? state_out + (static_cast<int64_t>(k) * C + c) * 2 : nullptr;
+        section_pass(v, stab + k * kTab + kPow, reg[k], scar + 2 * k, wtot, wbeg, jlast, end);
+      }
+    } else {
+#pragma unroll 1
+      for (int k = 0; k < S; ++k) {
+        float* end = jlast >= 0 ? state_out + (static_cast<int64_t>(k) * C + c) * 2 : nullptr;
+        section_pass(v, stab + k * kTab + kPow, coef_of(stab + k * kTab), scar + 2 * k, wtot,
+                     wbeg, jlast, end);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kSeg; ++j) seg[j] = v[j];
+    __syncthreads();
+    if (yr != nullptr) store_sub(yr + s0, buf, count, vec);
+    __syncthreads();
+  }
+  if (ends && tid < D) cst[tid] = scar[tid];
+}
+
+// The first-order tile kernel (B10): the same walk with a 1-D state, the
+// previous output. Launch 1 (`ends`) writes the tile's last output from zero
+// state to carry[c, t]; launch 3 runs from carry[c, t] and writes y.
+__global__ void __launch_bounds__(kThreads)
+iir1_tile_kernel(const float* __restrict__ x, float* __restrict__ y,
+                 const float* __restrict__ tab, float* __restrict__ carry, int64_t n,
+                 int64_t tile, int64_t ntiles, int ends) {
+  __shared__ float buf[kThreads * kRow];
+  __shared__ float pw[kTab1];
+  __shared__ float wtot[kWarps];
+  __shared__ float wbeg[kWarps];
+  __shared__ float scar;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int c = blockIdx.y;
+  const int64_t t = blockIdx.x;
+  if (tid < kTab1) pw[tid] = tab[tid];
+  float* cst = carry + static_cast<int64_t>(c) * ntiles + t;
+  if (tid == 0) scar = ends ? 0.0f : *cst;
+  __syncthreads();
+  const float a = pw[0], b = pw[1];
+  const float* ap = pw + kPow1;
+  const float* xr = x + static_cast<int64_t>(c) * n;
+  float* yr = y != nullptr ? y + static_cast<int64_t>(c) * n : nullptr;
+  const bool vec =
+      ((reinterpret_cast<uintptr_t>(xr) | reinterpret_cast<uintptr_t>(yr)) & 15) == 0;
+  const int64_t t0 = t * tile;
+  const int64_t t1 = t0 + tile < n ? t0 + tile : n;
+  float* seg = buf + tid * kRow;
+  for (int64_t s0 = t0; s0 < t1; s0 += kSub) {
+    const int count = static_cast<int>(t1 - s0 < kSub ? t1 - s0 : kSub);
+    load_sub(xr + s0, buf, count, vec);
+    __syncthreads();
+    // a. zero-state run, the thread's samples in registers
+    float y[kSeg];
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kSeg; ++j) {
+      s = fmaf(a, s, b * seg[j]);
+      y[j] = s;
+    }
+    // b. block scan of the segments' last outputs
+    float w = s;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float u = __shfl_up_sync(kFull, w, d);
+      if (lane >= d) w = fmaf(ap[d], u, w);
+    }
+    float e = __shfl_up_sync(kFull, w, 1);
+    if (lane == 0) e = 0.0f;
+    if (lane == 31) wtot[warp] = w;
+    __syncthreads();
+    if (tid == 0) {
+      float cv = scar;
+      for (int q = 0; q < kWarps; ++q) {
+        wbeg[q] = cv;
+        cv = fmaf(ap[32], cv, wtot[q]);
+      }
+      scar = cv;
+    }
+    __syncthreads();
+    // c. add the zero-input response a^(j+1) v of the true previous output v
+    float v = fmaf(ap[lane], wbeg[warp], e);
+#pragma unroll
+    for (int j = 0; j < kSeg; ++j) {
+      v *= a;
+      seg[j] = y[j] + v;
+    }
+    __syncthreads();
+    if (yr != nullptr) store_sub(yr + s0, buf, count, vec);
+    __syncthreads();
+  }
+  if (ends && tid == 0) *cst = scar;
+}
+
+// Launch 2. Warp c walks channel c's tiles: carry[c, t] <- s_t, with s_0 the
+// seed (zero when null; for D = 2S its layout is (S, C, 2)) and
+// s_{t+1} = M s_t + z_t, z_t read from carry[c, t]. Lane r < D holds s[r] and
+// row r of M (zeros past D <= W); the tiles' states are staged through shared
+// memory in chunks. W is a compile-time width, so the W shuffles of a step
+// run with no branch around them.
+template <int W>
+__global__ void __launch_bounds__(32)
+carry_kernel(float* __restrict__ carry, const float* __restrict__ M,
+             const float* __restrict__ seed, int64_t ntiles, int C, int D) {
+  __shared__ float st[kChunkTiles * 32];
+  const int c = blockIdx.x;
+  const int r = threadIdx.x;
+  float m[W];
+#pragma unroll
+  for (int q = 0; q < W; ++q) m[q] = (r < D && q < D) ? M[r * D + q] : 0.0f;
+  float s = 0.0f;
+  if (seed != nullptr && r < D) s = seed[(static_cast<int64_t>(r >> 1) * C + c) * 2 + (r & 1)];
+  float* base = carry + static_cast<int64_t>(c) * ntiles * D;
+  for (int64_t t0 = 0; t0 < ntiles; t0 += kChunkTiles) {
+    const int cnt = static_cast<int>(ntiles - t0 < kChunkTiles ? ntiles - t0 : kChunkTiles);
+    float* g = base + t0 * D;
+    // unrolled so that the loads are in flight together, not one at a time
+#pragma unroll 8
+    for (int k = r; k < cnt * D; k += 32) st[k] = g[k];
+    __syncwarp();
+#pragma unroll 4
+    for (int i = 0; i < cnt; ++i) {
+      const float z = r < D ? st[i * D + r] : 0.0f;
+      if (r < D) st[i * D + r] = s;
+      // z of the last tile was never written (launch 1 skips it): s is not used after it
+      float acc0 = z, acc1 = 0.0f;
+#pragma unroll
+      for (int q = 0; q < W; q += 2) {
+        acc0 = fmaf(m[q], __shfl_sync(kFull, s, q), acc0);
+        if constexpr (W > 1) acc1 = fmaf(m[q + 1], __shfl_sync(kFull, s, q + 1), acc1);
+      }
+      s = acc0 + acc1;
+    }
+    __syncwarp();
+#pragma unroll 8
+    for (int k = r; k < cnt * D; k += 32) g[k] = st[k];
+    __syncwarp();
+  }
+}
+
+// Launch 2 at the narrowest width that holds D state lanes.
+static cudaError_t launch_carry(float* carry, const float* M, const float* seed, int64_t ntiles,
+                                int C, int D, cudaStream_t s) {
+  const auto g = static_cast<unsigned>(C);
+  if (D <= 1) {
+    carry_kernel<1><<<g, 32, 0, s>>>(carry, M, seed, ntiles, C, D);
+  } else if (D <= 2) {
+    carry_kernel<2><<<g, 32, 0, s>>>(carry, M, seed, ntiles, C, D);
+  } else if (D <= 4) {
+    carry_kernel<4><<<g, 32, 0, s>>>(carry, M, seed, ntiles, C, D);
+  } else if (D <= 8) {
+    carry_kernel<8><<<g, 32, 0, s>>>(carry, M, seed, ntiles, C, D);
+  } else if (D <= 16) {
+    carry_kernel<16><<<g, 32, 0, s>>>(carry, M, seed, ntiles, C, D);
+  } else {
+    carry_kernel<32><<<g, 32, 0, s>>>(carry, M, seed, ntiles, C, D);
+  }
+  return cudaGetLastError();
+}
+
+using TileKernel = void (*)(const float*, float*, const float*, int, float*, float*, int64_t,
+                            int64_t, int64_t, int, int);
+
+static TileKernel unrolled_kernel(int sections) {
+  switch (sections) {
+    case 1: return sos_tile_kernel<1>;
+    case 2: return sos_tile_kernel<2>;
+    case 3: return sos_tile_kernel<3>;
+    case 4: return sos_tile_kernel<4>;
+    case 5: return sos_tile_kernel<5>;
+    case 6: return sos_tile_kernel<6>;
+    case 7: return sos_tile_kernel<7>;
+    case 8: return sos_tile_kernel<8>;
+    default: return nullptr;
+  }
+}
+
+static bool bad_geometry(int64_t n, int64_t channels, int64_t tile) {
+  if (n < 1 || channels < 1 || channels > 65535 || tile < kSub || tile % kSub != 0) return true;
+  return (n + tile - 1) / tile > 0x7fffffff;
+}
+
+// The three launches of one cascade of `sections` (S) sections, kernel k.
+static cudaError_t cascade(TileKernel k, const float* x, float* y, const float* tab,
+                           float* carry, const float* M, const float* seed, float* state_out,
+                           int64_t n, int C, int S, int64_t tile, cudaStream_t s) {
+  const int64_t ntiles = (n + tile - 1) / tile;
+  cudaError_t err;
+  if (ntiles > 1) {
+    k<<<dim3(static_cast<unsigned>(ntiles - 1), static_cast<unsigned>(C)), kThreads, 0, s>>>(
+        x, nullptr, tab, S, carry, nullptr, n, tile, ntiles, C, 1);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if ((err = launch_carry(carry, M, seed, ntiles, C, 2 * S, s)) != cudaSuccess) return err;
+  k<<<dim3(static_cast<unsigned>(ntiles), static_cast<unsigned>(C)), kThreads, 0, s>>>(
+      x, y, tab, S, carry, state_out, n, tile, ntiles, C, 0);
+  return cudaGetLastError();
+}
+
+}  // namespace iir
+}  // namespace dsp
+
+// B12 (unrolled == 0) and B13 (unrolled != 0, 1..8 sections). x, y: (C, n);
+// tab: S * kTab floats; carry: scratch of C * ceil(n / tile) * 2S floats;
+// M: the cascade's (2S, 2S) zero-input transition over `tile` samples; seed,
+// state_out: (S, C, 2) or null.
+extern "C" int dsp_sos_cascade(const float* x, float* y, const float* tab, float* carry,
+                               const float* M, const float* seed, float* state_out, int64_t n,
+                               int64_t channels, int64_t sections, int64_t tile,
+                               int64_t unrolled, void* stream) {
+  using namespace dsp::iir;
+  if (bad_geometry(n, channels, tile) || sections < 1 || sections > kMaxSections) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  TileKernel k = sos_tile_kernel<0>;
+  if (unrolled != 0 && (sections > kMaxUnrolled ||
+                        (k = unrolled_kernel(static_cast<int>(sections))) == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cascade(k, x, y, tab, carry, M, seed, state_out, n,
+                                  static_cast<int>(channels), static_cast<int>(sections), tile,
+                                  static_cast<cudaStream_t>(stream)));
+}
+
+// B15: section k reads the previous section's output and writes to y when
+// S - 1 - k is even, else to `scratch` (so no launch reads what it writes);
+// x, y, scratch: (C, n); tab: S * kTab floats; M: S 2x2 transitions over
+// `tile` samples; carry: C * ceil(n / tile) * 2 floats; seed, state_out:
+// (S, C, 2) or null.
+extern "C" int dsp_sos_sections(const float* x, float* y, float* scratch, const float* tab,
+                                float* carry, const float* M, const float* seed,
+                                float* state_out, int64_t n, int64_t channels, int64_t sections,
+                                int64_t tile, void* stream) {
+  using namespace dsp::iir;
+  if (bad_geometry(n, channels, tile) || sections < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int C = static_cast<int>(channels);
+  const float* in = x;
+  for (int64_t k = 0; k < sections; ++k) {
+    float* out = (sections - 1 - k) % 2 == 0 ? y : scratch;
+    const cudaError_t err = cascade(
+        sos_tile_kernel<1>, in, out, tab + k * kTab, carry, M + 4 * k,
+        seed != nullptr ? seed + k * C * 2 : nullptr,
+        state_out != nullptr ? state_out + k * C * 2 : nullptr, n, C, 1, tile,
+        static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    in = out;
+  }
+  return 0;
+}
+
+// B10. x, y: (C, n); tab: kTab1 floats; carry: C * ceil(n / tile) floats;
+// M: a^tile (one float).
+extern "C" int dsp_iir1(const float* x, float* y, const float* tab, float* carry,
+                        const float* M, int64_t n, int64_t channels, int64_t tile,
+                        void* stream) {
+  using namespace dsp::iir;
+  if (bad_geometry(n, channels, tile)) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t ntiles = (n + tile - 1) / tile;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto C = static_cast<unsigned>(channels);
+  cudaError_t err;
+  if (ntiles > 1) {
+    iir1_tile_kernel<<<dim3(static_cast<unsigned>(ntiles - 1), C), kThreads, 0, s>>>(
+        x, nullptr, tab, carry, n, tile, ntiles, 1);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  if ((err = launch_carry(carry, M, nullptr, ntiles, static_cast<int>(channels), 1, s)) !=
+      cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  iir1_tile_kernel<<<dim3(static_cast<unsigned>(ntiles), C), kThreads, 0, s>>>(
+      x, y, tab, carry, n, tile, ntiles, 0);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -26,6 +26,26 @@ from .fir import (  # noqa: F401
     kaiser_beta,
     kaiser_num_taps,
 )
+from .gain import agc, db, dc_block, detrend, soft_clip  # noqa: F401
+from .iir import (  # noqa: F401
+    PALLAS_IIR_MIN_T,
+    ba_to_sos,
+    decimate_iir,
+    design_butterworth,
+    design_chebyshev1,
+    filtfilt,
+    iir1_block_scan,
+    iir_first_order,
+    lfilter,
+    sos_cascade,
+    sos_cascade_unrolled,
+    sos_sections,
+    sos_state_from_jax,
+    sosfilt,
+    sosfilt_chunk,
+    sosfilt_init,
+    sosfiltfilt,
+)
 from .moving_average import METHODS, moving_average  # noqa: F401
 from .pallas_direct import MAX_DIRECT_WINDOW, direct_averager  # noqa: F401
 from .pallas_scan import (  # noqa: F401
@@ -56,13 +76,18 @@ def launch_counts() -> dict[str, int]:
         "B5": direct_averager.launches,
         "B8": fused_fir.launches,
         "B9": fused_fir3.launches,
+        "B10": iir1_block_scan.launches,
+        "B12": sos_cascade.launches,
+        "B13": sos_cascade_unrolled.launches,
+        "B15": sos_sections.launches,
     }
 
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     for fn in (
-        windowed_averager, windowed_averager_packed, cumsum, direct_averager, fused_fir, fused_fir3
+        windowed_averager, windowed_averager_packed, cumsum, direct_averager, fused_fir, fused_fir3,
+        iir1_block_scan, sos_cascade, sos_cascade_unrolled, sos_sections,
     ):
         fn.launches = 0
     scan_averager.launches = dict.fromkeys(SCAN_VARIANTS, 0)

@@ -1,0 +1,1279 @@
+"""IIR filtering on the card: first-order recurrences and second-order sections.
+
+Counterpart of the time-invariant part of
+``digital_signal_processsing_tpu/ops/iir.py``. Coefficients follow scipy's
+layout (``sos`` rows ``b0 b1 b2 a0 a1 a2`` with ``a0 == 1``); every section is
+direct form II transposed::
+
+    y = b0*x + s1;  s1' = b1*x - a1*y + s2;  s2' = b2*x - a2*y
+
+over the last axis, leading axes independent streams. The state of a cascade
+is ``(n_sections, *batch, 2)`` float32, ``(s1, s2)`` a section.
+
+Kernels (``csrc/iir.cu``, three launches each: zero-state tile end states, a
+scan of those over the tiles, a seeded re-run; see the source note):
+
+- :func:`iir1_block_scan`      B10, ``y = a*y + b*x`` with scalar a, b;
+- :func:`sos_cascade`          B12, the whole cascade a tile, a runtime loop
+  over sections, seeded or not: the ``auto`` route of ``sosfilt`` and
+  ``sosfilt_chunk``;
+- :func:`sos_cascade_unrolled` B13, B12 with 1..8 sections unrolled
+  (``unroll_sections=True``);
+- :func:`sos_sections`         B15, one section a launch, each through device
+  memory (``method="pallas"``, the A/B anchor).
+
+Each takes its plain version for a tensor on the CPU: the same three steps in
+PyTorch, a loop over the PLAIN_TILE samples of a tile vectorised over
+channels x tiles, then the tile carry, then the seeded loop. ``xla_scan`` is
+that plain version on any device. For a CUDA tensor a wrapper launches its
+kernel, adds one to its ``launches`` count, and raises if the build or the
+launch fails. The NumPy designers and scipy helpers are copies of the
+reference's.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+from ..utils.device import resolve_device
+from ..utils.dispatch import record_choice
+from ..utils.layout import cdiv
+from .pallas_scan import _on_cuda, _stream
+
+# T from which `auto` takes the kernels (B10, B12) instead of the plain
+# version. The reference's 65536 came from XLA's associative scan, which would
+# not compile at long T on the TPU. On an H100 (chip_smoke.py phase 5, 16
+# channels, PERF.md) the kernels' three launches beat the plain versions'
+# thousands at every T measured, from T = 1 (14.5x for B12, 4.4x for B10)
+# to 2^22 (356x, 131x): `auto` takes them whenever there is a sample.
+PALLAS_IIR_MIN_T = 1
+
+# csrc/iir.cu: a block's threads, a thread's consecutive samples, a sub-tile,
+# the floats of a section's table and of the first-order table, the most
+# sections of B12/B15 (2S lanes of one carry warp) and of B13.
+THREADS = 256
+SEG = 16
+SUB_TILE = THREADS * SEG
+TAB = 144
+TAB1 = 40
+MAX_SECTIONS = 16
+MAX_UNROLLED = 8
+# Tiles a launch aims for when picking the tile: four waves of eight blocks
+# on each of the H100's 132 SMs. Longer tiles mean fewer tiles to chain in
+# launch 2, shorter ones more blocks to spread.
+TARGET_BLOCKS = 4 * 8 * 132
+MAX_TILE_SUBS = 64
+# Samples of a tile of the plain versions: their loops run PLAIN_TILE
+# vectorised steps a pass.
+PLAIN_TILE = 512
+
+
+# --- geometry and tables -------------------------------------------------------
+
+
+def pick_tile(channels: int, t: int, tile_rows: int | None = None) -> int:
+    """Samples of a kernel tile (a multiple of SUB_TILE).
+
+    ``tile_rows`` (rows of 128 samples, the reference's knob) fixes it and must
+    be a multiple of SUB_TILE // 128; None picks the fewest sub-tiles a tile
+    that still give about TARGET_BLOCKS blocks.
+    """
+    if tile_rows is not None:
+        if tile_rows < 1 or (tile_rows * 128) % SUB_TILE:
+            raise ValueError(
+                f"tile_rows must be a positive multiple of {SUB_TILE // 128} on the card, "
+                f"got {tile_rows}"
+            )
+        return tile_rows * 128
+    subs = max(1, min(MAX_TILE_SUBS, channels * cdiv(max(t, 1), SUB_TILE) // TARGET_BLOCKS))
+    return subs * SUB_TILE
+
+
+def _phi(a1: float, a2: float) -> np.ndarray:
+    """A section's zero-input state transition: s' = Phi s."""
+    return np.array([[-a1, 1.0], [-a2, 0.0]])
+
+
+def section_table(rows: np.ndarray) -> np.ndarray:
+    """(S, TAB) float32: b0 b1 b2 a1 a2, then Phi^(SEG m) for m = 0..32 at 8 + 4m.
+
+    Taken in float64 from the float32 coefficients and rounded once.
+    """
+    r64 = np.asarray(rows, np.float32).astype(np.float64).reshape(-1, 6)
+    tab = np.zeros((r64.shape[0], TAB))
+    for k, (b0, b1, b2, _, a1, a2) in enumerate(r64):
+        tab[k, :5] = b0, b1, b2, a1, a2
+        step = np.linalg.matrix_power(_phi(a1, a2), SEG)
+        p = np.eye(2)
+        for m in range(33):
+            tab[k, 8 + 4 * m : 12 + 4 * m] = p.ravel()
+            p = step @ p
+    return tab.astype(np.float32)
+
+
+def iir1_table(a: float, b: float) -> np.ndarray:
+    """(TAB1,) float32: a, b, then a^(SEG m) for m = 0..32 at 4 + m."""
+    a64 = float(np.float32(a))
+    tab = np.zeros(TAB1)
+    tab[0], tab[1] = a64, float(np.float32(b))
+    tab[4 : 4 + 33] = a64 ** (SEG * np.arange(33, dtype=np.float64))
+    return tab.astype(np.float32)
+
+
+def cascade_transition(rows: np.ndarray) -> np.ndarray:
+    """(2S, 2S) float64: the cascade's state transition over one zero-input sample.
+
+    State index 2k + j is section k's s1 (j = 0) or s2 (j = 1). Section k's
+    zero-input output drives section k+1, so the matrix is block lower
+    triangular; its power over a tile is the M of the kernels' carry scan.
+    """
+    r64 = np.asarray(rows, np.float32).astype(np.float64).reshape(-1, 6)
+    d = 2 * r64.shape[0]
+    g = np.zeros((d, d))
+    for col in range(d):
+        s = np.zeros(d)
+        s[col] = 1.0
+        u = 0.0
+        for k, (b0, b1, b2, _, a1, a2) in enumerate(r64):
+            y = b0 * u + s[2 * k]
+            g[2 * k, col] = b1 * u - a1 * y + s[2 * k + 1]
+            g[2 * k + 1, col] = b2 * u - a2 * y
+            u = y
+    return g
+
+
+@functools.lru_cache(maxsize=64)
+def _cascade_tables(key: bytes, tile: int, device: str, per_section: bool):
+    """The section table and the tile transition M on ``device``.
+
+    ``per_section``: M is each section's own (S, 2, 2) Phi^tile (B15); else
+    the cascade's (2S, 2S) transition (B12, B13).
+    """
+    rows = np.frombuffer(key, np.float32).reshape(-1, 6)
+    if per_section:
+        m = np.stack([
+            np.linalg.matrix_power(_phi(float(r[4]), float(r[5])), tile)
+            for r in rows.astype(np.float64)
+        ])
+    else:
+        m = np.linalg.matrix_power(cascade_transition(rows), tile)
+    return (
+        torch.from_numpy(section_table(rows)).to(device),
+        torch.from_numpy(m.astype(np.float32)).to(device),
+    )
+
+
+@functools.lru_cache(maxsize=64)
+def _iir1_tables(a: float, b: float, tile: int, device: str):
+    a64 = float(np.float32(a))
+    m = np.array([a64**tile], np.float32)
+    return torch.from_numpy(iir1_table(a, b)).to(device), torch.from_numpy(m).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _plain_powers(key: bytes, first_order: bool, tile: int, levels: int, device: str):
+    """M^(2^i), i < levels, float64 on ``device``: the plain versions' tile scan."""
+    if first_order:
+        a = float(np.frombuffer(key, np.float32)[0])
+        m = np.array([[a]]) ** tile
+    else:
+        m = np.linalg.matrix_power(cascade_transition(np.frombuffer(key, np.float32)), tile)
+    out = []
+    for _ in range(levels):
+        out.append(torch.from_numpy(m.copy()).to(device))
+        m = m @ m
+    return out
+
+
+# --- plain versions --------------------------------------------------------------
+
+
+def _tiles(x2: torch.Tensor, tile: int) -> torch.Tensor:
+    """(C, T) -> (tile, C, nt): sample j of every tile as one contiguous (C, nt) slab."""
+    c, t = x2.shape
+    nt = cdiv(t, tile)
+    return F.pad(x2, (0, nt * tile - t)).view(c, nt, tile).permute(2, 0, 1).contiguous()
+
+
+def _untiles(yt: torch.Tensor, t: int) -> torch.Tensor:
+    tile, c, nt = yt.shape
+    return yt.permute(1, 2, 0).reshape(c, nt * tile)[:, :t].contiguous()
+
+
+def _scan_tiles(z: torch.Tensor, s0: torch.Tensor, powers: list) -> torch.Tensor:
+    """Start states s_t of the tiles, float64: s_0 = s0, s_{t+1} = M s_t + z_t.
+
+    z: (D, N, nt) end states of the tiles from zero state; s0: (D, N);
+    powers[i] = M^(2^i). A Hillis-Steele scan over the tiles in place of the
+    kernels' walk of one warp: the same states, summed in another order.
+    """
+    q = torch.cat([s0[:, :, None], z[:, :, :-1]], dim=2)
+    d = 1
+    for p in powers:
+        if d >= q.shape[2]:
+            break
+        q = torch.cat([q[:, :, :d], q[:, :, d:] + torch.einsum("ij,jnt->int", p, q[:, :, :-d])], 2)
+        d *= 2
+    return q
+
+
+def _run_sections(xt, coef, states, yt=None, snap_at=-1):
+    """The cascade over the rows of ``xt`` (tile, C, nt), states[k] = (s1, s2).
+
+    Writes each sample's output to ``yt`` when given; returns the states after
+    the last row and, at row ``snap_at``, the last tile's states.
+    """
+    snap = None
+    for j in range(xt.shape[0]):
+        u = xt[j]
+        for k, (b0, b1, b2, a1, a2) in enumerate(coef):
+            s1, s2 = states[k]
+            yk = torch.add(s1, u, alpha=b0)
+            states[k] = (
+                torch.add(s2, u, alpha=b1).sub_(yk, alpha=a1),
+                torch.mul(u, b2).sub_(yk, alpha=a2),
+            )
+            u = yk
+        if yt is not None:
+            yt[j] = u
+        if j == snap_at:
+            snap = [(s1[:, -1].clone(), s2[:, -1].clone()) for s1, s2 in states]
+    return states, snap
+
+
+def _sos_plain(x2: torch.Tensor, rows: np.ndarray, state: torch.Tensor | None):
+    """Plain version of B12/B13: (C, T) float32 -> (y, end state (S, C, 2))."""
+    c, t = x2.shape
+    s = rows.shape[0]
+    if state is None:
+        state = x2.new_zeros((s, c, 2))
+    if t == 0:
+        return x2.new_zeros((c, 0)), state.clone()
+    tile = min(PLAIN_TILE, t)
+    xt = _tiles(x2, tile)
+    nt = xt.shape[2]
+    coef = [(float(r[0]), float(r[1]), float(r[2]), float(r[4]), float(r[5])) for r in rows]
+    zero = x2.new_zeros((c, nt))
+    # 1. each tile from zero state: its end state
+    ends, _ = _run_sections(xt, coef, [(zero, zero) for _ in range(s)])
+    z = torch.stack([v for pair in ends for v in pair]).double()  # (2S, C, nt)
+    # 2. the state entering each tile
+    s0 = state.permute(0, 2, 1).reshape(2 * s, c).double()
+    powers = _plain_powers(rows.tobytes(), False, tile, max(1, (nt - 1).bit_length()),
+                           str(x2.device))
+    starts = _scan_tiles(z, s0, powers).float()
+    # 3. each tile from its state, and the state after sample t-1
+    yt = torch.empty_like(xt)
+    _, snap = _run_sections(
+        xt, coef, [(starts[2 * k], starts[2 * k + 1]) for k in range(s)], yt, (t - 1) % tile
+    )
+    new_state = torch.stack([torch.stack(pair, dim=-1) for pair in snap])
+    return _untiles(yt, t), new_state
+
+
+def _sections_plain(x2: torch.Tensor, rows: np.ndarray, state: torch.Tensor | None):
+    """Plain version of B15: the plain cascade one section at a time."""
+    y, ends = x2, []
+    for k in range(rows.shape[0]):
+        y, end = _sos_plain(y, rows[k : k + 1], None if state is None else state[k : k + 1])
+        ends.append(end)
+    return y, torch.cat(ends)
+
+
+def _iir1_plain(x2: torch.Tensor, a: float, b: float) -> torch.Tensor:
+    """Plain version of B10: y = a*y + b*x, zero initial state, (C, T) float32."""
+    c, t = x2.shape
+    if t == 0:
+        return x2.new_zeros((c, 0))
+    a, b = float(np.float32(a)), float(np.float32(b))
+    tile = min(PLAIN_TILE, t)
+    xt = _tiles(x2, tile)
+    nt = xt.shape[2]
+    s = x2.new_zeros((c, nt))
+    for j in range(tile):
+        s = torch.add(s * a, xt[j], alpha=b)
+    powers = _plain_powers(np.float32(a).tobytes(), True, tile, max(1, (nt - 1).bit_length()),
+                           str(x2.device))
+    s = _scan_tiles(s.double()[None], x2.new_zeros((1, c), dtype=torch.float64), powers)[0]
+    s = s.float()
+    yt = torch.empty_like(xt)
+    for j in range(tile):
+        s = torch.add(s * a, xt[j], alpha=b)
+        yt[j] = s
+    return _untiles(yt, t)
+
+
+# --- kernel wrappers ---------------------------------------------------------------
+
+
+def _check(x2, state, sections: int, name: str, tile_rows: int | None) -> None:
+    if tile_rows is not None:
+        pick_tile(1, 1, tile_rows)  # raises on a tile the kernels cannot take
+    if not isinstance(x2, torch.Tensor) or x2.dim() != 2:
+        raise ValueError(f"{name}: x must be a (channels, time) tensor")
+    if x2.dtype != torch.float32:
+        raise TypeError(f"{name}: x must be float32, got {x2.dtype}")
+    if state is not None:
+        want = (sections, x2.shape[0], 2)
+        if tuple(state.shape) != want or state.dtype != torch.float32:
+            raise ValueError(
+                f"{name}: state must be float32 {want}, got {state.dtype} {tuple(state.shape)}"
+            )
+        if state.device != x2.device:
+            raise ValueError(f"{name}: state on {state.device}, x on {x2.device}")
+    if x2.device.type == "cuda":
+        if not x2.is_contiguous() or (state is not None and not state.is_contiguous()):
+            raise ValueError(f"{name}: x and state must be contiguous")
+        if x2.shape[0] > 65535:
+            raise ValueError(f"{name}: at most 65535 channels on the card, got {x2.shape[0]}")
+
+
+def _launch_cascade(x2, rows, state, tile_rows, unrolled: bool):
+    c, t = x2.shape
+    s = rows.shape[0]
+    y = torch.empty_like(x2)
+    new_state = None if state is None else torch.empty_like(state)
+    tile = pick_tile(c, t, tile_rows)
+    tab, m = _cascade_tables(rows.tobytes(), tile, str(x2.device), False)
+    carry = torch.empty(c * cdiv(t, tile) * 2 * s, dtype=torch.float32, device=x2.device)
+    lib = _build.library()
+    with torch.cuda.device(x2.device):
+        err = lib.dsp_sos_cascade(
+            x2.data_ptr(), y.data_ptr(), tab.data_ptr(), carry.data_ptr(), m.data_ptr(),
+            None if state is None else state.data_ptr(),
+            None if new_state is None else new_state.data_ptr(),
+            t, c, s, tile, int(unrolled), _stream(x2),
+        )
+    _build.check(err, "sos_cascade_unrolled" if unrolled else "sos_cascade")
+    return y, new_state
+
+
+def sos_cascade(x2: torch.Tensor, rows: np.ndarray, state: torch.Tensor | None = None, *,
+                tile_rows: int | None = None):
+    """The SOS cascade of (C, T) float32 by B12: (y, end state or None).
+
+    ``rows``: (S, 6) float32, S <= MAX_SECTIONS. ``state``: the (S, C, 2)
+    state entering the chunk (zero when None); the end state comes back only
+    for a seeded call.
+    """
+    rows = _sos_rows(rows)
+    s = rows.shape[0]
+    if not 1 <= s <= MAX_SECTIONS:
+        raise ValueError(f"sos_cascade (B12) takes 1..{MAX_SECTIONS} sections, got {s}")
+    _check(x2, state, s, "sos_cascade", tile_rows)
+    if not _on_cuda(x2):
+        y, end = _sos_plain(x2, rows, state)
+        return y, None if state is None else end
+    if x2.shape[1] == 0:
+        return torch.empty_like(x2), None if state is None else state.clone()
+    y, end = _launch_cascade(x2, rows, state, tile_rows, unrolled=False)
+    sos_cascade.launches += 1
+    return y, end
+
+
+sos_cascade.launches = 0
+
+
+def sos_cascade_unrolled(x2: torch.Tensor, rows: np.ndarray, *,
+                         tile_rows: int | None = None) -> torch.Tensor:
+    """The SOS cascade of (C, T) float32 from zero state by B13 (1..8 sections)."""
+    rows = _sos_rows(rows)
+    s = rows.shape[0]
+    if not 1 <= s <= MAX_UNROLLED:
+        raise ValueError(
+            f"sos_cascade_unrolled (B13) is built for 1..{MAX_UNROLLED} sections, got {s}"
+        )
+    _check(x2, None, s, "sos_cascade_unrolled", tile_rows)
+    if not _on_cuda(x2):
+        return _sos_plain(x2, rows, None)[0]
+    if x2.shape[1] == 0:
+        return torch.empty_like(x2)
+    y, _ = _launch_cascade(x2, rows, None, tile_rows, unrolled=True)
+    sos_cascade_unrolled.launches += 1
+    return y
+
+
+sos_cascade_unrolled.launches = 0
+
+
+def sos_sections(x2: torch.Tensor, rows: np.ndarray, state: torch.Tensor | None = None, *,
+                 tile_rows: int | None = None):
+    """The SOS cascade of (C, T) float32 by B15, one section a launch: (y, end state or None)."""
+    rows = _sos_rows(rows)
+    s = rows.shape[0]
+    if s < 1:
+        raise ValueError("sos_sections (B15) needs at least one section")
+    _check(x2, state, s, "sos_sections", tile_rows)
+    if not _on_cuda(x2):
+        y, end = _sections_plain(x2, rows, state)
+        return y, None if state is None else end
+    c, t = x2.shape
+    if t == 0:
+        return torch.empty_like(x2), None if state is None else state.clone()
+    y = torch.empty_like(x2)
+    scratch = torch.empty_like(x2) if s > 1 else None
+    new_state = None if state is None else torch.empty_like(state)
+    tile = pick_tile(c, t, tile_rows)
+    tab, m = _cascade_tables(rows.tobytes(), tile, str(x2.device), True)
+    carry = torch.empty(c * cdiv(t, tile) * 2, dtype=torch.float32, device=x2.device)
+    lib = _build.library()
+    with torch.cuda.device(x2.device):
+        err = lib.dsp_sos_sections(
+            x2.data_ptr(), y.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            tab.data_ptr(), carry.data_ptr(), m.data_ptr(),
+            None if state is None else state.data_ptr(),
+            None if new_state is None else new_state.data_ptr(),
+            t, c, s, tile, _stream(x2),
+        )
+    _build.check(err, "sos_sections")
+    sos_sections.launches += 1
+    return y, new_state
+
+
+sos_sections.launches = 0
+
+
+def iir1_block_scan(x2: torch.Tensor, a: float, b: float = 1.0, *,
+                    tile_rows: int | None = None) -> torch.Tensor:
+    """y = a*y + b*x over (C, T) float32 from zero state by B10."""
+    _check(x2, None, 1, "iir1_block_scan", tile_rows)
+    if not _on_cuda(x2):
+        return _iir1_plain(x2, a, b)
+    c, t = x2.shape
+    y = torch.empty_like(x2)
+    if t == 0:
+        return y
+    tile = pick_tile(c, t, tile_rows)
+    tab, m = _iir1_tables(float(a), float(b), tile, str(x2.device))
+    carry = torch.empty(c * cdiv(t, tile), dtype=torch.float32, device=x2.device)
+    lib = _build.library()
+    with torch.cuda.device(x2.device):
+        err = lib.dsp_iir1(
+            x2.data_ptr(), y.data_ptr(), tab.data_ptr(), carry.data_ptr(), m.data_ptr(),
+            t, c, tile, _stream(x2),
+        )
+    _build.check(err, "iir1_block_scan")
+    iir1_block_scan.launches += 1
+    return y
+
+
+iir1_block_scan.launches = 0
+
+
+# --- shapes -----------------------------------------------------------------------
+
+
+def _sos_rows(sos) -> np.ndarray:
+    """The sos rows as (S, 6) float32 NumPy (a tensor is copied to the host)."""
+    if isinstance(sos, torch.Tensor):
+        sos = sos.detach().cpu().numpy()
+    return np.ascontiguousarray(np.asarray(sos, np.float32).reshape(-1, 6))
+
+
+def _planar(x: torch.Tensor) -> tuple[torch.Tensor, tuple]:
+    """(..., T) -> contiguous (C, T) float32 and the batch shape."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"expected a torch.Tensor, got {type(x).__name__}")
+    if x.dim() == 0:
+        raise ValueError("expected at least one axis (time)")
+    batch = tuple(x.shape[:-1])
+    return x.to(torch.float32).reshape(int(np.prod(batch)), x.shape[-1]).contiguous(), batch
+
+
+def _state_planar(state: torch.Tensor, sections: int, channels: int) -> torch.Tensor:
+    if not isinstance(state, torch.Tensor):
+        raise TypeError(f"state must be a torch.Tensor, got {type(state).__name__}")
+    if state.shape[0] != sections or state.shape[-1] != 2 or state.numel() != sections * channels * 2:
+        raise ValueError(
+            f"state of shape {tuple(state.shape)} for {sections} sections and {channels} streams"
+        )
+    return state.to(torch.float32).reshape(sections, channels, 2).contiguous()
+
+
+# --- the reference's entry points -------------------------------------------------
+
+
+def iir_first_order(x: torch.Tensor, a, b=1.0, *, method: str = "auto") -> torch.Tensor:
+    """y[t] = a*y[t-1] + b*x[t] over the last axis, zero initial state.
+
+    ``auto`` takes B10 (``pallas``) from PALLAS_IIR_MIN_T samples, else the
+    plain version (``xla_scan``). Scalar coefficients only: the reference's
+    per-sample (array) coefficients are not ported.
+    """
+    if np.ndim(a) != 0 or np.ndim(b) != 0:
+        raise NotImplementedError(
+            "iir_first_order with per-sample coefficients is not ported; pass scalars"
+        )
+    if method == "auto":
+        method = "pallas" if x.shape[-1] >= PALLAS_IIR_MIN_T else "xla_scan"
+    record_choice("iir_first_order", method)
+    if method == "pallas":
+        return iir_first_order_pallas(x, a, b)
+    if method != "xla_scan":
+        raise ValueError(f"unknown method {method!r}; options ('auto', 'pallas', 'xla_scan')")
+    return _iir_first_order_xla(x, a, b)
+
+
+def _iir_first_order_xla(x: torch.Tensor, a, b=1.0) -> torch.Tensor:
+    x2, batch = _planar(x)
+    return _iir1_plain(x2, float(a), float(b)).reshape(batch + (x2.shape[1],))
+
+
+def iir_first_order_pallas(
+    x: torch.Tensor,
+    a: float,
+    b: float = 1.0,
+    *,
+    tile_rows: int | None = None,
+    kernel: str = "scalar",
+    row_pass: str = "bcast",
+) -> torch.Tensor:
+    """y[t] = a*y[t-1] + b*x[t] by B10 (the reference's ``kernel='scalar'``).
+
+    ``row_pass='compact'`` is a TPU relayout of the same kernel with no
+    meaning on Hopper: validated as the reference does, then B10 runs.
+    ``kernel='tile'`` (B11) is not ported and raises.
+    """
+    if kernel == "tile":
+        raise NotImplementedError(
+            "kernel='tile' is B11 (_iir1_kernel, ops/iir.py:441), not yet ported: ROADMAP item 8"
+        )
+    if kernel != "scalar":
+        raise ValueError(f"unknown kernel {kernel!r}; options ('tile', 'scalar')")
+    if row_pass not in ("bcast", "compact"):
+        raise ValueError(f"unknown row_pass {row_pass!r}; options ('bcast', 'compact')")
+    if row_pass == "compact" and tile_rows is not None and tile_rows % 128 != 0:
+        raise ValueError(f"row_pass='compact' needs tile_rows % 128 == 0, got {tile_rows}")
+    x2, batch = _planar(x)
+    y = iir1_block_scan(x2, float(a), float(b), tile_rows=tile_rows)
+    return y.reshape(batch + (x2.shape[1],))
+
+
+def sosfilt(sos, x: torch.Tensor, *, method: str = "auto") -> torch.Tensor:
+    """Cascade of second-order sections over the last axis, zero initial state.
+
+    ``auto`` takes B12 (``pallas_fused``) from PALLAS_IIR_MIN_T samples, else
+    the plain version (``xla_scan``); ``pallas`` is B15, one section a launch.
+    """
+    if method == "auto":
+        method = "xla_scan" if x.shape[-1] < PALLAS_IIR_MIN_T else "pallas_fused"
+    record_choice("sosfilt", method)
+    if method == "pallas_fused":
+        return sosfilt_pallas_fused(sos, x)
+    if method == "pallas":
+        return sosfilt_pallas(sos, x)
+    if method != "xla_scan":
+        raise ValueError(
+            f"unknown method {method!r}; options ('auto', 'pallas_fused', 'pallas', 'xla_scan')"
+        )
+    return _sosfilt_xla(sos, x)
+
+
+def _sosfilt_xla(sos, x: torch.Tensor) -> torch.Tensor:
+    x2, batch = _planar(x)
+    return _sos_plain(x2, _sos_rows(sos), None)[0].reshape(batch + (x2.shape[1],))
+
+
+def sosfilt_init(sos, batch_shape=(), *, device="cuda") -> torch.Tensor:
+    """Zero streaming state for :func:`sosfilt_chunk`: (n_sections, *batch, 2) on ``device``."""
+    n = _sos_rows(sos).shape[0]
+    return torch.zeros(
+        (n,) + tuple(batch_shape) + (2,), dtype=torch.float32, device=resolve_device(device)
+    )
+
+
+def sos_state_from_jax(state, *, device="cuda") -> torch.Tensor:
+    """A state of the reference's ``sosfilt_init``/``sosfilt_chunk``, carried over.
+
+    ``state`` is ``np.asarray`` of the reference's (n_sections, *batch, 2)
+    float32 array; the stream continues here from the same per-section state.
+    """
+    st = np.asarray(state)
+    if st.dtype != np.float32 or st.ndim < 2 or st.shape[-1] != 2:
+        raise ValueError(f"expected a float32 (n_sections, ..., 2) state, got {st.dtype} {st.shape}")
+    return torch.from_numpy(st.copy()).to(resolve_device(device))
+
+
+def sosfilt_chunk(
+    state: torch.Tensor, sos, x: torch.Tensor, *, method: str = "auto"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the SOS cascade with carried per-section state: (new state, y).
+
+    Chunked output is one-shot :func:`sosfilt` of the concatenated stream up
+    to float32 rounding. ``auto``: B12 seeded from PALLAS_IIR_MIN_T samples.
+    """
+    if method == "auto":
+        method = "pallas_fused" if x.shape[-1] >= PALLAS_IIR_MIN_T else "xla_scan"
+    record_choice("sosfilt_chunk", method)
+    if method == "pallas_fused":
+        return sosfilt_chunk_pallas_fused(state, sos, x)
+    if method == "pallas":
+        return sosfilt_chunk_pallas(state, sos, x)
+    if method != "xla_scan":
+        raise ValueError(
+            f"unknown method {method!r}; options ('auto', 'pallas_fused', 'pallas', 'xla_scan')"
+        )
+    return _sosfilt_chunk_xla(state, sos, x)
+
+
+def _chunk_call(fn, state, sos, x, **kw):
+    rows = _sos_rows(sos)
+    x2, batch = _planar(x)
+    st = _state_planar(state, rows.shape[0], x2.shape[0])
+    y, end = fn(x2, rows, st, **kw)
+    return end.reshape(tuple(state.shape)), y.reshape(batch + (x2.shape[1],))
+
+
+def _sosfilt_chunk_xla(state, sos, x):
+    return _chunk_call(_sos_plain, state, sos, x)
+
+
+def sosfilt_pallas(sos, x: torch.Tensor, *, tile_rows: int | None = None) -> torch.Tensor:
+    """SOS cascade by B15: one section's block scan a launch, through device memory."""
+    x2, batch = _planar(x)
+    y, _ = sos_sections(x2, _sos_rows(sos), None, tile_rows=tile_rows)
+    return y.reshape(batch + (x2.shape[1],))
+
+
+def sosfilt_chunk_pallas(
+    state: torch.Tensor, sos, x: torch.Tensor, *, tile_rows: int | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """A streaming chunk by B15, seeded from ``state``: (new state, y).
+
+    The kernel masks the chunk's ragged tail itself and returns the state
+    after the chunk's last sample, so no sub-tile tail takes another route.
+    """
+    return _chunk_call(sos_sections, state, sos, x, tile_rows=tile_rows)
+
+
+def _fused_checks(lane_pass: str, row_pass: str, tile_rows, unroll_sections: bool) -> None:
+    if lane_pass == "mxu":
+        raise NotImplementedError(
+            "lane_pass='mxu' is B14 (_biquad_fused_mxu_kernel, ops/iir.py:1390), "
+            "not yet ported: ROADMAP item 8"
+        )
+    if lane_pass != "vpu":
+        raise ValueError(f"unknown lane_pass {lane_pass!r}; options ('vpu', 'mxu')")
+    if row_pass not in ("bcast", "compact"):
+        raise ValueError(f"unknown row_pass {row_pass!r}; options ('bcast', 'compact')")
+    # row_pass='compact' is a TPU relayout of the row scan: validated as the
+    # reference does, then the same kernel runs
+    if row_pass == "compact" and tile_rows is not None and tile_rows % 128 != 0:
+        raise ValueError(f"row_pass='compact' needs tile_rows % 128 == 0, got {tile_rows}")
+    if unroll_sections and row_pass != "bcast":
+        raise ValueError("unroll_sections supports row_pass='bcast' only")
+
+
+def sosfilt_pallas_fused(
+    sos,
+    x: torch.Tensor,
+    *,
+    tile_rows: int | None = None,
+    unroll_sections: bool = False,
+    lane_pass: str = "vpu",
+    row_pass: str = "bcast",
+) -> torch.Tensor:
+    """SOS cascade by B12, or B13 with ``unroll_sections=True``, zero initial state.
+
+    ``lane_pass='mxu'`` (B14) is not ported and raises.
+    """
+    _fused_checks(lane_pass, row_pass, tile_rows, unroll_sections)
+    x2, batch = _planar(x)
+    rows = _sos_rows(sos)
+    if unroll_sections:
+        y = sos_cascade_unrolled(x2, rows, tile_rows=tile_rows)
+    else:
+        y, _ = sos_cascade(x2, rows, None, tile_rows=tile_rows)
+    return y.reshape(batch + (x2.shape[1],))
+
+
+def sosfilt_chunk_pallas_fused(
+    state: torch.Tensor,
+    sos,
+    x: torch.Tensor,
+    *,
+    tile_rows: int | None = None,
+    row_pass: str = "bcast",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """A streaming chunk by B12 seeded from ``state``: (new state, y).
+
+    The kernel masks the ragged tail itself (see :func:`sosfilt_chunk_pallas`).
+    """
+    _fused_checks("vpu", row_pass, tile_rows, False)
+    return _chunk_call(sos_cascade, state, sos, x, tile_rows=tile_rows)
+
+
+# --- the scipy-compatible surface -------------------------------------------------
+
+
+def ba_to_sos(b, a) -> np.ndarray:
+    """Transfer-function (b, a) -> second-order sections (scipy tf2sos-like).
+
+    Pairs conjugate (or nearest-real) zeros/poles into biquads, real ones
+    together, distributing the overall gain across the sections' numerators.
+    A pure delay (leading zeros of b) is kept as right-shifted numerators, as
+    scipy.signal.lfilter keeps it. Host-side float64.
+    """
+    b = np.atleast_1d(np.asarray(b, np.float64))
+    a = np.atleast_1d(np.asarray(a, np.float64))
+    if a[0] == 0:
+        raise ValueError("a[0] must be nonzero")
+    b, a = b / a[0], a / a[0]
+    nonzero = np.nonzero(b)[0]
+    if nonzero.size == 0:
+        # identically-zero numerator: output is zero for any input
+        return np.zeros((1, 6), np.float32) + np.array([0, 0, 0, 1, 0, 0], np.float32)
+    delay = int(nonzero[0])
+    bt = b[delay:]
+    gain = bt[0]
+    zeros = np.roots(bt) if bt.size > 1 else np.array([], complex)
+    poles = np.roots(a) if a.size > 1 else np.array([], complex)
+    n_sec = max((max(zeros.size + delay, poles.size) + 1) // 2, 1)
+    zeros = np.concatenate([zeros, np.zeros(2 * n_sec - zeros.size)])
+    poles = np.concatenate([poles, np.zeros(2 * n_sec - poles.size)])
+
+    def pair(roots):
+        # conjugates together; leftover reals paired by magnitude
+        cplx = sorted((r for r in roots if r.imag > 1e-12), key=lambda r: abs(r))
+        reals = sorted(r.real for r in roots if abs(r.imag) <= 1e-12)
+        pairs = [(r, np.conj(r)) for r in cplx]
+        pairs += [(reals[i], reals[i + 1]) for i in range(0, len(reals) - 1, 2)]
+        if len(reals) % 2:
+            pairs.append((reals[-1], 0.0))
+        return pairs
+
+    zp, pp = pair(zeros), pair(poles)
+    while len(zp) < n_sec:
+        zp.append((0.0, 0.0))
+    while len(pp) < n_sec:
+        pp.append((0.0, 0.0))
+    rows = []
+    g = abs(gain) ** (1.0 / n_sec) * np.sign(gain)
+    for (z1, z2), (p1, p2) in zip(zp, pp):
+        bb = np.array([1.0, -(z1 + z2).real, (z1 * z2).real]) * g
+        aa = np.array([1.0, -(p1 + p2).real, (p1 * p2).real])
+        rows.append(np.concatenate([bb, aa]))
+    # distribute the pure delay through the numerators' trailing-zero slots
+    remaining = delay
+    for row in rows:
+        while remaining and row[2] == 0.0:
+            row[1], row[2] = row[0], row[1]
+            row[0] = 0.0
+            remaining -= 1
+    assert remaining == 0, "delay slots exhausted (internal invariant)"
+    return np.asarray(rows, np.float32)
+
+
+def lfilter(b, a, x: torch.Tensor, *, method: str = "auto") -> torch.Tensor:
+    """scipy.signal.lfilter-compatible filtering over the last axis.
+
+    Pure-FIR coefficients (a reduces to a scalar) go to ``fir_filter`` (a
+    (time,) or (channels, time) signal); everything else converts to an SOS
+    cascade and runs through :func:`sosfilt`.
+    """
+    a_np = np.atleast_1d(np.asarray(a, np.float64))
+    b_np = np.atleast_1d(np.asarray(b, np.float64))
+    if a_np.size == 1:
+        from .fir import fir_filter
+
+        return fir_filter(x, (b_np / a_np[0]).astype(np.float32))
+    return sosfilt(ba_to_sos(b_np, a_np), x, method=method)
+
+
+def sosfiltfilt(sos, x: torch.Tensor, *, method: str = "auto") -> torch.Tensor:
+    """Zero-phase forward-backward SOS filtering (scipy.signal.sosfiltfilt).
+
+    scipy's edge recipe: odd-reflection padding of 3x the cascade's effective
+    order, and each pass seeded with the steady-state :func:`sosfilt_zi`
+    scaled by the pass's first sample. Both passes are :func:`sosfilt_chunk`
+    calls (B12 seeded at production lengths).
+    """
+    sos_np = np.asarray(sos.detach().cpu().numpy() if isinstance(sos, torch.Tensor) else sos,
+                        np.float64).reshape(-1, 6)
+    pad = 3 * (
+        2 * sos_np.shape[0]
+        + 1
+        - min(int((sos_np[:, 2] == 0).sum()), int((sos_np[:, 5] == 0).sum()))
+    )
+    t = x.shape[-1]
+    if t <= pad:
+        raise ValueError(f"input of {t} samples is shorter than the edge padding {pad + 1}")
+    xf = x.to(torch.float32)
+    # odd reflection: 2*x[0] - x[pad..1], signal, 2*x[-1] - x[-2..-pad-1]
+    left = 2.0 * xf[..., :1] - torch.flip(xf[..., 1 : pad + 1], [-1])
+    right = 2.0 * xf[..., -1:] - torch.flip(xf[..., t - pad - 1 : t - 1], [-1])
+    ext = torch.cat([left, xf, right], dim=-1)
+    zi = torch.from_numpy(sosfilt_zi(sos_np).astype(np.float32)).to(x.device)  # (n, 2)
+    batch = ext.shape[:-1]
+    zi_b = zi.reshape((zi.shape[0],) + (1,) * len(batch) + (2,))
+    _, y = sosfilt_chunk(zi_b * ext[None, ..., :1], sos_np, ext, method=method)
+    _, y = sosfilt_chunk(zi_b * y[None, ..., -1:], sos_np, torch.flip(y, [-1]), method=method)
+    return torch.flip(y, [-1])[..., pad : pad + t]
+
+
+def lfilter_zi(b, a) -> np.ndarray:
+    """Steady-state initial conditions for :func:`lfilter` (scipy semantics).
+
+    Solves ``(I - A^T) zi = b[1:] - a[1:] b[0]`` for the DF2T companion-form
+    state. Host-side float64.
+    """
+    b = np.atleast_1d(np.asarray(b, np.float64))
+    a = np.atleast_1d(np.asarray(a, np.float64))
+    if a[0] == 0:
+        raise ValueError("a[0] must be nonzero")
+    b, a = b / a[0], a / a[0]
+    n = max(len(a), len(b))
+    if n < 2:
+        return np.zeros(0)
+    a = np.concatenate([a, np.zeros(n - len(a))])
+    b = np.concatenate([b, np.zeros(n - len(b))])
+    A = np.zeros((n - 1, n - 1))
+    A[:, 0] = -a[1:]
+    A[:-1, 1:] = np.eye(n - 2)
+    B = b[1:] - a[1:] * b[0]
+    return np.linalg.solve(np.eye(n - 1) - A, B)
+
+
+def sosfilt_zi(sos) -> np.ndarray:
+    """Steady-state per-section initial conditions for :func:`sosfilt`, (n_sections, 2)."""
+    sos_np = np.asarray(sos, np.float64).reshape(-1, 6)
+    zi = np.zeros((sos_np.shape[0], 2))
+    scale = 1.0
+    for i, row in enumerate(sos_np):
+        zi[i] = scale * lfilter_zi(row[:3], row[3:])
+        scale *= row[:3].sum() / row[3:].sum()  # section DC gain
+    return zi
+
+
+def decimate_iir(
+    x: torch.Tensor,
+    factor: int,
+    *,
+    order: int = 8,
+    ripple_db: float = 0.05,
+    method: str = "auto",
+) -> torch.Tensor:
+    """IIR decimation, scipy.signal.decimate(ftype='iir')-style.
+
+    An order-``order`` Chebyshev type I lowpass at 0.8/factor Nyquist applied
+    with :func:`sosfiltfilt` (zero phase), then every ``factor``-th sample.
+    """
+    if factor < 1:
+        raise ValueError(f"factor must be >= 1, got {factor}")
+    if factor == 1:
+        return x.to(torch.float32)
+    sos = design_chebyshev1(order, ripple_db, 0.8 / factor)
+    return sosfiltfilt(sos, x, method=method)[..., ::factor].contiguous()
+
+
+def filtfilt(b, a, x: torch.Tensor, *, method: str = "auto") -> torch.Tensor:
+    """Zero-phase forward-backward (b, a) filtering: :func:`sosfiltfilt` of :func:`ba_to_sos`."""
+    return sosfiltfilt(ba_to_sos(b, a), x, method=method)
+
+
+def freqz(b, a=1.0, worN: int = 512):
+    """(w, H) frequency response of a (b, a) filter on scipy's one-sided grid."""
+    b = np.atleast_1d(np.asarray(b, np.float64))
+    a = np.atleast_1d(np.asarray(a, np.float64))
+    w = np.linspace(0, np.pi, worN, endpoint=False)
+    z = np.exp(-1j * w)
+    return w, np.polyval(b[::-1], z) / np.polyval(a[::-1], z)
+
+
+def sosfreqz(sos, worN: int = 512):
+    """(w, H) frequency response of an SOS cascade (scipy.signal.sosfreqz)."""
+    sos_np = np.asarray(sos, np.float64).reshape(-1, 6)
+    w = np.linspace(0, np.pi, worN, endpoint=False)
+    h = np.ones_like(w, dtype=complex)
+    for row in sos_np:
+        h *= freqz(row[:3], row[3:], worN)[1]
+    return w, h
+
+
+def group_delay(b, a=1.0, worN: int = 512):
+    """(w, gd) group delay in samples (Shpak's method, scipy.signal.group_delay's grid)."""
+    b = np.atleast_1d(np.asarray(b, np.float64))
+    a = np.atleast_1d(np.asarray(a, np.float64))
+    c = np.convolve(b, a[::-1])
+    cr = c * np.arange(c.size)
+    w = np.linspace(0, np.pi, worN, endpoint=False)
+    z = np.exp(-1j * w)
+    den = np.polyval(c[::-1], z)
+    num = np.polyval(cr[::-1], z)
+    small = np.abs(den) < 1e-12
+    gd = np.where(small, 0.0, np.real(num / np.where(small, 1.0, den)) - (a.size - 1))
+    return w, gd
+
+
+def sos_group_delay(sos, worN: int = 512):
+    """(w, gd) group delay of an SOS cascade: the sum of the sections' delays."""
+    sos_np = np.asarray(sos, np.float64).reshape(-1, 6)
+    w = np.linspace(0, np.pi, worN, endpoint=False)
+    gd = np.zeros_like(w)
+    for row in sos_np:
+        gd += group_delay(row[:3], row[3:], worN)[1]
+    return w, gd
+
+
+def lfiltic(b, a, y, x=None) -> np.ndarray:
+    """DF2T initial state from past outputs ``y`` and inputs ``x``, most recent
+    first (scipy.signal.lfiltic)."""
+    b = np.atleast_1d(np.asarray(b, np.float64))
+    a = np.atleast_1d(np.asarray(a, np.float64))
+    n = max(a.size, b.size) - 1
+    if a[0] != 1.0:
+        if a[0] == 0.0:
+            raise ValueError("a[0] must be nonzero")
+        b, a = b / a[0], a / a[0]
+    y = np.asarray(y, np.float64)
+    x = np.zeros(0) if x is None else np.asarray(x, np.float64)
+    y = np.concatenate([y, np.zeros(max(0, n - y.size))])[:n]
+    x = np.concatenate([x, np.zeros(max(0, n - x.size))])[:n]
+    bp = np.concatenate([b, np.zeros(max(0, n + 1 - b.size))])
+    ap = np.concatenate([a, np.zeros(max(0, n + 1 - a.size))])
+    zi = np.zeros(n)
+    for m in range(n, 0, -1):
+        acc = 0.0
+        for j in range(m, n + 1):
+            acc += bp[j] * x[j - m] - ap[j] * y[j - m]
+        zi[m - 1] = acc
+    return zi
+
+
+# --- designers (host NumPy, copied from the reference) -----------------------------
+
+
+def design_biquad_lowpass(cutoff: float, q: float = 0.7071) -> np.ndarray:
+    """RBJ cookbook lowpass biquad; cutoff in (0, 1) Nyquist; one SOS row (1, 6)."""
+    if not 0.0 < cutoff < 1.0:
+        raise ValueError(f"cutoff must be in (0,1) of Nyquist, got {cutoff}")
+    w0 = np.pi * cutoff
+    alpha = np.sin(w0) / (2 * q)
+    cw = np.cos(w0)
+    b = np.array([(1 - cw) / 2, 1 - cw, (1 - cw) / 2])
+    a = np.array([1 + alpha, -2 * cw, 1 - alpha])
+    return np.concatenate([b / a[0], a / a[0]]).astype(np.float32)[None, :]
+
+
+def design_biquad_highpass(cutoff: float, q: float = 0.7071) -> np.ndarray:
+    """RBJ cookbook highpass biquad; one SOS row (1, 6)."""
+    if not 0.0 < cutoff < 1.0:
+        raise ValueError(f"cutoff must be in (0,1) of Nyquist, got {cutoff}")
+    w0 = np.pi * cutoff
+    alpha = np.sin(w0) / (2 * q)
+    cw = np.cos(w0)
+    b = np.array([(1 + cw) / 2, -(1 + cw), (1 + cw) / 2])
+    a = np.array([1 + alpha, -2 * cw, 1 - alpha])
+    return np.concatenate([b / a[0], a / a[0]]).astype(np.float32)[None, :]
+
+
+def design_biquad_bandpass(center: float, q: float = 1.0) -> np.ndarray:
+    """RBJ cookbook constant-peak bandpass biquad (gain 1 at ``center``)."""
+    if not 0.0 < center < 1.0:
+        raise ValueError(f"center must be in (0,1) of Nyquist, got {center}")
+    w0 = np.pi * center
+    alpha = np.sin(w0) / (2 * q)
+    cw = np.cos(w0)
+    b = np.array([alpha, 0.0, -alpha])
+    a = np.array([1 + alpha, -2 * cw, 1 - alpha])
+    return np.concatenate([b / a[0], a / a[0]]).astype(np.float32)[None, :]
+
+
+def _pair_poles(z_poles: np.ndarray) -> list[np.ndarray]:
+    """Group digital poles into conjugate (or real-real) biquad pairs."""
+    eps = 1e-9
+    cplx = [p for p in z_poles if p.imag > eps]
+    reals = sorted(p.real for p in z_poles if abs(p.imag) <= eps)
+    pairs = [np.array([p, np.conj(p)]) for p in cplx]
+    for i in range(0, len(reals) - 1, 2):
+        pairs.append(np.array([reals[i], reals[i + 1]], dtype=complex))
+    if len(reals) % 2:  # lone real pole -> first-order section
+        pairs.append(np.array([reals[-1], 0.0], dtype=complex))
+    return pairs
+
+
+def design_butterworth_band(
+    order: int, low: float, high: float, btype: str = "bandpass"
+) -> np.ndarray:
+    """Butterworth bandpass/bandstop as an SOS cascade (scipy layout), digital order 2*order."""
+    if order < 1:
+        raise ValueError(f"order must be >= 1, got {order}")
+    if not 0.0 < low < high < 1.0:
+        raise ValueError(f"need 0 < low < high < 1 (Nyquist), got {low}, {high}")
+    if btype not in ("bandpass", "bandstop"):
+        raise ValueError(f"btype must be bandpass or bandstop, got {btype!r}")
+    w1, w2 = np.tan(np.pi * low / 2), np.tan(np.pi * high / 2)
+    w0 = np.sqrt(w1 * w2)
+    bw = w2 - w1
+    k = np.arange(order)
+    proto = np.exp(1j * np.pi * (2 * k + order + 1) / (2 * order))  # Re < 0
+    s_poles = []
+    for p in proto:
+        b = bw * p / 2.0 if btype == "bandpass" else bw / (2.0 * p)
+        disc = np.sqrt(b**2 - w0**2 + 0j)
+        s_poles += [b + disc, b - disc]
+    z_poles = np.array([(1 + s) / (1 - s) for s in s_poles])
+    if btype == "bandpass":
+        sec_b = np.array([1.0, 0.0, -1.0])  # zeros at z = +1 and z = -1
+        ref = np.exp(2j * np.arctan(w0))  # unity at the warped analog center
+    else:
+        zc = (1 + 1j * w0) / (1 - 1j * w0)  # zeros at the notch frequency
+        sec_b = np.array([1.0, -2.0 * zc.real, 1.0])
+        ref = 1.0 + 0.0j  # unity at DC
+    rows = []
+    gain = 1.0
+    for pp in _pair_poles(z_poles):
+        a = np.array([1.0, -(pp[0] + pp[1]).real, (pp[0] * pp[1]).real])
+        num = sec_b[0] * ref**2 + sec_b[1] * ref + sec_b[2]
+        den = ref**2 + a[1] * ref + a[2]
+        gain *= abs(den / num)
+        rows.append(np.concatenate([sec_b.copy(), a]))
+    rows = np.asarray(rows, dtype=np.float64)
+    rows[:, :3] *= gain ** (1.0 / len(rows))  # distribute gain evenly
+    return rows.astype(np.float32)
+
+
+def design_butterworth(order: int, cutoff: float, btype: str = "lowpass") -> np.ndarray:
+    """Butterworth digital filter as an SOS cascade (scipy layout, (n, 6))."""
+    if order < 1:
+        raise ValueError(f"order must be >= 1, got {order}")
+    if not 0.0 < cutoff < 1.0:
+        raise ValueError(f"cutoff must be in (0,1) of Nyquist, got {cutoff}")
+    if btype not in ("lowpass", "highpass"):
+        raise ValueError(f"btype must be lowpass or highpass, got {btype!r}")
+    warped = np.tan(np.pi * cutoff / 2.0)
+    k = np.arange(order)
+    unit = np.exp(1j * np.pi * (2 * k + order + 1) / (2 * order))  # Re < 0
+    s_poles = warped * unit if btype == "lowpass" else warped / unit
+    z_poles = (1 + s_poles) / (1 - s_poles)
+    zero = -1.0 if btype == "lowpass" else 1.0
+    ref = 1.0 if btype == "lowpass" else -1.0  # unity-gain evaluation point
+    return _rows_from_poles(z_poles, zero, ref).astype(np.float32)
+
+
+def _rows_from_poles(z_poles, zero: float, ref: float) -> np.ndarray:
+    """Conjugate pole pairs as biquads, real poles as first-order rows, each
+    with its zeros at ``zero`` and unity gain at ``ref`` (float64)."""
+    upper = [p for p in z_poles if p.imag > 1e-12]
+    real = [p.real for p in z_poles if abs(p.imag) <= 1e-12]
+    rows = []
+    for p in upper:
+        a = np.array([1.0, -2 * p.real, abs(p) ** 2])
+        b = np.array([1.0, -2 * zero, 1.0])
+        g = np.polyval(a, ref) / np.polyval(b, ref)
+        rows.append(np.concatenate([b * g, a]))
+    for r in real:  # first-order remainder as a degenerate biquad
+        a = np.array([1.0, -r, 0.0])
+        b = np.array([1.0, -zero, 0.0])
+        g = np.polyval(a[:2], ref) / np.polyval(b[:2], ref)
+        rows.append(np.concatenate([b * g, a]))
+    return np.asarray(rows, np.float64)
+
+
+def design_chebyshev1(
+    order: int, ripple_db: float, cutoff: float, btype: str = "lowpass"
+) -> np.ndarray:
+    """Chebyshev type-I digital filter as an SOS cascade (scipy layout).
+
+    Passband ripple ``ripple_db`` dB; lowpass and highpass in closed form,
+    band types through the zpk pipeline (:func:`_iirfilter`).
+    """
+    if order < 1:
+        raise ValueError(f"order must be >= 1, got {order}")
+    if ripple_db <= 0:
+        raise ValueError(f"ripple_db must be > 0, got {ripple_db}")
+    if btype in ("bandpass", "bandstop"):
+        return _iirfilter(order, cutoff, btype=btype, ftype="cheby1", rp=ripple_db)
+    if not 0.0 < cutoff < 1.0:
+        raise ValueError(f"cutoff must be in (0,1) of Nyquist, got {cutoff}")
+    if btype not in ("lowpass", "highpass"):
+        raise ValueError(f"btype must be lowpass or highpass, got {btype!r}")
+    eps = np.sqrt(10.0 ** (ripple_db / 10.0) - 1.0)
+    mu = np.arcsinh(1.0 / eps) / order
+    k = np.arange(order)
+    theta = np.pi * (2 * k + 1) / (2 * order)
+    proto = -np.sinh(mu) * np.sin(theta) + 1j * np.cosh(mu) * np.cos(theta)
+    warped = np.tan(np.pi * cutoff / 2.0)
+    s_poles = warped * proto if btype == "lowpass" else warped / proto
+    z_poles = (1 + s_poles) / (1 - s_poles)
+    sos = _rows_from_poles(
+        z_poles, -1.0 if btype == "lowpass" else 1.0, 1.0 if btype == "lowpass" else -1.0
+    )
+    if order % 2 == 0:
+        # even order: gain at the DC/Nyquist reference is 1/sqrt(1+eps^2)
+        sos[0, :3] *= 1.0 / np.sqrt(1.0 + eps**2)
+    return sos.astype(np.float32)
+
+
+def design_chebyshev2(
+    order: int, atten_db: float, cutoff: float, btype: str = "lowpass"
+) -> np.ndarray:
+    """Chebyshev type-II SOS cascade (scipy layout): flat passband, equiripple
+    stopband at ``-atten_db`` from ``cutoff``; every band type through the zpk
+    pipeline (:func:`_iirfilter`)."""
+    if order < 1:
+        raise ValueError(f"order must be >= 1, got {order}")
+    if atten_db <= 0:
+        raise ValueError(f"atten_db must be > 0, got {atten_db}")
+    if btype not in ("lowpass", "highpass", "bandpass", "bandstop"):
+        raise ValueError(f"unknown btype {btype!r}")
+    if btype in ("lowpass", "highpass") and not 0.0 < cutoff < 1.0:
+        raise ValueError(f"cutoff must be in (0,1) of Nyquist, got {cutoff}")
+    return _iirfilter(order, cutoff, btype=btype, ftype="cheby2", rs=atten_db)
+
+
+# The reference's zpk design pipeline (ops/iir_design.py), for the two
+# Chebyshev families the designers above take through it. The rest of
+# iir_design (elliptic, Bessel, order selection, ...) is not ported here.
+
+
+def _cheby_proto(order: int, ripple_db: float, ftype: str):
+    k = np.arange(order)
+    theta = np.pi * (2 * k + 1) / (2 * order)
+    if ftype == "cheby1":
+        eps = np.sqrt(10.0 ** (ripple_db / 10.0) - 1.0)
+        mu = np.arcsinh(1.0 / eps) / order
+        p = -np.sinh(mu) * np.sin(theta) + 1j * np.cosh(mu) * np.cos(theta)
+        gain = np.real(np.prod(-p))
+        if order % 2 == 0:  # passband peaks at 1; DC sits at -rp
+            gain /= np.sqrt(1.0 + eps * eps)
+        return np.array([], complex), p, float(gain)
+    eps = 1.0 / np.sqrt(10.0 ** (ripple_db / 10.0) - 1.0)
+    mu = np.arcsinh(1.0 / eps) / order
+    p = 1.0 / (-np.sinh(mu) * np.sin(theta) + 1j * np.cosh(mu) * np.cos(theta))
+    zc = np.cos(theta)
+    z = 1j / zc[np.abs(zc) > 1e-12]  # odd order: middle zero at infinity
+    return z, p, float(np.real(np.prod(-p)) / np.real(np.prod(-z)))
+
+
+def _lp2hp_zpk(z, p, k, wo):
+    deg = len(p) - len(z)
+    zh = wo / z if len(z) else np.array([], complex)
+    zh = np.append(zh, np.zeros(deg))
+    k = k * np.real(np.prod(-z) / np.prod(-p)) if len(z) else k / np.real(np.prod(-p))
+    return zh, wo / p, k
+
+
+def _lp2band_zpk(z, p, k, wo, bw, btype: str):
+    deg = len(p) - len(z)
+
+    def split(r):
+        return np.concatenate([r + np.sqrt(r * r - wo * wo), r - np.sqrt(r * r - wo * wo)])
+
+    if btype == "bandpass":
+        zb = split(z * bw / 2.0) if len(z) else np.array([], complex)
+        return np.append(zb, np.zeros(deg)), split(p * bw / 2.0), k * bw**deg
+    zb = split((bw / 2.0) / z) if len(z) else np.array([], complex)
+    zb = np.concatenate([zb, np.full(deg, 1j * wo), np.full(deg, -1j * wo)])
+    num = np.real(np.prod(-z)) if len(z) else 1.0
+    return zb, split((bw / 2.0) / p), k * num / np.real(np.prod(-p))
+
+
+def _split_conj(roots, tol=1e-8):
+    roots = np.asarray(roots, complex)
+    upper = sorted((r for r in roots if r.imag > tol), key=lambda r: (r.real, r.imag))
+    return upper, sorted(r.real for r in roots if abs(r.imag) <= tol)
+
+
+def _zpk2sos(z, p, k) -> np.ndarray:
+    """Digital zpk -> SOS rows: least-damped pole pairs last, each with its
+    nearest zero pair, the gain distributed evenly."""
+    z = np.asarray(z, complex)
+    p = np.asarray(p, complex)
+    n_sec = max((max(len(z), len(p)) + 1) // 2, 1)
+    z = np.append(z, np.zeros(2 * n_sec - len(z)))
+    p = np.append(p, np.zeros(2 * n_sec - len(p)))
+
+    def pairs(roots):
+        upper, reals = _split_conj(roots)
+        out = [(c, np.conj(c)) for c in upper]
+        out += [(reals[i] + 0j, reals[i + 1] + 0j) for i in range(0, len(reals) - 1, 2)]
+        if len(reals) % 2:
+            out.append((reals[-1] + 0j, 0j))
+        out += [(0j, 0j)] * (n_sec - len(out))
+        return out
+
+    pole_pairs = pairs(p)
+    pole_pairs.sort(key=lambda pp: abs(1.0 - abs(pp[0])), reverse=True)
+    remaining = pairs(z)
+    rows = []
+    for pp in pole_pairs:
+        zz = remaining.pop(min(range(len(remaining)), key=lambda i: abs(remaining[i][0] - pp[0])))
+        bb = np.array([1.0, -(zz[0] + zz[1]).real, (zz[0] * zz[1]).real])
+        aa = np.array([1.0, -(pp[0] + pp[1]).real, (pp[0] * pp[1]).real])
+        rows.append(np.concatenate([bb, aa]))
+    sos = np.asarray(rows, np.float64)
+    sos[:, :3] *= abs(k) ** (1.0 / n_sec) * np.sign(k)
+    return sos.astype(np.float32)
+
+
+def _iirfilter(order: int, wn, *, btype: str, ftype: str, rp=None, rs=None) -> np.ndarray:
+    """Chebyshev I/II design -> SOS rows (the reference's ``iirfilter``)."""
+    z, p, k = _cheby_proto(order, rp if ftype == "cheby1" else rs, ftype)
+    if btype in ("lowpass", "highpass"):
+        w = float(np.squeeze(np.asarray(wn)))
+        if not 0.0 < w < 1.0:
+            raise ValueError(f"Wn must be in (0,1) of Nyquist, got {wn}")
+        warped = np.tan(np.pi * w / 2.0)
+        if btype == "lowpass":
+            z, p, k = z * warped, p * warped, k * warped ** (len(p) - len(z))
+        else:
+            z, p, k = _lp2hp_zpk(z, p, k, warped)
+    else:
+        lo, hi = (float(v) for v in np.asarray(wn).reshape(2))
+        if not 0.0 < lo < hi < 1.0:
+            raise ValueError(f"need 0 < low < high < 1 (Nyquist), got {wn}")
+        w1, w2 = np.tan(np.pi * lo / 2.0), np.tan(np.pi * hi / 2.0)
+        z, p, k = _lp2band_zpk(z, p, k, np.sqrt(w1 * w2), w2 - w1, btype)
+    # bilinear s -> z with the prewarp convention s_cut = tan(pi*Wn/2)
+    deg = len(p) - len(z)
+    zd = np.append((1.0 + z) / (1.0 - z) if len(z) else np.array([], complex), -np.ones(deg))
+    num = np.real(np.prod(1.0 - z)) if len(z) else 1.0
+    return _zpk2sos(zd, (1.0 + p) / (1.0 - p), k * num / np.real(np.prod(1.0 - p)))
+
+
+__all__ = [
+    "PALLAS_IIR_MIN_T",
+    "pick_tile",
+    "section_table",
+    "iir1_table",
+    "cascade_transition",
+    "iir1_block_scan",
+    "sos_cascade",
+    "sos_cascade_unrolled",
+    "sos_sections",
+    "iir_first_order",
+    "iir_first_order_pallas",
+    "sosfilt",
+    "sosfilt_init",
+    "sosfilt_chunk",
+    "sos_state_from_jax",
+    "sosfilt_pallas",
+    "sosfilt_chunk_pallas",
+    "sosfilt_pallas_fused",
+    "sosfilt_chunk_pallas_fused",
+    "ba_to_sos",
+    "lfilter",
+    "sosfiltfilt",
+    "lfilter_zi",
+    "sosfilt_zi",
+    "decimate_iir",
+    "filtfilt",
+    "freqz",
+    "sosfreqz",
+    "group_delay",
+    "sos_group_delay",
+    "lfiltic",
+    "design_biquad_lowpass",
+    "design_biquad_highpass",
+    "design_biquad_bandpass",
+    "design_butterworth_band",
+    "design_butterworth",
+    "design_chebyshev1",
+    "design_chebyshev2",
+]

@@ -29,12 +29,18 @@ def decimate(
     ``ftype='fir'``: polyphase FIR, a windowed-sinc lowpass at 0.8/factor
     Nyquist with ``taps_per_phase * factor`` taps unless ``taps`` is given:
     ``y[m] = sum_j h[j] x[m*factor - j]``, ``t // factor`` outputs.
-    ``ftype='iir'`` (the reference's Chebyshev-I cascade) is not ported yet.
+    ``ftype='iir'``: the zero-phase Chebyshev-I cascade of
+    ``ops.iir.decimate_iir`` (scipy.signal.decimate's default); ``taps`` and
+    ``taps_per_phase`` are FIR-only.
     """
     if factor < 1:
         raise ValueError(f"factor must be >= 1, got {factor}")
     if ftype == "iir":
-        raise NotImplementedError("decimate(ftype='iir') is not yet ported (IIR slice)")
+        if taps is not None:
+            raise ValueError("taps is only meaningful with ftype='fir'")
+        from .iir import decimate_iir
+
+        return decimate_iir(x, factor)
     if ftype != "fir":
         raise ValueError(f"ftype must be 'fir' or 'iir', got {ftype!r}")
     xp, squeeze = _as_planar(x)

@@ -37,6 +37,17 @@ from digital_signal_processsing_tpu_torch.ops.fft_mxu import (
     pick_fused_block,
     tap_response,
 )
+from digital_signal_processsing_tpu_torch.ops.iir import (
+    design_butterworth,
+    iir1_block_scan,
+    iir_first_order,
+    sos_cascade,
+    sos_cascade_unrolled,
+    sos_sections,
+    sosfilt,
+    sosfilt_chunk,
+    sosfilt_init,
+)
 from digital_signal_processsing_tpu_torch.serve import stream_moving_average
 
 REPO = Path(__file__).resolve().parents[1]
@@ -57,6 +68,13 @@ import chip_smoke  # noqa: F401  (its imports only; main() is not run)
 from digital_signal_processsing_tpu_torch.ops import fir, fft_mxu, resample, demod  # noqa: F401
 from digital_signal_processsing_tpu_torch.models.chain import ChainConfig, DspChain
 from digital_signal_processsing_tpu_torch.parallel.pipeline import chain_halo  # noqa: F401
+from digital_signal_processsing_tpu_torch.ops import gain, iir
+from digital_signal_processsing_tpu_torch.serve import stream_sosfilt
+sos = iir.design_butterworth(4, 0.2)
+xf = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 3000)).astype(np.float32))
+for method in ("auto", "pallas_fused", "pallas", "xla_scan"):
+    assert iir.sosfilt(sos, xf, method=method).shape == (2, 3000)
+assert gain.agc(gain.dc_block(xf)).shape == (2, 3000)
 chain = DspChain(ChainConfig(channels=2, decimation=4, channel_taps=4097, audio_taps=17), device="cpu")
 i, q = chain.example_planar_input(t=8192)
 audio = chain.forward_planar(torch.from_numpy(i), torch.from_numpy(q))
@@ -71,6 +89,9 @@ write_wav(sys.argv[1] + "/in.wav", x, 8000, 2)
 n = stream_moving_average([sys.argv[1] + "/in.wav"], sys.argv[1] + "/out.wav", 64,
                           chunk_samples=1000, device="cpu")
 assert n == x.size and (read_wav(sys.argv[1] + "/out.wav")[1] == y).all()
+n = stream_sosfilt([sys.argv[1] + "/in.wav"], sys.argv[1] + "/iir.wav", sos, chunk_samples=1000,
+                   device="cpu")
+assert n == x.size
 assert not [m for m in sys.modules if m.startswith("jax") and sys.modules[m] is not None]
 reference = [m for m in sys.modules
              if m == "digital_signal_processsing_tpu" or m.startswith("digital_signal_processsing_tpu.")]
@@ -142,6 +163,13 @@ def test_cpu_tensors_never_build_kernels(monkeypatch, rng):
             fir_filter(xf, taps, method=method)
     chain = DspChain(ChainConfig(channels=3, decimation=4, channel_taps=8193), device="cpu")
     chain.forward_planar(xf, xf)
+    sos = design_butterworth(4, 0.2)
+    for method in ("auto", "pallas_fused", "pallas", "xla_scan"):
+        sosfilt(sos, xf, method=method)
+        sosfilt_chunk(sosfilt_init(sos, (3,), device="cpu"), sos, xf, method=method)
+    for method in ("auto", "pallas", "xla_scan"):
+        iir_first_order(xf, 0.9, method=method)
+    sos_cascade_unrolled(xf, sos)
     assert not any(launch_counts().values()), launch_counts()
 
 
@@ -156,6 +184,13 @@ def test_other_devices_are_refused():
         response = tap_response(np.ones(k, np.float32), g, "cpu")
         with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
             wrapper(xf, response)
+    sos = design_butterworth(2, 0.3)
+    for call in (
+        lambda: sos_cascade(xf, sos), lambda: sos_cascade_unrolled(xf, sos),
+        lambda: sos_sections(xf, sos), lambda: iir1_block_scan(xf, 0.5),
+    ):
+        with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+            call()
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -178,6 +213,7 @@ def test_build_is_keyed_by_the_sources():
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()  # stable for unchanged sources
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "windowed.cu", "cumsum.cu", "scan.cu", "direct.cu", "fused_fir.cu", "fused_fir3.cu"
+        "windowed.cu", "cumsum.cu", "scan.cu", "direct.cu", "fused_fir.cu", "fused_fir3.cu",
+        "iir.cu",
     }
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
