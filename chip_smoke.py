@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``; imports no JAX. Inputs
-come from ``np.random.default_rng(0)``. Every phase prints a line, and any
+come from ``np.random.default_rng(0)`` (the wideband stream's noise from
+PyTorch's generator on the card, seed 0). Every phase prints a line, and any
 failure exits non-zero:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
@@ -26,7 +27,16 @@ failure exits non-zero:
    sections {1, 2, 4, 8}, C {1, 3, 16}, T {1, 4095, 4096, 4097, odd, 100003}
    and 16 x 2^22, first-order a {0.5, -0.3, 0.99, 0.9999}; seeded chunks
    whose end states match the float64 state at their last sample, impulses
-   across sub-tile edges, zeros exact, B13 refusing 9 sections;
+   across sub-tile edges, zeros exact, B13 refusing 9 sections; then the PFB
+   kernels B19 (raw stream) and B20 (commutated tensor) against their plain
+   versions and a float64 FFT of the formula (1e-5 of max|Y|) over n in {32,
+   48, 64, 96, 128, 256, 512, 1024} (B19 inside its envelope), P {2, 8, 16},
+   dilation {1, 2}, sign -1, whole and ragged blocks, streams shorter than
+   the look-back, every output layout, zeros and impulses at a block edge;
+   B21 (segmented Farrow) against plain and float64 (2e-5) over six rates, C
+   {1, 2, 16} and T {4, 5, 100, 2^20}; the Farrow matmul and the composed
+   bank against float64 with TF32 turned on by the caller (their IEEE float32
+   pin);
 4. main path, through the entry points a user calls, with the kernels'
    launch counts reset just before and read just after:
    ``moving_average`` on a 64M-sample stereo stream at k=1024 (B1), the same
@@ -49,7 +59,14 @@ failure exits non-zero:
    (B10), ``sosfiltfilt`` and ``decimate(..., ftype="iir")`` on one channel,
    and ``stream_sosfilt`` over the two WAVs above in chunks of 2^20; routes
    asserted, the four kernels launched, outputs against their plain versions
-   and float64, the served stream within 1 LSB of one shot on < 0.2%;
+   and float64, the served stream within 1 LSB of one shot on < 0.2%; then,
+   counts reset again, the wideband receiver (``WidebandFmReceiver``, 64
+   channels, 8 taps a phase) on 2^26 samples of FM tones against the same
+   receiver on the CPU (B19), the same at 1024 channels, ``pfb_channelize``
+   one shot and in 8 chunks, ``pfb_analyze_os`` (B20, dilation 2) and its
+   synthesis, the ``fused`` route at n=48 (B20), the chain locked to 441/2560
+   by the Farrow stage (B21 on the card), and ``resample_farrow`` at
+   46337/65521 on 16 x 2^22 (B21); B19, B20 and B21 each launched;
 5. times: each kernel against its plain version at the main path's shapes
    (CUDA events between back-to-back calls, median of 10 after 5 warm-ups,
    in turns plain, kernel, kernel, plain), with a device-to-device copy of
@@ -61,17 +78,23 @@ failure exits non-zero:
    ``conv1d`` against B8 by taps; B10, B12, B13 and B15 at the IIR main
    path's shape against their plain versions and bounds, the library call
    where ``torchaudio`` exists, and the kernel-against-plain table by T that
-   sets ``ops.iir.PALLAS_IIR_MIN_T``;
+   sets ``ops.iir.PALLAS_IIR_MIN_T``; B19, B20 and B21 at the wideband main
+   path's shapes against their plain versions and bounds, with
+   ``torch.fft.fft`` of the same rows as a yardstick, B19 by taps a phase
+   (1 to 16) at 64 and 1024 channels, and B21 against the ``matmul`` route
+   at 441/2560, 160/147 and 3/2, the table that sets
+   ``ops.farrow.MATMUL_MAX_PRODUCT_CUDA``;
 6. serving loops: wall time of three ``stream_moving_average`` runs over
    phase 4's WAVs and of decoding them alone, and the device time of one
    run under ``torch.profiler``, by kernel and copy; the same for
    ``stream_sosfilt``;
 7. the flagship chain's wall time, and its device time under
    ``torch.profiler``, whole and by stage (LO bank, mix, channel FIR,
-   decimate, FM demod, audio FIR), with the device's idle share.
+   decimate, FM demod, audio FIR), with the device's idle share; the same for
+   the wideband receiver (channelize, FM demod, audio FIR, squelch).
 
 Each phase prints its seconds. The last two lines are the kernels' JSON
-record (B1-B5, B8, B9, B10, B12, B13, B15, each with
+record (B1-B5, B8, B9, B10, B12, B13, B15, B19, B20, B21, each with
 its launches on the main path, max abs error, device ms, plain ms, bound ms
 and library ms) and ``{"ok": true, "device": {...}}``.
 """
@@ -98,14 +121,23 @@ from digital_signal_processsing_tpu_torch.io import WavChunkLoader, read_wav, wr
 from digital_signal_processsing_tpu_torch.models import (
     ChainConfig,
     DspChain,
+    WidebandConfig,
+    WidebandFmReceiver,
     chain_stream_chunk,
     chain_stream_init,
 )
 from digital_signal_processsing_tpu_torch.ops import (
     launch_counts,
     moving_average,
+    pfb_analyze_os,
+    pfb_channelize,
+    pfb_channelize_chunk,
+    pfb_stream_init,
+    pfb_synthesize_os,
     reset_launch_counts,
 )
+from digital_signal_processsing_tpu_torch.ops import channelizer as chz
+from digital_signal_processsing_tpu_torch.ops import farrow as fw
 from digital_signal_processsing_tpu_torch.ops import fft_mxu as fm
 from digital_signal_processsing_tpu_torch.ops import fir, gain, iir
 from digital_signal_processsing_tpu_torch.ops import pallas_direct as pd
@@ -125,12 +157,15 @@ SCAN_METHODS = {"scan": "blelloch", "scan_hillis": "hillis_steele", "scan_mxu": 
 VARIANTS = tuple(SCAN_METHODS.values())
 AVERAGER_KERNELS = ("B1", "B2", *(f"B3/{v}" for v in VARIANTS), "B4", "B5")
 IIR_KERNELS = ("B10", "B12", "B13", "B15")
-KERNELS = (*AVERAGER_KERNELS, "B8", "B9", *IIR_KERNELS)
+PFB_KERNELS = ("B19", "B20", "B21")
+KERNELS = (*AVERAGER_KERNELS, "B8", "B9", *IIR_KERNELS, *PFB_KERNELS)
 SOURCE = "digital_signal_processsing_tpu_torch/csrc/"
 REPLACES = "digital_signal_processsing_tpu/ops/pallas_scan.py:"
 REPLACES_DIRECT = "digital_signal_processsing_tpu/ops/pallas_direct.py:"
 REPLACES_FFT = "digital_signal_processsing_tpu/ops/fft_mxu.py:"
 REPLACES_IIR = "digital_signal_processsing_tpu/ops/iir.py:"
+REPLACES_PFB = "digital_signal_processsing_tpu/ops/channelizer.py:"
+REPLACES_FARROW = "digital_signal_processsing_tpu/ops/farrow.py:"
 # The receiver chain's main path: the flagship of __graft_entry__.py (16
 # channels, decimation 8) on 2^22 samples a channel, the 16ch x 4.2M point of
 # the reference's benchmark notes.
@@ -153,6 +188,21 @@ IIR_RTOL, IIR64_RTOL = 1e-5, 1e-4
 IIR_POLES = (0.5, -0.3, 0.99, 0.9999)  # first-order a at the corners
 # T of the crossover table that sets iir.PALLAS_IIR_MIN_T
 IIR_CROSSOVER_T = (1, 64, 512, 4096, 16384, 65536, 262144, 1 << 20, 1 << 22)
+# The wideband receiver's main path: the JAX package's channelizer benchmark
+# point (64 channels, 64M samples, channelizer.py:410-414), FM tones on four
+# channels. Tolerances relative to max|y|: the JAX package's bounds for its
+# fused PFB (tests/test_channelizer.py:176-177) and its segment Farrow
+# kernel (tests/test_farrow.py:208-209).
+WIDE_T = 1 << 26
+WIDE_TONES = (5, 12, 20, 37)
+PFB_RTOL, FARROW_RTOL = 1e-5, 2e-5
+# B21's corners: two primes past the phase-matrix envelope and their
+# neighbours (tests/test_farrow.py:235), small and audio ratios, pi/3 snapped
+FARROW_RATES = ((46337, 65521), (46349, 65521), (46351, 65537), (3, 7), (48000, 44100), np.pi / 3)
+FARROW_MAIN_RATE = (46337, 65521)
+CHAIN_RATE = (441, 2560)  # 44.1 kHz from the chain's 256 kHz audio (tests/test_models.py:188)
+FARROW_AB_RATES = (CHAIN_RATE, (160, 147), (3, 2))  # B21 against the matmul route at these
+PFB_SWEEP_TAPS = (1, 2, 4, 8, 16)  # B19's time by taps a phase, on the 2^26 stream
 # The H100 SXM's memory rate, and its peak rate of int32 adds outside the
 # tensor cores: a clock of an SM issues 64 lanes of IADD3, two adds each
 # (three operands), and 64 lanes of IMAD on the FMA pipe, one add each
@@ -1083,6 +1133,392 @@ def phase_iir_serve(wav: np.ndarray, split: int) -> None:
         print(f"  {ms:9.3f} ms  {count:4d} x  {key[:80]}")
 
 
+def pfb64(src: np.ndarray, raw: bool, n: int, hq: np.ndarray, sign: int, d: int):
+    """B19's (raw) and B20's formula in float64 on the host: (re, im), each (M, N)."""
+    m = src.size // n if raw else src.shape[0]
+    mm, qq = np.meshgrid(np.arange(m), np.arange(n), indexing="ij")
+    s64 = src.astype(np.float64)
+    v = np.zeros((m, n))
+    for r in range(hq.shape[0]):
+        mr = mm - d * r
+        if raw:
+            idx = mr * n - qq
+            val = np.where(idx >= 0, s64[np.clip(idx, 0, None)], 0.0)
+        else:
+            val = np.where(mr >= 0, s64[np.clip(mr, 0, None), qq], 0.0)
+        v += hq[r].astype(np.float64) * val
+    y = np.fft.fft(v, axis=1)
+    return y.real, -sign * y.imag
+
+
+def pfb_plain(src: torch.Tensor, raw: bool, n: int, hq: torch.Tensor, sign: int, d: int,
+              layout: str = "rows"):
+    """The plain version of B19 (raw) or B20 on the same inputs, in ``layout``."""
+    out = chz._pfb_plain(chz.commutate(src, n) if raw else src, hq, sign, d, layout)
+    return out if layout == "complex" else tuple(o.contiguous() for o in out)
+
+
+def farrow64(x: torch.Tensor, up: int, down: int, m_out: int) -> np.ndarray:
+    """The exact schedule and the cubic Lagrange stencil in float64 on the host."""
+    x64 = x.double().cpu().numpy()
+    ext = np.concatenate([np.zeros((x64.shape[0], 4)), x64], axis=1)
+    num = 4 * up + np.arange(m_out, dtype=np.int64) * down
+    n = num // up
+    mu = (num % up).astype(np.float64) / up
+    g = [ext[:, n - 1 + j] for j in range(4)]
+    return (-mu * (mu - 1) * (mu - 2) / 6 * g[0] + (mu - 1) * (mu + 1) * (mu - 2) / 2 * g[1]
+            - mu * (mu + 1) * (mu - 2) / 2 * g[2] + mu * (mu + 1) * (mu - 1) / 6 * g[3])
+
+
+def phase_pfb_corners(rng, dev, check: Checker) -> None:
+    """B19, B20 and B21 against their plain versions and float64 at their corners."""
+    def planes(kernel: str, got, want, want64, label: str) -> None:
+        scale = torch.tensor([max(w.abs().max().item() for w in want)])
+        for g, w, w64 in zip(got, want, want64):
+            check.close(kernel, g, w, f"{label} against plain", PFB_RTOL, scale)
+            w64t = torch.from_numpy(w64).float().to(dev)
+            check.close(kernel, g, w64t, f"{label} against float64", PFB_RTOL, scale)
+
+    def pair(kernel: str, src: np.ndarray, n: int, hq: np.ndarray, sign: int, d: int, label: str):
+        raw = kernel == "B19"
+        s, h = torch.from_numpy(src).to(dev), torch.from_numpy(hq).to(dev)
+        if raw:
+            got = chz.fused_pfb_raw(s, n, h, dilation=d)
+        else:
+            got = chz.fused_branch_dft(s, h, sign=sign, dilation=d)
+        planes(kernel, got, pfb_plain(s, raw, n, h, sign, d), pfb64(src, raw, n, hq, sign, d), label)
+        layout = "complex" if raw else "channels"
+        fn = chz.fused_pfb_raw if raw else chz.fused_branch_dft
+        args = (s, n, h) if raw else (s, h)
+        got = fn(*args, sign=sign, dilation=d, layout=layout)
+        want = pfb_plain(s, raw, n, h, sign, d, layout)
+        if raw:
+            got, want = torch.view_as_real(got), torch.view_as_real(want)
+        check.close(kernel, got if raw else got[1], want if raw else want[1], f"{label} {layout}")
+
+    for n in (32, 48, 64, 96, 128, 256, 512, 1024):
+        rows, step = chz.pfb_rows(n), max(1, 128 // n)
+        for p, d in ((2, 1), (2, 2), (8, 1), (8, 2), (16, 1), (16, 2)):
+            hq = (rng.standard_normal((p, n)) / np.sqrt(p)).astype(np.float32)
+            sign = 1 if d == 1 else -1
+            # whole blocks, a ragged last block, a stream shorter than the look-back
+            for m in sorted({2 * rows, 2 * rows + step, step}):
+                if chz.raw_envelope(m * n, n):
+                    x = rng.standard_normal(m * n, dtype=np.float32)
+                    pair("B19", x, n, hq, 1, d, f"B19 n={n} P={p} d={d} M={m}")
+                u = rng.standard_normal((m, n), dtype=np.float32)
+                pair("B20", u, n, hq, sign, d, f"B20 n={n} P={p} d={d} sign={sign} M={m}")
+    # zeros stay zero; impulses on both sides of a block edge
+    n, rows = 64, chz.pfb_rows(64)
+    hq = rng.standard_normal((8, n), dtype=np.float32)
+    zero = chz.fused_pfb_raw(torch.zeros(n * 4 * rows, device=dev), n, torch.from_numpy(hq).to(dev))
+    zb = chz.fused_branch_dft(torch.zeros(4 * rows, 48, device=dev), torch.ones(8, 48, device=dev))
+    torch.cuda.synchronize()
+    if any(torch.count_nonzero(z).item() for z in (*zero, *zb)):
+        raise AssertionError("a zero input gave a nonzero PFB output")
+    for edge in (rows * n - 1, rows * n):
+        x = np.zeros(n * 4 * rows, np.float32)
+        x[edge] = 1.0
+        pair("B19", x, n, hq, 1, 1, f"B19 impulse at sample {edge}")
+    # B21 over the rates, channels and lengths
+    for rate in FARROW_RATES:
+        up, down = fw.as_rational_rate(rate)
+        for c in (1, 2, 16):
+            for t in (4, 5, 100, 1 << 20):
+                x = torch.from_numpy(rng.standard_normal((c, t), dtype=np.float32)).to(dev)
+                m_out = fw.farrow_output_len(t, (up, down))
+                y = fw.resample_farrow_segmented(x, (up, down))
+                label = f"B21 {up}/{down} C={c} T={t}"
+                check.close("B21", y, fw.segmented_plain(x, up, down, m_out), f"{label} against plain",
+                            FARROW_RTOL)
+                k = c if t < (1 << 20) else 1  # float64: every channel, or the first on long streams
+                want = torch.from_numpy(farrow64(x[:k], up, down, m_out)).float().to(dev)
+                check.close("B21", y[:k], want, f"{label} against float64", FARROW_RTOL)
+    # the matmul spellings (Farrow's phase matrix, the composed bank's DFT) stay IEEE
+    # float32 when the caller has turned TF32 on: their error against float64 stays
+    # far below TF32's 10 mantissa bits
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        x = torch.from_numpy(rng.standard_normal((16, 1 << 16), dtype=np.float32)).to(dev)
+        up, down = CHAIN_RATE
+        y = fw.resample_farrow(x, CHAIN_RATE, method="matmul")
+        want = farrow64(x, up, down, y.shape[1])
+        ferr = np.abs(y.double().cpu().numpy() - want).max() / np.abs(want).max()
+        s = rng.standard_normal(64 * 4096, dtype=np.float32)
+        hq = chz.design_prototype(64, 8).reshape(8, 64)
+        got = pfb_channelize(torch.from_numpy(s).to(dev), 64, method="composed")
+        re, im = pfb64(s, True, 64, hq, 1, 1)
+        want = (re + 1j * im).T
+        perr = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    if not (ferr < FARROW_RTOL and perr < PFB_RTOL):
+        raise AssertionError(f"a matmul spelling ran in TF32: Farrow {ferr:.2e}, PFB {perr:.2e}")
+    print(
+        "[3 PFB/Farrow corners] n {32, 48, 64, 96, 128, 256, 512, 1024} (B19 inside its envelope), "
+        "P {2, 8, 16}, d {1, 2} (B20 sign -1 at d=2), whole and ragged blocks and streams shorter "
+        f"than the look-back, the three layouts, zeros exact, impulses at a block edge: B19 "
+        f"{check.count['B19']} and B20 {check.count['B20']} checks within {PFB_RTOL} of plain and "
+        f"float64 (x max|Y|); B21 rates {[fw.as_rational_rate(r) for r in FARROW_RATES]}, C {{1, 2, "
+        f"16}}, T {{4, 5, 100, 2^20}}: {check.count['B21']} checks within {FARROW_RTOL} of plain and "
+        "float64; max abs error " + ", ".join(f"{k} {check.max_err[k]:.3e}" for k in PFB_KERNELS)
+        + f"; with TF32 turned on by the caller the Farrow matmul's relative error against float64 "
+        f"{ferr:.2e} and the composed bank's {perr:.2e} (IEEE float32)"
+    )
+
+
+def fm_wideband(dev, t: int, n: int) -> torch.Tensor:
+    """A real wideband stream: FM tones centred on channels WIDE_TONES of an n-channel
+    bank (message 0.002 * (1 + j/4) cycles a sample, deviation 0.1/n cycles a sample,
+    tests/test_wideband.py's tone), plus Gaussian noise of 0.01 drawn on the card from
+    seed 0."""
+    idx = torch.arange(t, dtype=torch.float64, device=dev)
+    x = torch.zeros(t, dtype=torch.float64, device=dev)
+    for j, k in enumerate(WIDE_TONES):
+        msg = torch.sin(2 * np.pi * 0.002 * (1 + j / 4) * idx)
+        dphi = (0.1 / n) * 2 * np.pi * torch.cumsum(msg, 0)
+        x += torch.cos(2 * np.pi * torch.remainder(k / n * idx, 1.0) + dphi)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return (x / len(WIDE_TONES)).float() + 0.01 * torch.randn(t, device=dev, generator=gen)
+
+
+def farrow_route(up: int, down: int) -> str:
+    """The route ``resample_farrow``'s ``auto`` takes on the card."""
+    return "matmul" if up * down <= fw.MATMUL_MAX_PRODUCT_CUDA else "segmented"
+
+
+def phase_wideband_main(dev, check: Checker, chain_main: dict) -> tuple[dict, dict]:
+    """The wideband receiver, the oversampled bank and the Farrow stage through their
+    entry points at full size, counts reset around."""
+    x = fm_wideband(dev, WIDE_T, 64)
+    x48 = x[: 48 * (WIDE_T // 64)]
+    proto = chz.design_prototype(64, 8)
+    i, q = chain_main["i"], chain_main["q"]
+    rx64 = WidebandFmReceiver(WidebandConfig(), device=dev)
+    rx1024 = WidebandFmReceiver(WidebandConfig(n_channels=1024), device=dev)
+    locked = DspChain(ChainConfig(channels=16, decimation=8, audio_resample=CHAIN_RATE), device=dev)
+    torch.cuda.synchronize()
+    routes, ys = {}, {}
+    reset_launch_counts()
+    ys["rx64"] = rx64(x)
+    routes["rx64"] = last_choice("pfb_channelize")
+    ys["rx1024"] = rx1024(x)
+    routes["rx1024"] = last_choice("pfb_channelize")
+    ys["planes1024"] = rx1024.channelize(x)
+    ys["one_shot"] = pfb_channelize(x, 64)
+    state, chunks = pfb_stream_init(64, device=dev), []
+    for part in range(8):
+        state, y = pfb_channelize_chunk(state, x[part * WIDE_T // 8 : (part + 1) * WIDE_T // 8], 64)
+        chunks.append(y)
+    routes["chunks"] = last_choice("pfb_channelize")
+    ys["os"] = pfb_analyze_os(x, 64, proto)
+    ys["os_synth"] = pfb_synthesize_os(*ys["os"], 64, proto * 32)
+    ys["fused48"] = pfb_channelize(x48, 48, method="fused")
+    routes["fused48"] = last_choice("pfb_channelize")
+    ys["locked"] = locked.forward_planar(i, q)
+    routes["locked"] = last_choice("resample_farrow")
+    ys["farrow"] = fw.resample_farrow(i, FARROW_MAIN_RATE)
+    routes["farrow"] = last_choice("resample_farrow")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"[4 wideband] routes {routes}; launches {launches}")
+    want_routes = {"rx64": "fused_raw", "rx1024": "fused_raw", "chunks": "fused_raw",
+                   "fused48": "fused", "locked": farrow_route(*CHAIN_RATE),
+                   "farrow": farrow_route(*FARROW_MAIN_RATE)}
+    if routes != want_routes:
+        raise AssertionError(f"routes {routes}; want {want_routes}")
+    if min(launches[k] for k in PFB_KERNELS) < 1:
+        raise AssertionError(f"the wideband main path never launched one of {PFB_KERNELS}: {launches}")
+    # the receivers against the same receivers on the CPU, on the whole stream
+    xc = x.cpu()
+    cpu64 = WidebandFmReceiver(WidebandConfig(), device="cpu")
+    want = cpu64(xc).numpy()
+    got = ys["rx64"].cpu().numpy()
+    if got.shape != (64, WIDE_T // 64) or not np.isfinite(got).all():
+        raise AssertionError(f"receiver: shape {got.shape} or non-finite output")
+    r = cpu64.config.taps_per_phase + cpu64.config.audio_taps
+    live = np.flatnonzero(np.abs(want[:, r:]).max(axis=1) > 0)
+    tones = {k for k in WIDE_TONES} | {64 - k for k in WIDE_TONES}
+    if not np.array_equal(live, np.flatnonzero(np.abs(got[:, r:]).max(axis=1) > 0)):
+        raise AssertionError("the receiver's squelch gates differ from the CPU's")
+    if set(live.tolist()) != tones:
+        raise AssertionError(f"live channels {live.tolist()}, want the tones {sorted(tones)}")
+    np.testing.assert_allclose(got[:, r:], want[:, r:], rtol=1e-3, atol=1e-4)
+    wide = ys["rx1024"]
+    if wide.shape != (1024, WIDE_T // 1024) or not bool(torch.isfinite(wide).all()):
+        raise AssertionError(f"1024 channels: shape {tuple(wide.shape)} or non-finite output")
+    ci, cq = WidebandFmReceiver(WidebandConfig(n_channels=1024), device="cpu").channelize(xc)
+    check.close("B19", ys["planes1024"][0].cpu(), ci, "1024-channel I against the CPU")
+    check.close("B19", ys["planes1024"][1].cpu(), cq, "1024-channel Q against the CPU")
+    # the one shot against its plain version; the chunks against one shot
+    hq = rx64.prototype.view(8, 64)
+    check.close("B19", torch.view_as_real(ys["one_shot"]),
+                torch.view_as_real(pfb_plain(x, True, 64, hq, 1, 1, "complex")), "one shot 2^26 against plain")
+    check.close("B19", torch.view_as_real(torch.cat(chunks, 1)), torch.view_as_real(ys["one_shot"]),
+                "8 chunks against one shot")
+    # the oversampled bank is causal: its first columns are the CPU's on a prefix
+    pre = 1 << 16
+    yi, yq = pfb_analyze_os(xc[:pre], 64, proto)
+    s = pre // 32
+    check.close("B20", ys["os"][0][:, :s].cpu(), yi, "pfb_analyze_os I against the CPU on 2^16")
+    check.close("B20", ys["os"][1][:, :s].cpu(), yq, "pfb_analyze_os Q against the CPU on 2^16")
+    syn = pfb_synthesize_os(yi, yq, 64, proto * 32)
+    err = (ys["os_synth"][:pre].cpu() - syn).abs().max().item()
+    if ys["os_synth"].shape != (WIDE_T,) or not err <= 1e-4 * syn.abs().max().item():
+        raise AssertionError(f"pfb_synthesize_os: shape {tuple(ys['os_synth'].shape)}, error {err:.3e}")
+    hq48 = chz._phase_taps(None, 48, dev)
+    check.close("B20", torch.view_as_real(ys["fused48"]),
+                torch.view_as_real(pfb_plain(chz.commutate(x48, 48), False, 48, hq48, 1, 1, "complex")),
+                "fused n=48 on 48 x 2^20 against plain")
+    # the locked chain against the CPU over the first 2^16 samples; B21 at 16 x 2^22
+    cpu = DspChain(locked.config, device="cpu").forward_planar(i[:, :pre].cpu(), q[:, :pre].cpu())
+    r = (257 + 64) // 8 + 63
+    np.testing.assert_allclose(ys["locked"][:, r : cpu.shape[1]].cpu().numpy(), cpu[:, r:].numpy(),
+                               rtol=1e-3, atol=1e-4)
+    if ys["locked"].shape != (16, fw.farrow_output_len(CHAIN_T // 8, CHAIN_RATE)):
+        raise AssertionError(f"locked chain: shape {tuple(ys['locked'].shape)}")
+    up, down = FARROW_MAIN_RATE
+    m_out = fw.farrow_output_len(CHAIN_T, FARROW_MAIN_RATE)
+    check.close("B21", ys["farrow"], fw.segmented_plain(i, up, down, m_out), "16 x 2^22 against plain",
+                FARROW_RTOL)
+    want = torch.from_numpy(farrow64(i[:1, :8192], up, down, 4096)).float().to(dev)
+    check.close("B21", ys["farrow"][:1, :4096], want, "16 x 2^22 against float64", FARROW_RTOL)
+    print(
+        f"[4 wideband] 2^26 samples, FM tones on channels {WIDE_TONES} of 64: the receiver within "
+        "rtol 1e-3 / atol 1e-4 of the receiver on the CPU, the same squelch gates (the tones and "
+        f"their images live); at 1024 channels finite, its planes within {PFB_RTOL} of the CPU's; "
+        f"one shot within {PFB_RTOL} of plain and 8 chunks of one shot; pfb_analyze_os (B20, d=2) "
+        "and its synthesis against the CPU on 2^16; n=48 fused (B20) against plain; the chain "
+        f"locked to {CHAIN_RATE} on 16 x 2^22 within rtol 1e-3 of the CPU's; resample_farrow "
+        f"{FARROW_MAIN_RATE} on 16 x 2^22 (B21) within {FARROW_RTOL} of plain and float64"
+    )
+    return launches, {"x": x, "x48": x48, "rx64": rx64, "rx1024": rx1024, "i": i}
+
+
+def phase_wideband_times(main: dict) -> dict:
+    """B19, B20 and B21 at the main path's shapes, and B21 against the matmul route."""
+    x, dev = main["x"], main["x"].device
+    t = x.numel()
+
+    def fft_flops(rows: int, n: int) -> float:
+        return rows * 5 * n * np.log2(n)  # a complex n-point FFT's nominal count
+
+    out = {}
+    for n, rx in ((64, main["rx64"]), (1024, main["rx1024"])):
+        hq = rx.prototype.view(-1, n)
+        ms, plain = time_pair(lambda: chz.fused_pfb_raw(x, n, hq, layout="channels"),
+                              lambda: pfb_plain(x, True, n, hq, 1, 1, "channels"))
+        v = torch.randn(t // n, n, device=dev)
+        fft = statistics.median(device_ms(lambda: torch.fft.fft(v), 2, 5))
+        flops = fft_flops(t // n, n) + 2 * hq.shape[0] * t
+        out[f"B19 n={n}"] = {"ms": ms, "plain": plain, "fft": fft,
+                             "bound": bound(12 * t, flops, FP32_FLOPS_PER_S)}
+    # B19 by taps a phase at both widths: what each look-back row costs
+    by_taps = {}
+    for n in (64, 1024):
+        for p in PFB_SWEEP_TAPS:
+            hq = torch.randn(p, n, device=dev)
+            by_taps[n, p] = statistics.median(
+                device_ms(lambda: chz.fused_pfb_raw(x, n, hq, layout="channels"), 5, 10))
+    # B20: pfb_analyze_os's commutated (2^21, 64) tensor at dilation 2; the n=48 fused route
+    hq = torch.from_numpy(chz.design_prototype(64, 8)).to(dev).view(8, 64)
+    w = torch.randn(t // 32, 64, device=dev)
+    ms, plain = time_pair(lambda: chz.fused_branch_dft(w, hq, dilation=2, layout="channels"),
+                          lambda: pfb_plain(w, False, 64, hq, 1, 2, "channels"))
+    out["B20 os"] = {"ms": ms, "plain": plain, "bound": bound(
+        12 * w.numel(), fft_flops(t // 32, 64) + 16 * w.numel(), FP32_FLOPS_PER_S)}
+    u48 = chz.commutate(main["x48"], 48)
+    hq48 = chz._phase_taps(None, 48, dev)
+    ms, plain = time_pair(lambda: chz.fused_branch_dft(u48, hq48, layout="complex"),
+                          lambda: pfb_plain(u48, False, 48, hq48, 1, 1, "complex"))
+    out["B20 n=48"] = {"ms": ms, "plain": plain, "bound": bound(
+        12 * u48.numel(), fft_flops(u48.shape[0], 48) + 16 * u48.numel(), FP32_FLOPS_PER_S)}
+    # B21 beyond the matrix envelope at 16 x 2^22: x read once, y written once
+    xi = main["i"]
+    up, down = FARROW_MAIN_RATE
+    m_out = fw.farrow_output_len(CHAIN_T, FARROW_MAIN_RATE)
+    ms, plain = time_pair(lambda: fw.resample_farrow_segmented(xi, FARROW_MAIN_RATE),
+                          lambda: fw.segmented_plain(xi, up, down, m_out))
+    out["B21"] = {"ms": ms, "plain": plain,
+                  "bound": bound(4 * xi.numel() + 4 * 16 * m_out, 20 * 16 * m_out, FP32_FLOPS_PER_S)}
+    print("[5 wideband times] device ms, median of 10 after 5 warm-ups (torch.fft.fft 5 after 2):")
+    for name, v in out.items():
+        extra = f"; torch.fft.fft of the (M, N) rows alone {v['fft']:.4f}" if "fft" in v else ""
+        print(f"  {name:10s} {v['ms']:.4f} ms; plain {v['plain']:.4f}; bound {v['bound'][0]:.4f} "
+              f"({v['bound'][1]}); kernel/bound {v['ms'] / v['bound'][0]:.2f}{extra}")
+    for n in (64, 1024):
+        print(f"  B19 n={n} by taps a phase: " + ", ".join(
+            f"P={p} {by_taps[n, p]:.4f} ms" for p in PFB_SWEEP_TAPS))
+    # B21 against the matmul route at the chain's audio shape and at 16 x 2^22
+    print("[5 Farrow routes] B21 (segmented) against matmul, device ms (median of 10 after 5):")
+    faster = []
+    for rate in FARROW_AB_RATES:
+        for cols in (CHAIN_T // 8, CHAIN_T):
+            xs = xi[:, :cols].contiguous()
+            seg, mat = time_pair(lambda: fw.resample_farrow(xs, rate, method="segmented"),
+                                 lambda: fw.resample_farrow(xs, rate, method="matmul"))
+            if seg < mat:
+                faster.append((rate, cols))
+            print(f"  {rate[0]}/{rate[1]} 16 x {cols}: segmented {seg:.4f}, matmul {mat:.4f}, "
+                  f"matmul/segmented {mat / seg:.2f}")
+    print(f"  segmented faster at {faster}; on the card auto takes matmul while up*down <= "
+          f"{fw.MATMUL_MAX_PRODUCT_CUDA} (MATMUL_MAX_PRODUCT_CUDA), else segmented")
+    return out
+
+
+def phase_wideband_profile(main: dict) -> None:
+    """The wideband receiver's wall time, and its device time by stage under torch.profiler."""
+    rx, x = main["rx64"], main["x"]
+    cfg = rx.config
+
+    def forward() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rx(x)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    forward()
+    walls = [forward() for _ in range(3)]
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def profiled(fn) -> tuple[float, float, list]:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = device_rows(prof)
+        return wall, sum(r[2] for r in rows), rows
+
+    wall, device, rows = profiled(lambda: rx(x))
+    print(
+        f"[7 wideband] 64 channels, 2^26 samples: wall {', '.join(f'{w:.2f}' for w in walls)} ms; "
+        f"profiled wall {wall:.2f} ms, device {device:.3f} ms, device idle {1 - device / wall:.3f}"
+    )
+    i, q = rx.channelize(x)
+    audio = fm_demodulate(torch.complex(i, q), gain=cfg.fm_gain)
+    filtered = fir.fir_direct(audio, rx.audio_taps)
+    stages = {
+        "channelize": lambda: rx.channelize(x),
+        "FM demod": lambda: fm_demodulate(torch.complex(i, q), gain=cfg.fm_gain),
+        "audio FIR": lambda: fir.fir_direct(audio, rx.audio_taps),
+        "squelch": lambda: rx.squelch(filtered, i, q),
+    }
+    for name, fn in stages.items():
+        fn()
+        _, dev_ms, stage_rows = profiled(fn)
+        top = max(stage_rows, key=lambda r: r[2]) if stage_rows else ("none", 0, 0.0)
+        print(
+            f"  {name:12s} device {dev_ms:8.3f} ms in {sum(r[1] for r in stage_rows):3d} "
+            f"kernels; largest {top[2]:.3f} ms {top[0][:60]}"
+        )
+    for key, count, ms in rows[:8]:
+        print(f"  {ms:9.3f} ms  {count:4d} x  {key[:80]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1127,6 +1563,8 @@ def main() -> int:
     mark("3 corners")
     phase_iir_corners(rng, dev, check)
     mark("3 IIR corners")
+    phase_pfb_corners(rng, dev, check)
+    mark("3 PFB/Farrow corners")
 
     # 4. main path
     x = torch.from_numpy(rng.integers(-32768, 32768, size=MAIN_SAMPLES, dtype=np.int16)).to(dev)
@@ -1213,6 +1651,9 @@ def main() -> int:
     # 4. main path of the IIR family: sosfilt, dc_block/agc, filtfilt, decimate, serving
     iir_launches, iir_main = phase_iir_main(rng, dev, check, wav, 2 * frames_a)
     mark("4 IIR main path")
+    # 4. main path of the wideband receiver, the oversampled bank and the Farrow stage
+    wide_launches, wide_main = phase_wideband_main(dev, check, chain_main)
+    mark("4 wideband main path")
 
     # 5. times
     n = MAIN_SAMPLES
@@ -1292,6 +1733,8 @@ def main() -> int:
     mark("5 averager and FIR times")
     iir_times = phase_iir_times(iir_main)
     mark("5 IIR times")
+    wide_times = phase_wideband_times(wide_main)
+    mark("5 wideband times")
 
     # 6. serving loops
     phase_serve_profile(wav, 2 * frames_a)
@@ -1301,6 +1744,8 @@ def main() -> int:
     # 7. the receiver chain's wall and device time
     phase_chain_profile(chain_main)
     mark("7 chain profile")
+    phase_wideband_profile(wide_main)
+    mark("7 wideband profile")
 
     def entry(name, kernel, source, replaces, ms, plain_ms, library_ms=None):
         return {
@@ -1355,6 +1800,20 @@ def main() -> int:
                     ("sos_cascade", "B12", "1249"),
                     ("sos_cascade_unrolled", "B13", "1114"),
                     ("sos_sections", "B15", "761"),
+                )
+            ),
+            *(
+                {
+                    "name": name, "route": "cuda", "source": SOURCE + source, "replaces": replaces,
+                    "launches": wide_launches[kernel], "max_abs_err": check.max_err[kernel],
+                    "ms": wide_times[key]["ms"], "plain_ms": wide_times[key]["plain"],
+                    "bound_ms": wide_times[key]["bound"][0], "bound_by": wide_times[key]["bound"][1],
+                    "library_ms": None,
+                }
+                for name, kernel, key, source, replaces in (
+                    ("fused_pfb_raw", "B19", "B19 n=64", "pfb.cu", REPLACES_PFB + "191"),
+                    ("fused_branch_dft", "B20", "B20 os", "pfb.cu", REPLACES_PFB + "78"),
+                    ("resample_farrow_segmented", "B21", "B21", "farrow.cu", REPLACES_FARROW + "503"),
                 )
             ),
         ]

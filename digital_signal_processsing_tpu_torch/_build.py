@@ -61,6 +61,12 @@ _SIGNATURES = {
     "dsp_sos_sections": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, y, table, carry, M, n, channels, tile, stream
     "dsp_iir1": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x (B19) or u (B20), hq, twiddles, re, im, M, N, P, dilation, sign, stride of k,
+    # stride of m, rows, smem_bytes, stream
+    "dsp_pfb_raw": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "dsp_pfb_branch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, y, t, channels, m_out, up, down, segment, 1/up, stream
+    "dsp_farrow": (_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P),
 }
 
 

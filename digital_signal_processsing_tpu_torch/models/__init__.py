@@ -8,6 +8,7 @@ from .chain import (  # noqa: F401
     chain_stream_chunk,
     chain_stream_init,
 )
+from .wideband import WidebandConfig, WidebandFmReceiver, wideband_from_jax  # noqa: F401
 
 __all__ = [
     "AVERAGER_ZOO",
@@ -20,4 +21,7 @@ __all__ = [
     "chain_state_from_jax",
     "chain_stream_chunk",
     "chain_stream_init",
+    "WidebandConfig",
+    "WidebandFmReceiver",
+    "wideband_from_jax",
 ]

@@ -11,6 +11,9 @@ Counterpart of ``digital_signal_processsing_tpu/models/chain.py``
       -> polyphase decimate by D (strided conv1d)
       -> FM quadrature discriminator
       -> audio FIR lowpass (conv1d)
+      -> optional Farrow resampling to a non-integer audio rate
+         (``resample_farrow``: B21 on the card, the reference's phase-matrix
+         matmul on the CPU inside its envelope)
 
 ``DspChain`` is an ``nn.Module`` whose taps, decimator taps and LO comb are
 buffers on its device (the card unless ``device="cpu"``). When the
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from ..ops.demod import fm_demodulate, oscillator_bank
+from ..ops.farrow import resample_farrow
 from ..ops.fft_mxu import TapResponse, fused_geometry, pick_fused_block, tap_response
 from ..ops.fir import FIR_FFT_CROSSOVER, design_lowpass, fir_direct, fir_filter
 from ..ops.resample import decimate
@@ -45,8 +49,9 @@ class ChainConfig:
     # decimating FIR (the classic channelizer frontend); False keeps the
     # explicit two-stage pipeline, the reference shape and the default.
     fused_frontend: bool = False
-    # lock the audio output to a non-integer rate ratio through the Farrow
-    # stage (B21): not ported yet, DspChain raises if it is set.
+    # lock the audio output to a non-integer rate ratio (e.g. (441, 2560):
+    # 44.1 kHz from 256 kHz) through the Farrow stage; None keeps the
+    # decimated rate.
     audio_resample: float | tuple[int, int] | None = None
 
     def lo_frequencies(self) -> np.ndarray:
@@ -59,10 +64,6 @@ class DspChain(torch.nn.Module):
 
     def __init__(self, config: ChainConfig = ChainConfig(), *, device="cuda"):
         super().__init__()
-        if config.audio_resample is not None:
-            raise NotImplementedError(
-                "ChainConfig.audio_resample (the Farrow stage) is not yet ported (Farrow slice, B21)"
-            )
         self.config = config
         c = config
         self._set_weights(
@@ -101,7 +102,8 @@ class DspChain(torch.nn.Module):
         return TapResponse(self._channel_geometry, self.channel_h, self.channel_h_kernel)
 
     def forward(self, iq: torch.Tensor, t0=0, lo_freqs: torch.Tensor | None = None) -> torch.Tensor:
-        """(channels, T) complex64 -> (channels, T // decimation) float32.
+        """(channels, T) complex64 -> (channels, T // decimation) float32, or
+        ``farrow_output_len(T // decimation, audio_resample)`` columns.
 
         ``t0`` is the global index of the first sample: the LO phase is
         absolute, so chunks and shards mix coherently. ``lo_freqs``
@@ -125,7 +127,10 @@ class DspChain(torch.nn.Module):
             di = decimate(fi, c.decimation, taps=self.decimation_taps)
             dq = decimate(fq, c.decimation, taps=self.decimation_taps)
         audio = fm_demodulate(torch.complex(di, dq), gain=c.fm_gain)
-        return fir_direct(audio, self.audio_taps)
+        audio = fir_direct(audio, self.audio_taps)
+        if c.audio_resample is not None:
+            audio = resample_farrow(audio, c.audio_resample)
+        return audio
 
     def forward_planar(
         self, i: torch.Tensor, q: torch.Tensor, t0=0, lo_freqs: torch.Tensor | None = None

@@ -1,3 +1,17 @@
+from .channelizer import (  # noqa: F401
+    branch_fir,
+    design_prototype,
+    dft_matmul,
+    fused_branch_dft,
+    fused_pfb_raw,
+    pfb_channelize,
+    pfb_channelize_chunk,
+    pfb_channelize_chunk_planar,
+    pfb_channelize_planar,
+    pfb_stream_init,
+    pfb_synthesize,
+    pfb_synthesize_planar,
+)
 from .demod import (  # noqa: F401
     am_demodulate,
     fm_demodulate,
@@ -6,6 +20,24 @@ from .demod import (  # noqa: F401
     oscillator_bank,
 )
 from .direct_xla import moving_average_reduce_window  # noqa: F401
+from .farrow import (  # noqa: F401
+    MATMUL_MAX_PRODUCT,
+    MATMUL_MAX_PRODUCT_CUDA,
+    MAX_DENOMINATOR,
+    FarrowMatmulState,
+    FarrowState,
+    as_rational_rate,
+    farrow_chunk,
+    farrow_init,
+    farrow_matmul_chunk,
+    farrow_matmul_flush,
+    farrow_matmul_init,
+    farrow_matmul_state_from_jax,
+    farrow_output_len,
+    farrow_state_from_jax,
+    resample_farrow,
+    resample_farrow_segmented,
+)
 from .fft_mxu import (  # noqa: F401
     FUSED3_MAX_NFFT,
     FUSED_MAX_NFFT,
@@ -56,6 +88,7 @@ from .pallas_scan import (  # noqa: F401
     windowed_averager,
     windowed_averager_packed,
 )
+from .pfb_os import pfb_analyze_os, pfb_synthesize_os  # noqa: F401
 from .resample import decimate, interpolate, resample_poly  # noqa: F401
 from .scan_xla import cumsum_ref, moving_average_xla  # noqa: F401
 from .streaming import (  # noqa: F401
@@ -80,6 +113,9 @@ def launch_counts() -> dict[str, int]:
         "B12": sos_cascade.launches,
         "B13": sos_cascade_unrolled.launches,
         "B15": sos_sections.launches,
+        "B19": fused_pfb_raw.launches,
+        "B20": fused_branch_dft.launches,
+        "B21": resample_farrow_segmented.launches,
     }
 
 
@@ -87,7 +123,8 @@ def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     for fn in (
         windowed_averager, windowed_averager_packed, cumsum, direct_averager, fused_fir, fused_fir3,
-        iir1_block_scan, sos_cascade, sos_cascade_unrolled, sos_sections,
+        iir1_block_scan, sos_cascade, sos_cascade_unrolled, sos_sections, fused_pfb_raw,
+        fused_branch_dft, resample_farrow_segmented,
     ):
         fn.launches = 0
     scan_averager.launches = dict.fromkeys(SCAN_VARIANTS, 0)

@@ -1,0 +1,379 @@
+"""Polyphase filter-bank (PFB) channelizer: one wideband stream into N bands.
+
+Counterpart of ``digital_signal_processsing_tpu/ops/channelizer.py``:
+
+    Y[k, m] = sum_j h[j] x[N*m - j] * e^{2*pi*i*k*j/N}
+            = sum_q v_q[m] e^{2*pi*i*q*k/N},   v_q = h_q (*) u_q
+
+with branch taps h_q[r] = h[r*N + q] and branch inputs u_q[m] = x[N*m - q]
+(the reverse-running commutator, zeros before the stream).
+
+Routes of :func:`pfb_channelize`, with the reference's names:
+
+- ``fused_raw``: B19 (``csrc/pfb.cu``), the branch FIR and the channel DFT
+  straight from the raw stream, envelope as the reference's;
+- ``fused``: B20 (``csrc/pfb.cu``), the same on the commutated (M, N)
+  tensor u, for any N;
+- ``composed``: ``branch_fir`` + ``dft_matmul`` in plain PyTorch;
+- ``auto``: on a CUDA tensor with more than one tap a phase, ``fused_raw``
+  inside B19's envelope and ``fused`` outside it; otherwise ``composed``.
+
+The kernels' wrappers :func:`fused_pfb_raw` and :func:`fused_branch_dft`
+take their plain version (the composed pair on the same inputs) for a tensor
+on the CPU; for a CUDA tensor they launch the kernel, add one to their
+``launches`` count, and raise if the build or the launch fails. Their
+``layout`` writes the planes the caller returns: ``rows`` (M, N) planes, the
+reference's; ``channels`` (N, M) planes; ``complex`` one (N, M) complex64
+tensor, so that no transpose or interleave pass follows the kernel.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+from ..utils.device import resolve_device
+from ..utils.dispatch import record_choice
+from ..utils.layout import cdiv
+from .fft_mxu import _twiddles, line_slots
+from .fir import _taps_on, design_lowpass, ieee_fp32_matmul
+from .pallas_scan import _on_cuda, _stream
+
+LAYOUTS = ("rows", "channels", "complex")
+# Largest N the kernels take: a 8192-point line of fft.cuh's slots is 70 KB.
+PFB_MAX_N = 8192
+# Output rows a block of B19/B20 transforms: 4096 points up to N = 512 (35 KB
+# of fft.cuh's slots), 8192 from N = 1024 on (70 KB, 8 rows at 1024).
+PFB_POINTS = 4096
+
+
+def branch_fir(u: torch.Tensor, hq: torch.Tensor, *, dilation: int = 1) -> torch.Tensor:
+    """Per-phase causal FIR over the block index m: (batch, M, N) -> (batch, M, N).
+
+    ``v[b, m, q] = sum_r hq[r, q] * u[b, m - dilation*r, q]``, zeros before
+    m = 0, summed over r in order (as B19 and B20 do).
+    """
+    p, _ = hq.shape
+    m = u.shape[-2]
+    up = F.pad(u.to(torch.float32), (0, 0, dilation * (p - 1), 0))
+    v = None
+    for r in range(p):
+        off = dilation * (p - 1 - r)
+        term = up[..., off : off + m, :] * hq[r]
+        v = term if v is None else v + term
+    return v
+
+
+@functools.lru_cache(maxsize=32)
+def _dft_constants(n: int, sign: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos and sign*sin of 2*pi*q*k/N, in float64 rounded to float32 (the reference's)."""
+    qk = np.outer(np.arange(n), np.arange(n)) * (2.0 * np.pi / n)
+    cos = torch.from_numpy(np.cos(qk).astype(np.float32)).to(device)
+    sin = torch.from_numpy((np.sin(qk) * sign).astype(np.float32)).to(device)
+    return cos, sin
+
+
+def dft_matmul(
+    re_in: torch.Tensor, im_in: torch.Tensor | None, n: int, *, sign: int = 1
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., N) @ DFT_N as matmuls: sum_q v[q] e^{sign*2*pi*i*q*k/N}, in IEEE float32."""
+    cos, sin = _dft_constants(n, sign, str(re_in.device))
+    with ieee_fp32_matmul():
+        if im_in is None:
+            return re_in @ cos, re_in @ sin
+        return re_in @ cos - im_in @ sin, re_in @ sin + im_in @ cos
+
+
+def _check_taps(hq: torch.Tensor, n: int, device: torch.device) -> torch.Tensor:
+    if hq.dim() != 2 or hq.shape[1] != n or hq.shape[0] < 1:
+        raise ValueError(f"hq must be (P, {n}), got shape {tuple(hq.shape)}")
+    if hq.device != device:
+        raise ValueError(f"hq on {hq.device}, signal on {device}")
+    return hq.to(torch.float32).contiguous()
+
+
+def _arrange(re: torch.Tensor, im: torch.Tensor, layout: str):
+    """(M, N) planes in the caller's layout (the plain versions' last step)."""
+    if layout == "rows":
+        return re, im
+    if layout == "channels":
+        return re.T, im.T
+    return torch.complex(re, im).T
+
+
+def _pfb_plain(u: torch.Tensor, hq: torch.Tensor, sign: int, dilation: int, layout: str):
+    v = branch_fir(u[None], hq, dilation=dilation)[0]
+    re, im = dft_matmul(v, None, hq.shape[1], sign=sign)
+    return _arrange(re, im, layout)
+
+
+def commutate(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The branch inputs u[m, q] = x[N*m - q] of a (M*N,) stream, zeros before it."""
+    xp = x.to(torch.float32).reshape(-1, n)
+    rev = xp.flip(1)
+    return torch.cat([xp[:, :1], F.pad(rev[:-1, : n - 1], (0, 0, 1, 0))], dim=1)
+
+
+def pfb_rows(n: int) -> int:
+    """Output rows a block of B19/B20 transforms."""
+    return max(1, PFB_POINTS // n) if n <= 512 else max(1, 2 * PFB_POINTS // n)
+
+
+def pfb_smem_bytes(n: int) -> int:
+    """Shared memory a block takes: complex lines of fft.cuh's slots for a power of
+    two N >= 2, real lines of N + 1 floats for the direct DFT otherwise."""
+    rows = pfb_rows(n)
+    if n >= 2 and n & (n - 1) == 0:
+        return 8 * rows * line_slots(n)
+    return 4 * rows * (n + 1)
+
+
+def _launch(entry: str, src: torch.Tensor, hq: torch.Tensor, m: int, n: int, sign: int,
+            dilation: int, layout: str):
+    if n > PFB_MAX_N:
+        raise ValueError(f"the PFB kernels take N <= {PFB_MAX_N}, got {n}")
+    dev = src.device
+    if layout == "complex":
+        y = torch.empty((n, m), dtype=torch.complex64, device=dev)
+        re_ptr, im_ptr = y.data_ptr(), y.data_ptr() + 4
+        sk, sm = 2 * m, 2
+        out = y
+    else:
+        shape, (sk, sm) = ((m, n), (1, n)) if layout == "rows" else ((n, m), (m, 1))
+        re, im = (torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(2))
+        re_ptr, im_ptr = re.data_ptr(), im.data_ptr()
+        out = (re, im)
+    if m == 0:
+        return out
+    tw = _twiddles(n, str(dev))
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = getattr(lib, entry)(
+            src.data_ptr(), hq.data_ptr(), tw.data_ptr(), re_ptr, im_ptr, m, n, hq.shape[0],
+            dilation, sign, sk, sm, pfb_rows(n), pfb_smem_bytes(n), _stream(src),
+        )
+    _build.check(err, entry)
+    return out
+
+
+def _check_options(sign: int, dilation: int, layout: str) -> None:
+    if sign not in (1, -1):
+        raise ValueError(f"sign must be +1 or -1, got {sign}")
+    if dilation < 1:
+        raise ValueError(f"dilation must be >= 1, got {dilation}")
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; options {LAYOUTS}")
+
+
+def fused_branch_dft(
+    u: torch.Tensor, hq: torch.Tensor, *, sign: int = 1, dilation: int = 1, layout: str = "rows"
+):
+    """Fused ``branch_fir`` + ``dft_matmul`` (real input) by B20: (M, N) -> planes.
+
+    Returns (re, im) in ``layout`` "rows" (M, N) or "channels" (N, M), or one
+    (N, M) complex64 tensor for "complex".
+    """
+    _check_options(sign, dilation, layout)
+    if not isinstance(u, torch.Tensor) or u.dim() != 2:
+        raise ValueError("u must be an (M, N) tensor")
+    m, n = u.shape
+    hq = _check_taps(hq, n, u.device)
+    if not _on_cuda(u):
+        return _pfb_plain(u, hq, sign, dilation, layout)
+    y = _launch("dsp_pfb_branch", u.to(torch.float32).contiguous(), hq, m, n, sign, dilation,
+                layout)
+    fused_branch_dft.launches += 1
+    return y
+
+
+fused_branch_dft.launches = 0
+
+
+def raw_envelope(t: int, n: int) -> bool:
+    """B19's envelope, the reference's: T % 128 == 0 with n in (32, 64, 128), or
+    T % n == 0 with n in (256, 512, 1024)."""
+    if n <= 128:
+        return t % 128 == 0 and n in (32, 64, 128)
+    return n in (256, 512, 1024) and t % n == 0
+
+
+def fused_pfb_raw(
+    x: torch.Tensor, n: int, hq: torch.Tensor, *, sign: int = 1, dilation: int = 1,
+    layout: str = "rows",
+):
+    """Raw-stream fused PFB analysis by B19: (T,) float32 -> planes (``layout`` as
+    for :func:`fused_branch_dft`; the reference's (M, N) planes by default)."""
+    _check_options(sign, dilation, layout)
+    t = x.shape[-1]
+    if not raw_envelope(t, n):
+        raise ValueError(
+            "fused_pfb_raw needs len % 128 == 0 and n in "
+            f"(32, 64, 128, 256, 512, 1024); got len={t}, n={n}"
+        )
+    if x.dim() != 1:
+        raise ValueError(f"expected a flat (time,) stream, got shape {tuple(x.shape)}")
+    hq = _check_taps(hq, n, x.device)
+    if not _on_cuda(x):
+        return _pfb_plain(commutate(x, n), hq, sign, dilation, layout)
+    y = _launch("dsp_pfb_raw", x.to(torch.float32).contiguous(), hq, t // n, n, sign, dilation,
+                layout)
+    fused_pfb_raw.launches += 1
+    return y
+
+
+fused_pfb_raw.launches = 0
+
+
+def design_prototype(
+    n_channels: int, taps_per_phase: int = 8, *, window: str | tuple = "hamming"
+) -> np.ndarray:
+    """Prototype lowpass for an N-channel PFB: cutoff at the channel edge."""
+    return design_lowpass(n_channels * taps_per_phase, 1.0 / n_channels, window=window)
+
+
+def _phase_taps(taps, n: int, device: torch.device) -> torch.Tensor:
+    """(P, N) branch taps hq[r, q] = h[r*N + q] of ``taps`` (the prototype when None)."""
+    h = _taps_on(design_prototype(n) if taps is None else taps, device)
+    p = cdiv(h.shape[0], n)
+    return F.pad(h, (0, p * n - h.shape[0])).reshape(p, n)
+
+
+def _channelize(x: torch.Tensor, n: int, taps, method: str, layout: str):
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"expected a torch.Tensor, got {type(x).__name__}")
+    if x.dim() != 1:
+        raise ValueError(f"expected a flat (time,) stream, got shape {tuple(x.shape)}")
+    t = x.shape[0]
+    if t % n != 0:
+        raise ValueError(f"stream length {t} not a multiple of n_channels {n}")
+    hq = _phase_taps(taps, n, x.device)
+    if method == "auto":
+        if _on_cuda(x) and hq.shape[0] > 1:
+            method = "fused_raw" if raw_envelope(t, n) else "fused"
+        else:
+            method = "composed"
+    if method not in ("fused_raw", "fused", "composed"):
+        raise ValueError(
+            f"unknown method {method!r}; options ('auto', 'fused_raw', 'fused', 'composed')"
+        )
+    record_choice("pfb_channelize", method)
+    if method == "fused_raw":
+        return fused_pfb_raw(x, n, hq, sign=1, layout=layout)
+    u = commutate(x, n)
+    if method == "fused":
+        return fused_branch_dft(u, hq, sign=1, layout=layout)
+    return _pfb_plain(u, hq, 1, 1, layout)
+
+
+def pfb_channelize(
+    x: torch.Tensor, n_channels: int, taps=None, *, method: str = "auto"
+) -> torch.Tensor:
+    """Split a real stream into N complex baseband channels at rate fs/N.
+
+    ``x``: (time,) float32, length a multiple of ``n_channels``. Returns
+    (n_channels, time // n_channels) complex64, channel k centred at
+    normalised frequency k/N cycles a sample (k > N/2 the negative
+    frequencies, as in an FFT).
+    """
+    return _channelize(x, n_channels, taps, method, "complex")
+
+
+def pfb_channelize_planar(
+    x: torch.Tensor, n_channels: int, taps=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`pfb_channelize` as (I, Q) float32 planes, each (N, T/N); on the card
+    the kernel writes the planes directly."""
+    return _channelize(x, n_channels, taps, "auto", "channels")
+
+
+def pfb_synthesize(channels: torch.Tensor, taps=None) -> torch.Tensor:
+    """Inverse of :func:`pfb_channelize`: N complex basebands -> wideband.
+
+    ``x[n] = sum_k sum_m Y[k, m] g[n - m*N] e^{2*pi*i*k*n/N}``: the channel
+    DFT across k, the per-phase interpolation FIR with the gain-compensated
+    prototype, the plain phase interleave. ``channels``: (N, M) complex64 ->
+    (N*M,) complex64.
+    """
+    n, _ = channels.shape
+    g = _phase_taps(taps, n, channels.device) * n
+    yi = channels.real.to(torch.float32).T
+    yq = channels.imag.to(torch.float32).T
+    s_re, s_im = dft_matmul(yi, yq, n)
+    v = branch_fir(torch.stack([s_re, s_im]), g)  # (2, M, N)
+    return torch.complex(v[0].reshape(-1), v[1].reshape(-1))
+
+
+def pfb_synthesize_planar(
+    ch_i: torch.Tensor, ch_q: torch.Tensor, taps=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`pfb_synthesize` with planar I/Q in and out."""
+    y = pfb_synthesize(torch.complex(ch_i.to(torch.float32), ch_q.to(torch.float32)), taps)
+    return y.real, y.imag
+
+
+def pfb_stream_init(n_channels: int, taps_len: int | None = None, *, device="cuda") -> torch.Tensor:
+    """Zero carry for :func:`pfb_channelize_chunk`: the last ceil(taps/N) input
+    blocks (the analysis filter's memory)."""
+    p = cdiv(taps_len or 8 * n_channels, n_channels)
+    return torch.zeros((p * n_channels,), dtype=torch.float32, device=resolve_device(device))
+
+
+def _chunk_ext(state: torch.Tensor, x: torch.Tensor, n: int, taps) -> torch.Tensor:
+    halo = state.shape[0]
+    taps_len = 8 * n if taps is None else int(taps.shape[0])
+    need = cdiv(taps_len, n) * n
+    if halo != need:
+        raise ValueError(
+            f"carried state holds {halo} samples but these taps need {need} "
+            f"(pfb_stream_init(n_channels, taps_len={taps_len}))"
+        )
+    return torch.cat([state, x.to(torch.float32)])
+
+
+def pfb_channelize_chunk(
+    state: torch.Tensor, x: torch.Tensor, n_channels: int, taps=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the analysis bank with the carried raw-sample blocks.
+
+    Prepend the carried blocks, channelize, drop their output columns. The
+    chunk length must be a multiple of ``n_channels``; the outputs match one
+    shot on the concatenated stream to float rounding.
+    """
+    ext = _chunk_ext(state, x, n_channels, taps)
+    halo = state.shape[0]
+    y = pfb_channelize(ext, n_channels, taps)[:, halo // n_channels :]
+    return ext[ext.shape[0] - halo :], y
+
+
+def pfb_channelize_chunk_planar(
+    state: torch.Tensor, x: torch.Tensor, n_channels: int, taps=None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`pfb_channelize_chunk` returning (state, I, Q) float32."""
+    ext = _chunk_ext(state, x, n_channels, taps)
+    halo = state.shape[0]
+    i, q = pfb_channelize_planar(ext, n_channels, taps)
+    return ext[ext.shape[0] - halo :], i[:, halo // n_channels :], q[:, halo // n_channels :]
+
+
+__all__ = [
+    "LAYOUTS",
+    "PFB_MAX_N",
+    "pfb_channelize",
+    "pfb_channelize_planar",
+    "pfb_synthesize",
+    "pfb_synthesize_planar",
+    "pfb_stream_init",
+    "pfb_channelize_chunk",
+    "pfb_channelize_chunk_planar",
+    "branch_fir",
+    "commutate",
+    "fused_branch_dft",
+    "fused_pfb_raw",
+    "dft_matmul",
+    "design_prototype",
+    "raw_envelope",
+]

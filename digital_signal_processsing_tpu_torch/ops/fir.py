@@ -82,6 +82,26 @@ def ieee_fp32_conv():
             cudnn.allow_tf32 = saved
 
 
+@contextlib.contextmanager
+def ieee_fp32_matmul():
+    """Run float32 matrix products on the card in IEEE float32 inside the block.
+
+    PyTorch's default already is IEEE float32, but a caller may have turned
+    TF32 on (``torch.set_float32_matmul_precision``); the products that stand
+    for the reference's ``Precision.HIGHEST`` matmuls pin it. Restored on
+    exit. Newer PyTorch spells it ``torch.backends.cuda.matmul.fp32_precision``;
+    older releases ``allow_tf32``.
+    """
+    matmul = torch.backends.cuda.matmul
+    attr, value = ("fp32_precision", "ieee") if hasattr(matmul, "fp32_precision") else ("allow_tf32", False)
+    saved = getattr(matmul, attr)
+    setattr(matmul, attr, value)
+    try:
+        yield
+    finally:
+        setattr(matmul, attr, saved)
+
+
 def causal_conv(xp: torch.Tensor, taps: torch.Tensor, *, stride: int = 1) -> torch.Tensor:
     """``y[m] = sum_j h[j] x[m*stride - j]``: (c, t) -> (c, t // stride).
 
@@ -274,6 +294,7 @@ def box_taps(window: int) -> np.ndarray:
 __all__ = [
     "FIR_FFT_CROSSOVER",
     "ieee_fp32_conv",
+    "ieee_fp32_matmul",
     "causal_conv",
     "interp_conv",
     "fir_direct",

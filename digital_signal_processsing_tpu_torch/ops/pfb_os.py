@@ -1,0 +1,96 @@
+"""2x-oversampled polyphase filter bank: analysis and synthesis.
+
+Counterpart of ``digital_signal_processsing_tpu/ops/pfb_os.py`` (D = N/2):
+
+  analysis   Y[k,m] = (-1)^{km} sum_q e^{2*pi*i*k*q/N} v_q[m],
+             v_q[m] = sum_r h[rN+q] w_q[m-2r],  w_q[s] = x[Ds - q]
+  synthesis  x[Ds+p] = sum_r g[Dr+p] * T[s-r, p + D*(r mod 2)],
+             T[m, phi] = sum_k (-1)^{km} Y[k,m] e^{2*pi*i*k*phi/N}
+
+On a CUDA tensor with more than one tap a phase the analysis runs through
+B20 (``channelizer.fused_branch_dft``, dilation 2), as the reference does on
+the TPU, writing the (N, S) planes directly; otherwise ``branch_fir`` +
+``dft_matmul``. The prototype designer ``design_pr_prototype`` (gradient
+descent through the bank) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .channelizer import _phase_taps, branch_fir, commutate, dft_matmul, fused_branch_dft
+from .pallas_scan import _on_cuda
+
+
+def _kms_sign(n: int, s: int, device) -> torch.Tensor:
+    """(-1)^{km} as an (N, S) float32 tensor: -1 where k and m are both odd."""
+    k_odd = torch.arange(n, dtype=torch.int32, device=device)[:, None] & 1
+    m_odd = torch.arange(s, dtype=torch.int32, device=device)[None, :] & 1
+    return (1 - 2 * (k_odd & m_odd)).to(torch.float32)
+
+
+def _analyze_planar(x: torch.Tensor, taps, n: int):
+    """Real (T,) -> (re, im) each (N, S), S = T / (N/2)."""
+    # w_q[m] = x[Dm - q]: q in [0, D) the commutator at D; q in [D, N) the
+    # one-block delay of q - D
+    w_lo = commutate(x, n // 2)
+    s = w_lo.shape[0]
+    w = torch.cat([w_lo, F.pad(w_lo[:-1], (0, 0, 1, 0))], dim=1)  # (S, N)
+    hq = _phase_taps(taps, n, x.device)
+    if _on_cuda(x) and hq.shape[0] > 1:
+        re, im = fused_branch_dft(w, hq, sign=1, dilation=2, layout="channels")
+    else:
+        v = branch_fir(w[None], hq, dilation=2)[0]
+        re, im = dft_matmul(v, None, n)
+        re, im = re.T, im.T
+    sgn = _kms_sign(n, s, x.device)
+    return re * sgn, im * sgn
+
+
+def pfb_analyze_os(
+    x: torch.Tensor, n_channels: int, taps
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """2x-oversampled analysis: (T,) real -> planar (I, Q), (N, 2T/N) each.
+
+    Channel k is centred at k/N cycles a sample at output rate fs/(N/2).
+    ``T`` must be a multiple of N//2; N even.
+    """
+    if n_channels % 2 != 0:
+        raise ValueError(f"n_channels must be even, got {n_channels}")
+    if x.dim() != 1 or x.shape[0] % (n_channels // 2) != 0:
+        raise ValueError(f"stream length {tuple(x.shape)} must be a flat multiple of N/2")
+    return _analyze_planar(x, taps, n_channels)
+
+
+def _synthesize_planar(yi: torch.Tensor, yq: torch.Tensor, taps, n: int):
+    d = n // 2
+    s = yi.shape[1]
+    sgn = _kms_sign(n, s, yi.device)
+    ti = (yi.to(torch.float32) * sgn).T  # demodulated, (S, N)
+    tq = (yq.to(torch.float32) * sgn).T
+    # T[m, phi] = Re sum_k (ti + i tq)[m, k] e^{2*pi*i*k*phi/N}: the imaginary
+    # part of a real-signal reconstruction cancels
+    t_re, _ = dft_matmul(ti, tq, n)
+    gq = _phase_taps(taps, d, yi.device)
+    p = gq.shape[0]
+    # out[s, pp] = sum_r gq[r, pp] * T[s - r, pp + D*(r mod 2)], zeros before s = 0
+    tp = F.pad(t_re, (0, 0, p - 1, 0))
+    out = None
+    for r in range(p):
+        col = d * (r % 2)
+        term = tp[p - 1 - r : p - 1 - r + s, col : col + d] * gq[r]
+        out = term if out is None else out + term
+    return out.reshape(-1)
+
+
+def pfb_synthesize_os(
+    yi: torch.Tensor, yq: torch.Tensor, n_channels: int, taps
+) -> torch.Tensor:
+    """2x-oversampled synthesis: planar (I, Q) (N, S) -> real (S*N/2,)."""
+    if n_channels % 2 != 0:
+        raise ValueError(f"n_channels must be even, got {n_channels}")
+    return _synthesize_planar(yi, yq, taps, n_channels)
+
+
+__all__ = ["pfb_analyze_os", "pfb_synthesize_os"]

@@ -281,8 +281,12 @@ def test_long_taps_chain_keeps_the_spectrum_as_buffers():
 
 
 def test_chain_refusals():
-    with pytest.raises(NotImplementedError, match="Farrow"):
-        DspChain(ChainConfig(audio_resample=(441, 2560)), device="cpu")
+    # the Farrow stage, once refused, now runs: the audio at 441/2560 of its rate
+    from digital_signal_processsing_tpu_torch.ops.farrow import farrow_output_len
+
+    locked = DspChain(ChainConfig(**SMALL, audio_resample=(441, 2560)), device="cpu")
+    audio = locked.forward_planar(torch.zeros(4, 4096), torch.ones(4, 4096))
+    assert audio.shape == (4, farrow_output_len(1024, (441, 2560)))
     pc = DspChain(ChainConfig(**SMALL), device="cpu")
     with pytest.raises(ValueError, match="input on"):
         pc(torch.zeros(4, 64, dtype=torch.complex64, device="meta"))

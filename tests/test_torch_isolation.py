@@ -13,18 +13,28 @@ import torch
 
 from digital_signal_processsing_tpu_torch import _build
 from digital_signal_processsing_tpu_torch.io import write_wav
-from digital_signal_processsing_tpu_torch.models import ChainConfig, DspChain
+from digital_signal_processsing_tpu_torch.models import ChainConfig, DspChain, WidebandFmReceiver
 from digital_signal_processsing_tpu_torch.ops import (
     METHODS,
     cumsum,
     direct_averager,
+    farrow_init,
+    farrow_matmul_init,
     fir_filter,
+    fused_branch_dft,
     fused_fir,
     fused_fir3,
+    fused_pfb_raw,
     launch_counts,
     moving_average,
     moving_average_init,
     moving_average_two_pass,
+    pfb_analyze_os,
+    pfb_channelize,
+    pfb_channelize_chunk,
+    pfb_stream_init,
+    resample_farrow,
+    resample_farrow_segmented,
     reset_launch_counts,
     scan_averager,
     windowed_averager,
@@ -92,6 +102,19 @@ assert n == x.size and (read_wav(sys.argv[1] + "/out.wav")[1] == y).all()
 n = stream_sosfilt([sys.argv[1] + "/in.wav"], sys.argv[1] + "/iir.wav", sos, chunk_samples=1000,
                    device="cpu")
 assert n == x.size
+from digital_signal_processsing_tpu_torch.ops import channelizer, farrow, pfb_os  # noqa: F401
+from digital_signal_processsing_tpu_torch.models.wideband import WidebandConfig, WidebandFmReceiver
+rx = WidebandFmReceiver(WidebandConfig(n_channels=8, audio_taps=17), device="cpu")
+assert rx(torch.from_numpy(rx.example_input(t=8 * 256))).shape == (8, 256)
+xw = torch.from_numpy(np.random.default_rng(2).normal(size=64 * 64).astype(np.float32))
+for method in ("auto", "fused_raw", "fused", "composed"):
+    assert channelizer.pfb_channelize(xw, 64, method=method).shape == (64, 64)
+assert pfb_os.pfb_analyze_os(xw, 8, channelizer.design_prototype(8))[0].shape == (8, 1024)
+for method in ("auto", "matmul", "segmented", "gather"):
+    assert farrow.resample_farrow(xf, (441, 2560), method=method).shape[0] == 2
+locked = DspChain(ChainConfig(channels=2, decimation=4, channel_taps=33, audio_taps=17,
+                              audio_resample=(441, 2560)), device="cpu")
+assert locked.forward_planar(torch.from_numpy(i), torch.from_numpy(q)).shape == (2, 353)
 assert not [m for m in sys.modules if m.startswith("jax") and sys.modules[m] is not None]
 reference = [m for m in sys.modules
              if m == "digital_signal_processsing_tpu" or m.startswith("digital_signal_processsing_tpu.")]
@@ -129,6 +152,14 @@ def test_cuda_device_without_a_card_raises(tmp_path):
         DspChain(ChainConfig(channels=2, channel_taps=8193))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         oscillator_bank(np.array([0.1], np.float32), 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WidebandFmReceiver()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pfb_stream_init(64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        farrow_init((441, 2560), 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        farrow_matmul_init((441, 2560), 16)
     from digital_signal_processsing_tpu_torch.__main__ import main
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -170,6 +201,15 @@ def test_cpu_tensors_never_build_kernels(monkeypatch, rng):
     for method in ("auto", "pallas", "xla_scan"):
         iir_first_order(xf, 0.9, method=method)
     sos_cascade_unrolled(xf, sos)
+    xw = torch.from_numpy(rng.normal(size=64 * 128).astype(np.float32))
+    for n, method in ((64, "auto"), (64, "fused_raw"), (64, "fused"), (48, "fused"), (64, "composed")):
+        pfb_channelize(xw[: n * 128], n, method=method)
+    pfb_channelize_chunk(pfb_stream_init(64, device="cpu"), xw, 64)
+    pfb_analyze_os(xw, 64, np.ones(512, np.float32) / 512)
+    for rate in ((441, 2560), (46337, 65521)):
+        for method in ("auto", "matmul", "segmented", "gather"):
+            if method != "matmul" or rate[0] * rate[1] <= 1 << 22:
+                resample_farrow(xf, rate, method=method)
     assert not any(launch_counts().values()), launch_counts()
 
 
@@ -184,6 +224,13 @@ def test_other_devices_are_refused():
         response = tap_response(np.ones(k, np.float32), g, "cpu")
         with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
             wrapper(xf, response)
+    xm = torch.zeros(32 * 128, device="meta")
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        fused_pfb_raw(xm, 32, torch.zeros(8, 32, device="meta"))
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        fused_branch_dft(xm.view(128, 32), torch.zeros(8, 32, device="meta"))
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        resample_farrow_segmented(xf, (46337, 65521))
     sos = design_butterworth(2, 0.3)
     for call in (
         lambda: sos_cascade(xf, sos), lambda: sos_cascade_unrolled(xf, sos),
@@ -214,6 +261,6 @@ def test_build_is_keyed_by_the_sources():
     assert path == _build.library_path()  # stable for unchanged sources
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "windowed.cu", "cumsum.cu", "scan.cu", "direct.cu", "fused_fir.cu", "fused_fir3.cu",
-        "iir.cu",
+        "iir.cu", "pfb.cu", "farrow.cu",
     }
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
