@@ -36,7 +36,15 @@ failure exits non-zero:
    B21 (segmented Farrow) against plain and float64 (2e-5) over six rates, C
    {1, 2, 16} and T {4, 5, 100, 2^20}; the Farrow matmul and the composed
    bank against float64 with TF32 turned on by the caller (their IEEE float32
-   pin);
+   pin); then the time-varying kernels B16 (every section, S in {1, 2, 4, 6,
+   16, 17}), B17 (one section) and B18 (a row a frame, frame_len {100, 256,
+   1024, 65536}) against their plain versions and a float64 sample loop
+   (1e-5 of max|y|) over C {1, 3, 64}, T {1, below a sub-tile, ragged,
+   100003, 3 x 65536 + 99}, shared and per-channel rows with a0 != 1, seeded,
+   unseeded and zero-seeded (bit for bit), the expand route at frame_len 100,
+   impulses at tile edges, zeros exact; B22 (the LPC recurrence) at p {1, 2,
+   12, 32, 40}, L {8, 256} and ragged frame counts, bit for bit against plain
+   and within 1e-5 of float64;
 4. main path, through the entry points a user calls, with the kernels'
    launch counts reset just before and read just after:
    ``moving_average`` on a 64M-sample stereo stream at k=1024 (B1), the same
@@ -66,7 +74,24 @@ failure exits non-zero:
    one shot and in 8 chunks, ``pfb_analyze_os`` (B20, dilation 2) and its
    synthesis, the ``fused`` route at n=48 (B20), the chain locked to 441/2560
    by the Farrow stage (B21 on the card), and ``resample_farrow`` at
-   46337/65521 on 16 x 2^22 (B21); B19, B20 and B21 each launched;
+   46337/65521 on 16 x 2^22 (B21); B19, B20 and B21 each launched; then,
+   counts reset again, the time-varying family on 16 x 2^22 float32 with 4
+   sections of swept per-sample rows shared by the channels: ``sosfilt_tv``
+   auto (B16) and ``method="scan"`` (B17 a section), ``sosfilt_tv_chunk`` in
+   8 chunks of any length, one sample and ragged ones among them (B17 seeded
+   on each whole chunk), ``sosfilt_tv_frames`` at frame_len 1024 and 65536
+   (B18; 65536 is a frame over many tiles) and ``sosfilt_tv_frames_chunk`` in
+   8 such chunks, ``tracking_notch`` on 16 x 2^22 swept tones in noise (B18;
+   the reference's rules: frequency error, 15 dB suppression, noise
+   correlation, and the CPU's result on a prefix), ``lpc_vocoder`` on 128
+   streams x 512 frames x 256 at p = 12 (``refine``, B22 x 3) with
+   ``method="pallas"`` (B22 x 2) and ``"scan"`` against the float64 golden
+   on every stream, and ``lpc_synthesis`` auto on frame-constant sets at pole
+   radius 0.95-0.999 (``factored``, B18) within 64x the sequential float32
+   error; every launch count asserted; then, outside the counts, B22 bit for
+   bit against plain on the vocoder's 65536 frames, from rest and seeded, and
+   high Q: B16 on the swept rows at pole radius up to 0.95 and B18 on the
+   notch's rows, each kernel and plain against float64;
 5. times: each kernel against its plain version at the main path's shapes
    (CUDA events between back-to-back calls, median of 10 after 5 warm-ups,
    in turns plain, kernel, kernel, plain), with a device-to-device copy of
@@ -83,7 +108,11 @@ failure exits non-zero:
    ``torch.fft.fft`` of the same rows as a yardstick, B19 by taps a phase
    (1 to 16) at 64 and 1024 channels, and B21 against the ``matmul`` route
    at 441/2560, 160/147 and 3/2, the table that sets
-   ``ops.farrow.MATMUL_MAX_PRODUCT_CUDA``;
+   ``ops.farrow.MATMUL_MAX_PRODUCT_CUDA``; B16, B17, B18 and B22 at the
+   time-varying main path's shapes (median, min and max of 20) against their
+   plain versions and bounds, with B16's and B18's time by launch, the
+   transpose B22 skips, and frames (B18) against expand (B16) against
+   per-sample scan (B17) at frame_len 1024;
 6. serving loops: wall time of three ``stream_moving_average`` runs over
    phase 4's WAVs and of decoding them alone, and the device time of one
    run under ``torch.profiler``, by kernel and copy; the same for
@@ -94,7 +123,7 @@ failure exits non-zero:
    the wideband receiver (channelize, FM demod, audio FIR, squelch).
 
 Each phase prints its seconds. The last two lines are the kernels' JSON
-record (B1-B5, B8, B9, B10, B12, B13, B15, B19, B20, B21, each with
+record (B1-B5, B8, B9, B10, B12, B13, B15, B16-B22, each with
 its launches on the main path, max abs error, device ms, plain ms, bound ms
 and library ms) and ``{"ok": true, "device": {...}}``.
 """
@@ -125,6 +154,8 @@ from digital_signal_processsing_tpu_torch.models import (
     WidebandFmReceiver,
     chain_stream_chunk,
     chain_stream_init,
+    notch_rows,
+    tracking_notch,
 )
 from digital_signal_processsing_tpu_torch.ops import (
     launch_counts,
@@ -139,7 +170,7 @@ from digital_signal_processsing_tpu_torch.ops import (
 from digital_signal_processsing_tpu_torch.ops import channelizer as chz
 from digital_signal_processsing_tpu_torch.ops import farrow as fw
 from digital_signal_processsing_tpu_torch.ops import fft_mxu as fm
-from digital_signal_processsing_tpu_torch.ops import fir, gain, iir
+from digital_signal_processsing_tpu_torch.ops import fir, gain, iir, lpc
 from digital_signal_processsing_tpu_torch.ops import pallas_direct as pd
 from digital_signal_processsing_tpu_torch.ops import pallas_scan as ps
 from digital_signal_processsing_tpu_torch.ops.demod import fm_demodulate, oscillator_bank
@@ -158,7 +189,8 @@ VARIANTS = tuple(SCAN_METHODS.values())
 AVERAGER_KERNELS = ("B1", "B2", *(f"B3/{v}" for v in VARIANTS), "B4", "B5")
 IIR_KERNELS = ("B10", "B12", "B13", "B15")
 PFB_KERNELS = ("B19", "B20", "B21")
-KERNELS = (*AVERAGER_KERNELS, "B8", "B9", *IIR_KERNELS, *PFB_KERNELS)
+TV_KERNELS = ("B16", "B17", "B18", "B22")
+KERNELS = (*AVERAGER_KERNELS, "B8", "B9", *IIR_KERNELS, *PFB_KERNELS, *TV_KERNELS)
 SOURCE = "digital_signal_processsing_tpu_torch/csrc/"
 REPLACES = "digital_signal_processsing_tpu/ops/pallas_scan.py:"
 REPLACES_DIRECT = "digital_signal_processsing_tpu/ops/pallas_direct.py:"
@@ -166,6 +198,7 @@ REPLACES_FFT = "digital_signal_processsing_tpu/ops/fft_mxu.py:"
 REPLACES_IIR = "digital_signal_processsing_tpu/ops/iir.py:"
 REPLACES_PFB = "digital_signal_processsing_tpu/ops/channelizer.py:"
 REPLACES_FARROW = "digital_signal_processsing_tpu/ops/farrow.py:"
+REPLACES_LPC = "digital_signal_processsing_tpu/ops/lpc.py:"
 # The receiver chain's main path: the flagship of __graft_entry__.py (16
 # channels, decimation 8) on 2^22 samples a channel, the 16ch x 4.2M point of
 # the reference's benchmark notes.
@@ -203,6 +236,31 @@ FARROW_MAIN_RATE = (46337, 65521)
 CHAIN_RATE = (441, 2560)  # 44.1 kHz from the chain's 256 kHz audio (tests/test_models.py:188)
 FARROW_AB_RATES = (CHAIN_RATE, (160, 147), (3, 2))  # B21 against the matmul route at these
 PFB_SWEEP_TAPS = (1, 2, 4, 8, 16)  # B19's time by taps a phase, on the 2^26 stream
+# The time-varying IIR family's main path: the JAX package's benchmark point
+# for sosfilt_tv (BENCH_NOTES.md:452, :499), 4 sections of swept per-sample
+# rows shared by 16 channels of 2^22 float32 samples, and its frames kernel at
+# frame_len 1024 and 65536 (a frame over many tiles, which Mosaic could not
+# lower: ROADMAP's H1). Within 1e-5 of max|y| of plain and float64, the JAX
+# package's bound for these kernels (tests/test_iir_tv.py).
+TV_C, TV_T, TV_S = 16, 1 << 22, 4
+TV_FRAMES = (1024, 65536)
+TV_RTOL = 1e-5
+# LPC's benchmark point (BENCH_NOTES.md:500): p = 12 on 128 streams x 512
+# frames x 256 samples; every method within 5e-3 of the float64 golden (the
+# JAX package's bound, tests/test_lpc.py). The resonant sets of its factored
+# contract (tests/test_lpc.py:227-277): frames of 128 samples, radii below.
+LPC_STREAMS, LPC_FRAMES, LPC_L, LPC_P = 128, 512, 256, 12
+LPC_RTOL = 5e-3
+LPC_RADII = (0.95, 0.98, 0.995, 0.999)
+RES_L = 128
+# The tracking notch against itself on the CPU: the same float32 rfft peak
+# refined apart (frequencies within 1e-5 Nyquist units), the output within 1e-4
+# of max|y| (tests/test_torch_adaptive.py)
+NOTCH_W_TOL, NOTCH_RTOL = 1e-5, 1e-4
+# High Q (the swept schedule at pole radius up to 0.95, the notch's rows at
+# q = 30): a kernel's error against float64 may be at most this many times the
+# plain version's own error there
+HIGHQ_FACTOR = 2.0
 # The H100 SXM's memory rate, and its peak rate of int32 adds outside the
 # tensor cores: a clock of an SM issues 64 lanes of IADD3, two adds each
 # (three operands), and 64 lanes of IMAD on the FMA pipe, one add each
@@ -1519,6 +1577,520 @@ def phase_wideband_profile(main: dict) -> None:
         print(f"  {ms:9.3f} ms  {count:4d} x  {key[:80]}")
 
 
+def tv_schedule(rng, sections: int, coef_channels: int, rows: int, a0: float = 1.25) -> np.ndarray:
+    """Swept resonators (S, Cc, rows, 6) float32: poles of radius 0.1-0.9, zeros near
+    DC and Nyquist, a peak gain about 1 (b = (1 - r^2)/2), every row scaled by a0 != 1."""
+    f = np.linspace(0, 3, rows)
+    out = np.empty((sections, coef_channels, rows, 6), np.float32)
+    for k in range(sections):
+        for c in range(coef_channels):
+            ph = rng.uniform(0, 6)
+            r = 0.5 + 0.4 * np.sin(f + ph)
+            th = 0.3 + 0.2 * np.cos(2 * f + ph)
+            g = (1 - r * r) / 2
+            out[k, c] = np.stack([g, 0.2 * g * np.sin(5 * f + ph), -g, np.ones(rows),
+                                  -2 * r * np.cos(th), r * r], -1) * a0
+    return out
+
+
+def swept_rows(dev, sections: int, t: int, depth: float = 0.4) -> torch.Tensor:
+    """The main path's per-sample rows (S, 1, T, 6) on the card, made there: the JAX
+    package's swept schedule (tests/test_iir_tv.py: radius 0.5 -/+ depth, 0.1-0.9 at
+    its 0.4; angle 0.1-0.5), its resonators scaled to a peak gain about 1
+    (b = (1 - r^2)/2), a0 = 1.25."""
+    u = torch.linspace(0, 3, t, device=dev, dtype=torch.float64)
+    rows = []
+    for k in range(sections):
+        r = 0.5 + depth * torch.sin(u + 1.5 * k)
+        th = 0.3 + 0.2 * torch.cos(2 * u + 1.5 * k)
+        g = (1 - r * r) / 2
+        rows.append(1.25 * torch.stack(
+            [g, 0.2 * g * torch.sin(5 * u + k), -g, torch.ones_like(u), -2 * r * torch.cos(th),
+             r * r], -1,
+        ))
+    return torch.stack(rows)[:, None].float().contiguous()
+
+
+def tv64(x: torch.Tensor, rows4: torch.Tensor, frame_len: int = 1,
+         state: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The time-varying cascade in float64 on the host, one sample a step: (y, end state
+    (S, C, 2)), float32 on x's device. The rows are divided by their a0 in float32 as
+    the kernels divide them (a reciprocal, then products), so the comparison holds the
+    recurrence and not the rounding of the coefficients, which moves a resonant
+    section's output by more than the recurrence does."""
+    xs = x.double().cpu().numpy()
+    r = rows4.float().cpu().numpy()
+    r = (r[..., [0, 1, 2, 4, 5]] * (np.float32(1) / r[..., 3:4])).astype(np.float64)
+    c, t = xs.shape
+    s = r.shape[0]
+    st = np.zeros((s, c, 2)) if state is None else state.double().cpu().numpy().copy()
+    y = np.empty_like(xs)
+    for j in range(t):
+        u = xs[:, j]
+        f = j // frame_len
+        for k in range(s):
+            b0, b1, b2, a1, a2 = r[k, :, f].T
+            yo = b0 * u + st[k, :, 0]
+            st[k, :, 0], st[k, :, 1] = b1 * u - a1 * yo + st[k, :, 1], b2 * u - a2 * yo
+            u = yo
+        y[:, j] = u
+    return torch.from_numpy(y).float().to(x.device), torch.from_numpy(st).float().to(x.device)
+
+
+def lpc64(a_f: torch.Tensor, s0: torch.Tensor, e: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """B22's recurrence in float64 on the host, vectorised over frames: (y, end state)."""
+    a = a_f.double().cpu().numpy()
+    h = s0.double().cpu().numpy().copy()
+    ev = e.double().cpu().numpy()
+    y = np.empty_like(ev)
+    for t in range(ev.shape[1]):
+        v = ev[:, t] - np.sum(a * h, 1)
+        h = np.concatenate([v[:, None], h[:, :-1]], 1)
+        y[:, t] = v
+    return torch.from_numpy(y).float().to(e.device), torch.from_numpy(h).float().to(e.device)
+
+
+def phase_tv_corners(rng, dev, check: Checker) -> None:
+    """B16, B17, B18 and B22 against their plain versions on the card and float64 sample loops."""
+    sub = iir.THREADS * iir.TV_SEG  # a TV kernel block's sub-tile
+    tile = iir.pick_tile(64, 100_003)  # the kernel tile at every corner below
+    prefix = tile + 77  # float64 over a prefix that crosses the first tile edge (causal)
+    ragged = 3 * tile + 77
+
+    def sig(c: int, t: int) -> torch.Tensor:
+        return torch.from_numpy(rng.standard_normal((c, t), dtype=np.float32)).to(dev)
+
+    def hold(kernel: str, fn, c: int, t: int, s: int, shared: bool, frame_len: int = 1) -> None:
+        label = f"{kernel} S={s} C={c} T={t} {'shared' if shared else 'per-channel'} rows"
+        if kernel == "B18":
+            label += f", frame_len {frame_len}"
+        x = sig(c, t)
+        rows = torch.from_numpy(tv_schedule(rng, s, 1 if shared else c, -(-t // frame_len))).to(dev)
+        st = torch.from_numpy((0.3 * rng.standard_normal((s, c, 2))).astype(np.float32)).to(dev)
+        y0, none = fn(x, rows, None)
+        y, end = fn(x, rows, st)
+        yz, _ = fn(x, rows, torch.zeros_like(st))
+        if none is not None:
+            raise AssertionError(f"{label}: an unseeded call returned an end state")
+        # the unseeded launch is the seeded one from zero, bit for bit
+        check.close(kernel, y0, yz, f"{label}, unseeded against a zero seed", 0.0)
+        yp, endp = iir._tv_plain(x, rows, frame_len, st)
+        check.close(kernel, y, yp, f"{label}, seeded, against plain", TV_RTOL)
+        check.close(kernel, end, endp, f"{label}, end state against plain", TV_RTOL, yp)
+        m = min(t, max(prefix, frame_len + 77 if t > frame_len else 0))
+        want, zf = tv64(x[:, :m], rows[:, :, : -(-m // frame_len)], frame_len, st)
+        check.close(kernel, y[:, :m], want, f"{label}, seeded, first {m} against float64", TV_RTOL)
+        if m == t:
+            check.close(kernel, end, zf, f"{label}, end state against float64", TV_RTOL, want)
+
+    b16 = lambda x, r, s: iir.tv_cascade(x, r, s)  # noqa: E731
+    for s in (1, 2, 4, 6):
+        for c, t, shared in ((1, 1, True), (1, sub - 1, False), (64, ragged, True),
+                             (64, 100_003, False)):
+            hold("B16", b16, c, t, s, shared)
+    for s in (16, 17):  # 17: a group of 16 sections, then one, through device memory
+        for c, t, shared in ((1, ragged, True), (64, ragged, False)):
+            hold("B16", b16, c, t, s, shared)
+    for i, (c, t) in enumerate((c, t) for c in (1, 64) for t in (1, sub - 1, ragged, 100_003)):
+        hold("B17", lambda x, r, s: iir.tv_section(x, r, s), c, t, 1, i % 2 == 0)
+    # B18 at any frame_len: many frames a sub-tile (100), frames nesting in
+    # tiles (256, 1024), and a frame over many tiles (65536, H1)
+    for fl, c, t, s, shared in (
+        (100, 1, ragged, 4, True), (100, 64, 2 * tile + 5, 17, False),
+        (256, 64, ragged, 2, True), (256, 1, sub - 1, 6, False),
+        (1024, 1, 100_003, 4, True), (1024, 64, 1, 1, False),
+        (65536, 3, 3 * 65536 + 99, 4, True), (65536, 1, 2 * tile + 5, 16, False),
+    ):
+        hold("B18", lambda x, r, st, fl=fl: iir.tv_frames_cascade(x, r, fl, st), c, t, s, shared, fl)
+    # frame_len 100 is outside the reference's frames envelope: sosfilt_tv_frames expands (B16)
+    x = sig(8, ragged)
+    fr = torch.from_numpy(tv_schedule(rng, 3, 1, -(-ragged // 100))[:, 0]).to(dev)
+    y = iir.sosfilt_tv_frames(fr, x, 100)
+    if last_choice("sosfilt_tv_frames") != "expand":
+        raise AssertionError(f"frame_len 100 took {last_choice('sosfilt_tv_frames')}, want expand")
+    check.close("B16", y, iir.tv_frames_cascade(x, fr[:, None], 100)[0],
+                "sosfilt_tv_frames(frame_len=100) expand against B18", TV_RTOL)
+    check.close("B16", y[:, :prefix], tv64(x[:, :prefix], fr[:, None], 100)[0],
+                "sosfilt_tv_frames(frame_len=100) against float64", TV_RTOL)
+    # impulses across sub-tile and tile edges give the impulse response; zeros stay zero
+    t = 2 * tile + 11
+    rows = torch.from_numpy(tv_schedule(rng, 4, 1, t)).to(dev)
+    x = torch.zeros(4, t, device=dev)
+    for c, p in enumerate((0, sub - 1, tile, t - 100)):
+        x[c, p] = 1.0
+    check.close("B16", iir.tv_cascade(x, rows)[0], tv64(x, rows)[0], "B16 impulses", TV_RTOL)
+    zero = torch.zeros_like(x)
+    outs = (*iir.tv_cascade(zero, rows, torch.zeros(4, 4, 2, device=dev)),
+            iir.tv_section(zero, rows[:1])[0], iir.tv_frames_cascade(zero, rows, 1)[0])
+    torch.cuda.synchronize()
+    if any(torch.count_nonzero(o).item() for o in outs):
+        raise AssertionError("a zero input gave a nonzero time-varying output or state")
+    # B22: a thread a frame; bit for bit against its plain version, 1e-5 of float64
+    for p in (1, 2, 12, 32, 40):  # 40: past the register instantiations (1..32)
+        for length in (8, 256):
+            for frames in (129, 1000):
+                label = f"B22 p={p} L={length} frames={frames}"
+                # sum |a_i| <= 0.9: a stable recurrence whatever the signs
+                a_f = torch.from_numpy((0.9 / p * rng.uniform(-1, 1, (frames, p))).astype(np.float32))
+                s0 = torch.from_numpy(rng.standard_normal((frames, p), dtype=np.float32))
+                e = torch.from_numpy(rng.standard_normal((frames, length), dtype=np.float32))
+                a_f, s0, e = a_f.to(dev), s0.to(dev), e.to(dev)
+                y, z = lpc.lpc_synth_pass(a_f, s0, e)
+                yp, zp = lpc._lpc_pass_plain(a_f, s0, e)
+                check.close("B22", y, yp, f"{label} against plain", 0.0)
+                check.close("B22", z, zp, f"{label} end state against plain", 0.0)
+                want, zf = lpc64(a_f, s0, e)
+                check.close("B22", y, want, f"{label} against float64", TV_RTOL)
+                check.close("B22", z, zf, f"{label} end state against float64", TV_RTOL, want)
+    print(
+        f"[3 TV/LPC corners] B16 S {{1, 2, 4, 6, 16, 17}}, B17, B18 at frame_len {{100, 256, 1024, "
+        f"65536}}; C {{1, 3, 64}}, T {{1, {sub - 1}, {ragged}, 100003, {3 * 65536 + 99}}}, shared "
+        f"and per-channel rows with a0 = 1.25, seeded, unseeded and zero-seeded: "
+        + ", ".join(f"{k} {check.count[k]} checks" for k in TV_KERNELS)
+        + f" within {TV_RTOL} of plain and of float64 (x max|y|; float64 over the first {prefix} "
+        "samples or past the first frame edge); the expand route at frame_len 100, impulses at "
+        "sub-tile and tile edges, zeros exact; B22 at p {1, 2, 12, 32, 40}, L {8, 256}, frames "
+        "{129, 1000} bit for bit against plain; max abs error "
+        + ", ".join(f"{k} {check.max_err[k]:.3e}" for k in TV_KERNELS)
+    )
+
+
+def colored_noise(rng, streams: int, t: int) -> np.ndarray:
+    """AR(2) noise (poles at radius 0.84), the reference's LPC test signal, float32."""
+    return sps.lfilter([1.0], [1, -1.2, 0.7], rng.standard_normal((streams, t)), axis=-1).astype(
+        np.float32)
+
+
+def seq_f32(a: np.ndarray, gain: np.ndarray, e: np.ndarray, frame_len: int) -> np.ndarray:
+    """The sequential float32 recurrence of one stream (the reference's floor, tests/test_lpc.py)."""
+    a, g, e = (np.asarray(v, np.float32) for v in (a, gain, e))
+    p = a.shape[-1] - 1
+    y = np.zeros(a.shape[0] * frame_len, np.float32)
+    hist = np.zeros(p, np.float32)
+    for f in range(a.shape[0]):
+        for t in range(frame_len):
+            i = f * frame_len + t
+            v = np.float32(g[f] * e[i] - np.dot(a[f, 1:], hist))
+            hist = np.concatenate([[v], hist[:-1]]).astype(np.float32)
+            y[i] = v
+    return y
+
+
+def lpc_golden(a: torch.Tensor, gain: torch.Tensor, e: torch.Tensor, frame_len: int) -> np.ndarray:
+    """``lpc.lpc_synthesis_ref`` on every stream at once: the sequential recurrence in
+    float64 on the host, (B, F * L) from a (B, F, p+1), gain (B, F), e (B, F * L)."""
+    a, g, ev = (v.double().cpu().numpy() for v in (a, gain, e))
+    b, nf, p1 = a.shape
+    y = np.empty((b, nf * frame_len))
+    hist = np.zeros((b, p1 - 1))
+    for f in range(nf):
+        af = a[:, f, 1:]
+        ge = g[:, f : f + 1] * ev[:, f * frame_len : (f + 1) * frame_len]
+        for j in range(frame_len):
+            v = ge[:, j] - (af * hist).sum(1)
+            hist[:, 1:] = hist[:, :-1].copy()
+            hist[:, 0] = v
+            y[:, f * frame_len + j] = v
+    return y
+
+
+def rel64(got: torch.Tensor, want64: torch.Tensor) -> float:
+    """max|got - want| / max|want| in float64 on the card."""
+    return ((got.double() - want64).abs().max() / want64.abs().max()).item()
+
+
+def phase_tv_main(rng, dev, check: Checker) -> tuple[dict, dict]:
+    """The time-varying IIR family, LPC and the tracking notch through their entry points
+    at full size, counts reset around."""
+    c, t, s = TV_C, TV_T, TV_S
+    x = torch.randn(c, t, device=dev, generator=torch.Generator(dev).manual_seed(1))
+    rows = swept_rows(dev, s, t)  # (S, 1, T, 6): 403 MB of per-sample rows
+    sos_t = rows[:, 0]  # (S, T, 6), the user's spelling: shared by every channel
+    fr = {fl: rows[:, :, fl // 2 :: fl].contiguous() for fl in TV_FRAMES}  # (S, 1, F, 6)
+    # eight chunks of any length: one sample, under one reference tile (32768
+    # samples), ragged ones; the frame chunks start on frame edges (edges in frames)
+    chunk, per = t // 8, t // 8 // 1024
+    edges = (0, 1, 1000, chunk + 77, 3 * chunk, 4 * chunk - 5, 5 * chunk, 6 * chunk + 12345, t)
+    frame_edges = (0, 1, 30, per + 5, 3 * per, 4 * per - 1, 5 * per, 6 * per + 13, t // 1024)
+    # the tracking notch: a swept tone on each channel in white noise
+    noise = torch.randn(c, t, device=dev, generator=torch.Generator(dev).manual_seed(2),
+                        dtype=torch.float64)
+    lo = 0.1 + 0.005 * torch.arange(c, device=dev, dtype=torch.float64)[:, None]
+    f_inst = lo + 0.25 * torch.arange(t, device=dev, dtype=torch.float64) / t
+    tone = 10.0 * torch.sin(torch.cumsum(np.pi * f_inst, 1))
+    xn = (tone + noise).float()
+    # LPC: AR(2) noise through the vocoder with an explicit excitation
+    nl = LPC_FRAMES * LPC_L
+    xv = torch.from_numpy(colored_noise(rng, LPC_STREAMS, nl)).to(dev)
+    ev = torch.from_numpy(rng.standard_normal((LPC_STREAMS, nl), dtype=np.float32)).to(dev)
+    # resonant frame-constant sets: 4 streams x 64 frames x 128 samples, p = 6
+    res = {}
+    for radius in LPC_RADII:
+        poles = radius * np.exp(1j * np.array([0.4, 1.3, 2.2]))
+        row = np.poly(np.concatenate([poles, poles.conj()])).real
+        res[radius] = torch.from_numpy(np.tile(row, (4, 64, 1)).astype(np.float32)).to(dev)
+    e_res = torch.from_numpy(rng.standard_normal((4, 64 * RES_L), dtype=np.float32)).to(dev)
+    g_res = torch.ones(4, 64, device=dev)
+    torch.cuda.synchronize()
+
+    ys, routes = {}, {}
+    reset_launch_counts()
+    ys["auto"] = iir.sosfilt_tv(sos_t, x)
+    routes["sosfilt_tv"] = last_choice("sosfilt_tv")
+    ys["scan"] = iir.sosfilt_tv(sos_t, x, method="scan")
+    routes["sosfilt_tv scan"] = last_choice("sosfilt_tv")
+    st = torch.zeros(s, c, 2, device=dev)
+    parts = []
+    for lo, hi in zip(edges, edges[1:]):
+        st, yk = iir.sosfilt_tv_chunk(st, sos_t[:, lo:hi], x[:, lo:hi])
+        parts.append(yk)
+    ys["chunks"] = torch.cat(parts, 1)
+    for fl in TV_FRAMES:
+        ys[f"frames{fl}"] = iir.sosfilt_tv_frames(fr[fl][:, 0], x, fl)
+        routes[f"sosfilt_tv_frames {fl}"] = last_choice("sosfilt_tv_frames")
+    st = torch.zeros(s, c, 2, device=dev)
+    parts = []
+    for lo, hi in zip(frame_edges, frame_edges[1:]):
+        st, yk = iir.sosfilt_tv_frames_chunk(st, fr[1024][:, 0, lo:], x[:, lo * 1024 : hi * 1024],
+                                             1024)
+        parts.append(yk)
+    ys["frames chunks"] = torch.cat(parts, 1)
+    ys["notch"], w0 = tracking_notch(xn, 1024, q=30.0)
+    routes["tracking_notch"] = last_choice("sosfilt_tv_frames")
+    ys["vocoder"] = lpc.lpc_vocoder(xv, LPC_P, LPC_L, excitation=ev)
+    routes["lpc_vocoder B22 passes"] = launch_counts()["B22"]  # refine records no choice
+    a, gain = lpc.lpc(xv, LPC_P, LPC_L)
+    for method in ("pallas", "scan"):
+        ys[f"lpc {method}"] = lpc.lpc_synthesis(a, gain, ev, LPC_L, method=method)
+    for radius in LPC_RADII:
+        ys[f"resonant {radius}"] = lpc.lpc_synthesis(res[radius], g_res, e_res, RES_L)
+        routes[f"lpc_synthesis r={radius}"] = last_choice("lpc_synthesis")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"[4 TV/LPC] routes {routes}; launches {launches}")
+    want_routes = {
+        "sosfilt_tv": "fused", "sosfilt_tv scan": "scan",
+        **{f"sosfilt_tv_frames {fl}": "frames" for fl in TV_FRAMES},
+        "tracking_notch": "frames", "lpc_vocoder B22 passes": 3,
+        **{f"lpc_synthesis r={radius}": "factored" for radius in LPC_RADII},
+    }
+    if routes != want_routes:
+        raise AssertionError(f"routes {routes}; want {want_routes}")
+    # B16 once; B17 a section, then a section a chunk; B18 twice, a chunk, the
+    # notch and a resonant set each; B22 three passes (refine) and two (pallas)
+    want = {"B16": 1, "B17": s + 8 * s, "B18": len(TV_FRAMES) + 8 + 1 + len(LPC_RADII), "B22": 5}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"TV/LPC main path launches {got}; want {want}")
+
+    # the cascade against plain and against the plain version run in float64 on
+    # the same rows (the whole stream); the scan route and the chunks against one shot
+    x64 = x.double()
+    plain = iir._tv_plain(x, rows, 1, None)[0]
+    want64 = iir._tv_plain(x64, rows, 1, None)[0].float()
+    rel = {"plain": (plain - want64).abs().max().item() / want64.abs().max().item()}
+    check.close("B16", ys["auto"], plain, "sosfilt_tv 16x2^22 against plain", TV_RTOL)
+    check.close("B16", ys["auto"], want64, "sosfilt_tv 16x2^22 against float64", TV_RTOL)
+    check.close("B17", ys["scan"], want64, "sosfilt_tv scan against float64", TV_RTOL)
+    check.close("B17", ys["chunks"], ys["auto"], "sosfilt_tv_chunk x8 (ragged) against one shot",
+                TV_RTOL)
+    for fl in TV_FRAMES:
+        yf = ys[f"frames{fl}"]
+        plain = iir._tv_plain(x, fr[fl], fl, None)[0]
+        want64 = iir._tv_plain(x64, fr[fl], fl, None)[0].float()
+        rel[f"plain {fl}"] = (plain - want64).abs().max().item() / want64.abs().max().item()
+        check.close("B18", yf, plain, f"sosfilt_tv_frames({fl}) against plain", TV_RTOL)
+        check.close("B18", yf, want64, f"sosfilt_tv_frames({fl}) against float64", TV_RTOL)
+    check.close("B18", ys["frames chunks"], ys["frames1024"],
+                "sosfilt_tv_frames_chunk x8 (ragged) against one shot", TV_RTOL)
+    # high Q: the swept schedule at pole radius up to 0.95, and the notch's own rows
+    # (q = 30, poles near radius 0.995), the kernel and plain each against float64
+    # on the same rows. The kernel may not be worse than HIGHQ_FACTOR x plain's own
+    # error there (nor than TV_RTOL)
+    rows95 = swept_rows(dev, s, t, depth=0.45)
+    notch4 = notch_rows(w0, 30.0)[None]  # (1, C, F, 6): t is whole frames
+    highq = {}
+    for key, kernel, xin, r4, fl in (
+        ("B16 swept r<=0.95", "B16", x, rows95, 1), ("B18 notch q=30", "B18", xn, notch4, 1024),
+    ):
+        yk = iir.tv_cascade(xin, r4)[0] if fl == 1 else ys["notch"]
+        want64 = iir._tv_plain(xin.double(), r4, fl, None)[0]
+        highq[key] = (kernel, rel64(yk, want64), rel64(iir._tv_plain(xin, r4, fl, None)[0], want64),
+                      want64.abs().max().item())
+    print("[4 TV high Q] of max|y| from float64: " + "; ".join(
+        f"{key}: kernel {k:.3e}, plain {p:.3e}" for key, (_, k, p, _) in highq.items()))
+    for key, (kernel, err_k, err_p, scale) in highq.items():
+        check.max_err[kernel] = max(check.max_err[kernel], err_k * scale)
+        check.count[kernel] += 1
+        if not err_k <= max(TV_RTOL, HIGHQ_FACTOR * err_p):
+            raise AssertionError(f"{key}: kernel {err_k:.3e} from float64, over {HIGHQ_FACTOR} x "
+                                 f"plain's {err_p:.3e} (and {TV_RTOL})")
+    del x64, plain, want64, rows95
+    # the notch: the reference's rules on every channel, and the CPU on a prefix
+    fl = 1024
+    centers = f_inst[:, fl // 2 :: fl][:, : w0.shape[1]]
+    w_err = (w0.double() - centers).abs().mean(1)
+    resid = ((ys["notch"].double() - noise)[:, 2 * fl :] ** 2).mean(1) / (tone**2).mean(1)
+    yc = ys["notch"][:, 2 * fl :].double()
+    nc = noise[:, 2 * fl :]
+    yc, nc = yc - yc.mean(1, keepdim=True), nc - nc.mean(1, keepdim=True)
+    corr = (yc * nc).sum(1) / torch.sqrt((yc * yc).sum(1) * (nc * nc).sum(1))
+    if not (w_err.max() < 0.004 and resid.max() < 0.05 and corr.min() > 0.8):
+        raise AssertionError(f"tracking notch: frequency error {w_err.max().item():.2e} (< 0.004), "
+                             f"residual tone {resid.max().item():.3e} (< 0.05), noise correlation "
+                             f"{corr.min().item():.3f} (> 0.8)")
+    y_cpu, w_cpu = tracking_notch(xn[:2, : 1 << 16].cpu(), fl, q=30.0)
+    if not (w0[:2, : w_cpu.shape[1]].cpu() - w_cpu).abs().max().item() < NOTCH_W_TOL:
+        raise AssertionError("tracking notch: the card's frequencies differ from the CPU's")
+    check.close("B18", ys["notch"][:2, : 1 << 16], y_cpu.to(dev), "tracking_notch against the CPU",
+                NOTCH_RTOL)
+    # B22 at the main path's shapes, bit for bit against plain: from rest (the
+    # first pass of refine and pallas) and seeded with the previous frame's end
+    # state (refine's later passes)
+    a_f = a[..., 1:].reshape(-1, LPC_P).contiguous()
+    e_f = (ev.view(LPC_STREAMS, LPC_FRAMES, LPC_L) * gain[..., None]).reshape(-1, LPC_L).contiguous()
+    s0 = torch.zeros_like(a_f)
+    for label in ("from rest", "seeded"):
+        y, z = lpc.lpc_synth_pass(a_f, s0, e_f)
+        yp, zp = lpc._lpc_pass_plain(a_f, s0, e_f)
+        what = f"B22 {a_f.shape[0]} frames x {LPC_L}, p {LPC_P}, {label}"
+        check.close("B22", y, yp, f"{what}, against plain", 0.0)
+        check.close("B22", z, zp, f"{what}, end state against plain", 0.0)
+        z3 = z.view(LPC_STREAMS, LPC_FRAMES, LPC_P)
+        s0 = torch.cat([torch.zeros_like(z3[:, :1]), z3[:, :-1]], 1).reshape(-1, LPC_P)
+    del y, yp, z, zp, z3, s0
+    # LPC: each method against the float64 golden on every stream
+    ref = lpc_golden(a, gain, ev, LPC_L)
+    scale = np.abs(ref).max(1)
+    lpc_err = {}
+    for key in ("vocoder", "lpc pallas", "lpc scan"):
+        err = np.abs(ys[key].double().cpu().numpy() - ref).max(1) / scale
+        lpc_err[key] = err.max()
+    for key in lpc_err:
+        if not lpc_err[key] < LPC_RTOL:
+            raise AssertionError(f"{key}: error {lpc_err[key]:.3e} against float64 (< {LPC_RTOL})")
+    # resonant sets: the factored engine within 64 x the sequential float32 floor
+    res_err = {}
+    for radius in LPC_RADII:
+        y_ref = lpc.lpc_synthesis(res[radius], g_res, e_res, RES_L, method="refine")
+        errs = []
+        for i in (0, 3):
+            a_i, e_i = res[radius][i].cpu().numpy(), e_res[i].cpu().numpy()
+            ref = lpc.lpc_synthesis_ref(a_i, np.ones(64), e_i, RES_L)
+            scale = np.abs(ref).max()
+            fact = np.abs(ys[f"resonant {radius}"][i].double().cpu().numpy() - ref).max() / scale
+            seq = np.abs(seq_f32(a_i, np.ones(64), e_i, RES_L) - ref).max() / scale
+            refine = np.abs(y_ref[i].double().cpu().numpy() - ref).max() / scale
+            errs.append((fact, seq, refine))
+            if not fact < max(64 * seq, 1e-5):
+                raise AssertionError(f"factored at radius {radius}: error {fact:.3e}, sequential "
+                                     f"float32 {seq:.3e} (want < max(64 x, 1e-5))")
+            if radius >= 0.98 and not fact < refine / 100:
+                raise AssertionError(f"factored at radius {radius}: {fact:.3e}, not 100x under "
+                                     f"refine's {refine:.3e}")
+        res_err[radius] = max(errs)
+    for key, v in ys.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{key}: non-finite output")
+    print(
+        f"[4 TV/LPC] {c} x 2^{t.bit_length() - 1}, {s} sections of swept per-sample rows shared by "
+        f"the channels: sosfilt_tv (B16) and scan (B17 x{s}) within {TV_RTOL} of plain and of "
+        f"float64 (the plain version's own error against float64: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        + f"), 8 seeded chunks within {TV_RTOL} of one shot; sosfilt_tv_frames (B18) at frame_len "
+        f"{TV_FRAMES} within {TV_RTOL} of plain and float64, 8 frame chunks of one shot; "
+        f"tracking_notch, frame_len 1024, q 30: frequency error {w_err.max().item():.2e}, residual "
+        f"tone {resid.max().item():.2e} of its power, noise correlation {corr.min().item():.3f}, "
+        f"the CPU's on a prefix; lpc_vocoder {LPC_STREAMS} x {LPC_FRAMES} x {LPC_L}, p {LPC_P} "
+        "(refine, B22 x3), pallas (B22 x2) and scan against float64 on every stream: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in lpc_err.items())
+        + f" (< {LPC_RTOL}); resonant sets by radius (factored, sequential f32, refine): "
+        + "; ".join(f"{r}: {f:.2e}, {q:.2e}, {g:.2e}" for r, (f, q, g) in res_err.items())
+    )
+    main = {"x": x, "rows": rows, "fr": fr, "a_f": a_f, "e_f": e_f}
+    return launches, main
+
+
+def time_spread(kernel_fn, plain_fn) -> tuple[float, float, float, float]:
+    """(median, min, max) device ms of the kernel, 10 after 5 warm-ups twice, and the
+    plain version's median (3 after 1 twice), in turns plain, kernel, kernel, plain."""
+    plain = device_ms(plain_fn, 1, 3)
+    kernel = device_ms(kernel_fn, 5, 10) + device_ms(kernel_fn, 5, 10)
+    plain += device_ms(plain_fn, 1, 3)
+    return statistics.median(kernel), min(kernel), max(kernel), statistics.median(plain)
+
+
+def phase_tv_times(main: dict) -> dict:
+    """B16, B17, B18 and B22 at the main path's shapes; frames against expand against scan."""
+    x, rows, fr = main["x"], main["rows"], main["fr"][1024]
+    c, t = x.shape
+    s = rows.shape[0]
+    n = c * t
+    a_f, e_f = main["a_f"], main["e_f"]
+    p = a_f.shape[1]
+    s0 = torch.zeros_like(a_f)
+    samples = e_f.numel()
+    out = {
+        "B16": time_spread(lambda: iir.tv_cascade(x, rows), lambda: iir._tv_plain(x, rows, 1, None)),
+        "B17": time_spread(lambda: iir.tv_section(x, rows[:1]),
+                           lambda: iir._tv_plain(x, rows[:1], 1, None)),
+        "B18": time_spread(lambda: iir.tv_frames_cascade(x, fr, 1024),
+                           lambda: iir._tv_plain(x, fr, 1024, None)),
+        "B22": time_spread(lambda: lpc.lpc_synth_pass(a_f, s0, e_f),
+                           lambda: lpc._lpc_pass_plain(a_f, s0, e_f)),
+    }
+    # bounds: x read once and y written once, each row read once; a section's
+    # five FMAs a sample and channel; B22: e read, y written, a, s0 and z once,
+    # p FMAs a sample
+    bounds = {
+        "B16": bound(8 * n + 24 * s * t, 10 * s * n, FP32_FLOPS_PER_S),
+        "B17": bound(8 * n + 24 * t, 10 * n, FP32_FLOPS_PER_S),
+        "B18": bound(8 * n + 24 * s * fr.shape[2], 10 * s * n, FP32_FLOPS_PER_S),
+        "B22": bound(8 * samples + 12 * a_f.numel(), 2 * p * samples, FP32_FLOPS_PER_S),
+    }
+    copy_dst = torch.empty_like(x)
+    copy_ms = statistics.median(device_ms(lambda: copy_dst.copy_(x), 5, 10))
+    transpose = statistics.median(device_ms(lambda: e_f.t().contiguous(), 5, 10))
+    print(f"[5 TV/LPC times] {c} x 2^{t.bit_length() - 1} float32, {s} shared sections (B17 one); "
+          f"B22 {a_f.shape[0]} frames x {LPC_L}, p {p}; kernels median (min-max) of 20 after "
+          f"warm-ups, plain median of 6; copy of x {copy_ms:.4f} ms:")
+    for name, (ms, lo, hi, plain) in out.items():
+        b, by = bounds[name]
+        print(f"  {name} {ms:.4f} ms ({lo:.4f}-{hi:.4f}); plain {plain:.4f} ms; bound {b:.4f} ms "
+              f"({by}); kernel/bound {ms / b:.2f}")
+    print(f"  B22's frames stay in their (frames, L) layout; the transpose to the reference's "
+          f"(L, frames) lanes it skips: {transpose:.4f} ms each way")
+    print("  library: none; no PyTorch call computes a time-varying SOS cascade or an LPC "
+          "synthesis (torchaudio's lfilter takes fixed coefficients)")
+    # where a call's device time goes: its launches one by one (three calls
+    # under the profiler, whose first records of a session can go missing)
+    for name, fn in (("B16", lambda: iir.tv_cascade(x, rows)),
+                     ("B18", lambda: iir.tv_frames_cascade(x, fr, 1024))):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        print(f"  {name} by launch (torch.profiler, 3 calls): "
+              + "; ".join(f"{k[:48]} x{n_} {ms:.4f} ms" for k, n_, ms in device_rows(prof)))
+    # the frames A/B (the reference read frames 1.50x over expand on its TPU):
+    # B18 on frame rows, the expand route, B16 alone on expanded rows, B17 a section
+    expanded = fr.repeat_interleave(1024, dim=2)[:, :, :t].contiguous()
+    ab = {
+        "frames (B18)": lambda: iir.sosfilt_tv_frames(fr[:, 0], x, 1024),
+        "expand (rows + B16)": lambda: iir.sosfilt_tv_frames(fr[:, 0], x, 1024, method="expand"),
+        "B16 on expanded rows": lambda: iir.tv_cascade(x, expanded),
+        "scan (B17 x S)": lambda: [iir.tv_section(x, expanded[k : k + 1]) for k in range(s)],
+    }
+    ab_ms = {k: statistics.median(device_ms(fn, 2, 5) + device_ms(fn, 2, 5)) for k, fn in ab.items()}
+    base = ab_ms["frames (B18)"]
+    print(f"[5 TV frames A/B] frame_len 1024, {c} x 2^{t.bit_length() - 1}, {s} sections, median "
+          "of 10 after warm-ups: " + "; ".join(f"{k} {v:.4f} ms ({v / base:.2f}x)"
+                                               for k, v in ab_ms.items()))
+    return {"times": out, "bounds": bounds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1565,6 +2137,8 @@ def main() -> int:
     mark("3 IIR corners")
     phase_pfb_corners(rng, dev, check)
     mark("3 PFB/Farrow corners")
+    phase_tv_corners(rng, dev, check)
+    mark("3 TV/LPC corners")
 
     # 4. main path
     x = torch.from_numpy(rng.integers(-32768, 32768, size=MAIN_SAMPLES, dtype=np.int16)).to(dev)
@@ -1654,6 +2228,9 @@ def main() -> int:
     # 4. main path of the wideband receiver, the oversampled bank and the Farrow stage
     wide_launches, wide_main = phase_wideband_main(dev, check, chain_main)
     mark("4 wideband main path")
+    # 4. main path of the time-varying IIR family, LPC and the tracking notch
+    tv_launches, tv_main = phase_tv_main(rng, dev, check)
+    mark("4 TV/LPC main path")
 
     # 5. times
     n = MAIN_SAMPLES
@@ -1735,6 +2312,8 @@ def main() -> int:
     mark("5 IIR times")
     wide_times = phase_wideband_times(wide_main)
     mark("5 wideband times")
+    tv_times = phase_tv_times(tv_main)
+    mark("5 TV/LPC times")
 
     # 6. serving loops
     phase_serve_profile(wav, 2 * frames_a)
@@ -1814,6 +2393,21 @@ def main() -> int:
                     ("fused_pfb_raw", "B19", "B19 n=64", "pfb.cu", REPLACES_PFB + "191"),
                     ("fused_branch_dft", "B20", "B20 os", "pfb.cu", REPLACES_PFB + "78"),
                     ("resample_farrow_segmented", "B21", "B21", "farrow.cu", REPLACES_FARROW + "503"),
+                )
+            ),
+            *(
+                {
+                    "name": name, "route": "cuda", "source": SOURCE + source, "replaces": replaces,
+                    "launches": tv_launches[kernel], "max_abs_err": check.max_err[kernel],
+                    "ms": tv_times["times"][kernel][0], "plain_ms": tv_times["times"][kernel][3],
+                    "bound_ms": tv_times["bounds"][kernel][0],
+                    "bound_by": tv_times["bounds"][kernel][1], "library_ms": None,
+                }
+                for name, kernel, source, replaces in (
+                    ("tv_cascade", "B16", "iir_tv.cu", REPLACES_IIR + "2935"),
+                    ("tv_section", "B17", "iir_tv.cu", REPLACES_IIR + "2181"),
+                    ("tv_frames_cascade", "B18", "iir_tv.cu", REPLACES_IIR + "2472"),
+                    ("lpc_synth_pass", "B22", "lpc.cu", REPLACES_LPC + "296"),
                 )
             ),
         ]

@@ -67,6 +67,11 @@ _SIGNATURES = {
     "dsp_pfb_branch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, y, t, channels, m_out, up, down, segment, 1/up, stream
     "dsp_farrow": (_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P),
+    # x, y, rows, section stride, channel stride, frame_len, carry, trans, seed,
+    # state_out, n, channels, coefficient channels, sections, tile, kind, stream
+    "dsp_tv_cascade": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # a, s0, e, y, z, history scratch, frames, frame length, order, stream
+    "dsp_lpc_synth": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -1,3 +1,4 @@
+from .adaptive import estimate_tone_frequency, notch_rows, tracking_notch  # noqa: F401
 from .averager_zoo import AVERAGER_ZOO, VariantInfo, run_variant  # noqa: F401
 from .chain import (  # noqa: F401
     ChainConfig,
@@ -11,6 +12,9 @@ from .chain import (  # noqa: F401
 from .wideband import WidebandConfig, WidebandFmReceiver, wideband_from_jax  # noqa: F401
 
 __all__ = [
+    "estimate_tone_frequency",
+    "notch_rows",
+    "tracking_notch",
     "AVERAGER_ZOO",
     "VariantInfo",
     "run_variant",

@@ -38,6 +38,7 @@ from .farrow import (  # noqa: F401
     resample_farrow,
     resample_farrow_segmented,
 )
+from .fft import get_window, rfft, spectral_window  # noqa: F401
 from .fft_mxu import (  # noqa: F401
     FUSED3_MAX_NFFT,
     FUSED_MAX_NFFT,
@@ -76,7 +77,25 @@ from .iir import (  # noqa: F401
     sosfilt,
     sosfilt_chunk,
     sosfilt_init,
+    sosfilt_tv,
+    sosfilt_tv_chunk,
+    sosfilt_tv_frames,
+    sosfilt_tv_frames_chunk,
+    sosfilt_tv_fused,
     sosfiltfilt,
+    tv_cascade,
+    tv_frames_cascade,
+    tv_section,
+)
+from .lpc import (  # noqa: F401
+    ar_psd,
+    levinson,
+    lpc_synth_pass,
+    lpc_synthesis,
+    lpc_synthesis_factored,
+    lpc_synthesis_pallas,
+    lpc_synthesis_refine,
+    lpc_vocoder,
 )
 from .moving_average import METHODS, moving_average  # noqa: F401
 from .pallas_direct import MAX_DIRECT_WINDOW, direct_averager  # noqa: F401
@@ -113,9 +132,13 @@ def launch_counts() -> dict[str, int]:
         "B12": sos_cascade.launches,
         "B13": sos_cascade_unrolled.launches,
         "B15": sos_sections.launches,
+        "B16": tv_cascade.launches,
+        "B17": tv_section.launches,
+        "B18": tv_frames_cascade.launches,
         "B19": fused_pfb_raw.launches,
         "B20": fused_branch_dft.launches,
         "B21": resample_farrow_segmented.launches,
+        "B22": lpc_synth_pass.launches,
     }
 
 
@@ -123,8 +146,9 @@ def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     for fn in (
         windowed_averager, windowed_averager_packed, cumsum, direct_averager, fused_fir, fused_fir3,
-        iir1_block_scan, sos_cascade, sos_cascade_unrolled, sos_sections, fused_pfb_raw,
-        fused_branch_dft, resample_farrow_segmented,
+        iir1_block_scan, sos_cascade, sos_cascade_unrolled, sos_sections, tv_cascade, tv_section,
+        tv_frames_cascade, fused_pfb_raw, fused_branch_dft, resample_farrow_segmented,
+        lpc_synth_pass,
     ):
         fn.launches = 0
     scan_averager.launches = dict.fromkeys(SCAN_VARIANTS, 0)

@@ -1,7 +1,8 @@
 """IIR filtering on the card: first-order recurrences and second-order sections.
 
-Counterpart of the time-invariant part of
-``digital_signal_processsing_tpu/ops/iir.py``. Coefficients follow scipy's
+Counterpart of ``digital_signal_processsing_tpu/ops/iir.py``, its
+time-invariant part and its time-varying sections (``sosfilt_tv*``, at the
+end of this module with their kernels B16-B18). Coefficients follow scipy's
 layout (``sos`` rows ``b0 b1 b2 a0 a1 a2`` with ``a0 == 1``); every section is
 direct form II transposed::
 
@@ -501,18 +502,18 @@ def _state_planar(state: torch.Tensor, sections: int, channels: int) -> torch.Te
 def iir_first_order(x: torch.Tensor, a, b=1.0, *, method: str = "auto") -> torch.Tensor:
     """y[t] = a*y[t-1] + b*x[t] over the last axis, zero initial state.
 
-    ``auto`` takes B10 (``pallas``) from PALLAS_IIR_MIN_T samples, else the
-    plain version (``xla_scan``). Scalar coefficients only: the reference's
-    per-sample (array) coefficients are not ported.
+    ``auto`` takes B10 (``pallas``) from PALLAS_IIR_MIN_T samples with scalar
+    coefficients, else the plain version (``xla_scan``). Per-sample (array)
+    coefficients, broadcast against ``x``, always take ``xla_scan``, as the
+    reference sends them to its XLA scan.
     """
-    if np.ndim(a) != 0 or np.ndim(b) != 0:
-        raise NotImplementedError(
-            "iir_first_order with per-sample coefficients is not ported; pass scalars"
-        )
+    scalar = np.ndim(a) == 0 and np.ndim(b) == 0
     if method == "auto":
-        method = "pallas" if x.shape[-1] >= PALLAS_IIR_MIN_T else "xla_scan"
+        method = "pallas" if scalar and x.shape[-1] >= PALLAS_IIR_MIN_T else "xla_scan"
     record_choice("iir_first_order", method)
     if method == "pallas":
+        if not scalar:
+            raise ValueError("method='pallas' takes scalar coefficients; arrays take 'xla_scan'")
         return iir_first_order_pallas(x, a, b)
     if method != "xla_scan":
         raise ValueError(f"unknown method {method!r}; options ('auto', 'pallas', 'xla_scan')")
@@ -520,8 +521,32 @@ def iir_first_order(x: torch.Tensor, a, b=1.0, *, method: str = "auto") -> torch
 
 
 def _iir_first_order_xla(x: torch.Tensor, a, b=1.0) -> torch.Tensor:
-    x2, batch = _planar(x)
-    return _iir1_plain(x2, float(a), float(b)).reshape(batch + (x2.shape[1],))
+    if np.ndim(a) == 0 and np.ndim(b) == 0:
+        x2, batch = _planar(x)
+        return _iir1_plain(x2, float(a), float(b)).reshape(batch + (x2.shape[1],))
+    return _iir1_scan(x, a, b)
+
+
+def _iir1_scan(x: torch.Tensor, a, b) -> torch.Tensor:
+    """y = a*y + b*x with per-sample coefficients: log2(T) doubling steps.
+
+    The reference's associative scan of the maps y -> a y + b x, composed
+    (a2 a1, a2 b1 + b2) in Hillis-Steele order; float32 throughout.
+    """
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"expected a torch.Tensor, got {type(x).__name__}")
+    xf = x.to(torch.float32)
+    av = _coef(a, x.device)
+    bx = _coef(b, x.device) * xf
+    av, bx = torch.broadcast_tensors(av, bx)
+    av, bx = av.contiguous(), bx.contiguous()
+    t = xf.shape[-1]
+    d = 1
+    while d < t:
+        bx = torch.cat([bx[..., :d], av[..., d:] * bx[..., :-d] + bx[..., d:]], -1)
+        av = torch.cat([av[..., :d], av[..., d:] * av[..., :-d]], -1)
+        d *= 2
+    return bx
 
 
 def iir_first_order_pallas(
@@ -945,6 +970,415 @@ def lfiltic(b, a, y, x=None) -> np.ndarray:
     return zi
 
 
+# --- time-varying second-order sections --------------------------------------------
+#
+# Coefficients that change along the stream (LPC synthesis, the tracking
+# notch, automated filters), the standard time-varying DF2T with every row
+# divided by its own a0:
+#     y[t]  = b0[t] x[t] + s1[t-1]
+#     s1[t] = b1[t] x[t] - a1[t] y[t] + s2[t-1]
+#     s2[t] = b2[t] x[t] - a2[t] y[t]
+# Inside the port rows are a (S, Cc, F, 6) float32 tensor on the signal's
+# device: Cc = 1 for rows shared by the C channels (the kernels read them with
+# a channel stride of 0; they are never copied a channel), or Cc = C; F = T
+# rows, one a sample, or one a frame of ``frame_len`` samples.
+#
+# Kernels (csrc/iir_tv.cu, three launches each: every tile's zero-state end
+# state and 2S x 2S transition, a float64 chain of those a channel, a seeded
+# re-run; see the source note):
+#
+# - :func:`tv_cascade`         B16, every section a tile (``sosfilt_tv`` auto
+#   for S > 1, ``sosfilt_tv_fused``, the ``expand`` route of the frames);
+# - :func:`tv_section`         B17, one section, seeded or not
+#   (``method="scan"``, one launch a section; ``sosfilt_tv_chunk``);
+# - :func:`tv_frames_cascade`  B18, every section with a row a frame
+#   (``sosfilt_tv_frames``, its chunk call, the factored LPC engine, the
+#   tracking notch).
+#
+# ``tile_rows`` (rows of 128 samples) keeps the reference's meaning only for
+# routes and refusals: the frames envelope, ``method="frames"``'s ValueError,
+# the ``row_pass`` checks and the frames chunk call's route. The kernels' own
+# tile is :func:`pick_tile`'s, and they take any T seeded: a chunk call runs
+# its whole chunk through its kernel, where the reference splits off a
+# sub-tile tail for its XLA sample scan.
+
+MAX_TV_GROUP = 16  # sections a pass of B16/B18: 2S state lanes of launch 2's warp
+TV_SEG = 8  # csrc/iir_tv.cu: consecutive samples a thread; a sub-tile is THREADS * TV_SEG
+
+
+def _coef(v, device) -> torch.Tensor:
+    """Coefficients (a tensor, an array or a number) as float32 on ``device``."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(v, np.float32))).to(device)
+
+
+def _tv_rows(sos, batch: tuple, device, n: int | None = None, what: str = "sos_t"):
+    """``(n, 6)``, ``(S, n, 6)`` or ``(S, *batch, n, 6)`` rows -> (S, Cc, F, 6).
+
+    ``n``: the rows a per-sample schedule must have; None for frames.
+    """
+    r = _coef(sos, device)
+    if r.dim() == 2:
+        r = r[None]
+    if r.dim() < 3 or r.shape[-1] != 6 or (n is not None and r.shape[-2] != n):
+        want = "n" if n is None else f"n={n}"
+        raise ValueError(f"{what} must end in ({want}, 6), got {tuple(r.shape[-2:])}")
+    s, f = r.shape[0], r.shape[-2]
+    mid = tuple(r.shape[1:-2])
+    if mid == ():
+        return r.reshape(s, 1, f, 6).contiguous()
+    nch = int(np.prod(batch)) if batch else 1
+    r = r.reshape(s, -1, f, 6)
+    if r.shape[1] != nch:
+        raise ValueError(f"{what} batch dims {mid} do not match signal batch {batch}")
+    return r.contiguous()
+
+
+def _tv_planes(rows4: torch.Tensor, frame_len: int, t0: int, t1: int) -> torch.Tensor:
+    """The rows of samples [t0, t1) divided by their a0: (S, Cc, t1 - t0, 5) b0 b1 b2 a1 a2.
+
+    As the kernels divide: one reciprocal of a0 a row, then five products.
+    """
+    f0 = t0 // frame_len
+    r = rows4[:, :, f0 : cdiv(t1, frame_len)]
+    p = torch.cat([r[..., 0:3], r[..., 4:6]], -1) * (1.0 / r[..., 3:4])
+    if frame_len > 1:
+        off = t0 - f0 * frame_len
+        p = p.repeat_interleave(frame_len, dim=2)[:, :, off : off + t1 - t0]
+    return p
+
+
+def _tv_run(xt, pt, states, yt=None, snap_at: int = -1):
+    """The time-varying cascade over the rows of ``xt`` (tile, N, nt), or zero
+    input when None; ``pt``: (tile, S, Cc, nt, 5) planes; states[k] = (s1, s2).
+
+    Writes each sample's output to ``yt`` when given; returns the states after
+    the last row and, at row ``snap_at``, the last tile's states.
+    """
+    zero = pt.new_zeros(())
+    snap = None
+    for j in range(pt.shape[0]):
+        u = zero if xt is None else xt[j]
+        for k in range(len(states)):
+            b0, b1, b2, a1, a2 = pt[j, k].unbind(-1)
+            s1, s2 = states[k]
+            yk = b0 * u + s1
+            states[k] = (b1 * u - a1 * yk + s2, b2 * u - a2 * yk)
+            u = yk
+        if yt is not None:
+            yt[j] = u
+        if j == snap_at:
+            snap = [(s1[:, -1].clone(), s2[:, -1].clone()) for s1, s2 in states]
+    return states, snap
+
+
+def _tv_scan(m: torch.Tensor, z: torch.Tensor, s0: torch.Tensor) -> torch.Tensor:
+    """States entering the tiles, float64: s_0 = s0, s_{t+1} = M_t s_t + z_t.
+
+    m: (1 or C, nt, D, D) the tiles' transitions; z: (C, nt, D) their
+    zero-state end states; s0: (C, D). A Hillis-Steele scan over the tiles in
+    place of the kernels' walk of one warp a channel.
+    """
+    mm, zz = m[:, :-1], z[:, :-1]
+    d = 1
+    while d < mm.shape[1]:
+        zz = torch.cat([zz[:, :d], (mm[:, d:] @ zz[:, :-d, :, None])[..., 0] + zz[:, d:]], 1)
+        mm = torch.cat([mm[:, :d], mm[:, d:] @ mm[:, :-d]], 1)
+        d *= 2
+    incl = (mm @ s0[:, None, :, None])[..., 0] + zz
+    return torch.cat([s0[:, None], incl], 1)
+
+
+def _tv_plain(x2: torch.Tensor, rows4: torch.Tensor, frame_len: int,
+              state: torch.Tensor | None):
+    """Plain version of B16/B18 (and B17 at S = 1): (C, T) -> (y, end state (S, C, 2)).
+
+    The kernels' three steps in PyTorch over tiles of PLAIN_TILE samples:
+    each tile's zero-state end state and its transition (the zero-input
+    cascade from the 2S unit states), the float64 chain of those, and the
+    seeded run. A float64 ``x2`` runs the recurrence in float64 on the same
+    float32 rows: the float64 reference of the kernels.
+    """
+    c, t = x2.shape
+    s, cc = rows4.shape[:2]
+    if state is None:
+        state = x2.new_zeros((s, c, 2))
+    if t == 0:
+        return x2.new_zeros((c, 0)), state.clone()
+    tile = min(PLAIN_TILE, t)
+    nt = cdiv(t, tile)
+    d = 2 * s
+    planes = F.pad(_tv_planes(rows4, frame_len, 0, t), (0, 0, 0, nt * tile - t))
+    pt = planes.view(s, cc, nt, tile, 5).permute(3, 0, 1, 2, 4)
+    xt = _tiles(x2, tile)
+    # 1. each tile from zero state, and from each unit state with zero input
+    zero = x2.new_zeros((c, nt))
+    ends, _ = _tv_run(xt, pt, [(zero, zero)] * s)
+    z = torch.stack([v for pair in ends for v in pair], -1).double()  # (C, nt, D)
+    eye = torch.eye(d, dtype=x2.dtype, device=x2.device)[:, :, None, None].expand(d, d, cc, nt)
+    cols, _ = _tv_run(None, pt, [(eye[:, 2 * k], eye[:, 2 * k + 1]) for k in range(s)])
+    m = torch.stack([v for pair in cols for v in pair], 1)  # (D col, D row, Cc, nt)
+    m = m.permute(2, 3, 1, 0).double()
+    # 2. the state entering each tile
+    s0 = state.permute(1, 0, 2).reshape(c, d).double()
+    starts = _tv_scan(m, z, s0).to(x2.dtype)
+    # 3. each tile from its state, and the state after sample t-1
+    yt = torch.empty_like(xt)
+    _, snap = _tv_run(
+        xt, pt, [(starts[..., 2 * k], starts[..., 2 * k + 1]) for k in range(s)], yt,
+        (t - 1) % tile,
+    )
+    new_state = torch.stack([torch.stack(pair, dim=-1) for pair in snap])
+    return _untiles(yt, t), new_state
+
+
+def _tv_check(x2, rows4, state, frame_len: int, name: str, tile_rows) -> torch.Tensor:
+    """Validate a TV kernel call; return the rows as the kernel reads them."""
+    if not isinstance(rows4, torch.Tensor) or rows4.dim() != 4 or rows4.shape[-1] != 6:
+        raise ValueError(f"{name}: rows must be a (S, Cc, F, 6) tensor")
+    s, cc, f = rows4.shape[:3]
+    if s < 1:
+        raise ValueError(f"{name}: needs at least one section")
+    _check(x2, state, s, name, tile_rows)
+    if rows4.dtype != torch.float32 or rows4.device != x2.device:
+        raise ValueError(f"{name}: rows must be float32 on {x2.device}, got {rows4.dtype} "
+                         f"on {rows4.device}")
+    if cc not in (1, x2.shape[0]):
+        raise ValueError(f"{name}: rows for {cc} channels, x has {x2.shape[0]}")
+    if frame_len < 1 or f * frame_len < x2.shape[1]:
+        raise ValueError(f"{name}: {f} rows x {frame_len} samples < {x2.shape[1]} samples")
+    if x2.device.type == "cuda":
+        rows4 = rows4.contiguous()
+        if rows4.data_ptr() % 8:
+            rows4 = rows4.clone()
+    return rows4
+
+
+def _launch_tv(kind: int, x2, rows4, frame_len, state, tile_rows):
+    c, t = x2.shape
+    s, cc, f = rows4.shape[:3]
+    y = torch.empty_like(x2)
+    new_state = None if state is None else torch.empty_like(state)
+    tile = pick_tile(c, t, tile_rows)
+    ntiles = cdiv(t, tile)
+    d = 2 * min(s, MAX_TV_GROUP)
+    carry = torch.empty(c * ntiles * d, dtype=torch.float32, device=x2.device)
+    trans = torch.empty(max(1, cc * (ntiles - 1) * d * d), dtype=torch.float32, device=x2.device)
+    lib = _build.library()
+    with torch.cuda.device(x2.device):
+        err = lib.dsp_tv_cascade(
+            x2.data_ptr(), y.data_ptr(), rows4.data_ptr(), cc * f * 6, f * 6 if cc > 1 else 0,
+            frame_len, carry.data_ptr(), trans.data_ptr(),
+            None if state is None else state.data_ptr(),
+            None if new_state is None else new_state.data_ptr(),
+            t, c, cc, s, tile, kind, _stream(x2),
+        )
+    _build.check(err, ("tv_cascade", "tv_section", "tv_frames_cascade")[kind])
+    return y, new_state
+
+
+def _tv_kernel(kind: int, fn, x2, rows4, frame_len, state, tile_rows):
+    rows4 = _tv_check(x2, rows4, state, frame_len, fn.__name__, tile_rows)
+    if not _on_cuda(x2):
+        y, end = _tv_plain(x2, rows4, frame_len, state)
+        return y, None if state is None else end
+    if x2.shape[1] == 0:
+        return torch.empty_like(x2), None if state is None else state.clone()
+    y, end = _launch_tv(kind, x2, rows4, frame_len, state, tile_rows)
+    fn.launches += 1
+    return y, end
+
+
+def tv_cascade(x2: torch.Tensor, rows4: torch.Tensor, state: torch.Tensor | None = None, *,
+               tile_rows: int | None = None):
+    """Every time-varying section over (C, T) float32 by B16: (y, end state or None).
+
+    ``rows4``: (S, Cc, T, 6) per-sample rows, any S (groups of MAX_TV_GROUP
+    sections through device memory). ``state``: the (S, C, 2) state entering
+    the chunk; the end state comes back only for a seeded call.
+    """
+    return _tv_kernel(0, tv_cascade, x2, rows4, 1, state, tile_rows)
+
+
+tv_cascade.launches = 0
+
+
+def tv_section(x2: torch.Tensor, rows4: torch.Tensor, state: torch.Tensor | None = None, *,
+               tile_rows: int | None = None):
+    """One time-varying section over (C, T) float32 by B17: (y, end state or None)."""
+    if isinstance(rows4, torch.Tensor) and rows4.dim() == 4 and rows4.shape[0] != 1:
+        raise ValueError(f"tv_section (B17) runs one section, got {rows4.shape[0]}")
+    return _tv_kernel(1, tv_section, x2, rows4, 1, state, tile_rows)
+
+
+tv_section.launches = 0
+
+
+def tv_frames_cascade(x2: torch.Tensor, rows4: torch.Tensor, frame_len: int,
+                      state: torch.Tensor | None = None, *, tile_rows: int | None = None):
+    """Every time-varying section by B18, a row a frame: (y, end state or None).
+
+    ``rows4``: (S, Cc, F, 6), frame f governing samples [f frame_len,
+    (f+1) frame_len); any ``frame_len``, F * frame_len >= T.
+    """
+    return _tv_kernel(2, tv_frames_cascade, x2, rows4, int(frame_len), state, tile_rows)
+
+
+tv_frames_cascade.launches = 0
+
+
+def sosfilt_tv(sos_t, x: torch.Tensor, *, tile_rows: int = 256,
+               method: str = "auto") -> torch.Tensor:
+    """Time-varying SOS cascade over the last axis, zero initial state.
+
+    ``sos_t``: per-sample scipy-layout rows ``(S, n, 6)`` (shared across
+    channels), ``(n, 6)`` (one section) or ``(S, *batch, n, 6)``; ``a0`` may
+    vary and is divided out per sample. ``method``: ``auto`` runs the fused
+    cascade (B16, :func:`sosfilt_tv_fused`) for more than one section, else
+    ``scan``, B17 launched once a section with the signal through device
+    memory (the reference's A/B anchor).
+    """
+    if method not in ("auto", "fused", "scan"):
+        raise ValueError(f"unknown method {method!r}")
+    nsec = 1 if np.ndim(sos_t) == 2 else np.shape(sos_t)[0]
+    if method == "fused" or (method == "auto" and nsec > 1):
+        record_choice("sosfilt_tv", "fused")
+        return sosfilt_tv_fused(sos_t, x, tile_rows=tile_rows)
+    record_choice("sosfilt_tv", "scan")
+    x2, batch = _planar(x)
+    rows4 = _tv_rows(sos_t, batch, x2.device, x2.shape[1])
+    for k in range(rows4.shape[0]):
+        x2, _ = tv_section(x2, rows4[k : k + 1])
+    return x2.reshape(batch + (x2.shape[1],))
+
+
+def _tv_frames_envelope_ok(frame_len: int, tile_rows: int) -> bool:
+    """Whether the reference's frame-aware kernel takes this (frame_len, tile_rows).
+
+    Whole 128-lane rows a frame, frame and tile boundaries nesting, and
+    tile_rows within the compact row pass's bounds. B18 takes any frame_len;
+    the rule stays the reference's because it decides the route.
+    """
+    if frame_len % 128 != 0 or tile_rows % 128 != 0:
+        return False
+    if not (128 <= tile_rows <= 16384):
+        return False
+    fl_rows = frame_len // 128
+    return tile_rows % fl_rows == 0 or fl_rows % tile_rows == 0
+
+
+def _frame_rows(sos_frames, x: torch.Tensor, frame_len: int, what: str = "sos_frames"):
+    """(planar x, batch, (S, Cc, F, 6) rows), refusing a schedule shorter than x."""
+    x2, batch = _planar(x)
+    rows4 = _tv_rows(sos_frames, batch, x2.device, None, what)
+    n, nf = x2.shape[1], rows4.shape[2]
+    if nf * frame_len < n:
+        raise ValueError(f"{nf} frames x {frame_len} < signal length {n}")
+    return x2, batch, rows4
+
+
+def sosfilt_tv_frames(sos_frames, x: torch.Tensor, frame_len: int, *, tile_rows: int = 256,
+                      method: str = "auto", row_pass: str = "compact") -> torch.Tensor:
+    """Step-wise time-varying SOS: one coefficient row a frame.
+
+    ``sos_frames``: ``(S, n_frames, 6)``, ``(n_frames, 6)`` or ``(S, *batch,
+    n_frames, 6)``; frame f governs samples [f frame_len, (f+1) frame_len).
+    ``method``: ``frames`` runs B18, which reads a sample's row by its frame
+    index (the reference's envelope, :func:`_tv_frames_envelope_ok`, decides
+    the route and the refusal); ``expand`` materializes per-sample rows and
+    runs :func:`sosfilt_tv`; ``auto`` is frames inside the envelope, else
+    expand. ``row_pass`` is a TPU relayout of the row-level composition with
+    no meaning here (the reference does not check it either).
+    """
+    x2, batch, rows4 = _frame_rows(sos_frames, x, frame_len)
+    n = x2.shape[1]
+    if method not in ("auto", "frames", "expand"):
+        raise ValueError(f"unknown method {method!r}")
+    frames_ok = _tv_frames_envelope_ok(frame_len, tile_rows)
+    if method == "frames" and not frames_ok:
+        raise ValueError(
+            f"method='frames' needs frame_len % 128 == 0 and frame/tile "
+            f"nesting; got frame_len={frame_len}, tile_rows={tile_rows}"
+        )
+    if method == "auto":
+        method = "frames" if frames_ok else "expand"
+    record_choice("sosfilt_tv_frames", method)
+    if method == "frames":
+        y, _ = tv_frames_cascade(x2, rows4, frame_len)
+        return y.reshape(batch + (n,))
+    expanded = rows4.repeat_interleave(frame_len, dim=2)[:, :, :n]
+    shared = rows4.shape[1] == 1
+    expanded = expanded[:, 0] if shared else expanded.reshape((rows4.shape[0],) + batch + (n, 6))
+    return sosfilt_tv(expanded, x2.reshape(batch + (n,)), tile_rows=tile_rows)
+
+
+def sosfilt_tv_frames_chunk(state: torch.Tensor, sos_frames, x: torch.Tensor, frame_len: int, *,
+                            tile_rows: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
+    """Streaming frame-wise TV SOS chunk: (new state, y), the state contract of
+    :func:`sosfilt_chunk` (``(S, *batch, 2)``).
+
+    Chunks start on frame boundaries: ``sos_frames`` covers this chunk from
+    its first sample. Inside the reference's frames envelope the whole chunk,
+    of any length, runs B18 seeded; outside it the rows are expanded and the
+    chunk goes to :func:`sosfilt_tv_chunk`'s route, as in the reference.
+    """
+    x2, batch, rows4 = _frame_rows(sos_frames, x, frame_len)
+    n = x2.shape[1]
+    if not _tv_frames_envelope_ok(frame_len, tile_rows):
+        expanded = rows4.repeat_interleave(frame_len, dim=2)[:, :, :n]
+        return _tv_chunk(state, expanded, x2, batch)
+    st = _state_planar(state, rows4.shape[0], x2.shape[0])
+    y, end = tv_frames_cascade(x2, rows4, frame_len, st)
+    return end.reshape(tuple(state.shape)), y.reshape(batch + (n,))
+
+
+def _tv_chunk(state, rows4, x2, batch):
+    """The chunk of :func:`sosfilt_tv_chunk` on planar x and (S, Cc, n, 6) rows:
+    B17 seeded a section a launch, the signal through device memory."""
+    st = _state_planar(state, rows4.shape[0], x2.shape[0])
+    y, ends = x2, []
+    for k in range(rows4.shape[0]):
+        y, e = tv_section(y, rows4[k : k + 1], st[k : k + 1].contiguous())
+        ends.append(e)
+    return torch.cat(ends).reshape(tuple(state.shape)), y.reshape(batch + (x2.shape[1],))
+
+
+def sosfilt_tv_chunk(state: torch.Tensor, sos_t, x: torch.Tensor, *,
+                     tile_rows: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
+    """Streaming time-varying SOS chunk: (new state, y), the state contract of
+    :func:`sosfilt_chunk` (``(S, *batch, 2)``).
+
+    The whole chunk, of any length, runs B17 seeded, a section a launch. The
+    reference splits off a sub-tile tail for its XLA sample scan because its
+    kernel takes whole tiles; B17 takes any length, so ``tile_rows`` changes
+    nothing here.
+    """
+    x2, batch = _planar(x)
+    rows4 = _tv_rows(sos_t, batch, x2.device, x2.shape[1])
+    return _tv_chunk(state, rows4, x2, batch)
+
+
+def sosfilt_tv_fused(sos_t, x: torch.Tensor, *, tile_rows: int = 256,
+                     row_pass: str | None = None) -> torch.Tensor:
+    """Fused-cascade spelling of :func:`sosfilt_tv` (B16, every section a tile).
+
+    ``row_pass`` is a TPU relayout of the row-level composition with no
+    meaning here: validated as the reference does, then B16 runs.
+    """
+    compact_ok = tile_rows % 128 == 0 and 128 <= tile_rows <= 16384
+    if row_pass is None:
+        row_pass = "compact" if compact_ok else "bcast"
+    if row_pass == "compact" and not compact_ok:
+        raise ValueError(
+            "row_pass='compact' needs tile_rows % 128 == 0 and "
+            f"128 <= tile_rows <= 16384, got {tile_rows}"
+        )
+    x2, batch = _planar(x)
+    y, _ = tv_cascade(x2, _tv_rows(sos_t, batch, x2.device, x2.shape[1]))
+    return y.reshape(batch + (x2.shape[1],))
+
+
 # --- designers (host NumPy, copied from the reference) -----------------------------
 
 
@@ -1257,6 +1691,15 @@ __all__ = [
     "sosfilt_chunk_pallas",
     "sosfilt_pallas_fused",
     "sosfilt_chunk_pallas_fused",
+    "MAX_TV_GROUP",
+    "tv_cascade",
+    "tv_section",
+    "tv_frames_cascade",
+    "sosfilt_tv",
+    "sosfilt_tv_fused",
+    "sosfilt_tv_chunk",
+    "sosfilt_tv_frames",
+    "sosfilt_tv_frames_chunk",
     "ba_to_sos",
     "lfilter",
     "sosfiltfilt",

@@ -385,8 +385,12 @@ def test_unported_anchors_raise_by_name(rng):
         iir.sosfilt(sos, x, method="nope")
     with pytest.raises(ValueError, match="kernel"):
         iir.iir_first_order_pallas(x, 0.9, kernel="nope")
-    with pytest.raises(NotImplementedError, match="per-sample"):
-        iir.iir_first_order(x, np.full(100, 0.9, F32))
+    # per-sample coefficients take the plain scan (the reference's XLA scan), B10 refuses them
+    ones = torch.ones(2, 100)
+    y = iir.iir_first_order(ones, np.full(100, 0.9, F32))
+    assert torch.allclose(y, iir.iir_first_order(ones, 0.9, method="xla_scan"), rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="scalar"):
+        iir.iir_first_order(x, np.full(100, 0.9, F32), method="pallas")
     with pytest.raises(ValueError, match="tile_rows"):
         iir.sosfilt_pallas_fused(sos, x, tile_rows=8)
 

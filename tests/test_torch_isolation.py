@@ -57,7 +57,17 @@ from digital_signal_processsing_tpu_torch.ops.iir import (
     sosfilt,
     sosfilt_chunk,
     sosfilt_init,
+    sosfilt_tv,
+    sosfilt_tv_chunk,
+    sosfilt_tv_frames,
+    sosfilt_tv_frames_chunk,
+    sosfilt_tv_fused,
+    tv_cascade,
+    tv_frames_cascade,
+    tv_section,
 )
+from digital_signal_processsing_tpu_torch.ops.lpc import lpc_synth_pass, lpc_synthesis, lpc_vocoder
+from digital_signal_processsing_tpu_torch.models.adaptive import tracking_notch
 from digital_signal_processsing_tpu_torch.serve import stream_moving_average
 
 REPO = Path(__file__).resolve().parents[1]
@@ -115,6 +125,17 @@ for method in ("auto", "matmul", "segmented", "gather"):
 locked = DspChain(ChainConfig(channels=2, decimation=4, channel_taps=33, audio_taps=17,
                               audio_resample=(441, 2560)), device="cpu")
 assert locked.forward_planar(torch.from_numpy(i), torch.from_numpy(q)).shape == (2, 353)
+from digital_signal_processsing_tpu_torch.ops import fft, lpc  # noqa: F401
+from digital_signal_processsing_tpu_torch.models import adaptive
+rows = torch.ones(2, 3000, 6) * torch.tensor([0.3, 0.1, 0.05, 1.25, -0.5, 0.2])
+for method in ("auto", "fused", "scan"):
+    assert iir.sosfilt_tv(rows, xf, method=method).shape == (2, 3000)
+for method in ("auto", "frames", "expand"):
+    assert iir.sosfilt_tv_frames(rows[:, ::128], xf, 128, tile_rows=128, method=method).shape == (2, 3000)
+a, g = lpc.lpc(xf, 8, 256)
+for method in ("auto", "scan", "pallas", "refine", "factored"):
+    assert lpc.lpc_synthesis(a, g, xf[:, :2816], 256, method=method).shape == (2, 2816)
+assert adaptive.tracking_notch(xf, 512)[0].shape == (2, 3000)
 assert not [m for m in sys.modules if m.startswith("jax") and sys.modules[m] is not None]
 reference = [m for m in sys.modules
              if m == "digital_signal_processsing_tpu" or m.startswith("digital_signal_processsing_tpu.")]
@@ -210,6 +231,19 @@ def test_cpu_tensors_never_build_kernels(monkeypatch, rng):
         for method in ("auto", "matmul", "segmented", "gather"):
             if method != "matmul" or rate[0] * rate[1] <= 1 << 22:
                 resample_farrow(xf, rate, method=method)
+    rows = torch.ones(2, 5000, 6) * torch.tensor([0.3, 0.1, 0.05, 1.25, -0.5, 0.2])
+    for method in ("auto", "fused", "scan"):
+        sosfilt_tv(rows, xf, method=method)
+    sosfilt_tv_fused(rows, xf)
+    sosfilt_tv_chunk(torch.zeros(2, 3, 2), rows, xf, tile_rows=32)
+    for method in ("auto", "frames", "expand"):
+        sosfilt_tv_frames(rows[:, ::128], xf, 128, tile_rows=128, method=method)
+    sosfilt_tv_frames_chunk(torch.zeros(2, 3, 2), rows[:, ::128], xf, 128, tile_rows=32)
+    for method in ("auto", "scan", "pallas", "refine", "factored"):
+        lpc_vocoder(xf, 8, 256, excitation=xf)
+        lpc_synthesis(torch.tensor([[1.0, -0.5]] * 4), torch.ones(4), xf[0, :1024], 256,
+                      method=method)
+    tracking_notch(xf, 512)
     assert not any(launch_counts().values()), launch_counts()
 
 
@@ -238,6 +272,15 @@ def test_other_devices_are_refused():
     ):
         with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
             call()
+    rows = torch.ones(1, 1, 8, 6, device="meta")
+    for call in (
+        lambda: tv_cascade(xf, rows), lambda: tv_section(xf, rows),
+        lambda: tv_frames_cascade(xf, rows, 1),
+        lambda: lpc_synth_pass(torch.zeros(2, 3, device="meta"), torch.zeros(2, 3, device="meta"),
+                               xf),
+    ):
+        with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+            call()
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -261,6 +304,6 @@ def test_build_is_keyed_by_the_sources():
     assert path == _build.library_path()  # stable for unchanged sources
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "windowed.cu", "cumsum.cu", "scan.cu", "direct.cu", "fused_fir.cu", "fused_fir3.cu",
-        "iir.cu", "pfb.cu", "farrow.cu",
+        "iir.cu", "pfb.cu", "farrow.cu", "iir_tv.cu", "lpc.cu",
     }
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
