@@ -44,7 +44,13 @@ failure exits non-zero:
    unseeded and zero-seeded (bit for bit), the expand route at frame_len 100,
    impulses at tile edges, zeros exact; B22 (the LPC recurrence) at p {1, 2,
    12, 32, 40}, L {8, 256} and ragged frame counts, bit for bit against plain
-   and within 1e-5 of float64;
+   and within 1e-5 of float64; then the anchors B11 (first order, per-sample
+   affine maps) at a {0.5, -0.3, 0.99, 0.9999} and B14 (the cascade with its
+   lane pass on the FP64 tensor cores) at sections {1, 2, 4, 8, 16} and on
+   butter, cheby2 and elliptic designs of ``iir_design``, both row passes,
+   against their plain versions (1e-5 of max|y|) and float64 (1e-4) over C
+   {1, 3, 16}, T {1, 4095, 4096, 4097, 100003} and 16 x 2^22; impulses at
+   segment, sub-tile and tile edges, zeros exact, their refusals;
 4. main path, through the entry points a user calls, with the kernels'
    launch counts reset just before and read just after:
    ``moving_average`` on a 64M-sample stereo stream at k=1024 (B1), the same
@@ -91,7 +97,18 @@ failure exits non-zero:
    error; every launch count asserted; then, outside the counts, B22 bit for
    bit against plain on the vocoder's 65536 frames, from rest and seeded, and
    high Q: B16 on the swept rows at pole radius up to 0.95 and B18 on the
-   notch's rows, each kernel and plain against float64;
+   notch's rows, each kernel and plain against float64; then, counts reset
+   again, the filter-design path on 16 x 2^22 float32: an elliptic lowpass
+   of ``ellipord``'s order by ``iirdesign`` through ``sosfilt`` (B12) and
+   ``sosfilt_pallas_fused(lane_pass="mxu")`` in both row passes (B14),
+   ``iir_first_order_pallas(kernel="tile")`` at a = 0.995 (B11),
+   ``cic_decimate`` at rate 8, 4 stages (B8) and its ``design_cic_compensator``
+   FIR (B8), ``cic_interpolate`` on 16 x 2^19, a 201-tap ``design_remez``
+   filter by ``fir_chunk`` in 8 chunks (one of one sample), ``resample_fft``,
+   ``upfirdn`` and ``savgol_filter``, ``cspline1d`` and ``qspline1d`` on
+   16 x 2^20 (B12 seeded); every route and launch count asserted, B11 and B14
+   against their plain versions, B11 against B10, every output against
+   float64;
 5. times: each kernel against its plain version at the main path's shapes
    (CUDA events between back-to-back calls, median of 10 after 5 warm-ups,
    in turns plain, kernel, kernel, plain), with a device-to-device copy of
@@ -112,7 +129,10 @@ failure exits non-zero:
    time-varying main path's shapes (median, min and max of 20) against their
    plain versions and bounds, with B16's and B18's time by launch, the
    transpose B22 skips, and frames (B18) against expand (B16) against
-   per-sample scan (B17) at frame_len 1024;
+   per-sample scan (B17) at frame_len 1024; B11 and B14 at the design path's
+   shape (median, min and max of 20) against their plain versions, B10 and
+   B12, and the bound, with B14's own FP64 operation count, its time by
+   sections and both anchors' time by launch;
 6. serving loops: wall time of three ``stream_moving_average`` runs over
    phase 4's WAVs and of decoding them alone, and the device time of one
    run under ``torch.profiler``, by kernel and copy; the same for
@@ -123,7 +143,7 @@ failure exits non-zero:
    the wideband receiver (channelize, FM demod, audio FIR, squelch).
 
 Each phase prints its seconds. The last two lines are the kernels' JSON
-record (B1-B5, B8, B9, B10, B12, B13, B15, B16-B22, each with
+record (B1-B5, B8-B22, each with
 its launches on the main path, max abs error, device ms, plain ms, bound ms
 and library ms) and ``{"ok": true, "device": {...}}``.
 """
@@ -170,7 +190,8 @@ from digital_signal_processsing_tpu_torch.ops import (
 from digital_signal_processsing_tpu_torch.ops import channelizer as chz
 from digital_signal_processsing_tpu_torch.ops import farrow as fw
 from digital_signal_processsing_tpu_torch.ops import fft_mxu as fm
-from digital_signal_processsing_tpu_torch.ops import fir, gain, iir, lpc
+from digital_signal_processsing_tpu_torch.ops import cic, fir, gain, iir, iir_design, lpc
+from digital_signal_processsing_tpu_torch.ops import resample, splines, streaming
 from digital_signal_processsing_tpu_torch.ops import pallas_direct as pd
 from digital_signal_processsing_tpu_torch.ops import pallas_scan as ps
 from digital_signal_processsing_tpu_torch.ops.demod import fm_demodulate, oscillator_bank
@@ -190,7 +211,9 @@ AVERAGER_KERNELS = ("B1", "B2", *(f"B3/{v}" for v in VARIANTS), "B4", "B5")
 IIR_KERNELS = ("B10", "B12", "B13", "B15")
 PFB_KERNELS = ("B19", "B20", "B21")
 TV_KERNELS = ("B16", "B17", "B18", "B22")
-KERNELS = (*AVERAGER_KERNELS, "B8", "B9", *IIR_KERNELS, *PFB_KERNELS, *TV_KERNELS)
+ANCHOR_KERNELS = ("B11", "B14")
+KERNELS = (*AVERAGER_KERNELS, "B8", "B9", *IIR_KERNELS, *PFB_KERNELS, *TV_KERNELS,
+           *ANCHOR_KERNELS)
 SOURCE = "digital_signal_processsing_tpu_torch/csrc/"
 REPLACES = "digital_signal_processsing_tpu/ops/pallas_scan.py:"
 REPLACES_DIRECT = "digital_signal_processsing_tpu/ops/pallas_direct.py:"
@@ -261,6 +284,23 @@ NOTCH_W_TOL, NOTCH_RTOL = 1e-5, 1e-4
 # q = 30): a kernel's error against float64 may be at most this many times the
 # plain version's own error there
 HIGHQ_FACTOR = 2.0
+# The filter-design path's main path on 16 x 2^22 float32: an elliptic lowpass
+# of ellipord's order (0.2 passband edge, 0.25 stopband edge, 0.1 dB ripple,
+# 80 dB: order 9, 5 sections, poles at radius up to 0.983), B11 at a = 0.995,
+# a CIC of rate 8 and 4 stages with a 63-tap compensator, a 201-tap Remez
+# lowpass streamed in 8 chunks, and the splines on 16 x 2^20. B11 and B14
+# within 1e-5 of max|y| of plain and 1e-4 of float64 (the IIR kernels' bounds);
+# the FIR routes within 1e-4 of float64 (FIR64_RTOL), the splines too.
+DESIGN_SPEC = (0.2, 0.25, 0.1, 80.0)
+ANCHOR_POLE = 0.995
+CIC_RATE, CIC_STAGES, CIC_COMP_TAPS = 8, 4, 63
+CIC_INTERP_T = 1 << 19
+SPLINE_T = 1 << 20
+PREFIX = 1 << 16  # samples of channel 0 held against a float64 FIR on the host
+# B14's own operations: a segment of MXU_SEG samples is a row of MXU_K doubles
+# times a MXU_K x MXU_N T, in each of its two tile launches; FP64 tensor-core
+# peak of the H100 SXM (NVIDIA's data sheet: 67 TFLOP/s).
+FP64_TC_FLOPS_PER_S = 67e12
 # The H100 SXM's memory rate, and its peak rate of int32 adds outside the
 # tensor cores: a clock of an SM issues 64 lanes of IADD3, two adds each
 # (three operands), and 64 lanes of IMAD on the FMA pipe, one add each
@@ -1073,6 +1113,20 @@ def phase_iir_main(rng, dev, check: Checker, wav: np.ndarray, split: int) -> tup
     return launches, {"x": x, "paths_wav": (wav, split)}
 
 
+LFILTER_NONE = "none: no PyTorch call computes an IIR (torchaudio is not installed)"
+
+
+def lfilter_ms(x: torch.Tensor, b, a) -> float | None:
+    """Median device ms of torchaudio's ``lfilter`` (b, a) over x, None where it is not
+    installed: the one PyTorch call that computes an IIR, timed as a yardstick only."""
+    try:
+        import torchaudio.functional as taf
+    except ImportError:
+        return None
+    bt, at = (torch.tensor(np.asarray(v, np.float32), device=x.device) for v in (b, a))
+    return statistics.median(device_ms(lambda: taf.lfilter(x, at, bt, clamp=False), 1, 3))
+
+
 def time_iir(kernel_fn, plain_fn) -> tuple[float, float]:
     """Median device ms: the kernel of 10 after 5 warm-ups, the plain version (thousands
     of small launches) of 3 after 1, in turns plain, kernel, kernel, plain."""
@@ -1108,20 +1162,10 @@ def phase_iir_times(main: dict) -> dict:
         "B13": bound(8 * n, s * 10 * n, FP32_FLOPS_PER_S),
         "B15": bound(s * 8 * n, s * 10 * n, FP32_FLOPS_PER_S),
     }
-    try:
-        import torchaudio.functional as taf
-    except ImportError:
-        library = dict.fromkeys(IIR_KERNELS)
-        library_note = "none: no PyTorch call computes an IIR (torchaudio is not installed)"
-    else:
-        b, a = sps.sos2tf(rows.astype(np.float64))
-        bt, at = (torch.tensor(v, dtype=torch.float32, device=x.device) for v in (b, a))
-        ms = statistics.median(device_ms(lambda: taf.lfilter(x, at, bt, clamp=False), 1, 3))
-        b1 = torch.tensor([1.0, 0.0], device=x.device)
-        a1 = torch.tensor([1.0, -0.995], device=x.device)
-        ms1 = statistics.median(device_ms(lambda: taf.lfilter(x, a1, b1, clamp=False), 1, 3))
-        library = {"B10": ms1, "B12": ms, "B13": ms, "B15": ms}
-        library_note = f"torchaudio.functional.lfilter (order {s * 2} transfer function)"
+    ms = lfilter_ms(x, *sps.sos2tf(rows.astype(np.float64)))
+    library = {"B10": lfilter_ms(x, [1.0, 0.0], [1.0, -0.995]), "B12": ms, "B13": ms, "B15": ms}
+    library_note = (LFILTER_NONE if ms is None
+                    else f"torchaudio.functional.lfilter (order {s * 2} transfer function)")
     print(f"[5 IIR times] 16 x 2^22 float32, butter(8, 0.1); kernels median of 10 after 5 "
           f"warm-ups, plain 3 after 1; copy of the same bytes {copy_ms:.4f} ms:")
     for name, (ms, plain) in out.items():
@@ -2091,6 +2135,313 @@ def phase_tv_times(main: dict) -> dict:
     return {"times": out, "bounds": bounds}
 
 
+def design_set() -> dict:
+    """Butterworth, Chebyshev II and the main path's elliptic design, from ``iir_design``."""
+    return {
+        "butter": iir_design.iirfilter(8, 0.1).astype(np.float32),
+        "cheby2": iir_design.iirfilter(6, 0.2, ftype="cheby2", rs=50.0).astype(np.float32),
+        "ellip": iir_design.iirdesign(*DESIGN_SPEC, ftype="ellip").astype(np.float32),
+    }
+
+
+def phase_anchor_corners(rng, dev, check: Checker) -> None:
+    """B11 and B14 against their plain versions and float64; B14's refusals."""
+    sub = iir.SUB_TILE
+    lengths = (1, sub - 1, sub, sub + 1, 100_003)
+    cases = [(c, t) for c in (1, 3, 16) for t in lengths] + [(16, IIR_T)]
+
+    def sig(c: int, t: int) -> torch.Tensor:
+        return torch.from_numpy(rng.standard_normal((c, t), dtype=np.float32)).to(dev)
+
+    for a in IIR_POLES:
+        for c, t in cases:
+            x = sig(c, t)
+            y = iir.iir1_affine_scan(x, a, 0.7)
+            label = f"a={a} C={c} T={t}"
+            check.close("B11", y, iir._iir1_plain(x, a, 0.7), f"B11 {label} against plain", IIR_RTOL)
+            k = c if t < IIR_T else 1
+            check.close("B11", y[:k], iir1_64(x[:k], a, 0.7), f"B11 {label} against float64",
+                        IIR64_RTOL)
+
+    def mxu(x, sos, label: str) -> float:
+        """B14 in both row passes against plain and float64; plain's own error.
+
+        Past the float32 recurrence's reach (16 sections of butter(32, 0.1),
+        poles at radius 0.985) plain itself lies 1e-5 or more from float64,
+        and B14, whose lane pass is float64, nearer: there B14 is held to
+        plain within 1e-5 plus plain's own error, and to float64 within the
+        larger of 1e-5 and plain's error (never farther from float64 than
+        plain, to 1%, so that equal errors pass), as well as within 1e-4.
+        """
+        plain = iir._sos_plain(x, sos, None)[0]
+        k = x.shape[0] if x.shape[1] < IIR_T else 1
+        want, _ = sos64(sos, x[:k])
+        e_plain = rel64(plain[:k], want.double()) if x.shape[1] else 0.0
+        for row_pass in ("bcast", "compact"):
+            y = iir.sosfilt_pallas_fused(sos, x, lane_pass="mxu", row_pass=row_pass)
+            check.close("B14", y, plain, f"B14 {row_pass} {label} against plain",
+                        IIR_RTOL + e_plain)
+            check.close("B14", y[:k], want, f"B14 {row_pass} {label} against float64",
+                        min(IIR64_RTOL, max(IIR_RTOL, 1.01 * e_plain)))
+        return e_plain
+
+    plain_err = {}
+
+    for s in (1, 2, 4, 8, iir.MAX_SECTIONS):
+        sos = iir.design_butterworth(2 * s, 0.1)
+        for c, t in cases:
+            plain_err[f"S={s}"] = max(plain_err.get(f"S={s}", 0.0),
+                                      mxu(sig(c, t), sos, f"S={s} C={c} T={t}"))
+    for name, sos in design_set().items():
+        for c, t in [(c, 100_003) for c in (1, 3, 16)] + [(16, IIR_T)]:
+            plain_err[name] = max(plain_err.get(name, 0.0),
+                                  mxu(sig(c, t), sos, f"{name} ({sos.shape[0]} sections) C={c} T={t}"))
+    # a reading, not a check: the high-Q end, 16 sections of butter(32, 0.1),
+    # each spelling of the cascade against float64
+    sos = iir.design_butterworth(2 * iir.MAX_SECTIONS, 0.1)
+    x = sig(3, 100_003)
+    want = sos64(sos, x)[0].double()
+    high_q = {
+        "plain": rel64(iir._sos_plain(x, sos, None)[0], want),
+        "B12": rel64(iir.sos_cascade(x, sos)[0], want),
+        "B14": rel64(iir.sos_cascade_mxu(x, sos), want),
+    }
+    # impulses across segment, sub-tile and tile edges (tile_rows=32: a tile of
+    # 4096) give the impulse response; zeros stay zero
+    sos = design_set()["ellip"]
+    t = 3 * sub + 5
+    x = torch.zeros(6, t, device=dev)
+    for c, p in enumerate((0, iir.MXU_SEG - 1, iir.MXU_SEG, iir.MXU_SUB, sub, t - 100)):
+        x[c, p] = 1.0
+    want, _ = sos64(sos, x)
+    check.close("B14", iir.sos_cascade_mxu(x, sos, tile_rows=32), want, "B14 impulses", IIR_RTOL)
+    check.close("B11", iir.iir1_affine_scan(x, 0.99, tile_rows=32), iir1_64(x, 0.99, 1.0),
+                "B11 impulses", IIR_RTOL)
+    zero = torch.zeros_like(x)
+    outs = (iir.sos_cascade_mxu(zero, sos), iir.iir1_affine_scan(zero, 0.9999))
+    torch.cuda.synchronize()
+    if any(torch.count_nonzero(o).item() for o in outs):
+        raise AssertionError("a zero input gave a nonzero B11 or B14 output")
+    refusals = {
+        "17 sections": lambda: iir.sosfilt_pallas_fused(
+            np.tile(iir.design_butterworth(2, 0.1), (17, 1)), x, lane_pass="mxu"),
+        "tile_rows=8": lambda: iir.sosfilt_pallas_fused(sos, x, lane_pass="mxu", tile_rows=8),
+        "compact at tile_rows=64": lambda: iir.sosfilt_pallas_fused(
+            sos, x, lane_pass="mxu", row_pass="compact", tile_rows=64),
+        "lane_pass='tpu'": lambda: iir.sosfilt_pallas_fused(sos, x, lane_pass="tpu"),
+        "kernel='tile' compact": lambda: iir.iir_first_order_pallas(
+            x, 0.9, kernel="tile", row_pass="compact"),
+    }
+    for what, call in refusals.items():
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError(f"B11/B14 took {what}")
+    print(
+        f"[3 anchor corners] B11 at a {IIR_POLES}, B14 at sections {{1, 2, 4, 8, "
+        f"{iir.MAX_SECTIONS}}} and on butter, cheby2 and ellip from iir_design, both row passes; "
+        f"C {{1, 3, 16}}, T {{1, {sub - 1}, {sub}, {sub + 1}, 100003}} and 16 x 2^22: "
+        + ", ".join(f"{k} {check.count[k]} checks" for k in ANCHOR_KERNELS)
+        + f" within {IIR_RTOL} of plain and of float64 (x max|y|; plus plain's own error against "
+        f"float64 where that is larger, at most {IIR64_RTOL}), impulses at "
+        "segment, sub-tile and tile edges, zeros exact, refused: " + ", ".join(refusals)
+        + "; max abs error " + ", ".join(f"{k} {check.max_err[k]:.3e}" for k in ANCHOR_KERNELS)
+        + "; plain's own largest error against float64 (x max|y|): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in plain_err.items())
+        + "; 16 sections of butter(32, 0.1) on 3 x 100003 against float64: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in high_q.items())
+    )
+
+
+def close64(got: torch.Tensor, want: np.ndarray, what: str, rtol: float = FIR64_RTOL) -> float:
+    """max|got - want| <= rtol * max|want| for a float64 host reference; the ratio."""
+    torch.cuda.synchronize()
+    g = got.double().cpu().numpy()
+    if g.shape != want.shape:
+        raise AssertionError(f"{what}: shape {g.shape}, want {want.shape}")
+    err = float(np.abs(g - want).max() / np.abs(want).max())
+    if not err <= rtol:
+        raise AssertionError(f"{what}: {err:.3e} of max|want| > {rtol}")
+    return err
+
+
+def phase_design_main(rng, dev, check: Checker) -> tuple[dict, dict]:
+    """The filter-design path through its entry points at 16 x 2^22, counts reset around."""
+    x = torch.from_numpy(rng.standard_normal((16, IIR_T), dtype=np.float32)).to(dev)
+    order, wn = iir_design.ellipord(*DESIGN_SPEC)
+    sos = iir_design.iirdesign(*DESIGN_SPEC, ftype="ellip")
+    comp = cic.design_cic_compensator(CIC_COMP_TAPS, CIC_RATE, n_stages=CIC_STAGES)
+    taps = fir.design_remez(201, [0.0, 0.1, 0.15, 1.0], [1.0, 0.0])
+    h_up = fir.design_lowpass(48, 1.0 / 3.0) * 3.0
+    # eight chunks of any length, one of them a single sample
+    t = IIR_T
+    cuts = (0, 1, 2, t // 40, t // 4, t // 2 + 7, 3 * t // 4, t - 1000, t)
+    xs = x[:, :SPLINE_T]
+    torch.cuda.synchronize()
+    ys, routes = {}, {}
+    reset_launch_counts()
+    ys["sosfilt"] = iir.sosfilt(sos, x)
+    routes["sosfilt"] = last_choice("sosfilt")
+    for row_pass in ("bcast", "compact"):
+        ys[f"mxu {row_pass}"] = iir.sosfilt_pallas_fused(sos, x, lane_pass="mxu", row_pass=row_pass)
+    ys["tile"] = iir.iir_first_order_pallas(x, ANCHOR_POLE, kernel="tile")
+    ys["cic"] = cic.cic_decimate(x, CIC_RATE, n_stages=CIC_STAGES)
+    routes["cic_decimate"] = last_choice("fir_filter")
+    ys["comp"] = fir.fir_filter(ys["cic"], comp)
+    routes["compensator"] = last_choice("fir_filter")
+    ys["cic_up"] = cic.cic_interpolate(x[:, :CIC_INTERP_T], CIC_RATE, n_stages=CIC_STAGES)
+    state = streaming.fir_init(taps.size, 16, device=dev)
+    outs = []
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        state, y = streaming.fir_chunk(state, x[:, a:b], taps)
+        outs.append(y)
+    ys["fir_chunk"] = torch.cat(outs, 1)
+    ys["resample_fft"] = resample.resample_fft(x, 3 * t // 4)
+    ys["upfirdn"] = resample.upfirdn(h_up, x, 3, 2)
+    ys["savgol"] = fir.savgol_filter(x, 31, 4)
+    ys["cspline"] = splines.cspline1d(xs)
+    routes["cspline1d"] = last_choice("sosfilt_chunk")
+    ys["qspline"] = splines.qspline1d(xs)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"[4 design] ellipord {order}, {wn} -> {sos.shape[0]} sections; routes {routes}; "
+          f"launches {launches}")
+    want_routes = {"sosfilt": "pallas_fused", "cic_decimate": "overlap_save_fused",
+                   "compensator": "overlap_save_fused", "cspline1d": "pallas_fused"}
+    if routes != want_routes:
+        raise AssertionError(f"routes {routes}; want {want_routes}")
+    want_launches = dict.fromkeys(launches, 0)
+    want_launches.update({"B8": 2, "B11": 1, "B12": 5, "B14": 2})
+    if launches != want_launches:
+        raise AssertionError(f"launches {launches}; want {want_launches}")
+    for key, y in ys.items():
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{key}: non-finite output")
+    # the IIR kernels against their plain versions and float64 on channel 0
+    plain = iir._sos_plain(x, iir._sos_rows(sos), None)[0]
+    want, _ = sos64(sos, x[:1])
+    iir_errs = {"plain": rel64(plain[:1], want.double())}
+    for kernel, key in (("B12", "sosfilt"), ("B14", "mxu bcast"), ("B14", "mxu compact")):
+        check.close(kernel, ys[key], plain, f"{key} 16x2^22 against plain", IIR_RTOL)
+        check.close(kernel, ys[key][:1], want, f"{key} channel 0 against float64", IIR64_RTOL)
+        iir_errs[key] = rel64(ys[key][:1], want.double())
+    plain1 = iir._iir1_plain(x, ANCHOR_POLE, 1.0)
+    want1 = iir1_64(x[:1], ANCHOR_POLE, 1.0)
+    check.close("B11", ys["tile"], plain1, "B11 16x2^22 against plain", IIR_RTOL)
+    check.close("B11", ys["tile"], iir.iir1_block_scan(x, ANCHOR_POLE), "B11 against B10", IIR_RTOL)
+    check.close("B11", ys["tile"][:1], want1, "B11 channel 0 against float64", IIR64_RTOL)
+    iir_errs["tile"] = rel64(ys["tile"][:1], want1.double())
+    iir_errs["first-order plain"] = rel64(plain1[:1], want1.double())
+    # the FIR routes against float64 on a prefix of channel 0
+    x0 = x[0, :PREFIX].double().cpu().numpy()
+    h_cic = cic.cic_taps(CIC_RATE, CIC_STAGES).astype(np.float64) / cic.cic_gain(CIC_RATE, CIC_STAGES)
+    cic64 = np.convolve(x0, h_cic.astype(np.float32))[:PREFIX][::CIC_RATE]
+    m = PREFIX // CIC_RATE
+    errs = {
+        "cic_decimate": close64(ys["cic"][0, :m], cic64, "cic_decimate against float64"),
+        "compensator": close64(ys["comp"][0, :m], np.convolve(cic64, comp)[:m],
+                               "compensator FIR against float64"),
+        "cic_interpolate": close64(
+            ys["cic_up"][0, : PREFIX * CIC_RATE],
+            sps.upfirdn((h_cic * CIC_RATE).astype(np.float32), x0, CIC_RATE)[: PREFIX * CIC_RATE],
+            "cic_interpolate against float64"),
+        "upfirdn": close64(ys["upfirdn"][0, :PREFIX],
+                           sps.upfirdn(h_up.astype(np.float32), x0, 3, 2)[:PREFIX],
+                           "upfirdn against float64"),
+        "fir_chunk": close64(ys["fir_chunk"][0, :PREFIX],
+                             np.convolve(x0, taps.astype(np.float64))[:PREFIX],
+                             "fir_chunk against float64"),
+    }
+    errs["fir_chunk one shot"] = close64(ys["fir_chunk"], fir.fir_direct(x, taps).double().cpu().numpy(),
+                                         "fir_chunk against one shot", FIR_RTOL)
+    xa = x[0].double().cpu().numpy()
+    errs["resample_fft"] = close64(ys["resample_fft"][0], sps.resample(xa, 3 * t // 4),
+                                   "resample_fft against float64")
+    errs["savgol"] = close64(ys["savgol"][0], sps.savgol_filter(xa, 31, 4),
+                             "savgol_filter against float64")
+    xs0 = xs[0].double().cpu().numpy()
+    errs["cspline1d"] = close64(ys["cspline"][0], sps.cspline1d(xs0), "cspline1d against float64")
+    errs["qspline1d"] = close64(ys["qspline"][0], sps.qspline1d(xs0), "qspline1d against float64")
+    print(
+        f"[4 design] 16 x 2^22: sosfilt (B12) and lane_pass='mxu' in both row passes (B14) within "
+        f"{IIR_RTOL} of plain and {IIR64_RTOL} of float64 on channel 0; kernel='tile' (B11) at "
+        f"a={ANCHOR_POLE} within {IIR_RTOL} of plain and of B10; cic_decimate at rate {CIC_RATE}, "
+        f"{CIC_STAGES} stages (B8) and its {CIC_COMP_TAPS}-tap compensator (B8), cic_interpolate on "
+        f"16 x 2^19, a 201-tap Remez filter by fir_chunk in 8 chunks (one of one sample), "
+        f"resample_fft to 3/4 of the length, upfirdn 3/2, savgol_filter(31, 4), cspline1d and qspline1d on "
+        "16 x 2^20 (B12 seeded), against float64 (x max|y|): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in {**iir_errs, **errs}.items())
+    )
+    return launches, {"x": x, "sos": iir._sos_rows(sos)}
+
+
+def phase_anchor_times(main: dict) -> dict:
+    """B11 and B14 at the design path's shape against their plain versions, B10 and B12."""
+    x, rows = main["x"], main["sos"]
+    s = rows.shape[0]
+    n = x.numel()
+    out = {
+        "B11": time_spread(lambda: iir.iir1_affine_scan(x, ANCHOR_POLE),
+                           lambda: iir._iir1_plain(x, ANCHOR_POLE, 1.0)),
+        "B10": time_spread(lambda: iir.iir1_block_scan(x, ANCHOR_POLE),
+                           lambda: iir._iir1_plain(x, ANCHOR_POLE, 1.0)),
+        "B14": time_spread(lambda: iir.sos_cascade_mxu(x, rows),
+                           lambda: iir._sos_plain(x, rows, None)),
+        "B12": time_spread(lambda: iir.sos_cascade(x, rows), lambda: iir._sos_plain(x, rows, None)),
+    }
+    # bounds: x read once and y written once; the function's operations, five
+    # FMAs a sample and section (B10, B11: a product and an FMA)
+    bounds = {
+        "B10": bound(8 * n, 3 * n, FP32_FLOPS_PER_S),
+        "B11": bound(8 * n, 3 * n, FP32_FLOPS_PER_S),
+        "B12": bound(8 * n, s * 10 * n, FP32_FLOPS_PER_S),
+        "B14": bound(8 * n, s * 10 * n, FP32_FLOPS_PER_S),
+    }
+    # segments B14 multiplies: launch 1 runs every tile but the last, launch 3
+    # every tile, the last one's samples rounded up to whole sub-tiles
+    tile = iir.pick_tile(*x.shape)
+    full = (x.shape[1] - 1) // tile
+    last = iir.cdiv(x.shape[1] - full * tile, iir.MXU_SUB) * iir.MXU_SUB
+    segments = x.shape[0] * (2 * full * tile + last) // iir.MXU_SEG
+    b14_flops = 2.0 * s * segments * iir.MXU_K * iir.MXU_N  # a segment is one row of c
+    library = {"B11": lfilter_ms(x, [1.0, 0.0], [1.0, -ANCHOR_POLE]),
+               "B14": lfilter_ms(x, *sps.sos2tf(rows.astype(np.float64)))}
+    library_note = LFILTER_NONE if library["B14"] is None else (
+        f"torchaudio.functional.lfilter: cascade {library['B14']:.4f} ms, first order "
+        f"{library['B11']:.4f} ms")
+    print(f"[5 anchor times] 16 x 2^22 float32, the design path's {s}-section ellip and "
+          f"a = {ANCHOR_POLE}; kernels median (min-max) of 20 after warm-ups, plain median of 6:")
+    for name, (ms, lo, hi, plain) in out.items():
+        b, by = bounds[name]
+        print(f"  {name} {ms:.4f} ms ({lo:.4f}-{hi:.4f}) = {n / ms / 1e6:.2f} GS/s; plain "
+              f"{plain:.4f} ms; bound {b:.4f} ms ({by}); kernel/bound {ms / b:.2f}")
+    print(f"  B11/B10 {out['B11'][0] / out['B10'][0]:.3f}; B14/B12 {out['B14'][0] / out['B12'][0]:.3f}")
+    print(f"  B14's own operations: {b14_flops:.4e} FP64 tensor-core flops "
+          f"({s} sections x {segments} segments x {iir.MXU_K} x {iir.MXU_N} multiply-adds), "
+          f"{b14_flops / FP64_TC_FLOPS_PER_S * 1e3:.4f} ms at 67 TFLOP/s, "
+          f"{b14_flops / FP64_TC_FLOPS_PER_S * 1e3 / bounds['B14'][0]:.2f}x the function's bound")
+    print(f"  library: {library_note}")
+    # B14 by sections, and where a call's device time goes
+    by_s = {}
+    for k in (1, 2, 4, 8, iir.MAX_SECTIONS):
+        sk = iir.design_butterworth(2 * k, 0.1)
+        by_s[k] = statistics.median(device_ms(lambda sk=sk: iir.sos_cascade_mxu(x, sk), 2, 5))
+    print("  B14 by sections (median of 5): " + ", ".join(f"S={k} {v:.4f} ms" for k, v in by_s.items())
+          + f"; {(by_s[iir.MAX_SECTIONS] - by_s[1]) / (iir.MAX_SECTIONS - 1):.4f} ms a section")
+    for name, fn in (("B14", lambda: iir.sos_cascade_mxu(x, rows)),
+                     ("B11", lambda: iir.iir1_affine_scan(x, ANCHOR_POLE))):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        print(f"  {name} by launch (torch.profiler, 3 calls): "
+              + "; ".join(f"{k[:48]} x{c} {ms:.4f} ms" for k, c, ms in device_rows(prof)))
+    return {"times": out, "bounds": bounds, "library": library}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2139,6 +2490,8 @@ def main() -> int:
     mark("3 PFB/Farrow corners")
     phase_tv_corners(rng, dev, check)
     mark("3 TV/LPC corners")
+    phase_anchor_corners(rng, dev, check)
+    mark("3 anchor corners")
 
     # 4. main path
     x = torch.from_numpy(rng.integers(-32768, 32768, size=MAIN_SAMPLES, dtype=np.int16)).to(dev)
@@ -2231,6 +2584,9 @@ def main() -> int:
     # 4. main path of the time-varying IIR family, LPC and the tracking notch
     tv_launches, tv_main = phase_tv_main(rng, dev, check)
     mark("4 TV/LPC main path")
+    # 4. main path of the filter-design path: designers, the anchors, CIC, streaming FIR, splines
+    design_launches, design_main = phase_design_main(rng, dev, check)
+    mark("4 design main path")
 
     # 5. times
     n = MAIN_SAMPLES
@@ -2314,6 +2670,8 @@ def main() -> int:
     mark("5 wideband times")
     tv_times = phase_tv_times(tv_main)
     mark("5 TV/LPC times")
+    anchor_times = phase_anchor_times(design_main)
+    mark("5 anchor times")
 
     # 6. serving loops
     phase_serve_profile(wav, 2 * frames_a)
@@ -2408,6 +2766,22 @@ def main() -> int:
                     ("tv_section", "B17", "iir_tv.cu", REPLACES_IIR + "2181"),
                     ("tv_frames_cascade", "B18", "iir_tv.cu", REPLACES_IIR + "2472"),
                     ("lpc_synth_pass", "B22", "lpc.cu", REPLACES_LPC + "296"),
+                )
+            ),
+            *(
+                {
+                    "name": name, "route": "cuda", "source": SOURCE + "iir.cu",
+                    "replaces": REPLACES_IIR + line, "launches": design_launches[kernel],
+                    "max_abs_err": check.max_err[kernel],
+                    "ms": anchor_times["times"][kernel][0],
+                    "plain_ms": anchor_times["times"][kernel][3],
+                    "bound_ms": anchor_times["bounds"][kernel][0],
+                    "bound_by": anchor_times["bounds"][kernel][1],
+                    "library_ms": anchor_times["library"][kernel],
+                }
+                for name, kernel, line in (
+                    ("iir1_affine_scan", "B11", "441"),
+                    ("sos_cascade_mxu", "B14", "1390"),
                 )
             ),
         ]

@@ -61,6 +61,10 @@ _SIGNATURES = {
     "dsp_sos_sections": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, y, table, carry, M, n, channels, tile, stream
     "dsp_iir1": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, y, carry, a, b, n, channels, tile, stream
+    "dsp_iir1_affine": (_P, _P, _P, ctypes.c_float, ctypes.c_float, _I, _I, _I, _P),
+    # x, y, table, T, carry, M, n, channels, sections, tile, stream
+    "dsp_sos_cascade_mxu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x (B19) or u (B20), hq, twiddles, re, im, M, N, P, dilation, sign, stride of k,
     # stride of m, rows, smem_bytes, stream
     "dsp_pfb_raw": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),

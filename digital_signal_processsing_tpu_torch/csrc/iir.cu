@@ -1,13 +1,19 @@
 // IIR block scans over planar (channels, t) float32: the first-order
-// recurrence (B10), the cascade of second-order sections with a runtime loop
-// over sections (B12) or unrolled for 1..8 sections (B13), and one section a
-// launch (B15).
+// recurrence (B10, and B11 as a compose of affine maps), the cascade of
+// second-order sections with a runtime loop over sections (B12), unrolled
+// for 1..8 sections (B13) or with its lane pass on the tensor cores (B14),
+// and one section a launch (B15).
 //
 // Replaces, in digital_signal_processsing_tpu/ops/iir.py:
 //   B10 _iir1_scalar_kernel        y[t] = a*y[t-1] + b*x[t], zero initial state;
+//   B11 _iir1_kernel               the same function, per-element affine maps;
 //   B12 _biquad_fused_loop_kernel  the whole SOS cascade per tile, seeded or not;
 //   B13 _biquad_fused_kernel       B12 with the sections unrolled;
+//   B14 _biquad_fused_mxu_kernel   B12's function, the lane pass a matrix product;
 //   B15 _biquad_kernel             one section's block scan, launched per section.
+// B11 and B14 are the reference's A/B anchors: other spellings of B10's and
+// B12's functions, kept so that the two designs can be timed side by side.
+// Their notes are at their kernels below.
 // A section is the JAX package's direct form II transposed:
 //   y = b0*x + s1;  s1' = b1*x - a1*y + s2;  s2' = b2*x - a2*y.
 // With zero input its state moves by Phi = [[-a1, 1], [-a2, 0]] and y reads s1.
@@ -62,6 +68,7 @@
 #include <cstdint>
 
 #include <cuda_runtime.h>
+#include <mma.h>
 
 namespace dsp {
 namespace iir {
@@ -460,6 +467,353 @@ static cudaError_t cascade(TileKernel k, const float* x, float* y, const float* 
   return cudaGetLastError();
 }
 
+// ---- B11: the first-order recurrence as a compose of affine maps ----------
+//
+// The TPU kernel gives every sample the map y -> alpha*y + beta with
+// (alpha, beta) = (a, b*x), composes the maps by Hillis-Steele steps across
+// the 128 lanes of a row, then down the rows, and applies the composed maps
+// to the carried y; it keeps no table of powers of a (B10 does). Here a
+// thread composes its kSeg samples' maps in order, a warp composes the
+// threads' maps with shuffles, and thread 0 composes the warps' maps,
+// through shared memory, onto the block's running map. Map l after map r is
+// (l.alpha r.alpha, l.alpha r.beta + l.beta). The cross-tile carry is B10's
+// three launches with maps in place of states: launch 1 writes each tile's
+// composed map from zero state (alpha = a^tile, beta = the tile's last
+// output) to carry[c, t]; launch 2 (affine_carry_kernel) composes them
+// along the channel and leaves the state entering each tile; launch 3
+// applies. Every power of a is a product taken in the kernel.
+//
+// alpha is a product of up to a tile's factors a and is composed in
+// float64, rounded to float32 only where it multiplies a beta: composed in
+// float32, its rounding grows with the length of the product, and a float32
+// compose failed the port's bound (1e-5 of max|y| from B10's plain version)
+// at a = 0.9999 over 16 x 2^22 samples on an H100. beta stays float32, as
+// B10's state.
+//
+// What bounds it on the H100: memory bytes, as B10 (8 bytes a sample for the
+// function, 12 as built: x is read by launches 1 and 3). It does about 6
+// float32 and 1 float64 operations a sample, far below either rate.
+__global__ void __launch_bounds__(kThreads)
+iir1_affine_tile_kernel(const float* __restrict__ x, float* __restrict__ y, float a, float b,
+                        float* __restrict__ carry, int64_t n, int64_t tile, int64_t ntiles,
+                        int ends) {
+  __shared__ float buf[kThreads * kRow];
+  __shared__ double walpha[kWarps];
+  __shared__ float wbeta[kWarps];
+  __shared__ float wbeg[kWarps];
+  __shared__ double run_alpha;  // the tile's map so far
+  __shared__ float run_beta;    // in launch 3, the state
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int c = blockIdx.y;
+  const int64_t t = blockIdx.x;
+  float* cst = carry + (static_cast<int64_t>(c) * ntiles + t) * 2;
+  if (tid == 0) {
+    run_alpha = 1.0;
+    run_beta = ends ? 0.0f : cst[0];
+  }
+  __syncthreads();
+  const float* xr = x + static_cast<int64_t>(c) * n;
+  float* yr = y != nullptr ? y + static_cast<int64_t>(c) * n : nullptr;
+  const bool vec =
+      ((reinterpret_cast<uintptr_t>(xr) | reinterpret_cast<uintptr_t>(yr)) & 15) == 0;
+  const int64_t t0 = t * tile;
+  const int64_t t1 = t0 + tile < n ? t0 + tile : n;
+  float* seg = buf + tid * kRow;
+  for (int64_t s0 = t0; s0 < t1; s0 += kSub) {
+    const int count = static_cast<int>(t1 - s0 < kSub ? t1 - s0 : kSub);
+    load_sub(xr + s0, buf, count, vec);
+    __syncthreads();
+    // a. this thread's maps composed in order; beta is the zero-state output
+    float beta[kSeg];
+    double ma = 1.0;
+    float mb = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kSeg; ++j) {
+      mb = fmaf(a, mb, b * seg[j]);
+      ma *= a;
+      beta[j] = mb;
+    }
+    // b. the warp's threads composed, inclusive, then shifted to exclusive
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const double ua = __shfl_up_sync(kFull, ma, d);
+      const float ub = __shfl_up_sync(kFull, mb, d);
+      if (lane >= d) {
+        mb = fmaf(static_cast<float>(ma), ub, mb);
+        ma *= ua;
+      }
+    }
+    double ea = __shfl_up_sync(kFull, ma, 1);
+    float eb = __shfl_up_sync(kFull, mb, 1);
+    if (lane == 0) {
+      ea = 1.0;
+      eb = 0.0f;
+    }
+    if (lane == 31) {
+      walpha[warp] = ma;
+      wbeta[warp] = mb;
+    }
+    __syncthreads();
+    // the warps' maps composed onto the running map; wbeg[w] is the state
+    // entering warp w's samples
+    if (tid == 0) {
+      double ra = run_alpha;
+      float rb = run_beta;
+      for (int w = 0; w < kWarps; ++w) {
+        wbeg[w] = rb;
+        rb = fmaf(static_cast<float>(walpha[w]), rb, wbeta[w]);
+        ra *= walpha[w];
+      }
+      run_alpha = ra;
+      run_beta = rb;
+    }
+    __syncthreads();
+    // c. apply: y_j = a^(j+1) v + beta_j, v the state entering the thread's samples
+    float v = fmaf(static_cast<float>(ea), wbeg[warp], eb);
+#pragma unroll
+    for (int j = 0; j < kSeg; ++j) {
+      v *= a;
+      seg[j] = beta[j] + v;
+    }
+    __syncthreads();
+    if (yr != nullptr) store_sub(yr + s0, buf, count, vec);
+    __syncthreads();
+  }
+  if (ends && tid == 0) {
+    cst[0] = static_cast<float>(run_alpha);
+    cst[1] = run_beta;
+  }
+}
+
+// B11's launch 2. Warp c composes channel c's tile maps (carry[c, t] =
+// (alpha, beta), alpha composed in float64) 32 tiles at a time and writes
+// the state entering tile t to carry[c, t, 0]; the stream starts from zero.
+// The last tile's map was never written (launch 1 skips it) and is never
+// needed: it counts as the identity.
+__global__ void __launch_bounds__(32)
+affine_carry_kernel(float* __restrict__ carry, int64_t ntiles) {
+  const int lane = threadIdx.x;
+  float* base = carry + static_cast<int64_t>(blockIdx.x) * ntiles * 2;
+  float s = 0.0f;
+  for (int64_t t0 = 0; t0 < ntiles; t0 += 32) {
+    const int64_t t = t0 + lane;
+    double ma = 1.0;
+    float mb = 0.0f;
+    if (t < ntiles - 1) {
+      ma = base[2 * t];
+      mb = base[2 * t + 1];
+    }
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const double ua = __shfl_up_sync(kFull, ma, d);
+      const float ub = __shfl_up_sync(kFull, mb, d);
+      if (lane >= d) {
+        mb = fmaf(static_cast<float>(ma), ub, mb);
+        ma *= ua;
+      }
+    }
+    double ea = __shfl_up_sync(kFull, ma, 1);
+    float eb = __shfl_up_sync(kFull, mb, 1);
+    if (lane == 0) {
+      ea = 1.0;
+      eb = 0.0f;
+    }
+    if (t < ntiles) base[2 * t] = fmaf(static_cast<float>(ea), s, eb);
+    s = fmaf(static_cast<float>(__shfl_sync(kFull, ma, 31)), s, __shfl_sync(kFull, mb, 31));
+  }
+}
+
+// ---- B14: the cascade with its lane pass on the tensor cores ---------------
+//
+// The TPU kernel is B12 with the in-row (lane) pass of each section spelled
+// as a matrix product. With A = Phi = [[-a1, 1], [-a2, 0]] and, for input y,
+// c = y (b1 - a1 b0, b2 - a2 b0), a section's state moves by s' = A s + c, so
+// from zero state at a row's start the state entering lane l is
+// s_ex[l] = sum_{j<l} A^(l-1-j) c[j]: the row of c times a matrix T that
+// depends only on the coefficients. The TPU builds T once a launch and runs
+// four (rows, 128) @ (128, 128) products a section (bf16x3, its HIGHEST
+// precision); then B12's row scan, the carry, and y = b0 x + s1.
+//
+// Here a row is a segment of kL = 32 samples, a sub-tile kMxuRows = 32 of
+// them, and one warp of four owns an 8-row tile of segments. For each
+// section the block writes the row of c as one of kMxuK = 64 doubles
+// (c1 then c2) and multiplies the 32 x 64 block by the section's 64 x 40 T:
+// columns 0..31 give s_ex1, columns 32 and 33 the segment's end state
+// sum_j A^(31-j) c[j] (so no second product is needed for s2), 34..39 are
+// zeros to fill the last 8-wide tile. The products are FP64 tensor-core
+// instructions (WMMA m8n8k4 double, DMMA): c is y times a float32
+// coefficient, exact in float64, T is built in float64 by the wrapper and
+// never rounded, and the sums are float64, so the lane pass keeps the
+// float32 recurrence's accuracy. One TF32 product keeps 10 mantissa bits,
+// about 1e-3 of max|y|; a 3xTF32 split (T and c each hi + lo) would need
+// three products, its own rounding, and T twice in shared memory. The end
+// states are rounded to float32 and go through B12's row scan (one warp,
+// Phi^(32 d) from the table, Phi^1024 onto the section's carry), and lane l
+// adds (A^l s_r)_1 of its segment's entry state s_r. Launches 2 and 3 are
+// B12's (the carry warp, the cascade's transition over a tile).
+//
+// T takes 20 KB a section (a 128-lane T would take 256 KB): the block loads
+// it, with the section's table, each section of each sub-tile, from L2.
+// What bounds it on the H100: the function's bytes, 8 a sample (0.160 ms for
+// 16 x 2^22 samples); the design's operations, 64 x 40 = 2560 FP64
+// multiply-adds a segment, 80 a sample and section, twice (launches 1 and
+// 3), against the tensor cores' 67 TFLOP/s in FP64 (NVIDIA's data sheet),
+// are about 8 times that bound at 4 sections. It is the anchor against B12,
+// whose scan does about 16 float32 operations a sample and section.
+constexpr int kL = 32;                   // samples a segment
+constexpr int kMxuThreads = 128;         // four warps, an 8-row tile of segments each
+constexpr int kMxuRows = 32;             // segments a sub-tile
+constexpr int kMxuSub = kMxuRows * kL;   // samples a sub-tile
+constexpr int kMxuK = 2 * kL;            // a segment's c1 then c2
+constexpr int kMxuN = 40;                // s_ex1 at 0..31, end state at 32, 33
+constexpr int kTabMxu = 272;             // floats of a section's table
+constexpr int kPowL = 8 + 4 * 33;        // where A^l, l = 0..31, starts
+
+// A section's B14 table (kTabMxu floats): b0, b1, b2, a1, a2 at 0..4, the
+// c factors b1 - a1 b0 and b2 - a2 b0 at 5, 6; at kPow + 4m the 2x2
+// Phi^(kL m), row-major, for m = 0..32; at kPowL + 4l the 2x2 A^l, l < 32.
+// tmat: a section's T, kMxuK x kMxuN float64, row-major.
+__global__ void __launch_bounds__(kMxuThreads)
+sos_mxu_tile_kernel(const float* __restrict__ x, float* __restrict__ y,
+                    const float* __restrict__ tab, const double* __restrict__ tmat, int sections,
+                    float* __restrict__ carry, int64_t n, int64_t tile, int64_t ntiles,
+                    int ends) {
+  namespace wmma = nvcuda::wmma;
+  __shared__ __align__(128) double sa[kMxuRows * kMxuK];  // c, then the product in place
+  __shared__ __align__(128) double st[kMxuK * kMxuN];     // the section's T
+  __shared__ float yb[kMxuSub];
+  __shared__ float stab[kTabMxu];
+  __shared__ float sent[2 * kMxuRows];  // the state entering each segment
+  __shared__ float scar[2 * kMaxSections];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int c = blockIdx.y;
+  const int64_t t = blockIdx.x;
+  const int D = 2 * sections;
+  float* cst = carry + (static_cast<int64_t>(c) * ntiles + t) * D;
+  if (tid < D) scar[tid] = ends ? 0.0f : cst[tid];
+  const float* xr = x + static_cast<int64_t>(c) * n;
+  float* yr = y != nullptr ? y + static_cast<int64_t>(c) * n : nullptr;
+  const int64_t t0 = t * tile;
+  const int64_t t1 = t0 + tile < n ? t0 + tile : n;
+  for (int64_t s0 = t0; s0 < t1; s0 += kMxuSub) {
+    const int count = static_cast<int>(t1 - s0 < kMxuSub ? t1 - s0 : kMxuSub);
+    for (int i = tid; i < kMxuSub; i += kMxuThreads) yb[i] = i < count ? xr[s0 + i] : 0.0f;
+#pragma unroll 1
+    for (int k = 0; k < sections; ++k) {
+      __syncthreads();  // the last pass is done with st, stab and sa
+      const double* tk = tmat + static_cast<int64_t>(k) * kMxuK * kMxuN;
+      for (int i = tid; i < kMxuK * kMxuN; i += kMxuThreads) st[i] = tk[i];
+      for (int i = tid; i < kTabMxu; i += kMxuThreads) stab[i] = tab[k * kTabMxu + i];
+      __syncthreads();
+      // c of every sample, exact in float64
+      const double k1 = stab[5], k2 = stab[6];
+      for (int i = tid; i < kMxuSub; i += kMxuThreads) {
+        const double v = yb[i];
+        double* row = sa + (i / kL) * kMxuK + i % kL;
+        row[0] = v * k1;
+        row[kL] = v * k2;
+      }
+      __syncthreads();
+      // the lane pass: this warp's 8 segments times T, written over their c
+      {
+        double* rows = sa + warp * 8 * kMxuK;
+        wmma::fragment<wmma::accumulator, 8, 8, 4, double> acc[kMxuN / 8];
+#pragma unroll
+        for (int q = 0; q < kMxuN / 8; ++q) wmma::fill_fragment(acc[q], 0.0);
+#pragma unroll 4
+        for (int kk = 0; kk < kMxuK / 4; ++kk) {
+          wmma::fragment<wmma::matrix_a, 8, 8, 4, double, wmma::row_major> fa;
+          wmma::load_matrix_sync(fa, rows + 4 * kk, kMxuK);
+#pragma unroll
+          for (int q = 0; q < kMxuN / 8; ++q) {
+            wmma::fragment<wmma::matrix_b, 8, 8, 4, double, wmma::row_major> fb;
+            wmma::load_matrix_sync(fb, st + 4 * kk * kMxuN + 8 * q, kMxuN);
+            wmma::mma_sync(acc[q], fa, fb, acc[q]);
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int q = 0; q < kMxuN / 8; ++q) {
+          wmma::store_matrix_sync(rows + 8 * q, acc[q], kMxuK, wmma::mem_row_major);
+        }
+      }
+      __syncthreads();
+      // the row scan: lane r of warp 0 holds segment r's end state
+      if (warp == 0) {
+        const float* pw = stab + kPow;
+        float w1 = static_cast<float>(sa[lane * kMxuK + kL]);
+        float w2 = static_cast<float>(sa[lane * kMxuK + kL + 1]);
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const float u1 = __shfl_up_sync(kFull, w1, d);
+          const float u2 = __shfl_up_sync(kFull, w2, d);
+          if (lane >= d) {
+            const float* P = pw + 4 * d;
+            w1 = fmaf(P[0], u1, fmaf(P[1], u2, w1));
+            w2 = fmaf(P[2], u1, fmaf(P[3], u2, w2));
+          }
+        }
+        float e1 = __shfl_up_sync(kFull, w1, 1);
+        float e2 = __shfl_up_sync(kFull, w2, 1);
+        if (lane == 0) {
+          e1 = 0.0f;
+          e2 = 0.0f;
+        }
+        const float c1 = scar[2 * k], c2 = scar[2 * k + 1];
+        const float* P = pw + 4 * lane;
+        sent[2 * lane] = fmaf(P[0], c1, fmaf(P[1], c2, e1));
+        sent[2 * lane + 1] = fmaf(P[2], c1, fmaf(P[3], c2, e2));
+        const float l1 = __shfl_sync(kFull, w1, 31);
+        const float l2 = __shfl_sync(kFull, w2, 31);
+        __syncwarp();  // every lane has read the carry before lane 0 moves it
+        if (lane == 0) {
+          const float* Q = pw + 4 * 32;
+          scar[2 * k] = fmaf(Q[0], c1, fmaf(Q[1], c2, l1));
+          scar[2 * k + 1] = fmaf(Q[2], c1, fmaf(Q[3], c2, l2));
+        }
+      }
+      __syncthreads();
+      // y = b0 x + s1, s1 = s_ex1 + (A^l s_r)_1
+      const float b0 = stab[0];
+      for (int i = tid; i < kMxuSub; i += kMxuThreads) {
+        const int r = i / kL;
+        const float* P = stab + kPowL + 4 * (i % kL);
+        const float s1 = fmaf(P[0], sent[2 * r],
+                              fmaf(P[1], sent[2 * r + 1],
+                                   static_cast<float>(sa[r * kMxuK + i % kL])));
+        yb[i] = fmaf(b0, yb[i], s1);
+      }
+    }
+    if (yr != nullptr) {
+      for (int i = tid; i < count; i += kMxuThreads) yr[s0 + i] = yb[i];
+    }
+    __syncthreads();
+  }
+  if (ends && tid < D) cst[tid] = scar[tid];
+}
+
+// The three launches of B14: tile ends, B12's carry warp, apply.
+static cudaError_t mxu_cascade(const float* x, float* y, const float* tab, const double* tmat,
+                               float* carry, const float* M, int64_t n, int C, int S,
+                               int64_t tile, cudaStream_t s) {
+  const int64_t ntiles = (n + tile - 1) / tile;
+  cudaError_t err;
+  if (ntiles > 1) {
+    sos_mxu_tile_kernel<<<dim3(static_cast<unsigned>(ntiles - 1), static_cast<unsigned>(C)),
+                          kMxuThreads, 0, s>>>(x, nullptr, tab, tmat, S, carry, n, tile, ntiles,
+                                               1);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if ((err = launch_carry(carry, M, nullptr, ntiles, C, 2 * S, s)) != cudaSuccess) return err;
+  sos_mxu_tile_kernel<<<dim3(static_cast<unsigned>(ntiles), static_cast<unsigned>(C)),
+                        kMxuThreads, 0, s>>>(x, y, tab, tmat, S, carry, n, tile, ntiles, 0);
+  return cudaGetLastError();
+}
+
 }  // namespace iir
 }  // namespace dsp
 
@@ -536,4 +890,43 @@ extern "C" int dsp_iir1(const float* x, float* y, const float* tab, float* carry
   iir1_tile_kernel<<<dim3(static_cast<unsigned>(ntiles), C), kThreads, 0, s>>>(
       x, y, tab, carry, n, tile, ntiles, 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+// B11. x, y: (C, n); carry: C * ceil(n / tile) * 2 floats; a, b the
+// recurrence's coefficients (no table).
+extern "C" int dsp_iir1_affine(const float* x, float* y, float* carry, float a, float b,
+                               int64_t n, int64_t channels, int64_t tile, void* stream) {
+  using namespace dsp::iir;
+  if (bad_geometry(n, channels, tile)) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t ntiles = (n + tile - 1) / tile;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto C = static_cast<unsigned>(channels);
+  cudaError_t err;
+  if (ntiles > 1) {
+    iir1_affine_tile_kernel<<<dim3(static_cast<unsigned>(ntiles - 1), C), kThreads, 0, s>>>(
+        x, nullptr, a, b, carry, n, tile, ntiles, 1);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  affine_carry_kernel<<<C, 32, 0, s>>>(carry, ntiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  iir1_affine_tile_kernel<<<dim3(static_cast<unsigned>(ntiles), C), kThreads, 0, s>>>(
+      x, y, a, b, carry, n, tile, ntiles, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B14. x, y: (C, n); tab: S * kTabMxu floats; tmat: S T matrices of
+// kMxuK x kMxuN doubles; carry: C * ceil(n / tile) * 2S floats; M: the
+// cascade's (2S, 2S) zero-input transition over `tile` samples.
+extern "C" int dsp_sos_cascade_mxu(const float* x, float* y, const float* tab,
+                                   const double* tmat, float* carry, const float* M, int64_t n,
+                                   int64_t channels, int64_t sections, int64_t tile,
+                                   void* stream) {
+  using namespace dsp::iir;
+  if (bad_geometry(n, channels, tile) || tile % kMxuSub != 0 || sections < 1 ||
+      sections > kMaxSections) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(mxu_cascade(x, y, tab, tmat, carry, M, n, static_cast<int>(channels),
+                                      static_cast<int>(sections), tile,
+                                      static_cast<cudaStream_t>(stream)));
 }

@@ -12,6 +12,7 @@ from .channelizer import (  # noqa: F401
     pfb_synthesize,
     pfb_synthesize_planar,
 )
+from .cic import cic_decimate, cic_interpolate, design_cic_compensator  # noqa: F401
 from .demod import (  # noqa: F401
     am_demodulate,
     fm_demodulate,
@@ -52,12 +53,15 @@ from .fft_mxu import (  # noqa: F401
 from .fir import (  # noqa: F401
     FIR_FFT_CROSSOVER,
     box_taps,
+    design_firwin2,
     design_lowpass,
+    design_remez,
     fir_direct,
     fir_filter,
     fir_overlap_save,
     kaiser_beta,
     kaiser_num_taps,
+    savgol_filter,
 )
 from .gain import agc, db, dc_block, detrend, soft_clip  # noqa: F401
 from .iir import (  # noqa: F401
@@ -67,10 +71,12 @@ from .iir import (  # noqa: F401
     design_butterworth,
     design_chebyshev1,
     filtfilt,
+    iir1_affine_scan,
     iir1_block_scan,
     iir_first_order,
     lfilter,
     sos_cascade,
+    sos_cascade_mxu,
     sos_cascade_unrolled,
     sos_sections,
     sos_state_from_jax,
@@ -87,6 +93,7 @@ from .iir import (  # noqa: F401
     tv_frames_cascade,
     tv_section,
 )
+from .iir_design import ellipord, iirdesign, iirfilter  # noqa: F401
 from .lpc import (  # noqa: F401
     ar_psd,
     levinson,
@@ -108,10 +115,15 @@ from .pallas_scan import (  # noqa: F401
     windowed_averager_packed,
 )
 from .pfb_os import pfb_analyze_os, pfb_synthesize_os  # noqa: F401
-from .resample import decimate, interpolate, resample_poly  # noqa: F401
+from .resample import decimate, interpolate, resample_fft, resample_poly, upfirdn  # noqa: F401
 from .scan_xla import cumsum_ref, moving_average_xla  # noqa: F401
+from .splines import cspline1d, qspline1d  # noqa: F401
 from .streaming import (  # noqa: F401
+    FirState,
     MovingAverageState,
+    fir_chunk,
+    fir_init,
+    fir_state_from_jax,
     moving_average_chunk,
     moving_average_init,
     state_from_jax,
@@ -129,8 +141,10 @@ def launch_counts() -> dict[str, int]:
         "B8": fused_fir.launches,
         "B9": fused_fir3.launches,
         "B10": iir1_block_scan.launches,
+        "B11": iir1_affine_scan.launches,
         "B12": sos_cascade.launches,
         "B13": sos_cascade_unrolled.launches,
+        "B14": sos_cascade_mxu.launches,
         "B15": sos_sections.launches,
         "B16": tv_cascade.launches,
         "B17": tv_section.launches,
@@ -146,7 +160,8 @@ def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     for fn in (
         windowed_averager, windowed_averager_packed, cumsum, direct_averager, fused_fir, fused_fir3,
-        iir1_block_scan, sos_cascade, sos_cascade_unrolled, sos_sections, tv_cascade, tv_section,
+        iir1_block_scan, iir1_affine_scan, sos_cascade, sos_cascade_unrolled, sos_cascade_mxu,
+        sos_sections, tv_cascade, tv_section,
         tv_frames_cascade, fused_pfb_raw, fused_branch_dft, resample_farrow_segmented,
         lpc_synth_pass,
     ):

@@ -21,7 +21,12 @@ scan of those over the tiles, a seeded re-run; see the source note):
 - :func:`sos_cascade_unrolled` B13, B12 with 1..8 sections unrolled
   (``unroll_sections=True``);
 - :func:`sos_sections`         B15, one section a launch, each through device
-  memory (``method="pallas"``, the A/B anchor).
+  memory (``method="pallas"``, the A/B anchor);
+- :func:`iir1_affine_scan`     B11, B10's function as composed affine maps
+  (``iir_first_order_pallas(kernel="tile")``, an A/B anchor);
+- :func:`sos_cascade_mxu`      B14, B12's function with the in-segment pass a
+  float64 tensor-core product (``sosfilt_pallas_fused(lane_pass="mxu")``, an
+  A/B anchor).
 
 Each takes its plain version for a tensor on the CPU: the same three steps in
 PyTorch, a loop over the PLAIN_TILE samples of a tile vectorised over
@@ -44,6 +49,7 @@ from .. import _build
 from ..utils.device import resolve_device
 from ..utils.dispatch import record_choice
 from ..utils.layout import cdiv
+from .iir_design import iirfilter
 from .pallas_scan import _on_cuda, _stream
 
 # T from which `auto` takes the kernels (B10, B12) instead of the plain
@@ -466,6 +472,131 @@ def iir1_block_scan(x2: torch.Tensor, a: float, b: float = 1.0, *,
 iir1_block_scan.launches = 0
 
 
+# --- the reference's A/B anchors: B11 and B14 ---------------------------------------
+#
+# Other spellings of B10's and B12's functions, kept by the reference to time
+# one design against the other; each serves one entry point
+# (iir_first_order_pallas(kernel="tile"), sosfilt_pallas_fused(lane_pass="mxu"))
+# and takes B10's or B12's plain version for a CPU tensor.
+
+# csrc/iir.cu, B14: samples a segment (a row of its lane pass), samples a
+# sub-tile, the rows and columns of a section's T, the floats of its table
+MXU_SEG = 32
+MXU_SUB = 32 * MXU_SEG
+MXU_K, MXU_N = 2 * MXU_SEG, 40
+TAB_MXU = 272
+_MXU_POW_L = 8 + 4 * 33
+
+
+def mxu_tables(rows) -> tuple[np.ndarray, np.ndarray]:
+    """B14's tables: ((S, TAB_MXU) float32, (S, MXU_K, MXU_N) float64 T).
+
+    The table holds b0 b1 b2 a1 a2, then the c factors b1 - a1 b0 and
+    b2 - a2 b0 at 5, 6, Phi^(MXU_SEG m) for m = 0..32 at 8 + 4m and A^l for
+    l < MXU_SEG at 140 + 4l (A = Phi), taken in float64 from the float32
+    coefficients and rounded once. T maps a segment's c (row j: c1 of lane
+    j, row MXU_SEG + j: its c2) to s_ex1 of lane l in column l, the sum over
+    j < l of A^(l-1-j) c_j, and to the segment's end state, the sum over all
+    j of A^(MXU_SEG-1-j) c_j, in columns MXU_SEG and MXU_SEG + 1; the other
+    columns are zeros. T stays float64.
+    """
+    r64 = np.asarray(rows, np.float32).astype(np.float64).reshape(-1, 6)
+    s = r64.shape[0]
+    tab = np.zeros((s, TAB_MXU))
+    tmat = np.zeros((s, MXU_K, MXU_N))
+    for k, (b0, b1, b2, _, a1, a2) in enumerate(r64):
+        phi = _phi(a1, a2)
+        tab[k, :7] = b0, b1, b2, a1, a2, b1 - a1 * b0, b2 - a2 * b0
+        pw = [np.eye(2)]
+        for _ in range(MXU_SEG):
+            pw.append(phi @ pw[-1])
+        for l in range(MXU_SEG):
+            tab[k, _MXU_POW_L + 4 * l : _MXU_POW_L + 4 * l + 4] = pw[l].ravel()
+        step, p = pw[MXU_SEG], np.eye(2)
+        for m in range(33):
+            tab[k, 8 + 4 * m : 12 + 4 * m] = p.ravel()
+            p = step @ p
+        for j in range(MXU_SEG):
+            for l in range(j + 1, MXU_SEG):
+                tmat[k, j, l], tmat[k, MXU_SEG + j, l] = pw[l - 1 - j][0]
+            tmat[k, j, MXU_SEG : MXU_SEG + 2] = pw[MXU_SEG - 1 - j][:, 0]
+            tmat[k, MXU_SEG + j, MXU_SEG : MXU_SEG + 2] = pw[MXU_SEG - 1 - j][:, 1]
+    return tab.astype(np.float32), tmat
+
+
+@functools.lru_cache(maxsize=64)
+def _mxu_device_tables(key: bytes, tile: int, device: str):
+    tab, tmat = mxu_tables(np.frombuffer(key, np.float32).reshape(-1, 6))
+    _, m = _cascade_tables(key, tile, device, False)
+    return torch.from_numpy(tab).to(device), torch.from_numpy(tmat).to(device), m
+
+
+def iir1_affine_scan(x2: torch.Tensor, a: float, b: float = 1.0, *,
+                     tile_rows: int | None = None) -> torch.Tensor:
+    """y = a*y + b*x over (C, T) float32 from zero state by B11.
+
+    B10's function composed as per-sample affine maps (y -> a y + b x) with
+    no table of powers; the kernel gets a and b alone.
+    """
+    _check(x2, None, 1, "iir1_affine_scan", tile_rows)
+    if not _on_cuda(x2):
+        return _iir1_plain(x2, a, b)
+    c, t = x2.shape
+    y = torch.empty_like(x2)
+    if t == 0:
+        return y
+    tile = pick_tile(c, t, tile_rows)
+    carry = torch.empty(c * cdiv(t, tile) * 2, dtype=torch.float32, device=x2.device)
+    lib = _build.library()
+    with torch.cuda.device(x2.device):
+        err = lib.dsp_iir1_affine(
+            x2.data_ptr(), y.data_ptr(), carry.data_ptr(), float(np.float32(a)),
+            float(np.float32(b)), t, c, tile, _stream(x2),
+        )
+    _build.check(err, "iir1_affine_scan")
+    iir1_affine_scan.launches += 1
+    return y
+
+
+iir1_affine_scan.launches = 0
+
+
+def sos_cascade_mxu(x2: torch.Tensor, rows: np.ndarray, *,
+                    tile_rows: int | None = None) -> torch.Tensor:
+    """The SOS cascade of (C, T) float32 from zero state by B14.
+
+    B12's function with each section's in-segment pass a float64
+    tensor-core product against the section's T (:func:`mxu_tables`);
+    ``rows``: (S, 6) float32, S <= MAX_SECTIONS.
+    """
+    rows = _sos_rows(rows)
+    s = rows.shape[0]
+    if not 1 <= s <= MAX_SECTIONS:
+        raise ValueError(f"sos_cascade_mxu (B14) takes 1..{MAX_SECTIONS} sections, got {s}")
+    _check(x2, None, s, "sos_cascade_mxu", tile_rows)
+    if not _on_cuda(x2):
+        return _sos_plain(x2, rows, None)[0]
+    c, t = x2.shape
+    y = torch.empty_like(x2)
+    if t == 0:
+        return y
+    tile = pick_tile(c, t, tile_rows)
+    tab, tmat, m = _mxu_device_tables(rows.tobytes(), tile, str(x2.device))
+    carry = torch.empty(c * cdiv(t, tile) * 2 * s, dtype=torch.float32, device=x2.device)
+    lib = _build.library()
+    with torch.cuda.device(x2.device):
+        err = lib.dsp_sos_cascade_mxu(
+            x2.data_ptr(), y.data_ptr(), tab.data_ptr(), tmat.data_ptr(), carry.data_ptr(),
+            m.data_ptr(), t, c, s, tile, _stream(x2),
+        )
+    _build.check(err, "sos_cascade_mxu")
+    sos_cascade_mxu.launches += 1
+    return y
+
+
+sos_cascade_mxu.launches = 0
+
+
 # --- shapes -----------------------------------------------------------------------
 
 
@@ -558,24 +689,26 @@ def iir_first_order_pallas(
     kernel: str = "scalar",
     row_pass: str = "bcast",
 ) -> torch.Tensor:
-    """y[t] = a*y[t-1] + b*x[t] by B10 (the reference's ``kernel='scalar'``).
+    """y[t] = a*y[t-1] + b*x[t] by B10 (``kernel='scalar'``) or B11 (``kernel='tile'``).
 
-    ``row_pass='compact'`` is a TPU relayout of the same kernel with no
-    meaning on Hopper: validated as the reference does, then B10 runs.
-    ``kernel='tile'`` (B11) is not ported and raises.
+    ``row_pass='compact'`` is a TPU relayout of B10 with no meaning on
+    Hopper: validated as the reference does, then B10 runs. B11 takes
+    ``row_pass='bcast'`` only, as the reference's ``kernel='tile'`` does.
     """
-    if kernel == "tile":
-        raise NotImplementedError(
-            "kernel='tile' is B11 (_iir1_kernel, ops/iir.py:441), not yet ported: ROADMAP item 8"
-        )
-    if kernel != "scalar":
+    if kernel == "scalar":
+        if row_pass not in ("bcast", "compact"):
+            raise ValueError(f"unknown row_pass {row_pass!r}; options ('bcast', 'compact')")
+        if row_pass == "compact" and tile_rows is not None and tile_rows % 128 != 0:
+            raise ValueError(f"row_pass='compact' needs tile_rows % 128 == 0, got {tile_rows}")
+        scan = iir1_block_scan
+    elif kernel == "tile":
+        if row_pass != "bcast":
+            raise ValueError("kernel='tile' supports row_pass='bcast' only")
+        scan = iir1_affine_scan
+    else:
         raise ValueError(f"unknown kernel {kernel!r}; options ('tile', 'scalar')")
-    if row_pass not in ("bcast", "compact"):
-        raise ValueError(f"unknown row_pass {row_pass!r}; options ('bcast', 'compact')")
-    if row_pass == "compact" and tile_rows is not None and tile_rows % 128 != 0:
-        raise ValueError(f"row_pass='compact' needs tile_rows % 128 == 0, got {tile_rows}")
     x2, batch = _planar(x)
-    y = iir1_block_scan(x2, float(a), float(b), tile_rows=tile_rows)
+    y = scan(x2, float(a), float(b), tile_rows=tile_rows)
     return y.reshape(batch + (x2.shape[1],))
 
 
@@ -677,20 +810,15 @@ def sosfilt_chunk_pallas(
 
 
 def _fused_checks(lane_pass: str, row_pass: str, tile_rows, unroll_sections: bool) -> None:
-    if lane_pass == "mxu":
-        raise NotImplementedError(
-            "lane_pass='mxu' is B14 (_biquad_fused_mxu_kernel, ops/iir.py:1390), "
-            "not yet ported: ROADMAP item 8"
-        )
-    if lane_pass != "vpu":
-        raise ValueError(f"unknown lane_pass {lane_pass!r}; options ('vpu', 'mxu')")
     if row_pass not in ("bcast", "compact"):
         raise ValueError(f"unknown row_pass {row_pass!r}; options ('bcast', 'compact')")
     # row_pass='compact' is a TPU relayout of the row scan: validated as the
     # reference does, then the same kernel runs
     if row_pass == "compact" and tile_rows is not None and tile_rows % 128 != 0:
         raise ValueError(f"row_pass='compact' needs tile_rows % 128 == 0, got {tile_rows}")
-    if unroll_sections and row_pass != "bcast":
+    if lane_pass not in ("vpu", "mxu"):
+        raise ValueError(f"unknown lane_pass {lane_pass!r}; options ('vpu', 'mxu')")
+    if lane_pass == "vpu" and unroll_sections and row_pass != "bcast":
         raise ValueError("unroll_sections supports row_pass='bcast' only")
 
 
@@ -703,14 +831,16 @@ def sosfilt_pallas_fused(
     lane_pass: str = "vpu",
     row_pass: str = "bcast",
 ) -> torch.Tensor:
-    """SOS cascade by B12, or B13 with ``unroll_sections=True``, zero initial state.
-
-    ``lane_pass='mxu'`` (B14) is not ported and raises.
+    """SOS cascade by B12, B13 with ``unroll_sections=True``, or B14 with
+    ``lane_pass='mxu'`` (which, as the reference, ignores ``unroll_sections``);
+    zero initial state.
     """
     _fused_checks(lane_pass, row_pass, tile_rows, unroll_sections)
     x2, batch = _planar(x)
     rows = _sos_rows(sos)
-    if unroll_sections:
+    if lane_pass == "mxu":
+        y = sos_cascade_mxu(x2, rows, tile_rows=tile_rows)
+    elif unroll_sections:
         y = sos_cascade_unrolled(x2, rows, tile_rows=tile_rows)
     else:
         y, _ = sos_cascade(x2, rows, None, tile_rows=tile_rows)
@@ -1515,14 +1645,14 @@ def design_chebyshev1(
     """Chebyshev type-I digital filter as an SOS cascade (scipy layout).
 
     Passband ripple ``ripple_db`` dB; lowpass and highpass in closed form,
-    band types through the zpk pipeline (:func:`_iirfilter`).
+    band types through :func:`.iir_design.iirfilter`.
     """
     if order < 1:
         raise ValueError(f"order must be >= 1, got {order}")
     if ripple_db <= 0:
         raise ValueError(f"ripple_db must be > 0, got {ripple_db}")
     if btype in ("bandpass", "bandstop"):
-        return _iirfilter(order, cutoff, btype=btype, ftype="cheby1", rp=ripple_db)
+        return iirfilter(order, cutoff, btype=btype, ftype="cheby1", rp=ripple_db)
     if not 0.0 < cutoff < 1.0:
         raise ValueError(f"cutoff must be in (0,1) of Nyquist, got {cutoff}")
     if btype not in ("lowpass", "highpass"):
@@ -1549,7 +1679,7 @@ def design_chebyshev2(
 ) -> np.ndarray:
     """Chebyshev type-II SOS cascade (scipy layout): flat passband, equiripple
     stopband at ``-atten_db`` from ``cutoff``; every band type through the zpk
-    pipeline (:func:`_iirfilter`)."""
+    pipeline (:func:`.iir_design.iirfilter`)."""
     if order < 1:
         raise ValueError(f"order must be >= 1, got {order}")
     if atten_db <= 0:
@@ -1558,117 +1688,7 @@ def design_chebyshev2(
         raise ValueError(f"unknown btype {btype!r}")
     if btype in ("lowpass", "highpass") and not 0.0 < cutoff < 1.0:
         raise ValueError(f"cutoff must be in (0,1) of Nyquist, got {cutoff}")
-    return _iirfilter(order, cutoff, btype=btype, ftype="cheby2", rs=atten_db)
-
-
-# The reference's zpk design pipeline (ops/iir_design.py), for the two
-# Chebyshev families the designers above take through it. The rest of
-# iir_design (elliptic, Bessel, order selection, ...) is not ported here.
-
-
-def _cheby_proto(order: int, ripple_db: float, ftype: str):
-    k = np.arange(order)
-    theta = np.pi * (2 * k + 1) / (2 * order)
-    if ftype == "cheby1":
-        eps = np.sqrt(10.0 ** (ripple_db / 10.0) - 1.0)
-        mu = np.arcsinh(1.0 / eps) / order
-        p = -np.sinh(mu) * np.sin(theta) + 1j * np.cosh(mu) * np.cos(theta)
-        gain = np.real(np.prod(-p))
-        if order % 2 == 0:  # passband peaks at 1; DC sits at -rp
-            gain /= np.sqrt(1.0 + eps * eps)
-        return np.array([], complex), p, float(gain)
-    eps = 1.0 / np.sqrt(10.0 ** (ripple_db / 10.0) - 1.0)
-    mu = np.arcsinh(1.0 / eps) / order
-    p = 1.0 / (-np.sinh(mu) * np.sin(theta) + 1j * np.cosh(mu) * np.cos(theta))
-    zc = np.cos(theta)
-    z = 1j / zc[np.abs(zc) > 1e-12]  # odd order: middle zero at infinity
-    return z, p, float(np.real(np.prod(-p)) / np.real(np.prod(-z)))
-
-
-def _lp2hp_zpk(z, p, k, wo):
-    deg = len(p) - len(z)
-    zh = wo / z if len(z) else np.array([], complex)
-    zh = np.append(zh, np.zeros(deg))
-    k = k * np.real(np.prod(-z) / np.prod(-p)) if len(z) else k / np.real(np.prod(-p))
-    return zh, wo / p, k
-
-
-def _lp2band_zpk(z, p, k, wo, bw, btype: str):
-    deg = len(p) - len(z)
-
-    def split(r):
-        return np.concatenate([r + np.sqrt(r * r - wo * wo), r - np.sqrt(r * r - wo * wo)])
-
-    if btype == "bandpass":
-        zb = split(z * bw / 2.0) if len(z) else np.array([], complex)
-        return np.append(zb, np.zeros(deg)), split(p * bw / 2.0), k * bw**deg
-    zb = split((bw / 2.0) / z) if len(z) else np.array([], complex)
-    zb = np.concatenate([zb, np.full(deg, 1j * wo), np.full(deg, -1j * wo)])
-    num = np.real(np.prod(-z)) if len(z) else 1.0
-    return zb, split((bw / 2.0) / p), k * num / np.real(np.prod(-p))
-
-
-def _split_conj(roots, tol=1e-8):
-    roots = np.asarray(roots, complex)
-    upper = sorted((r for r in roots if r.imag > tol), key=lambda r: (r.real, r.imag))
-    return upper, sorted(r.real for r in roots if abs(r.imag) <= tol)
-
-
-def _zpk2sos(z, p, k) -> np.ndarray:
-    """Digital zpk -> SOS rows: least-damped pole pairs last, each with its
-    nearest zero pair, the gain distributed evenly."""
-    z = np.asarray(z, complex)
-    p = np.asarray(p, complex)
-    n_sec = max((max(len(z), len(p)) + 1) // 2, 1)
-    z = np.append(z, np.zeros(2 * n_sec - len(z)))
-    p = np.append(p, np.zeros(2 * n_sec - len(p)))
-
-    def pairs(roots):
-        upper, reals = _split_conj(roots)
-        out = [(c, np.conj(c)) for c in upper]
-        out += [(reals[i] + 0j, reals[i + 1] + 0j) for i in range(0, len(reals) - 1, 2)]
-        if len(reals) % 2:
-            out.append((reals[-1] + 0j, 0j))
-        out += [(0j, 0j)] * (n_sec - len(out))
-        return out
-
-    pole_pairs = pairs(p)
-    pole_pairs.sort(key=lambda pp: abs(1.0 - abs(pp[0])), reverse=True)
-    remaining = pairs(z)
-    rows = []
-    for pp in pole_pairs:
-        zz = remaining.pop(min(range(len(remaining)), key=lambda i: abs(remaining[i][0] - pp[0])))
-        bb = np.array([1.0, -(zz[0] + zz[1]).real, (zz[0] * zz[1]).real])
-        aa = np.array([1.0, -(pp[0] + pp[1]).real, (pp[0] * pp[1]).real])
-        rows.append(np.concatenate([bb, aa]))
-    sos = np.asarray(rows, np.float64)
-    sos[:, :3] *= abs(k) ** (1.0 / n_sec) * np.sign(k)
-    return sos.astype(np.float32)
-
-
-def _iirfilter(order: int, wn, *, btype: str, ftype: str, rp=None, rs=None) -> np.ndarray:
-    """Chebyshev I/II design -> SOS rows (the reference's ``iirfilter``)."""
-    z, p, k = _cheby_proto(order, rp if ftype == "cheby1" else rs, ftype)
-    if btype in ("lowpass", "highpass"):
-        w = float(np.squeeze(np.asarray(wn)))
-        if not 0.0 < w < 1.0:
-            raise ValueError(f"Wn must be in (0,1) of Nyquist, got {wn}")
-        warped = np.tan(np.pi * w / 2.0)
-        if btype == "lowpass":
-            z, p, k = z * warped, p * warped, k * warped ** (len(p) - len(z))
-        else:
-            z, p, k = _lp2hp_zpk(z, p, k, warped)
-    else:
-        lo, hi = (float(v) for v in np.asarray(wn).reshape(2))
-        if not 0.0 < lo < hi < 1.0:
-            raise ValueError(f"need 0 < low < high < 1 (Nyquist), got {wn}")
-        w1, w2 = np.tan(np.pi * lo / 2.0), np.tan(np.pi * hi / 2.0)
-        z, p, k = _lp2band_zpk(z, p, k, np.sqrt(w1 * w2), w2 - w1, btype)
-    # bilinear s -> z with the prewarp convention s_cut = tan(pi*Wn/2)
-    deg = len(p) - len(z)
-    zd = np.append((1.0 + z) / (1.0 - z) if len(z) else np.array([], complex), -np.ones(deg))
-    num = np.real(np.prod(1.0 - z)) if len(z) else 1.0
-    return _zpk2sos(zd, (1.0 + p) / (1.0 - p), k * num / np.real(np.prod(1.0 - p)))
+    return iirfilter(order, cutoff, btype=btype, ftype="cheby2", rs=atten_db)
 
 
 __all__ = [
@@ -1678,6 +1698,9 @@ __all__ = [
     "iir1_table",
     "cascade_transition",
     "iir1_block_scan",
+    "iir1_affine_scan",
+    "mxu_tables",
+    "sos_cascade_mxu",
     "sos_cascade",
     "sos_cascade_unrolled",
     "sos_sections",

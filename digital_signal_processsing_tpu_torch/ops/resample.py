@@ -1,17 +1,20 @@
-"""Polyphase resampling: decimate / interpolate / rational resample.
+"""Polyphase resampling: decimate / interpolate / rational resample, upfirdn, FFT.
 
-Counterpart of ``decimate``, ``interpolate`` and ``resample_poly`` of
-``digital_signal_processsing_tpu/ops/resample.py``. Conventions match
+Counterpart of ``digital_signal_processsing_tpu/ops/resample.py``. Conventions match
 ``ops/fir.py``: planar ``(channels, time)`` float32, causal. The decimating
 FIR is one strided ``conv1d`` (``fir.causal_conv``), output m at input
 ``m * q`` and ``t // q`` outputs, as the reference's; the interpolating FIR
 is one ``conv_transpose1d`` (``fir.interp_conv``). Both run in IEEE float32.
+``upfirdn`` is one of the two over the right-padded stream, then a strided
+slice; the reference's banded tap matrix served its TPU and is not carried
+over. ``resample_fft`` runs on ``torch.fft``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .fir import _as_planar, _taps_on, causal_conv, design_lowpass, interp_conv
 
@@ -108,4 +111,51 @@ def resample_poly(
     return y[0] if squeeze else y
 
 
-__all__ = ["decimate", "interpolate", "resample_poly"]
+def resample_fft(x: torch.Tensor, num: int) -> torch.Tensor:
+    """Fourier-domain resampling to exactly ``num`` samples (scipy.signal.resample,
+    real input, no window).
+
+    Truncates or zero-extends the one-sided spectrum with scipy's
+    Nyquist-bin bookkeeping (doubled when downsampling drops its conjugate
+    half, halved when upsampling splits it). Treats the signal as periodic,
+    as scipy does; streams take :func:`resample_poly` or the Farrow stage.
+    """
+    if num < 1:
+        raise ValueError(f"num must be >= 1, got {num}")
+    xp, squeeze = _as_planar(x)
+    c, t = xp.shape
+    spec = torch.fft.rfft(xp.to(torch.float32), dim=-1)
+    n = min(num, t)
+    nyq = n // 2 + 1
+    out = spec.new_zeros((c, num // 2 + 1))
+    out[:, :nyq] = spec[:, :nyq]
+    if n % 2 == 0:
+        if num < t:
+            out[:, n // 2] *= 2.0
+        elif num > t:
+            out[:, n // 2] *= 0.5
+    y = torch.fft.irfft(out, n=num, dim=-1) * (num / t)
+    return y[0] if squeeze else y
+
+
+def upfirdn(h, x: torch.Tensor, up: int = 1, down: int = 1) -> torch.Tensor:
+    """Zero-stuff by ``up``, FIR filter by ``h``, keep every ``down``-th sample
+    (scipy.signal.upfirdn's semantics and output length, (t-1)*up + k samples
+    before the decimation)."""
+    if up < 1 or down < 1:
+        raise ValueError(f"up/down must be >= 1, got {up}/{down}")
+    if np.ndim(h) != 1:
+        raise ValueError(f"h must be 1-D taps, got shape {np.shape(h)}")
+    xp, squeeze = _as_planar(x)
+    taps = _taps_on(h, xp.device)
+    t, k = xp.shape[-1], taps.shape[0]
+    n_full = (t - 1) * up + k  # the full convolution of the zero-stuffed stream
+    # right-pad so that the causal FIR covers the full convolution's tail
+    extra = -(-(k - 1) // up) if up > 1 else k - 1
+    xpad = F.pad(xp.to(torch.float32), (0, extra))
+    y = interp_conv(xpad, taps, up=up) if up > 1 else causal_conv(xpad, taps)
+    y = y[..., :n_full][..., ::down]
+    return y[0] if squeeze else y
+
+
+__all__ = ["decimate", "interpolate", "resample_poly", "resample_fft", "upfirdn"]

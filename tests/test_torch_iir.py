@@ -366,13 +366,9 @@ def test_record_choice_names(rng):
     assert jax_last_choice("iir_first_order") == last_choice("iir_first_order") == "xla_scan"
 
 
-def test_unported_anchors_raise_by_name(rng):
+def test_fused_and_first_order_refusals_raise_by_name(rng):
     x = torch.zeros(2, 100)
     sos = SOS["butter4"]
-    with pytest.raises(NotImplementedError, match="B11.*ROADMAP item 8"):
-        iir.iir_first_order_pallas(x, 0.9, kernel="tile")
-    with pytest.raises(NotImplementedError, match="B14.*ROADMAP item 8"):
-        iir.sosfilt_pallas_fused(sos, x, lane_pass="mxu")
     with pytest.raises(ValueError, match="compact"):
         iir.sosfilt_pallas_fused(sos, x, tile_rows=64, row_pass="compact")
     with pytest.raises(ValueError, match="compact"):

@@ -47,16 +47,20 @@ from digital_signal_processsing_tpu_torch.ops.fft_mxu import (
     pick_fused_block,
     tap_response,
 )
+from digital_signal_processsing_tpu_torch.ops.cic import cic_decimate, cic_interpolate
+from digital_signal_processsing_tpu_torch.ops.fir import savgol_filter
 from digital_signal_processsing_tpu_torch.ops.iir import (
     design_butterworth,
     iir1_block_scan,
     iir_first_order,
+    iir_first_order_pallas,
     sos_cascade,
     sos_cascade_unrolled,
     sos_sections,
     sosfilt,
     sosfilt_chunk,
     sosfilt_init,
+    sosfilt_pallas_fused,
     sosfilt_tv,
     sosfilt_tv_chunk,
     sosfilt_tv_frames,
@@ -67,6 +71,9 @@ from digital_signal_processsing_tpu_torch.ops.iir import (
     tv_section,
 )
 from digital_signal_processsing_tpu_torch.ops.lpc import lpc_synth_pass, lpc_synthesis, lpc_vocoder
+from digital_signal_processsing_tpu_torch.ops.resample import resample_fft, upfirdn
+from digital_signal_processsing_tpu_torch.ops.splines import cspline1d, qspline1d
+from digital_signal_processsing_tpu_torch.ops.streaming import fir_chunk, fir_init
 from digital_signal_processsing_tpu_torch.models.adaptive import tracking_notch
 from digital_signal_processsing_tpu_torch.serve import stream_moving_average
 
@@ -136,6 +143,22 @@ a, g = lpc.lpc(xf, 8, 256)
 for method in ("auto", "scan", "pallas", "refine", "factored"):
     assert lpc.lpc_synthesis(a, g, xf[:, :2816], 256, method=method).shape == (2, 2816)
 assert adaptive.tracking_notch(xf, 512)[0].shape == (2, 3000)
+from digital_signal_processsing_tpu_torch.ops import cic, iir_design, splines, streaming
+ell = iir_design.iirdesign(0.1, 0.15, 0.5, 60.0, ftype="ellip")
+for rp in ("bcast", "compact"):
+    assert iir.sosfilt_pallas_fused(ell, xf, lane_pass="mxu", row_pass=rp).shape == (2, 3000)
+assert iir.iir_first_order_pallas(xf, 0.99, kernel="tile").shape == (2, 3000)
+taps = fir.design_remez(201, [0.0, 0.1, 0.15, 1.0], [1.0, 0.0])
+st = streaming.fir_init(201, 2, device="cpu")
+st, yc = streaming.fir_chunk(st, xf[:, :1000], taps)
+assert yc.shape == (2, 1000) and st.tail.shape == (2, 200)
+assert cic.cic_decimate(xf, 8).shape == (2, 375)
+assert cic.cic_interpolate(xf, 8).shape == (2, 24000)
+assert cic.design_cic_compensator(31, 8).shape == (31,)
+assert resample.upfirdn(taps, xf, 3, 2).shape == (2, 4599)
+assert resample.resample_fft(xf, 1234).shape == (2, 1234)
+assert fir.savgol_filter(xf, 11, 3).shape == (2, 3000)
+assert splines.cspline1d(xf).shape == splines.qspline1d(xf).shape == (2, 3000)
 assert not [m for m in sys.modules if m.startswith("jax") and sys.modules[m] is not None]
 reference = [m for m in sys.modules
              if m == "digital_signal_processsing_tpu" or m.startswith("digital_signal_processsing_tpu.")]
@@ -181,6 +204,10 @@ def test_cuda_device_without_a_card_raises(tmp_path):
         farrow_init((441, 2560), 16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         farrow_matmul_init((441, 2560), 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fir_init(201, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cspline1d(np.zeros((2, 64)))
     from digital_signal_processsing_tpu_torch.__main__ import main
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -244,7 +271,49 @@ def test_cpu_tensors_never_build_kernels(monkeypatch, rng):
         lpc_synthesis(torch.tensor([[1.0, -0.5]] * 4), torch.ones(4), xf[0, :1024], 256,
                       method=method)
     tracking_notch(xf, 512)
+    iir_first_order(xf, 0.9, method="pallas")
+    iir_first_order_pallas(xf, 0.9, kernel="tile")
+    for row_pass in ("bcast", "compact"):
+        sosfilt_pallas_fused(sos, xf, lane_pass="mxu", row_pass=row_pass)
+    cic_decimate(xf, 8)
+    cic_interpolate(xf, 8)
+    upfirdn(np.ones(29), xf, 8, 3)
+    resample_fft(xf, 777)
+    savgol_filter(xf, 11, 3)
+    fir_chunk(fir_init(201, 3, device="cpu"), xf, np.ones(201) / 201)
+    cspline1d(xf)
+    qspline1d(xf)
     assert not any(launch_counts().values()), launch_counts()
+
+
+def test_anchor_wrappers_raise_when_the_build_fails(monkeypatch, rng):
+    """B11 and B14 on a tensor the wrappers take for a CUDA one: the failed build
+    raises, and neither the plain version nor a launch count is taken."""
+    from digital_signal_processsing_tpu_torch.ops import iir
+
+    def broken():
+        raise RuntimeError("nvcc failed on iir.cu")
+
+    def no_plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(iir, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(_build, "library", broken)
+    monkeypatch.setattr(iir, "_iir1_plain", no_plain)
+    monkeypatch.setattr(iir, "_sos_plain", no_plain)
+    reset_launch_counts()
+    xf = torch.from_numpy(rng.normal(size=(2, 5000)).astype(np.float32))
+    sos = design_butterworth(4, 0.2)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        iir.iir_first_order_pallas(xf, 0.9, kernel="tile")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        iir.iir1_affine_scan(xf, 0.9)
+    for row_pass in ("bcast", "compact"):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            iir.sosfilt_pallas_fused(sos, xf, lane_pass="mxu", row_pass=row_pass)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        iir.sos_cascade_mxu(xf, sos)
+    assert launch_counts()["B11"] == launch_counts()["B14"] == 0
 
 
 def test_other_devices_are_refused():
@@ -266,9 +335,12 @@ def test_other_devices_are_refused():
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
         resample_farrow_segmented(xf, (46337, 65521))
     sos = design_butterworth(2, 0.3)
+    from digital_signal_processsing_tpu_torch.ops.iir import iir1_affine_scan, sos_cascade_mxu
+
     for call in (
         lambda: sos_cascade(xf, sos), lambda: sos_cascade_unrolled(xf, sos),
         lambda: sos_sections(xf, sos), lambda: iir1_block_scan(xf, 0.5),
+        lambda: iir1_affine_scan(xf, 0.5), lambda: sos_cascade_mxu(xf, sos),
     ):
         with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
             call()
