@@ -140,10 +140,28 @@ failure exits non-zero:
 7. the flagship chain's wall time, and its device time under
    ``torch.profiler``, whole and by stage (LO bank, mix, channel FIR,
    decimate, FM demod, audio FIR), with the device's idle share; the same for
-   the wideband receiver (channelize, FM demod, audio FIR, squelch).
+   the wideband receiver (channelize, FM demod, audio FIR, squelch);
+8. the sharded path (``parallel/``): four processes on the one card form a
+   ring over gloo (``torch.multiprocessing`` spawn, a ``FileStore``), each
+   holding a quarter of phase 4's 64M stream; with the counts reset around,
+   ``ring_shift_right_shard`` (B6) and ``sharded_moving_average`` with
+   ``halo_impl="pallas_ring"`` (B6 halos into B1) and ``"fused_ring"`` (B7);
+   every rank holds B6 and B7 against their plain version (the ``ppermute``
+   spelling over gloo), the parent holds the concatenated shards bit for bit
+   against B1 over the whole stream, then the same over k in {1, 16, 1024} x
+   C in {1, 2, 16}, a shard of exactly one halo, one shorter than a tile,
+   and calls back to back with new data around another key; each rank's
+   device time a call (the contexts time-slice the card: printed as it is);
+   then world size 1 over NCCL in this process, counts reset around: the
+   averager at 64M by every ``halo_impl``, ``scan`` by both ``carry_impl``s
+   and the ring, the packed view (B2 seeded), ``sharded_cumsum`` (B4),
+   ``sharded_fir_filter`` at 257 and 8193 taps on 16 x 2^22 (B8),
+   ``sharded_chain_planar`` on the flagship, ``pipelined_fir_cascade``,
+   ``sharded_sosfilt_tv`` (B16) and ``sharded_lpc_synthesis`` (B22) against
+   the one-card entry points; B6 and B7 timed alone on the ring's shard.
 
 Each phase prints its seconds. The last two lines are the kernels' JSON
-record (B1-B5, B8-B22, each with
+record (B1-B22, each with
 its launches on the main path, max abs error, device ms, plain ms, bound ms
 and library ms) and ``{"ok": true, "device": {...}}``.
 """
@@ -212,8 +230,9 @@ IIR_KERNELS = ("B10", "B12", "B13", "B15")
 PFB_KERNELS = ("B19", "B20", "B21")
 TV_KERNELS = ("B16", "B17", "B18", "B22")
 ANCHOR_KERNELS = ("B11", "B14")
+RING_KERNELS = ("B6", "B7")
 KERNELS = (*AVERAGER_KERNELS, "B8", "B9", *IIR_KERNELS, *PFB_KERNELS, *TV_KERNELS,
-           *ANCHOR_KERNELS)
+           *ANCHOR_KERNELS, *RING_KERNELS)
 SOURCE = "digital_signal_processsing_tpu_torch/csrc/"
 REPLACES = "digital_signal_processsing_tpu/ops/pallas_scan.py:"
 REPLACES_DIRECT = "digital_signal_processsing_tpu/ops/pallas_direct.py:"
@@ -222,6 +241,7 @@ REPLACES_IIR = "digital_signal_processsing_tpu/ops/iir.py:"
 REPLACES_PFB = "digital_signal_processsing_tpu/ops/channelizer.py:"
 REPLACES_FARROW = "digital_signal_processsing_tpu/ops/farrow.py:"
 REPLACES_LPC = "digital_signal_processsing_tpu/ops/lpc.py:"
+REPLACES_RING = "digital_signal_processsing_tpu/parallel/ring_pallas.py:"
 # The receiver chain's main path: the flagship of __graft_entry__.py (16
 # channels, decimation 8) on 2^22 samples a channel, the 16ch x 4.2M point of
 # the reference's benchmark notes.
@@ -2051,7 +2071,7 @@ def phase_tv_main(rng, dev, check: Checker) -> tuple[dict, dict]:
         + f" (< {LPC_RTOL}); resonant sets by radius (factored, sequential f32, refine): "
         + "; ".join(f"{r}: {f:.2e}, {q:.2e}, {g:.2e}" for r, (f, q, g) in res_err.items())
     )
-    main = {"x": x, "rows": rows, "fr": fr, "a_f": a_f, "e_f": e_f}
+    main = {"x": x, "rows": rows, "fr": fr, "a_f": a_f, "e_f": e_f, "a": a, "gain": gain, "ev": ev}
     return launches, main
 
 
@@ -2442,6 +2462,266 @@ def phase_anchor_times(main: dict) -> dict:
     return {"times": out, "bounds": bounds, "library": library}
 
 
+# 8. The sharded path (parallel/): a ring of RING_WORLD processes on the one
+# card (gloo coordinates the hosts; the halos move by B6's put through CUDA
+# IPC mappings of the neighbours' receive buffers), each rank on a quarter of
+# the main stream, then every sharded entry point at world size 1 over NCCL
+# at full width against the one-card entry point.
+RING_WORLD = 4
+RING_REPS = 10
+# k x C corners of the ring, each shard k + 777 frames; then a shard of
+# exactly one halo (k*C samples) and one shorter than a tile
+RING_CORNERS = [(k, c, k + 777) for k in (1, 16, 1024) for c in (1, 2, 16)] + [
+    (1024, 2, 1024), (16, 2, 100),
+]
+# calls of one ring key back to back with new data, and another key between
+RING_SEQ = [(16, 2), (1000, 1), (16, 2), (16, 2)]
+SHARDED_FIR_TAPS = (257, 8193)
+CASCADE_MICRO = 8
+
+
+def ring_stream(seed: int, samples: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(-32768, 32768, size=samples, dtype=np.int16)
+
+
+def ring_timed(fn, mesh, reps: int = RING_REPS) -> tuple[list[float], list[float]]:
+    """Device ms (events on this rank's stream) and host ms of ``reps`` calls,
+    each started together on every rank (a host barrier) after one warm-up."""
+    from digital_signal_processsing_tpu_torch.parallel.mesh import host_barrier
+
+    fn()
+    dev_ms, wall_ms = [], []
+    for _ in range(reps):
+        host_barrier(mesh)
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(e0.elapsed_time(e1))
+    return dev_ms, wall_ms
+
+
+def ring_worker(rank: int, tmp: str) -> None:
+    """One rank of the one-card ring: its quarter of the main stream, then the corners."""
+    import torch.distributed as dist
+
+    from digital_signal_processsing_tpu_torch import parallel as par
+    from digital_signal_processsing_tpu_torch.parallel.mesh import shift_right
+
+    torch.cuda.set_device(0)
+    par.initialize_multihost(f"file://{tmp}/ring.store", RING_WORLD, rank, backend="gloo")
+    mesh = par.make_time_mesh(device="cuda")
+    dev, flat = mesh.device, par.time_sharding(mesh)
+    n_loc, halo = MAIN_SAMPLES // RING_WORLD, MAIN_WINDOW * 2
+    xs = torch.from_numpy(np.load(f"{tmp}/x.npy", mmap_mode="r")[rank * n_loc : (rank + 1) * n_loc]
+                          .copy()).to(dev)
+    torch.cuda.synchronize()
+    out, info = {}, {}
+
+    # the main path: counts reset just before, read just after
+    reset_launch_counts()
+    out["shift"] = par.ring_shift_right_shard(xs, mesh)
+    out["pallas_ring"] = par.sharded_moving_average(xs, MAIN_WINDOW, 2, mesh=mesh,
+                                                    halo_impl="pallas_ring")
+    out["fused_ring"] = par.sharded_moving_average(xs, MAIN_WINDOW, 2, mesh=mesh,
+                                                   halo_impl="fused_ring")
+    torch.cuda.synchronize()
+    info["launches"] = launch_counts()
+
+    # each kernel against its plain version (the ppermute spelling) on the same shards
+    def plain_fused():
+        left = shift_right(xs[n_loc - halo :], mesh)
+        return moving_average_xla(torch.cat([left, xs]), MAIN_WINDOW, 2)[halo:]
+
+    err = {
+        "B6": int((out["shift"].long() - shift_right(xs, mesh).long()).abs().max().item()),
+        "B7": int((out["fused_ring"].long() - plain_fused().long()).abs().max().item()),
+    }
+    info["err"] = err
+    info["times"] = {
+        "B6": ring_timed(lambda: par.ring_shift_right_shard(xs, mesh), mesh),
+        "B6 plain": ring_timed(lambda: shift_right(xs, mesh), mesh, 3),
+        "B7": ring_timed(lambda: par.fused_ring_windowed_shard(xs, MAIN_WINDOW, 2, mesh), mesh),
+        "B7 plain": ring_timed(plain_fused, mesh, 3),
+        "pallas_ring": ring_timed(lambda: par.sharded_moving_average(
+            xs, MAIN_WINDOW, 2, mesh=mesh, halo_impl="pallas_ring"), mesh),
+    }
+
+    # corners, back-to-back calls of one key and two keys interleaved
+    for i, (w, c, frames) in enumerate(RING_CORNERS):
+        xi = flat.shard(torch.from_numpy(ring_stream(300 + i, RING_WORLD * frames * c)).to(dev))
+        for h in ("pallas_ring", "fused_ring"):
+            out[f"corner {i} {h}"] = par.sharded_moving_average(xi, w, c, mesh=mesh, halo_impl=h)
+    for i, (w, c) in enumerate(RING_SEQ):
+        xi = flat.shard(torch.from_numpy(ring_stream(400 + i, RING_WORLD * 8192)).to(dev))
+        out[f"seq {i}"] = par.sharded_moving_average(xi, w, c, mesh=mesh, halo_impl="fused_ring")
+    torch.cuda.synchronize()
+    np.savez(f"{tmp}/rank{rank}.npz", **{k: v.cpu().numpy() for k, v in out.items()})
+    Path(f"{tmp}/rank{rank}.json").write_text(json.dumps(info))
+    mesh.close()
+    dist.destroy_process_group()
+
+
+def phase_sharded_ring(x: torch.Tensor, y_main: torch.Tensor, check: Checker) -> dict:
+    """The ring of RING_WORLD processes on the one card, against B1 over whole streams."""
+    dev, n_loc = x.device, MAIN_SAMPLES // RING_WORLD
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(f"{tmp}/x.npy", x.cpu().numpy())
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(ring_worker, args=(tmp,), nprocs=RING_WORLD, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [np.load(f"{tmp}/rank{r}.npz") for r in range(RING_WORLD)]
+        infos = [json.loads(Path(f"{tmp}/rank{r}.json").read_text()) for r in range(RING_WORLD)]
+
+        def whole(key: str) -> torch.Tensor:
+            return torch.from_numpy(np.concatenate([r[key] for r in ranks])).to(dev)
+
+        shifted = torch.cat([torch.zeros(n_loc, dtype=x.dtype, device=dev), x[:-n_loc]])
+        check.same("B6", whole("shift"), shifted, "ring of 4: ring_shift_right_shard, 64M")
+        check.same("B6", whole("pallas_ring"), y_main, "ring of 4: pallas_ring 64M k=1024 C=2 vs B1")
+        check.same("B7", whole("fused_ring"), y_main, "ring of 4: fused_ring 64M k=1024 C=2 vs B1")
+        for i, (w, c, frames) in enumerate(RING_CORNERS):
+            xi = torch.from_numpy(ring_stream(300 + i, RING_WORLD * frames * c)).to(dev)
+            want = ps.windowed_averager(xi, w, c)
+            check.same("B6", whole(f"corner {i} pallas_ring"), want, f"ring corner k={w} C={c}")
+            check.same("B7", whole(f"corner {i} fused_ring"), want, f"ring corner k={w} C={c}")
+        for i, (w, c) in enumerate(RING_SEQ):
+            xi = torch.from_numpy(ring_stream(400 + i, RING_WORLD * 8192)).to(dev)
+            check.same("B7", whole(f"seq {i}"), ps.windowed_averager(xi, w, c), f"ring call {i}")
+    for r, info in enumerate(infos):
+        if info["launches"]["B6"] < 1 or info["launches"]["B7"] < 1 or any(info["err"].values()):
+            raise AssertionError(f"ring rank {r}: launches {info['launches']}, errors {info['err']}")
+    launches = {k: sum(info["launches"][k] for info in infos) for k in ("B1", "B6", "B7")}
+
+    def per_rank(key: str, i: int) -> list[float]:
+        return [statistics.median(info["times"][key][i]) for info in infos]
+
+    times = {}
+    print(f"[8 ring] {RING_WORLD} processes on one card ({spawn_s:.1f} s with the spawn), "
+          f"{n_loc} samples a rank: B6 and B7 bit-exact against plain on every rank and against "
+          f"B1 over the whole 64M stream, {len(RING_CORNERS)} corners, {len(RING_SEQ)} calls back "
+          f"to back; launches (all ranks) {launches}. Device ms a call on each rank's stream "
+          "(the four contexts time-slice the card and the call waits for its neighbours: not a "
+          "kernel's time alone, not a scaling number), median of "
+          f"{RING_REPS} (plain: 3) after a warm-up, by rank; whole ring: the slowest rank's host ms:")
+    for key in ("B6", "B6 plain", "B7", "B7 plain", "pallas_ring"):
+        dev_ms, wall = per_rank(key, 0), per_rank(key, 1)
+        all_dev = [v for info in infos for v in info["times"][key][0]]
+        times[key] = (statistics.median(all_dev), min(all_dev), max(all_dev))
+        print(f"  {key:12s} device {', '.join(f'{v:.4f}' for v in dev_ms)} "
+              f"(all ranks: median {times[key][0]:.4f}, min {times[key][1]:.4f}, max "
+              f"{times[key][2]:.4f}); whole ring {max(wall):.4f}")
+    return {"launches": launches, "times": times}
+
+
+def phase_sharded_world1(x, y_main, chain_main: dict, tv_main: dict, check: Checker,
+                         tmp: str) -> dict:
+    """Every sharded entry point at world size 1 over NCCL, at full width."""
+    import torch.distributed as dist
+
+    from digital_signal_processsing_tpu_torch import parallel as par
+    from digital_signal_processsing_tpu_torch.parallel.mesh import shift_right
+
+    dev = x.device
+    topo = par.initialize_multihost(f"file://{tmp}/nccl.store", 1, 0, backend="nccl")
+    if topo["platform"] != "gpu" or topo["process_count"] != 1:
+        raise AssertionError(f"topology {topo}")
+    par.assert_same_across_hosts(1.0)
+    mesh = par.make_mesh(device="cuda")
+    g = torch.Generator(dev).manual_seed(8)
+    xf = torch.randn(16, CHAIN_T, device=dev, generator=g)
+    taps = {k: fir.design_lowpass(k, 0.1) for k in SHARDED_FIR_TAPS}
+    chain, i, q = chain_main["chain"], chain_main["i"], chain_main["q"]
+    sos_t = tv_main["rows"][:, 0]
+    torch.cuda.synchronize()
+
+    ys = {}
+    reset_launch_counts()
+    for h in ("ppermute", "pallas_ring", "fused_ring"):
+        ys[f"windowed {h}"] = par.sharded_moving_average(x, MAIN_WINDOW, 2, mesh=mesh, halo_impl=h)
+    for ci in ("ladder", "allgather"):
+        ys[f"scan {ci}"] = par.sharded_moving_average(x, MAIN_WINDOW, 2, mesh=mesh, method="scan",
+                                                      carry_impl=ci)
+    for h in ("pallas_ring", "fused_ring"):
+        ys[f"scan {h}"] = par.sharded_moving_average(x, MAIN_WINDOW, 2, mesh=mesh, method="scan",
+                                                     halo_impl=h)
+    ys["packed"] = par.sharded_moving_average(x.view(torch.int32), MAIN_WINDOW, 2, mesh=mesh,
+                                              halo_impl="pallas_ring")
+    ys["cumsum"] = par.sharded_cumsum(x, TWO_PASS_CHANNELS, mesh=mesh)
+    for k, h in taps.items():
+        ys[f"fir {k}"] = par.sharded_fir_filter(xf, h, mesh=mesh)
+    ys["chain"] = par.sharded_chain_planar(chain, i, q, mesh)
+    chunks = xf.view(16, CASCADE_MICRO, -1).transpose(0, 1).contiguous()
+    ys["cascade"] = par.pipelined_fir_cascade(chunks, taps[257][None], mesh=mesh)
+    ys["tv"] = par.sharded_sosfilt_tv(sos_t, tv_main["x"], mesh=mesh)
+    ys["lpc"] = par.sharded_lpc_synthesis(tv_main["a"], tv_main["gain"], tv_main["ev"], LPC_L,
+                                          mesh=mesh)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    path = ("B1", "B2", "B4", "B6", "B7", "B8", "B16", "B22")
+    print(f"[8 world 1] topology {topo}; launches {launches}")
+    if min(launches[k] for k in path) < 1:
+        raise AssertionError(f"a kernel of the sharded path was never launched: {launches}")
+
+    for h, kernel in (("ppermute", "B1"), ("pallas_ring", "B6"), ("fused_ring", "B7")):
+        check.same(kernel, ys[f"windowed {h}"], y_main, f"world 1 windowed {h} 64M against B1")
+    for key in ("scan ladder", "scan allgather", "scan pallas_ring", "scan fused_ring"):
+        check.same("B4", ys[key], y_main, f"world 1 {key} 64M against B1")
+    check.same("B2", ys["packed"].view(torch.int16), y_main, "world 1 packed 64M against B1")
+    check.same("B4", ys["cumsum"], ps.cumsum(x, TWO_PASS_CHANNELS), "world 1 cumsum C=16")
+    for k, h in taps.items():
+        check.close("B8", ys[f"fir {k}"], fir.fir_filter(xf, h), f"world 1 fir k={k} 16x2^22")
+    one = chain.forward_planar(i, q)
+    ramp = (257 + 64) // 8 + 63
+    np.testing.assert_allclose(ys["chain"][:, ramp:].cpu().numpy(), one[:, ramp:].cpu().numpy(),
+                               rtol=1e-3, atol=1e-4)
+    got = ys["cascade"].transpose(0, 1).reshape(16, -1)
+    want = fir.fir_direct(xf, taps[257])
+    err = (got - want).abs().max().item()
+    if not err <= FIR_RTOL * want.abs().max().item():
+        raise AssertionError(f"world 1 cascade: max abs error {err:.3e} against fir_direct")
+    check.close("B16", ys["tv"], iir.sosfilt_tv(sos_t, tv_main["x"]), "world 1 sosfilt_tv", 0.0)
+    check.close("B22", ys["lpc"], lpc.lpc_synthesis(tv_main["a"], tv_main["gain"], tv_main["ev"],
+                                                    LPC_L), "world 1 lpc_synthesis", 0.0)
+    print(
+        "[8 world 1] NCCL, one rank: the averager at 64M k=1024 C=2 (windowed by every halo_impl, "
+        "scan by both carry_impls and the ring, packed) and sharded_cumsum C=16 bit-exact against "
+        f"B1 and B4; sharded_fir_filter at {SHARDED_FIR_TAPS} taps on 16 x 2^22 within {FIR_RTOL} "
+        "of fir_filter; sharded_chain_planar on the flagship within rtol 1e-3 / atol 1e-4 of the "
+        "chain; pipelined_fir_cascade within the same of fir_direct; sharded_sosfilt_tv and "
+        "sharded_lpc_synthesis bit for bit with sosfilt_tv and lpc_synthesis"
+    )
+
+    # B6 and B7 alone (no other process on the card) on the ring's shard
+    n_loc = MAIN_SAMPLES // RING_WORLD
+    xs = x[:n_loc]
+    dst = torch.empty_like(xs)
+    halo = MAIN_WINDOW * 2
+
+    def plain_fused():
+        left = shift_right(xs[n_loc - halo :], mesh)
+        return moving_average_xla(torch.cat([left, xs]), MAIN_WINDOW, 2)[halo:]
+
+    alone = {
+        "B6": device_ms(lambda: par.ring_shift_right_shard(xs, mesh), 5, 20),
+        "B6 library": device_ms(lambda: dst.copy_(xs), 5, 20),
+        "B7": device_ms(lambda: par.fused_ring_windowed_shard(xs, MAIN_WINDOW, 2, mesh), 5, 20),
+        "B7 plain": device_ms(plain_fused, 1, 5),
+        "B1": device_ms(lambda: ps.windowed_averager(xs, MAIN_WINDOW, 2), 5, 20),
+    }
+    stats = {k: (statistics.median(v), min(v), max(v)) for k, v in alone.items()}
+    print(f"[8 world 1] alone on the card, {n_loc} samples (the ring's shard), device ms median "
+          "(min-max) of 20 after 5 warm-ups (B7 plain: 5 after 1): "
+          + "; ".join(f"{k} {m:.4f} ({lo:.4f}-{hi:.4f})" for k, (m, lo, hi) in stats.items()))
+    mesh.close()
+    dist.destroy_process_group()
+    return {"launches": launches, "alone": stats}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2684,6 +2964,16 @@ def main() -> int:
     phase_wideband_profile(wide_main)
     mark("7 wideband profile")
 
+    # 8. the sharded path: the ring of four on the card, then world size 1 over NCCL
+    ring = phase_sharded_ring(x, y_main, check)
+    mark("8 sharded ring")
+    with tempfile.TemporaryDirectory() as tmp:
+        world1 = phase_sharded_world1(x, y_main, chain_main, tv_main, check, tmp)
+    mark("8 sharded world 1")
+    n_loc = MAIN_SAMPLES // RING_WORLD
+    ring_bounds = {"B6": bound(2 * 2 * n_loc, 0), "B7": bound(4 * n_loc, 4 * n_loc)}
+    print("  bounds (ms, by): " + ", ".join(f"{k} {b:.4f} {by}" for k, (b, by) in ring_bounds.items()))
+
     def entry(name, kernel, source, replaces, ms, plain_ms, library_ms=None):
         return {
             "name": name, "route": "cuda", "source": SOURCE + source, "replaces": replaces,
@@ -2782,6 +3072,20 @@ def main() -> int:
                 for name, kernel, line in (
                     ("iir1_affine_scan", "B11", "441"),
                     ("sos_cascade_mxu", "B14", "1390"),
+                )
+            ),
+            *(
+                {
+                    "name": name, "route": "cuda", "source": SOURCE + "ring.cu",
+                    "replaces": REPLACES_RING + line, "launches": ring["launches"][kernel],
+                    "max_abs_err": check.max_err[kernel], "ms": ring["times"][kernel][0],
+                    "plain_ms": ring["times"][f"{kernel} plain"][0],
+                    "bound_ms": ring_bounds[kernel][0], "bound_by": ring_bounds[kernel][1],
+                    "library_ms": library,
+                }
+                for name, kernel, line, library in (
+                    ("ring_shift_right_shard", "B6", "42", world1["alone"]["B6 library"][0]),
+                    ("fused_ring_windowed_shard", "B7", "174", None),
                 )
             ),
         ]

@@ -31,14 +31,17 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
+_PP = ctypes.POINTER(ctypes.c_void_p)
 # name -> argument types; every function returns a cudaError_t as int
 _SIGNATURES = {
     # x, y, seed, n, window, channels, lead, tile_frames, seg_frames, segs,
     # smem_bytes, stream
     "dsp_windowed_i16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x32, y32, n32, window, channels, lead, tile_frames, seg_frames, segs,
-    # smem_bytes, stream
-    "dsp_windowed_packed": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # the same, then block_begin, block_end, stream
+    "dsp_windowed_i16_range": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x32, y32, seed32, n32, window, channels, lead, tile_frames, seg_frames,
+    # segs, smem_bytes, stream
+    "dsp_windowed_packed": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, y, totals, n, channels, tile_frames, seg_frames, segs, smem_bytes,
     # stream
     "dsp_cumsum_i16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -76,6 +79,22 @@ _SIGNATURES = {
     "dsp_tv_cascade": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # a, s0, e, y, z, history scratch, frames, frame length, order, stream
     "dsp_lpc_synth": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # src, dst, bytes, stream
+    "dsp_ring_put": (_P, _P, _I, _P),
+    # bytes, out pointer, out 64-byte IPC handle
+    "dsp_ring_alloc": (_I, _PP, ctypes.c_char_p),
+    "dsp_ring_free": (_P,),
+    # 64-byte IPC handle, out pointer
+    "dsp_ring_open": (ctypes.c_char_p, _PP),
+    "dsp_ring_close": (_P,),
+    # out event, out 64-byte IPC handle
+    "dsp_ring_event": (_PP, ctypes.c_char_p),
+    "dsp_ring_event_open": (ctypes.c_char_p, _PP),
+    "dsp_ring_event_destroy": (_P,),
+    # event, stream
+    "dsp_ring_record": (_P, _P),
+    # stream, event
+    "dsp_ring_wait": (_P, _P),
 }
 
 

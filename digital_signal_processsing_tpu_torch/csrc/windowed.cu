@@ -25,6 +25,13 @@
 //
 // B2 loads and stores 32-bit words, each holding two adjacent samples (the
 // reference's int2 rung); the buffer and tile are then kept even in length.
+// Its seed is the lead*C samples before the stream, as lead*C/2 words.
+//
+// dsp_windowed_i16_range launches B1 over a range of its blocks only: the
+// fused ring averager (B7, parallel/ring_pallas.py) runs the blocks whose
+// window lies inside the shard while the halo is in flight, then the head
+// blocks seeded from the received halo. Blocks carry nothing, so the split
+// changes no output.
 
 #include <cstdint>
 
@@ -40,7 +47,7 @@ template <bool kPacked>
 __global__ void __launch_bounds__(kThreads)
 windowed_kernel(const void* __restrict__ xin, void* __restrict__ yout,
                 const int16_t* __restrict__ seed, int64_t n, int window, int C,
-                int lead, int tf, int R, int S) {
+                int lead, int tf, int R, int S, int64_t block0) {
   extern __shared__ uint32_t smem[];
   const int T = tf * C;
   const int H = window * C;
@@ -49,16 +56,23 @@ windowed_kernel(const void* __restrict__ xin, void* __restrict__ yout,
   const int nf = lead + tf;
   uint32_t* buf = smem;
   uint32_t* seg = smem + L;
-  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * T;
+  const int64_t t0 = (static_cast<int64_t>(blockIdx.x) + block0) * T;
   const int64_t start = t0 - Hl;
 
   if constexpr (kPacked) {
     const uint32_t* x = static_cast<const uint32_t*>(xin);
+    const uint32_t* seed32 = reinterpret_cast<const uint32_t*>(seed);
     const int64_t n32 = n / 2;
     const int64_t w0 = start / 2;  // start is even
+    const int64_t hw = Hl / 2;     // seed words
     for (int j = threadIdx.x; j < L / 2; j += blockDim.x) {
       const int64_t gw = w0 + j;
-      const uint32_t w = (gw >= 0 && gw < n32) ? x[gw] : 0u;
+      uint32_t w = 0u;
+      if (gw >= 0) {
+        if (gw < n32) w = x[gw];
+      } else if (seed32 != nullptr && gw >= -hw) {
+        w = seed32[hw + gw];
+      }
       buf[2 * j] = widen(static_cast<int16_t>(w & 0xffffu));
       buf[2 * j + 1] = widen(static_cast<int16_t>(w >> 16));
     }
@@ -110,19 +124,23 @@ template <bool kPacked>
 static int launch_windowed(const void* x, void* y, const int16_t* seed, int64_t n,
                            int64_t window, int64_t channels, int64_t lead,
                            int64_t tile_frames, int64_t seg_frames, int64_t segs,
-                           int64_t smem_bytes, void* stream) {
+                           int64_t smem_bytes, int64_t block_begin, int64_t block_end,
+                           void* stream) {
   const int64_t tile = tile_frames * channels;
   const int64_t blocks = (n + tile - 1) / tile;
-  if (blocks <= 0 || blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  if (block_end < 0) block_end = blocks;  // every block
+  if (block_begin < 0 || block_begin >= block_end || block_end > blocks ||
+      block_end - block_begin > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = windowed_kernel<kPacked>;
   static int allowed[kMaxDevices] = {};
   cudaError_t err = allow_smem(kernel, allowed, static_cast<int>(smem_bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(blocks), kThreads, static_cast<size_t>(smem_bytes),
-           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned>(block_end - block_begin), kThreads,
+           static_cast<size_t>(smem_bytes), static_cast<cudaStream_t>(stream)>>>(
       x, y, seed, n, static_cast<int>(window), static_cast<int>(channels),
       static_cast<int>(lead), static_cast<int>(tile_frames), static_cast<int>(seg_frames),
-      static_cast<int>(segs));
+      static_cast<int>(segs), block_begin);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -133,16 +151,30 @@ extern "C" int dsp_windowed_i16(const int16_t* x, int16_t* y, const int16_t* see
                                 int64_t lead, int64_t tile_frames, int64_t seg_frames,
                                 int64_t segs, int64_t smem_bytes, void* stream) {
   return dsp::launch_windowed<false>(x, y, seed, n, window, channels, lead, tile_frames,
-                                     seg_frames, segs, smem_bytes, stream);
+                                     seg_frames, segs, smem_bytes, 0, -1, stream);
 }
 
-// n32: int32 words; the stream holds 2 * n32 samples.
-extern "C" int dsp_windowed_packed(const int32_t* x, int32_t* y, int64_t n32,
-                                   int64_t window, int64_t channels, int64_t lead,
+// Blocks [block_begin, block_end) of dsp_windowed_i16's grid; block b owns
+// outputs [b * tile, (b + 1) * tile), tile = tile_frames * channels.
+extern "C" int dsp_windowed_i16_range(const int16_t* x, int16_t* y, const int16_t* seed,
+                                      int64_t n, int64_t window, int64_t channels,
+                                      int64_t lead, int64_t tile_frames, int64_t seg_frames,
+                                      int64_t segs, int64_t smem_bytes, int64_t block_begin,
+                                      int64_t block_end, void* stream) {
+  return dsp::launch_windowed<false>(x, y, seed, n, window, channels, lead, tile_frames,
+                                     seg_frames, segs, smem_bytes, block_begin, block_end,
+                                     stream);
+}
+
+// n32: int32 words; the stream holds 2 * n32 samples. seed32: the lead *
+// channels / 2 words before the stream, or null for zeros.
+extern "C" int dsp_windowed_packed(const int32_t* x, int32_t* y, const int32_t* seed32,
+                                   int64_t n32, int64_t window, int64_t channels, int64_t lead,
                                    int64_t tile_frames, int64_t seg_frames, int64_t segs,
                                    int64_t smem_bytes, void* stream) {
-  return dsp::launch_windowed<true>(x, y, nullptr, 2 * n32, window, channels, lead,
-                                    tile_frames, seg_frames, segs, smem_bytes, stream);
+  return dsp::launch_windowed<true>(x, y, reinterpret_cast<const int16_t*>(seed32), 2 * n32,
+                                    window, channels, lead, tile_frames, seg_frames, segs,
+                                    smem_bytes, 0, -1, stream);
 }
 
 extern "C" const char* dsp_error_string(int err) {

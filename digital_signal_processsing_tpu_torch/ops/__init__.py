@@ -131,13 +131,20 @@ from .streaming import (  # noqa: F401
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of each kernel of csrc/ since the last reset, B3 by variant."""
+    """Launches of each kernel of csrc/ since the last reset, B3 by variant.
+
+    B6 and B7 are the ring kernels of ``parallel/ring_pallas.py``.
+    """
+    from ..parallel import ring_pallas
+
     return {
         "B1": windowed_averager.launches,
         "B2": windowed_averager_packed.launches,
         **{f"B3/{v}": n for v, n in scan_averager.launches.items()},
         "B4": cumsum.launches,
         "B5": direct_averager.launches,
+        "B6": ring_pallas.ring_shift_right_shard.launches,
+        "B7": ring_pallas.fused_ring_windowed_shard.launches,
         "B8": fused_fir.launches,
         "B9": fused_fir3.launches,
         "B10": iir1_block_scan.launches,
@@ -158,7 +165,10 @@ def launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
+    from ..parallel import ring_pallas
+
     for fn in (
+        ring_pallas.ring_shift_right_shard, ring_pallas.fused_ring_windowed_shard,
         windowed_averager, windowed_averager_packed, cumsum, direct_averager, fused_fir, fused_fir3,
         iir1_block_scan, iir1_affine_scan, sos_cascade, sos_cascade_unrolled, sos_cascade_mxu,
         sos_sections, tv_cascade, tv_section,

@@ -241,12 +241,21 @@ def launch_windowed(
 windowed_averager.launches = 0
 
 
-def windowed_averager_packed(x32: torch.Tensor, window: int, channels: int = 2) -> torch.Tensor:
+def packed_seed_words(window: int, channels: int) -> int:
+    """Words of B2's seed: the ``lead_frames * channels`` samples before the stream."""
+    return packed_geometry(window, channels).lead_frames * channels // 2
+
+
+def windowed_averager_packed(
+    x32: torch.Tensor, window: int, channels: int = 2, *, seed: torch.Tensor | None = None
+) -> torch.Tensor:
     """B1's function on the int32 little-endian pair view of the stream (B2).
 
     ``x32`` is ``x.view(torch.int32)`` of the int16 stream; the result is the
     same view of the int16 output, bit-exact with :func:`windowed_averager`
-    on ``x32.view(torch.int16)``. Any channel count, odd included.
+    on ``x32.view(torch.int16)``. Any channel count, odd included. ``seed``:
+    the ``packed_seed_words(window, channels)`` int32 words before ``x32`` in
+    the stream (a shard's halo), or None for zeros.
     """
     validate_window(window)
     _check_stream(x32, torch.int32, channels, "x32", 2 * x32.numel())
@@ -256,8 +265,20 @@ def windowed_averager_packed(x32: torch.Tensor, window: int, channels: int = 2) 
             f"window*channels = {window * channels}; use moving_average_two_pass "
             "on the int16 view"
         )
+    words = packed_seed_words(window, channels)
+    if seed is not None:
+        if (seed.dtype != torch.int32 or seed.dim() != 1 or not seed.is_contiguous()
+                or seed.numel() != words or seed.device != x32.device):
+            raise ValueError(
+                f"seed must be the {words} contiguous int32 words before x32, on "
+                f"{x32.device}; got {seed.dtype}{tuple(seed.shape)} on {seed.device}"
+            )
     if not _on_cuda(x32):
-        return moving_average_xla(x32.view(torch.int16), window, channels).view(torch.int32)
+        x16 = x32.view(torch.int16)
+        if seed is None:
+            return moving_average_xla(x16, window, channels).view(torch.int32)
+        ext = torch.cat([seed.view(torch.int16), x16])
+        return moving_average_xla(ext, window, channels)[2 * words :].view(torch.int32)
     n32 = x32.numel()
     y = torch.empty_like(x32)
     if n32 == 0:
@@ -266,8 +287,9 @@ def windowed_averager_packed(x32: torch.Tensor, window: int, channels: int = 2) 
     lib = _build.library()
     with torch.cuda.device(x32.device):
         err = lib.dsp_windowed_packed(
-            x32.data_ptr(), y.data_ptr(), n32, window, channels, g.lead_frames,
-            g.tile_frames, g.seg_frames, g.segs, g.smem_bytes, _stream(x32),
+            x32.data_ptr(), y.data_ptr(), None if seed is None else seed.data_ptr(), n32,
+            window, channels, g.lead_frames, g.tile_frames, g.seg_frames, g.segs,
+            g.smem_bytes, _stream(x32),
         )
     _build.check(err, "windowed_averager_packed")
     windowed_averager_packed.launches += 1
@@ -492,6 +514,7 @@ __all__ = [
     "scan_supported",
     "windowed_averager",
     "launch_windowed",
+    "packed_seed_words",
     "windowed_averager_packed",
     "scan_averager",
     "launch_scan",

@@ -159,6 +159,20 @@ assert resample.upfirdn(taps, xf, 3, 2).shape == (2, 4599)
 assert resample.resample_fft(xf, 1234).shape == (2, 1234)
 assert fir.savgol_filter(xf, 11, 3).shape == (2, 3000)
 assert splines.cspline1d(xf).shape == splines.qspline1d(xf).shape == (2, 3000)
+import torch.distributed as dist
+from digital_signal_processsing_tpu_torch import parallel
+from digital_signal_processsing_tpu_torch.parallel import (  # noqa: F401
+    mesh, multihost, pipeline, pipeline_parallel, ring_pallas, sharded_fir, sharded_scan, sharded_tv,
+)
+dist.init_process_group("gloo", store=dist.FileStore(sys.argv[1] + "/store", 1), rank=0,
+                        world_size=1)
+tm = parallel.make_time_mesh(device="cpu")
+for method in ("windowed", "scan"):
+    for h in ("ppermute", "pallas_ring", "fused_ring"):
+        got = parallel.sharded_moving_average(torch.from_numpy(x), 64, 2, mesh=tm, method=method,
+                                              halo_impl=h)
+        assert (got.numpy() == y).all()
+dist.destroy_process_group()
 assert not [m for m in sys.modules if m.startswith("jax") and sys.modules[m] is not None]
 reference = [m for m in sys.modules
              if m == "digital_signal_processsing_tpu" or m.startswith("digital_signal_processsing_tpu.")]
@@ -316,6 +330,33 @@ def test_anchor_wrappers_raise_when_the_build_fails(monkeypatch, rng):
     assert launch_counts()["B11"] == launch_counts()["B14"] == 0
 
 
+def test_ring_wrappers_raise_when_the_build_fails(monkeypatch, rng):
+    """B6 and B7 on tensors the wrappers take for CUDA ones: the failed build
+    raises, and neither the ppermute spelling nor a launch count is taken."""
+    from types import SimpleNamespace
+
+    from digital_signal_processsing_tpu_torch.parallel import ring_pallas
+
+    def broken():
+        raise RuntimeError("nvcc failed on ring.cu")
+
+    def no_plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(ring_pallas, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(_build, "library", broken)
+    monkeypatch.setattr(ring_pallas, "shift_right", no_plain)
+    monkeypatch.setattr(ring_pallas, "windowed_averager", no_plain)
+    reset_launch_counts()
+    x = torch.from_numpy(rng.integers(-32768, 32768, size=4096, dtype=np.int16))
+    mesh = SimpleNamespace(device=x.device, rings={}, n_time=2, t=1)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ring_pallas.ring_shift_right_shard(x, mesh)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ring_pallas.fused_ring_windowed_shard(x, 16, 2, mesh)
+    assert launch_counts()["B6"] == launch_counts()["B7"] == 0 and not mesh.rings
+
+
 def test_other_devices_are_refused():
     x = torch.zeros(8, dtype=torch.int16, device="meta")
     for wrapper in (windowed_averager, scan_averager, direct_averager):
@@ -344,6 +385,12 @@ def test_other_devices_are_refused():
     ):
         with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
             call()
+    from digital_signal_processsing_tpu_torch.parallel import ring_pallas
+
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        ring_pallas.ring_shift_right_shard(xm, None)
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        ring_pallas.fused_ring_windowed_shard(x, 2, 1, None)
     rows = torch.ones(1, 1, 8, 6, device="meta")
     for call in (
         lambda: tv_cascade(xf, rows), lambda: tv_section(xf, rows),
@@ -376,6 +423,6 @@ def test_build_is_keyed_by_the_sources():
     assert path == _build.library_path()  # stable for unchanged sources
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "windowed.cu", "cumsum.cu", "scan.cu", "direct.cu", "fused_fir.cu", "fused_fir3.cu",
-        "iir.cu", "pfb.cu", "farrow.cu", "iir_tv.cu", "lpc.cu",
+        "iir.cu", "pfb.cu", "farrow.cu", "iir_tv.cu", "lpc.cu", "ring.cu",
     }
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

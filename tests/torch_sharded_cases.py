@@ -1,0 +1,468 @@
+"""Cases of the port's sharded tests, and the worker that runs them on one rank.
+
+    python tests/torch_sharded_cases.py SUITE RANK WORLD STORE OUT
+
+A worker joins a gloo group of WORLD processes on the CPU (rendezvous on the
+``FileStore`` STORE), runs every case of SUITE through the port's
+``parallel`` package on its shards, gathers each output with the port's
+sharding helpers and, on rank 0, pickles ``{case: global output, or
+("error", type, message)}`` to OUT. ``run_suite`` spawns the workers.
+The inputs are made from NumPy seeds by the functions below, which the tests
+(``tests/test_torch_sharded*.py``) call to feed the JAX package the same
+arrays. Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import subprocess
+import sys
+from datetime import timedelta
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parents[1]
+WORLD = 4
+
+# --- inputs ------------------------------------------------------------------
+
+AVERAGER_CONFIGS = [(16, 2), (257, 2), (1000, 1)]
+AVERAGER_METHODS = [("windowed", True), ("scan", True), ("scan", False)]
+HALO_IMPLS = ("ppermute", "pallas_ring", "fused_ring")
+CARRY_IMPLS = ("ladder", "allgather")
+N_AVG = 32768  # samples of an averager stream: 4 shards of 8192
+PACKED = [(700, 2), (16, 3), (1, 1)]  # (window, channels) of the pair-view route
+N_PACKED_WORDS = 4 * 4096 * 3  # pair words: 4 shards of whole frames for C = 1, 2, 3
+# calls of one ring key back to back with new data, and another key between
+SEQ = [(16, 2), (1000, 1), (16, 2), (16, 2)]
+GIANT = (4096, 16)  # a halo beyond the windowed kernel's envelope: the scan method
+RING_SHAPES = {"f32": ((4 * 256,), np.float32), "i16_2d": ((3, 4 * 8), np.int16)}
+FIR_MESHES = ("1x4", "2x2")
+FIR_METHODS = ("auto", "direct", "overlap_save")
+FIR_TAPS = (1, 65, 1025)
+FIR_SHAPE = (4, 8192)
+FIR_BIG = ((2, 32768), 4045)  # above the reference's crossover: its fused kernel
+CHAINS = {
+    "chain4": ("2x2", dict(channels=4, decimation=4, channel_taps=65, audio_taps=33), 1 << 14),
+    "chain16": ("1x4", dict(channels=16, decimation=8, channel_taps=129, audio_taps=33), 1 << 15),
+}
+CASCADE = dict(stages=4, k=17, channels=2, micro=6, length=512)
+TV_C, TV_N = 4, 2048
+LPC = dict(streams=4, frames=6, frame_len=64, order=6)
+
+
+def stream(seed: int, frames: int, channels: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.integers(-32768, 32768, size=frames * channels, dtype=np.int16)
+
+
+def averager_input(window: int, channels: int) -> np.ndarray:
+    return stream(10 * window + channels, N_AVG // channels, channels)
+
+
+def packed_input(window: int, channels: int) -> np.ndarray:
+    """int16 stream whose int32 pair view has N_PACKED_WORDS words."""
+    return stream(20 * window + channels, 2 * N_PACKED_WORDS // channels, channels)
+
+
+def seq_input(i: int) -> np.ndarray:
+    w, c = SEQ[i]
+    return stream(100 + i, N_AVG // c, c)
+
+
+def giant_input() -> np.ndarray:
+    w, c = GIANT
+    return stream(3, 4 * 2 * w, c)  # shards of two halos
+
+
+def ring_input(name: str) -> np.ndarray:
+    shape, dtype = RING_SHAPES[name]
+    rng = np.random.default_rng(len(name))
+    return (rng.normal(size=shape) * 1000).astype(dtype)
+
+
+def signal(seed: int, shape) -> np.ndarray:
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def fir_taps(k: int) -> np.ndarray:
+    return (np.random.default_rng(k).normal(size=k) / np.sqrt(k)).astype(np.float32)
+
+
+def chain_input(name: str) -> np.ndarray:
+    _, cfg, t = CHAINS[name]
+    rng = np.random.default_rng(len(name))
+    shape = (cfg["channels"], t)
+    return (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64)
+
+
+def cascade_input() -> tuple[np.ndarray, np.ndarray]:
+    """((micro, channels, length) chunks of one stream, (stages, k) taps)."""
+    p = CASCADE
+    rng = np.random.default_rng(5)
+    taps = rng.normal(size=(p["stages"], p["k"])).astype(np.float32) * 0.3
+    x = rng.normal(size=(p["channels"], p["micro"] * p["length"])).astype(np.float32)
+    return x.reshape(p["channels"], p["micro"], p["length"]).transpose(1, 0, 2).copy(), taps
+
+
+def tv_input() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(x, shared (S, T, 6) rows, per-channel (S, C, T, 6) rows)."""
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(TV_C, TV_N)).astype(np.float32)
+    r = 0.5 + 0.3 * np.sin(np.linspace(0, 4, TV_N))
+    row = np.stack(
+        [np.full(TV_N, 0.3), np.zeros(TV_N), np.full(TV_N, 0.05), np.ones(TV_N),
+         -2 * r * 0.8, r * r], -1
+    ).astype(np.float32)
+    shared = np.stack([row, row * np.float32(0.9)], 0)
+    per = np.stack([np.stack([row * np.float32(0.8 + 0.05 * i) for i in range(TV_C)], 0)], 0)
+    return x, shared, per
+
+
+def lpc_input() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    p = LPC
+    rng = np.random.default_rng(7)
+    rows = []
+    for _ in range(p["streams"]):
+        fr = []
+        for _ in range(p["frames"]):
+            poles = 0.8 * np.exp(1j * rng.uniform(0.3, np.pi - 0.3, p["order"] // 2))
+            fr.append(np.poly(np.concatenate([poles, poles.conj()])).real)
+        rows.append(fr)
+    a = np.asarray(rows, np.float32)
+    gain = rng.uniform(0.5, 1.5, (p["streams"], p["frames"])).astype(np.float32)
+    e = rng.normal(size=(p["streams"], p["frames"] * p["frame_len"])).astype(np.float32)
+    return a, gain, e
+
+
+# --- suites (run on every rank) ---------------------------------------------
+
+
+def _cases_averager(par, out: dict) -> None:
+    import torch
+
+    from digital_signal_processsing_tpu_torch.utils import last_choice
+
+    mesh = par.make_time_mesh(device="cpu")
+    flat = par.time_sharding(mesh)
+
+    def run(key, fn, sharding=flat):
+        try:
+            out[key] = sharding.gather(fn()).numpy()
+        except Exception as err:  # noqa: BLE001 - every rank records the same refusal
+            out[key] = ("error", type(err).__name__, str(err))
+        out[key + "#route"] = last_choice("sharded_moving_average")
+
+    for w, c in AVERAGER_CONFIGS:
+        xs = flat.shard(torch.from_numpy(averager_input(w, c)))
+        for method, use_pallas in AVERAGER_METHODS:
+            for h in HALO_IMPLS:
+                run(f"avg/{method}/{use_pallas}/{h}/{w}/{c}", lambda: par.sharded_moving_average(
+                    xs, w, c, mesh=mesh, use_pallas=use_pallas, halo_impl=h, method=method))
+        for ci in CARRY_IMPLS:
+            run(f"carry/{ci}/{w}/{c}", lambda: par.sharded_moving_average(
+                xs, w, c, mesh=mesh, method="scan", carry_impl=ci))
+    for w, c in PACKED:
+        xs = flat.shard(torch.from_numpy(packed_input(w, c)).view(torch.int32))
+        for h in HALO_IMPLS:
+            run(f"packed/{h}/{w}/{c}", lambda: par.sharded_moving_average(
+                xs, w, c, mesh=mesh, halo_impl=h))
+    xs = flat.shard(torch.from_numpy(giant_input()))
+    run("giant", lambda: par.sharded_moving_average(xs, *GIANT, mesh=mesh))
+    x = torch.from_numpy(averager_input(16, 2))
+    xs = flat.shard(x)
+    for use_pallas in (True, False):
+        for ci in CARRY_IMPLS:
+            run(f"cumsum/{use_pallas}/{ci}", lambda: par.sharded_cumsum(
+                xs, 2, mesh=mesh, use_pallas=use_pallas, carry_impl=ci))
+    run("small_shards", lambda: par.sharded_moving_average(flat.shard(x[:2048]), 3, 2, mesh=mesh))
+    # back to back and interleaved: the ring's two slots and its handshake
+    for i, (w, c) in enumerate(SEQ):
+        xi = flat.shard(torch.from_numpy(seq_input(i)))
+        run(f"seq/{i}/{w}/{c}", lambda: par.sharded_moving_average(
+            xi, w, c, mesh=mesh, halo_impl="fused_ring"))
+    for name in RING_SHAPES:
+        xr = flat.shard(torch.from_numpy(ring_input(name)))
+        run(f"ring/{name}", lambda: par.ring_shift_right(xr, mesh))
+    xs = flat.shard(torch.from_numpy(averager_input(16, 2)))
+    errors = {
+        "halo_too_big": lambda: par.sharded_moving_average(xs[:4000], 4000, 2, mesh=mesh,
+                                                           use_pallas=False),
+        "carry_impl": lambda: par.sharded_moving_average(xs, 257, 2, mesh=mesh, method="scan",
+                                                         carry_impl="tree?"),
+        "cumsum_carry_impl": lambda: par.sharded_cumsum(xs, 2, mesh=mesh, carry_impl="tree?"),
+        "packed_odd": lambda: par.sharded_moving_average(
+            torch.zeros(2048, dtype=torch.int32), 16, 3, mesh=mesh),
+        "packed_scan": lambda: par.sharded_moving_average(
+            xs.view(torch.int32), 16, 2, mesh=mesh, method="scan"),
+        "method": lambda: par.sharded_moving_average(xs, 16, 2, mesh=mesh, method="tree"),
+        "halo_impl": lambda: par.sharded_moving_average(xs, 16, 2, mesh=mesh, halo_impl="rdma"),
+        "frames": lambda: par.sharded_moving_average(xs[:8191], 16, 2, mesh=mesh),
+        "window": lambda: par.sharded_moving_average(xs, 0, 2, mesh=mesh),
+        "fused_envelope": lambda: par.fused_ring_windowed_shard(
+            flat.shard(torch.from_numpy(giant_input())), *GIANT, mesh),
+        "ring_axis": lambda: par.ring_shift_right_shard(xs, mesh, "ch"),
+    }
+    for name, fn in errors.items():
+        run(f"error/{name}", fn)
+
+
+def _cases_world1(par, out: dict) -> None:
+    import torch
+
+    mesh = par.make_time_mesh(device="cpu")
+    x = torch.from_numpy(averager_input(257, 2))
+    for method in ("windowed", "scan"):
+        for h in HALO_IMPLS:
+            out[f"avg/{method}/{h}"] = par.sharded_moving_average(
+                x, 257, 2, mesh=mesh, method=method, halo_impl=h).numpy()
+    out["ring"] = par.ring_shift_right(x, mesh).numpy()
+    out["cumsum"] = par.sharded_cumsum(x, 2, mesh=mesh).numpy()
+    out["topology"] = par.topology_summary()
+    par.assert_same_across_hosts(1.5)
+
+
+def _cases_fir(par, out: dict) -> None:
+    import torch
+
+    from digital_signal_processsing_tpu_torch.models import ChainConfig, DspChain
+    from digital_signal_processsing_tpu_torch.utils import last_choice
+
+    meshes = {
+        "1x4": par.make_mesh(device="cpu"),
+        "2x2": par.make_mesh(n_time=2, n_channel=2, device="cpu"),
+    }
+
+    def run(key, fn, sharding):
+        try:
+            out[key] = sharding.gather(fn()).numpy()
+        except Exception as err:  # noqa: BLE001
+            out[key] = ("error", type(err).__name__, str(err))
+
+    x = torch.from_numpy(signal(1, FIR_SHAPE))
+    for mname, mesh in meshes.items():
+        planar = par.planar_sharding(mesh)
+        xs = planar.shard(x)
+        for method in FIR_METHODS:
+            for k in FIR_TAPS:
+                run(f"fir/{mname}/{method}/{k}", lambda: par.sharded_fir_filter(
+                    xs, fir_taps(k), mesh=mesh, method=method), planar)
+                out[f"fir/{mname}/{method}/{k}#route"] = last_choice("fir_filter")
+    flat = par.time_sharding(meshes["1x4"])
+    run("fir/flat", lambda: par.sharded_fir_filter(
+        flat.shard(x[0]), fir_taps(129), mesh=meshes["1x4"], method="direct"), flat)
+    (shape, k) = FIR_BIG
+    planar = par.planar_sharding(meshes["2x2"])
+    run("fir/big", lambda: par.sharded_fir_filter(
+        planar.shard(torch.from_numpy(signal(2, shape))), fir_taps(k), mesh=meshes["2x2"]), planar)
+    out["fir/big#route"] = last_choice("fir_filter")
+    for name, (mname, cfg, _) in CHAINS.items():
+        chain = DspChain(ChainConfig(**cfg), device="cpu")
+        planar = par.planar_sharding(meshes[mname])
+        iq = planar.shard(torch.from_numpy(chain_input(name)))
+        run(name, lambda: par.sharded_chain(chain, iq, meshes[mname]), planar)
+        run(name + "/planar", lambda: par.sharded_chain_planar(
+            chain, iq.real.contiguous(), iq.imag.contiguous(), meshes[mname]), planar)
+    chunks, taps = cascade_input()
+    out["cascade"] = par.pipelined_fir_cascade(
+        torch.from_numpy(chunks), taps, mesh=meshes["1x4"]).numpy()
+    chain = DspChain(ChainConfig(channels=4, decimation=4, channel_taps=33, audio_taps=17),
+                     device="cpu")
+    errors = {
+        "chain_halo": lambda: par.sharded_chain(chain, torch.zeros(2, 128, dtype=torch.complex64),
+                                                meshes["2x2"]),
+        "chain_channels": lambda: par.sharded_chain(
+            chain, torch.zeros(3, 4096, dtype=torch.complex64), meshes["2x2"]),
+        "chain_decimation": lambda: par.sharded_chain(
+            chain, torch.zeros(2, 4098, dtype=torch.complex64), meshes["2x2"]),
+        "fir_taps": lambda: par.sharded_fir_filter(torch.zeros(2, 64), fir_taps(66),
+                                                   mesh=meshes["2x2"]),
+        "fir_method": lambda: par.sharded_fir_filter(torch.zeros(2, 64), fir_taps(3),
+                                                     mesh=meshes["2x2"], method="fft"),
+        "cascade_stages": lambda: par.pipelined_fir_cascade(
+            torch.zeros(2, 1, 8), np.zeros((3, 5), np.float32), mesh=meshes["1x4"]),
+        "shard_divisible": lambda: par.planar_sharding(meshes["2x2"]).shard(torch.zeros(3, 8)),
+    }
+    for name, fn in errors.items():
+        try:
+            fn()
+            out[f"error/{name}"] = None
+        except Exception as err:  # noqa: BLE001
+            out[f"error/{name}"] = ("error", type(err).__name__, str(err))
+
+
+def _cases_tv(par, out: dict) -> None:
+    import torch
+
+    from digital_signal_processsing_tpu_torch.ops import iir, lpc
+
+    mesh = par.make_mesh(n_time=2, n_channel=2, device="cpu")
+    rows = _Rows(mesh)
+    x, shared, per = tv_input()
+    c0, c1 = rows.rows(TV_C)
+    xs = torch.from_numpy(x[c0:c1])  # channels over ch, the whole time axis
+    out["tv/shared"] = _rows_gather(mesh, par.sharded_sosfilt_tv(shared, xs, mesh=mesh))
+    out["tv/per"] = _rows_gather(mesh, par.sharded_sosfilt_tv(per[:, c0:c1], xs, mesh=mesh))
+    out["tv/shared/one_card"] = iir.sosfilt_tv(shared, torch.from_numpy(x)).numpy()
+    out["tv/per/one_card"] = iir.sosfilt_tv(per, torch.from_numpy(x)).numpy()
+    a, gain, e = lpc_input()
+    c0, c1 = rows.rows(a.shape[0])
+    got = par.sharded_lpc_synthesis(a[c0:c1], gain[c0:c1], torch.from_numpy(e[c0:c1]),
+                                    LPC["frame_len"], mesh=mesh)
+    out["lpc"] = _rows_gather(mesh, got)
+    out["lpc/one_card"] = lpc.lpc_synthesis(a, gain, torch.from_numpy(e), LPC["frame_len"]).numpy()
+    out["topology"] = par.topology_summary()
+    par.assert_same_across_hosts(2.5, "same")
+    errors = {
+        "tv_ndim": lambda: par.sharded_sosfilt_tv(shared, xs[0], mesh=mesh),
+        "tv_rows": lambda: par.sharded_sosfilt_tv(shared[0], xs, mesh=mesh),
+        "tv_per_channel": lambda: par.sharded_sosfilt_tv(per, xs, mesh=mesh),
+        "lpc_streams": lambda: par.sharded_lpc_synthesis(
+            a, gain, torch.from_numpy(e[:1]), LPC["frame_len"], mesh=mesh),
+        "hosts_differ": lambda: par.assert_same_across_hosts(float(mesh.rank), "rank"),
+        "mesh_shape": lambda: par.make_mesh(n_time=3, device="cpu"),
+        "axis": lambda: mesh.axis_size("x"),
+    }
+    for name, fn in errors.items():
+        try:
+            fn()
+            out[f"error/{name}"] = None
+        except Exception as err:  # noqa: BLE001
+            out[f"error/{name}"] = ("error", type(err).__name__, str(err))
+
+
+class _Rows:
+    """This rank's rows of a channel (or stream) axis cut over ``ch``."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def rows(self, n: int) -> tuple[int, int]:
+        per = n // self.mesh.n_channel
+        return self.mesh.ch * per, (self.mesh.ch + 1) * per
+
+
+def _rows_gather(mesh, y):
+    """Every channel's rows, gathered over ``ch`` (ranks along ``t`` repeat them)."""
+    import torch
+
+    from digital_signal_processsing_tpu_torch.parallel.mesh import CHANNEL_AXIS, all_gather
+
+    return torch.cat(all_gather(y, mesh, CHANNEL_AXIS), dim=0).numpy()
+
+
+# the ring on one card: k x C corners, a shard of one halo, one shorter than a tile
+RING_CORNERS = [(k, c, k + 777) for k in (1, 16, 1024) for c in (1, 2, 16)] + [
+    (1024, 2, 1024), (16, 2, 100),
+]
+
+
+def ring_corner_input(i: int) -> np.ndarray:
+    w, c, frames = RING_CORNERS[i]
+    return stream(200 + i, WORLD * frames, c)
+
+
+def _cases_ring_gpu(par, out: dict) -> None:
+    """The ring kernels (B6, B7) across processes on the card: every rank on cuda:0."""
+    import torch
+
+    from digital_signal_processsing_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    mesh = par.make_time_mesh(device="cuda")
+    flat = par.time_sharding(mesh)
+    dev = mesh.device
+
+    def run(key, fn):
+        out[key] = flat.gather(fn()).cpu().numpy()
+
+    reset_launch_counts()
+    for i, (w, c, _) in enumerate(RING_CORNERS):
+        xs = flat.shard(torch.from_numpy(ring_corner_input(i)).to(dev))
+        for h in HALO_IMPLS:
+            run(f"corner/{i}/{h}", lambda: par.sharded_moving_average(xs, w, c, mesh=mesh,
+                                                                      halo_impl=h))
+        run(f"corner/{i}/scan_ring", lambda: par.sharded_moving_average(
+            xs, w, c, mesh=mesh, method="scan", halo_impl="pallas_ring"))
+    for i, (w, c) in enumerate(SEQ):
+        xi = flat.shard(torch.from_numpy(seq_input(i)).to(dev))
+        run(f"seq/{i}", lambda: par.sharded_moving_average(xi, w, c, mesh=mesh,
+                                                           halo_impl="fused_ring"))
+    for w, c in PACKED:
+        xs = flat.shard(torch.from_numpy(packed_input(w, c)).to(dev).view(torch.int32))
+        run(f"packed/{w}/{c}", lambda: par.sharded_moving_average(xs, w, c, mesh=mesh,
+                                                                  halo_impl="pallas_ring"))
+    for name in RING_SHAPES:
+        xr = flat.shard(torch.from_numpy(ring_input(name)).to(dev))
+        run(f"ring/{name}", lambda: par.ring_shift_right(xr, mesh))
+    odd = flat.shard(torch.arange(WORLD * 1001, dtype=torch.int16, device=dev))
+    run("ring/odd", lambda: par.ring_shift_right_shard(odd[1:], mesh))  # a misaligned source
+    torch.cuda.synchronize()
+    out["counts"] = launch_counts()
+    mesh.close()
+
+
+SUITES = {
+    "averager": _cases_averager,
+    "ring_gpu": _cases_ring_gpu,
+    "world1": _cases_world1,
+    "fir": _cases_fir,
+    "tv": _cases_tv,
+}
+
+
+def main(argv: list[str]) -> None:
+    suite, rank, world, store, out_path = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
+    sys.path.insert(0, str(REPO))
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    if suite.endswith("_gpu"):
+        torch.cuda.set_device(0)  # every rank on the one card
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=timedelta(seconds=120))
+    from digital_signal_processsing_tpu_torch import parallel as par
+
+    out: dict = {}
+    SUITES[suite](par, out)
+    if rank == 0:
+        with open(out_path, "wb") as f:
+            pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def run_suite(suite: str, tmp: Path, world: int = WORLD, timeout: float = 240) -> dict:
+    """Spawn ``world`` workers of ``suite`` and return rank 0's results."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    env["OMP_NUM_THREADS"] = "1"
+    store, out = tmp / f"{suite}.store", tmp / f"{suite}.pkl"
+    procs = [
+        subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), suite, str(r), str(world),
+             str(store), str(out)],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for r in range(world)
+    ]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [(r, p.returncode, log[-3000:]) for r, (p, log) in enumerate(zip(procs, logs))
+              if p.returncode != 0]
+    if failed:
+        raise AssertionError(f"sharded workers failed: {failed}")
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
