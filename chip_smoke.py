@@ -38,10 +38,12 @@ failure exits non-zero:
    bank against float64 with TF32 turned on by the caller (their IEEE float32
    pin); then the time-varying kernels B16 (every section, S in {1, 2, 4, 6,
    16, 17}), B17 (one section) and B18 (a row a frame, frame_len {100, 256,
-   1024, 65536}) against their plain versions and a float64 sample loop
-   (1e-5 of max|y|) over C {1, 3, 64}, T {1, below a sub-tile, ragged,
-   100003, 3 x 65536 + 99}, shared and per-channel rows with a0 != 1, seeded,
-   unseeded and zero-seeded (bit for bit), the expand route at frame_len 100,
+   768, 1000, 1024, 65536}: both sides of its state route's condition, the
+   route each corner took printed) against their plain versions and a float64
+   sample loop (1e-5 of max|y|) over C {1, 3, 5, 64}, T {1, below a
+   sub-tile, ragged, 100003, 3 x 65536 + 99}, shared and per-channel rows
+   with a0 != 1, seeded, unseeded and zero-seeded (bit for bit), the expand
+   route at frame_len 100,
    impulses at tile edges, zeros exact; B22 (the LPC recurrence) at p {1, 2,
    12, 32, 40}, L {8, 256} and ragged frame counts, bit for bit against plain
    and within 1e-5 of float64; then the anchors B11 (first order, per-sample
@@ -96,8 +98,9 @@ failure exits non-zero:
    radius 0.95-0.999 (``factored``, B18) within 64x the sequential float32
    error; every launch count asserted; then, outside the counts, B22 bit for
    bit against plain on the vocoder's 65536 frames, from rest and seeded, and
-   high Q: B16 on the swept rows at pole radius up to 0.95 and B18 on the
-   notch's rows, each kernel and plain against float64; then, counts reset
+   high Q: B16 and the scan route (B17 a section) on the swept rows at pole
+   radius up to 0.95 and B18 on the notch's rows, each kernel and plain
+   against float64; then, counts reset
    again, the filter-design path on 16 x 2^22 float32: an elliptic lowpass
    of ``ellipord``'s order by ``iirdesign`` through ``sosfilt`` (B12) and
    ``sosfilt_pallas_fused(lane_pass="mxu")`` in both row passes (B14),
@@ -127,7 +130,9 @@ failure exits non-zero:
    at 441/2560, 160/147 and 3/2, the table that sets
    ``ops.farrow.MATMUL_MAX_PRODUCT_CUDA``; B16, B17, B18 and B22 at the
    time-varying main path's shapes (median, min and max of 20) against their
-   plain versions and bounds, with B16's and B18's time by launch, the
+   plain versions, bounds and B12's time in the same call, the tile kernels'
+   registers, local bytes, shared bytes, blocks an SM and columns a block,
+   B16's, B17's and B18's time by launch, the
    transpose B22 skips, and frames (B18) against expand (B16) against
    per-sample scan (B17) at frame_len 1024; B11 and B14 at the design path's
    shape (median, min and max of 20) against their plain versions, B10 and
@@ -1724,10 +1729,13 @@ def phase_tv_corners(rng, dev, check: Checker) -> None:
     def sig(c: int, t: int) -> torch.Tensor:
         return torch.from_numpy(rng.standard_normal((c, t), dtype=np.float32)).to(dev)
 
+    routes = []  # (frame_len, the route B18 took) at each B18 corner
+
     def hold(kernel: str, fn, c: int, t: int, s: int, shared: bool, frame_len: int = 1) -> None:
         label = f"{kernel} S={s} C={c} T={t} {'shared' if shared else 'per-channel'} rows"
         if kernel == "B18":
             label += f", frame_len {frame_len}"
+            iir.tv_frames_cascade.route = None
         x = sig(c, t)
         rows = torch.from_numpy(tv_schedule(rng, s, 1 if shared else c, -(-t // frame_len))).to(dev)
         st = torch.from_numpy((0.3 * rng.standard_normal((s, c, 2))).astype(np.float32)).to(dev)
@@ -1736,6 +1744,12 @@ def phase_tv_corners(rng, dev, check: Checker) -> None:
         yz, _ = fn(x, rows, torch.zeros_like(st))
         if none is not None:
             raise AssertionError(f"{label}: an unseeded call returned an end state")
+        if kernel == "B18":
+            route = iir.tv_frames_cascade.route
+            if route != iir.tv_frames_route(frame_len):
+                raise AssertionError(f"{label}: took the {route} route, want "
+                                     f"{iir.tv_frames_route(frame_len)}")
+            routes.append((frame_len, route))
         # the unseeded launch is the seeded one from zero, bit for bit
         check.close(kernel, y0, yz, f"{label}, unseeded against a zero seed", 0.0)
         yp, endp = iir._tv_plain(x, rows, frame_len, st)
@@ -1758,14 +1772,22 @@ def phase_tv_corners(rng, dev, check: Checker) -> None:
     for i, (c, t) in enumerate((c, t) for c in (1, 64) for t in (1, sub - 1, ragged, 100_003)):
         hold("B17", lambda x, r, s: iir.tv_section(x, r, s), c, t, 1, i % 2 == 0)
     # B18 at any frame_len: many frames a sub-tile (100), frames nesting in
-    # tiles (256, 1024), and a frame over many tiles (65536, H1)
+    # tiles (256, 1024), a frame over many tiles (65536, H1); on both sides of
+    # the state route's condition (a multiple of a warp's span, iir.TV_SPAN):
+    # 768 (a multiple of the span and not of a sub-tile, so frame edges fall
+    # inside sub-tiles) and 1000 (off it, beside the main path's 1024)
+    span = iir.TV_SPAN
     for fl, c, t, s, shared in (
         (100, 1, ragged, 4, True), (100, 64, 2 * tile + 5, 17, False),
         (256, 64, ragged, 2, True), (256, 1, sub - 1, 6, False),
+        (3 * span, 64, ragged, 4, True), (3 * span, 5, 2 * tile + 5, 3, False),
+        (1000, 64, ragged, 4, True), (1000, 5, 2 * tile + 5, 3, False),
         (1024, 1, 100_003, 4, True), (1024, 64, 1, 1, False),
         (65536, 3, 3 * 65536 + 99, 4, True), (65536, 1, 2 * tile + 5, 16, False),
     ):
         hold("B18", lambda x, r, st, fl=fl: iir.tv_frames_cascade(x, r, fl, st), c, t, s, shared, fl)
+    print("[3 TV routes] B18's route at each corner (frame_len: route): "
+          + ", ".join(f"{fl}: {route}" for fl, route in routes))
     # frame_len 100 is outside the reference's frames envelope: sosfilt_tv_frames expands (B16)
     x = sig(8, ragged)
     fr = torch.from_numpy(tv_schedule(rng, 3, 1, -(-ragged // 100))[:, 0]).to(dev)
@@ -1807,8 +1829,9 @@ def phase_tv_corners(rng, dev, check: Checker) -> None:
                 check.close("B22", y, want, f"{label} against float64", TV_RTOL)
                 check.close("B22", z, zf, f"{label} end state against float64", TV_RTOL, want)
     print(
-        f"[3 TV/LPC corners] B16 S {{1, 2, 4, 6, 16, 17}}, B17, B18 at frame_len {{100, 256, 1024, "
-        f"65536}}; C {{1, 3, 64}}, T {{1, {sub - 1}, {ragged}, 100003, {3 * 65536 + 99}}}, shared "
+        f"[3 TV/LPC corners] B16 S {{1, 2, 4, 6, 16, 17}}, B17, B18 at frame_len {{100, 256, "
+        f"{3 * span}, 1000, 1024, 65536}}; C {{1, 3, 5, 64}}, T {{1, {sub - 1}, {ragged}, "
+        f"{2 * tile + 5}, 100003, {3 * 65536 + 99}}}, shared "
         f"and per-channel rows with a0 = 1.25, seeded, unseeded and zero-seeded: "
         + ", ".join(f"{k} {check.count[k]} checks" for k in TV_KERNELS)
         + f" within {TV_RTOL} of plain and of float64 (x max|y|; float64 over the first {prefix} "
@@ -1967,20 +1990,24 @@ def phase_tv_main(rng, dev, check: Checker) -> tuple[dict, dict]:
         check.close("B18", yf, want64, f"sosfilt_tv_frames({fl}) against float64", TV_RTOL)
     check.close("B18", ys["frames chunks"], ys["frames1024"],
                 "sosfilt_tv_frames_chunk x8 (ragged) against one shot", TV_RTOL)
-    # high Q: the swept schedule at pole radius up to 0.95, and the notch's own rows
-    # (q = 30, poles near radius 0.995), the kernel and plain each against float64
-    # on the same rows. The kernel may not be worse than HIGHQ_FACTOR x plain's own
-    # error there (nor than TV_RTOL)
+    # high Q: the swept schedule at pole radius up to 0.95 through B16 and through
+    # the scan route (B17 a section), and the notch's own rows (q = 30, poles near
+    # radius 0.995) through B18, the kernel and plain each against float64 on the
+    # same rows. The kernel may not be worse than HIGHQ_FACTOR x plain's own error
+    # there (nor than TV_RTOL)
     rows95 = swept_rows(dev, s, t, depth=0.45)
     notch4 = notch_rows(w0, 30.0)[None]  # (1, C, F, 6): t is whole frames
     highq = {}
-    for key, kernel, xin, r4, fl in (
-        ("B16 swept r<=0.95", "B16", x, rows95, 1), ("B18 notch q=30", "B18", xn, notch4, 1024),
+    for xin, r4, fl, runs in (
+        (x, rows95, 1, (("B16 swept r<=0.95", "B16", lambda: iir.tv_cascade(x, rows95)[0]),
+                        ("B17 swept r<=0.95 (scan)", "B17",
+                         lambda: iir.sosfilt_tv(rows95[:, 0], x, method="scan")))),
+        (xn, notch4, 1024, (("B18 notch q=30", "B18", lambda: ys["notch"]),)),
     ):
-        yk = iir.tv_cascade(xin, r4)[0] if fl == 1 else ys["notch"]
         want64 = iir._tv_plain(xin.double(), r4, fl, None)[0]
-        highq[key] = (kernel, rel64(yk, want64), rel64(iir._tv_plain(xin, r4, fl, None)[0], want64),
-                      want64.abs().max().item())
+        err_p = rel64(iir._tv_plain(xin, r4, fl, None)[0], want64)
+        for key, kernel, run in runs:
+            highq[key] = (kernel, rel64(run(), want64), err_p, want64.abs().max().item())
     print("[4 TV high Q] of max|y| from float64: " + "; ".join(
         f"{key}: kernel {k:.3e}, plain {p:.3e}" for key, (_, k, p, _) in highq.items()))
     for key, (kernel, err_k, err_p, scale) in highq.items():
@@ -2084,8 +2111,10 @@ def time_spread(kernel_fn, plain_fn) -> tuple[float, float, float, float]:
     return statistics.median(kernel), min(kernel), max(kernel), statistics.median(plain)
 
 
-def phase_tv_times(main: dict) -> dict:
-    """B16, B17, B18 and B22 at the main path's shapes; frames against expand against scan."""
+def phase_tv_times(main: dict, b12_ms: float) -> dict:
+    """B16, B17, B18 and B22 at the main path's shapes, beside B12's time in the same call
+    (``b12_ms``); the tile kernels' registers and occupancy; frames against expand against
+    scan."""
     x, rows, fr = main["x"], main["rows"], main["fr"][1024]
     c, t = x.shape
     s = rows.shape[0]
@@ -2121,7 +2150,17 @@ def phase_tv_times(main: dict) -> dict:
     for name, (ms, lo, hi, plain) in out.items():
         b, by = bounds[name]
         print(f"  {name} {ms:.4f} ms ({lo:.4f}-{hi:.4f}); plain {plain:.4f} ms; bound {b:.4f} ms "
-              f"({by}); kernel/bound {ms / b:.2f}")
+              f"({by}); kernel/bound {ms / b:.2f}; kernel/B12 {ms / b12_ms:.2f}")
+    print(f"  B12 in this call (phase 5 IIR times, butter(8, 0.1) on the same shape): "
+          f"{b12_ms:.4f} ms")
+    # what the compiler gave each tile kernel of csrc/iir_tv.cu (cudaFuncGetAttributes,
+    # cudaOccupancyMaxActiveBlocksPerMultiprocessor at the launch's shared memory)
+    for shared in (True, False):
+        attrs = iir.tv_kernel_attrs(s, shared)
+        print(f"  tile kernels, {s} sections of {'shared' if shared else 'per-channel'} rows "
+              "(registers, local bytes a thread, shared bytes a block, blocks an SM, columns a "
+              "block): " + "; ".join(f"{k} {v[0]}, {v[1]}, {v[2]}, {v[3]}, {v[4]}"
+                                     for k, v in attrs.items()))
     print(f"  B22's frames stay in their (frames, L) layout; the transpose to the reference's "
           f"(L, frames) lanes it skips: {transpose:.4f} ms each way")
     print("  library: none; no PyTorch call computes a time-varying SOS cascade or an LPC "
@@ -2129,6 +2168,7 @@ def phase_tv_times(main: dict) -> dict:
     # where a call's device time goes: its launches one by one (three calls
     # under the profiler, whose first records of a session can go missing)
     for name, fn in (("B16", lambda: iir.tv_cascade(x, rows)),
+                     ("B17", lambda: iir.tv_section(x, rows[:1])),
                      ("B18", lambda: iir.tv_frames_cascade(x, fr, 1024))):
         fn()
         torch.cuda.synchronize()
@@ -2708,7 +2748,7 @@ def phase_sharded_world1(x, y_main, chain_main: dict, tv_main: dict, check: Chec
 
     alone = {
         "B6": device_ms(lambda: par.ring_shift_right_shard(xs, mesh), 5, 20),
-        "B6 library": device_ms(lambda: dst.copy_(xs), 5, 20),
+        "copy of the shard (yardstick)": device_ms(lambda: dst.copy_(xs), 5, 20),
         "B7": device_ms(lambda: par.fused_ring_windowed_shard(xs, MAIN_WINDOW, 2, mesh), 5, 20),
         "B7 plain": device_ms(plain_fused, 1, 5),
         "B1": device_ms(lambda: ps.windowed_averager(xs, MAIN_WINDOW, 2), 5, 20),
@@ -2948,7 +2988,7 @@ def main() -> int:
     mark("5 IIR times")
     wide_times = phase_wideband_times(wide_main)
     mark("5 wideband times")
-    tv_times = phase_tv_times(tv_main)
+    tv_times = phase_tv_times(tv_main, iir_times["times"]["B12"][0])
     mark("5 TV/LPC times")
     anchor_times = phase_anchor_times(design_main)
     mark("5 anchor times")
@@ -3083,8 +3123,11 @@ def main() -> int:
                     "bound_ms": ring_bounds[kernel][0], "bound_by": ring_bounds[kernel][1],
                     "library_ms": library,
                 }
+                # no PyTorch call computes a cross-process ring shift on one card
+                # (NCCL refuses two ranks on one device; B6's copy of the shard is a
+                # yardstick of its bytes, printed in phase 8, not its function)
                 for name, kernel, line, library in (
-                    ("ring_shift_right_shard", "B6", "42", world1["alone"]["B6 library"][0]),
+                    ("ring_shift_right_shard", "B6", "42", None),
                     ("fused_ring_windowed_shard", "B7", "174", None),
                 )
             ),

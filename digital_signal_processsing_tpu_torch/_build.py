@@ -77,6 +77,9 @@ _SIGNATURES = {
     # x, y, rows, section stride, channel stride, frame_len, carry, trans, seed,
     # state_out, n, channels, coefficient channels, sections, tile, kind, stream
     "dsp_tv_cascade": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # kind, sections, coefficient channels, out: registers, local bytes, shared
+    # bytes, blocks an SM, columns a block (5 int64)
+    "dsp_tv_attrs": (_I, _I, _I, _P),
     # a, s0, e, y, z, history scratch, frames, frame length, order, stream
     "dsp_lpc_synth": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # src, dst, bytes, stream

@@ -39,6 +39,7 @@ reference's.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -1134,6 +1135,33 @@ def lfiltic(b, a, y, x=None) -> np.ndarray:
 
 MAX_TV_GROUP = 16  # sections a pass of B16/B18: 2S state lanes of launch 2's warp
 TV_SEG = 8  # csrc/iir_tv.cu: consecutive samples a thread; a sub-tile is THREADS * TV_SEG
+TV_SPAN = 32 * TV_SEG  # a warp's samples: B18 scans the state alone where frames hold whole spans
+# csrc/iir_tv.cu's tile kernels by kind, as dsp_tv_cascade and dsp_tv_attrs number them
+TV_KINDS = ("B16 rows", "B17 rows", "B18 compose", "B18 state")
+
+
+def tv_frames_route(frame_len: int) -> str:
+    """B18's route at ``frame_len``: ``state`` where every warp's TV_SPAN samples
+    lie in one frame (a multiple of TV_SPAN: each section is time-invariant
+    across a warp, which scans the state alone with powers of its Phi), else
+    ``compose`` (every lane composes its own map)."""
+    return "state" if frame_len % TV_SPAN == 0 else "compose"
+
+
+def tv_kernel_attrs(sections: int, shared: bool = True) -> dict:
+    """What the compiler gave each tile kernel of csrc/iir_tv.cu, and its blocks at
+    ``sections`` sections of rows ``shared`` by the channels or not (the card only):
+    {kind: (registers a thread, local bytes a thread, shared bytes a block,
+    blocks an SM, columns a block)}."""
+    lib = _build.library()
+    out = (ctypes.c_int64 * 5)()
+    attrs = {}
+    for kind, name in enumerate(TV_KINDS):
+        s = 1 if kind == 1 else sections
+        _build.check(lib.dsp_tv_attrs(kind, s, 1 if shared else 2, ctypes.addressof(out)),
+                     "tv_kernel_attrs")
+        attrs[name] = tuple(out)
+    return attrs
 
 
 def _coef(v, device) -> torch.Tensor:
@@ -1287,6 +1315,8 @@ def _tv_check(x2, rows4, state, frame_len: int, name: str, tile_rows) -> torch.T
 
 def _launch_tv(kind: int, x2, rows4, frame_len, state, tile_rows):
     c, t = x2.shape
+    if kind == 2 and tv_frames_route(frame_len) == "state":
+        kind = 3
     s, cc, f = rows4.shape[:3]
     y = torch.empty_like(x2)
     new_state = None if state is None else torch.empty_like(state)
@@ -1304,7 +1334,7 @@ def _launch_tv(kind: int, x2, rows4, frame_len, state, tile_rows):
             None if new_state is None else new_state.data_ptr(),
             t, c, cc, s, tile, kind, _stream(x2),
         )
-    _build.check(err, ("tv_cascade", "tv_section", "tv_frames_cascade")[kind])
+    _build.check(err, ("tv_cascade", "tv_section", "tv_frames_cascade", "tv_frames_cascade")[kind])
     return y, new_state
 
 
@@ -1317,6 +1347,8 @@ def _tv_kernel(kind: int, fn, x2, rows4, frame_len, state, tile_rows):
         return torch.empty_like(x2), None if state is None else state.clone()
     y, end = _launch_tv(kind, x2, rows4, frame_len, state, tile_rows)
     fn.launches += 1
+    if kind == 2:
+        tv_frames_cascade.route = tv_frames_route(frame_len)
     return y, end
 
 
@@ -1350,12 +1382,15 @@ def tv_frames_cascade(x2: torch.Tensor, rows4: torch.Tensor, frame_len: int,
     """Every time-varying section by B18, a row a frame: (y, end state or None).
 
     ``rows4``: (S, Cc, F, 6), frame f governing samples [f frame_len,
-    (f+1) frame_len); any ``frame_len``, F * frame_len >= T.
+    (f+1) frame_len); any ``frame_len``, F * frame_len >= T. The route
+    (:func:`tv_frames_route`) of the last launch is left in
+    ``tv_frames_cascade.route``.
     """
     return _tv_kernel(2, tv_frames_cascade, x2, rows4, int(frame_len), state, tile_rows)
 
 
 tv_frames_cascade.launches = 0
+tv_frames_cascade.route = None
 
 
 def sosfilt_tv(sos_t, x: torch.Tensor, *, tile_rows: int = 256,
@@ -1715,6 +1750,9 @@ __all__ = [
     "sosfilt_pallas_fused",
     "sosfilt_chunk_pallas_fused",
     "MAX_TV_GROUP",
+    "TV_SPAN",
+    "tv_frames_route",
+    "tv_kernel_attrs",
     "tv_cascade",
     "tv_section",
     "tv_frames_cascade",

@@ -8,11 +8,18 @@ held against a float64 NumPy sample loop with the same float32 rows.
 ``emulate_tv`` does what the blocks of ``csrc/iir_tv.cu`` do, with the
 geometry the wrapper passes to the launches: groups of MAX_TV_GROUP sections,
 each tile's zero-state end state and its transition from the unit columns,
-launch 2's float64 chain, and the seeded re-run; inside a tile the sub-tiles,
-each thread's segment (rows divided by a0 through one reciprocal) run from
-rest, the warp's Hillis-Steele composition of affine maps and thread 0's
-chain over the warps in float64, the float32 re-run from the true state and
-the ragged end state.
+launch 2's float64 chain, and the seeded re-run. Inside a tile, a column at a
+time (the kernel runs a block's columns in lockstep, the same arithmetic for
+each): the sub-tiles; on the rows and compose routes the staged planes (rows
+divided by a0 through one reciprocal; the compose route one entry a frame,
+zero past the last live frame), each thread's segment run from rest with the
+product of its Phis and the warp's six-component Hillis-Steele scan; on the
+state route (``iir.tv_frames_route``: frames of whole warp spans) one table
+entry a warp, the powers Psi^(2^p) of Psi = Phi^SEG squared in float64 and the
+scan of the state alone; then warp 0's scan of the warp totals in lanes of
+eight from the carry, the entry state (the inclusive map shifted up a lane, or
+Psi^lane by the lane's bits plus the exclusive sum), all in float64, the
+float32 re-run from it and the ragged end state.
 ``emulate_b22`` does B22's block: frames staged in chunks through the padded
 buffer, a thread a frame.
 
@@ -390,6 +397,10 @@ def test_chunk_calls_take_any_length(swept, lengths):
 
 # --- B16/B17/B18 emulated block by block ----------------------------------------------
 
+SPAN = iir.TV_SPAN
+LANE = np.arange(THREADS) % 32
+WARP = np.arange(THREADS) // 32
+
 
 def fma(a, b, c):
     return (np.asarray(a, np.float64) * b + c).astype(F32)
@@ -399,12 +410,51 @@ def mul(a, b):
     return (np.asarray(a, F32) * np.asarray(b, F32)).astype(F32)
 
 
-def emu_coefs(rows_c, frame_len, n, idx):
-    """A section's (5, THREADS, SEG) coefficients for samples ``idx``, zero past n."""
-    r = rows_c[np.minimum(idx // frame_len, rows_c.shape[0] - 1)]
+def fma64(a, b, c):
+    return np.asarray(a, np.float64) * b + c
+
+
+def divided(r):
+    """Rows (..., 6) -> (..., 5) b0 b1 b2 a1 a2 as a kernel divides them: one
+    float32 reciprocal of a0, then five products."""
     inv = (F32(1) / r[..., 3]).astype(F32)
-    live = idx < n
-    return [np.where(live, mul(r[..., i], inv), F32(0)) for i in (0, 1, 2, 4, 5)]
+    return np.stack([mul(r[..., i], inv) for i in (0, 1, 2, 4, 5)], -1)
+
+
+def emu_stage(rows_k, route, frame_len, s0, count):
+    """The five planes a section's pass reads, as (5, THREADS, SEG) per thread and
+    sample. rows: each sample's row, zero from ``count`` on; compose: each sample's
+    frame, zero past the last frame with a live sample."""
+    k = np.arange(SUBT)
+    idx = s0 + k if route == "rows" else (s0 + k) // frame_len
+    live = k < count if route == "rows" else idx <= (s0 + count - 1) // frame_len
+    p = np.where(live[:, None], divided(rows_k[np.minimum(idx, rows_k.shape[0] - 1)]), F32(0))
+    return p.T.reshape(5, THREADS, SEG)
+
+
+def square(m):
+    """(..., 2, 2) -> its square, as the kernel's square()."""
+    a, b, c, d = m[..., 0, 0], m[..., 0, 1], m[..., 1, 0], m[..., 1, 1]
+    bc, t = b * c, a + d
+    return np.stack([np.stack([a * a + bc, b * t], -1), np.stack([c * t, d * d + bc], -1)], -2)
+
+
+def emu_table(rows_k, frame_len, s0, t1):
+    """The state route's entries of one section, a warp each: the float32
+    (b0 b1 b2 -a1 -a2) of the frame of the warp's first sample (zero at or past
+    t1), and the powers Psi^(2^p), p = 0..5, of Psi = Phi^SEG in float64."""
+    g = s0 + np.arange(WARPS) * SPAN
+    c = np.where((g < t1)[:, None],
+                 divided(rows_k[np.minimum(g // frame_len, rows_k.shape[0] - 1)]), F32(0))
+    f = np.stack([c[:, 0], c[:, 1], c[:, 2], -c[:, 3], -c[:, 4]], -1)
+    m = np.zeros((WARPS, 2, 2))
+    m[:, 0, 0], m[:, 0, 1], m[:, 1, 0] = -c[:, 3].astype(np.float64), 1.0, -c[:, 4]
+    for _ in range(3):  # Phi^SEG
+        m = square(m)
+    q = [m]
+    for _ in range(5):
+        q.append(square(q[-1]))
+    return f, np.stack(q)
 
 
 def shift_up(v, d):
@@ -414,54 +464,41 @@ def shift_up(v, d):
     return out.reshape(-1)
 
 
-def fma64(a, b, c):
-    return np.asarray(a, np.float64) * b + c
+def emu_block_scan(a, z, car):
+    """Step c: the warp totals, maps a (WARPS, 4) and states z (WARPS, 2), scanned in
+    lanes of eight from the carry folded into warp 0's. (The state entering each
+    warp (WARPS, 2), the state leaving the sub-tile.)"""
+    a11, a12, a21, a22 = (a[:, i].copy() for i in range(4))
+    z1, z2 = z[:, 0].copy(), z[:, 1].copy()
+    k1, k2 = car
+    z1[0], z2[0] = (fma64(a11[0], k1, fma64(a12[0], k2, z1[0])),
+                    fma64(a21[0], k1, fma64(a22[0], k2, z2[0])))
+    u = np.arange(WARPS)
+    d = 1
+    while d < WARPS:
+        e11, e12, e21, e22, f1, f2 = (np.concatenate([q[:d], q[:-d]])
+                                      for q in (a11, a12, a21, a22, z1, z2))
+        on = u >= d
+        n1, n2 = fma64(a11, f1, fma64(a12, f2, z1)), fma64(a21, f1, fma64(a22, f2, z2))
+        m = (fma64(a11, e11, a12 * e21), fma64(a11, e12, a12 * e22),
+             fma64(a21, e11, a22 * e21), fma64(a21, e12, a22 * e22))
+        z1, z2 = np.where(on, n1, z1), np.where(on, n2, z2)
+        a11, a12, a21, a22 = (np.where(on, new, old) for new, old in zip(m, (a11, a12, a21, a22)))
+        d *= 2
+    entry = np.stack([np.concatenate([[k1], z1[:-1]]), np.concatenate([[k2], z2[:-1]])], -1)
+    return entry, np.array([z1[-1], z2[-1]])
 
 
-def emu_section(v, coefs, car, jlast):
-    """One section_pass: v (THREADS, SEG) in place; car (2,) updated; the end
-    state at (thread, j) = jlast, or None. The segment's map from rest, the
-    compose, thread 0's chain and the entry state run in float64; the re-run
-    from the entry state in float32."""
-    b0, b1, b2, a1, a2 = coefs
-    z1 = z2 = np.zeros(THREADS)
-    p11, p12, p21, p22 = (np.full(THREADS, float(f)) for f in (1, 0, 0, 1))
-    for j in range(SEG):
-        xv = v[:, j]
-        yv = fma64(b0[:, j], xv, z1)
-        n1 = fma64(b1[:, j], xv, fma64(-a1[:, j], yv, z2))
-        z2 = fma64(b2[:, j], xv, -a2[:, j] * yv)
-        z1 = n1
-        m11, m12 = fma64(-a1[:, j], p11, p21), fma64(-a1[:, j], p12, p22)
-        p21, p22 = -a2[:, j] * p11, -a2[:, j] * p12
-        p11, p12 = m11, m12
-    lane = np.arange(THREADS) % 32
-    m = [p11, p12, p21, p22, z1, z2]
-    for d in (1, 2, 4, 8, 16):
-        e11, e12, e21, e22, f1, f2 = (shift_up(q, d) for q in m)
-        q11, q12, q21, q22, w1, w2 = m
-        new = [fma64(q11, e11, q12 * e21), fma64(q11, e12, q12 * e22),
-               fma64(q21, e11, q22 * e21), fma64(q21, e12, q22 * e22),
-               fma64(q11, f1, fma64(q12, f2, w1)), fma64(q21, f1, fma64(q22, f2, w2))]
-        m = [np.where(lane >= d, a, b) for a, b in zip(new, m)]
-    ident = (1, 0, 0, 1, 0, 0)
-    x = [np.where(lane == 0, float(i), shift_up(q, 1)) for q, i in zip(m, ident)]
-    c1, c2 = np.float64(car[0]), np.float64(car[1])
-    wbeg = np.empty((WARPS, 2))
-    for w in range(WARPS):
-        q11, q12, q21, q22, w1, w2 = (q[32 * w + 31] for q in m)
-        wbeg[w] = c1, c2
-        c1, c2 = fma64(q11, c1, fma64(q12, c2, w1)), fma64(q21, c1, fma64(q22, c2, w2))
-    car[:] = c1, c2
-    wb = wbeg[np.arange(THREADS) // 32]
-    s1 = fma64(x[0], wb[:, 0], fma64(x[1], wb[:, 1], x[4])).astype(F32)
-    s2 = fma64(x[2], wb[:, 0], fma64(x[3], wb[:, 1], x[5])).astype(F32)
+def emu_run32(v, coefs, s1, s2, jlast):
+    """Step d's float32 run in place in v (THREADS, SEG); the end state at
+    (thread, j) = jlast, or None. coefs: b0 b1 b2 -a1 -a2, each (THREADS, SEG)."""
+    b0, b1, b2, ma1, ma2 = coefs
     end = None
     for j in range(SEG):
         xv = v[:, j].copy()
         yv = fma(b0[:, j], xv, s1)
-        n1 = fma(b1[:, j], xv, fma(-a1[:, j], yv, s2))
-        s2 = fma(b2[:, j], xv, mul(-a2[:, j], yv))
+        n1 = fma(ma1[:, j], yv, fma(b1[:, j], xv, s2))
+        s2 = fma(ma2[:, j], yv, mul(b2[:, j], xv))
         s1 = n1
         v[:, j] = yv
         if jlast is not None and j == jlast[1]:
@@ -469,8 +506,80 @@ def emu_section(v, coefs, car, jlast):
     return end
 
 
-def emu_tile(xc, rows_c, frame_len, n, tile, ti, car, first=0, want_end=False):
-    """A tile kernel block over tile ti of one column: (y, end states or None)."""
+def emu_compose_pass(v, pl, car, jlast):
+    """One pass of the rows or compose route over the sub-tile: v in place; (end
+    state or None, the carry out). The segment's map from rest, the warp's
+    six-component scan, the block scan and the entry state in float64; the re-run
+    from the entry state in float32."""
+    b0, b1, b2, a1, a2 = pl
+    z1 = z2 = np.zeros(THREADS)
+    p11, p12, p21, p22 = (np.full(THREADS, float(f)) for f in (1, 0, 0, 1))
+    for j in range(SEG):
+        xv = v[:, j]
+        yv = fma64(b0[:, j], xv, z1)
+        n1 = fma64(-a1[:, j], yv, fma64(b1[:, j], xv, z2))
+        z2 = fma64(-a2[:, j], yv, b2[:, j] * xv)
+        z1 = n1
+        m11, m12 = fma64(-a1[:, j], p11, p21), fma64(-a1[:, j], p12, p22)
+        p21, p22 = -a2[:, j] * p11, -a2[:, j] * p12
+        p11, p12 = m11, m12
+    m = [p11, p12, p21, p22, z1, z2]
+    for d in (1, 2, 4, 8, 16):
+        e11, e12, e21, e22, f1, f2 = (shift_up(q, d) for q in m)
+        q11, q12, q21, q22, w1, w2 = m
+        new = [fma64(q11, e11, q12 * e21), fma64(q11, e12, q12 * e22),
+               fma64(q21, e11, q22 * e21), fma64(q21, e12, q22 * e22),
+               fma64(q11, f1, fma64(q12, f2, w1)), fma64(q21, f1, fma64(q22, f2, w2))]
+        m = [np.where(LANE >= d, a, b) for a, b in zip(new, m)]
+    tot = np.stack([q[31::32] for q in m], -1)
+    entry, nxt = emu_block_scan(tot[:, :4], tot[:, 4:], car)
+    c1, c2 = entry[WARP, 0], entry[WARP, 1]
+    o1 = fma64(m[0], c1, fma64(m[1], c2, m[4]))
+    o2 = fma64(m[2], c1, fma64(m[3], c2, m[5]))
+    s1 = np.where(LANE == 0, c1, shift_up(o1, 1)).astype(F32)
+    s2 = np.where(LANE == 0, c2, shift_up(o2, 1)).astype(F32)
+    return emu_run32(v, (b0, b1, b2, -a1, -a2), s1, s2, jlast), nxt
+
+
+def emu_state_pass(v, f, q, car, jlast):
+    """One pass of the state route: each warp's section time-invariant. The state
+    alone from rest, its warp scan with the powers Psi^d, the block scan with the
+    warps' Psi^32, the entry state as Psi^lane by the lane's bits plus the
+    exclusive sum, all float64; the re-run in float32."""
+    cw, qq = f[WARP], q[:, WARP]
+    b0, b1, b2, ma1, ma2 = (cw[:, i].astype(np.float64) for i in range(5))
+    z1 = z2 = np.zeros(THREADS)
+    for j in range(SEG):
+        xv = v[:, j].astype(np.float64)
+        yv = fma64(b0, xv, z1)
+        n1 = fma64(ma1, yv, fma64(b1, xv, z2))
+        z2 = fma64(ma2, yv, b2 * xv)
+        z1 = n1
+    for p in range(5):
+        d = 1 << p
+        f1, f2, pw = shift_up(z1, d), shift_up(z2, d), qq[p]
+        on = LANE >= d
+        n1 = fma64(pw[:, 0, 0], f1, fma64(pw[:, 0, 1], f2, z1))
+        n2 = fma64(pw[:, 1, 0], f1, fma64(pw[:, 1, 1], f2, z2))
+        z1, z2 = np.where(on, n1, z1), np.where(on, n2, z2)
+    entry, nxt = emu_block_scan(q[5].reshape(WARPS, 4), np.stack([z1[31::32], z2[31::32]], -1),
+                                car)
+    c1, c2 = entry[WARP, 0], entry[WARP, 1]
+    for p in range(5):
+        pw, on = qq[p], (LANE >> p) & 1 == 1
+        n1 = fma64(pw[:, 0, 0], c1, pw[:, 0, 1] * c2)
+        n2 = fma64(pw[:, 1, 0], c1, pw[:, 1, 1] * c2)
+        c1, c2 = np.where(on, n1, c1), np.where(on, n2, c2)
+    s1 = (c1 + np.where(LANE == 0, 0.0, shift_up(z1, 1))).astype(F32)
+    s2 = (c2 + np.where(LANE == 0, 0.0, shift_up(z2, 1))).astype(F32)
+    coefs = [np.repeat(cw[:, i : i + 1], SEG, 1) for i in range(5)]
+    return emu_run32(v, coefs, s1, s2, jlast), nxt
+
+
+def emu_tile(xc, rows_c, frame_len, n, tile, ti, car, route, first=0, want_end=False):
+    """A tile kernel block over tile ti of one column: (y, end states or None).
+    rows_c: (S, F, 6) of the block's coefficient channel; car: (S, 2) float64,
+    the sections' carry, left at the tile's end."""
     t0, t1 = ti * tile, min(ti * tile + tile, n)
     ys, end = [], None
     for s0 in range(t0, t1, SUBT):
@@ -479,13 +588,18 @@ def emu_tile(xc, rows_c, frame_len, n, tile, ti, car, first=0, want_end=False):
         if xc is not None:
             buf[:count] = xc[s0 : s0 + count]
         v = buf.reshape(THREADS, SEG)
-        idx = s0 + np.arange(SUBT).reshape(THREADS, SEG)
         jlast = None
         if want_end and n - 1 - s0 < SUBT:
             jlast = divmod(n - 1 - s0, SEG)
         ends = []
         for k in range(first, rows_c.shape[0]):
-            ends.append(emu_section(v, emu_coefs(rows_c[k], frame_len, n, idx), car[k], jlast))
+            if route == "state":
+                e, car[k] = emu_state_pass(v, *emu_table(rows_c[k], frame_len, s0, t1), car[k],
+                                           jlast)
+            else:
+                pl = emu_stage(rows_c[k], route, frame_len, s0, count)
+                e, car[k] = emu_compose_pass(v, pl, car[k], jlast)
+            ends.append(e)
         if jlast is not None:
             end = np.stack(ends)
         ys.append(v.reshape(-1)[:count].copy())
@@ -493,9 +607,11 @@ def emu_tile(xc, rows_c, frame_len, n, tile, ti, car, first=0, want_end=False):
 
 
 def emulate_tv(x, rows4, frame_len=1, state=None, tile_rows=None):
-    """The launches of dsp_tv_cascade on (C, n) float32: (y, end state (S, C, 2))."""
+    """The launches of dsp_tv_cascade on (C, n) float32: (y, end state (S, C, 2)).
+    The rows route at frame_len 1 (B16, B17), else B18's, iir.tv_frames_route."""
     x = np.asarray(x, F32)
     rows4 = np.asarray(rows4, F32)
+    route = "rows" if frame_len == 1 else iir.tv_frames_route(frame_len)
     c, n = x.shape
     s_all, cc = rows4.shape[:2]
     tile = iir.pick_tile(c, n, tile_rows)
@@ -512,24 +628,25 @@ def emulate_tv(x, rows4, frame_len=1, state=None, tile_rows=None):
         z, m = {}, {}
         for ti in range(ntiles - 1):
             for ch in range(c):
-                car = np.zeros((s, 2), F32)
-                emu_tile(inp[ch], rows[:, ch if cc > 1 else 0], frame_len, n, tile, ti, car)
-                z[ch, ti] = car.reshape(-1)
+                car = np.zeros((s, 2))
+                emu_tile(inp[ch], rows[:, ch if cc > 1 else 0], frame_len, n, tile, ti, car, route)
+                z[ch, ti] = car.astype(F32).reshape(-1)
             for k_c in range(cc):
                 mt = np.zeros((d, d), F32)
                 for u in range(d):
-                    car = np.zeros((s, 2), F32)
+                    car = np.zeros((s, 2))
                     car.reshape(-1)[u] = 1
-                    emu_tile(None, rows[:, k_c], frame_len, n, tile, ti, car, first=u // 2)
-                    mt[:, u] = car.reshape(-1)
+                    emu_tile(None, rows[:, k_c], frame_len, n, tile, ti, car, route,
+                             first=u // 2)
+                    mt[:, u] = car.astype(F32).reshape(-1)
                 m[k_c, ti] = mt
         # 2. a warp a channel chains the tiles in float64; 3. the seeded re-run
         for ch in range(c):
             st = seed[:, ch].reshape(-1).astype(np.float64)
             for ti in range(ntiles):
-                car = st.astype(F32).reshape(s, 2)
+                car = st.astype(F32).astype(np.float64).reshape(s, 2)
                 yt, e = emu_tile(inp[ch], rows[:, ch if cc > 1 else 0], frame_len, n, tile, ti,
-                                 car, want_end=ti == ntiles - 1)
+                                 car, route, want_end=ti == ntiles - 1)
                 y[ch, ti * tile : ti * tile + yt.size] = yt
                 if e is not None:
                     end_all[g : g + s, ch] = e
@@ -571,6 +688,46 @@ def test_emulated_kernels_match_plain_and_float64(case):
     assert np.array_equal(yk.numpy(), yp.numpy()) and np.array_equal(endk.numpy(), endp.numpy())
 
 
+# B18 on both sides of the state route's condition (frame_len a multiple of the
+# warp span SPAN = 256): whole spans, spans but not sub-tiles (frame edges inside
+# sub-tiles), a frame over tiles; and frame lengths off it, edges inside warps
+FRAME_CASES = [
+    # (channels, n, sections, shared, frame_len, route)
+    (2, 2 * 4096 + 123, 2, True, SPAN, "state"),
+    (1, 3 * 4096 + 77, 3, False, 3 * SPAN, "state"),  # 768: edges inside sub-tiles
+    (2, 2 * 4096 + 5, 2, True, 2 * 4096, "state"),  # a frame a tile: edges at tile edges
+    (1, 3 * 4096 + 77, 2, True, 1000, "compose"),
+    (2, 2 * 4096 + 123, 3, False, 300, "compose"),  # edges inside warps
+]
+
+
+@pytest.mark.parametrize("seeded", [True, False], ids=["seeded", "unseeded"])
+@pytest.mark.parametrize("case", FRAME_CASES)
+def test_emulated_frames_routes_match_plain_and_float64(case, seeded):
+    c, n, s, shared, fl, route = case
+    assert iir.tv_frames_route(fl) == route
+    rng = np.random.default_rng(n + fl)
+    x = rng.standard_normal((c, n)).astype(F32)
+    rows = np.stack([[frame_schedule(-(-n // fl), k + 2 * ch) * F32(1.25)
+                      for ch in range(1 if shared else c)] for k in range(s)])
+    st = (0.3 * rng.standard_normal((s, c, 2))).astype(F32) if seeded else None
+    y, end = emulate_tv(x, rows, fl, st)
+    yp, endp = iir._tv_plain(t(x), t(rows), fl, None if st is None else t(st))
+    want, zf = tv_ref(rows if not shared else rows[:, 0], x, fl, st)
+    assert rel_err(y, yp.numpy()) < TOL and rel_err(y, want) < TOL
+    scale = np.abs(want).max()
+    assert np.abs(end - endp.numpy()).max() < TOL * scale
+    assert np.abs(end - zf).max() < TOL * scale
+
+
+def test_frames_route_rule():
+    """B18 scans the state alone exactly where every warp's span lies in one frame."""
+    for fl in (SPAN, 3 * SPAN, 4 * SPAN, 65536):
+        assert iir.tv_frames_route(fl) == "state"
+    for fl in (1, 100, SPAN // 2, SPAN + 1, 1000):
+        assert iir.tv_frames_route(fl) == "compose"
+
+
 def test_emulated_kernel_at_high_q_stays_near_plain():
     """Resonant rows (pole radius 0.95, angles 0.1 and 0.2 rad): the composed
     maps grow to about 1/sin(angle) while the state stays the size of y, so
@@ -589,6 +746,26 @@ def test_emulated_kernel_at_high_q_stays_near_plain():
     assert rel_err(y, want) <= 2 * rel_err(yp.numpy(), want)
 
 
+@pytest.mark.parametrize("frame_len", [1024, 1000])
+def test_emulated_frames_at_high_q_stay_near_plain(frame_len):
+    """The same resonant sections a frame at a time on both B18 routes, the
+    state route's powers Psi^(2^p) squared in float64 (Psi^32 = Phi^256 at
+    pole radius 0.995 still near 0.28): within 2x the plain version's error."""
+    rng = np.random.default_rng(22)
+    n, r = 3 * 4096 + 5, 0.995
+    g = (1 - r * r) / 2
+    nf = -(-n // frame_len)
+    th = np.linspace(0.1, 0.2, nf)
+    rows = np.stack([np.stack([g + 0 * th, 0.2 * g + 0 * th, -g + 0 * th, 1 + 0 * th,
+                               -2 * r * np.cos(th + dt), r * r + 0 * th], -1) * 1.25
+                     for dt in (0.0, 0.05)]).astype(F32)[:, None]
+    x = rng.standard_normal((1, n)).astype(F32)
+    want = tv_ref(rows[:, 0], x, frame_len)[0]
+    y, _ = emulate_tv(x, rows, frame_len)
+    yp, _ = iir._tv_plain(t(x), t(rows), frame_len, None)
+    assert rel_err(y, want) <= 2 * rel_err(yp.numpy(), want)
+
+
 def test_emulated_unit_columns_give_the_tile_transition():
     """Launch 1's unit columns: M_t maps any entry state to the zero-input exit."""
     rng = np.random.default_rng(1)
@@ -597,10 +774,10 @@ def test_emulated_unit_columns_give_the_tile_transition():
     d = 2 * s
     mt = np.zeros((d, d), F32)
     for u in range(d):
-        car = np.zeros((s, 2), F32)
+        car = np.zeros((s, 2))
         car.reshape(-1)[u] = 1
-        emu_tile(None, rows[:, 0], 1, n, n, 0, car, first=u // 2)
-        mt[:, u] = car.reshape(-1)
+        emu_tile(None, rows[:, 0], 1, n, n, 0, car, "rows", first=u // 2)
+        mt[:, u] = car.astype(F32).reshape(-1)
     s0 = (0.5 * rng.standard_normal((s, 1, 2))).astype(F32)
     _, zf = tv_ref(rows[:, 0], np.zeros(n, F32), 1, s0)
     assert np.abs(mt.astype(np.float64) @ s0.reshape(-1) - zf.reshape(-1)).max() < 1e-5

@@ -137,6 +137,28 @@ def test_b18_matches_plain_and_float64(dev, frame_len, sections):
               t < 70_000 and sections < 17)
 
 
+@pytest.mark.parametrize("frame_len, route", [(256, "state"), (768, "state"), (100, "compose"),
+                                               (1000, "compose")])
+def test_b18_routes_match_plain_and_float64(dev, frame_len, route):
+    """B18 on both sides of its state route's condition (frame_len a multiple of a
+    warp's 256 samples; 768 puts frame edges inside sub-tiles), rows shared by
+    five channels (a column group of three and one of two) and per channel."""
+    rng = np.random.default_rng(frame_len)
+    for channels, shared in ((5, True), (5, False)):
+        x, rows, st = case(dev, rng, channels, 3 * SUB + 77, 2, shared, frame_len)
+        kernel = lambda x, r, s=None: iir.tv_frames_cascade(x, r, frame_len, s)  # noqa: E731
+        check(kernel, iir._tv_plain, x, rows, frame_len, st, (frame_len, shared), True)
+        assert iir.tv_frames_cascade.route == route
+
+
+def test_tile_kernels_keep_three_blocks_an_sm(dev):
+    """Every tile kernel of csrc/iir_tv.cu within 80 registers, three blocks an SM."""
+    for shared in (True, False):
+        for name, (regs, _, smem, blocks, cols) in iir.tv_kernel_attrs(4, shared).items():
+            assert regs <= 80 and blocks >= 3, (name, shared, regs, smem, blocks)
+            assert cols == (1 if not shared else 4 if name == "B18 state" else 3), name
+
+
 def test_tiles_and_impulses(dev):
     rng = np.random.default_rng(3)
     t = 5 * SUB + 11
