@@ -118,9 +118,11 @@ failure exits non-zero:
    the same bytes and B4's library call (``torch.cumsum``); then B1 and B3
    against the two-pass route at halos on both sides of the bounds that
    send ``windowed`` and ``scan*`` to two-pass (``TWO_BLOCKS_SMEM_MAX``);
-   B8 and B9 at phase 4's shapes against their plain versions, bounds and
-   one IEEE-fp32 ``conv1d`` (the library call), and the crossover table of
-   ``conv1d`` against B8 by taps; B10, B12, B13 and B15 at the IIR main
+   B8 (at 257 and 8193 taps) and B9 at phase 4's shapes (median, min and
+   max) against their plain versions, bounds, their designs' shared-memory
+   limits and one IEEE-fp32 ``conv1d`` (the library call), B8's registers,
+   local bytes, shared bytes and blocks an SM at every plan and B9's at each
+   launch, both kernels' time by launch, and the crossover table of ``conv1d`` against B8 by taps; B10, B12, B13 and B15 at the IIR main
    path's shape against their plain versions and bounds, the library call
    where ``torchaudio`` exists, and the kernel-against-plain table by T that
    sets ``ops.iir.PALLAS_IIR_MIN_T``; B19, B20 and B21 at the wideband main
@@ -136,8 +138,9 @@ failure exits non-zero:
    transpose B22 skips, and frames (B18) against expand (B16) against
    per-sample scan (B17) at frame_len 1024; B11 and B14 at the design path's
    shape (median, min and max of 20) against their plain versions, B10 and
-   B12, and the bound, with B14's own FP64 operation count, its time by
-   sections and both anchors' time by launch;
+   B12, and the bound, with B14's own FP64 operation count (the blocks of
+   T it multiplies), its registers, local bytes, shared bytes and blocks an
+   SM by sections, its time by sections and both anchors' time by launch;
 6. serving loops: wall time of three ``stream_moving_average`` runs over
    phase 4's WAVs and of decoding them alone, and the device time of one
    run under ``torch.profiler``, by kernel and copy; the same for
@@ -254,6 +257,13 @@ CHAIN_T = 1 << 22
 LAST_B8 = fm.FUSED_MAX_NFFT // 2 + 1  # the longest taps B8 takes under fir_filter
 LAST_B9 = fm.FUSED3_MAX_NFFT // 2 + 1
 CROSSOVER_TAPS = (1, 3, 5, 7, 9, 13, 17, 25, 33, 65, 129, 257, 513, 1025, 2049, 4097, 8193)
+# Taps that put B8 on its other plans (nfft 1024, 2048, 8192). With one
+# sample a channel the output is h[0] x[0], far below the FFT's rounding of
+# the whole spectrum, and torch.fft itself lies up to about 2e-5 of max|y|
+# from float64 there (k=600): at these taps B8 is held to plain within
+# FIR_RTOL plus plain's own error against float64 (the rule B14 follows at
+# high Q), and to float64 within FIR64_RTOL as everywhere.
+PLAN_TAPS = (100, 200, 600)
 # Against the plain version on the same segments: the JAX package's bound
 # between its fused and composed overlap-save (tests/test_fft_mxu.py:97);
 # against a float64 direct FIR, its bound against direct (:42). Relative to
@@ -322,9 +332,10 @@ CIC_RATE, CIC_STAGES, CIC_COMP_TAPS = 8, 4, 63
 CIC_INTERP_T = 1 << 19
 SPLINE_T = 1 << 20
 PREFIX = 1 << 16  # samples of channel 0 held against a float64 FIR on the host
-# B14's own operations: a segment of MXU_SEG samples is a row of MXU_K doubles
-# times a MXU_K x MXU_N T, in each of its two tile launches; FP64 tensor-core
-# peak of the H100 SXM (NVIDIA's data sheet: 67 TFLOP/s).
+# B14's own operations: a segment of MXU_SEG samples times the blocks of its
+# section's T that are not zero (MXU_MACS multiply-adds), in each of its two
+# tile launches; FP64 tensor-core peak of the H100 SXM (NVIDIA's data sheet:
+# 67 TFLOP/s).
 FP64_TC_FLOPS_PER_S = 67e12
 # The H100 SXM's memory rate, and its peak rate of int32 adds outside the
 # tensor cores: a clock of an SM issues 64 lanes of IADD3, two adds each
@@ -664,7 +675,9 @@ def fused_call(x: torch.Tensor, r: fm.TapResponse) -> torch.Tensor:
 def phase_fir_corners(rng, dev, check: Checker) -> None:
     """B8 and B9 against their plain versions and a float64 FIR at their corners."""
     xo = fir.FIR_FFT_CROSSOVER
-    taps = sorted({1, 2, 63, 257, max(1, xo - 1), xo + 1, LAST_B8, LAST_B8 + 1, 65537, LAST_B9})
+    taps = sorted({1, 2, 63, *PLAN_TAPS, 257, max(1, xo - 1), xo + 1, LAST_B8, LAST_B8 + 1,
+                   65537, LAST_B9})
+    plain_err = 0.0
     for k in taps:
         block = fm.pick_fused_block(k)
         kernel = fm.fused_geometry(k, block).kernel
@@ -672,11 +685,25 @@ def phase_fir_corners(rng, dev, check: Checker) -> None:
             for t in sorted({1, max(1, k - 1), block, block + 1, 3 * block // 2 + 1}):
                 x, h, r = fused_case(rng, dev, k, c, t)
                 y = fused_call(x, r)
+                plain = fm.overlap_save_plain(x, r)
                 label = f"{kernel} k={k} C={c} T={t}"
-                check.close(kernel, y, fm.overlap_save_plain(x, r), f"{label} against plain")
+                rtol = FIR_RTOL
+                if k in PLAN_TAPS:  # plus plain's own error against float64 on every channel's tail
+                    tail = torch.from_numpy(fir64_tail(x, h, min(t, 64))).to(dev)
+                    e = ((plain[:, t - tail.shape[1]:].double() - tail).abs().max()
+                         / tail.abs().max()).item()
+                    plain_err = max(plain_err, e)
+                    rtol += e
+                check.close(kernel, y, plain, f"{label} against plain", rtol)
                 n = min(t, 64)
                 want = torch.from_numpy(fir64_tail(x[-1:], h, n)).float().to(dev)
                 check.close(kernel, y[-1:, t - n:], want, f"{label} against float64", FIR64_RTOL)
+    # B8's smallest plan, nfft 128, which only a block of 128 at one tap reaches
+    for c, t in ((1, 1), (3, 100_003)):
+        x = torch.from_numpy(rng.standard_normal((c, t), dtype=np.float32)).to(dev)
+        h = rng.standard_normal(1).astype(np.float32)
+        r = fm.tap_response(h, fm.fused_geometry(1, 128), dev)
+        check.close("B8", fm.fused_fir(x, r), fm.overlap_save_plain(x, r), f"B8 nfft 128 C={c} T={t}")
     # impulses (alignment across segment edges) and zeros (exactly zero out)
     for k in (257, LAST_B8, LAST_B8 + 1, 65537):
         _, h, r = fused_case(rng, dev, k, 1, 1)
@@ -708,7 +735,9 @@ def phase_fir_corners(rng, dev, check: Checker) -> None:
     print(
         f"[3 FIR corners] taps {taps}: B8 {check.count['B8']} and B9 {check.count['B9']} "
         f"checks within {FIR_RTOL} of plain and {FIR64_RTOL} of float64 (x max|y|), impulses "
-        f"at segment edges, zeros exact; max abs error B8 {check.max_err['B8']:.3e}, "
+        f"at segment edges, zeros exact; taps {PLAN_TAPS} (B8's plans at nfft 1024, 2048 and "
+        f"8192) within {FIR_RTOL} of plain plus plain's own error against float64, at most "
+        f"{plain_err:.3e}; max abs error B8 {check.max_err['B8']:.3e}, "
         f"B9 {check.max_err['B9']:.3e}; conv1d relative error against float64 {err:.2e} "
         f"(cuDNN's default setting {derr:.2e})"
     )
@@ -818,44 +847,73 @@ def phase_chain_main(rng, dev, check: Checker) -> tuple[dict, dict]:
     return launches, {"i": i, "q": q, "h8": h8, "h9": h9, "chain": chains["flagship"]}
 
 
+def fused_limit(g: fm.FusedGeometry, pairs: int) -> float:
+    """ms of the shared-memory traffic of B8's or B9's design for ``pairs`` pairs,
+    at 128 bytes a clock an SM: B8's exchanges between Stockham passes (each
+    writes and reads every point once, 16 bytes; len(radices) - 1 a
+    transform, forward and inverse), B9's radix-4 passes (csrc/fft.cuh: each
+    reads and writes every point, ceil(log2(m) / 2) passes a transform of m
+    points, n1-point columns twice and n2-point rows twice over all points)."""
+    def passes(m: int) -> int:
+        return -(-(m.bit_length() - 1) // 2)
+
+    if g.kernel == "B8":
+        sweeps = 2 * (len(g.radices) - 1)
+    else:
+        sweeps = 2 * passes(g.n1) + 2 * passes(g.n2)
+    return pairs * sweeps * g.nfft * 16 / (132 * 128 * 1.98e9) * 1e3
+
+
 def phase_fir_times(main: dict) -> dict:
     """B8 and B9 against plain, bound and conv1d at the main path's shapes; the crossover."""
     x = main["i"]
     dev = x.device
     c, t = x.shape
     out = {}
-    for kernel, h in (("B8", main["h8"]), ("B9", main["h9"])):
+    flagship = main["chain"].channel_taps.detach().cpu().numpy().copy()  # 257 taps, nfft 4096
+    for kernel, h in (("B8 257", flagship), ("B8", main["h8"]), ("B9", main["h9"])):
         g = fm.fused_geometry(h.size, fm.pick_fused_block(h.size))
         r = fm.tap_response(h, g, dev)
         hd = torch.from_numpy(h).to(dev)
-        ms, plain = time_pair(lambda r=r: fused_call(x, r), lambda r=r: fm.overlap_save_plain(x, r))
+        plain = device_ms(lambda r=r: fm.overlap_save_plain(x, r), 3, 5)
+        runs = device_ms(lambda r=r: fused_call(x, r), 5, 20)
+        plain += device_ms(lambda r=r: fm.overlap_save_plain(x, r), 3, 5)
         library = statistics.median(device_ms(lambda hd=hd: fir.fir_direct(x, hd), 1, 3))
         pairs = g.pairs(c, t)
         n = g.nfft
         flops = pairs * (2 * 5 * n * np.log2(n) + 6 * n)  # two complex FFTs and the product a pair
         b = bound(8 * c * t, flops, FP32_FLOPS_PER_S)
-        # the design's own limit: every radix-4 pass (csrc/fft.cuh) reads and
-        # writes each point of shared memory once (16 bytes), ceil(log2(m) / 2)
-        # passes a transform of m points, at 128 bytes a clock an SM. B8: one
-        # forward and one inverse transform of n; B9: n1-point columns twice,
-        # n2-point rows twice, each over all n points.
-        def passes(m: int) -> int:
-            return -(-(m.bit_length() - 1) // 2)
-
-        if kernel == "B8":
-            sweeps = 2 * passes(n)
-        else:
-            sweeps = 2 * passes(g.n1) + 2 * passes(g.n2)
-        smem = pairs * sweeps * n * 16 / (132 * 128 * 1.98e9) * 1e3
-        out[kernel] = {"ms": ms, "plain": plain, "library": library, "bound": b, "smem": smem,
-                       "k": h.size, "nfft": n, "block": g.block}
-    print(f"[5 FIR times] 16 x 2^22 float32, median of 10 after 5 warm-ups (conv1d 3 after 1):")
+        out[kernel] = {"ms": statistics.median(runs), "lo": min(runs), "hi": max(runs),
+                       "plain": statistics.median(plain), "library": library, "bound": b,
+                       "smem": fused_limit(g, pairs), "k": h.size, "nfft": n, "block": g.block,
+                       "geometry": g, "response": r}
+    print(f"[5 FIR times] 16 x 2^22 float32, kernels median (min-max) of 20 after 5 warm-ups, "
+          f"plain median of 10, conv1d of 3 after 1:")
     for kernel, v in out.items():
+        g = v["geometry"]
+        design = (f"Stockham passes {g.radices}, {g.points} points a thread, "
+                  f"{len(g.radices) - 1} exchanges a transform" if g.kernel == "B8"
+                  else "radix-4 passes in shared memory (fft.cuh)")
         print(
-            f"  {kernel} k={v['k']} nfft {v['nfft']} block {v['block']}: {v['ms']:.4f} ms; plain "
-            f"{v['plain']:.4f}; bound {v['bound'][0]:.4f} ({v['bound'][1]}); shared-memory "
-            f"limit of the design {v['smem']:.4f}; library conv1d (IEEE fp32) {v['library']:.4f}"
+            f"  {kernel} k={v['k']} nfft {v['nfft']} block {v['block']}: {v['ms']:.4f} ms "
+            f"({v['lo']:.4f}-{v['hi']:.4f}); plain {v['plain']:.4f}; bound {v['bound'][0]:.4f} "
+            f"({v['bound'][1]}); shared-memory limit of the design ({design}) {v['smem']:.4f}; "
+            f"library conv1d (IEEE fp32) {v['library']:.4f}"
         )
+    print("  B8 by plan (registers, local bytes, shared bytes, blocks an SM, threads a block): "
+          + "; ".join(f"nfft {1 << lg} {fm.fused_kernel_attrs(lg)}" for lg in sorted(fm.B8_PLANS)))
+    print("  B9's launches at nfft 131072 (the same): "
+          + "; ".join(f"{k} {v}" for k, v in fm.fused3_kernel_attrs(out["B9"]["geometry"]).items()))
+    for kernel in out:
+        fn = (lambda v=out[kernel]: fused_call(x, v["response"]))
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        print(f"  {kernel} by launch (torch.profiler, 3 calls): "
+              + "; ".join(f"{k[:48]} x{c} {ms / c:.4f} ms a launch" for k, c, ms in device_rows(prof)))
     # crossover: conv1d (the direct route) against B8 (the fused route) by taps
     print("[5 crossover] conv1d (IEEE fp32) against B8 on 16 x 2^22, ms:")
     faster_direct = []
@@ -2464,7 +2522,9 @@ def phase_anchor_times(main: dict) -> dict:
     full = (x.shape[1] - 1) // tile
     last = iir.cdiv(x.shape[1] - full * tile, iir.MXU_SUB) * iir.MXU_SUB
     segments = x.shape[0] * (2 * full * tile + last) // iir.MXU_SEG
-    b14_flops = 2.0 * s * segments * iir.MXU_K * iir.MXU_N  # a segment is one row of c
+    # a segment's kept blocks of T: MXU_MACS multiply-adds a section (the
+    # zero blocks it skips are not counted)
+    b14_flops = 2.0 * s * segments * iir.MXU_MACS
     library = {"B11": lfilter_ms(x, [1.0, 0.0], [1.0, -ANCHOR_POLE]),
                "B14": lfilter_ms(x, *sps.sos2tf(rows.astype(np.float64)))}
     library_note = LFILTER_NONE if library["B14"] is None else (
@@ -2478,7 +2538,8 @@ def phase_anchor_times(main: dict) -> dict:
               f"{plain:.4f} ms; bound {b:.4f} ms ({by}); kernel/bound {ms / b:.2f}")
     print(f"  B11/B10 {out['B11'][0] / out['B10'][0]:.3f}; B14/B12 {out['B14'][0] / out['B12'][0]:.3f}")
     print(f"  B14's own operations: {b14_flops:.4e} FP64 tensor-core flops "
-          f"({s} sections x {segments} segments x {iir.MXU_K} x {iir.MXU_N} multiply-adds), "
+          f"({s} sections x {segments} segments x {iir.MXU_MACS} multiply-adds, the "
+          f"{len(iir.MXU_BLOCKS)} blocks of 4 x 8 of T that are not zero), "
           f"{b14_flops / FP64_TC_FLOPS_PER_S * 1e3:.4f} ms at 67 TFLOP/s, "
           f"{b14_flops / FP64_TC_FLOPS_PER_S * 1e3 / bounds['B14'][0]:.2f}x the function's bound")
     print(f"  library: {library_note}")
@@ -2489,6 +2550,8 @@ def phase_anchor_times(main: dict) -> dict:
         by_s[k] = statistics.median(device_ms(lambda sk=sk: iir.sos_cascade_mxu(x, sk), 2, 5))
     print("  B14 by sections (median of 5): " + ", ".join(f"S={k} {v:.4f} ms" for k, v in by_s.items())
           + f"; {(by_s[iir.MAX_SECTIONS] - by_s[1]) / (iir.MAX_SECTIONS - 1):.4f} ms a section")
+    print("  B14's tile kernel by sections (registers, local bytes, shared bytes, blocks an SM, "
+          "warps a block): " + "; ".join(f"S={k} {iir.mxu_kernel_attrs(k)}" for k in by_s))
     for name, fn in (("B14", lambda: iir.sos_cascade_mxu(x, rows)),
                      ("B11", lambda: iir.iir1_affine_scan(x, ANCHOR_POLE))):
         fn()
@@ -2793,10 +2856,13 @@ def main() -> int:
     t0 = time.perf_counter()
     so = _build.build()
     _build.library()
-    ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines() if "Used" in ln]
     print(f"[2 build] {so.name} in {time.perf_counter() - t0:.1f} s")
-    for ln in ptxas:
-        print(f"  {ln}")
+    entry = "?"
+    for ln in so.with_suffix(".log").read_text().splitlines():  # each kernel's resources
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln
+        elif "Used" in ln:
+            print(f"  {entry[:72]}: {ln.split(':', 1)[-1].strip()}")
     mark("1-2 device and build")
 
     # 3. corners

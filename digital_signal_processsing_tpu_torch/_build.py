@@ -50,12 +50,16 @@ _SIGNATURES = {
     "dsp_scan_i16": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, y, n, window, channels, tile_frames, smem_bytes, stream
     "dsp_direct_i16": (_P, _P, _I, _I, _I, _I, _I, _P),
-    # x, y, twiddles, response, t, channels, k, block, log2n, threads,
-    # smem_bytes, stream
-    "dsp_fused_fir": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, y, response, t, channels, k, block, log2n, threads, smem_bytes, stream
+    "dsp_fused_fir": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # log2n, out: registers, local bytes, shared bytes, blocks an SM, threads
+    # a block (5 int64)
+    "dsp_fused_fir_attrs": (_I, _P),
     # x, y, scratch, twiddles, permuted response, t, channels, k, block,
     # log2n1, log2n2, g1, g2, wave_pairs, threads, smem_bytes, stream
     "dsp_fused_fir3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # launch (0 columns, 1 rows, 2 outputs), smem_bytes, out: as dsp_fused_fir_attrs
+    "dsp_fused_fir3_attrs": (_I, _I, _P),
     # x, y, table, carry, M, seed, state_out, n, channels, sections, tile,
     # unrolled, stream
     "dsp_sos_cascade": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -66,8 +70,11 @@ _SIGNATURES = {
     "dsp_iir1": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, y, carry, a, b, n, channels, tile, stream
     "dsp_iir1_affine": (_P, _P, _P, ctypes.c_float, ctypes.c_float, _I, _I, _I, _P),
-    # x, y, table, T, carry, M, n, channels, sections, tile, stream
+    # x, y, table, T's fragments, carry, M, n, channels, sections, tile, stream
     "dsp_sos_cascade_mxu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # sections, out: registers, local bytes, shared bytes, blocks an SM, warps
+    # a block (5 int64)
+    "dsp_mxu_attrs": (_I, _P),
     # x (B19) or u (B20), hq, twiddles, re, im, M, N, P, dilation, sign, stride of k,
     # stride of m, rows, smem_bytes, stream
     "dsp_pfb_raw": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -1,5 +1,7 @@
-// Radix-2 FFT stages over lines of complex float32 in shared memory, shared
-// by the fused overlap-save kernels (fused_fir.cu B8, fused_fir3.cu B9).
+// Radix-2 FFT stages over lines of complex float32 in shared memory, for
+// the four-step overlap-save kernel (fused_fir3.cu B9), and the segment
+// addressing both fused kernels share (B8, fused_fir.cu, runs its own
+// transform in registers).
 //
 // A buffer holds G lines of M = 2^logM points. Point `pos` of line `line`
 // sits at slot(line, pos, logM): one padding point after every 16 and one

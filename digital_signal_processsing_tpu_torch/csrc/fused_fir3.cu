@@ -220,3 +220,31 @@ extern "C" int dsp_fused_fir3(const float* x, float* y, void* scratch, const voi
   }
   return static_cast<int>(cudaSuccess);
 }
+
+// What the compiler gave B9's launch `which` (0 columns, 1 rows, 2 outputs)
+// with `smem_bytes` of dynamic shared memory: registers a thread, local
+// bytes a thread, shared bytes a block (static and dynamic), blocks an SM,
+// threads a block (5 int64 in out).
+extern "C" int dsp_fused_fir3_attrs(int64_t which, int64_t smem_bytes, int64_t* out) {
+  const void* k = which == 0   ? reinterpret_cast<const void*>(dsp::fir3_columns)
+                  : which == 1 ? reinterpret_cast<const void*>(dsp::fir3_rows)
+                  : which == 2 ? reinterpret_cast<const void*>(dsp::fir3_outputs)
+                               : nullptr;
+  if (k == nullptr || smem_bytes < 0 || smem_bytes > 232448) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int bytes = static_cast<int>(smem_bytes);
+  cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes a;
+  if ((err = cudaFuncGetAttributes(&a, k)) != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, dsp::kFir3Threads, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int64_t>(a.localSizeBytes);
+  out[2] = static_cast<int64_t>(a.sharedSizeBytes) + bytes;
+  out[3] = blocks;
+  out[4] = dsp::kFir3Threads;
+  return 0;
+}

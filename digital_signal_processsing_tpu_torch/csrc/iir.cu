@@ -68,7 +68,8 @@
 #include <cstdint>
 
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include "block_prefix.cuh"
 
 namespace dsp {
 namespace iir {
@@ -628,189 +629,303 @@ affine_carry_kernel(float* __restrict__ carry, int64_t ntiles) {
 // ---- B14: the cascade with its lane pass on the tensor cores ---------------
 //
 // The TPU kernel is B12 with the in-row (lane) pass of each section spelled
-// as a matrix product. With A = Phi = [[-a1, 1], [-a2, 0]] and, for input y,
-// c = y (b1 - a1 b0, b2 - a2 b0), a section's state moves by s' = A s + c, so
-// from zero state at a row's start the state entering lane l is
-// s_ex[l] = sum_{j<l} A^(l-1-j) c[j]: the row of c times a matrix T that
-// depends only on the coefficients. The TPU builds T once a launch and runs
-// four (rows, 128) @ (128, 128) products a section (bf16x3, its HIGHEST
-// precision); then B12's row scan, the carry, and y = b0 x + s1.
+// as a matrix product. With A = Phi = [[-a1, 1], [-a2, 0]] and, for input u,
+// c = u (k1, k2), k1 = b1 - a1 b0, k2 = b2 - a2 b0, a section's state moves
+// by s' = A s + c, so from zero state at a row's start the state entering
+// lane l is s_ex[l] = sum_{j<l} A^(l-1-j) c[j]: its first component is the
+// row of u times a matrix T, T[j][l] = (A^(l-1-j))_00 k1 + (A^(l-1-j))_01 k2
+// for j < l, else 0, which depends only on the coefficients. The TPU builds
+// T once a launch and runs four (rows, 128) @ (128, 128) products a section
+// (bf16x3, its HIGHEST precision); then B12's row scan, the carry, and
+// y = b0 u + s1.
 //
-// Here a row is a segment of kL = 32 samples, a sub-tile kMxuRows = 32 of
-// them, and one warp of four owns an 8-row tile of segments. For each
-// section the block writes the row of c as one of kMxuK = 64 doubles
-// (c1 then c2) and multiplies the 32 x 64 block by the section's 64 x 40 T:
-// columns 0..31 give s_ex1, columns 32 and 33 the segment's end state
-// sum_j A^(31-j) c[j] (so no second product is needed for s2), 34..39 are
-// zeros to fill the last 8-wide tile. The products are FP64 tensor-core
-// instructions (WMMA m8n8k4 double, DMMA): c is y times a float32
-// coefficient, exact in float64, T is built in float64 by the wrapper and
-// never rounded, and the sums are float64, so the lane pass keeps the
-// float32 recurrence's accuracy. One TF32 product keeps 10 mantissa bits,
-// about 1e-3 of max|y|; a 3xTF32 split (T and c each hi + lo) would need
-// three products, its own rounding, and T twice in shared memory. The end
-// states are rounded to float32 and go through B12's row scan (one warp,
-// Phi^(32 d) from the table, Phi^1024 onto the section's carry), and lane l
-// adds (A^l s_r)_1 of its segment's entry state s_r. Launches 2 and 3 are
-// B12's (the carry warp, the cascade's transition over a tile).
+// Here a row is a segment of kL = 32 samples and T is 32 x 32 float64, built
+// by the wrapper and never rounded. The products are FP64 tensor-core
+// instructions (mma.sync m16n8k8 .f64, Hopper's DMMA shape; the older
+// m8n8k4 issues four times the instructions for the same work and ran
+// slower on the H100) whose A fragments are the samples themselves: a
+// float32 sample is exact in float64, and so are the products and sums to
+// float64 rounding, so the lane pass keeps the float32 recurrence's
+// accuracy. (One TF32 product keeps 10 mantissa bits, about 1e-3 of
+// max|y|.)
 //
-// T takes 20 KB a section (a 128-lane T would take 256 KB): the block loads
-// it, with the section's table, each section of each sub-tile, from L2.
+// The block. Its 8 warps each carry one (channel, tile) of the launch, all
+// sharing one staging: T, in the order the B fragments are read, and the
+// section's table, for every section (at most 16), are copied to shared
+// memory once a block, behind its one barrier. A warp walks its tile in
+// sub-tiles of 32 segments (1024 samples, two m-tiles of 16 segments),
+// staged by cp.async into its own rows of 36 floats (so that the A reads fall
+// on distinct banks), and runs every section over them in place; nothing
+// else is shared between warps, so a section costs no block barrier. For
+// each section and k-step pair k2 a lane (g = lane/4, tq = lane%4) reads its
+// A values, samples 8 k2 + tq and 8 k2 + 4 + tq of segments 8 m + g
+// (m < 4), and its B values of n-tile q, T[8 k2 + tq][8 q + g] and
+// T[8 k2 + 4 + tq][8 q + g], once for both m-tiles. n-tile q (lanes
+// 8q..8q+7) needs only samples j < 8 q + 8, so the pairs k2 > q multiply
+// zero blocks of T and are skipped: 20 of the 32 (q, 4-sample) blocks are
+// kept, 20 DMMA of 16 x 8 x 8 a section and sub-tile. The accumulators
+// (lanes 8q + 2 tq + i of segment 8m + g) stay in registers; the end state,
+// s_ex at lane 32, is one float64 step from s_ex1[30], s_ex1[31] and the
+// samples 30 and 31, taken by lane tq = 3 of each segment. Rounded to
+// float32, the end states go through B12's row scan (lanes of one warp,
+// Phi^(32 d) from the table, Phi^1024 onto the section's carry), and each
+// sample gets y = b0 u + s_ex1 + (A^l s_r)_1 of its segment's entry state
+// s_r, in place in the warp's rows. Launches 2 and 3 are B12's (the carry
+// warp, the cascade's transition over a tile).
+//
 // What bounds it on the H100: the function's bytes, 8 a sample (0.160 ms for
-// 16 x 2^22 samples); the design's operations, 64 x 40 = 2560 FP64
-// multiply-adds a segment, 80 a sample and section, twice (launches 1 and
-// 3), against the tensor cores' 67 TFLOP/s in FP64 (NVIDIA's data sheet),
-// are about 8 times that bound at 4 sections. It is the anchor against B12,
+// 16 x 2^22 samples); the design's operations, 20 blocks of 8 x 4 = 640 FP64
+// multiply-adds a segment, 40 flops a sample and section, twice (launches 1
+// and 3), at the tensor cores' 67 TFLOP/s in FP64 (NVIDIA's data sheet), are
+// about 2.5 times that bound at 5 sections. It is the anchor against B12,
 // whose scan does about 16 float32 operations a sample and section.
-constexpr int kL = 32;                   // samples a segment
-constexpr int kMxuThreads = 128;         // four warps, an 8-row tile of segments each
-constexpr int kMxuRows = 32;             // segments a sub-tile
-constexpr int kMxuSub = kMxuRows * kL;   // samples a sub-tile
-constexpr int kMxuK = 2 * kL;            // a segment's c1 then c2
-constexpr int kMxuN = 40;                // s_ex1 at 0..31, end state at 32, 33
-constexpr int kTabMxu = 272;             // floats of a section's table
-constexpr int kPowL = 8 + 4 * 33;        // where A^l, l = 0..31, starts
+constexpr int kL = 32;                        // samples a segment
+constexpr int kMxuWarps = 8;                  // warps a block, one (channel, tile) each
+constexpr int kMxuThreads = 32 * kMxuWarps;
+constexpr int kMxuSub = 32 * kL;              // samples a warp's sub-tile
+constexpr int kMxuFrags = 20;                 // (n-tile q, 4-sample kk) blocks, kk < 2q + 2
+constexpr int kMxuSec = 32 * kMxuFrags + 4;   // doubles a section: T's fragments, a1 a2 k1 k2
+constexpr int kMxuRow = kL + 4;               // floats of a segment's row in a warp's buffer
+constexpr int kTabMxu = 272;                  // floats of a section's table
+constexpr int kPowL = 8 + 4 * 33;             // where A^l, l = 0..31, starts
 
-// A section's B14 table (kTabMxu floats): b0, b1, b2, a1, a2 at 0..4, the
-// c factors b1 - a1 b0 and b2 - a2 b0 at 5, 6; at kPow + 4m the 2x2
-// Phi^(kL m), row-major, for m = 0..32; at kPowL + 4l the 2x2 A^l, l < 32.
-// tmat: a section's T, kMxuK x kMxuN float64, row-major.
-__global__ void __launch_bounds__(kMxuThreads)
-sos_mxu_tile_kernel(const float* __restrict__ x, float* __restrict__ y,
-                    const float* __restrict__ tab, const double* __restrict__ tmat, int sections,
-                    float* __restrict__ carry, int64_t n, int64_t tile, int64_t ntiles,
-                    int ends) {
-  namespace wmma = nvcuda::wmma;
-  __shared__ __align__(128) double sa[kMxuRows * kMxuK];  // c, then the product in place
-  __shared__ __align__(128) double st[kMxuK * kMxuN];     // the section's T
-  __shared__ float yb[kMxuSub];
-  __shared__ float stab[kTabMxu];
-  __shared__ float sent[2 * kMxuRows];  // the state entering each segment
-  __shared__ float scar[2 * kMaxSections];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int c = blockIdx.y;
-  const int64_t t = blockIdx.x;
-  const int D = 2 * sections;
-  float* cst = carry + (static_cast<int64_t>(c) * ntiles + t) * D;
-  if (tid < D) scar[tid] = ends ? 0.0f : cst[tid];
-  const float* xr = x + static_cast<int64_t>(c) * n;
-  float* yr = y != nullptr ? y + static_cast<int64_t>(c) * n : nullptr;
-  const int64_t t0 = t * tile;
-  const int64_t t1 = t0 + tile < n ? t0 + tile : n;
-  for (int64_t s0 = t0; s0 < t1; s0 += kMxuSub) {
-    const int count = static_cast<int>(t1 - s0 < kMxuSub ? t1 - s0 : kMxuSub);
-    for (int i = tid; i < kMxuSub; i += kMxuThreads) yb[i] = i < count ? xr[s0 + i] : 0.0f;
-#pragma unroll 1
-    for (int k = 0; k < sections; ++k) {
-      __syncthreads();  // the last pass is done with st, stab and sa
-      const double* tk = tmat + static_cast<int64_t>(k) * kMxuK * kMxuN;
-      for (int i = tid; i < kMxuK * kMxuN; i += kMxuThreads) st[i] = tk[i];
-      for (int i = tid; i < kTabMxu; i += kMxuThreads) stab[i] = tab[k * kTabMxu + i];
-      __syncthreads();
-      // c of every sample, exact in float64
-      const double k1 = stab[5], k2 = stab[6];
-      for (int i = tid; i < kMxuSub; i += kMxuThreads) {
-        const double v = yb[i];
-        double* row = sa + (i / kL) * kMxuK + i % kL;
-        row[0] = v * k1;
-        row[kL] = v * k2;
-      }
-      __syncthreads();
-      // the lane pass: this warp's 8 segments times T, written over their c
-      {
-        double* rows = sa + warp * 8 * kMxuK;
-        wmma::fragment<wmma::accumulator, 8, 8, 4, double> acc[kMxuN / 8];
-#pragma unroll
-        for (int q = 0; q < kMxuN / 8; ++q) wmma::fill_fragment(acc[q], 0.0);
-#pragma unroll 4
-        for (int kk = 0; kk < kMxuK / 4; ++kk) {
-          wmma::fragment<wmma::matrix_a, 8, 8, 4, double, wmma::row_major> fa;
-          wmma::load_matrix_sync(fa, rows + 4 * kk, kMxuK);
-#pragma unroll
-          for (int q = 0; q < kMxuN / 8; ++q) {
-            wmma::fragment<wmma::matrix_b, 8, 8, 4, double, wmma::row_major> fb;
-            wmma::load_matrix_sync(fb, st + 4 * kk * kMxuN + 8 * q, kMxuN);
-            wmma::mma_sync(acc[q], fa, fb, acc[q]);
-          }
-        }
-        __syncwarp();
-#pragma unroll
-        for (int q = 0; q < kMxuN / 8; ++q) {
-          wmma::store_matrix_sync(rows + 8 * q, acc[q], kMxuK, wmma::mem_row_major);
-        }
-      }
-      __syncthreads();
-      // the row scan: lane r of warp 0 holds segment r's end state
-      if (warp == 0) {
-        const float* pw = stab + kPow;
-        float w1 = static_cast<float>(sa[lane * kMxuK + kL]);
-        float w2 = static_cast<float>(sa[lane * kMxuK + kL + 1]);
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const float u1 = __shfl_up_sync(kFull, w1, d);
-          const float u2 = __shfl_up_sync(kFull, w2, d);
-          if (lane >= d) {
-            const float* P = pw + 4 * d;
-            w1 = fmaf(P[0], u1, fmaf(P[1], u2, w1));
-            w2 = fmaf(P[2], u1, fmaf(P[3], u2, w2));
-          }
-        }
-        float e1 = __shfl_up_sync(kFull, w1, 1);
-        float e2 = __shfl_up_sync(kFull, w2, 1);
-        if (lane == 0) {
-          e1 = 0.0f;
-          e2 = 0.0f;
-        }
-        const float c1 = scar[2 * k], c2 = scar[2 * k + 1];
-        const float* P = pw + 4 * lane;
-        sent[2 * lane] = fmaf(P[0], c1, fmaf(P[1], c2, e1));
-        sent[2 * lane + 1] = fmaf(P[2], c1, fmaf(P[3], c2, e2));
-        const float l1 = __shfl_sync(kFull, w1, 31);
-        const float l2 = __shfl_sync(kFull, w2, 31);
-        __syncwarp();  // every lane has read the carry before lane 0 moves it
-        if (lane == 0) {
-          const float* Q = pw + 4 * 32;
-          scar[2 * k] = fmaf(Q[0], c1, fmaf(Q[1], c2, l1));
-          scar[2 * k + 1] = fmaf(Q[2], c1, fmaf(Q[3], c2, l2));
-        }
-      }
-      __syncthreads();
-      // y = b0 x + s1, s1 = s_ex1 + (A^l s_r)_1
-      const float b0 = stab[0];
-      for (int i = tid; i < kMxuSub; i += kMxuThreads) {
-        const int r = i / kL;
-        const float* P = stab + kPowL + 4 * (i % kL);
-        const float s1 = fmaf(P[0], sent[2 * r],
-                              fmaf(P[1], sent[2 * r + 1],
-                                   static_cast<float>(sa[r * kMxuK + i % kL])));
-        yb[i] = fmaf(b0, yb[i], s1);
-      }
-    }
-    if (yr != nullptr) {
-      for (int i = tid; i < count; i += kMxuThreads) yr[s0 + i] = yb[i];
-    }
-    __syncthreads();
-  }
-  if (ends && tid < D) cst[tid] = scar[tid];
+// A section's B14 table (kTabMxu floats): b0, b1, b2, a1, a2 at 0..4, k1 and
+// k2 at 5, 6; at kPow + 4m the 2x2 Phi^(kL m), row-major, for m = 0..32; at
+// kPowL + 4l the 2x2 A^l, l < 32. A section's fragments (kMxuSec doubles):
+// block (q, kk) at 32 (q (q + 1) + kk), lane i's B value T[4 kk + i%4][8 q +
+// i/4]; then a1, a2, k1, k2 in float64.
+
+static __host__ __device__ constexpr int mxu_smem_bytes(int sections) {
+  return sections * (8 * kMxuSec + 4 * kTabMxu) +
+         4 * kMxuWarps * (32 * kMxuRow + 2 * kMaxSections);
 }
 
+// d += a b over one 16x8x8 FP64 tile (mma.sync, Hopper's DMMA shape): A
+// row-major (a0: row lane/4, a1: row lane/4 + 8, column lane%4; a2, a3: the
+// same rows, column lane%4 + 4), B column-major (b0: row lane%4, b1: row
+// lane%4 + 4, column lane/4), D (d0, d1: row lane/4, d2, d3: row lane/4 + 8;
+// columns 2 (lane%4) and 2 (lane%4) + 1).
+static __device__ __forceinline__ void dmma(double& d0, double& d1, double& d2, double& d3,
+                                                double a0, double a1, double a2, double a3,
+                                                double b0, double b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d0), "+d"(d1), "+d"(d2), "+d"(d3)
+      : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
+}
+
+static __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+// The warp's rows take samples x[0, count), zeros beyond: 16-byte copies
+// (cp.async, waited for here) when `vec` and the sub-tile is whole, else
+// plain loads.
+static __device__ __forceinline__ void mxu_load(const float* x, float* rows, int count, bool vec,
+                                                int lane) {
+  if (vec && count == kMxuSub) {
+#pragma unroll
+    for (int i = 0; i < kMxuSub / 128; ++i) {
+      const int q = lane + 32 * i;  // float4 q: segment q / 8, samples 4 (q % 8) ..
+      cp_async16(rows + (q >> 3) * kMxuRow + 4 * (q & 7), x + 4 * q);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  } else {
+    for (int i = lane; i < kMxuSub; i += 32) rows[(i / kL) * kMxuRow + i % kL] = i < count ? x[i] : 0.0f;
+  }
+  __syncwarp();
+}
+
+static __device__ __forceinline__ void mxu_store(float* y, const float* rows, int count, bool vec,
+                                                 int lane) {
+  if (vec && count == kMxuSub) {
+#pragma unroll
+    for (int i = 0; i < kMxuSub / 128; ++i) {
+      const int q = lane + 32 * i;
+      reinterpret_cast<float4*>(y)[q] =
+          *reinterpret_cast<const float4*>(rows + (q >> 3) * kMxuRow + 4 * (q & 7));
+    }
+  } else {
+    for (int i = lane; i < count; i += 32) y[i] = rows[(i / kL) * kMxuRow + i % kL];
+  }
+}
+
+// One section over a warp's sub-tile, in place in its rows; car: the
+// section's carry (2 floats, the state at the sub-tile's start, left at its
+// end).
+static __device__ __forceinline__ void mxu_section(float* rows, const double* frag,
+                                                   const float* tb, float* car, int lane) {
+  const int g = lane >> 2, tq = lane & 3;
+  // the lane pass: s_ex1 of every sample, FP64 on the tensor cores
+  double acc[4][4][2];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[m][q][0] = acc[m][q][1] = 0.0;
+  }
+#pragma unroll
+  for (int k2 = 0; k2 < 4; ++k2) {  // samples 8 k2 .. 8 k2 + 7: k-steps 2 k2, 2 k2 + 1
+    double a[4][2];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      a[m][0] = rows[(8 * m + g) * kMxuRow + 8 * k2 + tq];
+      a[m][1] = rows[(8 * m + g) * kMxuRow + 8 * k2 + 4 + tq];
+    }
+#pragma unroll
+    for (int q = k2; q < 4; ++q) {  // k2 <= q: the blocks of T that are not zero
+      const double b0 = frag[32 * (q * (q + 1) + 2 * k2) + lane];
+      const double b1 = frag[32 * (q * (q + 1) + 2 * k2 + 1) + lane];
+#pragma unroll
+      for (int m = 0; m < 4; m += 2) {
+        dmma(acc[m][q][0], acc[m][q][1], acc[m + 1][q][0], acc[m + 1][q][1], a[m][0],
+                 a[m + 1][0], a[m][1], a[m + 1][1], b0, b1);
+      }
+    }
+  }
+  // the end state of segment 8m + g (lane tq = 3 holds s_ex1 at 30 and 31),
+  // gathered to lane r = segment r
+  const double a1 = frag[32 * kMxuFrags], a2 = frag[32 * kMxuFrags + 1];
+  const double k1 = frag[32 * kMxuFrags + 2], k2 = frag[32 * kMxuFrags + 3];
+  float w1 = 0.0f, w2 = 0.0f;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float* row = rows + (8 * m + g) * kMxuRow;
+    const double s30 = acc[m][3][0], s31 = acc[m][3][1];
+    const double u30 = row[30], u31 = row[31];
+    const float e1 = static_cast<float>(fma(-a1, s31, fma(-a2, s30, fma(k2, u30, k1 * u31))));
+    const float e2 = static_cast<float>(fma(-a2, s31, k2 * u31));
+    const int src = 4 * (lane & 7) + 3;
+    const float v1 = __shfl_sync(kFull, e1, src);
+    const float v2 = __shfl_sync(kFull, e2, src);
+    if ((lane >> 3) == m) {
+      w1 = v1;
+      w2 = v2;
+    }
+  }
+  // the row scan: w_r = sum over segments j <= r of Phi^(kL (r - j)) z_j
+  const float* pw = tb + kPow;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float u1 = __shfl_up_sync(kFull, w1, d);
+    const float u2 = __shfl_up_sync(kFull, w2, d);
+    if (lane >= d) {
+      const float* P = pw + 4 * d;
+      w1 = fmaf(P[0], u1, fmaf(P[1], u2, w1));
+      w2 = fmaf(P[2], u1, fmaf(P[3], u2, w2));
+    }
+  }
+  float e1 = __shfl_up_sync(kFull, w1, 1);
+  float e2 = __shfl_up_sync(kFull, w2, 1);
+  if (lane == 0) {
+    e1 = 0.0f;
+    e2 = 0.0f;
+  }
+  const float c1 = car[0], c2 = car[1];
+  const float* P = pw + 4 * lane;
+  const float r1 = fmaf(P[0], c1, fmaf(P[1], c2, e1));  // the state entering segment lane
+  const float r2 = fmaf(P[2], c1, fmaf(P[3], c2, e2));
+  const float l1 = __shfl_sync(kFull, w1, 31);
+  const float l2 = __shfl_sync(kFull, w2, 31);
+  __syncwarp();  // every lane has read the carry and its rows before they change
+  if (lane == 0) {
+    const float* Q = pw + 4 * 32;
+    car[0] = fmaf(Q[0], c1, fmaf(Q[1], c2, l1));
+    car[1] = fmaf(Q[2], c1, fmaf(Q[3], c2, l2));
+  }
+  // y = b0 u + s1, s1 = s_ex1 + (A^l s_r)_1
+  const float b0 = tb[0];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float s1 = __shfl_sync(kFull, r1, 8 * m + g);
+    const float s2 = __shfl_sync(kFull, r2, 8 * m + g);
+    float* row = rows + (8 * m + g) * kMxuRow;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int l = 8 * q + 2 * tq;
+      const float* A0 = tb + kPowL + 4 * l;
+      float2 u = *reinterpret_cast<float2*>(row + l);
+      u.x = fmaf(b0, u.x, fmaf(A0[0], s1, fmaf(A0[1], s2, static_cast<float>(acc[m][q][0]))));
+      u.y = fmaf(b0, u.y, fmaf(A0[4], s1, fmaf(A0[5], s2, static_cast<float>(acc[m][q][1]))));
+      *reinterpret_cast<float2*>(row + l) = u;
+    }
+  }
+  __syncwarp();
+}
+
+// Launch 1 (ends) or 3 of B14 over `tasks` (channel, tile) pairs, warp w of
+// block b taking pair 8b + w: channel task / per, tile task % per, per the
+// tiles of a channel this launch runs.
+__global__ void __launch_bounds__(kMxuThreads, 2)
+sos_mxu_tile_kernel(const float* __restrict__ x, float* __restrict__ y,
+                    const float* __restrict__ tab, const double* __restrict__ frags, int sections,
+                    float* __restrict__ carry, int64_t n, int64_t tile, int64_t ntiles,
+                    int64_t tasks, int ends) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* sfrag = reinterpret_cast<double*>(smem);
+  float* stab = reinterpret_cast<float*>(sfrag + sections * kMxuSec);
+  float* srows = stab + sections * kTabMxu;
+  float* scar = srows + kMxuWarps * 32 * kMxuRow;
+  {
+    const float4* src = reinterpret_cast<const float4*>(frags);
+    float4* dst = reinterpret_cast<float4*>(sfrag);
+    for (int i = threadIdx.x; i < sections * kMxuSec / 2; i += kMxuThreads) dst[i] = src[i];
+    for (int i = threadIdx.x; i < sections * kTabMxu; i += kMxuThreads) stab[i] = tab[i];
+  }
+  __syncthreads();  // the block's one barrier
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t task = static_cast<int64_t>(blockIdx.x) * kMxuWarps + warp;
+  if (task >= tasks) return;
+  const int64_t per = ends ? ntiles - 1 : ntiles;
+  const int64_t c = task / per;
+  const int64_t t = task - c * per;
+  const int D = 2 * sections;
+  float* rows = srows + warp * 32 * kMxuRow;
+  float* car = scar + warp * 2 * kMaxSections;
+  float* cst = carry + (c * ntiles + t) * D;
+  if (lane < D) car[lane] = ends ? 0.0f : cst[lane];
+  const float* xr = x + c * n;
+  float* yr = y != nullptr ? y + c * n : nullptr;
+  const bool vec = ((reinterpret_cast<uintptr_t>(xr) | reinterpret_cast<uintptr_t>(yr)) & 15) == 0;
+  const int64_t t0 = t * tile;
+  const int64_t t1 = t0 + tile < n ? t0 + tile : n;
+  __syncwarp();
+  for (int64_t s0 = t0; s0 < t1; s0 += kMxuSub) {
+    const int count = static_cast<int>(t1 - s0 < kMxuSub ? t1 - s0 : kMxuSub);
+    mxu_load(xr + s0, rows, count, vec, lane);
+#pragma unroll 1
+    for (int k = 0; k < sections; ++k) {
+      mxu_section(rows, sfrag + k * kMxuSec, stab + k * kTabMxu, car + 2 * k, lane);
+    }
+    if (yr != nullptr) mxu_store(yr + s0, rows, count, vec, lane);
+    __syncwarp();
+  }
+  if (ends && lane < D) cst[lane] = car[lane];
+}
+
+static int mxu_allowed[kMaxDevices] = {};
+
 // The three launches of B14: tile ends, B12's carry warp, apply.
-static cudaError_t mxu_cascade(const float* x, float* y, const float* tab, const double* tmat,
+static cudaError_t mxu_cascade(const float* x, float* y, const float* tab, const double* frags,
                                float* carry, const float* M, int64_t n, int C, int S,
                                int64_t tile, cudaStream_t s) {
   const int64_t ntiles = (n + tile - 1) / tile;
-  cudaError_t err;
+  const int bytes = mxu_smem_bytes(S);
+  cudaError_t err = allow_smem(sos_mxu_tile_kernel, mxu_allowed, bytes);
+  if (err != cudaSuccess) return err;
   if (ntiles > 1) {
-    sos_mxu_tile_kernel<<<dim3(static_cast<unsigned>(ntiles - 1), static_cast<unsigned>(C)),
-                          kMxuThreads, 0, s>>>(x, nullptr, tab, tmat, S, carry, n, tile, ntiles,
-                                               1);
+    const int64_t tasks = C * (ntiles - 1);
+    sos_mxu_tile_kernel<<<static_cast<unsigned>((tasks + kMxuWarps - 1) / kMxuWarps),
+                          kMxuThreads, bytes, s>>>(x, nullptr, tab, frags, S, carry, n, tile,
+                                                   ntiles, tasks, 1);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if ((err = launch_carry(carry, M, nullptr, ntiles, C, 2 * S, s)) != cudaSuccess) return err;
-  sos_mxu_tile_kernel<<<dim3(static_cast<unsigned>(ntiles), static_cast<unsigned>(C)),
-                        kMxuThreads, 0, s>>>(x, y, tab, tmat, S, carry, n, tile, ntiles, 0);
+  const int64_t tasks = C * ntiles;
+  sos_mxu_tile_kernel<<<static_cast<unsigned>((tasks + kMxuWarps - 1) / kMxuWarps), kMxuThreads,
+                        bytes, s>>>(x, y, tab, frags, S, carry, n, tile, ntiles, tasks, 0);
   return cudaGetLastError();
 }
 
@@ -914,19 +1029,45 @@ extern "C" int dsp_iir1_affine(const float* x, float* y, float* carry, float a, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// B14. x, y: (C, n); tab: S * kTabMxu floats; tmat: S T matrices of
-// kMxuK x kMxuN doubles; carry: C * ceil(n / tile) * 2S floats; M: the
-// cascade's (2S, 2S) zero-input transition over `tile` samples.
+// B14. x, y: (C, n); tab: S * kTabMxu floats; frags: S * kMxuSec doubles
+// (each section's T in fragment order, then a1 a2 k1 k2); carry:
+// C * ceil(n / tile) * 2S floats; M: the cascade's (2S, 2S) zero-input
+// transition over `tile` samples.
 extern "C" int dsp_sos_cascade_mxu(const float* x, float* y, const float* tab,
-                                   const double* tmat, float* carry, const float* M, int64_t n,
+                                   const double* frags, float* carry, const float* M, int64_t n,
                                    int64_t channels, int64_t sections, int64_t tile,
                                    void* stream) {
   using namespace dsp::iir;
   if (bad_geometry(n, channels, tile) || tile % kMxuSub != 0 || sections < 1 ||
-      sections > kMaxSections) {
+      sections > kMaxSections || channels * ((n + tile - 1) / tile) > 0x7fffffffLL * kMxuWarps) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(mxu_cascade(x, y, tab, tmat, carry, M, n, static_cast<int>(channels),
+  return static_cast<int>(mxu_cascade(x, y, tab, frags, carry, M, n, static_cast<int>(channels),
                                       static_cast<int>(sections), tile,
                                       static_cast<cudaStream_t>(stream)));
+}
+
+// What the compiler gave B14's tile kernel, and its blocks an SM at
+// `sections` sections: registers a thread, local bytes a thread, shared
+// bytes a block (static and dynamic), blocks an SM, warps a block (5 int64
+// in out).
+extern "C" int dsp_mxu_attrs(int64_t sections, int64_t* out) {
+  using namespace dsp::iir;
+  if (sections < 1 || sections > kMaxSections) return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = mxu_smem_bytes(static_cast<int>(sections));
+  cudaError_t err = dsp::allow_smem(sos_mxu_tile_kernel, mxu_allowed, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(&a, reinterpret_cast<const void*>(sos_mxu_tile_kernel));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, reinterpret_cast<const void*>(sos_mxu_tile_kernel), kMxuThreads, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int64_t>(a.localSizeBytes);
+  out[2] = static_cast<int64_t>(a.sharedSizeBytes) + bytes;
+  out[3] = blocks;
+  out[4] = kMxuWarps;
+  return 0;
 }

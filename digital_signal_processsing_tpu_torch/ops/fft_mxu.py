@@ -4,14 +4,17 @@ Counterpart of the overlap-save part of
 ``digital_signal_processsing_tpu/ops/fft_mxu.py``. The reference runs each
 segment's DFT, tap multiply and inverse DFT as matmuls on the TPU's matrix
 unit, all in VMEM (``_fused_kernel``, ``_fused3_kernel``). The port computes
-the same causal FIR with radix-4 FFTs in shared memory, in its own segments:
+the same causal FIR with FFTs of its own, in its own segments:
 
-- :func:`fused_fir`  B8, ``csrc/fused_fir.cu``: one block transforms two
-  segments at once (packed as ``a + i*b``) in its shared memory, nfft up to
-  FUSED_MAX_NFFT;
+- :func:`fused_fir`  B8, ``csrc/fused_fir.cu``: T threads transform two
+  segments at once (packed as ``a + i*b``), each thread holding nfft/T
+  points in registers through Stockham passes of radix 4 to 32
+  (:data:`B8_PLANS`), shared memory only for the exchanges between passes,
+  nfft up to FUSED_MAX_NFFT;
 - :func:`fused_fir3` B9, ``csrc/fused_fir3.cu``: the four-step split
-  nfft = n1 * n2 in three launches through a scratch in device memory, nfft
-  up to FUSED3_MAX_NFFT;
+  nfft = n1 * n2 in three launches through a scratch in device memory, each
+  line a radix-4 FFT in shared memory (``csrc/fft.cuh``), nfft up to
+  FUSED3_MAX_NFFT;
 - :func:`overlap_save_fused` picks one of the two by the segment's nfft;
 - :func:`overlap_save_plain` the plain version of both, the same segments
   and the same spectrum of the taps with ``torch.fft``;
@@ -28,6 +31,7 @@ fails.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -39,13 +43,26 @@ from ..utils.layout import cdiv
 from .fir import _as_planar, _pick_block, _taps_on, overlap_save_frames
 from .pallas_scan import SMEM_MAX, _on_cuda, _stream
 
-# Largest nfft of B8: nfft complex float32 values held in place in one
-# block's shared memory, 136 KB at 16384 with the padding. 32768 would need
-# 272 KB, past the 227 KB a block may have.
+# Largest nfft of B8: a pair of 16384 complex float32 points is 128 KB of
+# registers (half an SM's register file) and, padded, 136 KB of exchange
+# in shared memory; 32768 would need 272 KB, past the 227 KB a block may have.
 FUSED_MAX_NFFT = 16384
 # Largest nfft of B9 (the reference's cap too): n1 = n2 = 1024.
 FUSED3_MAX_NFFT = 1 << 20
-FUSED_THREADS = 1024
+# B8's plan at each log2 nfft (csrc/fused_fir.cu Plan<>): points a thread and
+# the radices of its Stockham passes, the smallest first (the first pass
+# needs no twiddles); a block holds enough pairs for B8_MIN_THREADS threads.
+B8_PLANS = {
+    7: (16, (8, 16)),
+    8: (16, (16, 16)),
+    9: (16, (8, 8, 8)),
+    10: (16, (4, 16, 16)),
+    11: (16, (8, 16, 16)),
+    12: (16, (16, 16, 16)),
+    13: (32, (16, 16, 32)),
+    14: (32, (16, 32, 32)),
+}
+B8_MIN_THREADS = 256
 FUSED3_THREADS = 256
 # Complex points in one B9 block's shared memory: g lines of n1 or n2.
 LINE_POINTS = 8192
@@ -111,16 +128,37 @@ class FusedGeometry:
         return min(LINE_POINTS // self.n2, self.n1)
 
     @property
+    def points(self) -> int:
+        """B8: points a thread holds in registers."""
+        return B8_PLANS[self.log2n][0]
+
+    @property
+    def radices(self) -> tuple:
+        """B8: the radices of its Stockham passes, in order."""
+        return B8_PLANS[self.log2n][1]
+
+    @property
+    def pair_threads(self) -> int:
+        """B8: threads that carry one pair."""
+        return self.nfft // self.points
+
+    @property
+    def pairs_per_block(self) -> int:
+        """B8: pairs a block carries, so that it has at least B8_MIN_THREADS threads."""
+        return max(1, B8_MIN_THREADS // self.pair_threads)
+
+    @property
     def threads(self) -> int:
         if self.kernel == "B8":
-            return max(32, min(FUSED_THREADS, self.nfft // 2))
+            return self.pairs_per_block * self.pair_threads
         return FUSED3_THREADS
 
     @property
     def smem_bytes(self) -> int:
-        """Bytes of dynamic shared memory a block takes (``csrc/fft.cuh`` pads its lines)."""
+        """Bytes of dynamic shared memory a block takes: B8's exchange of each
+        pair (one pad after every 16 points), B9's lines (``csrc/fft.cuh``)."""
         if self.kernel == "B8":
-            return 8 * line_slots(self.nfft)
+            return 8 * self.pairs_per_block * (self.nfft + self.nfft // 16)
         return 8 * max(self.g1 * line_slots(self.n1), self.g2 * line_slots(self.n2))
 
     @property
@@ -177,8 +215,9 @@ class TapResponse:
     """The taps' spectrum at a geometry's nfft, as B8, B9 and the plain version read it.
 
     ``h`` is in natural bin order (complex64); ``h_kernel`` is ``h`` in the
-    order the kernel's forward FFT leaves the spectrum: for B8
-    ``h_kernel[q] = h[bitrev(q)]``, for B9 ``h_kernel[f1 * n2 + q] =
+    order the kernel's forward FFT leaves the spectrum: for B8 ``h`` itself
+    (its Stockham passes leave the spectrum in natural order,
+    ``csrc/fused_fir.cu``), for B9 ``h_kernel[f1 * n2 + q] =
     h[f1 + n1 * bitrev(q)]`` (``csrc/fft.cuh``, ``csrc/fused_fir3.cu``).
     """
 
@@ -203,7 +242,7 @@ def tap_response(taps, geometry: FusedGeometry, device) -> TapResponse:
     g = geometry
     h = torch.fft.fft(t64, n=g.nfft).to(torch.complex64)
     if g.kernel == "B8":
-        hk = h[torch.from_numpy(bit_reverse(np.arange(g.nfft), g.log2n)).to(h.device)]
+        hk = h
     else:
         f1 = np.arange(g.n1)[:, None]
         q = bit_reverse(np.arange(g.n2), g.n2.bit_length() - 1)[None, :]
@@ -260,11 +299,10 @@ def fused_fir(x: torch.Tensor, response: TapResponse) -> torch.Tensor:
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
-    tw = _twiddles(g.nfft, str(x.device))
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.dsp_fused_fir(
-            x.data_ptr(), y.data_ptr(), tw.data_ptr(), response.h_kernel.data_ptr(),
+            x.data_ptr(), y.data_ptr(), response.h_kernel.data_ptr(),
             t, c, g.k, g.block, g.log2n, g.threads, g.smem_bytes, _stream(x),
         )
     _build.check(err, "fused_fir")
@@ -273,6 +311,30 @@ def fused_fir(x: torch.Tensor, response: TapResponse) -> torch.Tensor:
 
 
 fused_fir.launches = 0
+
+
+def fused_kernel_attrs(log2n: int) -> tuple:
+    """What the compiler gave B8's kernel at nfft 2^log2n (the card only):
+    (registers a thread, local bytes a thread, shared bytes a block, blocks an
+    SM, threads a block)."""
+    lib = _build.library()
+    out = (ctypes.c_int64 * 5)()
+    _build.check(lib.dsp_fused_fir_attrs(log2n, ctypes.addressof(out)), "fused_kernel_attrs")
+    return tuple(out)
+
+
+def fused3_kernel_attrs(geometry: FusedGeometry) -> dict:
+    """What the compiler gave B9's three launches at ``geometry`` (the card only):
+    {launch: (registers a thread, local bytes a thread, shared bytes a block,
+    blocks an SM, threads a block)}."""
+    lib = _build.library()
+    out = (ctypes.c_int64 * 5)()
+    attrs = {}
+    for which, name in enumerate(("columns", "rows", "outputs")):
+        _build.check(lib.dsp_fused_fir3_attrs(which, geometry.smem_bytes, ctypes.addressof(out)),
+                     "fused3_kernel_attrs")
+        attrs[name] = tuple(out)
+    return attrs
 
 
 def fused_fir3(x: torch.Tensor, response: TapResponse) -> torch.Tensor:
@@ -352,6 +414,8 @@ __all__ = [
     "tap_response",
     "fused_fir",
     "fused_fir3",
+    "fused_kernel_attrs",
+    "fused3_kernel_attrs",
     "overlap_save_fused",
     "overlap_save_plain",
     "overlap_save_mxu",

@@ -198,18 +198,19 @@ def overlap_save_frames(
 
 # Taps above which `auto` leaves the direct conv1d for the fused overlap-save
 # kernels. Measured on an H100 (chip_smoke.py phase 5, 16 x 2^22 float32,
-# PERF.md): conv1d in IEEE fp32 is faster at 3, 5 and 7 taps, ties B8 at 9
-# (1.00 ms each; B8's nfft is 256 up to 32 taps) and grows about 0.028 ms a
-# tap beyond, so B8 wins at every longer filter measured, 101x at k=8193.
-# (The reference's 3900 was measured on a TPU v5e.)
-FIR_FFT_CROSSOVER = 8
+# PERF.md): since B8 holds its points in registers, it beats conv1d in IEEE
+# fp32 at every filter measured, from one tap (0.21 against 0.61 ms; B8's
+# nfft is 256 up to 32 taps) to 8193 (about 300x), so `auto` never takes
+# the direct route; ``method="direct"`` still does. (The reference's 3900
+# was measured on a TPU v5e.)
+FIR_FFT_CROSSOVER = 0
 
 
 def fir_filter(x: torch.Tensor, taps, *, method: str = "auto", response=None) -> torch.Tensor:
     """Causal FIR with the direct / overlap-save crossover.
 
-    ``auto`` takes ``direct`` up to FIR_FFT_CROSSOVER taps and
-    ``overlap_save_fused`` beyond: B8 while its transform fits one block's
+    ``auto`` takes ``direct`` up to FIR_FFT_CROSSOVER taps (none on the
+    H100's measurement) and ``overlap_save_fused`` beyond: B8 while its transform fits one block's
     shared memory, then B9, then the plain ``overlap_save_mxu`` past B9's
     envelope. ``response`` is an ``fft_mxu.TapResponse`` computed once for
     these taps (a ``DspChain`` keeps one), so the call computes no spectrum

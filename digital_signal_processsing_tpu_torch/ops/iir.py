@@ -480,34 +480,45 @@ iir1_block_scan.launches = 0
 # (iir_first_order_pallas(kernel="tile"), sosfilt_pallas_fused(lane_pass="mxu"))
 # and takes B10's or B12's plain version for a CPU tensor.
 
-# csrc/iir.cu, B14: samples a segment (a row of its lane pass), samples a
-# sub-tile, the rows and columns of a section's T, the floats of its table
+# csrc/iir.cu, B14: samples a segment (a row of its lane pass), a warp's
+# sub-tile (32 segments), warps a block, the (n-tile, k-step) blocks of T it
+# keeps and their order, the doubles of a section's fragments, the floats of
+# its table
 MXU_SEG = 32
 MXU_SUB = 32 * MXU_SEG
-MXU_K, MXU_N = 2 * MXU_SEG, 40
+MXU_WARPS = 8
+MXU_BLOCKS = tuple((q, kk) for q in range(MXU_SEG // 8) for kk in range(2 * q + 2))
+MXU_SEC = 32 * len(MXU_BLOCKS) + 4
+# FP64 multiply-adds a segment and section: each kept block is 8 x 4 of T
+MXU_MACS = 32 * len(MXU_BLOCKS)
 TAB_MXU = 272
 _MXU_POW_L = 8 + 4 * 33
 
 
-def mxu_tables(rows) -> tuple[np.ndarray, np.ndarray]:
-    """B14's tables: ((S, TAB_MXU) float32, (S, MXU_K, MXU_N) float64 T).
+def mxu_tables(rows) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """B14's tables: ((S, TAB_MXU) float32, (S, MXU_SEG, MXU_SEG) float64 T,
+    (S, MXU_SEC) float64 fragments).
 
-    The table holds b0 b1 b2 a1 a2, then the c factors b1 - a1 b0 and
-    b2 - a2 b0 at 5, 6, Phi^(MXU_SEG m) for m = 0..32 at 8 + 4m and A^l for
-    l < MXU_SEG at 140 + 4l (A = Phi), taken in float64 from the float32
-    coefficients and rounded once. T maps a segment's c (row j: c1 of lane
-    j, row MXU_SEG + j: its c2) to s_ex1 of lane l in column l, the sum over
-    j < l of A^(l-1-j) c_j, and to the segment's end state, the sum over all
-    j of A^(MXU_SEG-1-j) c_j, in columns MXU_SEG and MXU_SEG + 1; the other
-    columns are zeros. T stays float64.
+    The table holds b0 b1 b2 a1 a2, then k1 = b1 - a1 b0 and k2 = b2 - a2 b0
+    at 5, 6, Phi^(MXU_SEG m) for m = 0..32 at 8 + 4m and A^l for l < MXU_SEG
+    at 140 + 4l (A = Phi), taken in float64 from the float32 coefficients and
+    rounded once. T maps a segment's samples u (row j: sample j) to s_ex1 of
+    lane l in column l: T[j, l] = (A^(l-1-j))_00 k1 + (A^(l-1-j))_01 k2 for
+    j < l, else 0. T stays float64. The fragments are T in the order the
+    kernel's lanes read it, block (q, kk) of MXU_BLOCKS (n-tile q, k-step kk,
+    the blocks kk < 2q + 2 that are not all zeros) at 32 * its index, lane i
+    taking T[4 kk + i % 4, 8 q + i // 4]; then a1, a2, k1, k2 in float64.
     """
     r64 = np.asarray(rows, np.float32).astype(np.float64).reshape(-1, 6)
     s = r64.shape[0]
     tab = np.zeros((s, TAB_MXU))
-    tmat = np.zeros((s, MXU_K, MXU_N))
+    tmat = np.zeros((s, MXU_SEG, MXU_SEG))
+    frags = np.zeros((s, MXU_SEC))
+    lane = np.arange(32)
     for k, (b0, b1, b2, _, a1, a2) in enumerate(r64):
         phi = _phi(a1, a2)
-        tab[k, :7] = b0, b1, b2, a1, a2, b1 - a1 * b0, b2 - a2 * b0
+        k1, k2 = b1 - a1 * b0, b2 - a2 * b0
+        tab[k, :7] = b0, b1, b2, a1, a2, k1, k2
         pw = [np.eye(2)]
         for _ in range(MXU_SEG):
             pw.append(phi @ pw[-1])
@@ -519,17 +530,28 @@ def mxu_tables(rows) -> tuple[np.ndarray, np.ndarray]:
             p = step @ p
         for j in range(MXU_SEG):
             for l in range(j + 1, MXU_SEG):
-                tmat[k, j, l], tmat[k, MXU_SEG + j, l] = pw[l - 1 - j][0]
-            tmat[k, j, MXU_SEG : MXU_SEG + 2] = pw[MXU_SEG - 1 - j][:, 0]
-            tmat[k, MXU_SEG + j, MXU_SEG : MXU_SEG + 2] = pw[MXU_SEG - 1 - j][:, 1]
-    return tab.astype(np.float32), tmat
+                tmat[k, j, l] = pw[l - 1 - j][0, 0] * k1 + pw[l - 1 - j][0, 1] * k2
+        for i, (q, kk) in enumerate(MXU_BLOCKS):
+            frags[k, 32 * i : 32 * i + 32] = tmat[k, 4 * kk + lane % 4, 8 * q + lane // 4]
+        frags[k, 32 * len(MXU_BLOCKS) :] = a1, a2, k1, k2
+    return tab.astype(np.float32), tmat, frags
 
 
 @functools.lru_cache(maxsize=64)
 def _mxu_device_tables(key: bytes, tile: int, device: str):
-    tab, tmat = mxu_tables(np.frombuffer(key, np.float32).reshape(-1, 6))
+    tab, _, frags = mxu_tables(np.frombuffer(key, np.float32).reshape(-1, 6))
     _, m = _cascade_tables(key, tile, device, False)
-    return torch.from_numpy(tab).to(device), torch.from_numpy(tmat).to(device), m
+    return torch.from_numpy(tab).to(device), torch.from_numpy(frags).to(device), m
+
+
+def mxu_kernel_attrs(sections: int) -> tuple:
+    """What the compiler gave B14's tile kernel, and its blocks an SM at
+    ``sections`` sections (the card only): (registers a thread, local bytes a
+    thread, shared bytes a block, blocks an SM, warps a block)."""
+    lib = _build.library()
+    out = (ctypes.c_int64 * 5)()
+    _build.check(lib.dsp_mxu_attrs(sections, ctypes.addressof(out)), "mxu_kernel_attrs")
+    return tuple(out)
 
 
 def iir1_affine_scan(x2: torch.Tensor, a: float, b: float = 1.0, *,
@@ -567,8 +589,8 @@ def sos_cascade_mxu(x2: torch.Tensor, rows: np.ndarray, *,
     """The SOS cascade of (C, T) float32 from zero state by B14.
 
     B12's function with each section's in-segment pass a float64
-    tensor-core product against the section's T (:func:`mxu_tables`);
-    ``rows``: (S, 6) float32, S <= MAX_SECTIONS.
+    tensor-core product of the samples against the section's T
+    (:func:`mxu_tables`); ``rows``: (S, 6) float32, S <= MAX_SECTIONS.
     """
     rows = _sos_rows(rows)
     s = rows.shape[0]
@@ -582,12 +604,12 @@ def sos_cascade_mxu(x2: torch.Tensor, rows: np.ndarray, *,
     if t == 0:
         return y
     tile = pick_tile(c, t, tile_rows)
-    tab, tmat, m = _mxu_device_tables(rows.tobytes(), tile, str(x2.device))
+    tab, frags, m = _mxu_device_tables(rows.tobytes(), tile, str(x2.device))
     carry = torch.empty(c * cdiv(t, tile) * 2 * s, dtype=torch.float32, device=x2.device)
     lib = _build.library()
     with torch.cuda.device(x2.device):
         err = lib.dsp_sos_cascade_mxu(
-            x2.data_ptr(), y.data_ptr(), tab.data_ptr(), tmat.data_ptr(), carry.data_ptr(),
+            x2.data_ptr(), y.data_ptr(), tab.data_ptr(), frags.data_ptr(), carry.data_ptr(),
             m.data_ptr(), t, c, s, tile, _stream(x2),
         )
     _build.check(err, "sos_cascade_mxu")

@@ -4,9 +4,13 @@ The same NumPy inputs go through the JAX package (its fused Pallas kernels in
 interpret mode on the CPU) and the port on the CPU (the plain versions).
 ``emulate_b8`` and ``emulate_b9`` do what the blocks of
 ``csrc/fused_fir.cu`` and ``csrc/fused_fir3.cu`` do, with the geometry the
-wrappers pass to the launch: segment addressing, the two-segment packing,
-the padded shared-memory slots, every radix-4 pass, radix-2 stage and
-twiddle, B9's index map, permuted spectrum and waves.
+wrappers pass to the launch: segment addressing and the two-segment
+packing; for B8 each thread's points in registers, every Stockham pass of
+the plan with its in-register DFT, computed twiddles and the exchange
+through padded shared memory between passes, the tap product fused
+between the transforms and the inverse as the forward transform of the
+conjugate; for B9 the padded shared-memory slots, every radix-4 pass,
+radix-2 stage and twiddle, its index map, permuted spectrum and waves.
 
 Tolerances, relative to max|y|:
 - 1e-5 against the JAX fused kernel or the port's other FFT routes: the
@@ -122,11 +126,14 @@ def test_fir_filter_auto_long_taps(rng, k):
 
 def test_auto_routes_follow_the_crossover(rng):
     x = signal(rng, (1, 3000))
-    for k, route in [
-        (fir.FIR_FFT_CROSSOVER, "direct"), (fir.FIR_FFT_CROSSOVER + 1, "overlap_save_fused")
-    ]:
+    cases = [(fir.FIR_FFT_CROSSOVER + 1, "overlap_save_fused")]
+    if fir.FIR_FFT_CROSSOVER >= 1:  # the direct route's last tap count, where there is one
+        cases.insert(0, (fir.FIR_FFT_CROSSOVER, "direct"))
+    for k, route in cases:
         fir.fir_filter(torch.from_numpy(x), taps_of(rng, k))
         assert last_choice("fir_filter") == route
+    fir.fir_filter(torch.from_numpy(x), taps_of(rng, 1), method="direct")
+    assert last_choice("fir_filter") == "direct"
 
 
 def test_unknown_method_and_bad_shapes(rng):
@@ -325,23 +332,107 @@ class Pairs:
             np.add.at(written, (ch[m], o[m]), 1)
 
 
+def xslot(e):
+    """csrc/fused_fir.cu xslot(): B8's exchange, a pad after every 16 points."""
+    return e + (e >> 4)
+
+
+COS_PI_16 = np.cos(np.pi * np.arange(17) / 16).astype(np.float32)  # cospi16() in float32
+
+
+def w32(m):
+    """W_32^m = exp(-2 pi i m / 32) from the kernel's float32 constants."""
+    return np.complex64(COS_PI_16[m] - 1j * COS_PI_16[abs(8 - m)])
+
+
+def dft_registers(a):
+    """dft(): the R-point DFT over the last axis by radix-2 decimation in
+    frequency, in place, output k left at position bitrev(k); natural order back."""
+    a = a.astype(np.complex64)
+    r = a.shape[-1]
+    bits = r.bit_length() - 1
+    for st in range(bits):
+        h = r >> (st + 1)
+        for base in range(0, r, 2 * h):
+            for i in range(h):
+                u, v = a[..., base + i].copy(), a[..., base + i + h].copy()
+                a[..., base + i] = u + v
+                a[..., base + i + h] = (u - v) * w32(i * (16 // h)) if i else u - v
+    return a[..., bit_reverse(np.arange(r), bits)]
+
+
+def twiddles(e, span, r):
+    """twiddle(): W_span^(e q) for q < r, sincospif of the exact float32 argument
+    2 e q / span at q = c < 4 and q = 4a (here float64 cos and sin rounded to
+    float32), their product for the rest."""
+    x1 = (2.0 * e / span).astype(np.float32)
+
+    def exact(q):
+        ang = np.pi * (x1.astype(np.float64) * q)
+        return (np.cos(ang) - 1j * np.sin(ang)).astype(np.complex64)
+
+    c = min(r, 4)
+    w = np.empty(e.shape + (r,), np.complex64)
+    for a in range(r // c):
+        z = exact(c * a)
+        for q in range(c):
+            w[..., c * a + q] = exact(q) if a == 0 else z if q == 0 else z * exact(q)
+    return w
+
+
+def stockham(v, g, exchanges):
+    """fft<LOG>(): the forward transform of each pair, v (pairs, T, P) with thread
+    j's v[s] point j + s*T, natural order in and out, by the plan's passes; the
+    points between passes go through the padded exchange, every slot written once."""
+    n, p, t = g.nfft, g.points, g.pair_threads
+    j = np.arange(t)
+    ns = 1
+    for step, r in enumerate(g.radices):
+        last = step == len(g.radices) - 1
+        q_of = p // r
+        buf = np.full((v.shape[0], n + n // 16), np.nan, np.complex64)
+        for q in range(q_of):
+            b = j + q * t
+            cols = q + q_of * np.arange(r)
+            a = v[:, :, cols]
+            if ns > 1:
+                a = a * twiddles(b % ns, ns * r, r)
+            out = dft_registers(a)
+            if last:
+                v[:, :, cols] = out
+            else:
+                d = (b // ns) * (ns * r) + b % ns
+                buf[:, xslot(d[:, None] + ns * np.arange(r)[None, :])] = out
+        if not last:
+            assert not np.isnan(buf[:, xslot(np.arange(n))]).any()
+            v = buf[:, xslot(j[:, None] + t * np.arange(p)[None, :])]
+            exchanges.append(step)
+        ns *= r
+    return v
+
+
 def emulate_b8(x, response):
     g = response.geometry
     c, t = x.shape
-    n, logn = g.nfft, g.log2n
-    tw = fm._twiddles(n, "cpu").numpy()
-    h = response.h_kernel.numpy()
+    n, p, threads = g.nfft, g.points, g.pair_threads
+    assert g.threads == g.pairs_per_block * threads >= fm.B8_MIN_THREADS or g.pairs_per_block == 1
+    assert g.smem_bytes == 8 * g.pairs_per_block * (n + n // 16)
+    assert np.prod(g.radices) == n and max(g.radices) <= p
     pr = Pairs(g, c, t, np.arange(g.pairs(c, t)))
-    buf = np.zeros((len(pr.has_b), g.smem_bytes // 8), np.complex64)
-    i = np.arange(n)
-    buf[:, slot(0, i, n)] = pr.load(x, i)
-    fft_dif(buf, logn, 1, tw, 1)
-    buf[:, slot(0, i, n)] *= h
-    ifft_dit(buf, logn, 1, tw, 1)
+    pts = np.arange(threads)[:, None] + threads * np.arange(p)[None, :]  # thread j's points
+    v = pr.load(x, pts.ravel()).reshape(-1, threads, p)
+    exchanges = []
+    v = stockham(v, g, exchanges)
+    h = response.h_kernel.numpy()
+    np.testing.assert_array_equal(h, response.h.numpy())  # natural order
+    v = np.conj(v * h[pts]).astype(np.complex64)  # conj(X H): the inverse, forward
+    v = stockham(v, g, exchanges)
+    assert len(exchanges) == 2 * (len(g.radices) - 1)
     y, written = np.full((c, t), np.nan, np.float32), np.zeros((c, t), np.int64)
-    j = np.arange(g.block)
-    v = buf[:, slot(0, g.k - 1 + j, n)] * np.float32(1.0 / n)
-    pr.store(y, written, v, j)
+    o = pts.ravel() - (g.k - 1)
+    keep = (o >= 0) & (o < g.block)
+    vals = np.conj(v.reshape(v.shape[0], -1)[:, keep]) * np.float32(1.0 / n)  # (re, -im) / N
+    pr.store(y, written, vals, o[keep])
     assert (written == 1).all()
     return y
 
@@ -406,8 +497,8 @@ def response_for(h, block=None):
 
 @pytest.mark.parametrize(
     "k,channels,t",
-    [(1, 1, 1), (2, 3, 255), (63, 2, 4000), (257, 3, 7681), (4097, 1, 12288), (8193, 2, 30_000),
-     (8193, 3, 8192)],
+    [(1, 1, 1), (2, 3, 255), (63, 2, 4000), (100, 2, 5000), (200, 3, 7000), (257, 3, 7681),
+     (600, 2, 20_000), (4097, 1, 12288), (8193, 2, 30_000), (8193, 3, 8192)],
 )
 def test_b8_block_algorithm(rng, k, channels, t):
     x, h = signal(rng, (channels, t)), taps_of(rng, k)
@@ -416,6 +507,56 @@ def test_b8_block_algorithm(rng, k, channels, t):
     got = emulate_b8(x, r)
     assert rel_err(got, fir64(x, h)) < 1e-5
     assert rel_err(got, port(fm.fused_fir, x, r)) < 1e-5  # the plain version
+
+
+def test_b8_smallest_plan(rng):
+    """nfft 128, which only a block of 128 at one tap reaches: 32 pairs a block."""
+    x, h = signal(rng, (2, 1000)), taps_of(rng, 1)
+    r = response_for(h, 128)
+    assert r.geometry.nfft == 128 and r.geometry.pairs_per_block == 32
+    got = emulate_b8(x, r)
+    assert rel_err(got, fir64(x, h)) < 1e-5
+    assert rel_err(got, port(fm.fused_fir, x, r)) < 1e-5
+
+
+def test_b8_twiddles_are_accurate():
+    """Every twiddle of the plans within 3 float32 ulp of exp(-2 pi i e / span)."""
+    for log2n, (p, radices) in fm.B8_PLANS.items():
+        ns = 1
+        for r in radices:
+            e = np.arange(ns)
+            w = twiddles(e, ns * r, r).astype(np.complex128)
+            want = np.exp(-2j * np.pi * e[:, None] * np.arange(r)[None, :] / (ns * r))
+            assert np.abs(w - want).max() < 3 * 2.0**-24, (log2n, r)
+            ns *= r
+
+
+@pytest.mark.parametrize("log2n", sorted(fm.B8_PLANS))
+def test_b8_exchange_banks(log2n):
+    """B8's exchange: each half-warp's 8-byte writes and reads fall on distinct
+    banks (16 of 8 bytes) at nfft 4096 and 16384, the main path's, and at most
+    two-way on one bank for the other plans."""
+    g = fm.FusedGeometry(k=2, block=1 << (log2n - 1), nfft=1 << log2n)
+    n, p, t, slots = g.nfft, g.points, g.pair_threads, g.nfft + g.nfft // 16
+    tid = np.arange(g.threads)
+    gi, j = tid // t, tid % t
+    worst = 1
+    ns = 1
+    for step, r in enumerate(g.radices):
+        q_of = p // r
+        accesses = []
+        if step < len(g.radices) - 1:
+            for q in range(q_of):
+                b = j + q * t
+                d = (b // ns) * (ns * r) + b % ns
+                accesses += [gi * slots + xslot(d + k * ns) for k in range(r)]  # writes
+            accesses += [gi * slots + xslot(j + s * t) for s in range(p)]  # reads
+        for addr in accesses:
+            for half in range(0, g.threads, 16):
+                words = np.unique(addr[half : half + 16])
+                worst = max(worst, np.bincount(words % 16).max())
+        ns *= r
+    assert worst <= (1 if log2n in (12, 14) else 2), worst
 
 
 @pytest.mark.parametrize(
@@ -453,7 +594,11 @@ def test_b9_index_map_and_permuted_response(rng):
 @pytest.mark.parametrize("nfft", [256, 16384, 1 << 15, 1 << 20])
 def test_slots_fit_and_never_collide(nfft):
     g = fm.FusedGeometry(k=2, block=nfft // 2, nfft=nfft)
-    for lines, m in ((1, nfft),) if g.kernel == "B8" else ((g.g1, g.n1), (g.g2, g.n2)):
+    if g.kernel == "B8":  # each pair's exchange, one pad after every 16 points
+        pair, pos = np.meshgrid(np.arange(g.pairs_per_block), np.arange(nfft), indexing="ij")
+        s = (pair * (nfft + nfft // 16) + xslot(pos)).ravel()
+        assert np.unique(s).size == s.size and s.max() < g.smem_bytes // 8
+    for lines, m in () if g.kernel == "B8" else ((g.g1, g.n1), (g.g2, g.n2)):
         line, pos = np.meshgrid(np.arange(lines), np.arange(m), indexing="ij")
         s = slot(line, pos, m).ravel()
         assert np.unique(s).size == s.size and s.max() < g.smem_bytes // 8

@@ -69,6 +69,39 @@ def test_b8_matches_plain(dev, k, channels):
     check_kernel(dev, k, channels, "B8")
 
 
+@pytest.mark.parametrize("log2n", sorted(fm.B8_PLANS))
+def test_every_b8_plan_matches_plain(dev, log2n):
+    """Each Stockham plan (nfft 128 only at block 128 and one tap) against plain
+    and a float64 FIR, on lengths that leave ragged pairs and blocks."""
+    k = 1 if log2n == 7 else 1 << (log2n - 3)
+    g = fm.fused_geometry(k, 128 if log2n == 7 else fm.pick_fused_block(k))
+    assert g.log2n == log2n and g.kernel == "B8"
+    rng = np.random.default_rng(log2n)
+    h = (rng.normal(size=k) / np.sqrt(k)).astype(np.float32)
+    r = fm.tap_response(h, g, dev)
+    for channels, t in ((1, g.block - 1), (5, 3 * g.block + 7), (16, 50_001)):
+        x = torch.from_numpy(rng.normal(size=(channels, t)).astype(np.float32)).to(dev)
+        y = fm.fused_fir(x, r)
+        assert rel_err(y, fm.overlap_save_plain(x, r)) < 1e-5, (channels, t)
+        n = min(t, 300)
+        xs = x[-1, max(0, t - n - k + 1):].double().cpu().numpy()
+        xs = np.pad(xs, (max(0, n + k - 1 - xs.size), 0))
+        want = np.convolve(xs, h.astype(np.float64), "valid")
+        got = y[-1, t - n:].double().cpu().numpy()
+        assert np.abs(got - want).max() / np.abs(want).max() < 1e-4
+
+
+def test_b8_kernel_attrs(dev):
+    """The launch the wrapper asks for fits: at least one block an SM, the
+    threads and shared bytes of the geometry; no local memory below nfft 16384
+    (there the 512 threads' 128 registers hold the pair and a little spills)."""
+    for log2n in sorted(fm.B8_PLANS):
+        g = fm.FusedGeometry(k=2, block=1 << (log2n - 1), nfft=1 << log2n)
+        regs, local, shared, blocks, threads = fm.fused_kernel_attrs(log2n)
+        assert threads == g.threads and shared >= g.smem_bytes and blocks >= 1, log2n
+        assert regs <= 255 and (local == 0 or log2n == 14), (log2n, regs, local)
+
+
 @pytest.mark.parametrize("channels", [1, 3])
 @pytest.mark.parametrize("k", [LAST_B8 + 1, 65537, LAST_B9])
 def test_b9_matches_plain(dev, k, channels):

@@ -10,9 +10,12 @@ B12's plain versions. ``emulate_b11`` and ``emulate_b14`` do what the blocks
 of ``csrc/iir.cu`` do, with the wrappers' geometry and tables: B11's
 per-sample maps composed by a thread, a warp's shuffle steps and thread 0's
 chain, alpha in float64 and beta in float32, the launch-2 compose of the
-tiles' maps; B14's c in float64, the segment times T summed in float64 and
-rounded once to float32 (the FP64 tensor-core product), B12's row scan in
-float32 and the three launches.
+tiles' maps; B14's warp tasks, each a (channel, tile) sharing the block's
+fragments of T, its m16n8k8 fragments built from the samples in the lanes'
+layout, the zero blocks of T skipped, the products summed in float64 and
+rounded once to float32 (the FP64 tensor-core product), the end state one
+float64 step from the accumulators, B12's row scan in float32 and the three
+launches.
 
 Tolerances, relative to max|y|: 1e-5 against the JAX package and against
 the emulations (float32 recurrences that sum in other orders; the port's
@@ -266,62 +269,122 @@ def test_emulated_b11_impulse_and_zeros():
 
 # --- NumPy emulation of B14 --------------------------------------------------------
 
+LANE = np.arange(32)
+G, TQ = LANE >> 2, LANE & 3  # a lane's row (segment of its m-tile) and column group
 
-def _mxu_section(yb, tab, tmat, car):
-    """One section over a sub-tile as sos_mxu_tile_kernel runs it: yb (MXU_SUB,)
-    and car (2,) float32, both in place."""
-    seg = iir.MXU_SEG
-    rows = yb.reshape(-1, seg).astype(np.float64)
-    c = np.concatenate([rows * np.float64(tab[5]), rows * np.float64(tab[6])], 1)
-    d = (c @ tmat).astype(F32)  # FP64 products and sums, rounded once
+
+def _dmma(acc, a, b):
+    """acc (2, 32, 2), m-tiles m and m + 1, += one m16n8k8 FP64 product, the
+    fragments as the lanes hold them: a (4, 32) is a0 A[g, tq], a1 A[g + 8, tq],
+    a2 A[g, tq + 4], a3 A[g + 8, tq + 4]; b (2, 32) is b0 B[tq, g], b1
+    B[tq + 4, g]; acc[0][lane, i] is D[g, 2 tq + i], acc[1] the row g + 8
+    (g = lane // 4, tq = lane % 4)."""
+    amat = np.zeros((16, 8))
+    amat[G, TQ], amat[G + 8, TQ], amat[G, TQ + 4], amat[G + 8, TQ + 4] = a
+    bmat = np.zeros((8, 8))
+    bmat[TQ, G], bmat[TQ + 4, G] = b
+    d = amat @ bmat
+    cols = 2 * TQ[:, None] + np.arange(2)[None, :]
+    acc[0] += d[G[:, None], cols]
+    acc[1] += d[G[:, None] + 8, cols]
+
+
+def _mxu_products(rows, frag):
+    """s_ex1 of a warp's sub-tile as the lanes hold it, (m-tile, n-tile, lane, i)
+    float64: for each pair k2 of k-steps and n-tile q >= k2 (the pairs k2 > q
+    meet zero blocks of T), one m16n8k8 product a pair of m-tiles."""
+    seg = 8 * np.arange(4)[:, None] + G[None, :]  # (m-tile, lane) -> its segment
+    acc = np.zeros((4, 4, 32, 2))
+    products = 0
+    for k2 in range(4):
+        lo = rows[seg, 8 * k2 + TQ].astype(np.float64)  # the samples are the A values
+        hi = rows[seg, 8 * k2 + 4 + TQ].astype(np.float64)
+        for q in range(k2, 4):
+            b = [frag[32 * iir.MXU_BLOCKS.index((q, kk)) + LANE] for kk in (2 * k2, 2 * k2 + 1)]
+            for m in (0, 2):
+                _dmma(acc[m : m + 2, q], (lo[m], lo[m + 1], hi[m], hi[m + 1]), b)
+                products += 1
+    assert products * 16 * 8 * 8 == 32 * iir.MXU_MACS  # 20 DMMA of 16 x 8 x 8 a sub-tile
+    return acc
+
+
+def _mxu_section(rows, frag, tab, car):
+    """One section over a warp's sub-tile as mxu_section runs it: rows (32, 32)
+    float32 (segments x samples) and car (2,) float32, both in place."""
+    seg = 8 * np.arange(4)[:, None] + G[None, :]
+    acc = _mxu_products(rows, frag)
+    a1, a2, k1, k2 = frag[-4:]
+    # end states from lane tq = 3 (s_ex1 at 30, 31), one float64 step, rounded once
+    s30, s31 = acc[:, 3, :, 0], acc[:, 3, :, 1]
+    u30, u31 = rows[seg, 30].astype(np.float64), rows[seg, 31].astype(np.float64)
+    ends = np.stack([-a1 * s31 - a2 * s30 + k2 * u30 + k1 * u31, -a2 * s31 + k2 * u31], -1)
+    ends = ends.astype(F32)
+    w = ends[LANE >> 3, 4 * (LANE & 7) + 3]  # lane r gathers segment r's
     pw = tab[8 : 8 + 4 * 33].reshape(33, 2, 2)
-    lane = np.arange(32)
-    w = d[:, seg : seg + 2].copy()
     for step in (1, 2, 4, 8, 16):
         u = np.roll(w, step, axis=0)
-        w = np.where((lane >= step)[:, None], (w + u @ pw[step].T).astype(F32), w)
+        w = np.where((LANE >= step)[:, None], (w + u @ pw[step].T).astype(F32), w)
     e = np.roll(w, 1, axis=0)
     e[0] = 0.0
     entry = (np.einsum("rij,j->ri", pw[:32], car) + e).astype(F32)
     car[:] = (pw[32] @ car + w[31]).astype(F32)
-    pl = tab[8 + 4 * 33 : 8 + 4 * 33 + 4 * seg].reshape(seg, 2, 2)
-    s1 = d[:, :seg] + pl[None, :, 0, 0] * entry[:, :1] + pl[None, :, 0, 1] * entry[:, 1:]
-    yb[:] = (np.float64(tab[0]) * yb + s1.reshape(-1)).astype(F32)
+    pl = tab[8 + 4 * 33 : 8 + 4 * 33 + 4 * iir.MXU_SEG].reshape(iir.MXU_SEG, 2, 2)
+    s_r = entry[seg]  # (m-tile, lane, 2): the state entering the lane's segment
+    for q in range(4):
+        for i in range(2):
+            lane_of = 8 * q + 2 * TQ + i  # the column this accumulator holds
+            s1 = (acc[:, q, :, i].astype(F32) + pl[lane_of, 0, 0] * s_r[..., 0]
+                  + pl[lane_of, 0, 1] * s_r[..., 1])
+            rows[seg, lane_of] = (tab[0] * rows[seg, lane_of] + s1).astype(F32)
 
 
 def emulate_b14(x, sos, tile_rows=None):
-    """The three launches of dsp_sos_cascade_mxu on (C, n) float32."""
+    """The three launches of dsp_sos_cascade_mxu on (C, n) float32: warp w of
+    block b runs task 8b + w, a (channel, tile) of its launch, every section
+    over each of its sub-tiles with the block's staged fragments."""
     rows = f32rows(sos)
     s = rows.shape[0]
     c, n = x.shape
     tile = iir.pick_tile(c, n, tile_rows)
     ntiles = -(-n // tile)
-    tab, tmat = iir.mxu_tables(rows)
+    tab, _, frags = iir.mxu_tables(rows)
     m = np.linalg.matrix_power(iir.cascade_transition(rows), tile).astype(F32)
 
-    def run(xc, ti, car, out):
-        t0, t1 = ti * tile, min(ti * tile + tile, n)
-        for s0 in range(t0, t1, iir.MXU_SUB):
-            count = min(iir.MXU_SUB, t1 - s0)
-            yb = np.zeros(iir.MXU_SUB, F32)
-            yb[:count] = xc[s0 : s0 + count]
-            for k in range(s):
-                _mxu_section(yb, tab[k], tmat[k], car[k])
-            if out is not None:
-                out[s0 : s0 + count] = yb[:count]
+    def launch(per, carry, y):
+        tasks, seen = c * per, []
+        for block in range(-(-tasks // iir.MXU_WARPS)):
+            for warp in range(iir.MXU_WARPS):
+                task = block * iir.MXU_WARPS + warp
+                if task >= tasks:
+                    continue
+                ch, ti = divmod(task, per)
+                seen.append((ch, ti))
+                car = carry[ch, ti].reshape(s, 2).copy() if y is not None else np.zeros((s, 2), F32)
+                t0, t1 = ti * tile, min(ti * tile + tile, n)
+                for s0 in range(t0, t1, iir.MXU_SUB):
+                    count = min(iir.MXU_SUB, t1 - s0)
+                    sub = np.zeros(iir.MXU_SUB, F32)
+                    sub[:count] = x[ch, s0 : s0 + count]
+                    sub = sub.reshape(32, iir.MXU_SEG)
+                    for k in range(s):
+                        _mxu_section(sub, frags[k], tab[k], car[k])
+                    if y is not None:
+                        y[ch, s0 : s0 + count] = sub.reshape(-1)[:count]
+                if y is None:
+                    carry[ch, ti] = car.reshape(-1)
+        assert sorted(seen) == [(ch, ti) for ch in range(c) for ti in range(per)]
 
-    y = np.zeros_like(x)
+    carry = np.zeros((c, ntiles, 2 * s), F32)
+    if ntiles > 1:
+        launch(ntiles - 1, carry, None)
+    entry = np.zeros_like(carry)  # launch 2: B12's carry warp
     for ch in range(c):
-        ends = []
-        for ti in range(ntiles - 1):
-            car = np.zeros((s, 2), F32)
-            run(x[ch], ti, car, None)
-            ends.append(car.reshape(-1))
         st = np.zeros(2 * s, F32)
         for ti in range(ntiles):
-            run(x[ch], ti, st.reshape(s, 2).copy(), y[ch])
-            if ti < ntiles - 1:
-                st = (m @ st + ends[ti]).astype(F32)
+            entry[ch, ti] = st
+            st = (m @ st + carry[ch, ti]).astype(F32)
+    y = np.zeros_like(x)
+    launch(ntiles, entry, y)
     return y
 
 
@@ -350,31 +413,77 @@ def test_emulated_b14_impulses_across_segment_and_tile_edges():
     assert not emulate_b14(np.zeros((1, n), F32), sos, 32).any()
 
 
+@pytest.mark.parametrize("sections", [8, iir.MAX_SECTIONS])
+def test_emulated_b14_many_sections_at_high_q(rng, sections):
+    """butter(2S, 0.1), poles up to radius 0.985 at 16 sections: held to plain
+    within 1e-5 plus plain's own error against float64, and to float64 within
+    the larger of 1e-5 and plain's error, as the card's check holds it; nine
+    warp tasks, so a block's last warps idle."""
+    sos = f32rows(iir.design_butterworth(2 * sections, 0.1))
+    x = sig(rng, (3, 3 * SUB + 77))
+    y = emulate_b14(x, sos, 32)
+    want = scipy_sos(sos, x)
+    plain = iir._sos_plain(t(x), sos, None)[0].numpy()
+    e_plain = rel_err(plain, want)
+    assert rel_err(y, plain) < TOL + e_plain
+    assert rel_err(y, want) < max(TOL, 1.01 * e_plain)
+
+
 def test_mxu_tables_are_the_lane_pass(rng):
-    """c times T is the section's zero-state recurrence over a segment: s_ex1 of
-    every lane and the end state, to float64 rounding; the table's powers."""
+    """u times T is the section's zero-state recurrence over a segment, s_ex1 of
+    every lane, to float64 rounding; the end state one step from s_ex1 at 30
+    and 31; the table's powers."""
     rows = f32rows(DESIGNS["ellip"]())
-    tab, tmat = iir.mxu_tables(rows)
+    tab, tmat, frags = iir.mxu_tables(rows)
     assert tab.shape == (rows.shape[0], iir.TAB_MXU) and tab.dtype == F32
-    assert tmat.shape == (rows.shape[0], iir.MXU_K, iir.MXU_N) and tmat.dtype == np.float64
+    assert tmat.shape == (rows.shape[0], iir.MXU_SEG, iir.MXU_SEG) and tmat.dtype == np.float64
+    assert frags.shape == (rows.shape[0], iir.MXU_SEC) and frags.dtype == np.float64
     for k, r in enumerate(rows.astype(np.float64)):
         a_mat = np.array([[-r[4], 1.0], [-r[5], 0.0]])
-        c = rng.normal(size=(iir.MXU_SEG, 2))
+        k1, k2 = r[1] - r[4] * r[0], r[2] - r[5] * r[0]
+        u = rng.normal(size=iir.MXU_SEG)
         s, s_ex = np.zeros(2), []
         for j in range(iir.MXU_SEG):
             s_ex.append(s[0])
-            s = a_mat @ s + c[j]
-        got = np.concatenate([c[:, 0], c[:, 1]]) @ tmat[k]
-        np.testing.assert_allclose(got[: iir.MXU_SEG], s_ex, rtol=1e-12, atol=1e-12)
-        np.testing.assert_allclose(got[iir.MXU_SEG : iir.MXU_SEG + 2], s, rtol=1e-12, atol=1e-12)
-        assert not got[iir.MXU_SEG + 2 :].any()
-        np.testing.assert_allclose(tab[k, 5:7], [r[1] - r[4] * r[0], r[2] - r[5] * r[0]],
-                                   rtol=1e-6)
+            s = a_mat @ s + u[j] * np.array([k1, k2])
+        got = u @ tmat[k]
+        np.testing.assert_allclose(got, s_ex, rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(frags[k, -4:], [r[4], r[5], k1, k2], rtol=0, atol=0)
+        end = [-r[4] * got[31] - r[5] * got[30] + k2 * u[30] + k1 * u[31],
+               -r[5] * got[31] + k2 * u[31]]
+        np.testing.assert_allclose(end, s, rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(tab[k, 5:7], [k1, k2], rtol=1e-6)
         for m in (0, 1, 32):
             want = np.linalg.matrix_power(a_mat, iir.MXU_SEG * m).ravel()
             np.testing.assert_allclose(tab[k, 8 + 4 * m : 12 + 4 * m], want, rtol=1e-6,
                                        atol=1e-30)
         for lane in (0, 5, 31):
             want = np.linalg.matrix_power(a_mat, lane).ravel()
-            got = tab[k, 8 + 4 * 33 + 4 * lane : 12 + 4 * 33 + 4 * lane]
-            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-30)
+            got_p = tab[k, 8 + 4 * 33 + 4 * lane : 12 + 4 * 33 + 4 * lane]
+            np.testing.assert_allclose(got_p, want, rtol=1e-6, atol=1e-30)
+
+
+def test_mxu_fragments_skip_only_zero_blocks(rng):
+    """The blocks (n-tile q, k-step kk) left out, kk >= 2q + 2, are zeros of T;
+    the kept ones hold T in the lanes' B order; the m16n8k8 products over the
+    kept blocks give u @ T for 32 segments, 640 multiply-adds a segment."""
+    rows = f32rows(DESIGNS["butter"]())
+    _, tmat, frags = iir.mxu_tables(rows)
+    assert len(iir.MXU_BLOCKS) == 20 and iir.MXU_MACS == 640
+    for k in range(rows.shape[0]):
+        for q in range(4):
+            for kk in range(8):
+                block = tmat[k, 4 * kk : 4 * kk + 4, 8 * q : 8 * q + 8]
+                if (q, kk) in iir.MXU_BLOCKS:
+                    i = iir.MXU_BLOCKS.index((q, kk))
+                    np.testing.assert_array_equal(frags[k, 32 * i + LANE], block[TQ, G])
+                else:
+                    assert not block.any(), (q, kk)
+        u = rng.normal(size=(32, iir.MXU_SEG)).astype(F32)
+        seg = 8 * np.arange(4)[:, None] + G[None, :]
+        acc = _mxu_products(u, frags[k])
+        got = np.zeros((32, iir.MXU_SEG))
+        for q in range(4):
+            for i in range(2):
+                got[seg, 8 * q + 2 * TQ + i] = acc[:, q, :, i]
+        np.testing.assert_allclose(got, u.astype(np.float64) @ tmat[k], rtol=1e-12, atol=1e-12)

@@ -95,6 +95,26 @@ def test_b14_by_sections_and_tile(dev, sections):
         assert rel_err(y, want) < max(TOL, 1.01 * e_plain)
 
 
+@pytest.mark.parametrize("channels,t", [(9, 7 * SUB + 5), (1, 3), (17, iir.MXU_SUB)])
+def test_b14_warp_tasks_and_tiles(dev, channels, t):
+    """Channel and tile counts that leave a block's last warps idle, and tiles
+    of one sub-tile, against plain: every (channel, tile) task runs once."""
+    sos = np.asarray(designs()["ellip"], np.float32)
+    x = signal(dev, channels, t, seed=channels)
+    for tile_rows in (None, 32):
+        y = iir.sos_cascade_mxu(x, sos, tile_rows=tile_rows)
+        assert rel_err(y, iir._sos_plain(x, sos, None)[0]) < TOL, tile_rows
+
+
+def test_b14_kernel_attrs(dev):
+    """B14's tile kernel at 1 to 16 sections: 8 warps, at least one block an SM
+    (two up to 8 sections), its T staged whole within the 227 KB a block has."""
+    for sections in (1, 5, 8, iir.MAX_SECTIONS):
+        regs, local, shared, blocks, warps = iir.mxu_kernel_attrs(sections)
+        assert warps == iir.MXU_WARPS and regs <= 128 and shared <= 227 * 1024, sections
+        assert blocks >= (2 if sections <= 8 else 1), (sections, blocks)
+
+
 def test_entry_points_launch_the_anchors(dev):
     sos = np.asarray(designs()["ellip"], np.float32)
     x = signal(dev, 4, 3 * SUB + 5)
