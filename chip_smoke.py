@@ -9,7 +9,9 @@ PyTorch's generator on the card, seed 0). Every phase prints a line, and any
 failure exits non-zero:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: the kernels compiled from ``digital_signal_processsing_tpu_torch/csrc``;
+2. build: the kernels compiled from ``digital_signal_processsing_tpu_torch/csrc``, and
+   B19's and B20's registers, local bytes, shared bytes, blocks an SM and
+   threads by plan (``channelizer.pfb_kernel_attrs``);
 3. corners: each kernel (B1 windowed, B2 packed, B3 scan in its three
    variants, B4 cumsum and the two-pass route, B5 direct) against its plain
    PyTorch version on the card, bit-exact, over k in {1, 16, 1024, 65535}
@@ -31,8 +33,12 @@ failure exits non-zero:
    kernels B19 (raw stream) and B20 (commutated tensor) against their plain
    versions and a float64 FFT of the formula (1e-5 of max|Y|) over n in {32,
    48, 64, 96, 128, 256, 512, 1024} (B19 inside its envelope), P {2, 8, 16},
-   dilation {1, 2}, sign -1, whole and ragged blocks, streams shorter than
-   the look-back, every output layout, zeros and impulses at a block edge;
+   dilation {1, 2}, sign -1, whole and ragged steps, streams shorter than
+   the look-back, every output layout, zeros and impulses at a step edge;
+   B20 at every plan (n = 2..8192, 3 * 2^a up to 6144, the direct DFT's 1
+   and 7) at 16 taps and dilation 2 (look-backs longer than a step, cut to
+   fit at the largest n), and runs of several steps a block (B19 n=64, 1024;
+   B20 n=48, 64) with impulses at step and run edges;
    B21 (segmented Farrow) against plain and float64 (2e-5) over six rates, C
    {1, 2, 16} and T {4, 5, 100, 2^20}; the Farrow matmul and the composed
    bank against float64 with TF32 turned on by the caller (their IEEE float32
@@ -118,15 +124,18 @@ failure exits non-zero:
    the same bytes and B4's library call (``torch.cumsum``); then B1 and B3
    against the two-pass route at halos on both sides of the bounds that
    send ``windowed`` and ``scan*`` to two-pass (``TWO_BLOCKS_SMEM_MAX``);
-   B8 (at 257 and 8193 taps) and B9 at phase 4's shapes (median, min and
-   max) against their plain versions, bounds, their designs' shared-memory
+   B8 (at 257 and 8193 taps, beside its times at its redesign) and B9 at phase 4's
+   shapes (median, min and max) against their plain versions, bounds, their
+   designs' shared-memory
    limits and one IEEE-fp32 ``conv1d`` (the library call), B8's registers,
    local bytes, shared bytes and blocks an SM at every plan and B9's at each
    launch, both kernels' time by launch, and the crossover table of ``conv1d`` against B8 by taps; B10, B12, B13 and B15 at the IIR main
    path's shape against their plain versions and bounds, the library call
    where ``torchaudio`` exists, and the kernel-against-plain table by T that
-   sets ``ops.iir.PALLAS_IIR_MIN_T``; B19, B20 and B21 at the wideband main
-   path's shapes against their plain versions and bounds, with
+   sets ``ops.iir.PALLAS_IIR_MIN_T``; B19 (64 channels in both layouts the
+   main path writes, 1024 channels twice) and B20 at the wideband main path's
+   shapes (median, min and max of 20) beside the first port's times, against their
+   plain versions and bounds, with their launch geometry and
    ``torch.fft.fft`` of the same rows as a yardstick, B19 by taps a phase
    (1 to 16) at 64 and 1024 channels, and B21 against the ``matmul`` route
    at 441/2560, 160/147 and 3/2, the table that sets
@@ -148,7 +157,11 @@ failure exits non-zero:
 7. the flagship chain's wall time, and its device time under
    ``torch.profiler``, whole and by stage (LO bank, mix, channel FIR,
    decimate, FM demod, audio FIR), with the device's idle share; the same for
-   the wideband receiver (channelize, FM demod, audio FIR, squelch);
+   the wideband receiver (channelize, FM demod, audio FIR, squelch); each
+   profiled call after lead kernels that take the profiler's loss of a
+   profile's first records (how many it lost is printed; a profile that lost
+   them all is taken again with more), and a stage that launched one of the
+   package's kernels but recorded none of their device time fails the run;
 8. the sharded path (``parallel/``): four processes on the one card form a
    ring over gloo (``torch.multiprocessing`` spawn, a ``FileStore``), each
    holding a quarter of phase 4's 64M stream; with the counts reset around,
@@ -294,6 +307,13 @@ FARROW_MAIN_RATE = (46337, 65521)
 CHAIN_RATE = (441, 2560)  # 44.1 kHz from the chain's 256 kHz audio (tests/test_models.py:188)
 FARROW_AB_RATES = (CHAIN_RATE, (160, 147), (3, 2))  # B21 against the matmul route at these
 PFB_SWEEP_TAPS = (1, 2, 4, 8, 16)  # B19's time by taps a phase, on the 2^26 stream
+# B19/B20 as first ported and B8 as first redesigned, printed beside this call's times
+# (PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W)
+PFB_FIRST_MS = {"B19 n=64": 1.3260, "B19 n=1024": 1.5717, "B20 os": 2.3220, "B20 n=48": 1.7805}
+B8_REDESIGN_MS = {"B8 257": 0.2616, "B8": 0.7144}
+# B20's plans: every power of two 2..8192, 3 * 2^a up to 6144 (the radix-3 route), and
+# the direct DFT's 1 and 7
+PFB_PLAN_NS = (*(1 << e for e in range(1, 14)), *(3 << e for e in range(12)), 1, 7)
 # The time-varying IIR family's main path: the JAX package's benchmark point
 # for sosfilt_tv (BENCH_NOTES.md:452, :499), 4 sections of swept per-sample
 # rows shared by 16 channels of 2^22 float32 samples, and its frames kernel at
@@ -437,6 +457,70 @@ def device_rows(prof) -> list[tuple[str, int, float]]:
         if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
     ]
     return sorted(rows, key=lambda r: -r[2])
+
+
+PROFILE_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+
+# Lead kernels each profiled call launches inside the profiler's window before it
+# starts: late in a long process a torch.profiler profile loses the first device records
+# it collects, whatever the time between its start and the first kernel (on the H100
+# runs PERF.md records, 2 or 3 records in most profiles, 16 or more in one; a fresh
+# process none). An earlier wideband profile so lost its whole channelize stage (a copy
+# and B19), the chain's mix and one of the channel FIR's two B8 launches. The lead
+# kernels take the loss and are left out of the rows; a profile that lost all of them is
+# taken again with more, after a pause.
+PROFILE_LEADS = ((16, 0.0), (64, 0.05), (256, 0.2), (1024, 1.0))  # (kernels, seconds before)
+LEAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's
+
+
+def profiled(fn) -> tuple[float, float, list]:
+    """(wall ms, device ms, device rows) of one call of ``fn`` under torch.profiler,
+    after lead kernels that take the profile's lost records (left out of the rows)."""
+    for kernels, pause in PROFILE_LEADS:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=PROFILE_ACTIVITIES) as prof:
+            time.sleep(pause)
+            for _ in range(kernels):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = device_rows(prof)
+        lost = kernels - sum(r[1] for r in rows if LEAD_KERNEL in r[0])
+        if lost < kernels:
+            profiled.last = f"{lost} of {kernels}"
+            profiled.lost = max(profiled.lost, lost)
+            rows = [r for r in rows if LEAD_KERNEL not in r[0]]
+            return wall, sum(r[2] for r in rows), rows
+    raise AssertionError(f"the profiler lost all of {kernels} lead kernels: the call's own "
+                         "records may be lost")
+
+
+profiled.lost = 0  # the most lead records a profiled call lost
+
+
+def profile_stages(stages: dict, what: str) -> None:
+    """Each stage's device time under torch.profiler, the package's kernels it launched
+    counted around the profiled calls; fails where a stage launched one of them and the
+    profiler recorded none of the package's kernels' time."""
+    for name, fn in stages.items():
+        fn()
+        before = launch_counts()
+        _, dev_ms, stage_rows = profiled(fn)  # one call
+        launched = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+        top = max(stage_rows, key=lambda r: r[2]) if stage_rows else ("none", 0, 0.0)
+        ours = sum(r[2] for r in stage_rows if r[0].startswith("void dsp::"))
+        print(
+            f"  {name:12s} device {dev_ms:8.3f} ms in {sum(r[1] for r in stage_rows):3d} "
+            f"kernels ({ours:.3f} ms in the package's, launched {launched or 'none'}; lead "
+            f"records lost {profiled.last}); largest {top[2]:.3f} ms {top[0][:60]}"
+        )
+        if launched and not ours > 0:
+            raise AssertionError(f"{what} {name}: launched {launched} but the profiler recorded "
+                                 "no device time of the package's kernels")
 
 
 def largest_window(fits) -> int:
@@ -894,9 +978,11 @@ def phase_fir_times(main: dict) -> dict:
         design = (f"Stockham passes {g.radices}, {g.points} points a thread, "
                   f"{len(g.radices) - 1} exchanges a transform" if g.kernel == "B8"
                   else "radix-4 passes in shared memory (fft.cuh)")
+        redesign = B8_REDESIGN_MS.get(kernel)
+        was = f"; at its redesign {redesign:.4f}" if redesign else ""
         print(
             f"  {kernel} k={v['k']} nfft {v['nfft']} block {v['block']}: {v['ms']:.4f} ms "
-            f"({v['lo']:.4f}-{v['hi']:.4f}); plain {v['plain']:.4f}; bound {v['bound'][0]:.4f} "
+            f"({v['lo']:.4f}-{v['hi']:.4f}){was}; plain {v['plain']:.4f}; bound {v['bound'][0]:.4f} "
             f"({v['bound'][1]}); shared-memory limit of the design ({design}) {v['smem']:.4f}; "
             f"library conv1d (IEEE fp32) {v['library']:.4f}"
         )
@@ -950,18 +1036,6 @@ def phase_chain_profile(main: dict) -> None:
 
     forward()
     walls = [forward() for _ in range(3)]
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-
-    def profiled(fn) -> tuple[float, float, list]:
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        rows = device_rows(prof)
-        return wall, sum(r[2] for r in rows), rows
-
     wall, device, rows = profiled(lambda: chain.forward_planar(i, q))
     print(
         f"[7 chain] flagship 16 x 2^22: wall {', '.join(f'{w:.2f}' for w in walls)} ms; profiled "
@@ -991,14 +1065,7 @@ def phase_chain_profile(main: dict) -> None:
         "FM demod": lambda: fm_demodulate(torch.complex(di, dq), gain=cfg.fm_gain),
         "audio FIR": lambda: fir.fir_direct(audio, chain.audio_taps),
     }
-    for name, fn in stages.items():
-        fn()
-        _, dev_ms, stage_rows = profiled(fn)
-        top = max(stage_rows, key=lambda r: r[2]) if stage_rows else ("none", 0, 0.0)
-        print(
-            f"  {name:12s} device {dev_ms:8.3f} ms in {sum(r[1] for r in stage_rows):3d} "
-            f"kernels; largest {top[2]:.3f} ms {top[0][:60]}"
-        )
+    profile_stages(stages, "chain")
     for key, count, ms in rows[:8]:
         print(f"  {ms:9.3f} ms  {count:4d} x  {key[:80]}")
 
@@ -1355,6 +1422,19 @@ def farrow64(x: torch.Tensor, up: int, down: int, m_out: int) -> np.ndarray:
             - mu * (mu + 1) * (mu - 2) / 2 * g[2] + mu * (mu + 1) * (mu - 1) / 6 * g[3])
 
 
+def pfb_geometry_line(g) -> str:
+    return (f"{g.rows}, {g.lookback}, {g.prefetch}, {int(g.interleave)}, {g.steps}, {g.blocks}, "
+            f"{g.smem_bytes}")
+
+
+def pfb_attrs_lines() -> list[str]:
+    """B19's and B20's compiler record by plan (8 taps a phase at dilation 1)."""
+    b19 = "; ".join(f"n={n} {chz.pfb_kernel_attrs('B19', n)}" for n in (32, 64, 128, 256, 512, 1024))
+    b20 = "; ".join(f"n={n} {chz.pfb_kernel_attrs('B20', n)}" for n in PFB_PLAN_NS)
+    return [f"  B19 by plan (registers, local bytes, shared bytes, blocks an SM, threads): {b19}",
+            f"  B20 by plan (the same): {b20}"]
+
+
 def phase_pfb_corners(rng, dev, check: Checker) -> None:
     """B19, B20 and B21 against their plain versions and float64 at their corners."""
     def planes(kernel: str, got, want, want64, label: str) -> None:
@@ -1378,8 +1458,10 @@ def phase_pfb_corners(rng, dev, check: Checker) -> None:
         got = fn(*args, sign=sign, dilation=d, layout=layout)
         want = pfb_plain(s, raw, n, h, sign, d, layout)
         if raw:
-            got, want = torch.view_as_real(got), torch.view_as_real(want)
-        check.close(kernel, got if raw else got[1], want if raw else want[1], f"{label} {layout}")
+            got, want = (torch.view_as_real(got),), (torch.view_as_real(want),)
+        scale = torch.tensor([max(w.abs().max().item() for w in want)])
+        for g, w in zip(got, want):  # both planes, against the larger of them
+            check.close(kernel, g, w, f"{label} {layout}", PFB_RTOL, scale)
 
     for n in (32, 48, 64, 96, 128, 256, 512, 1024):
         rows, step = chz.pfb_rows(n), max(1, 128 // n)
@@ -1393,6 +1475,35 @@ def phase_pfb_corners(rng, dev, check: Checker) -> None:
                     pair("B19", x, n, hq, 1, d, f"B19 n={n} P={p} d={d} M={m}")
                 u = rng.standard_normal((m, n), dtype=np.float32)
                 pair("B20", u, n, hq, sign, d, f"B20 n={n} P={p} d={d} sign={sign} M={m}")
+    # every plan of B20 (and the direct DFT's 1 and 7) at 16 taps and dilation 2, a
+    # look-back of 30 rows (longer than a step from n = 512 on, and cut to fit shared
+    # memory at the largest n), a ragged last step, an impulse at a step edge
+    for n in PFB_PLAN_NS:
+        rows = chz.pfb_rows(n)
+        hq = (rng.standard_normal((16, n)) / 4).astype(np.float32)
+        u = rng.standard_normal((2 * rows + 3, n), dtype=np.float32)
+        u[rows - 1, n // 2] = 30.0
+        pair("B20", u, n, hq, -1, 2, f"B20 plan n={n} P=16 d=2 M={2 * rows + 3}")
+    # runs of several steps a block: impulses on both sides of a step edge and of a run
+    # edge, against plain and float64
+    for kernel, n, d in (("B19", 64, 1), ("B19", 1024, 1), ("B20", 48, 1), ("B20", 64, 2)):
+        g = chz.pfb_geometry(n, 8, d, kernel == "B19", 1)
+        m = (chz.PFB_BLOCKS + 1) * g.rows + 2  # B19's stream a multiple of 128 samples
+        g = chz.pfb_geometry(n, 8, d, kernel == "B19", m)
+        run = g.steps * g.rows
+        hq = (rng.standard_normal((8, n)) / np.sqrt(8)).astype(np.float32)
+        if kernel == "B19":
+            x = rng.standard_normal(m * n, dtype=np.float32)
+            for edge in (g.rows, run, 2 * run + g.rows):
+                x[edge * n - 1] = x[edge * n] = 25.0
+            pair("B19", x, n, hq, 1, d,
+                 f"B19 run n={n} M={m} ({g.steps} steps of {g.rows} rows a block)")
+        else:
+            u = rng.standard_normal((m, n), dtype=np.float32)
+            for edge in (g.rows, run, 2 * run + g.rows):
+                u[edge - 1 : edge + 1, n // 3] = 25.0
+            pair("B20", u, n, hq, 1, d,
+                 f"B20 run n={n} d={d} M={m} ({g.steps} steps of {g.rows} rows a block)")
     # zeros stay zero; impulses on both sides of a block edge
     n, rows = 64, chz.pfb_rows(64)
     hq = rng.standard_normal((8, n), dtype=np.float32)
@@ -1442,8 +1553,10 @@ def phase_pfb_corners(rng, dev, check: Checker) -> None:
         raise AssertionError(f"a matmul spelling ran in TF32: Farrow {ferr:.2e}, PFB {perr:.2e}")
     print(
         "[3 PFB/Farrow corners] n {32, 48, 64, 96, 128, 256, 512, 1024} (B19 inside its envelope), "
-        "P {2, 8, 16}, d {1, 2} (B20 sign -1 at d=2), whole and ragged blocks and streams shorter "
-        f"than the look-back, the three layouts, zeros exact, impulses at a block edge: B19 "
+        "P {2, 8, 16}, d {1, 2} (B20 sign -1 at d=2), whole and ragged steps and streams shorter "
+        "than the look-back, the three layouts, zeros exact, impulses at a step edge; B20 at every "
+        "plan (n = 2..8192, 3..6144, and the direct DFT's 1 and 7) at P=16, d=2; runs of several "
+        "steps a block (B19 n=64, 1024; B20 n=48, 64 d=2) with impulses at step and run edges: B19 "
         f"{check.count['B19']} and B20 {check.count['B20']} checks within {PFB_RTOL} of plain and "
         f"float64 (x max|Y|); B21 rates {[fw.as_rational_rate(r) for r in FARROW_RATES]}, C {{1, 2, "
         f"16}}, T {{4, 5, 100, 2^20}}: {check.count['B21']} checks within {FARROW_RTOL} of plain and "
@@ -1590,15 +1703,19 @@ def phase_wideband_times(main: dict) -> dict:
         return rows * 5 * n * np.log2(n)  # a complex n-point FFT's nominal count
 
     out = {}
-    for n, rx in ((64, main["rx64"]), (1024, main["rx1024"])):
+    # 1024 channels twice: the first port's time there moved 28% between two calls
+    for key, n, rx, layout in (("B19 n=64", 64, main["rx64"], "channels"),
+                               ("B19 n=64 complex", 64, main["rx64"], "complex"),
+                               ("B19 n=1024", 1024, main["rx1024"], "channels"),
+                               ("B19 n=1024 again", 1024, main["rx1024"], "channels")):
         hq = rx.prototype.view(-1, n)
-        ms, plain = time_pair(lambda: chz.fused_pfb_raw(x, n, hq, layout="channels"),
-                              lambda: pfb_plain(x, True, n, hq, 1, 1, "channels"))
+        ms, lo, hi, plain = time_spread(lambda: chz.fused_pfb_raw(x, n, hq, layout=layout),
+                                        lambda: pfb_plain(x, True, n, hq, 1, 1, layout))
         v = torch.randn(t // n, n, device=dev)
         fft = statistics.median(device_ms(lambda: torch.fft.fft(v), 2, 5))
         flops = fft_flops(t // n, n) + 2 * hq.shape[0] * t
-        out[f"B19 n={n}"] = {"ms": ms, "plain": plain, "fft": fft,
-                             "bound": bound(12 * t, flops, FP32_FLOPS_PER_S)}
+        out[key] = {"ms": ms, "lo": lo, "hi": hi, "plain": plain, "fft": fft,
+                    "bound": bound(12 * t, flops, FP32_FLOPS_PER_S)}
     # B19 by taps a phase at both widths: what each look-back row costs
     by_taps = {}
     for n in (64, 1024):
@@ -1609,15 +1726,15 @@ def phase_wideband_times(main: dict) -> dict:
     # B20: pfb_analyze_os's commutated (2^21, 64) tensor at dilation 2; the n=48 fused route
     hq = torch.from_numpy(chz.design_prototype(64, 8)).to(dev).view(8, 64)
     w = torch.randn(t // 32, 64, device=dev)
-    ms, plain = time_pair(lambda: chz.fused_branch_dft(w, hq, dilation=2, layout="channels"),
-                          lambda: pfb_plain(w, False, 64, hq, 1, 2, "channels"))
-    out["B20 os"] = {"ms": ms, "plain": plain, "bound": bound(
+    ms, lo, hi, plain = time_spread(lambda: chz.fused_branch_dft(w, hq, dilation=2, layout="channels"),
+                                    lambda: pfb_plain(w, False, 64, hq, 1, 2, "channels"))
+    out["B20 os"] = {"ms": ms, "lo": lo, "hi": hi, "plain": plain, "bound": bound(
         12 * w.numel(), fft_flops(t // 32, 64) + 16 * w.numel(), FP32_FLOPS_PER_S)}
     u48 = chz.commutate(main["x48"], 48)
     hq48 = chz._phase_taps(None, 48, dev)
-    ms, plain = time_pair(lambda: chz.fused_branch_dft(u48, hq48, layout="complex"),
-                          lambda: pfb_plain(u48, False, 48, hq48, 1, 1, "complex"))
-    out["B20 n=48"] = {"ms": ms, "plain": plain, "bound": bound(
+    ms, lo, hi, plain = time_spread(lambda: chz.fused_branch_dft(u48, hq48, layout="complex"),
+                                    lambda: pfb_plain(u48, False, 48, hq48, 1, 1, "complex"))
+    out["B20 n=48"] = {"ms": ms, "lo": lo, "hi": hi, "plain": plain, "bound": bound(
         12 * u48.numel(), fft_flops(u48.shape[0], 48) + 16 * u48.numel(), FP32_FLOPS_PER_S)}
     # B21 beyond the matrix envelope at 16 x 2^22: x read once, y written once
     xi = main["i"]
@@ -1627,11 +1744,23 @@ def phase_wideband_times(main: dict) -> dict:
                           lambda: fw.segmented_plain(xi, up, down, m_out))
     out["B21"] = {"ms": ms, "plain": plain,
                   "bound": bound(4 * xi.numel() + 4 * 16 * m_out, 20 * 16 * m_out, FP32_FLOPS_PER_S)}
-    print("[5 wideband times] device ms, median of 10 after 5 warm-ups (torch.fft.fft 5 after 2):")
+    print("[5 wideband times] device ms: B19/B20 median (min-max) of 20 after 5 warm-ups, plain "
+          "median of 6; B21 median of 20 (plain 20); torch.fft.fft median of 5 after 2:")
     for name, v in out.items():
         extra = f"; torch.fft.fft of the (M, N) rows alone {v['fft']:.4f}" if "fft" in v else ""
-        print(f"  {name:10s} {v['ms']:.4f} ms; plain {v['plain']:.4f}; bound {v['bound'][0]:.4f} "
-              f"({v['bound'][1]}); kernel/bound {v['ms'] / v['bound'][0]:.2f}{extra}")
+        spread = f" ({v['lo']:.4f}-{v['hi']:.4f})" if "lo" in v else ""
+        first = PFB_FIRST_MS.get(name.replace(" again", ""))
+        was = f"; first port {first:.4f}" if first else ""
+        print(f"  {name:16s} {v['ms']:.4f} ms{spread}{was}; plain {v['plain']:.4f}; bound "
+              f"{v['bound'][0]:.4f} ({v['bound'][1]}); kernel/bound {v['ms'] / v['bound'][0]:.2f}{extra}")
+    print("  B19/B20 geometry (rows a step, look-back rows, prefetch, interleaved, steps a block, "
+          "blocks, shared bytes): " + "; ".join(
+              f"{k} {pfb_geometry_line(g)}" for k, g in (
+                  ("B19 n=64", chz.pfb_geometry(64, 8, 1, True, t // 64, "channels")),
+                  ("B19 n=64 complex", chz.pfb_geometry(64, 8, 1, True, t // 64, "complex")),
+                  ("B19 n=1024", chz.pfb_geometry(1024, 8, 1, True, t // 1024, "channels")),
+                  ("B20 os", chz.pfb_geometry(64, 8, 2, False, t // 32, "channels")),
+                  ("B20 n=48", chz.pfb_geometry(48, 8, 1, False, u48.shape[0], "complex")))))
     for n in (64, 1024):
         print(f"  B19 n={n} by taps a phase: " + ", ".join(
             f"P={p} {by_taps[n, p]:.4f} ms" for p in PFB_SWEEP_TAPS))
@@ -1666,18 +1795,6 @@ def phase_wideband_profile(main: dict) -> None:
 
     forward()
     walls = [forward() for _ in range(3)]
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-
-    def profiled(fn) -> tuple[float, float, list]:
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        rows = device_rows(prof)
-        return wall, sum(r[2] for r in rows), rows
-
     wall, device, rows = profiled(lambda: rx(x))
     print(
         f"[7 wideband] 64 channels, 2^26 samples: wall {', '.join(f'{w:.2f}' for w in walls)} ms; "
@@ -1692,16 +1809,13 @@ def phase_wideband_profile(main: dict) -> None:
         "audio FIR": lambda: fir.fir_direct(audio, rx.audio_taps),
         "squelch": lambda: rx.squelch(filtered, i, q),
     }
-    for name, fn in stages.items():
-        fn()
-        _, dev_ms, stage_rows = profiled(fn)
-        top = max(stage_rows, key=lambda r: r[2]) if stage_rows else ("none", 0, 0.0)
-        print(
-            f"  {name:12s} device {dev_ms:8.3f} ms in {sum(r[1] for r in stage_rows):3d} "
-            f"kernels; largest {top[2]:.3f} ms {top[0][:60]}"
-        )
+    profile_stages(stages, "wideband")
+    if not any(r[0].startswith("void dsp::pfb::") for r in rows):
+        raise AssertionError("the wideband receiver's profile recorded no PFB kernel")
     for key, count, ms in rows[:8]:
         print(f"  {ms:9.3f} ms  {count:4d} x  {key[:80]}")
+    print(f"  the profiler lost at most {profiled.lost} lead records a profile in phase 7 "
+          f"(leads tried: {PROFILE_LEADS[0][0]} kernels, then more after a pause)")
 
 
 def tv_schedule(rng, sections: int, coef_channels: int, rows: int, a0: float = 1.25) -> np.ndarray:
@@ -2863,6 +2977,8 @@ def main() -> int:
             entry = ln.split("'")[1] if "'" in ln else ln
         elif "Used" in ln:
             print(f"  {entry[:72]}: {ln.split(':', 1)[-1].strip()}")
+    for ln in pfb_attrs_lines():
+        print(ln)
     mark("1-2 device and build")
 
     # 3. corners

@@ -76,9 +76,11 @@ _SIGNATURES = {
     # a block (5 int64)
     "dsp_mxu_attrs": (_I, _P),
     # x (B19) or u (B20), hq, twiddles, re, im, M, N, P, dilation, sign, stride of k,
-    # stride of m, rows, smem_bytes, stream
-    "dsp_pfb_raw": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "dsp_pfb_branch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # stride of m, layout, rows, steps, interleave, lookback, prefetch, smem_bytes, stream
+    "dsp_pfb_raw": (_P, _P, _P, _P, _P, *(_I,) * 14, _P),
+    "dsp_pfb_branch": (_P, _P, _P, _P, _P, *(_I,) * 14, _P),
+    # kind (0 B19, 1 B20), N, smem_bytes, out: as dsp_fused_fir_attrs
+    "dsp_pfb_attrs": (_I, _I, _I, _P),
     # x, y, t, channels, m_out, up, down, segment, 1/up, stream
     "dsp_farrow": (_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P),
     # x, y, rows, section stride, channel stride, frame_len, carry, trans, seed,

@@ -25,10 +25,17 @@ on the CPU; for a CUDA tensor they launch the kernel, add one to their
 ``layout`` writes the planes the caller returns: ``rows`` (M, N) planes, the
 reference's; ``channels`` (N, M) planes; ``complex`` one (N, M) complex64
 tensor, so that no transpose or interleave pass follows the kernel.
+
+:func:`pfb_geometry` is the launch geometry both kernels take (the plan for
+N, rows a step, the ring of staged input rows, steps a block), the same
+numbers ``csrc/pfb.cu`` checks and the NumPy emulation in
+``tests/test_torch_channelizer.py`` walks.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -39,16 +46,246 @@ from .. import _build
 from ..utils.device import resolve_device
 from ..utils.dispatch import record_choice
 from ..utils.layout import cdiv
-from .fft_mxu import _twiddles, line_slots
+from .fft_mxu import _twiddles
 from .fir import _taps_on, design_lowpass, ieee_fp32_matmul
-from .pallas_scan import _on_cuda, _stream
+from .pallas_scan import SMEM_MAX, SMEM_PER_SM, _on_cuda, _stream
 
 LAYOUTS = ("rows", "channels", "complex")
-# Largest N the kernels take: a 8192-point line of fft.cuh's slots is 70 KB.
+# Largest N the kernels take (the reference's envelope reaches 1024 for B19).
 PFB_MAX_N = 8192
-# Output rows a block of B19/B20 transforms: 4096 points up to N = 512 (35 KB
-# of fft.cuh's slots), 8192 from N = 1024 on (70 KB, 8 rows at 1024).
-PFB_POINTS = 4096
+PFB_THREADS = 256
+# The FFT plans of csrc/pfb.cu Plan<>, by (log2 M, K3) for N = 3^K3 * M: points
+# a thread in each sub-transform, the radices of its passes, and whether the
+# passes exchange by shuffles inside a warp (radices (P, T) or (P,)) or
+# through shared memory. Every other N takes the direct DFT.
+PFB_PLANS = {
+    (1, 0): (2, (2,), True),
+    (2, 0): (4, (4,), True),
+    (3, 0): (8, (8,), True),
+    (4, 0): (8, (8, 2), True),
+    (5, 0): (8, (8, 4), True),
+    (6, 0): (8, (8, 8), True),
+    (7, 0): (16, (16, 8), True),
+    (8, 0): (16, (16, 16), True),
+    (9, 0): (16, (8, 8, 8), False),
+    (10, 0): (16, (4, 16, 16), False),
+    (11, 0): (16, (8, 16, 16), False),
+    (12, 0): (16, (16, 16, 16), False),
+    (13, 0): (32, (16, 16, 32), False),
+    (0, 1): (1, (), True),
+    (1, 1): (2, (2,), True),
+    (2, 1): (4, (4,), True),
+    (3, 1): (4, (4, 2), True),
+    (4, 1): (4, (4, 4), True),
+    (5, 1): (8, (8, 4), True),
+    (6, 1): (8, (8, 8), True),
+    (7, 1): (8, (8, 4, 4), False),
+    (8, 1): (8, (8, 8, 4), False),
+    (9, 1): (8, (8, 8, 8), False),
+    (10, 1): (8, (8, 8, 4, 4), False),
+    (11, 1): (8, (8, 8, 8, 4), False),
+}
+# Output rows a step of the direct DFT: about this many points.
+PFB_DIRECT_POINTS = 2048
+# Blocks a launch aims at: a block walks ceil(steps / PFB_BLOCKS) steps.
+PFB_BLOCKS = 1024
+# Shared bytes a block may take while two blocks share an SM (228 KB an SM,
+# 1 KB of it reserved a block).
+PFB_SMEM_TWO = SMEM_PER_SM // 2 - 1024
+# The channel-major layouts walk interleaved steps where a step writes less than
+# a line of this many bytes of a channel (see PfbGeometry.interleave).
+PFB_LINE_BYTES = 128
+
+
+def pfb_plan(n: int) -> tuple[int, int] | None:
+    """(log2 M, K3) of the FFT plan for N = 3^K3 * M, or None for the direct DFT."""
+    k3 = 1 if n % 3 == 0 else 0
+    m = n // 3 if k3 else n
+    if m < 1 or m & (m - 1) or (n == 1):
+        return None
+    key = (m.bit_length() - 1, k3)
+    return key if key in PFB_PLANS else None
+
+
+def ring_stride(n: int) -> int:
+    """Floats a staged input row takes (csrc/pfb.cu ring_stride)."""
+    r4 = -(-n // 4) * 4
+    return r4 + 4 if r4 % 16 == 0 else r4
+
+
+def exchange_slots(n: int) -> int:
+    """Complex slots a transform's exchange takes in the shared-memory plans."""
+    return n + n // 16 + 4
+
+
+@dataclasses.dataclass(frozen=True)
+class PfbGeometry:
+    """The launch geometry of B19 (``raw``) or B20 for an (m, n) analysis with
+    p taps a phase at dilation d: the plan, rows a step, the ring of staged
+    input rows (its look-back and prefetch), steps a block, shared bytes."""
+
+    n: int
+    p: int
+    d: int
+    raw: bool
+    m: int
+    layout: str = "rows"
+
+    @property
+    def plan(self) -> tuple[int, int] | None:
+        return pfb_plan(self.n)
+
+    @property
+    def k(self) -> int:
+        """Sub-transforms: 3 for N = 3M, else 1."""
+        return 3 if self.plan and self.plan[1] else 1
+
+    @property
+    def sub_n(self) -> int:
+        """M: points of a sub-transform."""
+        return self.n // self.k
+
+    @property
+    def points(self) -> int:
+        return PFB_PLANS[self.plan][0]
+
+    @property
+    def radices(self) -> tuple:
+        return PFB_PLANS[self.plan][1]
+
+    @property
+    def warp(self) -> bool:
+        """The exchanges are shuffles inside a warp (else shared memory)."""
+        return PFB_PLANS[self.plan][2]
+
+    @property
+    def threads_per_transform(self) -> int:
+        return self.sub_n // self.points
+
+    @property
+    def rows(self) -> int:
+        """Output rows a step: two a transform (FFT plans), or the direct DFT's."""
+        if self.plan is None:
+            return max(1, PFB_DIRECT_POINTS // self.n)
+        return 2 * (PFB_THREADS // self.threads_per_transform)
+
+    @property
+    def rs(self) -> int:
+        return ring_stride(self.n)
+
+    @property
+    def extra_bytes(self) -> int:
+        """Shared bytes beside the ring: the exchange (shared-memory plans), or
+        the direct DFT's v lines and twiddles."""
+        if self.plan is None:
+            return 4 * (-(-self.rows * (self.n + 1) // 2) * 2) + 8 * self.n
+        if self.warp:
+            return 0
+        return 8 * (PFB_THREADS // self.threads_per_transform) * exchange_slots(self.n)
+
+    @property
+    def full_lookback(self) -> int:
+        """Input rows before a step that its taps read: d (P-1), one more for B19."""
+        return self.d * (self.p - 1) + (1 if self.raw else 0)
+
+    @property
+    def interleave(self) -> bool:
+        """Block b walks steps b, b + blocks, ... rather than a run of consecutive
+        steps: in the channel-major layouts, where a step writes less than a
+        PFB_LINE_BYTES line of each channel, so that the blocks running together
+        complete each line in L2 (a run would keep a part-written line of every
+        channel open a block: 67 MB at n=1024, past the 50 MB L2). Each step then
+        stages its own look-back."""
+        width = {"rows": 0, "channels": 4, "complex": 8}[self.layout]
+        return width > 0 and self.rows * width < PFB_LINE_BYTES
+
+    def ring_rows(self, lookback: int, prefetch: int) -> int:
+        if self.interleave:
+            return (1 + prefetch) * (lookback + self.rows)
+        return lookback + (1 + prefetch) * self.rows
+
+    def ring_bytes(self, lookback: int, prefetch: int) -> int:
+        return 4 * self.ring_rows(lookback, prefetch) * self.rs
+
+    @property
+    def staging(self) -> tuple[int, int]:
+        """(lookback, prefetch): the whole look-back with the next step prefetched
+        where two blocks still fit an SM, then without, then one block an SM;
+        past that the look-back is cut (its older taps read device memory)."""
+        full = self.full_lookback
+        for limit in (PFB_SMEM_TWO, SMEM_MAX):
+            for prefetch in (1, 0):
+                if self.extra_bytes + self.ring_bytes(full, prefetch) <= limit:
+                    return full, prefetch
+        room = (SMEM_MAX - self.extra_bytes) // (4 * self.rs) - self.rows
+        if room < 0:
+            raise ValueError(f"the PFB kernels have no room for one step at n={self.n}")
+        return min(full, room), 0
+
+    @property
+    def lookback(self) -> int:
+        return self.staging[0]
+
+    @property
+    def prefetch(self) -> int:
+        return self.staging[1]
+
+    @property
+    def cap(self) -> int:
+        """Ring rows: the look-back, this step, and the next one when prefetched."""
+        return self.ring_rows(self.lookback, self.prefetch)
+
+    @property
+    def resident(self) -> int:
+        """Taps r < resident read the ring; the rest read device memory."""
+        raw = 1 if self.raw else 0
+        if self.lookback < raw:
+            return 0
+        return min(self.p, (self.lookback - raw) // self.d + 1)
+
+    @property
+    def smem_bytes(self) -> int:
+        return self.extra_bytes + self.ring_bytes(self.lookback, self.prefetch)
+
+    @property
+    def total_steps(self) -> int:
+        return cdiv(self.m, self.rows)
+
+    @property
+    def steps(self) -> int:
+        """Steps a block walks."""
+        return max(1, cdiv(self.total_steps, PFB_BLOCKS))
+
+    @property
+    def blocks(self) -> int:
+        return cdiv(self.total_steps, self.steps)
+
+
+def pfb_geometry(n: int, p: int = 8, d: int = 1, raw: bool = False, m: int = 1,
+                 layout: str = "rows") -> PfbGeometry:
+    """B19's (``raw``) or B20's launch geometry (see :class:`PfbGeometry`)."""
+    if not 1 <= n <= PFB_MAX_N:
+        raise ValueError(f"the PFB kernels take N <= {PFB_MAX_N}, got {n}")
+    return PfbGeometry(n, p, d, raw, m, layout)
+
+
+def pfb_rows(n: int) -> int:
+    """Output rows a step of B19/B20 at N channels."""
+    return pfb_geometry(n).rows
+
+
+def pfb_kernel_attrs(kind: str, n: int, p: int = 8, d: int = 1) -> tuple:
+    """What the compiler gave B19 (``kind="B19"``) or B20 at n channels, with the
+    shared memory of p taps at dilation d (the card only): (registers a thread,
+    local bytes a thread, shared bytes a block, blocks an SM, threads a block)."""
+    g = pfb_geometry(n, p, d, kind == "B19")
+    lib = _build.library()
+    out = (ctypes.c_int64 * 5)()
+    _build.check(
+        lib.dsp_pfb_attrs(0 if kind == "B19" else 1, n, g.smem_bytes, ctypes.addressof(out)),
+        "pfb_kernel_attrs",
+    )
+    return tuple(out)
 
 
 def branch_fir(u: torch.Tensor, hq: torch.Tensor, *, dilation: int = 1) -> torch.Tensor:
@@ -118,24 +355,12 @@ def commutate(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([xp[:, :1], F.pad(rev[:-1, : n - 1], (0, 0, 1, 0))], dim=1)
 
 
-def pfb_rows(n: int) -> int:
-    """Output rows a block of B19/B20 transforms."""
-    return max(1, PFB_POINTS // n) if n <= 512 else max(1, 2 * PFB_POINTS // n)
-
-
-def pfb_smem_bytes(n: int) -> int:
-    """Shared memory a block takes: complex lines of fft.cuh's slots for a power of
-    two N >= 2, real lines of N + 1 floats for the direct DFT otherwise."""
-    rows = pfb_rows(n)
-    if n >= 2 and n & (n - 1) == 0:
-        return 8 * rows * line_slots(n)
-    return 4 * rows * (n + 1)
+_LAYOUT_CODES = {"rows": 0, "channels": 1, "complex": 2}
 
 
 def _launch(entry: str, src: torch.Tensor, hq: torch.Tensor, m: int, n: int, sign: int,
             dilation: int, layout: str):
-    if n > PFB_MAX_N:
-        raise ValueError(f"the PFB kernels take N <= {PFB_MAX_N}, got {n}")
+    g = pfb_geometry(n, hq.shape[0], dilation, entry == "dsp_pfb_raw", max(m, 1), layout)
     dev = src.device
     if layout == "complex":
         y = torch.empty((n, m), dtype=torch.complex64, device=dev)
@@ -149,12 +374,13 @@ def _launch(entry: str, src: torch.Tensor, hq: torch.Tensor, m: int, n: int, sig
         out = (re, im)
     if m == 0:
         return out
-    tw = _twiddles(n, str(dev))
+    tw = _twiddles(n, str(dev)) if g.plan is None else None  # the direct DFT's table
     lib = _build.library()
     with torch.cuda.device(dev):
         err = getattr(lib, entry)(
-            src.data_ptr(), hq.data_ptr(), tw.data_ptr(), re_ptr, im_ptr, m, n, hq.shape[0],
-            dilation, sign, sk, sm, pfb_rows(n), pfb_smem_bytes(n), _stream(src),
+            src.data_ptr(), hq.data_ptr(), None if tw is None else tw.data_ptr(), re_ptr, im_ptr,
+            m, n, hq.shape[0], dilation, sign, sk, sm, _LAYOUT_CODES[layout], g.rows, g.steps,
+            int(g.interleave), g.lookback, g.prefetch, g.smem_bytes, _stream(src),
         )
     _build.check(err, entry)
     return out
@@ -376,4 +602,6 @@ __all__ = [
     "dft_matmul",
     "design_prototype",
     "raw_envelope",
+    "pfb_geometry",
+    "pfb_kernel_attrs",
 ]

@@ -797,7 +797,28 @@ def _centered_fir(ext: torch.Tensor, c: np.ndarray) -> torch.Tensor:
     return y[..., wl - 1 : wl - 1 + t]
 
 
-_SAVGOL_PAD = {"mirror": "reflect", "nearest": "replicate", "wrap": "circular", "constant": "constant"}
+_SAVGOL_MODES = ("mirror", "nearest", "wrap", "constant")
+
+
+def _savgol_pad(xf: torch.Tensor, half: int, mode: str) -> torch.Tensor:
+    """``xf`` (channels, time) with ``half`` samples on both sides, as ``jnp.pad`` /
+    ``np.pad`` in mode "reflect", "edge", "wrap" or "constant": the reflection or the
+    wrap repeats as often as the pad needs, so any pad suits any length
+    (``F.pad``'s reflect and circular refuse a pad of the length or more)."""
+    t = xf.shape[-1]
+    if mode == "constant":
+        return F.pad(xf, (half, half))
+    i = np.arange(-half, t + half)
+    if mode == "nearest":
+        i = np.clip(i, 0, t - 1)
+    elif mode == "wrap":
+        i = i % t
+    elif t == 1:  # mirror of one sample: the sample
+        i = np.zeros_like(i)
+    else:  # mirror about the edge samples: period 2 (t - 1)
+        i = i % (2 * (t - 1))
+        i = np.where(i >= t, 2 * (t - 1) - i, i)
+    return xf[..., torch.from_numpy(i).to(xf.device)]
 
 
 def savgol_filter(
@@ -853,10 +874,9 @@ def savgol_filter(
                 xf[..., -window_length:],
             )
     else:
-        pad_mode = _SAVGOL_PAD.get(mode)
-        if pad_mode is None:
+        if mode not in _SAVGOL_MODES:
             raise ValueError(f"unknown mode {mode!r}")
-        y = _centered_fir(F.pad(xf[None], (half, half), mode=pad_mode)[0], c)
+        y = _centered_fir(_savgol_pad(xf, half, mode), c)
     return y[0] if squeeze else y
 
 

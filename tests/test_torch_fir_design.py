@@ -141,6 +141,20 @@ def test_savgol_filter_matches_jax_and_scipy(rng, mode, window, order, deriv):
     assert one.shape == (400,) and rel_err(one.numpy(), got[0].numpy()) < 1e-6
 
 
+@pytest.mark.parametrize("mode", ["mirror", "nearest", "wrap", "constant"])
+@pytest.mark.parametrize("t,window", [(5, 11), (3, 7), (3, 11), (1, 7), (1, 11)])
+def test_savgol_filter_short_inputs_match_jax_and_scipy(rng, mode, t, window):
+    """Shorter than the half-window: the padding repeats its reflection or wrap,
+    as ``jnp.pad`` and scipy do."""
+    x = rng.normal(size=(2, t)).astype(np.float32)
+    got = fir.savgol_filter(torch.from_numpy(x), window, 3, mode=mode)
+    want = np.asarray(jax_fir.savgol_filter(x, window, 3, mode=mode))
+    want64 = sps.savgol_filter(x.astype(np.float64), window, 3, mode=mode, axis=-1)
+    assert got.shape == (2, t) and got.dtype == torch.float32
+    assert rel_err(got.numpy(), want) < TOL
+    assert rel_err(got.numpy(), want64) < TOL
+
+
 def test_savgol_filter_refusals():
     x = torch.zeros(2, 11)
     with pytest.raises(ValueError, match="interp"):

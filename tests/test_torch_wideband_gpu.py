@@ -65,13 +65,18 @@ def test_b19_matches_plain(dev, n, p, d):
                 assert rel_err(g, w) < 1e-5, (n, p, d, m, layout)
 
 
-@pytest.mark.parametrize("n", [32, 48, 64, 96, 1024])
+# every plan: each power of two 2..8192, the radix-3 route 3 * 2^a up to 6144, and
+# the direct DFT (1 and odd n)
+B20_NS = [1 << e for e in range(1, 14)] + [3 << e for e in range(12)] + [1, 7]
+
+
+@pytest.mark.parametrize("n", B20_NS)
 @pytest.mark.parametrize("sign,d", [(1, 1), (-1, 2)])
 def test_b20_matches_plain(dev, n, sign, d):
     rng = np.random.default_rng(n)
     for p in (2, 8, 16):
         hq = torch.from_numpy(rng.normal(size=(p, n)).astype(np.float32)).to(dev)
-        for m in (1, 5, 777, 4099):
+        for m in (1, 5, 777, 4099) if n <= 1024 else (1, 5, 3 * ch.pfb_rows(n) + 1):
             u = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32)).to(dev)
             re, im = ch.fused_branch_dft(u, hq, sign=sign, dilation=d)
             wre, wim = plain_pfb(u, False, n, hq, sign, d, "rows")
@@ -79,6 +84,19 @@ def test_b20_matches_plain(dev, n, sign, d):
             scale = max(wre.abs().max().item(), wim.abs().max().item())
             assert (re - wre).abs().max().item() < 1e-5 * scale, (n, p, m)
             assert (im - wim).abs().max().item() < 1e-5 * scale, (n, p, m)
+
+
+# the main path's plans: B19 at 64 and 1024 channels, B20 at 64 (dilation 2) and 48
+MAIN_PLANS = (("B19", 64, 1), ("B19", 1024, 1), ("B20", 64, 2), ("B20", 48, 1))
+
+
+@pytest.mark.parametrize("kind,n,d", MAIN_PLANS)
+def test_pfb_kernel_attrs(dev, kind, n, d):
+    """No local memory at the main path's plans; 256 threads, two blocks an SM."""
+    regs, local, shared, blocks, threads = ch.pfb_kernel_attrs(kind, n, 8, d)
+    g = ch.pfb_geometry(n, 8, d, kind == "B19", 1)
+    assert threads == ch.PFB_THREADS and local == 0 and regs <= 128
+    assert shared >= g.smem_bytes and blocks >= 2
 
 
 def test_zeros_stay_zero(dev):
