@@ -11,7 +11,9 @@ failure exits non-zero:
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the kernels compiled from ``digital_signal_processsing_tpu_torch/csrc``, and
    B19's and B20's registers, local bytes, shared bytes, blocks an SM and
-   threads by plan (``channelizer.pfb_kernel_attrs``);
+   threads by plan (``channelizer.pfb_kernel_attrs``), B12's by sections
+   (``iir.cascade_kernel_attrs``) and B5's by window and channels
+   (``pallas_direct.direct_kernel_attrs``);
 3. corners: each kernel (B1 windowed, B2 packed, B3 scan in its three
    variants, B4 cumsum and the two-pass route, B5 direct) against its plain
    PyTorch version on the card, bit-exact, over k in {1, 16, 1024, 65535}
@@ -29,7 +31,10 @@ failure exits non-zero:
    sections {1, 2, 4, 8}, C {1, 3, 16}, T {1, 4095, 4096, 4097, odd, 100003}
    and 16 x 2^22, first-order a {0.5, -0.3, 0.99, 0.9999}; seeded chunks
    whose end states match the float64 state at their last sample, impulses
-   across sub-tile edges, zeros exact, B13 refusing 9 sections; then the PFB
+   across sub-tile edges, zeros exact, B13 refusing 9 sections; B12's
+   look-back at sections {1, 4, 8, 16} over tile counts one below, at, one
+   above and past three times its depth, seeded and not, ragged, with tiles
+   longer than a block holds, and impulses at tile edges; then the PFB
    kernels B19 (raw stream) and B20 (commutated tensor) against their plain
    versions and a float64 FFT of the formula (1e-5 of max|Y|) over n in {32,
    48, 64, 96, 128, 256, 512, 1024} (B19 inside its envelope), P {2, 8, 16},
@@ -58,7 +63,9 @@ failure exits non-zero:
    butter, cheby2 and elliptic designs of ``iir_design``, both row passes,
    against their plain versions (1e-5 of max|y|) and float64 (1e-4) over C
    {1, 3, 16}, T {1, 4095, 4096, 4097, 100003} and 16 x 2^22; impulses at
-   segment, sub-tile and tile edges, zeros exact, their refusals;
+   segment, sub-tile and tile edges, zeros exact, their refusals; and the
+   high-Q end, 16 sections of butter(32, 0.1), where B12 is held to float64
+   within HIGHQ_FACTOR x plain's own error;
 4. main path, through the entry points a user calls, with the kernels'
    launch counts reset just before and read just after:
    ``moving_average`` on a 64M-sample stereo stream at k=1024 (B1), the same
@@ -129,9 +136,13 @@ failure exits non-zero:
    designs' shared-memory
    limits and one IEEE-fp32 ``conv1d`` (the library call), B8's registers,
    local bytes, shared bytes and blocks an SM at every plan and B9's at each
-   launch, both kernels' time by launch, and the crossover table of ``conv1d`` against B8 by taps; B10, B12, B13 and B15 at the IIR main
+   launch, both kernels' time by launch, and the crossover table of ``conv1d`` against B8 by taps;
+   B5 at k=64 and 256 (median, min and max of 20) beside its first port's
+   time; B10, B12, B13 and B15 at the IIR main
    path's shape against their plain versions and bounds, the library call
-   where ``torchaudio`` exists, and the kernel-against-plain table by T that
+   where ``torchaudio`` exists, B12 and B12 seeded against B13 in turns
+   (median, min and max of 20) beside their first port's times, B12 by
+   launch, and the kernel-against-plain table by T that
    sets ``ops.iir.PALLAS_IIR_MIN_T``; B19 (64 channels in both layouts the
    main path writes, 1024 channels twice) and B20 at the wideband main path's
    shapes (median, min and max of 20) beside the first port's times, against their
@@ -311,6 +322,9 @@ PFB_SWEEP_TAPS = (1, 2, 4, 8, 16)  # B19's time by taps a phase, on the 2^26 str
 # (PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W)
 PFB_FIRST_MS = {"B19 n=64": 1.3260, "B19 n=1024": 1.5717, "B20 os": 2.3220, "B20 n=48": 1.7805}
 B8_REDESIGN_MS = {"B8 257": 0.2616, "B8": 0.7144}
+# B12, B13 (PR 4) and B5 (PR 2) as first ported, printed beside this call's times
+IIR_FIRST_MS = {"B12": 0.6341, "B12 seeded": 0.6341, "B13": 0.7091}
+DIRECT_FIRST_MS = {64: 0.6232, 256: 2.1516}
 # B20's plans: every power of two 2..8192, 3 * 2^a up to 6144 (the radix-3 route), and
 # the direct DFT's 1 and 7
 PFB_PLAN_NS = (*(1 << e for e in range(1, 14)), *(3 << e for e in range(12)), 1, 7)
@@ -366,8 +380,6 @@ FP64_TC_FLOPS_PER_S = 67e12
 # this rate too, so the bound stays a least time.
 HBM_BYTES_PER_S = 3.35e12
 INT32_ADDS_PER_S = 132 * (64 * 2 + 64) * 1.98e9
-# Shared-memory words an SM loads a clock (128 bytes): B5 loads one a tap.
-SMEM_WORDS_PER_S = 132 * 32 * 1.98e9
 # float32 operations outside the tensor cores: 132 SMs x 128 lanes x 2 (FMA)
 # x 1.98 GHz (NVIDIA's data sheet: 67 TFLOP/s fp32 outside the tensor cores).
 FP32_FLOPS_PER_S = 132 * 128 * 2 * 1.98e9
@@ -1135,6 +1147,40 @@ def phase_iir_corners(rng, dev, check: Checker) -> None:
             k = c if t < IIR_T else 1
             check.close("B10", y[:k], iir1_64(x[:k], a, 0.7), f"B10 {label} against float64",
                         IIR64_RTOL)
+    # B12's look-back: tiles of one sub-tile (tile_rows=32) numbering one below,
+    # at, one above and past three times its depth L, seeded, ragged; tiles of
+    # five sub-tiles (160), one more than a block holds (the fifth streamed and
+    # read twice); 16 sections as four of the main path's filters in a row
+    lb_cases = 0
+    for sos in (iir.design_butterworth(2, 0.1), IIR_SOS, iir.design_butterworth(16, 0.1),
+                np.tile(IIR_SOS, (4, 1))):
+        s = sos.shape[0]
+        depth = iir.lookback_depth(s)
+        for ntiles, tile_rows in ((depth - 1, 32), (depth, 32), (depth + 1, 32),
+                                  (3 * depth + 2, 32), (3, 160)):
+            t = ntiles * iir.lookback_tile(1, 1, tile_rows) - 37
+            x = sig(3, t)
+            st = torch.from_numpy((0.3 * rng.standard_normal((s, 3, 2))).astype(np.float32)).to(dev)
+            label = f"S={s} {ntiles} tiles of tile_rows={tile_rows} T={t}"
+            for state in (None, st):
+                y, end = iir.sos_cascade(x, sos, state, tile_rows=tile_rows)
+                want, want_end = iir._sos_plain(x, sos, state)
+                check.close("B12", y, want, f"B12 look-back {label} against plain", IIR_RTOL)
+                y64, zf = sos64(sos, x, None if state is None else state)
+                check.close("B12", y, y64, f"B12 look-back {label} against float64", IIR64_RTOL)
+                if state is not None:
+                    check.close("B12", end, want_end, f"B12 look-back end {label}", IIR_RTOL, want)
+                    check.close("B12", end, zf, f"B12 look-back end {label} against float64",
+                                IIR64_RTOL, y64)
+                lb_cases += 1
+    # impulses at tile edges (tile_rows=32: tiles of 4096) and around the depth
+    t = 10 * sub + 5
+    x = torch.zeros(5, t, device=dev)
+    for c, p in enumerate((0, sub - 1, sub, 8 * sub - 1, 8 * sub)):
+        x[c, p] = 1.0
+    want, _ = sos64(IIR_SOS, x)
+    check.close("B12", iir.sos_cascade(x, IIR_SOS, tile_rows=32)[0], want,
+                "B12 impulses at tile edges", IIR_RTOL)
     # seeded chunks: the state after each chunk is the one-shot state at that sample
     sos = IIR_SOS
     x = sig(16, 1 << 20)
@@ -1177,8 +1223,10 @@ def phase_iir_corners(rng, dev, check: Checker) -> None:
         f"{sub + 1}, {3 * sub + 77}, 100003}} and 16 x 2^22, a {IIR_POLES}: "
         + ", ".join(f"{k} {check.count[k]} checks" for k in IIR_KERNELS)
         + f" within {IIR_RTOL} of plain and {IIR64_RTOL} of float64 (x max|y|), seeded chunk "
-        "states against the float64 state at their last sample, impulses at sub-tile edges, "
-        "zeros exact, B13 refused 9 sections; max abs error "
+        f"states against the float64 state at their last sample, B12's look-back in {lb_cases} "
+        "calls (sections 1, 4, 8, 16; tiles around its depth, streamed tiles, seeded and not, "
+        "ragged), impulses at sub-tile and tile edges, zeros exact, B13 refused 9 sections; "
+        "max abs error "
         + ", ".join(f"{k} {check.max_err[k]:.3e}" for k in IIR_KERNELS)
     )
 
@@ -1326,6 +1374,23 @@ def phase_iir_times(main: dict) -> dict:
     print(f"  library: {library_note}"
           + ("" if library["B12"] is None else f": cascade {library['B12']:.4f} ms, "
              f"first order {library['B10']:.4f} ms"))
+    # B12 in one pass against B13 (PR 4's three launches, unrolled), in turns, median
+    # (min-max) of 20 after 5 warm-ups, beside PR 4's times
+    runs = {"B12": lambda: iir.sos_cascade(x, rows),
+            "B12 seeded": lambda: iir.sos_cascade(x, rows, st),
+            "B13": lambda: iir.sos_cascade_unrolled(x, rows)}
+    spread = {name: [] for name in runs}
+    for name in (*runs, *reversed(runs)):
+        spread[name] += device_ms(runs[name], 5, 10)
+    b12_bound = bounds["B12"][0]
+    for name, d in spread.items():
+        med = statistics.median(d)
+        print(f"  {name:10s} {med:.4f} ms ({min(d):.4f}-{max(d):.4f}) median (min-max) of 20; "
+              f"PR 4 {IIR_FIRST_MS[name]:.4f} ({IIR_FIRST_MS[name] / med:.2f}x); kernel/bound "
+              f"{med / b12_bound:.2f}")
+    print(f"  B12 attrs at {iir.lookback_tile(16, IIR_T)}-sample tiles (registers, local bytes, "
+          f"shared bytes, blocks an SM): {iir.cascade_kernel_attrs(s)}; look-back depth "
+          f"{iir.lookback_depth(s)}")
     # where a call's device time goes: its launches one by one
     for name, fn in (("B12", lambda: iir.sos_cascade(x, rows)),
                      ("B10", lambda: iir.iir1_block_scan(x, 0.995))):
@@ -1425,6 +1490,17 @@ def farrow64(x: torch.Tensor, up: int, down: int, m_out: int) -> np.ndarray:
 def pfb_geometry_line(g) -> str:
     return (f"{g.rows}, {g.lookback}, {g.prefetch}, {int(g.interleave)}, {g.steps}, {g.blocks}, "
             f"{g.smem_bytes}")
+
+
+def lookback_direct_attrs_lines() -> list[str]:
+    """B12's compiler record by sections at the IIR main path's tile, and B5's by window."""
+    tile = iir.lookback_tile(16, IIR_T)
+    lines = [f"  B12 sos_lookback_kernel, tile {tile} (registers, local bytes, shared bytes, "
+             "blocks an SM) by sections: " + ", ".join(
+                 f"S={s} {iir.cascade_kernel_attrs(s, tile)}" for s in (1, 4, 5, 8, 16))]
+    lines.append("  B5 direct_kernel (the same four) by window and channels: " + ", ".join(
+        f"k={k} C={c} {pd.direct_kernel_attrs(k, c)}" for k in (1, 15, 64, 256) for c in (1, 2, 3)))
+    return lines
 
 
 def pfb_attrs_lines() -> list[str]:
@@ -2428,16 +2504,25 @@ def phase_anchor_corners(rng, dev, check: Checker) -> None:
         for c, t in [(c, 100_003) for c in (1, 3, 16)] + [(16, IIR_T)]:
             plain_err[name] = max(plain_err.get(name, 0.0),
                                   mxu(sig(c, t), sos, f"{name} ({sos.shape[0]} sections) C={c} T={t}"))
-    # a reading, not a check: the high-Q end, 16 sections of butter(32, 0.1),
-    # each spelling of the cascade against float64
+    # the high-Q end, 16 sections of butter(32, 0.1) (poles at radius up to
+    # 0.985), each spelling of the cascade against float64: past the float32
+    # recurrence's reach plain itself lies 1e-5 or more from float64, so B12 is
+    # held there within HIGHQ_FACTOR x plain's own error (the rule of the
+    # time-varying kernels, phase 4), and within IIR_RTOL where plain is nearer
     sos = iir.design_butterworth(2 * iir.MAX_SECTIONS, 0.1)
     x = sig(3, 100_003)
     want = sos64(sos, x)[0].double()
+    y12 = iir.sos_cascade(x, sos)[0]
     high_q = {
         "plain": rel64(iir._sos_plain(x, sos, None)[0], want),
-        "B12": rel64(iir.sos_cascade(x, sos)[0], want),
+        "B12": rel64(y12, want),
         "B14": rel64(iir.sos_cascade_mxu(x, sos), want),
     }
+    check.max_err["B12"] = max(check.max_err["B12"], high_q["B12"] * want.abs().max().item())
+    check.count["B12"] += 1
+    if not high_q["B12"] <= max(IIR_RTOL, HIGHQ_FACTOR * high_q["plain"]):
+        raise AssertionError(f"B12 at 16 high-Q sections: {high_q['B12']:.3e} from float64, over "
+                             f"{HIGHQ_FACTOR} x plain's {high_q['plain']:.3e} (and {IIR_RTOL})")
     # impulses across segment, sub-tile and tile edges (tile_rows=32: a tile of
     # 4096) give the impulse response; zeros stay zero
     sos = design_set()["ellip"]
@@ -2481,8 +2566,8 @@ def phase_anchor_corners(rng, dev, check: Checker) -> None:
         + "; max abs error " + ", ".join(f"{k} {check.max_err[k]:.3e}" for k in ANCHOR_KERNELS)
         + "; plain's own largest error against float64 (x max|y|): "
         + ", ".join(f"{k} {v:.3e}" for k, v in plain_err.items())
-        + "; 16 sections of butter(32, 0.1) on 3 x 100003 against float64: "
-        + ", ".join(f"{k} {v:.3e}" for k, v in high_q.items())
+        + "; 16 sections of butter(32, 0.1) on 3 x 100003 against float64 (B12 held within "
+        f"{HIGHQ_FACTOR} x plain's): " + ", ".join(f"{k} {v:.3e}" for k, v in high_q.items())
     )
 
 
@@ -2979,6 +3064,8 @@ def main() -> int:
             print(f"  {entry[:72]}: {ln.split(':', 1)[-1].strip()}")
     for ln in pfb_attrs_lines():
         print(ln)
+    for ln in lookback_direct_attrs_lines():
+        print(ln)
     mark("1-2 device and build")
 
     # 3. corners
@@ -3135,8 +3222,6 @@ def main() -> int:
         "B5": bound(4 * n, DIRECT_WINDOWS[-1] * n),  # k - 1 adds and a divide
     }
     b5_bound64 = bound(4 * n, DIRECT_WINDOWS[0] * n)
-    # not a bound of the work but of B5's design: one shared-memory load a tap
-    b5_smem = {k: n * k / SMEM_WORDS_PER_S * 1e3 for k in DIRECT_WINDOWS}
 
     def gss(ms: float) -> str:
         return f"{ms:.4f} ms = {n / ms / 1e6:.2f} GS/s"
@@ -3159,10 +3244,14 @@ def main() -> int:
         + ", ".join(f"{name} {b:.4f} {by}" for name, (b, by) in bounds.items())
         + f", B5 k=64 {b5_bound64[0]:.4f} {b5_bound64[1]}"
     )
-    print(
-        "  B5's design limit, one shared-memory load a tap at 32 words a clock an SM (ms): "
-        + ", ".join(f"k={k} {ms:.4f}" for k, ms in b5_smem.items())
-    )
+    # B5 redesigned: median (min-max) of 20 after 5 warm-ups, beside PR 2's time
+    for k, bk in ((DIRECT_WINDOWS[0], b5_bound64), (DIRECT_WINDOWS[-1], bounds["B5"])):
+        d = device_ms(lambda k=k: pd.direct_averager(x, k, 2), 5, 20)
+        med = statistics.median(d)
+        print(f"  B5 k={k:<3d} C=2 {med:.4f} ms ({min(d):.4f}-{max(d):.4f}) median (min-max) of 20; "
+              f"PR 2 {DIRECT_FIRST_MS[k]:.4f} ({DIRECT_FIRST_MS[k] / med:.2f}x); bound {bk[0]:.4f} "
+              f"({bk[1]}), kernel/bound {med / bk[0]:.2f}; attrs (registers, local bytes, shared "
+              f"bytes, blocks an SM) {pd.direct_kernel_attrs(k, 2)}")
     phase_halo_bound(x, check)
     fir_times = phase_fir_times(chain_main)
     mark("5 averager and FIR times")

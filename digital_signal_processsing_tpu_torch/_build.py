@@ -48,8 +48,12 @@ _SIGNATURES = {
     # x, y, n, window, channels, variant, tile_frames, span_tiles,
     # smem_bytes, stream
     "dsp_scan_i16": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, y, n, window, channels, tile_frames, smem_bytes, stream
-    "dsp_direct_i16": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # x, y, n, window, channels, tile_frames, plane_words, in_words, smem_bytes,
+    # stream
+    "dsp_direct_i16": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # channels, smem_bytes, out: registers, local bytes, shared bytes, blocks an
+    # SM (4 int64)
+    "dsp_direct_attrs": (_I, _I, _P),
     # x, y, response, t, channels, k, block, log2n, threads, smem_bytes, stream
     "dsp_fused_fir": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # log2n, out: registers, local bytes, shared bytes, blocks an SM, threads
@@ -61,8 +65,14 @@ _SIGNATURES = {
     # launch (0 columns, 1 rows, 2 outputs), smem_bytes, out: as dsp_fused_fir_attrs
     "dsp_fused_fir3_attrs": (_I, _I, _P),
     # x, y, table, carry, M, seed, state_out, n, channels, sections, tile,
-    # unrolled, stream
-    "dsp_sos_cascade": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # stream
+    "dsp_sos_cascade": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, y, table, mats, seed, state_out, records, n, channels, sections, tile,
+    # stream
+    "dsp_sos_lookback": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # sections, tile, out: registers, local bytes, shared bytes, blocks an SM
+    # (4 int64)
+    "dsp_sos_attrs": (_I, _I, _P),
     # x, y, scratch, table, carry, M, seed, state_out, n, channels, sections,
     # tile, stream
     "dsp_sos_sections": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -1,8 +1,8 @@
 // IIR block scans over planar (channels, t) float32: the first-order
 // recurrence (B10, and B11 as a compose of affine maps), the cascade of
-// second-order sections with a runtime loop over sections (B12), unrolled
-// for 1..8 sections (B13) or with its lane pass on the tensor cores (B14),
-// and one section a launch (B15).
+// second-order sections in one pass with a fixed-depth look-back (B12),
+// unrolled for 1..8 sections (B13) or with its lane pass on the tensor cores
+// (B14), and one section a launch (B15).
 //
 // Replaces, in digital_signal_processsing_tpu/ops/iir.py:
 //   B10 _iir1_scalar_kernel        y[t] = a*y[t-1] + b*x[t], zero initial state;
@@ -13,7 +13,8 @@
 //   B15 _biquad_kernel             one section's block scan, launched per section.
 // B11 and B14 are the reference's A/B anchors: other spellings of B10's and
 // B12's functions, kept so that the two designs can be timed side by side.
-// Their notes are at their kernels below.
+// B12's single pass has its own note below (sos_lookback_kernel); the rest
+// of this note is the three-launch design of B10, B13 and B15.
 // A section is the JAX package's direct form II transposed:
 //   y = b0*x + s1;  s1' = b1*x - a1*y + s2;  s2' = b2*x - a2*y.
 // With zero input its state moves by Phi = [[-a1, 1], [-a2, 0]] and y reads s1.
@@ -59,11 +60,10 @@
 //
 // What bounds it on the H100: memory bytes. The function reads x once and
 // writes y once, 8 bytes a sample (0.160 ms for 16 x 2^22 samples at
-// 3.35 TB/s); this design reads x twice (launches 1 and 3), 12 bytes a
-// sample. Its operations, about 2 x 8 a sample and section, stay below that
+// 3.35 TB/s); the three launches read x twice (launches 1 and 3), 12 bytes a
+// sample. Their operations, about 2 x 8 a sample and section, stay below that
 // at 66.9 TFLOP/s. B15 moves 8 bytes a sample and section through device
-// memory, as the TPU anchor does. A single pass with a decoupled look-back
-// would read x once.
+// memory, as the TPU anchor does.
 
 #include <cstdint>
 
@@ -217,8 +217,8 @@ static __device__ __forceinline__ void section_pass(float (&v)[kSeg], const floa
 // `ends` != 0: launch 1, from zero state, writing the tile's end state to
 // carry[c, t]; y and state_out are null. Else launch 3, from carry[c, t],
 // writing y and, where it holds sample n-1, state_out[(k C + c) 2 + j].
-// NS > 0 unrolls NS sections with their coefficients in registers (B13, and
-// B15 at NS = 1); NS = 0 loops over S sections (B12).
+// NS sections are unrolled with their coefficients in registers (B13, and
+// B15 at NS = 1).
 template <int NS>
 __global__ void __launch_bounds__(kThreads)
 sos_tile_kernel(const float* x, float* y, const float* __restrict__ tab, int sections,
@@ -229,7 +229,7 @@ sos_tile_kernel(const float* x, float* y, const float* __restrict__ tab, int sec
   __shared__ float scar[2 * kMaxSections];
   __shared__ float wtot[2 * kWarps];
   __shared__ float wbeg[2 * kWarps];
-  const int S = NS > 0 ? NS : sections;
+  constexpr int S = NS;
   const int D = 2 * S;
   const int tid = threadIdx.x;
   const int c = blockIdx.y;
@@ -238,11 +238,9 @@ sos_tile_kernel(const float* x, float* y, const float* __restrict__ tab, int sec
   float* cst = carry + (static_cast<int64_t>(c) * ntiles + t) * D;
   if (tid < D) scar[tid] = ends ? 0.0f : cst[tid];
   __syncthreads();
-  Coef reg[NS > 0 ? NS : 1];
-  if constexpr (NS > 0) {
+  Coef reg[NS];
 #pragma unroll
-    for (int k = 0; k < NS; ++k) reg[k] = coef_of(stab + k * kTab);
-  }
+  for (int k = 0; k < NS; ++k) reg[k] = coef_of(stab + k * kTab);
   const float* xr = x + static_cast<int64_t>(c) * n;
   float* yr = y != nullptr ? y + static_cast<int64_t>(c) * n : nullptr;
   const bool vec =
@@ -264,19 +262,10 @@ sos_tile_kernel(const float* x, float* y, const float* __restrict__ tab, int sec
     float v[kSeg];
 #pragma unroll
     for (int j = 0; j < kSeg; ++j) v[j] = seg[j];
-    if constexpr (NS > 0) {
 #pragma unroll
-      for (int k = 0; k < NS; ++k) {
-        float* end = jlast >= 0 ? state_out + (static_cast<int64_t>(k) * C + c) * 2 : nullptr;
-        section_pass(v, stab + k * kTab + kPow, reg[k], scar + 2 * k, wtot, wbeg, jlast, end);
-      }
-    } else {
-#pragma unroll 1
-      for (int k = 0; k < S; ++k) {
-        float* end = jlast >= 0 ? state_out + (static_cast<int64_t>(k) * C + c) * 2 : nullptr;
-        section_pass(v, stab + k * kTab + kPow, coef_of(stab + k * kTab), scar + 2 * k, wtot,
-                     wbeg, jlast, end);
-      }
+    for (int k = 0; k < NS; ++k) {
+      float* end = jlast >= 0 ? state_out + (static_cast<int64_t>(k) * C + c) * 2 : nullptr;
+      section_pass(v, stab + k * kTab + kPow, reg[k], scar + 2 * k, wtot, wbeg, jlast, end);
     }
 #pragma unroll
     for (int j = 0; j < kSeg; ++j) seg[j] = v[j];
@@ -465,6 +454,619 @@ static cudaError_t cascade(TileKernel k, const float* x, float* y, const float* 
   if ((err = launch_carry(carry, M, seed, ntiles, C, 2 * S, s)) != cudaSuccess) return err;
   k<<<dim3(static_cast<unsigned>(ntiles), static_cast<unsigned>(C)), kThreads, 0, s>>>(
       x, y, tab, S, carry, state_out, n, tile, ntiles, C, 0);
+  return cudaGetLastError();
+}
+
+// ---- B12: the cascade in one pass, with a fixed-depth look-back ------------
+//
+// One launch reads x once and runs the cascade once. Blocks are persistent
+// (as many as fit the card) and take tiles by an atomic ticket, channels
+// interleaved: ticket k is tile k / C of channel k % C. A block takes a ticket
+// only when it is ready to start that tile, so tiles start in ticket order; it
+// only ever waits on tiles of smaller tickets, which blocks already running
+// hold, so it cannot deadlock. For each tile:
+//   A. stage. The tile's sub-tiles (kSub = 256 kSeg samples, thread i owning
+//      kSeg consecutive samples, rows swizzled so that a quarter warp's 16-byte
+//      reads fall on distinct banks) go to shared memory by 16-byte cp.async,
+//      a copy group a sub-tile, and stay there, up to `hold` sub-tiles; a
+//      longer tile streams its other sub-tiles through one slot, and reads
+//      them again in D.
+//   B. the tile's end state from zero state, as a linear map, not a cascade
+//      run, started on each sub-tile as its copy group lands. From zero state
+//      the state after a segment is z_i = K x_i (K is D x kSeg, D = 2S); the
+//      tile's is sum_i M_seg^(n-1-i) z_i. Lane l takes W_l = M_seg^(31-l) K
+//      (the wrapper's table, read through L1): its kSeg-term dot product for
+//      each component q (D FMAs a sample), the D partial sums summed over the
+//      warp by a transposing butterfly (a lane keeps half of its sums and
+//      sends the other half, log2 DP steps, DP = D rounded up to a power of
+//      two: a template, so the sums stay in registers). A warp chains its
+//      groups of successive sub-tiles by M_sub (Horner), then weighs its sum
+//      by M_warp^e, e its last group's distance from the tile's end; the
+//      warps' sums are added in a fixed order.
+//   C. the look-back. The tile publishes z_t, then
+//        s_t = sum_{m=1..L} M^(m-1) z_{t-m} + M^L s_{t-L}
+//      (tiles t < L compose back to the seed: M^t s_0), with M the cascade's
+//      zero-input transition over a tile and L a depth fixed by S, and
+//      publishes s_t for tile t+L. The z terms are summed before the wait on
+//      s_{t-L}, so a step of the chain costs one poll and D FMAs. The sum
+//      is always taken in the same order: two calls give bit-identical y.
+//      Each published float is one 64-bit word, a flag in its high half, so
+//      a reader needs no fence; the words are zeroed by a memset a call.
+//   D. the cascade once, from s_t, over the staged sub-tiles in order: a
+//      section is steps a-c of the three-launch design above, with one
+//      block barrier (the warps' totals are chained by every warp, lanes
+//      0..7 scanning them with the powers Phi^(32 kSeg d), each warp keeping
+//      its own copy of the carry); the thread holding sample n-1 keeps its
+//      segment's input and start state a section and, after the sections,
+//      runs them to n-1 for the chunk's end state.
+// Tables (float64, rounded once, built by the wrapper): a section's row
+// (kTabL floats: b0 b1 b2 a1 a2; Phi^(kSeg m), m = 0..32, at 8;
+// Phi^(32 kSeg m), m = 0..8, at kWarpPow) in shared memory; W, M_sub,
+// M_warp^e (e < 8) and M^m (m <= L) in device memory, read through L1.
+// kSeg = 16, 256 threads and the tile were chosen by tools/ab_lookback_direct.py.
+//
+// What bounds it on the H100: memory bytes, 8 a sample (0.160 ms for
+// 16 x 2^22 samples at 3.35 TB/s); it moves 8 plus 8 D bytes a tile of
+// look-back records. Its operations, D FMAs a sample for B and about 8 a
+// sample and section for D, stay below that at 66.9 TFLOP/s. What holds it
+// above: a tile's loads, B and D follow one another in each block, and the
+// blocks of an SM run nearly in step, so memory and compute add up more than
+// they overlap; a block cannot prefetch its next tile, as holding a ticket
+// before it can start the tile stalls the look-back of the tiles behind it.
+constexpr int kLbThreads = 256;             // B12's threads a block
+constexpr int kLbWarps = kLbThreads / 32;
+constexpr int kTabL = 176;     // floats of a section's B12 row
+constexpr int kWarpPow = 140;  // where Phi^(32 kSeg m) starts in it
+constexpr int kLbSeg = 16;     // B12's consecutive samples a thread
+constexpr int kMaxDepth = 8;   // the deepest look-back
+constexpr int kHoldBytes = 65536;  // shared bytes of staged sub-tiles a block holds at most
+constexpr unsigned long long kFlag = 1ull << 32;
+
+// The look-back depth for S sections.
+static __host__ __device__ constexpr int lookback_depth(int sections) {
+  return sections <= 8 ? 8 : 4;
+}
+
+template <int SEG>
+static __device__ __forceinline__ int swizzle(int row) {
+  return (row / (32 / SEG)) & (SEG / 4 - 1);
+}
+
+// Sample k of a sub-tile in a slot: row k / SEG, its 16-byte chunks swizzled.
+template <int SEG>
+static __device__ __forceinline__ int lb_slot(int k) {
+  const int row = k / SEG, p = k % SEG;
+  return row * SEG + 4 * ((p >> 2) ^ swizzle<SEG>(row)) + (p & 3);
+}
+
+// slot <- x[0, count), zeros beyond: 16-byte cp.async where whole and aligned.
+template <int SEG>
+static __device__ __forceinline__ void lb_load(const float* x, float* slot, int count, bool vec) {
+  constexpr int kSub = kLbThreads * SEG;
+  for (int g = threadIdx.x; g < kSub / 4; g += kLbThreads) {
+    float* dst = slot + lb_slot<SEG>(4 * g);
+    if (vec && 4 * g + 4 <= count) {
+      const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(x + 4 * g));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[e] = 4 * g + e < count ? x[4 * g + e] : 0.0f;
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+static __device__ __forceinline__ void lb_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Waits until at most `pending` (0..3) of the thread's latest copy groups are in flight.
+static __device__ __forceinline__ void lb_wait_for(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+template <int SEG>
+static __device__ __forceinline__ void lb_store(float* y, const float* slot, int count, bool vec) {
+  constexpr int kSub = kLbThreads * SEG;
+  for (int g = threadIdx.x; g < kSub / 4 && 4 * g < count; g += kLbThreads) {
+    const float* src = slot + lb_slot<SEG>(4 * g);
+    if (vec && 4 * g + 4 <= count) {
+      reinterpret_cast<float4*>(y)[g] = *reinterpret_cast<const float4*>(src);
+    } else {
+      for (int e = 0; 4 * g + e < count && e < 4; ++e) y[4 * g + e] = src[e];
+    }
+  }
+}
+
+template <int SEG>
+static __device__ __forceinline__ void lb_row(const float* slot, float (&v)[SEG]) {
+  const int row = threadIdx.x;
+  const float4* p = reinterpret_cast<const float4*>(slot + row * SEG);
+  const int f = swizzle<SEG>(row);
+#pragma unroll
+  for (int q = 0; q < SEG / 4; ++q) {
+    const float4 a = p[q ^ f];
+    v[4 * q] = a.x;
+    v[4 * q + 1] = a.y;
+    v[4 * q + 2] = a.z;
+    v[4 * q + 3] = a.w;
+  }
+}
+
+template <int SEG>
+static __device__ __forceinline__ void lb_put_row(float* slot, const float (&v)[SEG]) {
+  const int row = threadIdx.x;
+  float4* p = reinterpret_cast<float4*>(slot + row * SEG);
+  const int f = swizzle<SEG>(row);
+#pragma unroll
+  for (int q = 0; q < SEG / 4; ++q) p[q ^ f] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+}
+
+static __device__ __forceinline__ unsigned long long ld_relaxed(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+static __device__ __forceinline__ void st_relaxed(unsigned long long* p, float v) {
+  const unsigned long long w = kFlag | __float_as_uint(v);
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(w) : "memory");
+}
+
+// The published float at p, once its flag is set.
+static __device__ __forceinline__ float lb_poll(const unsigned long long* p) {
+  unsigned long long w = ld_relaxed(p);
+  while (!(w & kFlag)) {
+    __nanosleep(32);
+    w = ld_relaxed(p);
+  }
+  return __uint_as_float(static_cast<unsigned>(w));
+}
+
+// One section over a thread's samples (steps a-c), in place in v. tb: the
+// section's row; car: this warp's copy of its carry (left at the sub-tile's
+// end); wt: the warps' totals (16 floats, by the section's parity). Returns
+// the thread's start state in r1, r2.
+template <int SEG>
+static __device__ __forceinline__ void lb_section(float (&v)[SEG], const float* tb, float* car,
+                                                  float* wt, float& r1, float& r2) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float b0 = tb[0], b1 = tb[1], b2 = tb[2], a1 = tb[3], a2 = tb[4];
+  // a. zero-state run
+  float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < SEG; ++j) {
+    const float xv = v[j];
+    const float yv = fmaf(b0, xv, s1);
+    s1 = fmaf(b1, xv, fmaf(-a1, yv, s2));
+    s2 = fmaf(b2, xv, -a2 * yv);
+    v[j] = yv;
+  }
+  // b. the warp's Hillis-Steele steps with Phi^(SEG d), then the warps'
+  // totals, chained by lanes 0..7 of every warp with Phi^(32 SEG d)
+  const float4* lp = reinterpret_cast<const float4*>(tb + 8);
+  const float4* wp = reinterpret_cast<const float4*>(tb + kWarpPow);
+  float w1 = s1, w2 = s2;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float u1 = __shfl_up_sync(kFull, w1, d);
+    const float u2 = __shfl_up_sync(kFull, w2, d);
+    if (lane >= d) {
+      const float4 P = lp[d];
+      w1 = fmaf(P.x, u1, fmaf(P.y, u2, w1));
+      w2 = fmaf(P.z, u1, fmaf(P.w, u2, w2));
+    }
+  }
+  float e1 = __shfl_up_sync(kFull, w1, 1);
+  float e2 = __shfl_up_sync(kFull, w2, 1);
+  if (lane == 0) {
+    e1 = 0.0f;
+    e2 = 0.0f;
+  }
+  if (lane == 31) {
+    wt[2 * warp] = w1;
+    wt[2 * warp + 1] = w2;
+  }
+  const float c1 = car[0], c2 = car[1];
+  __syncthreads();  // the section's one barrier
+  float t1 = lane < kLbWarps ? wt[2 * lane] : 0.0f;
+  float t2 = lane < kLbWarps ? wt[2 * lane + 1] : 0.0f;
+#pragma unroll
+  for (int d = 1; d < kLbWarps; d <<= 1) {
+    const float u1 = __shfl_up_sync(kFull, t1, d);
+    const float u2 = __shfl_up_sync(kFull, t2, d);
+    if (lane >= d) {
+      const float4 P = wp[d];
+      t1 = fmaf(P.x, u1, fmaf(P.y, u2, t1));
+      t2 = fmaf(P.z, u1, fmaf(P.w, u2, t2));
+    }
+  }
+  float x1 = __shfl_sync(kFull, t1, warp > 0 ? warp - 1 : 0);
+  float x2 = __shfl_sync(kFull, t2, warp > 0 ? warp - 1 : 0);
+  if (warp == 0) {
+    x1 = 0.0f;
+    x2 = 0.0f;
+  }
+  const float l1 = __shfl_sync(kFull, t1, kLbWarps - 1);
+  const float l2 = __shfl_sync(kFull, t2, kLbWarps - 1);
+  const float4 PW = wp[warp];
+  const float g1 = fmaf(PW.x, c1, fmaf(PW.y, c2, x1));  // the state entering this warp
+  const float g2 = fmaf(PW.z, c1, fmaf(PW.w, c2, x2));
+  const float4 P8 = wp[kLbWarps];
+  __syncwarp();  // every lane has read the carry
+  if (lane == 0) {
+    car[0] = fmaf(P8.x, c1, fmaf(P8.y, c2, l1));
+    car[1] = fmaf(P8.z, c1, fmaf(P8.w, c2, l2));
+  }
+  const float4 PL = lp[lane];
+  r1 = fmaf(PL.x, g1, fmaf(PL.y, g2, e1));
+  r2 = fmaf(PL.z, g1, fmaf(PL.w, g2, e2));
+  // c. the zero-input response of the start state
+  float q1 = r1, q2 = r2;
+#pragma unroll
+  for (int j = 0; j < SEG; ++j) {
+    v[j] += q1;
+    const float n1 = fmaf(-a1, q1, q2);
+    q2 = -a2 * q1;
+    q1 = n1;
+  }
+}
+
+// A warp's partial sums p[q] (q < DP) of one group, summed over its 32 lanes:
+// log2(DP) steps in which a lane keeps half of its values and sends its
+// partner the other half, then plain steps. Lane l ends with component
+// l / (32 / DP), which the lanes sharing it hold alike.
+template <int DP>
+static __device__ __forceinline__ float warp_components(float (&p)[DP]) {
+  constexpr int kLog = DP == 4 ? 2 : DP == 8 ? 3 : DP == 16 ? 4 : 5;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int lv = 0; lv < kLog; ++lv) {
+    const int h = DP >> (lv + 1);
+    const int d = 16 >> lv;
+    const bool up = (lane & d) != 0;
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) {
+      if (i < h) {
+        const float send = up ? p[i] : p[i + h];
+        const float keep = up ? p[i + h] : p[i];
+        p[i] = keep + __shfl_xor_sync(kFull, send, d);
+      }
+    }
+  }
+  float v = p[0];
+#pragma unroll
+  for (int lv = kLog; lv < 5; ++lv) v += __shfl_xor_sync(kFull, v, 16 >> lv);
+  return v;
+}
+
+// Shared floats of the block's buffers past its slots.
+static __host__ __device__ constexpr int lb_small_floats(int sections, int seg) {
+  return sections * kTabL + 2 * kLbWarps * 2 * sections + 32 + sections * (seg + 2);
+}
+
+// The block's ticket `tk`: tile t of channel c, and what it stages.
+struct LbTile {
+  int64_t t, t0, t1;
+  int c, subs, keep;
+};
+
+template <int SEG>
+static __device__ __forceinline__ LbTile lb_tile(long long tk, int C, int64_t n, int64_t tile,
+                                                 int hold) {
+  constexpr int kSub = kLbThreads * SEG;
+  LbTile g;
+  g.t = tk / C;
+  g.c = static_cast<int>(tk - g.t * C);
+  g.t0 = g.t * tile;
+  g.t1 = g.t0 + tile < n ? g.t0 + tile : n;
+  g.subs = static_cast<int>((g.t1 - g.t0 + kSub - 1) / kSub);
+  g.keep = g.subs > hold ? hold - 1 : g.subs;  // sub-tiles held from staging to D
+  return g;
+}
+
+// Stages the held sub-tiles of a tile into `buf` (cp.async, not waited for).
+template <int SEG>
+static __device__ __forceinline__ void lb_stage(const float* x, float* buf, const LbTile& g,
+                                                int64_t n) {
+  constexpr int kSub = kLbThreads * SEG;
+  const float* xr = x + g.c * n + g.t0;
+  const bool vec = (reinterpret_cast<uintptr_t>(xr) & 15) == 0;
+  for (int j = 0; j < g.keep; ++j) {
+    const int64_t left = g.t1 - g.t0 - static_cast<int64_t>(j) * kSub;
+    lb_load<SEG>(xr + static_cast<int64_t>(j) * kSub, buf + j * kSub,
+                 static_cast<int>(left < kSub ? left : kSub), vec);
+  }
+}
+
+// mats: W (D SEG 32 floats; lane l's weights of component q, samples
+// 4 i4 .. 4 i4 + 3, at float4 (q SEG / 4 + i4) 32 + l), then M_sub (D x D),
+// M_warp^e for e < 8, M^m for m <= L, each D x D stored [q][r] (entry r, q).
+// rec: the ticket, then z records then s records, C ntiles D words each.
+// DP: D rounded up to 4, 8, 16 or 32, the partial sums a lane keeps in B.
+template <int SEG, int DP>
+__global__ void __launch_bounds__(kLbThreads, 3)
+sos_lookback_kernel(const float* __restrict__ x, float* __restrict__ y,
+                    const float* __restrict__ tab, const float* __restrict__ mats,
+                    const float* __restrict__ seed, float* __restrict__ state_out,
+                    unsigned long long* __restrict__ rec, int sections, int64_t n, int64_t tile,
+                    int64_t ntiles, int C, int hold) {
+  constexpr int kSub = kLbThreads * SEG;
+  constexpr int kSh = DP == 4 ? 3 : DP == 8 ? 2 : DP == 16 ? 1 : 0;  // lane >> kSh: its component in B
+  extern __shared__ __align__(16) float lsm[];
+  __shared__ long long ticket;
+  const int S = sections, D = 2 * S, L = lookback_depth(sections);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r = lane < D ? lane : 0;  // this lane's state component (lanes < D)
+  float* slots = lsm;               // `hold` sub-tiles
+  float* stab = slots + hold * kSub;
+  float* scar = stab + S * kTabL;   // kLbWarps copies of the carry, D floats each
+  float* zpart = scar + kLbWarps * D;  // the warps' sums of the end state
+  float* wtot = zpart + kLbWarps * D;  // 2 x 16: the warps' totals by section parity
+  float* endbuf = wtot + 32;        // S x (SEG + 2): the end-state thread's inputs
+  const float4* W = reinterpret_cast<const float4*>(mats);
+  const float* Msub = mats + D * SEG * 32;
+  const float* Qw = Msub + D * D;
+  const float* Mp = Qw + 8 * D * D;
+  unsigned long long* zrec = rec + 1;
+  unsigned long long* srec = zrec + ntiles * C * D;
+  for (int i = tid; i < S * kTabL; i += kLbThreads) stab[i] = tab[i];
+  const int64_t total = ntiles * C;
+  const int G = static_cast<int>(tile / (32 * SEG));  // warp groups of a whole tile
+  // A block takes a ticket only when it is ready to start that tile: tiles
+  // then start in ticket order, which the look-back's progress needs (a ticket
+  // held while the block finishes another tile stalls the tiles behind it)
+  for (;;) {
+    if (tid == 0) ticket = static_cast<long long>(atomicAdd(rec, 1ull));
+    __syncthreads();
+    const long long tk = ticket;
+    if (tk >= total) break;
+    // A. stage, a copy group a sub-tile: B starts on the first while the rest land
+    const LbTile g = lb_tile<SEG>(tk, C, n, tile, hold);
+    lb_stage<SEG>(x, slots, g, n);
+    const int64_t t = g.t, t0 = g.t0;
+    const int c = g.c, subs = g.subs, keep = g.keep;
+    float* cur = slots;
+    const float* xr = x + c * n;
+    float* yr = y + c * n;
+    const bool vec = ((reinterpret_cast<uintptr_t>(xr) | reinterpret_cast<uintptr_t>(yr)) & 15) == 0;
+    const bool last = t == ntiles - 1;
+    auto count_of = [&](int j) {
+      const int64_t left = g.t1 - t0 - static_cast<int64_t>(j) * kSub;
+      return static_cast<int>(left < kSub ? left : kSub);
+    };
+    auto stream_in = [&](int j) {  // sub-tile j through the streaming slot
+      __syncthreads();
+      lb_load<SEG>(xr + t0 + static_cast<int64_t>(j) * kSub, cur + keep * kSub, count_of(j), vec);
+      lb_wait();
+      __syncthreads();
+    };
+    // B. the end state from zero state (no tile reads the last tile's)
+    if (!last) {
+      const int comp = lane >> kSh;  // the component this lane sums up
+      const int rc = comp < D ? comp : 0;
+      float acc = 0.0f;
+      int groups = 0;
+      for (int j = 0; j < subs; ++j) {
+        if (j < keep) {
+          lb_wait_for(keep - 1 - j);
+          __syncthreads();
+        } else {
+          stream_in(j);
+        }
+        if (kLbWarps * j + warp >= G) continue;  // warp-uniform: past the tile
+        float xv[SEG];
+        lb_row<SEG>(cur + (j < keep ? j : keep) * kSub, xv);
+        float p[DP];
+#pragma unroll
+        for (int q = 0; q < DP; ++q) {
+          float p0 = 0.0f, p1 = 0.0f;
+          if (q < D) {
+            const float4* wq = W + q * (SEG / 4) * 32 + lane;
+#pragma unroll
+            for (int i4 = 0; i4 < SEG / 4; ++i4) {
+              const float4 w = __ldg(wq + 32 * i4);
+              p0 = fmaf(w.x, xv[4 * i4], p0);
+              p1 = fmaf(w.y, xv[4 * i4 + 1], p1);
+              p0 = fmaf(w.z, xv[4 * i4 + 2], p0);
+              p1 = fmaf(w.w, xv[4 * i4 + 3], p1);
+            }
+          }
+          p[q] = p0 + p1;
+        }
+        const float u = warp_components<DP>(p);
+        if (groups > 0) {  // acc <- M_sub acc + u
+          float h = u;
+          for (int q = 0; q < D; ++q) {
+            h = fmaf(__ldg(Msub + q * D + rc), __shfl_sync(kFull, acc, q << kSh), h);
+          }
+          acc = h;
+        } else {
+          acc = u;
+        }
+        ++groups;
+      }
+      float v = 0.0f;
+      if (groups > 0) {  // weigh by M_warp^e, e the last group's distance from the tile's end
+        const int e = G - 1 - (kLbWarps * (groups - 1) + warp);
+        const float* Q = Qw + e * D * D;
+        for (int q = 0; q < D; ++q) v = fmaf(__ldg(Q + q * D + rc), __shfl_sync(kFull, acc, q << kSh), v);
+      }
+      if (comp < D && (lane & ((1 << kSh) - 1)) == 0) zpart[warp * D + comp] = v;
+    } else {
+      lb_wait();
+    }
+    __syncthreads();
+    // C. the look-back (warp 0; lane q < D holds component q)
+    if (warp == 0) {
+      const int64_t base = (static_cast<int64_t>(c) * ntiles + t) * D;
+      if (!last) {
+        float z = 0.0f;
+        for (int w = 0; w < kLbWarps; ++w) z += zpart[w * D + r];
+        if (lane < D) st_relaxed(zrec + base + lane, z);
+      }
+      const int terms = t < L ? static_cast<int>(t) : L;
+      // every z record's load in flight before any wait
+      unsigned long long zw[kMaxDepth];
+#pragma unroll
+      for (int m = 0; m < kMaxDepth; ++m) {
+        zw[m] = (m < terms && lane < D) ? ld_relaxed(zrec + base - (m + 1) * D + lane) : kFlag;
+      }
+      float s = 0.0f;
+#pragma unroll
+      for (int m = 0; m < kMaxDepth; ++m) {
+        if (m < terms) {
+          while (!(zw[m] & kFlag)) {
+            __nanosleep(32);
+            zw[m] = ld_relaxed(zrec + base - (m + 1) * D + lane);
+          }
+          const float zm = __uint_as_float(static_cast<unsigned>(zw[m]));
+          const float* P = Mp + m * D * D;
+          for (int q = 0; q < D; ++q) s = fmaf(__ldg(P + q * D + r), __shfl_sync(kFull, zm, q), s);
+        }
+      }
+      float sb = 0.0f;  // s_{t-L}, or the seed
+      if (lane < D) {
+        if (t >= L) {
+          sb = lb_poll(srec + base - static_cast<int64_t>(L) * D + lane);
+        } else if (seed != nullptr) {
+          sb = seed[(static_cast<int64_t>(lane >> 1) * C + c) * 2 + (lane & 1)];
+        }
+      }
+      const float* P = Mp + terms * D * D;
+      for (int q = 0; q < D; ++q) s = fmaf(__ldg(P + q * D + r), __shfl_sync(kFull, sb, q), s);
+      if (lane < D) {
+        if (t + L < ntiles) st_relaxed(srec + base + lane, s);
+        for (int w = 0; w < kLbWarps; ++w) scar[w * D + lane] = s;
+      }
+    }
+    __syncthreads();
+    // D. the cascade from s_t
+    int mine = -1, jl = 0, jsub = -1;  // the thread and sample index of n - 1
+    if (last && state_out != nullptr) {
+      const int64_t p = n - 1 - t0;
+      jsub = static_cast<int>(p / kSub);
+      mine = static_cast<int>((p % kSub) / SEG);
+      jl = static_cast<int>(p % SEG);
+    }
+    for (int j = 0; j < subs; ++j) {
+      if (j >= keep) stream_in(j);
+      float* slot = cur + (j < keep ? j : keep) * kSub;
+      const bool ends = j == jsub && tid == mine;
+      float v[SEG];
+      lb_row<SEG>(slot, v);
+#pragma unroll 1
+      for (int k = 0; k < S; ++k) {
+        float* eb = endbuf + k * (SEG + 2);
+        if (ends) {
+#pragma unroll
+          for (int i = 0; i < SEG; ++i) eb[i] = v[i];
+        }
+        float r1, r2;
+        lb_section<SEG>(v, stab + k * kTabL, scar + warp * D + 2 * k, wtot + 16 * (k & 1), r1, r2);
+        if (ends) {
+          eb[SEG] = r1;
+          eb[SEG + 1] = r2;
+        }
+      }
+      lb_put_row<SEG>(slot, v);
+      __syncthreads();
+      lb_store<SEG>(yr + t0 + static_cast<int64_t>(j) * kSub, slot, count_of(j), vec);
+      if (j == jsub && tid == mine) {  // the state after sample n - 1, a section at a time
+        for (int k = 0; k < S; ++k) {
+          const float* tb = stab + k * kTabL;
+          const float* eb = endbuf + k * (SEG + 2);
+          const float b0 = tb[0], b1 = tb[1], b2 = tb[2], a1 = tb[3], a2 = tb[4];
+          float s1 = eb[SEG], s2 = eb[SEG + 1];
+          for (int i = 0; i <= jl; ++i) {
+            const float u = eb[i];
+            const float yv = fmaf(b0, u, s1);
+            s1 = fmaf(b1, u, fmaf(-a1, yv, s2));
+            s2 = fmaf(b2, u, -a2 * yv);
+          }
+          state_out[(static_cast<int64_t>(k) * C + c) * 2] = s1;
+          state_out[(static_cast<int64_t>(k) * C + c) * 2 + 1] = s2;
+        }
+      }
+    }
+    __syncthreads();  // the slots and the ticket are free for the next tile
+  }
+}
+
+using LbKernel = void (*)(const float*, float*, const float*, const float*, const float*,
+                          float*, unsigned long long*, int, int64_t, int64_t, int64_t, int, int);
+
+// The instantiation for S sections, its index among the four, and its
+// record of the shared memory allowed on each device.
+static LbKernel lb_kernel(int sections, int* which) {
+  const int D = 2 * sections;
+  *which = D <= 4 ? 0 : D <= 8 ? 1 : D <= 16 ? 2 : 3;
+  switch (*which) {
+    case 0: return sos_lookback_kernel<kLbSeg, 4>;
+    case 1: return sos_lookback_kernel<kLbSeg, 8>;
+    case 2: return sos_lookback_kernel<kLbSeg, 16>;
+    default: return sos_lookback_kernel<kLbSeg, 32>;
+  }
+}
+
+static int lb_allowed[4][kMaxDevices] = {};
+
+// Sub-tiles a block holds for a tile of `tile` samples, and its shared bytes.
+static int lb_hold(int64_t tile) {
+  constexpr int kSub = kLbThreads * kLbSeg;
+  const int64_t subs = (tile + kSub - 1) / kSub;
+  const int cap = kHoldBytes / (4 * kSub);
+  return static_cast<int>(subs < cap ? subs : cap);
+}
+
+static int lb_smem_bytes(int sections, int hold) {
+  return 4 * (hold * kLbThreads * kLbSeg + lb_small_floats(sections, kLbSeg));
+}
+
+static cudaError_t lb_occupancy(int sections, int hold, int* blocks) {
+  int which = 0;
+  const LbKernel k = lb_kernel(sections, &which);
+  const int bytes = lb_smem_bytes(sections, hold);
+  cudaError_t err = allow_smem(k, lb_allowed[which], bytes);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, reinterpret_cast<const void*>(k),
+                                                       kLbThreads, bytes);
+}
+
+static int lb_blocks[kMaxDevices][kMaxSections + 1][kHoldBytes / (4 * kLbThreads * kLbSeg) + 1] = {};
+
+// B12: the records' memset and the one launch, as many blocks as fit the card.
+static cudaError_t lookback_cascade(const float* x, float* y, const float* tab, const float* mats,
+                                    const float* seed, float* state_out, unsigned long long* rec,
+                                    int64_t n, int C, int S, int64_t tile, cudaStream_t s) {
+  const int64_t ntiles = (n + tile - 1) / tile;
+  const int hold = lb_hold(tile);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int& per_sm = lb_blocks[dev][S][hold];
+  if (per_sm == 0 && (err = lb_occupancy(S, hold, &per_sm)) != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  int sms = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
+    return err;
+  }
+  const int64_t total = ntiles * C;
+  const int64_t resident = static_cast<int64_t>(per_sm) * sms;
+  const auto grid = static_cast<unsigned>(total < resident ? total : resident);
+  const size_t words = 1 + 2 * static_cast<size_t>(total) * 2 * S;
+  if ((err = cudaMemsetAsync(rec, 0, 8 * words, s)) != cudaSuccess) return err;
+  int which = 0;
+  const LbKernel k = lb_kernel(S, &which);
+  k<<<grid, kLbThreads, lb_smem_bytes(S, hold), s>>>(x, y, tab, mats, seed, state_out, rec, S,
+                                                     n, tile, ntiles, C, hold);
   return cudaGetLastError();
 }
 
@@ -932,26 +1534,64 @@ static cudaError_t mxu_cascade(const float* x, float* y, const float* tab, const
 }  // namespace iir
 }  // namespace dsp
 
-// B12 (unrolled == 0) and B13 (unrolled != 0, 1..8 sections). x, y: (C, n);
-// tab: S * kTab floats; carry: scratch of C * ceil(n / tile) * 2S floats;
-// M: the cascade's (2S, 2S) zero-input transition over `tile` samples; seed,
-// state_out: (S, C, 2) or null.
+// B13, 1..8 sections unrolled. x, y: (C, n); tab: S * kTab floats; carry:
+// scratch of C * ceil(n / tile) * 2S floats; M: the cascade's (2S, 2S)
+// zero-input transition over `tile` samples; seed, state_out: (S, C, 2) or
+// null.
 extern "C" int dsp_sos_cascade(const float* x, float* y, const float* tab, float* carry,
                                const float* M, const float* seed, float* state_out, int64_t n,
-                               int64_t channels, int64_t sections, int64_t tile,
-                               int64_t unrolled, void* stream) {
+                               int64_t channels, int64_t sections, int64_t tile, void* stream) {
   using namespace dsp::iir;
-  if (bad_geometry(n, channels, tile) || sections < 1 || sections > kMaxSections) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  TileKernel k = sos_tile_kernel<0>;
-  if (unrolled != 0 && (sections > kMaxUnrolled ||
-                        (k = unrolled_kernel(static_cast<int>(sections))) == nullptr)) {
+  TileKernel k = nullptr;
+  if (bad_geometry(n, channels, tile) || sections < 1 || sections > kMaxUnrolled ||
+      (k = unrolled_kernel(static_cast<int>(sections))) == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cascade(k, x, y, tab, carry, M, seed, state_out, n,
                                   static_cast<int>(channels), static_cast<int>(sections), tile,
                                   static_cast<cudaStream_t>(stream)));
+}
+
+// B12, one pass. x, y: (C, n); tab: S * kTabL floats; mats: W, M_sub,
+// M_warp^e (e < 8) and M^m (m <= lookback_depth(S)), as sos_lookback_kernel
+// reads them; seed, state_out: (S, C, 2) or null; rec: 1 + 2 C ceil(n / tile)
+// 2S words of scratch (zeroed here).
+extern "C" int dsp_sos_lookback(const float* x, float* y, const float* tab, const float* mats,
+                                const float* seed, float* state_out, void* rec, int64_t n,
+                                int64_t channels, int64_t sections, int64_t tile, void* stream) {
+  using namespace dsp::iir;
+  if (bad_geometry(n, channels, tile) || sections < 1 || sections > kMaxSections) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(lookback_cascade(
+      x, y, tab, mats, seed, state_out, static_cast<unsigned long long*>(rec), n,
+      static_cast<int>(channels), static_cast<int>(sections), tile,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// What the compiler gave B12's kernel, and its blocks an SM at `sections`
+// sections and a tile of `tile` samples: registers a thread, local bytes a
+// thread, shared bytes a block (static and dynamic), blocks an SM (4 int64
+// in out).
+extern "C" int dsp_sos_attrs(int64_t sections, int64_t tile, int64_t* out) {
+  using namespace dsp::iir;
+  if (sections < 1 || sections > kMaxSections || tile < kSub || tile % kSub != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int hold = lb_hold(tile);
+  int blocks = 0;
+  cudaError_t err = lb_occupancy(static_cast<int>(sections), hold, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int which = 0;
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(
+      &a, reinterpret_cast<const void*>(lb_kernel(static_cast<int>(sections), &which)));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int64_t>(a.localSizeBytes);
+  out[2] = static_cast<int64_t>(a.sharedSizeBytes) + lb_smem_bytes(static_cast<int>(sections), hold);
+  out[3] = blocks;
+  return 0;
 }
 
 // B15: section k reads the previous section's output and writes to y when

@@ -11,12 +11,13 @@ direct form II transposed::
 over the last axis, leading axes independent streams. The state of a cascade
 is ``(n_sections, *batch, 2)`` float32, ``(s1, s2)`` a section.
 
-Kernels (``csrc/iir.cu``, three launches each: zero-state tile end states, a
-scan of those over the tiles, a seeded re-run; see the source note):
+Kernels (``csrc/iir.cu``; see the source notes). B12 is one launch with a
+fixed-depth look-back between tiles; the others take three launches each:
+zero-state tile end states, a scan of those over the tiles, a seeded re-run.
 
 - :func:`iir1_block_scan`      B10, ``y = a*y + b*x`` with scalar a, b;
-- :func:`sos_cascade`          B12, the whole cascade a tile, a runtime loop
-  over sections, seeded or not: the ``auto`` route of ``sosfilt`` and
+- :func:`sos_cascade`          B12, the whole cascade in one pass, a runtime
+  loop over sections, seeded or not: the ``auto`` route of ``sosfilt`` and
   ``sosfilt_chunk``;
 - :func:`sos_cascade_unrolled` B13, B12 with 1..8 sections unrolled
   (``unroll_sections=True``);
@@ -56,14 +57,16 @@ from .pallas_scan import _on_cuda, _stream
 # T from which `auto` takes the kernels (B10, B12) instead of the plain
 # version. The reference's 65536 came from XLA's associative scan, which would
 # not compile at long T on the TPU. On an H100 (chip_smoke.py phase 5, 16
-# channels, PERF.md) the kernels' three launches beat the plain versions'
-# thousands at every T measured, from T = 1 (14.5x for B12, 4.4x for B10)
-# to 2^22 (356x, 131x): `auto` takes them whenever there is a sample.
+# channels, PERF.md) the kernels (B12 one launch, B10 three) beat the plain
+# versions' thousands of small launches at every T measured, from T = 1 to
+# 2^22 (16.7x and 4.7x at T = 1, 694x and 150x at 2^22): `auto` takes them
+# whenever there is a sample.
 PALLAS_IIR_MIN_T = 1
 
-# csrc/iir.cu: a block's threads, a thread's consecutive samples, a sub-tile,
-# the floats of a section's table and of the first-order table, the most
-# sections of B12/B15 (2S lanes of one carry warp) and of B13.
+# csrc/iir.cu, the three-launch kernels (B10, B13, B15): a block's threads, a
+# thread's consecutive samples, a sub-tile, the floats of a section's table and
+# of the first-order table; the most sections of B12 (2S state lanes of one
+# warp) and of B13.
 THREADS = 256
 SEG = 16
 SUB_TILE = THREADS * SEG
@@ -79,6 +82,18 @@ MAX_TILE_SUBS = 64
 # Samples of a tile of the plain versions: their loops run PLAIN_TILE
 # vectorised steps a pass.
 PLAIN_TILE = 512
+# csrc/iir.cu, B12 (sos_lookback_kernel): a block's threads, a thread's
+# consecutive samples, a sub-tile, the floats of a section's row and where its
+# warp powers start, and the sub-tiles a block holds in shared memory
+# (kHoldBytes); a longer tile streams the rest, read twice. B12 picks tiles of
+# at most that many, and of at least LB_MIN_SUBS (lookback_tile).
+LB_THREADS = 256
+LB_SEG = 16
+LB_SUB = LB_THREADS * LB_SEG
+TAB_LB = 176
+_LB_WARP_POW = 140
+LB_HOLD_SUBS = 65536 // (4 * LB_SUB)
+LB_MIN_SUBS = 3
 
 
 # --- geometry and tables -------------------------------------------------------
@@ -100,6 +115,24 @@ def pick_tile(channels: int, t: int, tile_rows: int | None = None) -> int:
         return tile_rows * 128
     subs = max(1, min(MAX_TILE_SUBS, channels * cdiv(max(t, 1), SUB_TILE) // TARGET_BLOCKS))
     return subs * SUB_TILE
+
+
+def lookback_tile(channels: int, t: int, tile_rows: int | None = None) -> int:
+    """Samples of a B12 tile: ``tile_rows`` as :func:`pick_tile` takes it, else
+    pick_tile's choice between LB_MIN_SUBS and the sub-tiles a block holds.
+    Fewer, longer tiles shorten the look-back's chain: on an H100
+    (tools/ab_lookback_direct.py, PERF.md) 16 x 2^22 and the 2 x 2^19 and
+    2 x 2^20 serving chunks all ran fastest at three sub-tiles, where
+    pick_tile takes three and one."""
+    if tile_rows is not None:
+        return pick_tile(channels, t, tile_rows)
+    subs = pick_tile(channels, t) // SUB_TILE
+    return min(max(subs, LB_MIN_SUBS), LB_HOLD_SUBS) * LB_SUB
+
+
+def lookback_depth(sections: int) -> int:
+    """B12's look-back depth L for S sections (csrc/iir.cu lookback_depth)."""
+    return 8 if sections <= 8 else 4
 
 
 def _phi(a1: float, a2: float) -> np.ndarray:
@@ -153,6 +186,76 @@ def cascade_transition(rows: np.ndarray) -> np.ndarray:
             g[2 * k + 1, col] = b2 * u - a2 * y
             u = y
     return g
+
+
+def lookback_table(rows: np.ndarray) -> np.ndarray:
+    """(S, TAB_LB) float32: b0 b1 b2 a1 a2, Phi^(LB_SEG m) for m = 0..32 at 8 + 4m,
+    Phi^(32 LB_SEG m) for m = 0..8 at 140 + 4m. Taken in float64, rounded once."""
+    r64 = np.asarray(rows, np.float32).astype(np.float64).reshape(-1, 6)
+    tab = np.zeros((r64.shape[0], TAB_LB))
+    for k, (b0, b1, b2, _, a1, a2) in enumerate(r64):
+        tab[k, :5] = b0, b1, b2, a1, a2
+        phi = _phi(a1, a2)
+        for m in range(33):
+            tab[k, 8 + 4 * m : 12 + 4 * m] = np.linalg.matrix_power(phi, LB_SEG * m).ravel()
+        for m in range(9):
+            tab[k, _LB_WARP_POW + 4 * m : _LB_WARP_POW + 4 + 4 * m] = np.linalg.matrix_power(
+                phi, 32 * LB_SEG * m).ravel()
+    return tab.astype(np.float32)
+
+
+def cascade_input(rows: np.ndarray) -> np.ndarray:
+    """(2S,) float64: the cascade's state after one sample of input 1 from zero state."""
+    r64 = np.asarray(rows, np.float32).astype(np.float64).reshape(-1, 6)
+    out = np.zeros(2 * r64.shape[0])
+    u = 1.0
+    for k, (b0, b1, b2, _, a1, a2) in enumerate(r64):
+        y = b0 * u
+        out[2 * k], out[2 * k + 1] = b1 * u - a1 * y, b2 * u - a2 * y
+        u = y
+    return out
+
+
+def lookback_matrices(rows: np.ndarray, tile: int) -> dict:
+    """B12's linear maps in float64 (D = 2S, G the cascade's one-sample zero-input
+    transition): ``K`` (D, LB_SEG), a segment's end state from zero state;
+    ``W`` (32, D, LB_SEG), lane l's M_seg^(31-l) K with M_seg = G^LB_SEG; ``sub``
+    M_seg^LB_THREADS (a sub-tile); ``warp`` (8, D, D) M_seg^(32 e); ``tile`` (L + 1, D, D)
+    the powers M^m of the tile's transition M = G^tile."""
+    g = cascade_transition(rows)
+    bv = cascade_input(rows)
+    k = np.stack([np.linalg.matrix_power(g, LB_SEG - 1 - i) @ bv for i in range(LB_SEG)], 1)
+    mseg = np.linalg.matrix_power(g, LB_SEG)
+    w = np.stack([np.linalg.matrix_power(mseg, 31 - lane) @ k for lane in range(32)])
+    m = np.linalg.matrix_power(g, tile)
+    depth = lookback_depth(g.shape[0] // 2)
+    return {
+        "K": k, "W": w, "sub": np.linalg.matrix_power(mseg, LB_THREADS),
+        "warp": np.stack([np.linalg.matrix_power(mseg, 32 * e) for e in range(8)]),
+        "tile": np.stack([np.linalg.matrix_power(m, e) for e in range(depth + 1)]),
+    }
+
+
+def lookback_mats(rows: np.ndarray, tile: int) -> np.ndarray:
+    """B12's device table, float32: W with lane l's weights of component q,
+    samples 4 i4 .. 4 i4 + 3, at float4 (q LB_SEG / 4 + i4) 32 + l; then M_sub,
+    M_warp^e (e < 8) and M^m (m <= L), each D x D stored transposed ([q][r])."""
+    mt = lookback_matrices(rows, tile)
+    d = mt["K"].shape[0]
+    w = mt["W"].reshape(32, d, LB_SEG // 4, 4).transpose(1, 2, 0, 3)
+    mats = [mt["sub"][None], mt["warp"], mt["tile"]]
+    return np.concatenate(
+        [w.ravel()] + [np.swapaxes(a, 1, 2).ravel() for a in mats]
+    ).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _lookback_tables(key: bytes, tile: int, device: str):
+    rows = np.frombuffer(key, np.float32).reshape(-1, 6)
+    return (
+        torch.from_numpy(lookback_table(rows)).to(device),
+        torch.from_numpy(lookback_mats(rows, tile)).to(device),
+    )
 
 
 @functools.lru_cache(maxsize=64)
@@ -341,11 +444,10 @@ def _check(x2, state, sections: int, name: str, tile_rows: int | None) -> None:
             raise ValueError(f"{name}: at most 65535 channels on the card, got {x2.shape[0]}")
 
 
-def _launch_cascade(x2, rows, state, tile_rows, unrolled: bool):
+def _launch_unrolled(x2, rows, tile_rows):
     c, t = x2.shape
     s = rows.shape[0]
     y = torch.empty_like(x2)
-    new_state = None if state is None else torch.empty_like(state)
     tile = pick_tile(c, t, tile_rows)
     tab, m = _cascade_tables(rows.tobytes(), tile, str(x2.device), False)
     carry = torch.empty(c * cdiv(t, tile) * 2 * s, dtype=torch.float32, device=x2.device)
@@ -353,12 +455,44 @@ def _launch_cascade(x2, rows, state, tile_rows, unrolled: bool):
     with torch.cuda.device(x2.device):
         err = lib.dsp_sos_cascade(
             x2.data_ptr(), y.data_ptr(), tab.data_ptr(), carry.data_ptr(), m.data_ptr(),
+            None, None, t, c, s, tile, _stream(x2),
+        )
+    _build.check(err, "sos_cascade_unrolled")
+    return y
+
+
+def _launch_lookback(x2, rows, state, tile_rows):
+    c, t = x2.shape
+    s = rows.shape[0]
+    y = torch.empty_like(x2)
+    new_state = None if state is None else torch.empty_like(state)
+    tile = lookback_tile(c, t, tile_rows)
+    tab, mats = _lookback_tables(rows.tobytes(), tile, str(x2.device))
+    # the ticket, then each tile's z and s records (2S words each a channel)
+    rec = torch.empty(1 + 2 * c * cdiv(t, tile) * 2 * s, dtype=torch.int64, device=x2.device)
+    lib = _build.library()
+    with torch.cuda.device(x2.device):
+        err = lib.dsp_sos_lookback(
+            x2.data_ptr(), y.data_ptr(), tab.data_ptr(), mats.data_ptr(),
             None if state is None else state.data_ptr(),
             None if new_state is None else new_state.data_ptr(),
-            t, c, s, tile, int(unrolled), _stream(x2),
+            rec.data_ptr(), t, c, s, tile, _stream(x2),
         )
-    _build.check(err, "sos_cascade_unrolled" if unrolled else "sos_cascade")
+    _build.check(err, "sos_cascade")
     return y, new_state
+
+
+def cascade_kernel_attrs(sections: int, tile: int | None = None) -> tuple:
+    """What the compiler gave B12's kernel, and its blocks an SM at ``sections``
+    sections and a tile of ``tile`` samples (the card only; None: the tile of
+    the IIR main path, 16 x 2^22): (registers a thread, local bytes a thread,
+    shared bytes a block, blocks an SM)."""
+    if tile is None:
+        tile = lookback_tile(16, 1 << 22)
+    lib = _build.library()
+    out = (ctypes.c_int64 * 4)()
+    _build.check(lib.dsp_sos_attrs(sections, tile, ctypes.addressof(out)), "cascade_kernel_attrs")
+    return tuple(out)
 
 
 def sos_cascade(x2: torch.Tensor, rows: np.ndarray, state: torch.Tensor | None = None, *,
@@ -379,7 +513,7 @@ def sos_cascade(x2: torch.Tensor, rows: np.ndarray, state: torch.Tensor | None =
         return y, None if state is None else end
     if x2.shape[1] == 0:
         return torch.empty_like(x2), None if state is None else state.clone()
-    y, end = _launch_cascade(x2, rows, state, tile_rows, unrolled=False)
+    y, end = _launch_lookback(x2, rows, state, tile_rows)
     sos_cascade.launches += 1
     return y, end
 
@@ -401,7 +535,7 @@ def sos_cascade_unrolled(x2: torch.Tensor, rows: np.ndarray, *,
         return _sos_plain(x2, rows, None)[0]
     if x2.shape[1] == 0:
         return torch.empty_like(x2)
-    y, _ = _launch_cascade(x2, rows, None, tile_rows, unrolled=True)
+    y = _launch_unrolled(x2, rows, tile_rows)
     sos_cascade_unrolled.launches += 1
     return y
 

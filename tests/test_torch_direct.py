@@ -94,25 +94,111 @@ def test_direct_checks(rng):
 # ---- the block of csrc/direct.cu, in NumPy -------------------------------------
 
 
+def _walk_word(u):
+    """Value u of a run's walk in its plane (padded by two words a run)."""
+    return (u // pd.RUN) * pd.RUN_WORDS + u % pd.RUN
+
+
+def _run_sums(plane, q, k):
+    """run_sums for runs q (an array) of one plane: (len(q), RUN) int64 sums, and
+    the adds each output took. Pairs of values at even u, as the kernel loads them."""
+    base = q * pd.RUN_WORDS
+    acc = np.zeros((q.size, pd.RUN), np.int64)
+    adds = np.zeros(pd.RUN, np.int64)
+
+    def pair(u):
+        assert u % 2 == 0 and _walk_word(u) % 2 == 0  # an aligned 8-byte load
+        return plane[base + _walk_word(u)], plane[base + _walk_word(u) + 1]
+
+    def add(lo, hi, v):
+        acc[:, lo:hi] += v[:, None]
+        adds[lo:hi] += 1
+
+    if k >= pd.RUN:
+        for u in range(0, pd.RUN, 2):  # head: value u to sums 0 .. u
+            vx, vy = pair(u)
+            add(0, u + 1, vx)
+            add(0, u + 2, vy)
+        for u in range(pd.RUN, k & ~1, 2):  # middle: every sum
+            vx, vy = pair(u)
+            add(0, pd.RUN, vx)
+            add(0, pd.RUN, vy)
+        t0 = 0
+        if k & 1:  # the pair at k - 1: the middle's last value, then value k
+            vx, vy = pair(k - 1)
+            add(0, pd.RUN, vx)
+            add(1, pd.RUN, vy)
+            t0 = 1
+        for tt in range(t0, pd.RUN - 1, 2):  # tail: value k + t to sums t + 1 ..
+            vx, vy = pair(k + tt)
+            add(tt + 1, pd.RUN, vx)
+            add(tt + 2, pd.RUN, vy)
+    else:
+        r = np.arange(pd.RUN)
+        for u in range(0, 2 * pd.RUN - 2, 2):  # every add predicated
+            vx, vy = pair(u)
+            for uu, v in ((u, vx), (u + 1, vy)):
+                hit = (r <= uu) & (uu - r < k)
+                acc[:, hit] += v[:, None]
+                adds[hit] += 1
+    return acc, adds
+
+
+def _mean(acc, k):
+    """mean_of: a multiply-high by ceil(2^32 / k), truncating toward zero."""
+    assert np.abs(acc).max(initial=0) < 2**24
+    if k == 1:
+        return acc
+    magic = ((1 << 32) + k - 1) // k
+    q = (np.abs(acc) * magic) >> 32
+    return np.where(acc < 0, -q, q)
+
+
 def emulate_direct(x, window, channels, tile_samples=None):
+    """Each block of csrc/direct.cu: the staged planes, every run's walk, the
+    padded interleaved results and their stores, at DirectGeometry."""
     g = pd.direct_geometry(window, channels, tile_samples)
-    n, t, lead = x.size, g.tile_samples, (window - 1) * channels
-    assert 4 * (lead + t) == g.smem_bytes
+    n, c, k, tf = x.size, channels, window, g.tile_frames
+    frames = n // c
+    lead, span = k - 1, k - 1 + tf + pd.RUN
+    assert tf % pd.RUN == 0 and _walk_word(span - 1) < g.plane_words
+    assert g.in_words >= c * g.plane_words and g.out_words * 2 >= tf * c + 2 * g.runs
+    assert g.in_words % 4 == 0 and g.out_words % 4 == 0  # the raw buffer 16-byte aligned
+    assert g.smem_bytes == 4 * (g.in_words + g.out_words + g.raw_words)
     out = np.zeros(n, np.int16)
     written = np.zeros(n, np.int64)
+    sentinel = np.iinfo(np.int64).min
     for b in range(g.blocks(n)):
-        t0 = b * t
-        gi = np.arange(t0 - lead, t0 + t)
-        buf = np.zeros(gi.size, np.int32)
-        inside = (gi >= 0) & (gi < n)
-        buf[inside] = x[gi[inside]]
-        tt = np.arange(min(t, n - t0))
-        acc = np.zeros(tt.size, np.int32)
-        for j in range(window):
-            acc += buf[lead + tt - j * channels]
-        q = np.where(acc >= 0, acc // window, -((-acc) // window))
-        out[t0 + tt] = q.astype(np.int16)
-        written[t0 + tt] += 1
+        f0 = b * tf
+        # the raw stream: 16-byte chunks from the aligned sample below the halo,
+        # zeros outside the stream, within the raw buffer
+        g0 = (f0 - lead) * c
+        ga = g0 - g0 % 8
+        chunks = -(-(g0 + span * c - ga) // 8)
+        assert 8 * chunks <= 2 * g.raw_words
+        gi = ga + np.arange(8 * chunks)
+        raw = np.where((gi >= 0) & (gi < n), x[np.clip(gi, 0, n - 1)], 0)
+        # each value to its channel's plane
+        planes = np.full((c, g.plane_words), sentinel, np.int64)  # unstaged words poison the sums
+        rel = np.arange(span * c) + (g0 - ga)
+        fr, ch_of = np.divmod(np.arange(span * c), c)
+        planes[ch_of, _walk_word(fr)] = raw[rel]
+        outh = np.full(2 * g.out_words, sentinel, np.int64)
+        q = np.arange(g.runs)
+        for ch in range(c):
+            acc, adds = _run_sums(planes[ch], q, k)
+            assert (adds == k).all()  # every output: exactly k adds
+            i = (q[:, None] * pd.RUN + np.arange(pd.RUN)) * c + ch
+            outh[i + 2 * q[:, None]] = _mean(acc, k)
+        count = (min(f0 + tf, frames) - f0) * c
+        e = np.arange(count)
+        chunk = e // 8
+        word = 4 * chunk + 4 * chunk // (8 * c)  # the 16-byte store's first word, past its pads
+        got = outh[2 * word + e % 8]
+        assert np.array_equal(got, outh[e + 2 * (e // (pd.RUN * c))])
+        assert (got != sentinel).all()
+        out[f0 * c : f0 * c + count] = got.astype(np.int16)
+        written[f0 * c : f0 * c + count] += 1
     assert (written == 1).all()
     return out
 
@@ -135,6 +221,37 @@ def test_direct_block_algorithm_int16_min():
         np.testing.assert_array_equal(
             emulate_direct(x, window, channels), moving_average_golden(x, window, channels)
         )
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 16])
+@pytest.mark.parametrize("window", [*range(1, pd.RUN + 2), 31, 33, 63, 64, 255, 256])
+def test_direct_block_every_small_window(rng, window, channels):
+    # k = 1..RUN+1 (the predicated walk and both tails), k mod RUN != 0, odd and
+    # even k, over C = 1, 2, 3, 16 and a ragged last tile
+    x = make_interleaved(rng, 700 + window, channels)
+    np.testing.assert_array_equal(
+        emulate_direct(x, window, channels, tile_samples=256 * channels),
+        moving_average_golden(x, window, channels),
+    )
+
+
+@pytest.mark.parametrize("channels", [1, 2, 16])
+@pytest.mark.parametrize("u", [0, 2, 14, 16, 40, 254, 270])
+def test_direct_walk_reads_fall_on_32_banks(channels, u):
+    # a warp's lanes, consecutive runs of one plane, read value u of their
+    # walks with 8-byte loads: each half warp's 16 lanes cover the 32 banks;
+    # their int16 results land on 32 distinct banks of the padded buffer
+    g = pd.direct_geometry(256, channels)
+    runs = np.arange(g.runs)
+    for first in range(0, g.runs - 31, 32):
+        q = runs[first : first + 32]
+        word = q * pd.RUN_WORDS + _walk_word(u)
+        for half in (word[:16], word[16:]):
+            banks = np.concatenate([half % 32, (half + 1) % 32])
+            assert len(set(banks)) == 32
+        for r in range(pd.RUN):
+            i = (q * pd.RUN + r) * channels + 1 % channels
+            assert len(set(((i + 2 * q) // 2) % 32)) == 32
 
 
 @pytest.mark.parametrize("channels", [1, 2, 3, 16, 64])

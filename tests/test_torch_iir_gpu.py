@@ -83,6 +83,28 @@ def test_b12_matches_plain(dev, sections, channels):
         assert np.abs(end.double().cpu().numpy() - zf).max() < 1e-4 * np.abs(want).max()
 
 
+def test_b12_is_deterministic(dev):
+    # the look-back's depth is fixed: the same terms in the same order, whichever
+    # tiles publish first
+    sos = sos_of(4)
+    x, st = case(dev, 16, 1 << 20, 4, seed=11)
+    for state in (None, st):
+        y1, e1 = iir.sos_cascade(x, sos, state)
+        y2, e2 = iir.sos_cascade(x, sos, state)
+        torch.cuda.synchronize()
+        assert torch.equal(y1, y2)
+        assert state is None or torch.equal(e1, e2)
+
+
+def test_b12_kernel_attrs(dev):
+    # no local memory up to 8 sections; past them the instance keeping 32 partial
+    # sums a lane spills under its 80 registers (40 bytes on an H100, PERF.md)
+    for sections in (1, 4, 5, 8, 16):
+        regs, local, smem, blocks = iir.cascade_kernel_attrs(sections)
+        assert local <= (0 if sections <= 8 else 40), (sections, local)
+        assert 0 < regs <= 255 and blocks >= 1 and smem > 0
+
+
 @pytest.mark.parametrize("sections", range(1, 9))
 def test_b13_matches_plain(dev, sections):
     sos = sos_of(sections)

@@ -156,7 +156,7 @@ def test_scan_methods_route(dev, method):
 
 @pytest.mark.parametrize("frames", [1, 127, 129, 20001])
 @pytest.mark.parametrize("channels", [1, 2, 3, 16])
-@pytest.mark.parametrize("window", [1, 16, 64, 256])
+@pytest.mark.parametrize("window", [1, 15, 16, 17, 64, 255, 256])
 def test_direct_matches_plain(dev, window, channels, frames):
     x = stream(dev, frames, channels)
     before = pd.direct_averager.launches
@@ -182,3 +182,12 @@ def test_tile_samples_matches_plain(dev, tile_rows):
     for variant in ps.SCAN_VARIANTS:
         assert torch.equal(ps.scan_averager(x, 255, 2, variant=variant, tile_samples=tile), want)
     assert torch.equal(pd.direct_averager(x, 255, 2, tile_samples=tile), want)
+
+
+def test_direct_kernel_attrs(dev):
+    # no local memory: every index into a thread's sums folds to a constant
+    for window in (1, 15, 64, 256):
+        for channels in (1, 2, 3):
+            regs, local, smem, blocks = pd.direct_kernel_attrs(window, channels)
+            assert local == 0 and 0 < regs <= 255 and blocks >= 1
+            assert smem >= pd.direct_geometry(window, channels).smem_bytes
