@@ -19,13 +19,17 @@ failure exits non-zero:
    PyTorch version on the card, bit-exact, over k in {1, 16, 1024, 65535}
    (B5: {1, 16, 64, 256}), C in {1, 2, 3, 16} (the tensor-core B3 refuses
    C=3, which is checked), frames in {1, 127, 129, 2^20+C}, all-INT16_MIN
-   input, seeded calls, an int32 wrap, B3 with many short spans and at the
-   largest halo it takes; B1 also against the NumPy golden model on a slice;
+   input, seeded calls, an int32 wrap, B3 with windows across span
+   boundaries and at the largest halo it takes, and at all-INT16_MAX input at k = 1 and that halo;
+   B1 also against the NumPy golden model on a slice;
    then B8 and B9 (the fused overlap-save FIR) against their plain versions
    (within 1e-5 of max|y|) and a float64 FIR on a slice (1e-4) over taps
    {1, 2, 63, 257, the crossover +- 1, the largest B8 takes, the first B9
    takes, 65537, the largest B9 takes}, C in {1, 3, 16} and five lengths;
-   impulses across segment edges, zeros exact; conv1d's error in IEEE fp32;
+   B9 at every nfft it takes (2^15 to 2^20) and at its wave boundaries (one
+   wave exactly full, one pair over, and at a scratch of one and two pairs,
+   waves of one pair); impulses across segment edges, zeros exact; conv1d's
+   error in IEEE fp32;
    then the IIR kernels B10, B12 (seeded and not), B13 and B15 against their
    plain versions (1e-5 of max|y|) and scipy's float64 filter (1e-4) over
    sections {1, 2, 4, 8}, C {1, 3, 16}, T {1, 4095, 4096, 4097, odd, 100003}
@@ -131,9 +135,13 @@ failure exits non-zero:
    the same bytes and B4's library call (``torch.cumsum``); then B1 and B3
    against the two-pass route at halos on both sides of the bounds that
    send ``windowed`` and ``scan*`` to two-pass (``TWO_BLOCKS_SMEM_MAX``);
-   B8 (at 257 and 8193 taps, beside its times at its redesign) and B9 at phase 4's
+   each B3 variant at k=1024, C=2 (median, min and max of 20) beside its time
+   before its redesign, its bound and its registers, local bytes,
+   shared bytes and blocks an SM (``pallas_scan.scan_kernel_attrs``);
+   B8 (at 257 and 8193 taps, beside its times at its redesign) and B9 (beside
+   its time before its redesign) at phase 4's
    shapes (median, min and max) against their plain versions, bounds, their
-   designs' shared-memory
+   designs' shared-memory and shuffle
    limits and one IEEE-fp32 ``conv1d`` (the library call), B8's registers,
    local bytes, shared bytes and blocks an SM at every plan and B9's at each
    launch, both kernels' time by launch, and the crossover table of ``conv1d`` against B8 by taps;
@@ -322,6 +330,9 @@ PFB_SWEEP_TAPS = (1, 2, 4, 8, 16)  # B19's time by taps a phase, on the 2^26 str
 # (PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W)
 PFB_FIRST_MS = {"B19 n=64": 1.3260, "B19 n=1024": 1.5717, "B20 os": 2.3220, "B20 n=48": 1.7805}
 B8_REDESIGN_MS = {"B8 257": 0.2616, "B8": 0.7144}
+# B9 and B3 before their redesign (PERF.md §6's table; NVIDIA H100 80GB HBM3, 700.00 W)
+B9_B3_EARLIER_MS = {"B9": 2.4631, "B3/blelloch": 0.6508, "B3/hillis_steele": 0.8660,
+                    "B3/mxu": 0.7732}
 # B12, B13 (PR 4) and B5 (PR 2) as first ported, printed beside this call's times
 IIR_FIRST_MS = {"B12": 0.6341, "B12 seeded": 0.6341, "B13": 0.7091}
 DIRECT_FIRST_MS = {64: 0.6232, 256: 2.1516}
@@ -597,20 +608,27 @@ def phase_corners(rng, dev, check: Checker) -> None:
         pass
     else:
         raise AssertionError("the tensor-core B3 took C=3, which does not divide its rows")
-    # short tiles: spans of a few tiles each, so a window crosses every span
-    # boundary; then each variant at the largest halo it takes, C=2 and 16
-    x = stream(2**20 + 2, 2)
+    # spans of several tiles (5 at 20M samples on 132 SMs), so windows cross
+    # span boundaries; then each variant at the largest halo it takes, C=2 and 16
+    x = stream(10_000_003, 2)
     want = moving_average_xla(x, 255, 2)
     for v in VARIANTS:
-        got = ps.scan_averager(x, 255, 2, variant=v, tile_samples=1024)
-        check.same(f"B3/{v}", got, want, f"B3 {v} span boundaries k=255 C=2 tile 1024")
+        got = ps.scan_averager(x, 255, 2, variant=v)
+        check.same(f"B3/{v}", got, want, f"B3 {v} span boundaries k=255 C=2 20M samples")
     largest = {}
     for v in VARIANTS:
-        for c in (2, 16):
+        for c in (2, 3, 16) if v != "mxu" else (2, 16):  # C=3: the generic kernel
             k = largest[v, c] = largest_window(lambda w, c=c, v=v: ps.scan_supported(w, c, v))
             x = stream(2**18 + 1, c)
             got = ps.scan_averager(x, k, c, variant=v)
             check.same(f"B3/{v}", got, moving_average_xla(x, k, c), f"B3 {v} largest k={k} C={c}")
+    # int16 max (every window sum at its most positive) at k = 1 and each variant's largest
+    for v in VARIANTS:
+        for c in (2, 3, 16) if v != "mxu" else (2, 16):
+            x = torch.full(((2**17 + 3) * c,), 32767, dtype=torch.int16, device=dev)
+            for k in (1, largest[v, c]):
+                got = ps.scan_averager(x, k, c, variant=v)
+                check.same(f"B3/{v}", got, moving_average_xla(x, k, c), f"B3 {v} INT16_MAX k={k} C={c}")
     x = stream(2**20 + 2, 2)
     got = ps.windowed_averager(x, 1024, 2)[: 1 << 18].cpu().numpy()
     want = moving_average_golden(x[: 1 << 18].cpu().numpy(), 1024, 2)
@@ -671,7 +689,7 @@ def phase_halo_bound(x: torch.Tensor, check: Checker) -> None:
                 side = "inside" if ps.scan_supported(k, c, v) else "beyond"
                 print(
                     f"  {v} k={k} C={c} halo {k * c} ({side}, {g.smem_bytes} B, "
-                    f"{g.blocks_per_sm} blocks an SM): B3 {b3:.4f} ms, two-pass {two:.4f} ms, "
+                    f"{ps.scan_kernel_attrs(k, c, v)[3]} blocks an SM): B3 {b3:.4f} ms, two-pass {two:.4f} ms, "
                     f"B3/two-pass {b3 / two:.3f}"
                 )
 
@@ -794,6 +812,37 @@ def phase_fir_corners(rng, dev, check: Checker) -> None:
                 n = min(t, 64)
                 want = torch.from_numpy(fir64_tail(x[-1:], h, n)).float().to(dev)
                 check.close(kernel, y[-1:, t - n:], want, f"{label} against float64", FIR64_RTOL)
+    # B9 at every nfft it takes (every line plan), and its waves: one wave exactly full,
+    # one pair over it (two waves of about half), two waves and a pair over; at a
+    # scratch of one pair, three waves of one pair; at two, 5 pairs as waves of 1, 2, 2
+    for log2n in range(15, 21):
+        nfft = 1 << log2n
+        k = nfft // 4
+        r = fm.tap_response((rng.standard_normal(k) / np.sqrt(k)).astype(np.float32),
+                            fm.fused_geometry(k, (nfft - k + 1) // 128 * 128), dev)
+        x = torch.from_numpy(rng.standard_normal((3, 2 * nfft + 17), dtype=np.float32)).to(dev)
+        check.close("B9", fm.fused_fir3(x, r), fm.overlap_save_plain(x, r), f"B9 nfft {nfft} C=3")
+    _, h, r = fused_case(rng, dev, LAST_B8 + 1, 1, 1)
+    g = r.geometry
+    saved = fm.FUSED3_SCRATCH_BYTES
+    waves = []
+    try:
+        for scratch_pairs, pairs in ((None, g.wave_pairs), (None, g.wave_pairs + 1),
+                                     (None, 2 * g.wave_pairs + 1), (1, 3), (2, 5)):
+            if scratch_pairs is not None:
+                fm.FUSED3_SCRATCH_BYTES = scratch_pairs * 8 * g.nfft
+            c = 3 if pairs % 3 == 0 else 1
+            t = (2 * pairs // c) * g.block - 5  # rows = 2 * pairs, the last one ragged
+            x = torch.from_numpy(rng.standard_normal((c, t), dtype=np.float32)).to(dev)
+            assert g.pairs(c, t) == pairs
+            y = fm.fused_fir3(x, r)
+            check.close("B9", y, fm.overlap_save_plain(x, r), f"B9 {pairs} pairs, waves of {g.wave(pairs)}")
+            want = torch.from_numpy(fir64_tail(x[-1:], h, 64)).float().to(dev)
+            check.close("B9", y[-1:, -64:], want, f"B9 {pairs} pairs against float64", FIR64_RTOL)
+            waves.append(f"{pairs} pairs in waves of {g.wave(pairs)} (at most {g.wave_pairs})")
+    finally:
+        fm.FUSED3_SCRATCH_BYTES = saved
+    print(f"[3 FIR corners] B9 at nfft 2^15..2^20; waves: {'; '.join(waves)}")
     # B8's smallest plan, nfft 128, which only a block of 128 at one tap reaches
     for c, t in ((1, 1), (3, 100_003)):
         x = torch.from_numpy(rng.standard_normal((c, t), dtype=np.float32)).to(dev)
@@ -944,19 +993,21 @@ def phase_chain_main(rng, dev, check: Checker) -> tuple[dict, dict]:
 
 
 def fused_limit(g: fm.FusedGeometry, pairs: int) -> float:
-    """ms of the shared-memory traffic of B8's or B9's design for ``pairs`` pairs,
-    at 128 bytes a clock an SM: B8's exchanges between Stockham passes (each
-    writes and reads every point once, 16 bytes; len(radices) - 1 a
-    transform, forward and inverse), B9's radix-4 passes (csrc/fft.cuh: each
-    reads and writes every point, ceil(log2(m) / 2) passes a transform of m
-    points, n1-point columns twice and n2-point rows twice over all points)."""
-    def passes(m: int) -> int:
-        return -(-(m.bit_length() - 1) // 2)
+    """ms of the shared-memory and shuffle traffic of B8's or B9's design for
+    ``pairs`` pairs, at 128 bytes a clock an SM (a warp's shuffle of a float
+    moves as many): a sweep writes and reads every point once, 16 bytes. B8:
+    its exchanges between Stockham passes, len(radices) - 1 a transform,
+    forward and inverse. B9: the column and output launches' staging in and
+    out (4 sweeps), each n1-point line's exchanges (a warp plan's shuffle
+    transpose counts one) in both, and each n2-point row's in its two
+    transforms."""
+    def exchanges(m: int) -> int:
+        return len(fm.B9_LINE_PLANS[m.bit_length() - 1][1]) - 1
 
     if g.kernel == "B8":
         sweeps = 2 * (len(g.radices) - 1)
     else:
-        sweeps = 2 * passes(g.n1) + 2 * passes(g.n2)
+        sweeps = 4 + 2 * exchanges(g.n1) + 2 * exchanges(g.n2)
     return pairs * sweeps * g.nfft * 16 / (132 * 128 * 1.98e9) * 1e3
 
 
@@ -989,9 +1040,14 @@ def phase_fir_times(main: dict) -> dict:
         g = v["geometry"]
         design = (f"Stockham passes {g.radices}, {g.points} points a thread, "
                   f"{len(g.radices) - 1} exchanges a transform" if g.kernel == "B8"
-                  else "radix-4 passes in shared memory (fft.cuh)")
+                  else f"lines of {g.n1} and {g.n2} points in registers, {g.g1} columns and "
+                  f"{g.g2} rows a block, staging through shared memory, waves of "
+                  f"{g.wave(g.pairs(c, t))} pairs")
         redesign = B8_REDESIGN_MS.get(kernel)
         was = f"; at its redesign {redesign:.4f}" if redesign else ""
+        if kernel in B9_B3_EARLIER_MS:
+            was = (f"; before its redesign {B9_B3_EARLIER_MS[kernel]:.4f} "
+                   f"({B9_B3_EARLIER_MS[kernel] / v['ms']:.2f}x)")
         print(
             f"  {kernel} k={v['k']} nfft {v['nfft']} block {v['block']}: {v['ms']:.4f} ms "
             f"({v['lo']:.4f}-{v['hi']:.4f}){was}; plain {v['plain']:.4f}; bound {v['bound'][0]:.4f} "
@@ -1000,7 +1056,8 @@ def phase_fir_times(main: dict) -> dict:
         )
     print("  B8 by plan (registers, local bytes, shared bytes, blocks an SM, threads a block): "
           + "; ".join(f"nfft {1 << lg} {fm.fused_kernel_attrs(lg)}" for lg in sorted(fm.B8_PLANS)))
-    print("  B9's launches at nfft 131072 (the same): "
+    print("  B9's launches at nfft 131072 (registers, local bytes, shared bytes, blocks an SM, "
+          "threads a block): "
           + "; ".join(f"{k} {v}" for k, v in fm.fused3_kernel_attrs(out["B9"]["geometry"]).items()))
     for kernel in out:
         fn = (lambda v=out[kernel]: fused_call(x, v["response"]))
@@ -3211,12 +3268,11 @@ def main() -> int:
 
     # bounds: each input byte read once, each output byte written once; int32
     # operations a sample as the kernel does them (divisions counted as one)
-    hs_passes = (ps.scan_geometry(MAIN_WINDOW, 2, "hillis_steele").tile_samples // 2 - 1).bit_length()
     bounds = {
         "B1": bound(4 * n, 4 * n),  # two prefix adds, a subtract, a divide
         "B2": bound(4 * n, 4 * n),
         "B3/blelloch": bound(4 * n, 5 * n),  # up- and down-sweep, carry, subtract, divide
-        "B3/hillis_steele": bound(4 * n, (hs_passes + 3) * n),
+        "B3/hillis_steele": bound(4 * n, 5 * n),  # sequential in a run; the doubling a run total
         "B3/mxu": bound(4 * n, 5 * n),  # the products run on the tensor cores
         "B4": bound(6 * n, 3 * n),
         "B5": bound(4 * n, DIRECT_WINDOWS[-1] * n),  # k - 1 adds and a divide
@@ -3252,6 +3308,22 @@ def main() -> int:
               f"PR 2 {DIRECT_FIRST_MS[k]:.4f} ({DIRECT_FIRST_MS[k] / med:.2f}x); bound {bk[0]:.4f} "
               f"({bk[1]}), kernel/bound {med / bk[0]:.2f}; attrs (registers, local bytes, shared "
               f"bytes, blocks an SM) {pd.direct_kernel_attrs(k, 2)}")
+    # B3 redesigned: median (min-max) of 20 after 5 warm-ups, beside its time before
+    for v in VARIANTS:
+        d = device_ms(lambda v=v: ps.scan_averager(x, MAIN_WINDOW, 2, variant=v), 5, 20)
+        med, bk = statistics.median(d), bounds[f"B3/{v}"]
+        was = B9_B3_EARLIER_MS[f"B3/{v}"]
+        print(f"  B3 {v:13s} k={MAIN_WINDOW} C=2 {med:.4f} ms ({min(d):.4f}-{max(d):.4f}) median "
+              f"(min-max) of 20; before its redesign {was:.4f} ({was / med:.2f}x); bound {bk[0]:.4f} ({bk[1]}), "
+              f"kernel/bound {med / bk[0]:.2f}; /B1 {med / b1_ms:.3f}; attrs (registers, local "
+              f"bytes, shared bytes, blocks an SM) {ps.scan_kernel_attrs(MAIN_WINDOW, 2, v)}")
+    # B3's generic kernel (any C outside 1, 2, 4, 8, 16) at C=3, on the same stream
+    x3 = x[: n // 3 * 3]
+    for v in VARIANTS[:2]:
+        d = device_ms(lambda v=v: ps.scan_averager(x3, MAIN_WINDOW, 3, variant=v), 5, 20)
+        med = statistics.median(d)
+        print(f"  B3 {v:13s} k={MAIN_WINDOW} C=3 (generic) {med:.4f} ms ({min(d):.4f}-{max(d):.4f}) "
+              f"median (min-max) of 20; attrs {ps.scan_kernel_attrs(MAIN_WINDOW, 3, v)}")
     phase_halo_bound(x, check)
     fir_times = phase_fir_times(chain_main)
     mark("5 averager and FIR times")

@@ -45,9 +45,12 @@ _SIGNATURES = {
     # x, y, totals, n, channels, tile_frames, seg_frames, segs, smem_bytes,
     # stream
     "dsp_cumsum_i16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # x, y, n, window, channels, variant, tile_frames, span_tiles,
+    # x, y, n, window, channels, variant, kernel_c, nrun, span_tiles,
     # smem_bytes, stream
-    "dsp_scan_i16": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "dsp_scan_i16": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # variant, kernel_c, smem_bytes, out: registers, local bytes, shared bytes,
+    # blocks an SM (4 int64)
+    "dsp_scan_attrs": (_I, _I, _I, _P),
     # x, y, n, window, channels, tile_frames, plane_words, in_words, smem_bytes,
     # stream
     "dsp_direct_i16": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -59,10 +62,10 @@ _SIGNATURES = {
     # log2n, out: registers, local bytes, shared bytes, blocks an SM, threads
     # a block (5 int64)
     "dsp_fused_fir_attrs": (_I, _P),
-    # x, y, scratch, twiddles, permuted response, t, channels, k, block,
-    # log2n1, log2n2, g1, g2, wave_pairs, threads, smem_bytes, stream
-    "dsp_fused_fir3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # launch (0 columns, 1 rows, 2 outputs), smem_bytes, out: as dsp_fused_fir_attrs
+    # x, y, scratch, response as [f1][f2], t, channels, k, block, log2n,
+    # wave_pairs, stream
+    "dsp_fused_fir3": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # log2n, launch (0 columns, 1 rows, 2 outputs), out: as dsp_fused_fir_attrs
     "dsp_fused_fir3_attrs": (_I, _I, _P),
     # x, y, table, carry, M, seed, state_out, n, channels, sections, tile,
     # stream

@@ -12,15 +12,15 @@ with the same keys and methods. Maps every reference executable (SURVEY.md
 | profilable_sm_averager.cu             | direct        | csrc/direct.cu: tile + halo in shared memory, k adds an output |
 | profilable_sm_vload2.cu               | direct        | same kernel; wider loads are a later step |
 | profilable_sm_vload4.cu               | direct        | same kernel |
-| hillis_steele_averager.cu             | scan_hillis   | csrc/scan.cu: stride-doubling scan, double-buffered in shared memory |
+| hillis_steele_averager.cu             | scan_hillis   | csrc/scan.cu: stride-doubling across the lanes by shuffles, 16-byte loads |
 | hillis_steele_vloaded_averager.cu     | scan_hillis   | same kernel |
-| blelloch_scan_averager.cu             | scan          | csrc/scan.cu: up-sweep and down-sweep per channel in shared memory |
+| blelloch_scan_averager.cu             | scan          | csrc/scan.cu: up-sweep and down-sweep in registers and across the lanes |
 | blelloch_scan_vloaded_averager.cu     | scan          | same kernel |
 
 The reference's vectorized-load rungs share a kernel with their scalar
-rung here, as in the reference package: the port's kernels load 2 bytes a
-thread, and 16-byte loads are future work (PERF.md). The port's CPU
-realization of each kernel is its plain PyTorch version.
+rung here, as in the reference package: the scan kernel loads 16 bytes a
+thread (PERF.md), the direct kernel 2. The port's CPU realization of each
+kernel is its plain PyTorch version.
 """
 
 from __future__ import annotations

@@ -12,9 +12,10 @@ the same causal FIR with FFTs of its own, in its own segments:
   (:data:`B8_PLANS`), shared memory only for the exchanges between passes,
   nfft up to FUSED_MAX_NFFT;
 - :func:`fused_fir3` B9, ``csrc/fused_fir3.cu``: the four-step split
-  nfft = n1 * n2 in three launches through a scratch in device memory, each
-  line a radix-4 FFT in shared memory (``csrc/fft.cuh``), nfft up to
-  FUSED3_MAX_NFFT;
+  nfft = n1 * n2 in three persistent launches a wave of pairs through a
+  scratch in device memory (FUSED3_SCRATCH_BYTES), each line held in
+  registers by the same Stockham passes (:data:`B9_LINE_PLANS`), every
+  twiddle computed, nfft up to FUSED3_MAX_NFFT;
 - :func:`overlap_save_fused` picks one of the two by the segment's nfft;
 - :func:`overlap_save_plain` the plain version of both, the same segments
   and the same spectrum of the taps with ``torch.fft``;
@@ -63,18 +64,33 @@ B8_PLANS = {
     14: (32, (16, 32, 32)),
 }
 B8_MIN_THREADS = 256
-FUSED3_THREADS = 256
-# Complex points in one B9 block's shared memory: g lines of n1 or n2.
-LINE_POINTS = 8192
-# Bound on B9's scratch in device memory: one nfft-point complex buffer per
-# pair of segments in flight; the pairs go in waves of at most this much.
-FUSED3_SCRATCH_BYTES = 1 << 28
+# B9's line plans at each log2 of a line's length (csrc/fused_fir3.cu Line<>):
+# points a thread and the radices of its passes; the two-pass plans are warp
+# plans (the lanes of a line exchange by shuffles), the others exchange
+# through shared memory as B8's do.
+B9_LINE_PLANS = {
+    7: (16, (16, 8)),
+    8: (16, (16, 16)),
+    9: (16, (8, 8, 8)),
+    10: (16, (4, 16, 16)),
+}
+B9_ROW_THREADS = 256
+# Bound on B9's scratch: one nfft-point complex buffer per pair of segments
+# in flight, the pairs in waves of equal size that fit this much. One wave
+# holds fir_filter's 16 x 2^22 at 8194 taps (280 pairs of 1 MB); waves small
+# enough to stay in the H100's 50 MB L2 measured slower (PERF.md §6).
+FUSED3_SCRATCH_BYTES = 512 << 20
 
 
 def line_slots(m: int) -> int:
-    """Complex slots a line of m points takes in shared memory: one pad after every 16
-    and one after the line (``slot()`` in ``csrc/fft.cuh``)."""
+    """Complex slots a line of m points takes in B9's shared memory: one pad after
+    every 16 points (``xslot`` in ``csrc/stockham.cuh``) and one after the line."""
     return m + m // 16 + 1
+
+
+def line_threads(m: int) -> int:
+    """Threads that hold a B9 line of m points."""
+    return m // B9_LINE_PLANS[m.bit_length() - 1][0]
 
 
 def pick_factored_nfft(min_n: int, n1: int = 128) -> int:
@@ -119,13 +135,31 @@ class FusedGeometry:
 
     @property
     def g1(self) -> int:
-        """Lines of n1 points a block of B9's column passes holds."""
-        return min(LINE_POINTS // self.n1, self.n2)
+        """Lines of n1 points (columns) a block of B9's column launches holds."""
+        t = line_threads(self.n1)
+        return 8 if t >= 32 else 256 // t
 
     @property
     def g2(self) -> int:
-        """Lines of n2 points a block of B9's row pass holds."""
-        return min(LINE_POINTS // self.n2, self.n1)
+        """Lines of n2 points (rows) a block of B9's row launch holds."""
+        return B9_ROW_THREADS // line_threads(self.n2)
+
+    @property
+    def column_threads(self) -> int:
+        return self.g1 * line_threads(self.n1)
+
+    @property
+    def column_smem_bytes(self) -> int:
+        """B9's column and output launches: two stages of g1 padded lines of n1 points
+        (a task's and the next one's, loaded meanwhile)."""
+        return 2 * 8 * self.g1 * line_slots(self.n1)
+
+    @property
+    def row_smem_bytes(self) -> int:
+        """B9's row launch: g2 rows of the taps' spectrum, g2 staged rows of a pair,
+        and the exchanges of a shared-memory plan (none for a warp plan)."""
+        warp = len(B9_LINE_PLANS[self.n2.bit_length() - 1][1]) == 2
+        return 8 * (2 * self.g2 * self.n2 + (0 if warp else self.g2 * line_slots(self.n2)))
 
     @property
     def points(self) -> int:
@@ -151,20 +185,25 @@ class FusedGeometry:
     def threads(self) -> int:
         if self.kernel == "B8":
             return self.pairs_per_block * self.pair_threads
-        return FUSED3_THREADS
+        return self.column_threads
 
     @property
     def smem_bytes(self) -> int:
         """Bytes of dynamic shared memory a block takes: B8's exchange of each
-        pair (one pad after every 16 points), B9's lines (``csrc/fft.cuh``)."""
+        pair (one pad after every 16 points), the larger of B9's launches'."""
         if self.kernel == "B8":
             return 8 * self.pairs_per_block * (self.nfft + self.nfft // 16)
-        return 8 * max(self.g1 * line_slots(self.n1), self.g2 * line_slots(self.n2))
+        return max(self.column_smem_bytes, self.row_smem_bytes)
 
     @property
     def wave_pairs(self) -> int:
-        """Pairs of segments B9 keeps in its scratch at once."""
+        """Pairs of segments B9's scratch may hold at once (FUSED3_SCRATCH_BYTES)."""
         return max(1, min(65535, FUSED3_SCRATCH_BYTES // (8 * self.nfft)))
+
+    def wave(self, pairs: int) -> int:
+        """Pairs in B9's largest wave: ``pairs`` in ceil(pairs / wave_pairs) waves
+        of equal size (wave w takes pairs [w*pairs/waves, (w+1)*pairs/waves))."""
+        return cdiv(pairs, cdiv(pairs, self.wave_pairs))
 
     def segments(self, t: int) -> int:
         return cdiv(t, self.block)
@@ -214,11 +253,12 @@ def pick_fused_block(k: int) -> int | None:
 class TapResponse:
     """The taps' spectrum at a geometry's nfft, as B8, B9 and the plain version read it.
 
-    ``h`` is in natural bin order (complex64); ``h_kernel`` is ``h`` in the
-    order the kernel's forward FFT leaves the spectrum: for B8 ``h`` itself
-    (its Stockham passes leave the spectrum in natural order,
-    ``csrc/fused_fir.cu``), for B9 ``h_kernel[f1 * n2 + q] =
-    h[f1 + n1 * bitrev(q)]`` (``csrc/fft.cuh``, ``csrc/fused_fir3.cu``).
+    ``h`` is in natural bin order (complex64); ``h_kernel`` is ``h`` as the
+    kernel's tap product reads it: for B8 ``h`` itself (its Stockham passes
+    leave the spectrum in natural order, ``csrc/fused_fir.cu``), for B9 the
+    four-step layout ``h_kernel[f1 * n2 + f2] = h[f1 + n1 * f2]``, a
+    transpose, so that a row of the row launch reads its taps in order
+    (``csrc/fused_fir3.cu``).
     """
 
     geometry: FusedGeometry
@@ -241,21 +281,8 @@ def tap_response(taps, geometry: FusedGeometry, device) -> TapResponse:
         raise ValueError(f"taps of shape {tuple(t64.shape)} for a geometry of {geometry.k} taps")
     g = geometry
     h = torch.fft.fft(t64, n=g.nfft).to(torch.complex64)
-    if g.kernel == "B8":
-        hk = h
-    else:
-        f1 = np.arange(g.n1)[:, None]
-        q = bit_reverse(np.arange(g.n2), g.n2.bit_length() - 1)[None, :]
-        hk = h[torch.from_numpy((f1 + g.n1 * q).reshape(-1)).to(h.device)]
+    hk = h if g.kernel == "B8" else h.view(g.n2, g.n1).t().contiguous().view(-1)
     return TapResponse(g, h, hk)
-
-
-def bit_reverse(i: np.ndarray, bits: int) -> np.ndarray:
-    """Each of ``i`` with its low ``bits`` bits reversed."""
-    r = np.zeros_like(i)
-    for b in range(bits):
-        r |= ((i >> b) & 1) << (bits - 1 - b)
-    return r
 
 
 @functools.lru_cache(maxsize=16)
@@ -331,7 +358,7 @@ def fused3_kernel_attrs(geometry: FusedGeometry) -> dict:
     out = (ctypes.c_int64 * 5)()
     attrs = {}
     for which, name in enumerate(("columns", "rows", "outputs")):
-        _build.check(lib.dsp_fused_fir3_attrs(which, geometry.smem_bytes, ctypes.addressof(out)),
+        _build.check(lib.dsp_fused_fir3_attrs(geometry.log2n, which, ctypes.addressof(out)),
                      "fused3_kernel_attrs")
         attrs[name] = tuple(out)
     return attrs
@@ -347,15 +374,13 @@ def fused_fir3(x: torch.Tensor, response: TapResponse) -> torch.Tensor:
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
-    wave = min(g.pairs(c, t), g.wave_pairs)
+    wave = g.wave(g.pairs(c, t))
     scratch = torch.empty(wave * g.nfft, dtype=torch.complex64, device=x.device)
-    tw = _twiddles(g.nfft, str(x.device))
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.dsp_fused_fir3(
-            x.data_ptr(), y.data_ptr(), scratch.data_ptr(), tw.data_ptr(),
-            response.h_kernel.data_ptr(), t, c, g.k, g.block, g.n1.bit_length() - 1,
-            g.n2.bit_length() - 1, g.g1, g.g2, wave, g.threads, g.smem_bytes, _stream(x),
+            x.data_ptr(), y.data_ptr(), scratch.data_ptr(), response.h_kernel.data_ptr(),
+            t, c, g.k, g.block, g.log2n, wave, _stream(x),
         )
     _build.check(err, "fused_fir3")
     fused_fir3.launches += 1
@@ -406,6 +431,8 @@ def overlap_save_mxu(x: torch.Tensor, taps, *, block: int, n1: int = 128) -> tor
 __all__ = [
     "FUSED_MAX_NFFT",
     "FUSED3_MAX_NFFT",
+    "FUSED3_SCRATCH_BYTES",
+    "B9_LINE_PLANS",
     "FusedGeometry",
     "TapResponse",
     "fused_geometry",

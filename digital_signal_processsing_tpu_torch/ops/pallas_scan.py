@@ -4,7 +4,9 @@ Counterpart of ``digital_signal_processsing_tpu/ops/pallas_scan.py``:
 
 - :func:`windowed_averager`        B1, ``csrc/windowed.cu``
 - :func:`windowed_averager_packed` B2, ``csrc/windowed.cu`` on int32 pair words
-- :func:`scan_averager`            B3, ``csrc/scan.cu`` (three in-tile scans)
+- :func:`scan_averager`            B3, ``csrc/scan.cu`` (three in-tile scans, each thread's
+  samples in registers, two block barriers a tile; three in the generic
+  kernel for C outside 1, 2, 4, 8, 16)
 - :func:`cumsum`                   B4, ``csrc/cumsum.cu`` (three launches)
 - :func:`moving_average_two_pass`  B4, then the difference in plain PyTorch
 
@@ -16,14 +18,17 @@ to the plain version.
 
 The tile geometry (frames per block, segments of the in-block scan, spans,
 shared memory) is computed here, in Python, so the CPU tests reach it.
-``tile_samples`` on B1 and B3 is the counterpart of the reference's
-``tile_rows`` (``tile_rows * 128`` samples); by default a tile is about
-TILE_SAMPLES.
+``tile_samples`` on B1 is the counterpart of the reference's ``tile_rows``
+(``tile_rows * 128`` samples); by default a tile is about TILE_SAMPLES. B3's
+tile is always 8192 samples; its ``tile_samples`` only bounds the window, as
+the reference's ``tile_rows`` does.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -40,7 +45,6 @@ SEG_ITEMS = 4096
 SMEM_MAX = 232448
 # Shared memory of one H100 SM (228 KB); each resident block also holds 1 KB.
 SMEM_PER_SM = 233472
-THREADS_PER_SM = 2048
 # The buffers of the windowed kernels (B1, B2) and of the scan kernel (B3)
 # grow with the halo k*C. Measured at 64M samples, C=2 and C=16 (PERF.md),
 # they beat the two-pass route while two blocks fit on an SM and lose from
@@ -299,53 +303,69 @@ def windowed_averager_packed(
 windowed_averager_packed.launches = 0
 
 
-# B3's in-tile scans, and their codes in csrc/scan.cu (dsp::ScanVariant)
+# B3's in-tile scans, and their codes in csrc/scan.cu (dsp::b3::ScanVariant)
 SCAN_VARIANTS = {"blelloch": 0, "hillis_steele": 1, "mxu": 2}
-TC_ROW = 16  # samples in a tensor-core row (WMMA 16x16x16): mxu needs C | 16
-TC_ROW_BLOCK = TC_ROW * TC_ROW  # the mxu tile is whole 16 x 16 row blocks
+TC_ROW = 16  # the reference's tensor-core row: mxu takes C dividing 16, as the JAX kernel does
+SCAN_RUN = 8  # samples a run: one 16-byte vector of int16
+SCAN_RUNS = 4  # runs a thread (dsp::b3::kNQ): 32 samples, 8192 a tile
+SCAN_NATIVE_C = (1, 2, 4, 8, 16)  # channel counts with an instance of their own
 
 
 @dataclasses.dataclass(frozen=True)
 class ScanGeometry:
     """Launch geometry of B3 (``csrc/scan.cu``).
 
-    A block walks a span of tiles of ``tile_frames`` frames in order. Its
-    shared memory holds the tile's prefix (``res``), the previous
-    ``window * channels`` prefix values (``tail``) and a double carry of
-    ``channels`` words; Hillis-Steele adds a second tile buffer, the
-    tensor-core scan the 16 x 16 matrix, the tile's two 8-bit limbs and a
-    scratch of the rows' per-channel totals.
+    A block of THREADS threads walks a span of tiles of the interleaved
+    stream in order; each thread holds SCAN_RUNS runs of SCAN_RUN samples in
+    registers. C in SCAN_NATIVE_C has an instance of its own (``kernel_c`` =
+    C); any other C takes the generic kernel (``kernel_c`` = 0). Shared
+    memory holds a ring of the last ``nrun`` runs' absolute prefixes (every
+    cum[i - H] a tile reads) and the 8 warps' totals, or, in the generic
+    kernel, the ring skewed by a word every 32 and one carry a channel.
     """
 
     window: int
     channels: int
-    tile_frames: int
     variant: str
 
     @property
+    def kernel_c(self) -> int:
+        return self.channels if self.channels in SCAN_NATIVE_C else 0
+
+    @property
     def tile_samples(self) -> int:
-        return self.tile_frames * self.channels
+        return THREADS * SCAN_RUN * SCAN_RUNS
+
+    @property
+    def halo(self) -> int:
+        return self.window * self.channels
+
+    @property
+    def seed_tiles(self) -> int:
+        """Tiles a block scans before its span, to reach H samples back."""
+        return cdiv(self.halo, self.tile_samples)
+
+    @property
+    def nrun(self) -> int:
+        """Runs in the ring: a tile and ceil(H / 8) + 1 more, a multiple of 32."""
+        return round_up(self.tile_samples // SCAN_RUN + cdiv(self.halo, SCAN_RUN) + 1, 32)
 
     @property
     def smem_bytes(self) -> int:
-        t, c = self.tile_samples, self.channels
-        words = t + self.window * c + 2 * c
-        extra = 0
-        if self.variant == "hillis_steele":
-            words += t
-        elif self.variant == "mxu":
-            words += (t // TC_ROW) * c
-            extra = TC_ROW_BLOCK + 2 * t
-        return 4 * words + extra
+        ring = SCAN_RUN * self.nrun
+        if self.kernel_c:
+            return 4 * (ring + (THREADS // 32) * self.channels)
+        return 4 * (ring + ring // 32 + self.channels)
 
-    @property
-    def blocks_per_sm(self) -> int:
-        return max(1, min(THREADS_PER_SM // THREADS, SMEM_PER_SM // (self.smem_bytes + 1024)))
+    def tiles(self, n: int) -> int:
+        """Tiles of an n-sample stream."""
+        return cdiv(n, self.tile_samples)
 
-    def span_tiles(self, n: int, sm_count: int) -> int:
-        """Tiles a block walks: one wave of resident blocks covers the stream."""
-        tiles = cdiv(n, self.tile_samples)
-        return cdiv(tiles, max(1, min(tiles, sm_count * self.blocks_per_sm)))
+    def span_tiles(self, n: int, resident: int) -> int:
+        """Tiles a block walks: one wave of ``resident`` blocks (the card's SMs
+        times the kernel's blocks an SM) covers the stream."""
+        tiles = self.tiles(n)
+        return cdiv(tiles, max(1, min(tiles, resident)))
 
 
 def _check_scan_variant(variant: str, channels: int) -> None:
@@ -363,29 +383,24 @@ def _check_scan_variant(variant: str, channels: int) -> None:
 def scan_geometry(
     window: int, channels: int, variant: str = "blelloch", tile_samples: int | None = None
 ) -> ScanGeometry:
-    """B3's tile: about ``tile_samples``, grown to the halo when that is None.
-
-    An explicit tile smaller than the halo raises, as the reference's
-    ``tile_rows`` does. The tensor-core tile is whole 256-sample row blocks.
+    """B3's geometry. Its tile is 8192 samples whatever ``tile_samples``
+    says: an explicit tile smaller than the halo raises, as
+    the reference's ``tile_rows`` does, and selects nothing else. The
+    kernel's ring reaches any halo that fits.
     """
     _check_scan_variant(variant, channels)
-    tf = cdiv(TILE_SAMPLES if tile_samples is None else tile_samples, channels)
-    if window > tf:
-        if tile_samples is not None:
-            raise ValueError(
-                f"window*channels = {window * channels} exceeds one tile "
-                f"({tf * channels} samples); raise tile_samples"
-            )
-        tf = window
-    if variant == "mxu":
-        tf = round_up(tf, TC_ROW_BLOCK // channels)
-    return ScanGeometry(window, channels, tf, variant)
+    if tile_samples is not None and window > cdiv(tile_samples, channels):
+        raise ValueError(
+            f"window*channels = {window * channels} exceeds one tile "
+            f"({tile_samples} samples); raise tile_samples"
+        )
+    return ScanGeometry(window, channels, variant)
 
 
 def scan_supported(
     window: int, channels: int, variant: str = "blelloch", tile_samples: int | None = None
 ) -> bool:
-    """True iff B3 takes this configuration: its buffers leave two blocks an SM.
+    """True iff B3 takes this configuration: its ring leaves two blocks an SM.
 
     ``variant`` must be known and, for ``mxu``, take the channel count.
     """
@@ -414,7 +429,7 @@ def scan_averager(
     _check_stream(x, torch.int16, channels, "x", x.numel())
     if scan_geometry(window, channels, variant, tile_samples).smem_bytes > TWO_BLOCKS_SMEM_MAX:
         raise ValueError(
-            f"scan kernel takes halos whose buffers leave two blocks an SM, got "
+            f"scan kernel takes halos whose ring leaves two blocks an SM, got "
             f"window*channels = {window * channels}; use moving_average_two_pass"
         )
     if not _on_cuda(x):
@@ -431,9 +446,9 @@ def launch_scan(
 ) -> torch.Tensor:
     """Launch B3 on a CUDA stream the caller has checked, at any halo that fits.
 
-    :func:`scan_averager` holds the buffers to TWO_BLOCKS_SMEM_MAX;
+    :func:`scan_averager` holds the ring to TWO_BLOCKS_SMEM_MAX;
     ``chip_smoke.py`` also launches beyond it, to time B3 against the
-    two-pass route on both sides of the bound. Raises if the buffers exceed
+    two-pass route on both sides of the bound. Raises if the ring exceeds
     shared memory.
     """
     g = scan_geometry(window, channels, variant, tile_samples)
@@ -443,12 +458,13 @@ def launch_scan(
     y = torch.empty_like(x)
     if n == 0:
         return y
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     lib = _build.library()
     with torch.cuda.device(x.device):
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        resident = sms * _scan_attrs(x.device.index, variant, g.kernel_c, g.smem_bytes)[3]
         err = lib.dsp_scan_i16(
-            x.data_ptr(), y.data_ptr(), n, window, channels, SCAN_VARIANTS[variant],
-            g.tile_frames, g.span_tiles(n, sms), g.smem_bytes, _stream(x),
+            x.data_ptr(), y.data_ptr(), n, window, channels, SCAN_VARIANTS[variant], g.kernel_c,
+            g.nrun, g.span_tiles(n, resident), g.smem_bytes, _stream(x),
         )
     _build.check(err, f"scan_averager[{variant}]")
     scan_averager.launches[variant] += 1
@@ -456,6 +472,25 @@ def launch_scan(
 
 
 scan_averager.launches = dict.fromkeys(SCAN_VARIANTS, 0)  # by variant
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_attrs(device: int | None, variant: str, kernel_c: int, smem_bytes: int) -> tuple:
+    lib = _build.library()
+    out = (ctypes.c_int64 * 4)()
+    with torch.cuda.device(device):
+        _build.check(lib.dsp_scan_attrs(SCAN_VARIANTS[variant], kernel_c, smem_bytes,
+                                        ctypes.addressof(out)), "scan_kernel_attrs")
+    return tuple(out)
+
+
+def scan_kernel_attrs(window: int, channels: int = 2, variant: str = "blelloch") -> tuple:
+    """What the compiler gave B3's kernel for ``variant`` and ``channels``, and its
+    blocks an SM at ``window`` (the card only): (registers a thread, local bytes a
+    thread, shared bytes a block, blocks an SM). The launch sizes its spans by
+    the last."""
+    g = scan_geometry(window, channels, variant)
+    return _scan_attrs(torch.cuda.current_device(), variant, g.kernel_c, g.smem_bytes)
 
 
 def cumsum(x: torch.Tensor, channels: int = 1) -> torch.Tensor:
@@ -518,6 +553,7 @@ __all__ = [
     "windowed_averager_packed",
     "scan_averager",
     "launch_scan",
+    "scan_kernel_attrs",
     "cumsum",
     "moving_average_two_pass",
 ]

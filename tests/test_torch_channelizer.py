@@ -27,7 +27,7 @@ from digital_signal_processsing_tpu_torch.ops import channelizer as ch
 from digital_signal_processsing_tpu_torch.ops import fft_mxu as fm
 from digital_signal_processsing_tpu_torch.ops import pfb_os
 from digital_signal_processsing_tpu_torch.utils import last_choice
-from test_torch_fir import dft_registers, stockham, twiddles, xslot
+from test_torch_fir import stockham, twiddles, warp_fft, xslot
 
 TOL = 1e-5
 METHODS = ("auto", "fused_raw", "fused", "composed")
@@ -365,45 +365,6 @@ def w3m(e, n):
     z = exact_w((u * (2.0 / (n // 3))).astype(np.float32))
     return (z * np.where(w == 0, np.complex64(1), np.where(w == 1, w_const(n, 1), w_const(n, 2)))).astype(
         np.complex64)
-
-
-def transpose_shfl(w, t, q_of):
-    """stockham.cuh transpose_shfl(): w (..., T lanes, P); round h swaps lane bit h
-    with bit h of t in register t*Q + q, one xor shuffle a register pair."""
-    j = np.arange(t)
-    h = 1
-    while h < t:
-        hi = ((j & h) != 0)[:, None]
-        for c in range(w.shape[-1]):
-            if (c // q_of) & h:
-                continue
-            c1 = c + h * q_of
-            send = np.where(hi[:, 0], w[..., c], w[..., c1])
-            got = send[..., j ^ h]
-            w[..., c], w[..., c1] = np.where(hi[:, 0], got, w[..., c]), np.where(hi[:, 0], w[..., c1], got)
-        h <<= 1
-    return w
-
-
-def warp_fft(v, m, p):
-    """stockham.cuh warp_fft(): the M-point transform of each row of T lanes x P
-    points, pass 1 a P-point DFT a lane, the shuffle transpose, pass 2 of radix T
-    with the twiddles W_M^(b r) (b = j + qT); natural order in and out."""
-    t = m // p
-    if t == 1:
-        return dft_registers(v) if p > 1 else v
-    q_of = p // t
-    a = dft_registers(v)
-    w = np.empty_like(a)
-    for tt in range(t):
-        for q in range(q_of):
-            w[..., tt * q_of + q] = a[..., tt + q * t]
-    w = transpose_shfl(w, t, q_of)
-    j = np.arange(t)
-    for q in range(q_of):
-        cols = q + q_of * np.arange(t)
-        w[..., cols] = dft_registers(w[..., cols] * twiddles(j + q * t, m, t))
-    return w
 
 
 def radix3(z, n, t, p):

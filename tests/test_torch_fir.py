@@ -9,8 +9,12 @@ packing; for B8 each thread's points in registers, every Stockham pass of
 the plan with its in-register DFT, computed twiddles and the exchange
 through padded shared memory between passes, the tap product fused
 between the transforms and the inverse as the forward transform of the
-conjugate; for B9 the padded shared-memory slots, every radix-4 pass,
-radix-2 stage and twiddle, its index map, permuted spectrum and waves.
+conjugate; for B9 each wave of equal size and its three launches: the
+staging of x, the scratch and y through padded lines in shared memory,
+each line's points in registers through its plan (the warp plans'
+shuffle transpose, B8's shared-memory plans), the computed inter-step
+twiddles W_N^(i2 f1), the taps' spectrum in the four-step layout and the
+inverse as the forward transform of the conjugate.
 
 Tolerances, relative to max|y|:
 - 1e-5 against the JAX fused kernel or the port's other FFT routes: the
@@ -23,6 +27,8 @@ Tolerances, relative to max|y|:
 - 1e-5 against a float64 FIR for the emulations and the FFT routes.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -33,7 +39,7 @@ from digital_signal_processsing_tpu.utils.dispatch import last_choice as jax_las
 from digital_signal_processsing_tpu.utils.layout import overlapping_frames as jax_frames
 from digital_signal_processsing_tpu_torch.ops import fft_mxu as fm
 from digital_signal_processsing_tpu_torch.ops import fir
-from digital_signal_processsing_tpu_torch.utils import last_choice, overlapping_frames
+from digital_signal_processsing_tpu_torch.utils import cdiv, last_choice, overlapping_frames
 
 METHODS = ["direct", "overlap_save", "overlap_save_mxu", "overlap_save_fused"]
 
@@ -229,73 +235,6 @@ def test_response_is_computed_once_for_the_chain_route(rng):
 # ---- the blocks of csrc/fused_fir.cu and csrc/fused_fir3.cu, in NumPy ------------
 
 
-bit_reverse = fm.bit_reverse
-
-
-def slot(line, pos, m):
-    """fft.cuh slot(): a pad after every 16 points and one after each line."""
-    return line * fm.line_slots(m) + pos + (pos >> 4)
-
-
-def radix2_stage(buf, logm, lines, tw, stride, s, forward):
-    i = np.arange(lines << (logm - 1))
-    b = i & ((1 << (logm - 1)) - 1)
-    j = b & ((1 << s) - 1)
-    line, base = i >> (logm - 1), ((b >> s) << (s + 1)) + j
-    m = 1 << logm
-    lo, hi = slot(line, base, m), slot(line, base + (1 << s), m)
-    w = tw[(j << (logm - 1 - s)) * stride]
-    u = buf[:, lo]
-    if forward:
-        v = buf[:, hi]
-        buf[:, lo], buf[:, hi] = u + v, (u - v) * w
-    else:
-        v = buf[:, hi] * np.conj(w)
-        buf[:, lo], buf[:, hi] = u + v, u - v
-
-
-def radix4_pass(buf, logm, lines, tw, stride, t, forward):
-    i = np.arange(lines << (logm - 2))
-    u = i & ((1 << (logm - 2)) - 1)
-    j = u & ((1 << t) - 1)
-    line, base = i >> (logm - 2), ((u >> t) << (t + 2)) + j
-    m, size = 1 << t, 1 << logm
-    p = [slot(line, base + r * m, size) for r in range(4)]
-    w4 = tw[(j << (logm - 2 - t)) * stride]
-    w2 = tw[(j << (logm - 1 - t)) * stride]
-    w4b = (w4 * np.complex64(-1j)).astype(np.complex64)  # W_4m^(j+m)
-    x0, x1, x2, x3 = (buf[:, q] for q in p)
-    if forward:
-        a0, a1, a2, a3 = x0 + x2, x1 + x3, (x0 - x2) * w4, (x1 - x3) * w4b
-        out = a0 + a1, (a0 - a1) * w2, a2 + a3, (a2 - a3) * w2
-    else:
-        v1, v3 = x1 * np.conj(w2), x3 * np.conj(w2)
-        a0, a1, a2, a3 = x0 + v1, x0 - v1, x2 + v3, x2 - v3
-        c2, c3 = a2 * np.conj(w4), a3 * np.conj(w4b)
-        out = a0 + c2, a1 + c3, a0 - c2, a1 - c3
-    for q, v in zip(p, out):
-        buf[:, q] = v
-
-
-def fft_dif(buf, logm, lines, tw, stride):
-    s = logm - 1
-    if logm & 1:
-        radix2_stage(buf, logm, lines, tw, stride, s, True)
-        s -= 1
-    while s >= 1:
-        radix4_pass(buf, logm, lines, tw, stride, s - 1, True)
-        s -= 2
-
-
-def ifft_dit(buf, logm, lines, tw, stride):
-    t = 0
-    while t + 1 < logm:
-        radix4_pass(buf, logm, lines, tw, stride, t, False)
-        t += 2
-    if t < logm:
-        radix2_stage(buf, logm, lines, tw, stride, t, False)
-
-
 class Pairs:
     """The pairs of segments of a launch: rows 2p and 2p+1 of (channels, segments)."""
 
@@ -332,8 +271,16 @@ class Pairs:
             np.add.at(written, (ch[m], o[m]), 1)
 
 
+def bit_reverse(i, bits):
+    """Each of ``i`` with its low ``bits`` bits reversed (stockham.cuh brev)."""
+    r = np.zeros_like(i)
+    for b in range(bits):
+        r |= ((i >> b) & 1) << (bits - 1 - b)
+    return r
+
+
 def xslot(e):
-    """csrc/fused_fir.cu xslot(): B8's exchange, a pad after every 16 points."""
+    """stockham.cuh xslot(): B8's exchange and B9's lines, a pad after every 16 points."""
     return e + (e >> 4)
 
 
@@ -411,6 +358,45 @@ def stockham(v, g, exchanges):
     return v
 
 
+def transpose_shfl(w, t, q_of):
+    """stockham.cuh transpose_shfl(): w (..., T lanes, P); round h swaps lane bit h
+    with bit h of t in register t*Q + q, one xor shuffle a register pair."""
+    j = np.arange(t)
+    h = 1
+    while h < t:
+        hi = ((j & h) != 0)[:, None]
+        for c in range(w.shape[-1]):
+            if (c // q_of) & h:
+                continue
+            c1 = c + h * q_of
+            send = np.where(hi[:, 0], w[..., c], w[..., c1])
+            got = send[..., j ^ h]
+            w[..., c], w[..., c1] = np.where(hi[:, 0], got, w[..., c]), np.where(hi[:, 0], w[..., c1], got)
+        h <<= 1
+    return w
+
+
+def warp_fft(v, m, p):
+    """stockham.cuh warp_fft(): the M-point transform of each row of T lanes x P
+    points, pass 1 a P-point DFT a lane, the shuffle transpose, pass 2 of radix T
+    with the twiddles W_M^(b r) (b = j + qT); natural order in and out."""
+    t = m // p
+    if t == 1:
+        return dft_registers(v) if p > 1 else v
+    q_of = p // t
+    a = dft_registers(v)
+    w = np.empty_like(a)
+    for tt in range(t):
+        for q in range(q_of):
+            w[..., tt * q_of + q] = a[..., tt + q * t]
+    w = transpose_shfl(w, t, q_of)
+    j = np.arange(t)
+    for q in range(q_of):
+        cols = q + q_of * np.arange(t)
+        w[..., cols] = dft_registers(w[..., cols] * twiddles(j + q * t, m, t))
+    return w
+
+
 def emulate_b8(x, response):
     g = response.geometry
     c, t = x.shape
@@ -437,55 +423,84 @@ def emulate_b8(x, response):
     return y
 
 
+def line_fft(v, m):
+    """line_fft<LOG>() of csrc/fused_fir3.cu: the forward transform of lines v
+    (..., T, P) of m points, by the warp plan (shuffles) or B8's shared-memory plan."""
+    p, radices = fm.B9_LINE_PLANS[m.bit_length() - 1]
+    t = m // p
+    if len(radices) == 2:
+        assert radices == (p, t) and t <= 16
+        return warp_fft(v.copy(), m, p)
+    geo = types.SimpleNamespace(nfft=m, points=p, pair_threads=t, radices=radices)
+    return stockham(v.reshape(-1, t, p).copy(), geo, []).reshape(v.shape)
+
+
+def w_n(e, n):
+    """w_n(): W_N^e from sincospif of the float32 product e * (2/N), which is exact
+    (here float64 cos and sin of it, rounded to float32)."""
+    arg = e.astype(np.float32) * np.float32(2.0 / n)
+    assert np.array_equal(arg.astype(np.float64), e.astype(np.float64) * (2.0 / n))
+    ang = np.pi * arg.astype(np.float64)
+    return (np.cos(ang) - 1j * np.sin(ang)).astype(np.complex64)
+
+
 def emulate_b9(x, response):
+    """The three launches of each wave of csrc/fused_fir3.cu at the wrapper's geometry."""
     g = response.geometry
     c, t = x.shape
-    n1, n2, g1, g2, N = g.n1, g.n2, g.g1, g.g2, g.nfft
-    l1, l2, lg1 = n1.bit_length() - 1, n2.bit_length() - 1, g1.bit_length() - 1
-    tw = fm._twiddles(N, "cpu").numpy()
-    hp = response.h_kernel.numpy()
+    n1, n2, N, G, R = g.n1, g.n2, g.nfft, g.g1, g.g2
+    t1, t2 = fm.line_threads(n1), fm.line_threads(n2)
+    p1, p2 = n1 // t1, n2 // t2
+    stride = fm.line_slots(n1)
+    assert g.column_threads == G * t1 and R * t2 == fm.B9_ROW_THREADS
+    assert g.column_smem_bytes == 2 * 8 * G * stride  # a task's lines and the next task's
+    hk = response.h_kernel.numpy().reshape(n1, n2)
+    rot = (g.k - 1) % n2
+    for first in (0, g.block, 5 * g.block):  # a task's runs of x and y: whole 32-byte sectors
+        assert (first - (g.k - 1) + rot) % 8 == 0 and (rot - (g.k - 1)) % 8 == 0
     total = g.pairs(c, t)
-    wave = min(total, g.wave_pairs)
+    wave = g.wave(total)  # what the wrapper passes; the launcher splits by it
+    waves = cdiv(total, wave)
     scratch = np.full((wave, N), np.nan, np.complex64)
-    slots = g.smem_bytes // 8
     y, written = np.full((c, t), np.nan, np.float32), np.zeros((c, t), np.int64)
-    e1 = np.arange(g1 << l1)
-    e2 = np.arange(g2 << l2)
-    for p0 in range(0, total, wave):
-        pr = Pairs(g, c, t, np.arange(p0, min(total, p0 + wave)))
-        w = len(pr.has_b)
-        for bx in range(n2 // g1):  # fir3_columns
-            i2_0 = bx * g1
-            buf = np.zeros((w, slots), np.complex64)
-            ln, i1 = e1 & (g1 - 1), e1 >> lg1
-            buf[:, slot(ln, i1, n1)] = pr.load(x, i1 * n2 + i2_0 + ln)
-            fft_dif(buf, l1, g1, tw, n2)
-            pos = e1 >> lg1
-            f1, i2 = bit_reverse(pos, l1), i2_0 + ln
-            scratch[:w, f1 * n2 + i2] = buf[:, slot(ln, pos, n1)] * tw[i2 * f1]
-        for bx in range(n1 // g2):  # fir3_rows
-            f1_0 = bx * g2
-            buf = np.zeros((w, slots), np.complex64)
-            ln, i2 = e2 >> l2, e2 & (n2 - 1)
-            rows = f1_0 * n2 + e2
-            buf[:, slot(ln, i2, n2)] = scratch[:w, rows]
-            fft_dif(buf, l2, g2, tw, n1)
-            buf[:, slot(ln, i2, n2)] *= hp[rows]
-            ifft_dit(buf, l2, g2, tw, n1)
-            scratch[:w, rows] = buf[:, slot(ln, i2, n2)] * np.conj(tw[i2 * (f1_0 + ln)])
-        for bx in range(n2 // g1):  # fir3_outputs
-            i2_0 = bx * g1
-            buf = np.zeros((w, slots), np.complex64)
-            ln, pos = e1 & (g1 - 1), e1 >> lg1
-            buf[:, slot(ln, pos, n1)] = scratch[:w, bit_reverse(pos, l1) * n2 + i2_0 + ln]
-            ifft_dit(buf, l1, g1, tw, n2)
-            i1 = e1 >> lg1
-            n = i1 * n2 + i2_0 + ln
+    e = np.arange(G * n1)  # the points a column block stages: line e % G, slot e // G
+    ln, i1 = e % G, e // G
+    lj = np.arange(G)[:, None, None], np.arange(t1)[None, :, None], np.arange(p1)[None, None, :]
+    l_, j_, s_ = lj
+    pos = j_ + s_ * t1  # thread (l, j)'s points of its line
+    for w in range(waves):
+        pairs = np.arange(w * total // waves, (w + 1) * total // waves)
+        assert 0 < pairs.size <= wave
+        pr, cnt = Pairs(g, c, t, pairs), pairs.size
+        for bx in range(n2 // G):  # fir3_columns: tasks of G columns from (k - 1) mod n2 on
+            cols = (bx * G + rot + ln) % n2
+            buf = np.full((cnt, G * stride), np.nan, np.complex64)
+            buf[:, ln * stride + xslot(i1)] = pr.load(x, i1 * n2 + cols)
+            v = buf[:, l_ * stride + xslot(pos)]
+            v = line_fft(v, n1) * w_n((bx * G + rot + l_) % n2 * pos, N)
+            buf[:] = np.nan
+            buf[:, l_ * stride + xslot(pos)] = v
+            scratch[:cnt, i1 * n2 + cols] = buf[:, ln * stride + xslot(i1)]
+        r_, jr, sr = np.arange(R)[:, None, None], np.arange(t2)[None, :, None], np.arange(p2)[None, None, :]
+        for bx in range(n1 // R):  # fir3_rows
+            f1 = bx * R + r_
+            col = jr + sr * t2
+            v = line_fft(scratch[:cnt, f1 * n2 + col], n2)
+            v = np.conj(v * hk[f1, col]).astype(np.complex64)  # conj(X H)
+            v = line_fft(v, n2) * w_n(col * f1, N)
+            scratch[:cnt, f1 * n2 + col] = v
+        for bx in range(n2 // G):  # fir3_outputs, the same tasks
+            cols = (bx * G + rot + ln) % n2
+            buf = np.full((cnt, G * stride), np.nan, np.complex64)
+            buf[:, ln * stride + xslot(i1)] = scratch[:cnt, i1 * n2 + cols]
+            v = line_fft(buf[:, l_ * stride + xslot(pos)], n1)
+            buf[:] = np.nan
+            buf[:, l_ * stride + xslot(pos)] = np.conj(v) * np.float32(1.0 / N)
+            n = i1 * n2 + cols
             keep = (n >= g.k - 1) & (n < g.k - 1 + g.block)
-            v = buf[:, slot(ln[keep], i1[keep], n1)] * np.float32(1.0 / N)
-            pr.store(y, written, v, n[keep] - (g.k - 1))
+            pr.store(y, written, buf[:, (ln * stride + xslot(i1))[keep]], n[keep] - (g.k - 1))
         scratch[:] = np.nan  # the next wave must not read this one's points
-    assert (written == 1).all()
+    assert not np.isnan(y).any() and (written == 1).all()
     return y
 
 
@@ -576,14 +591,25 @@ def test_b9_block_algorithm(rng, monkeypatch, k, channels, t, block):
     np.testing.assert_array_equal(emulate_b9(x, r), got)
 
 
+def test_b9_emulation_matches_jax_fused3(rng):
+    # the JAX package's 3-factor kernel (interpret mode) on the same seeded input
+    x = signal(rng, (2, 100_000))
+    h = (rng.normal(size=16_384) / 128).astype(np.float32)
+    want = np.asarray(jax_fft_mxu.overlap_save_fused(x, h, block=49_152))
+    r = response_for(h, 49_152)
+    assert r.geometry.kernel == "B9" and r.geometry.nfft == 1 << 16
+    got = emulate_b9(x, r)
+    assert rel_err(got, want) < 1e-5
+    assert rel_err(got, fir64(x, h)) < 1e-5
+
+
 def test_b9_index_map_and_permuted_response(rng):
-    # the four-step pieces alone: H permuted to [f1][q] = H[f1 + n1*bitrev(q)],
-    # every twiddle exponent i2*f1 an exact integer below N
+    # the four-step pieces alone: H laid out [f1][f2] = H[f1 + n1*f2] (a transpose,
+    # nothing bit-reversed), every twiddle exponent i2*f1 an exact integer below N
     h = taps_of(rng, 9000)
     r = response_for(h)
     g = r.geometry
-    f1, q = np.meshgrid(np.arange(g.n1), np.arange(g.n2), indexing="ij")
-    f2 = bit_reverse(q, g.n2.bit_length() - 1)
+    f1, f2 = np.meshgrid(np.arange(g.n1), np.arange(g.n2), indexing="ij")
     np.testing.assert_array_equal(r.h_kernel.numpy().reshape(g.n1, g.n2), r.h.numpy()[f1 + g.n1 * f2])
     assert (g.n2 - 1) * (g.n1 - 1) < g.nfft
     np.testing.assert_allclose(
@@ -598,8 +624,69 @@ def test_slots_fit_and_never_collide(nfft):
         pair, pos = np.meshgrid(np.arange(g.pairs_per_block), np.arange(nfft), indexing="ij")
         s = (pair * (nfft + nfft // 16) + xslot(pos)).ravel()
         assert np.unique(s).size == s.size and s.max() < g.smem_bytes // 8
-    for lines, m in () if g.kernel == "B8" else ((g.g1, g.n1), (g.g2, g.n2)):
+    # B9: the column launches' lines and the row launch's exchanges, a line a stride
+    for lines, m, smem in () if g.kernel == "B8" else (
+        (g.g1, g.n1, g.column_smem_bytes), (g.g2, g.n2, g.row_smem_bytes - 16 * g.g2 * g.n2)
+    ):
         line, pos = np.meshgrid(np.arange(lines), np.arange(m), indexing="ij")
-        s = slot(line, pos, m).ravel()
-        assert np.unique(s).size == s.size and s.max() < g.smem_bytes // 8
+        s = (line * fm.line_slots(m) + xslot(pos)).ravel()
+        stages = 2 if smem == g.column_smem_bytes else 1
+        if smem:  # (a warp plan's rows exchange by shuffles)
+            assert np.unique(s).size == s.size and stages * (s.max() + 1) <= smem // 8
     assert g.smem_bytes <= fm.SMEM_MAX
+
+
+@pytest.mark.parametrize("log2n", range(15, 21))
+def test_b9_geometry_fits_the_card(log2n):
+    """Every nfft B9 takes: threads, shared memory and registers of its launches fit an
+    H100 SM at their launch bounds (128 registers a thread), and the waves are of equal
+    size within the scratch."""
+    nfft = 1 << log2n
+    g = fm.FusedGeometry(k=2, block=nfft // 2, nfft=nfft)
+    assert g.kernel == "B9" and g.n1 * g.n2 == nfft and g.n1 <= g.n2
+    for m in (g.n1, g.n2):
+        p, radices = fm.B9_LINE_PLANS[m.bit_length() - 1]
+        assert np.prod(radices) == m and max(radices) <= p and m // p <= 64
+    assert g.column_threads % 32 == 0 and 256 <= g.column_threads <= 512
+    assert g.g1 >= 8 and (g.n2 // g.g1) * g.g1 == g.n2 and (g.n1 // g.g2) * g.g2 == g.n1
+    blocks = 1 if g.column_threads > 256 else 2
+    assert blocks * g.column_threads * 128 <= 65536  # the launch bounds' registers
+    assert blocks * (g.column_smem_bytes + 1024) <= fm.SMEM_MAX
+    assert 2 * (g.row_smem_bytes + 1024) <= fm.SMEM_MAX
+    assert g.wave_pairs * 8 * nfft <= fm.FUSED3_SCRATCH_BYTES
+    for pairs in (1, g.wave_pairs, g.wave_pairs + 1, 280, 10**4):
+        waves = cdiv(pairs, g.wave_pairs)
+        sizes = [(w + 1) * pairs // waves - w * pairs // waves for w in range(waves)]
+        assert sum(sizes) == pairs and max(sizes) == g.wave(pairs) <= g.wave_pairs
+        assert max(sizes) - min(sizes) <= 1  # no underfilled last wave
+
+
+def test_b9_twiddles_are_accurate():
+    """W_N^(i2 f1) for every i2 < n2, f1 < n1 at N = 2^15 .. 2^20: the float32 argument
+    e * 2/N is exact and the twiddle within 1 float32 ulp of exp(-2 pi i e / N)."""
+    for log2n in range(15, 21):
+        g = fm.FusedGeometry(k=2, block=(1 << log2n) // 2, nfft=1 << log2n)
+        e = (np.arange(g.n2)[:, None] * np.arange(g.n1)[None, :]).ravel()
+        w = w_n(e, g.nfft).astype(np.complex128)  # asserts the exact argument
+        want = np.exp(-2j * np.pi * e / g.nfft)
+        assert np.abs(w - want).max() < 2.0**-24, log2n
+
+
+def test_b9_staging_banks():
+    """The column launches' staging at the main path's nfft 131072 (256-point columns,
+    16 a block): each half-warp's 8-byte writes of a run of 16 samples, the reads into
+    the lines' registers and the twiddled writes fall on 16 distinct banks."""
+    g = fm.FusedGeometry(k=8194, block=122880, nfft=1 << 17)
+    G, t1, stride = g.g1, fm.line_threads(g.n1), fm.line_slots(g.n1)
+    tid = np.arange(g.column_threads)
+    worst = 1
+    for u in range(g.n1 // t1):
+        e = tid + u * g.column_threads
+        staged = (e % G) * stride + xslot(e // G)
+        held = (tid // t1) * stride + xslot(tid % t1 + u * t1)
+        for addr in (staged, held):
+            for half in range(0, tid.size, 16):
+                worst = max(worst, np.bincount(addr[half : half + 16] % 16).max())
+    assert worst == 1
+
+

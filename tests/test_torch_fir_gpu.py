@@ -102,6 +102,32 @@ def test_b8_kernel_attrs(dev):
         assert regs <= 255 and (local == 0 or log2n == 14), (log2n, regs, local)
 
 
+def test_b9_kernel_attrs(dev):
+    """B9's three launches at every nfft fit at least one block an SM with the
+    geometry's threads and shared bytes; the column and output launches hold
+    their lines without local memory."""
+    for log2n in range(15, 21):
+        g = fm.FusedGeometry(k=2, block=1 << (log2n - 1), nfft=1 << log2n)
+        attrs = fm.fused3_kernel_attrs(g)
+        for name, smem, threads in (("columns", g.column_smem_bytes, g.column_threads),
+                                    ("rows", g.row_smem_bytes, fm.B9_ROW_THREADS),
+                                    ("outputs", g.column_smem_bytes, g.column_threads)):
+            regs, local, shared, blocks, t = attrs[name]
+            assert t == threads and shared >= smem and blocks >= 1, (log2n, name, attrs[name])
+            assert regs <= 255 and (local == 0 or name == "rows" or log2n == 20), (log2n, name, attrs[name])
+
+
+@pytest.mark.parametrize("log2n", range(15, 21))
+def test_b9_every_nfft_matches_plain(dev, log2n):
+    nfft = 1 << log2n
+    k = nfft // 4
+    rng = np.random.default_rng(log2n)
+    h = (rng.standard_normal(k) / np.sqrt(k)).astype(np.float32)
+    r = fm.tap_response(h, fm.fused_geometry(k, (nfft - k + 1) // 128 * 128), dev)
+    x = torch.from_numpy(rng.standard_normal((3, 2 * nfft + 17), dtype=np.float32)).to(dev)
+    assert rel_err(fm.fused_fir3(x, r), fm.overlap_save_plain(x, r)) < 1e-5
+
+
 @pytest.mark.parametrize("channels", [1, 3])
 @pytest.mark.parametrize("k", [LAST_B8 + 1, 65537, LAST_B9])
 def test_b9_matches_plain(dev, k, channels):

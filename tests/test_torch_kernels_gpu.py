@@ -111,7 +111,7 @@ def largest_scan_window(channels, variant):
     return max(k for k in range(1, 16385) if k * channels <= 16384 and ps.scan_supported(k, channels, variant))
 
 
-SCAN_CASES = [(v, c) for v in ps.SCAN_VARIANTS for c in (1, 2, 3, 16) if v != "mxu" or 16 % c == 0]
+SCAN_CASES = [(v, c) for v in ps.SCAN_VARIANTS for c in (1, 2, 3, 5, 8, 16, 32) if v != "mxu" or 16 % c == 0]
 
 
 @pytest.mark.parametrize("frames", [1, 127, 129, 20001])
@@ -143,6 +143,21 @@ def test_scan_spans_and_int16_min(dev, variant, window, channels):
     )
 
 
+@pytest.mark.parametrize("variant", ["blelloch", "hillis_steele"])
+@pytest.mark.parametrize("window,channels", [(1024, 3), (3000, 3), (99, 17), (1, 6)])
+def test_scan_generic_spans_and_int16_extremes(dev, variant, window, channels):
+    # the generic kernel: spans of several tiles, then INT16_MIN and INT16_MAX
+    x = stream(dev, (1 << 20) + 3, channels)
+    assert torch.equal(
+        ps.scan_averager(x, window, channels, variant=variant), moving_average_xla(x, window, channels)
+    )
+    for v in (-32768, 32767):
+        x = torch.full(((1 << 18) * channels,), v, dtype=torch.int16, device=dev)
+        assert torch.equal(
+            ps.scan_averager(x, window, channels, variant=variant), moving_average_xla(x, window, channels)
+        )
+
+
 def test_scan_mxu_refuses_three_channels(dev):
     with pytest.raises(ValueError, match="16-sample rows"):
         ps.scan_averager(stream(dev, 100, 3), 4, 3, variant="mxu")
@@ -152,6 +167,22 @@ def test_scan_mxu_refuses_three_channels(dev):
 def test_scan_methods_route(dev, method):
     x = stream(dev, 30000, 16)
     assert torch.equal(moving_average(x, 65535, 16, method=method), moving_average_xla(x, 65535, 16))
+
+
+def test_scan_kernel_attrs(dev):
+    """Every B3 instance the wrapper picks holds the geometry's shared bytes and
+    fits the two blocks an SM that ``scan_supported`` keeps (its spans are sized
+    by the blocks this reports); at the main path's k=1024, C=2, four."""
+    for variant in ps.SCAN_VARIANTS:
+        for channels in (1, 2, 3, 4, 8, 16):
+            if variant == "mxu" and 16 % channels:
+                continue
+            for window in (1, 1024 // channels, largest_scan_window(channels, variant)):
+                g = ps.scan_geometry(window, channels, variant)
+                regs, local, smem, blocks = ps.scan_kernel_attrs(window, channels, variant)
+                assert smem >= g.smem_bytes and blocks >= 2, (variant, channels, window)
+                assert regs <= 80, (variant, channels, regs)
+        assert ps.scan_kernel_attrs(1024, 2, variant)[3] == 4, variant
 
 
 @pytest.mark.parametrize("frames", [1, 127, 129, 20001])

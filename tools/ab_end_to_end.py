@@ -1,0 +1,131 @@
+#!/usr/bin/env python3
+"""The end-to-end paths of two trees of the port, in turns on one card.
+
+    python3 tools/ab_end_to_end.py OTHER_ROOT
+
+Times, for this checkout and for the checkout at OTHER_ROOT (for example the
+parent commit, unpacked with ``git archive`` into a git-ignored directory),
+the paths whose speed a change to a kernel could move: the flagship receiver
+chain (``DspChain.forward_planar`` on 16 x 2^22 float32 I/Q), the wideband
+receiver (64 channels, 2^26 samples), the averager's main path
+(``moving_average`` on 64M int16 samples at k=1024, C=2, the B1 route), the
+``scan*`` methods on the same stream (B3), and ``fir_filter`` at 8194 taps on
+16 x 2^22 (B9); each timed as the median host wall time of 10 synchronised
+calls after 3 warm-ups. Then B3 alone (``scan_averager``, Blelloch and
+Hillis-Steele) on the same stream at k=1024 and C = 2, 3, 5, 6, checked
+bit-exact against the plain version and timed as the median device time of
+20 calls after 5 warm-ups, by CUDA events: C=2 has an instance of its own,
+the others take the generic one. Each tree runs in its own process, which
+builds its own kernels, in the order other, this, this, other. Needs a CUDA
+device and nvcc.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+CHILD = r'''
+import json, statistics, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from digital_signal_processsing_tpu_torch import _build
+from digital_signal_processsing_tpu_torch.models import ChainConfig, DspChain, WidebandConfig, WidebandFmReceiver
+from digital_signal_processsing_tpu_torch.ops import fir, moving_average
+from digital_signal_processsing_tpu_torch.ops import pallas_scan as ps
+from digital_signal_processsing_tpu_torch.ops.scan_xla import moving_average_xla
+
+_build.build()
+_build.library()
+rng = np.random.default_rng(0)
+dev = torch.device("cuda")
+
+
+def wall(fn):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def device(fn):
+    for _ in range(5):
+        fn()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(21)]
+    ev[0].record()
+    for e in ev[1:]:
+        fn()
+        e.record()
+    ev[-1].synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in zip(ev, ev[1:]))
+
+
+i = torch.from_numpy(rng.standard_normal((16, 1 << 22), dtype=np.float32)).to(dev)
+q = torch.from_numpy(rng.standard_normal((16, 1 << 22), dtype=np.float32)).to(dev)
+chain = DspChain(ChainConfig(channels=16, decimation=8), device=dev)
+wide = WidebandFmReceiver(WidebandConfig(n_channels=64), device=dev)
+xw = torch.from_numpy(rng.standard_normal(1 << 26, dtype=np.float32)).to(dev)
+x = torch.from_numpy(rng.integers(-32768, 32768, size=64 * 2**20, dtype=np.int16)).to(dev)
+h9 = (rng.standard_normal(8194) / np.sqrt(8193)).astype(np.float32)
+res = {
+    "flagship chain": wall(lambda: chain.forward_planar(i, q)),
+    "wideband receiver": wall(lambda: wide(xw)),
+    "averager main path": wall(lambda: moving_average(x, 1024, 2)),
+    **{f"moving_average {m}": wall(lambda m=m: moving_average(x, 1024, 2, method=m))
+       for m in ("scan", "scan_hillis", "scan_mxu")},
+    "fir_filter 8194 taps": wall(lambda: fir.fir_filter(i, h9)),
+}
+for c in (2, 3, 5, 6):
+    xc = x[: x.numel() // c * c]
+    want = moving_average_xla(xc, 1024, c)
+    for v in ("blelloch", "hillis_steele"):
+        if not torch.equal(ps.scan_averager(xc, 1024, c, variant=v), want):
+            raise AssertionError(f"B3 {v} C={c} differs from plain")
+        res[f"B3 {v} k=1024 C={c} (device)"] = device(lambda: ps.scan_averager(xc, 1024, c, variant=v))
+    del want
+print("RESULT " + json.dumps(res))
+'''
+
+
+def run(root: Path) -> dict:
+    out = subprocess.run([sys.executable, "-c", CHILD, str(root)], capture_output=True, text=True,
+                         cwd=root)
+    for line in out.stdout.splitlines():
+        if line.startswith("RESULT "):
+            return json.loads(line[len("RESULT "):])
+    raise RuntimeError(f"{root}: no result\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+
+
+def main() -> int:
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    other = Path(sys.argv[1]).resolve()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(f"card: {smi}; this {ROOT}; other {other}")
+    runs = [("other", run(other)), ("this", run(ROOT)), ("this", run(ROOT)), ("other", run(other))]
+    print("ms (host wall, or device where marked), in turns other, this, this, other:")
+    for path in runs[0][1]:
+        got = {"other": [], "this": []}
+        for who, res in runs:
+            got[who].append(res[path])
+        print(f"  {path:36s} other {' '.join(f'{v:.3f}' for v in got['other'])}; "
+              f"this {' '.join(f'{v:.3f}' for v in got['this'])}; this/other "
+              f"{statistics.mean(got['this']) / statistics.mean(got['other']):.3f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

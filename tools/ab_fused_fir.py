@@ -21,6 +21,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from _ab import card, device_ms
 
 KERNEL = "_ZN3dsp2b816fused_fir_kernelILi14EEEvPKfPfPK6float2xxxxx"  # fused_fir_kernel<14>
 
@@ -40,18 +41,6 @@ def load(root: Path):
     return fm, so
 
 
-def device_ms(fn, reps: int = 20) -> list[float]:
-    for _ in range(5):
-        fn()
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-    events[0].record()
-    for ev in events[1:]:
-        fn()
-        ev.record()
-    events[-1].synchronize()
-    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-
-
 def main() -> int:
     if not torch.cuda.is_available() or len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
@@ -67,8 +56,7 @@ def main() -> int:
             fm = trees[who][0]
             r = fm.tap_response(h, fm.fused_geometry(k, fm.pick_fused_block(k)), "cuda")
             times.setdefault((k, who), []).extend(device_ms(lambda: fm.fused_fir(x, r)))
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip())
+    print(card())
     for (k, who), t in sorted(times.items()):
         print(f"B8 k={k} {who}: median {statistics.median(t):.4f} ms "
               f"({min(t):.4f}-{max(t):.4f}) of {len(t)}")

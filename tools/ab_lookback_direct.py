@@ -18,10 +18,8 @@ what remains, never a port. Writes each library's SASS opcode counts
 from __future__ import annotations
 
 import collections
-import ctypes
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -30,9 +28,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+from _ab import ROOT, bind, build, card, patched, timed
 
 from digital_signal_processsing_tpu_torch import _build  # noqa: E402
 from digital_signal_processsing_tpu_torch.ops import iir  # noqa: E402
@@ -87,26 +83,6 @@ SIG_LOOKBACK = _build._SIGNATURES["dsp_sos_lookback"]
 SIG_DIRECT = _build._SIGNATURES["dsp_direct_i16"]
 
 
-def patched(src: Path, hooks, out: Path) -> Path:
-    text = src.read_text()
-    for old, new in hooks:
-        if text.count(old) != 1:
-            raise RuntimeError(f"{src.name}: hook anchor found {text.count(old)} times: {old[:50]!r}")
-        text = text.replace(old, new)
-    dst = out / src.name
-    dst.write_text(text)
-    return dst
-
-
-def build(src: Path, defines: dict, so: Path) -> Path:
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(src),
-           *(f"-D{k}={v}" for k, v in defines.items())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {so.name}:\n{res.stdout}{res.stderr}")
-    return so
-
-
 def sass_counts(so: Path) -> dict:
     """{kernel: Counter of opcodes} for the library's kernels."""
     tool = Path(_build._nvcc()).with_name("cuobjdump")
@@ -122,18 +98,6 @@ def sass_counts(so: Path) -> dict:
         if m and fn:
             counts[fn][m.group(2).split(".")[0]] += 1
     return counts
-
-
-def device_ms(fn, reps: int = 10) -> list[float]:
-    for _ in range(5):
-        fn()
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-    events[0].record()
-    for ev in events[1:]:
-        fn()
-        ev.record()
-    events[-1].synchronize()
-    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
 
 
 def lookback_call(lib, x, rows, state, tile, v):
@@ -182,22 +146,12 @@ def direct_call(lib, x, k, c):
     return run
 
 
-def timed(runs: dict) -> dict:
-    """{name: (median, min, max)} of 20 calls each, two rounds in turns."""
-    got = {name: [] for name in runs}
-    for name in (*runs, *reversed(runs)):
-        got[name] += device_ms(runs[name])
-    return {k: (statistics.median(v), min(v), max(v)) for k, v in got.items()}
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1
     out = Path(sys.argv[1]) if len(sys.argv) > 1 else None
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"card: {card()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     tmp = Path(tempfile.mkdtemp())
     try:
         work = tmp / "csrc"
@@ -214,11 +168,9 @@ def main() -> int:
             built = dict(zip(jobs, pool.map(lambda j: build(*j), jobs.values())))
         libs = {}
         for name, so in built.items():
-            lib = ctypes.CDLL(str(so))
-            fn = lib.dsp_sos_lookback if name.startswith("B12") else lib.dsp_direct_i16
-            fn.argtypes = SIG_LOOKBACK if name.startswith("B12") else SIG_DIRECT
-            fn.restype = ctypes.c_int
-            libs[name] = lib
+            b12 = name.startswith("B12")
+            libs[name] = bind(so, *(("dsp_sos_lookback", SIG_LOOKBACK) if b12 else
+                                    ("dsp_direct_i16", SIG_DIRECT)))
             if out is not None:
                 out.mkdir(parents=True, exist_ok=True)
                 with open(out / f"sass_{re.sub(r'[^A-Za-z0-9]+', '_', name)}.txt", "w") as f:
@@ -257,7 +209,7 @@ def main() -> int:
                             raise AssertionError(f"{name} tile {tile}: {err:.3e} from plain")
                     runs[f"{name} tile {tile}"] = run
             print(f"B12 variants, {c} x {t}, butter(8, 0.1), seeded; ms median (min-max) of 20:")
-            for name, (med, lo, hi) in timed(runs).items():
+            for name, (med, lo, hi) in timed(runs, 10).items():
                 print(f"  {name:40s} {med:.4f} ({lo:.4f}-{hi:.4f})")
         x = torch.from_numpy(rng.integers(-32768, 32768, size=64 * 2**20, dtype=np.int16)).cuda()
         for k in (64, 256):
@@ -267,7 +219,7 @@ def main() -> int:
                 if DIRECT_VARIANTS[name].get("AB_MODE", 0) == 0 and not torch.equal(runs[name](), want):
                     raise AssertionError(f"{name} differs")
             print(f"B5 variants, 64M int16, C=2, k={k}; ms median (min-max) of 20:")
-            for name, (med, lo, hi) in timed(runs).items():
+            for name, (med, lo, hi) in timed(runs, 10).items():
                 print(f"  {name:40s} {med:.4f} ({lo:.4f}-{hi:.4f})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
