@@ -11,8 +11,9 @@ failure exits non-zero:
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the kernels compiled from ``digital_signal_processsing_tpu_torch/csrc``, and
    B19's and B20's registers, local bytes, shared bytes, blocks an SM and
-   threads by plan (``channelizer.pfb_kernel_attrs``), B12's by sections
-   (``iir.cascade_kernel_attrs``) and B5's by window and channels
+   threads by plan (``channelizer.pfb_kernel_attrs``), B12's and B13's by
+   sections (``iir.cascade_kernel_attrs``), B1's by channels
+   (``pallas_scan.windowed_kernel_attrs``) and B5's by window and channels
    (``pallas_direct.direct_kernel_attrs``);
 3. corners: each kernel (B1 windowed, B2 packed, B3 scan in its three
    variants, B4 cumsum and the two-pass route, B5 direct) against its plain
@@ -21,7 +22,11 @@ failure exits non-zero:
    C=3, which is checked), frames in {1, 127, 129, 2^20+C}, all-INT16_MIN
    input, seeded calls, an int32 wrap, B3 with windows across span
    boundaries and at the largest halo it takes, and at all-INT16_MAX input at k = 1 and that halo;
-   B1 also against the NumPy golden model on a slice;
+   B1 also against the NumPy golden model on a slice, on views 2 to 14 bytes
+   off the 16-byte grid (seeded too), with its range entry split into two
+   launches at every tile boundary of a 9-tile stream (seeded and not), in
+   spans of one tile, at C in {1, 2, 3, 5, 16} for k = 1, a halo past a
+   tile and the largest halo it takes, and at INT16_MIN and INT16_MAX there;
    then B8 and B9 (the fused overlap-save FIR) against their plain versions
    (within 1e-5 of max|y|) and a float64 FIR on a slice (1e-4) over taps
    {1, 2, 63, 257, the crossover +- 1, the largest B8 takes, the first B9
@@ -35,7 +40,10 @@ failure exits non-zero:
    sections {1, 2, 4, 8}, C {1, 3, 16}, T {1, 4095, 4096, 4097, odd, 100003}
    and 16 x 2^22, first-order a {0.5, -0.3, 0.99, 0.9999}; seeded chunks
    whose end states match the float64 state at their last sample, impulses
-   across sub-tile edges, zeros exact, B13 refusing 9 sections; B12's
+   across sub-tile edges, zeros exact, B13 at every instance (1 to 8
+   sections) bit-identical over two calls; past the largest instances
+   (the wrappers chain groups) B13 at 9 and 17 sections, ``sosfilt``,
+   ``sosfilt_chunk``, ``sosfiltfilt`` and B14 at 17; B12's
    look-back at sections {1, 4, 8, 16} over tile counts one below, at, one
    above and past three times its depth, seeded and not, ragged, with tiles
    longer than a block holds, and impulses at tile edges; then the PFB
@@ -137,7 +145,11 @@ failure exits non-zero:
    send ``windowed`` and ``scan*`` to two-pass (``TWO_BLOCKS_SMEM_MAX``);
    each B3 variant at k=1024, C=2 (median, min and max of 20) beside its time
    before its redesign, its bound and its registers, local bytes,
-   shared bytes and blocks an SM (``pallas_scan.scan_kernel_attrs``);
+   shared bytes and blocks an SM (``pallas_scan.scan_kernel_attrs``); B1 the
+   same beside its time before its redesign and its prediction, in spans of
+   one wave and of one tile (the two halo sources), and at C=3; B1 against
+   the two-pass route on both sides of two blocks an SM up to the largest
+   halo it takes;
    B8 (at 257 and 8193 taps, beside its times at its redesign) and B9 (beside
    its time before its redesign) at phase 4's
    shapes (median, min and max) against their plain versions, bounds, their
@@ -148,9 +160,10 @@ failure exits non-zero:
    B5 at k=64 and 256 (median, min and max of 20) beside its first port's
    time; B10, B12, B13 and B15 at the IIR main
    path's shape against their plain versions and bounds, the library call
-   where ``torchaudio`` exists, B12 and B12 seeded against B13 in turns
-   (median, min and max of 20) beside their first port's times, B12 by
-   launch, and the kernel-against-plain table by T that
+   where ``torchaudio`` exists, B12 and B12 seeded against B13 and B15 in
+   turns (median, min and max of 20) beside their times before B13's
+   redesign and B13's prediction, B12 and B13 by launch, and the
+   kernel-against-plain table by T that
    sets ``ops.iir.PALLAS_IIR_MIN_T``; B19 (64 channels in both layouts the
    main path writes, 1024 channels twice) and B20 at the wideband main path's
    shapes (median, min and max of 20) beside the first port's times, against their
@@ -333,9 +346,14 @@ B8_REDESIGN_MS = {"B8 257": 0.2616, "B8": 0.7144}
 # B9 and B3 before their redesign (PERF.md §6's table; NVIDIA H100 80GB HBM3, 700.00 W)
 B9_B3_EARLIER_MS = {"B9": 2.4631, "B3/blelloch": 0.6508, "B3/hillis_steele": 0.8660,
                     "B3/mxu": 0.7732}
-# B12, B13 (PR 4) and B5 (PR 2) as first ported, printed beside this call's times
-IIR_FIRST_MS = {"B12": 0.6341, "B12 seeded": 0.6341, "B13": 0.7091}
+# B12, B13 and B15 before B13's redesign, and B5 as first ported, printed beside
+# this call's times (PERF.md §6's table; NVIDIA H100 80GB HBM3, 700.00 W)
+IIR_EARLIER_MS = {"B12": 0.4165, "B12 seeded": 0.4169, "B13": 0.7091, "B15": 1.2322}
 DIRECT_FIRST_MS = {64: 0.6232, 256: 2.1516}
+# B1 and B7 before B1's redesign (PERF.md §6), and the predictions written in PERF.md
+# before the redesigns' first chip call
+B1_EARLIER_MS = {"B1": 0.3418, "B7": 0.1363}
+PREDICTED_MS = {"B1": (0.09, 0.14), "B13": (0.30, 0.42)}
 # B20's plans: every power of two 2..8192, 3 * 2^a up to 6144 (the radix-3 route), and
 # the direct DFT's 1 and 7
 PFB_PLAN_NS = (*(1 << e for e in range(1, 14)), *(3 << e for e in range(12)), 1, 7)
@@ -634,37 +652,90 @@ def phase_corners(rng, dev, check: Checker) -> None:
     want = moving_average_golden(x[: 1 << 18].cpu().numpy(), 1024, 2)
     if not np.array_equal(got, want):
         raise AssertionError("B1 disagrees with the NumPy golden model")
+    b1_largest = b1_corners(stream, dev, check)
     print(
         "[3 corners] bit-exact: "
         + ", ".join(f"{k} {check.count[k]} checks" for k in AVERAGER_KERNELS)
         + "; B1 against golden on 262144 samples; tensor-core B3 refused C=3; B3's largest "
         + "windows: " + ", ".join(f"{v} C={c} k={k}" for (v, c), k in largest.items())
+        + "; B1's: " + ", ".join(f"C={c} k={k}" for c, k in b1_largest.items())
     )
+
+
+def b1_corners(stream, dev, check: Checker) -> dict:
+    """B1's redesign at its corners, bit-exact against plain: views 2 to 14 bytes off
+    the 16-byte grid (a streaming tail's), the range entry split at every tile
+    boundary of a 9-tile stream into two launches, seeded and not, spans of one
+    tile, C = 3, 5 and 16, k = 1, a halo longer than a tile, the largest halo it
+    takes at each C, and int16 min and max there. Returns the largest windows."""
+    for c, k, frames in ((2, 1024, 2**18 + 5), (3, 100, 30001), (1, 1, 65537)):
+        base = stream(frames + 8, c)
+        for off in (1, 3, 7):  # a view `off` samples past an aligned start
+            x = base[off * c : off * c + frames * c]
+            check.same("B1", ps.windowed_averager(x, k, c), moving_average_xla(x, k, c),
+                       f"B1 view {2 * off * c} bytes off k={k} C={c}")
+        seed, x = stream(k, c), base[c : c + frames * c]
+        want = moving_average_xla(torch.cat([seed, x]), k, c)[k * c :]
+        check.same("B1", ps.windowed_averager(x, k, c, seed=seed), want,
+                   f"B1 seeded, a view {2 * c} bytes off, k={k} C={c}")
+    for c, k in ((2, 1024), (3, 4000), (16, 700)):
+        x = stream(9 * 8192 // c - 5, c)  # 9 tiles, the last ragged
+        tiles = ps.windowed_geometry(k, c).tiles(x.numel())
+        for seed in (None, stream(k, c)):
+            full = ps.windowed_averager(x, k, c, seed=seed)
+            ext = x if seed is None else torch.cat([seed, x])
+            check.same("B1", full, moving_average_xla(ext, k, c)[ext.numel() - x.numel() :],
+                       f"B1 k={k} C={c} seeded={seed is not None}")
+            for b in range(1, tiles):
+                y = torch.empty_like(x)
+                for lo, hi in ((b, tiles), (0, b)):
+                    err = ps.launch_windowed_range(
+                        x, y, k, c, None if seed is None else seed.data_ptr(), lo, hi,
+                        torch.cuda.current_stream().cuda_stream)
+                    _build.check(err, "B1 range")
+                check.same("B1", y, full, f"B1 range split at tile {b} k={k} C={c} "
+                           f"seeded={seed is not None}")
+            check.same("B1", ps.launch_windowed(x, k, c, seed, span_tiles=1), full,
+                       f"B1 spans of one tile k={k} C={c}")
+    largest = {}
+    for c in (1, 2, 3, 5, 16):
+        largest[c] = largest_window(lambda w, c=c: ps.windowed_supported(w, c))
+        for k in (1, 8192 // c + 3, largest[c]):  # k = 1, a halo past a tile, the largest
+            x = stream(2 * k + 50_001, c)
+            check.same("B1", ps.windowed_averager(x, k, c), moving_average_xla(x, k, c),
+                       f"B1 k={k} C={c}")
+        for v in (-32768, 32767):
+            x = torch.full(((3 * largest[c] + 7) * c,), v, dtype=torch.int16, device=dev)
+            check.same("B1", ps.windowed_averager(x, largest[c], c),
+                       moving_average_xla(x, largest[c], c), f"B1 {v} k={largest[c]} C={c}")
+    return largest
 
 
 def phase_halo_bound(x: torch.Tensor, check: Checker) -> None:
     """B1 and B3 against the two-pass route on both sides of their bounds, at 64M."""
     print(
-        "[5 halo bound] B1 vs two-pass, 64M samples; `windowed` takes B1 while its buffer "
-        f"is <= {ps.TWO_BLOCKS_SMEM_MAX} bytes (two blocks an SM):"
+        "[5 halo bound] B1 vs two-pass, 64M samples; `windowed` takes B1 while its ring is "
+        f"<= {ps.WINDOWED_SMEM_MAX} bytes (two blocks an SM up to {ps.TWO_BLOCKS_SMEM_MAX}):"
     )
-    for c, ks in (
-        (2, (4096, 8192, 8193, 10118, 10119, 16384, 24000)),
-        (16, (512, 1024, 1025, 1070, 1071, 2048, 2800)),
-    ):
-        for k in ks:
+    for c in (2, 16):
+        two = largest_window(
+            lambda w, c=c: ps.windowed_geometry(w, c).smem_bytes <= ps.TWO_BLOCKS_SMEM_MAX)
+        inside = largest_window(lambda w, c=c: ps.windowed_supported(w, c))
+        for k in sorted({two // 2, two, two + 1, (two + inside) // 2, inside}):
+            g = ps.windowed_geometry(k, c)
             check.same(
                 "B1", ps.launch_windowed(x, k, c), moving_average_xla(x, k, c),
                 f"B1 halo {k * c} k={k} C={c}",
             )
-            b1, two = time_pair(
+            b1, tp = time_pair(
                 lambda: ps.launch_windowed(x, k, c),
                 lambda: ps.moving_average_two_pass(x, k, c),
             )
             side = "inside" if ps.windowed_supported(k, c) else "beyond"
             print(
-                f"  k={k} C={c} halo {k * c} ({side}): B1 {b1:.4f} ms, two-pass {two:.4f} ms, "
-                f"B1/two-pass {b1 / two:.3f}"
+                f"  k={k} C={c} halo {k * c} ({side}, {g.smem_bytes} B, "
+                f"{ps.windowed_kernel_attrs(k, c)[3]} blocks an SM): B1 {b1:.4f} ms, two-pass "
+                f"{tp:.4f} ms, B1/two-pass {b1 / tp:.3f}"
             )
     print(
         "[5 halo bound] B3 vs two-pass, 64M samples; `scan*` take B3 while its buffers are "
@@ -1188,7 +1259,15 @@ def phase_iir_corners(rng, dev, check: Checker) -> None:
         want0, _ = sos64(sos, x[:c])
         check.close("B12", y12[:c], want0, f"B12 unseeded {label} against float64", IIR64_RTOL)
         check.close("B13", y13[:c], want0, f"B13 {label} against float64", IIR64_RTOL)
+        again = iir.sos_cascade_unrolled(x, sos)
+        torch.cuda.synchronize()
+        if not torch.equal(again, y13):
+            raise AssertionError(f"B13 {label}: two calls differ")
 
+    for s in (3, 5, 6, 7):  # B13's other instances
+        sos = iir.design_butterworth(2 * s, 0.1)
+        st = torch.from_numpy((0.3 * rng.standard_normal((s, 3, 2))).astype(np.float32)).to(dev)
+        cascade(sig(3, 100_003), sos, st, f"S={s} C=3 T=100003", True)
     for s in (1, 2, 4, 8):
         sos = iir.design_butterworth(2 * s, 0.1)
         cases = [(c, t) for c in (1, 3, 16) for t in lengths] + [(16, IIR_T)]
@@ -1269,12 +1348,7 @@ def phase_iir_corners(rng, dev, check: Checker) -> None:
     torch.cuda.synchronize()
     if any(torch.count_nonzero(o).item() for o in outs):
         raise AssertionError("a zero input gave a nonzero IIR output or state")
-    try:
-        iir.sos_cascade_unrolled(x, iir.design_butterworth(18, 0.1))
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("B13 took 9 sections, past its instantiations")
+    high = iir_high_order_corners(sig, rng, dev, check)
     print(
         f"[3 IIR corners] sections {{1, 2, 4, 8}}, C {{1, 3, 16}}, T {{1, {sub - 1}, {sub}, "
         f"{sub + 1}, {3 * sub + 77}, 100003}} and 16 x 2^22, a {IIR_POLES}: "
@@ -1282,10 +1356,59 @@ def phase_iir_corners(rng, dev, check: Checker) -> None:
         + f" within {IIR_RTOL} of plain and {IIR64_RTOL} of float64 (x max|y|), seeded chunk "
         f"states against the float64 state at their last sample, B12's look-back in {lb_cases} "
         "calls (sections 1, 4, 8, 16; tiles around its depth, streamed tiles, seeded and not, "
-        "ragged), impulses at sub-tile and tile edges, zeros exact, B13 refused 9 sections; "
-        "max abs error "
+        "ragged), impulses at sub-tile and tile edges, zeros exact, B13 bit-identical over calls; "
+        + high + "; max abs error "
         + ", ".join(f"{k} {check.max_err[k]:.3e}" for k in IIR_KERNELS)
     )
+
+
+def iir_high_order_corners(sig, rng, dev, check: Checker) -> str:
+    """Past the kernels' largest instances (the wrappers chain groups: B12 and B14 of
+    16 sections, B13 of 8): B13 at 9 and 17 sections, B12 (sosfilt, seeded chunks,
+    sosfiltfilt) and B14 at 17, against plain and float64. Where float32 itself
+    lies further than IIR_RTOL from float64 (17 sections of butter(34, 0.1)), a
+    kernel is held to plain within HIGHQ_FACTOR x plain's own float64 error."""
+    def near_plain(kernel, got, plain, want, what):
+        own = (plain.double() - want.double()).abs().max().item() / want.abs().max().item()
+        check.close(kernel, got, plain, f"{what} against plain", max(IIR_RTOL, HIGHQ_FACTOR * own))
+        check.close(kernel, got, want, f"{what} against float64", IIR64_RTOL)
+
+    launches = {}
+    for s in (9, 17):
+        sos = iir.design_butterworth(2 * s, 0.1)
+        for c, t in ((3, 100_003), (16, 1 << 20)):
+            x = sig(c, t)
+            plain, _ = iir._sos_plain(x, sos, None)
+            want, _ = sos64(sos, x)
+            before = iir.sos_cascade_unrolled.launches
+            y13 = iir.sos_cascade_unrolled(x, sos)
+            launches[f"B13 S={s}"] = iir.sos_cascade_unrolled.launches - before
+            near_plain("B13", y13, plain, want, f"B13 S={s} C={c} T={t}")
+            if s == 17:
+                near_plain("B12", iir.sosfilt(sos, x), plain, want, f"sosfilt S=17 C={c} T={t}")
+                near_plain("B14", iir.sosfilt_pallas_fused(sos, x, lane_pass="mxu"), plain, want,
+                           f"B14 S=17 C={c} T={t}")
+    sos = iir.design_butterworth(34, 0.1)
+    x = sig(4, 300_001)
+    st = torch.zeros(17, 4, 2, device=dev)
+    outs = []
+    for a, b in ((0, 1), (1, 100_000), (100_000, 300_001)):
+        st, y = iir.sosfilt_chunk(st, sos, x[:, a:b])
+        outs.append(y)
+    want, zf = sos64(sos, x, torch.zeros(17, 4, 2))
+    near_plain("B12", torch.cat(outs, 1), iir._sos_plain(x, sos, None)[0], want,
+               "sosfilt_chunk S=17 in 3 chunks")
+    check.close("B12", st, zf, "sosfilt_chunk S=17 end state against float64", IIR64_RTOL, want)
+    y = iir.sosfiltfilt(sos, x)
+    x64 = x.double().cpu().numpy()
+    want = torch.from_numpy(np.ascontiguousarray(sps.sosfiltfilt(sos.astype(np.float64), x64)))
+    want = want.float().to(dev)
+    plain = iir.sosfiltfilt(sos, x.cpu()).to(dev)
+    near_plain("B12", y, plain, want, "sosfiltfilt S=17")
+    if launches != {"B13 S=9": 2, "B13 S=17": 3}:
+        raise AssertionError(f"B13's groups: launches {launches}")
+    return ("9 and 17 sections (B13 in 2 and 3 launches, B12, sosfilt_chunk, sosfiltfilt and B14 "
+            "at 17) against plain and float64")
 
 
 def phase_iir_main(rng, dev, check: Checker, wav: np.ndarray, split: int) -> tuple[dict, dict]:
@@ -1431,25 +1554,29 @@ def phase_iir_times(main: dict) -> dict:
     print(f"  library: {library_note}"
           + ("" if library["B12"] is None else f": cascade {library['B12']:.4f} ms, "
              f"first order {library['B10']:.4f} ms"))
-    # B12 in one pass against B13 (PR 4's three launches, unrolled), in turns, median
-    # (min-max) of 20 after 5 warm-ups, beside PR 4's times
+    # B12 (runtime sections) against B13 (the same pass, sections fixed) and B15, in
+    # turns, median (min-max) of 20 after 5 warm-ups, beside their times before B13's
+    # redesign and B13's prediction
     runs = {"B12": lambda: iir.sos_cascade(x, rows),
             "B12 seeded": lambda: iir.sos_cascade(x, rows, st),
-            "B13": lambda: iir.sos_cascade_unrolled(x, rows)}
+            "B13": lambda: iir.sos_cascade_unrolled(x, rows),
+            "B15": lambda: iir.sos_sections(x, rows)}
     spread = {name: [] for name in runs}
     for name in (*runs, *reversed(runs)):
         spread[name] += device_ms(runs[name], 5, 10)
-    b12_bound = bounds["B12"][0]
     for name, d in spread.items():
-        med = statistics.median(d)
+        med, was = statistics.median(d), IIR_EARLIER_MS[name]
+        b = bounds[name.split()[0]][0]
+        pred = PREDICTED_MS.get(name)
         print(f"  {name:10s} {med:.4f} ms ({min(d):.4f}-{max(d):.4f}) median (min-max) of 20; "
-              f"PR 4 {IIR_FIRST_MS[name]:.4f} ({IIR_FIRST_MS[name] / med:.2f}x); kernel/bound "
-              f"{med / b12_bound:.2f}")
+              f"before {was:.4f} (now/before {med / was:.3f}); kernel/bound {med / b:.2f}"
+              + ("" if pred is None else f"; predicted {pred[0]}-{pred[1]}"))
     print(f"  B12 attrs at {iir.lookback_tile(16, IIR_T)}-sample tiles (registers, local bytes, "
-          f"shared bytes, blocks an SM): {iir.cascade_kernel_attrs(s)}; look-back depth "
-          f"{iir.lookback_depth(s)}")
+          f"shared bytes, blocks an SM): {iir.cascade_kernel_attrs(s)}; B13's "
+          f"{iir.cascade_kernel_attrs(s, unrolled=True)}; look-back depth {iir.lookback_depth(s)}")
     # where a call's device time goes: its launches one by one
     for name, fn in (("B12", lambda: iir.sos_cascade(x, rows)),
+                     ("B13", lambda: iir.sos_cascade_unrolled(x, rows)),
                      ("B10", lambda: iir.iir1_block_scan(x, 0.995))):
         fn()
         torch.cuda.synchronize()
@@ -1550,11 +1677,19 @@ def pfb_geometry_line(g) -> str:
 
 
 def lookback_direct_attrs_lines() -> list[str]:
-    """B12's compiler record by sections at the IIR main path's tile, and B5's by window."""
+    """B12's and B13's compiler record by sections at the IIR main path's tile, B5's by
+    window, and B1's by channels at k=1024 and at the largest window it takes."""
     tile = iir.lookback_tile(16, IIR_T)
     lines = [f"  B12 sos_lookback_kernel, tile {tile} (registers, local bytes, shared bytes, "
              "blocks an SM) by sections: " + ", ".join(
                  f"S={s} {iir.cascade_kernel_attrs(s, tile)}" for s in (1, 4, 5, 8, 16))]
+    lines.append("  B13 sos_lookback_kernel<NS> (the same four) by sections: " + ", ".join(
+        f"S={s} {iir.cascade_kernel_attrs(s, tile, unrolled=True)}"
+        for s in range(1, iir.MAX_UNROLLED + 1)))
+    lines.append("  B1 (the same four) by channels: " + ", ".join(
+        f"C={c} k=1024 {ps.windowed_kernel_attrs(1024, c)} k={k} {ps.windowed_kernel_attrs(k, c)}"
+        for c in (1, 2, 3, 16)
+        for k in (largest_window(lambda w, c=c: ps.windowed_supported(w, c)),)))
     lines.append("  B5 direct_kernel (the same four) by window and channels: " + ", ".join(
         f"k={k} C={c} {pd.direct_kernel_attrs(k, c)}" for k in (1, 15, 64, 256) for c in (1, 2, 3)))
     return lines
@@ -2597,8 +2732,8 @@ def phase_anchor_corners(rng, dev, check: Checker) -> None:
     if any(torch.count_nonzero(o).item() for o in outs):
         raise AssertionError("a zero input gave a nonzero B11 or B14 output")
     refusals = {
-        "17 sections": lambda: iir.sosfilt_pallas_fused(
-            np.tile(iir.design_butterworth(2, 0.1), (17, 1)), x, lane_pass="mxu"),
+        "no section": lambda: iir.sosfilt_pallas_fused(
+            np.zeros((0, 6), np.float32), x, lane_pass="mxu"),
         "tile_rows=8": lambda: iir.sosfilt_pallas_fused(sos, x, lane_pass="mxu", tile_rows=8),
         "compact at tile_rows=64": lambda: iir.sosfilt_pallas_fused(
             sos, x, lane_pass="mxu", row_pass="compact", tile_rows=64),
@@ -3075,7 +3210,8 @@ def phase_sharded_world1(x, y_main, chain_main: dict, tv_main: dict, check: Chec
     stats = {k: (statistics.median(v), min(v), max(v)) for k, v in alone.items()}
     print(f"[8 world 1] alone on the card, {n_loc} samples (the ring's shard), device ms median "
           "(min-max) of 20 after 5 warm-ups (B7 plain: 5 after 1): "
-          + "; ".join(f"{k} {m:.4f} ({lo:.4f}-{hi:.4f})" for k, (m, lo, hi) in stats.items()))
+          + "; ".join(f"{k} {m:.4f} ({lo:.4f}-{hi:.4f})" for k, (m, lo, hi) in stats.items())
+          + f"; B7 before B1's redesign {B1_EARLIER_MS['B7']:.4f}")
     mesh.close()
     dist.destroy_process_group()
     return {"launches": launches, "alone": stats}
@@ -3324,6 +3460,19 @@ def main() -> int:
         med = statistics.median(d)
         print(f"  B3 {v:13s} k={MAIN_WINDOW} C=3 (generic) {med:.4f} ms ({min(d):.4f}-{max(d):.4f}) "
               f"median (min-max) of 20; attrs {ps.scan_kernel_attrs(MAIN_WINDOW, 3, v)}")
+    # B1 redesigned: median (min-max) of 20 after 5 warm-ups beside its time before and
+    # the prediction; both halo sources: spans of one wave (the wrapper's) and of one tile
+    for label, span in (("spans of one wave", None), ("spans of one tile", 1)):
+        d = device_ms(lambda span=span: ps.launch_windowed(x, MAIN_WINDOW, 2, span_tiles=span), 5, 20)
+        med, bk, was = statistics.median(d), bounds["B1"], B1_EARLIER_MS["B1"]
+        print(f"  B1 k={MAIN_WINDOW} C=2 {label}: {med:.4f} ms ({min(d):.4f}-{max(d):.4f}) median "
+              f"(min-max) of 20; before its redesign {was:.4f} ({was / med:.2f}x); predicted "
+              f"{PREDICTED_MS['B1'][0]}-{PREDICTED_MS['B1'][1]}; bound {bk[0]:.4f} ({bk[1]}), "
+              f"kernel/bound {med / bk[0]:.2f}; attrs (registers, local bytes, shared bytes, "
+              f"blocks an SM) {ps.windowed_kernel_attrs(MAIN_WINDOW, 2)}")
+    d = device_ms(lambda: ps.windowed_averager(x3, MAIN_WINDOW, 3), 5, 20)
+    print(f"  B1 k={MAIN_WINDOW} C=3 (generic) {statistics.median(d):.4f} ms "
+          f"({min(d):.4f}-{max(d):.4f}); attrs {ps.windowed_kernel_attrs(MAIN_WINDOW, 3)}")
     phase_halo_bound(x, check)
     fir_times = phase_fir_times(chain_main)
     mark("5 averager and FIR times")

@@ -34,11 +34,12 @@ _I = ctypes.c_int64
 _PP = ctypes.POINTER(ctypes.c_void_p)
 # name -> argument types; every function returns a cudaError_t as int
 _SIGNATURES = {
-    # x, y, seed, n, window, channels, lead, tile_frames, seg_frames, segs,
-    # smem_bytes, stream
-    "dsp_windowed_i16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # the same, then block_begin, block_end, stream
-    "dsp_windowed_i16_range": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, y, seed, n, window, channels, kernel_c, nrun, tile_begin, tile_end,
+    # span_tiles, smem_bytes, stream
+    "dsp_windowed_i16_range": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # kernel_c, smem_bytes, out: registers, local bytes, shared bytes, blocks
+    # an SM (4 int64)
+    "dsp_windowed_attrs": (_I, _I, _P),
     # x32, y32, seed32, n32, window, channels, lead, tile_frames, seg_frames,
     # segs, smem_bytes, stream
     "dsp_windowed_packed": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -67,15 +68,14 @@ _SIGNATURES = {
     "dsp_fused_fir3": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # log2n, launch (0 columns, 1 rows, 2 outputs), out: as dsp_fused_fir_attrs
     "dsp_fused_fir3_attrs": (_I, _I, _P),
-    # x, y, table, carry, M, seed, state_out, n, channels, sections, tile,
-    # stream
-    "dsp_sos_cascade": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, y, table, mats, seed, state_out, records, n, channels, sections, tile,
     # stream
     "dsp_sos_lookback": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # sections, tile, out: registers, local bytes, shared bytes, blocks an SM
-    # (4 int64)
-    "dsp_sos_attrs": (_I, _I, _P),
+    # x, y, table, mats, records, n, channels, sections, tile, stream
+    "dsp_sos_unrolled": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # sections, tile, unrolled (B13), out: registers, local bytes, shared
+    # bytes, blocks an SM (4 int64)
+    "dsp_sos_attrs": (_I, _I, _I, _P),
     # x, y, scratch, table, carry, M, seed, state_out, n, channels, sections,
     # tile, stream
     "dsp_sos_sections": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -13,8 +13,9 @@
 //   B15 _biquad_kernel             one section's block scan, launched per section.
 // B11 and B14 are the reference's A/B anchors: other spellings of B10's and
 // B12's functions, kept so that the two designs can be timed side by side.
-// B12's single pass has its own note below (sos_lookback_kernel); the rest
-// of this note is the three-launch design of B10, B13 and B15.
+// B12's single pass, and B13 as its instances with the section count fixed,
+// have their own note below (sos_lookback_kernel); the rest of this note is
+// the three-launch design of B10 and B15.
 // A section is the JAX package's direct form II transposed:
 //   y = b0*x + s1;  s1' = b1*x - a1*y + s2;  s2' = b2*x - a2*y.
 // With zero input its state moves by Phi = [[-a1, 1], [-a2, 0]] and y reads s1.
@@ -84,7 +85,7 @@ constexpr int kTab1 = 40;              // floats of the first-order table
 constexpr int kPow = 8;                // where a section's powers start
 constexpr int kPow1 = 4;               // where the first-order powers start
 constexpr int kMaxSections = 16;       // 2S state lanes of one carry warp
-constexpr int kMaxUnrolled = 8;        // B13: butter(16) is 8 sections
+constexpr int kMaxUnrolled = 8;        // B13's largest instance: butter(16) is 8 sections
 constexpr int kChunkTiles = 64;        // tile states a carry warp stages at once
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -217,8 +218,8 @@ static __device__ __forceinline__ void section_pass(float (&v)[kSeg], const floa
 // `ends` != 0: launch 1, from zero state, writing the tile's end state to
 // carry[c, t]; y and state_out are null. Else launch 3, from carry[c, t],
 // writing y and, where it holds sample n-1, state_out[(k C + c) 2 + j].
-// NS sections are unrolled with their coefficients in registers (B13, and
-// B15 at NS = 1).
+// NS sections are unrolled with their coefficients in registers; B15 takes
+// NS = 1, the one instance.
 template <int NS>
 __global__ void __launch_bounds__(kThreads)
 sos_tile_kernel(const float* x, float* y, const float* __restrict__ tab, int sections,
@@ -421,20 +422,6 @@ static cudaError_t launch_carry(float* carry, const float* M, const float* seed,
 using TileKernel = void (*)(const float*, float*, const float*, int, float*, float*, int64_t,
                             int64_t, int64_t, int, int);
 
-static TileKernel unrolled_kernel(int sections) {
-  switch (sections) {
-    case 1: return sos_tile_kernel<1>;
-    case 2: return sos_tile_kernel<2>;
-    case 3: return sos_tile_kernel<3>;
-    case 4: return sos_tile_kernel<4>;
-    case 5: return sos_tile_kernel<5>;
-    case 6: return sos_tile_kernel<6>;
-    case 7: return sos_tile_kernel<7>;
-    case 8: return sos_tile_kernel<8>;
-    default: return nullptr;
-  }
-}
-
 static bool bad_geometry(int64_t n, int64_t channels, int64_t tile) {
   if (n < 1 || channels < 1 || channels > 65535 || tile < kSub || tile % kSub != 0) return true;
   return (n + tile - 1) / tile > 0x7fffffff;
@@ -513,6 +500,18 @@ static cudaError_t cascade(TileKernel k, const float* x, float* y, const float* 
 // blocks of an SM run nearly in step, so memory and compute add up more than
 // they overlap; a block cannot prefetch its next tile, as holding a ticket
 // before it can start the tile stalls the look-back of the tiles behind it.
+//
+// B13 (the TPU's _biquad_fused_kernel, B12 with its sections unrolled) is
+// this kernel with NS = 1..8 sections fixed at compile time and zero state:
+// D = 2 NS is a constant, so the end-state pass's Horner and weight steps and
+// the look-back's D-term sums unroll with every index constant. The
+// arithmetic and its order are B12's, term for term. Unrolling the sections
+// of D as well, with each section's coefficients in registers for the whole
+// launch, was slower on the H100 (it spilled under the 80 registers that
+// three blocks an SM leave; tools/ab_windowed_b13.py times both), so D's
+// section loop stays B12's. What bounds B13 is what bounds B12: the stage and
+// store traffic, then the end-state pass and the sections, one after another
+// in each block.
 constexpr int kLbThreads = 256;             // B12's threads a block
 constexpr int kLbWarps = kLbThreads / 32;
 constexpr int kTabL = 176;     // floats of a section's B12 row
@@ -629,15 +628,15 @@ static __device__ __forceinline__ float lb_poll(const unsigned long long* p) {
 }
 
 // One section over a thread's samples (steps a-c), in place in v. tb: the
-// section's row; car: this warp's copy of its carry (left at the sub-tile's
+// section's row (its powers); k: its coefficients; car: this warp's copy of its carry (left at the sub-tile's
 // end); wt: the warps' totals (16 floats, by the section's parity). Returns
 // the thread's start state in r1, r2.
 template <int SEG>
-static __device__ __forceinline__ void lb_section(float (&v)[SEG], const float* tb, float* car,
-                                                  float* wt, float& r1, float& r2) {
+static __device__ __forceinline__ void lb_section(float (&v)[SEG], const float* tb, const Coef k,
+                                                  float* car, float* wt, float& r1, float& r2) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const float b0 = tb[0], b1 = tb[1], b2 = tb[2], a1 = tb[3], a2 = tb[4];
+  const float b0 = k.b0, b1 = k.b1, b2 = k.b2, a1 = k.a1, a2 = k.a2;
   // a. zero-state run
   float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
@@ -790,7 +789,9 @@ static __device__ __forceinline__ void lb_stage(const float* x, float* buf, cons
 // M_warp^e for e < 8, M^m for m <= L, each D x D stored [q][r] (entry r, q).
 // rec: the ticket, then z records then s records, C ntiles D words each.
 // DP: D rounded up to 4, 8, 16 or 32, the partial sums a lane keeps in B.
-template <int SEG, int DP>
+// NS: 0, the section count `sections` read at run time (B12); or 1..8, the
+// count fixed at compile time (B13: `sections` == NS, zero state).
+template <int SEG, int DP, int NS>
 __global__ void __launch_bounds__(kLbThreads, 3)
 sos_lookback_kernel(const float* __restrict__ x, float* __restrict__ y,
                     const float* __restrict__ tab, const float* __restrict__ mats,
@@ -801,7 +802,7 @@ sos_lookback_kernel(const float* __restrict__ x, float* __restrict__ y,
   constexpr int kSh = DP == 4 ? 3 : DP == 8 ? 2 : DP == 16 ? 1 : 0;  // lane >> kSh: its component in B
   extern __shared__ __align__(16) float lsm[];
   __shared__ long long ticket;
-  const int S = sections, D = 2 * S, L = lookback_depth(sections);
+  const int S = NS > 0 ? NS : sections, D = 2 * S, L = lookback_depth(S);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r = lane < D ? lane : 0;  // this lane's state component (lanes < D)
   float* slots = lsm;               // `hold` sub-tiles
@@ -969,7 +970,8 @@ sos_lookback_kernel(const float* __restrict__ x, float* __restrict__ y,
           for (int i = 0; i < SEG; ++i) eb[i] = v[i];
         }
         float r1, r2;
-        lb_section<SEG>(v, stab + k * kTabL, scar + warp * D + 2 * k, wtot + 16 * (k & 1), r1, r2);
+        lb_section<SEG>(v, stab + k * kTabL, coef_of(stab + k * kTabL), scar + warp * D + 2 * k,
+                        wtot + 16 * (k & 1), r1, r2);
         if (ends) {
           eb[SEG] = r1;
           eb[SEG + 1] = r2;
@@ -1002,20 +1004,36 @@ sos_lookback_kernel(const float* __restrict__ x, float* __restrict__ y,
 using LbKernel = void (*)(const float*, float*, const float*, const float*, const float*,
                           float*, unsigned long long*, int, int64_t, int64_t, int64_t, int, int);
 
-// The instantiation for S sections, its index among the four, and its
-// record of the shared memory allowed on each device.
-static LbKernel lb_kernel(int sections, int* which) {
+constexpr int kLbInstances = 4 + kMaxUnrolled;  // B12 by DP, then B13 by NS
+
+// The instantiation for S sections (B13's when `unrolled`, 1..kMaxUnrolled
+// sections), its index among the instances, and so its record of the shared
+// memory allowed on each device.
+static LbKernel lb_kernel(int sections, bool unrolled, int* which) {
+  if (unrolled) {
+    *which = 3 + sections;
+    switch (sections) {
+      case 1: return sos_lookback_kernel<kLbSeg, 4, 1>;
+      case 2: return sos_lookback_kernel<kLbSeg, 4, 2>;
+      case 3: return sos_lookback_kernel<kLbSeg, 8, 3>;
+      case 4: return sos_lookback_kernel<kLbSeg, 8, 4>;
+      case 5: return sos_lookback_kernel<kLbSeg, 16, 5>;
+      case 6: return sos_lookback_kernel<kLbSeg, 16, 6>;
+      case 7: return sos_lookback_kernel<kLbSeg, 16, 7>;
+      default: return sos_lookback_kernel<kLbSeg, 16, 8>;
+    }
+  }
   const int D = 2 * sections;
   *which = D <= 4 ? 0 : D <= 8 ? 1 : D <= 16 ? 2 : 3;
   switch (*which) {
-    case 0: return sos_lookback_kernel<kLbSeg, 4>;
-    case 1: return sos_lookback_kernel<kLbSeg, 8>;
-    case 2: return sos_lookback_kernel<kLbSeg, 16>;
-    default: return sos_lookback_kernel<kLbSeg, 32>;
+    case 0: return sos_lookback_kernel<kLbSeg, 4, 0>;
+    case 1: return sos_lookback_kernel<kLbSeg, 8, 0>;
+    case 2: return sos_lookback_kernel<kLbSeg, 16, 0>;
+    default: return sos_lookback_kernel<kLbSeg, 32, 0>;
   }
 }
 
-static int lb_allowed[4][kMaxDevices] = {};
+static int lb_allowed[kLbInstances][kMaxDevices] = {};
 
 // Sub-tiles a block holds for a tile of `tile` samples, and its shared bytes.
 static int lb_hold(int64_t tile) {
@@ -1029,9 +1047,9 @@ static int lb_smem_bytes(int sections, int hold) {
   return 4 * (hold * kLbThreads * kLbSeg + lb_small_floats(sections, kLbSeg));
 }
 
-static cudaError_t lb_occupancy(int sections, int hold, int* blocks) {
+static cudaError_t lb_occupancy(int sections, bool unrolled, int hold, int* blocks) {
   int which = 0;
-  const LbKernel k = lb_kernel(sections, &which);
+  const LbKernel k = lb_kernel(sections, unrolled, &which);
   const int bytes = lb_smem_bytes(sections, hold);
   cudaError_t err = allow_smem(k, lb_allowed[which], bytes);
   if (err != cudaSuccess) return err;
@@ -1039,20 +1057,23 @@ static cudaError_t lb_occupancy(int sections, int hold, int* blocks) {
                                                        kLbThreads, bytes);
 }
 
-static int lb_blocks[kMaxDevices][kMaxSections + 1][kHoldBytes / (4 * kLbThreads * kLbSeg) + 1] = {};
+static int lb_blocks[kMaxDevices][2][kMaxSections + 1]
+                    [kHoldBytes / (4 * kLbThreads * kLbSeg) + 1] = {};
 
-// B12: the records' memset and the one launch, as many blocks as fit the card.
+// B12 (B13 when `unrolled`): the records' memset and the one launch, as many
+// blocks as fit the card.
 static cudaError_t lookback_cascade(const float* x, float* y, const float* tab, const float* mats,
                                     const float* seed, float* state_out, unsigned long long* rec,
-                                    int64_t n, int C, int S, int64_t tile, cudaStream_t s) {
+                                    int64_t n, int C, int S, int64_t tile, bool unrolled,
+                                    cudaStream_t s) {
   const int64_t ntiles = (n + tile - 1) / tile;
   const int hold = lb_hold(tile);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  int& per_sm = lb_blocks[dev][S][hold];
-  if (per_sm == 0 && (err = lb_occupancy(S, hold, &per_sm)) != cudaSuccess) return err;
+  int& per_sm = lb_blocks[dev][unrolled][S][hold];
+  if (per_sm == 0 && (err = lb_occupancy(S, unrolled, hold, &per_sm)) != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   int sms = 0;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
@@ -1064,7 +1085,7 @@ static cudaError_t lookback_cascade(const float* x, float* y, const float* tab, 
   const size_t words = 1 + 2 * static_cast<size_t>(total) * 2 * S;
   if ((err = cudaMemsetAsync(rec, 0, 8 * words, s)) != cudaSuccess) return err;
   int which = 0;
-  const LbKernel k = lb_kernel(S, &which);
+  const LbKernel k = lb_kernel(S, unrolled, &which);
   k<<<grid, kLbThreads, lb_smem_bytes(S, hold), s>>>(x, y, tab, mats, seed, state_out, rec, S,
                                                      n, tile, ntiles, C, hold);
   return cudaGetLastError();
@@ -1534,24 +1555,6 @@ static cudaError_t mxu_cascade(const float* x, float* y, const float* tab, const
 }  // namespace iir
 }  // namespace dsp
 
-// B13, 1..8 sections unrolled. x, y: (C, n); tab: S * kTab floats; carry:
-// scratch of C * ceil(n / tile) * 2S floats; M: the cascade's (2S, 2S)
-// zero-input transition over `tile` samples; seed, state_out: (S, C, 2) or
-// null.
-extern "C" int dsp_sos_cascade(const float* x, float* y, const float* tab, float* carry,
-                               const float* M, const float* seed, float* state_out, int64_t n,
-                               int64_t channels, int64_t sections, int64_t tile, void* stream) {
-  using namespace dsp::iir;
-  TileKernel k = nullptr;
-  if (bad_geometry(n, channels, tile) || sections < 1 || sections > kMaxUnrolled ||
-      (k = unrolled_kernel(static_cast<int>(sections))) == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cascade(k, x, y, tab, carry, M, seed, state_out, n,
-                                  static_cast<int>(channels), static_cast<int>(sections), tile,
-                                  static_cast<cudaStream_t>(stream)));
-}
-
 // B12, one pass. x, y: (C, n); tab: S * kTabL floats; mats: W, M_sub,
 // M_warp^e (e < 8) and M^m (m <= lookback_depth(S)), as sos_lookback_kernel
 // reads them; seed, state_out: (S, C, 2) or null; rec: 1 + 2 C ceil(n / tile)
@@ -1565,27 +1568,44 @@ extern "C" int dsp_sos_lookback(const float* x, float* y, const float* tab, cons
   }
   return static_cast<int>(lookback_cascade(
       x, y, tab, mats, seed, state_out, static_cast<unsigned long long*>(rec), n,
-      static_cast<int>(channels), static_cast<int>(sections), tile,
+      static_cast<int>(channels), static_cast<int>(sections), tile, false,
       static_cast<cudaStream_t>(stream)));
 }
 
-// What the compiler gave B12's kernel, and its blocks an SM at `sections`
-// sections and a tile of `tile` samples: registers a thread, local bytes a
-// thread, shared bytes a block (static and dynamic), blocks an SM (4 int64
-// in out).
-extern "C" int dsp_sos_attrs(int64_t sections, int64_t tile, int64_t* out) {
+// B13, zero state: B12's pass with 1..8 sections fixed at compile time.
+// Arguments as dsp_sos_lookback's, without seed and state_out.
+extern "C" int dsp_sos_unrolled(const float* x, float* y, const float* tab, const float* mats,
+                                void* rec, int64_t n, int64_t channels, int64_t sections,
+                                int64_t tile, void* stream) {
   using namespace dsp::iir;
-  if (sections < 1 || sections > kMaxSections || tile < kSub || tile % kSub != 0) {
+  if (bad_geometry(n, channels, tile) || sections < 1 || sections > kMaxUnrolled) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(lookback_cascade(
+      x, y, tab, mats, nullptr, nullptr, static_cast<unsigned long long*>(rec), n,
+      static_cast<int>(channels), static_cast<int>(sections), tile, true,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// What the compiler gave B12's kernel (B13's when `unrolled`), and its blocks
+// an SM at `sections` sections and a tile of `tile` samples: registers a
+// thread, local bytes a thread, shared bytes a block (static and dynamic),
+// blocks an SM (4 int64 in out).
+extern "C" int dsp_sos_attrs(int64_t sections, int64_t tile, int64_t unrolled, int64_t* out) {
+  using namespace dsp::iir;
+  if (sections < 1 || sections > (unrolled ? kMaxUnrolled : kMaxSections) || tile < kSub ||
+      tile % kSub != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int hold = lb_hold(tile);
   int blocks = 0;
-  cudaError_t err = lb_occupancy(static_cast<int>(sections), hold, &blocks);
+  cudaError_t err = lb_occupancy(static_cast<int>(sections), unrolled != 0, hold, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   int which = 0;
   cudaFuncAttributes a;
   err = cudaFuncGetAttributes(
-      &a, reinterpret_cast<const void*>(lb_kernel(static_cast<int>(sections), &which)));
+      &a, reinterpret_cast<const void*>(
+              lb_kernel(static_cast<int>(sections), unrolled != 0, &which)));
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = a.numRegs;
   out[1] = static_cast<int64_t>(a.localSizeBytes);

@@ -11,16 +11,16 @@ direct form II transposed::
 over the last axis, leading axes independent streams. The state of a cascade
 is ``(n_sections, *batch, 2)`` float32, ``(s1, s2)`` a section.
 
-Kernels (``csrc/iir.cu``; see the source notes). B12 is one launch with a
-fixed-depth look-back between tiles; the others take three launches each:
+Kernels (``csrc/iir.cu``; see the source notes). B12 and B13 are one launch
+with a fixed-depth look-back between tiles; the others take three launches each:
 zero-state tile end states, a scan of those over the tiles, a seeded re-run.
 
 - :func:`iir1_block_scan`      B10, ``y = a*y + b*x`` with scalar a, b;
 - :func:`sos_cascade`          B12, the whole cascade in one pass, a runtime
   loop over sections, seeded or not: the ``auto`` route of ``sosfilt`` and
   ``sosfilt_chunk``;
-- :func:`sos_cascade_unrolled` B13, B12 with 1..8 sections unrolled
-  (``unroll_sections=True``);
+- :func:`sos_cascade_unrolled` B13, B12's one pass with 1..8 sections fixed
+  at compile time, from zero state (``unroll_sections=True``);
 - :func:`sos_sections`         B15, one section a launch, each through device
   memory (``method="pallas"``, the A/B anchor);
 - :func:`iir1_affine_scan`     B11, B10's function as composed affine maps
@@ -63,10 +63,11 @@ from .pallas_scan import _on_cuda, _stream
 # whenever there is a sample.
 PALLAS_IIR_MIN_T = 1
 
-# csrc/iir.cu, the three-launch kernels (B10, B13, B15): a block's threads, a
+# csrc/iir.cu, the three-launch kernels (B10, B14, B15): a block's threads, a
 # thread's consecutive samples, a sub-tile, the floats of a section's table and
-# of the first-order table; the most sections of B12 (2S state lanes of one
-# warp) and of B13.
+# of the first-order table; the most sections a launch of B12 and B14 (2S
+# state lanes of one warp) and of B13 takes: their wrappers chain groups of at
+# most that many (section_groups).
 THREADS = 256
 SEG = 16
 SUB_TILE = THREADS * SEG
@@ -263,7 +264,7 @@ def _cascade_tables(key: bytes, tile: int, device: str, per_section: bool):
     """The section table and the tile transition M on ``device``.
 
     ``per_section``: M is each section's own (S, 2, 2) Phi^tile (B15); else
-    the cascade's (2S, 2S) transition (B12, B13).
+    the cascade's (2S, 2S) transition (B14).
     """
     rows = np.frombuffer(key, np.float32).reshape(-1, 6)
     if per_section:
@@ -448,14 +449,14 @@ def _launch_unrolled(x2, rows, tile_rows):
     c, t = x2.shape
     s = rows.shape[0]
     y = torch.empty_like(x2)
-    tile = pick_tile(c, t, tile_rows)
-    tab, m = _cascade_tables(rows.tobytes(), tile, str(x2.device), False)
-    carry = torch.empty(c * cdiv(t, tile) * 2 * s, dtype=torch.float32, device=x2.device)
+    tile = lookback_tile(c, t, tile_rows)
+    tab, mats = _lookback_tables(rows.tobytes(), tile, str(x2.device))
+    rec = torch.empty(1 + 2 * c * cdiv(t, tile) * 2 * s, dtype=torch.int64, device=x2.device)
     lib = _build.library()
     with torch.cuda.device(x2.device):
-        err = lib.dsp_sos_cascade(
-            x2.data_ptr(), y.data_ptr(), tab.data_ptr(), carry.data_ptr(), m.data_ptr(),
-            None, None, t, c, s, tile, _stream(x2),
+        err = lib.dsp_sos_unrolled(
+            x2.data_ptr(), y.data_ptr(), tab.data_ptr(), mats.data_ptr(), rec.data_ptr(),
+            t, c, s, tile, _stream(x2),
         )
     _build.check(err, "sos_cascade_unrolled")
     return y
@@ -482,40 +483,54 @@ def _launch_lookback(x2, rows, state, tile_rows):
     return y, new_state
 
 
-def cascade_kernel_attrs(sections: int, tile: int | None = None) -> tuple:
-    """What the compiler gave B12's kernel, and its blocks an SM at ``sections``
-    sections and a tile of ``tile`` samples (the card only; None: the tile of
-    the IIR main path, 16 x 2^22): (registers a thread, local bytes a thread,
-    shared bytes a block, blocks an SM)."""
+def cascade_kernel_attrs(sections: int, tile: int | None = None, unrolled: bool = False) -> tuple:
+    """What the compiler gave B12's kernel (B13's when ``unrolled``), and its
+    blocks an SM at ``sections`` sections and a tile of ``tile`` samples (the
+    card only; None: the tile of the IIR main path, 16 x 2^22): (registers a
+    thread, local bytes a thread, shared bytes a block, blocks an SM)."""
     if tile is None:
         tile = lookback_tile(16, 1 << 22)
     lib = _build.library()
     out = (ctypes.c_int64 * 4)()
-    _build.check(lib.dsp_sos_attrs(sections, tile, ctypes.addressof(out)), "cascade_kernel_attrs")
+    _build.check(lib.dsp_sos_attrs(sections, tile, int(unrolled), ctypes.addressof(out)),
+                 "cascade_kernel_attrs")
     return tuple(out)
+
+
+def section_groups(sections: int, most: int) -> list[tuple[int, int]]:
+    """Sections ``[g0, g1)`` of each group a cascade wrapper launches: consecutive
+    groups of at most ``most`` sections, the kernel's largest instance. Group
+    g + 1 filters group g's output, from its own slice ``state[g0:g1]`` of the
+    state."""
+    return [(g0, min(g0 + most, sections)) for g0 in range(0, sections, most)]
 
 
 def sos_cascade(x2: torch.Tensor, rows: np.ndarray, state: torch.Tensor | None = None, *,
                 tile_rows: int | None = None):
     """The SOS cascade of (C, T) float32 by B12: (y, end state or None).
 
-    ``rows``: (S, 6) float32, S <= MAX_SECTIONS. ``state``: the (S, C, 2)
+    ``rows``: (S, 6) float32, any S: groups of MAX_SECTIONS sections
+    (:func:`section_groups`), one launch each. ``state``: the (S, C, 2)
     state entering the chunk (zero when None); the end state comes back only
     for a seeded call.
     """
     rows = _sos_rows(rows)
     s = rows.shape[0]
-    if not 1 <= s <= MAX_SECTIONS:
-        raise ValueError(f"sos_cascade (B12) takes 1..{MAX_SECTIONS} sections, got {s}")
+    if s < 1:
+        raise ValueError("sos_cascade (B12) needs at least one section")
     _check(x2, state, s, "sos_cascade", tile_rows)
-    if not _on_cuda(x2):
-        y, end = _sos_plain(x2, rows, state)
-        return y, None if state is None else end
-    if x2.shape[1] == 0:
+    if _on_cuda(x2) and x2.shape[1] == 0:
         return torch.empty_like(x2), None if state is None else state.clone()
-    y, end = _launch_lookback(x2, rows, state, tile_rows)
-    sos_cascade.launches += 1
-    return y, end
+    y, ends = x2, []
+    for g0, g1 in section_groups(s, MAX_SECTIONS):
+        st = None if state is None else state[g0:g1]
+        if _on_cuda(x2):
+            y, end = _launch_lookback(y, rows[g0:g1], st, tile_rows)
+            sos_cascade.launches += 1
+        else:
+            y, end = _sos_plain(y, rows[g0:g1], st)
+        ends.append(end)
+    return y, None if state is None else torch.cat(ends)
 
 
 sos_cascade.launches = 0
@@ -523,20 +538,22 @@ sos_cascade.launches = 0
 
 def sos_cascade_unrolled(x2: torch.Tensor, rows: np.ndarray, *,
                          tile_rows: int | None = None) -> torch.Tensor:
-    """The SOS cascade of (C, T) float32 from zero state by B13 (1..8 sections)."""
+    """The SOS cascade of (C, T) float32 from zero state by B13, any S: groups
+    of MAX_UNROLLED sections (:func:`section_groups`), one launch each."""
     rows = _sos_rows(rows)
     s = rows.shape[0]
-    if not 1 <= s <= MAX_UNROLLED:
-        raise ValueError(
-            f"sos_cascade_unrolled (B13) is built for 1..{MAX_UNROLLED} sections, got {s}"
-        )
+    if s < 1:
+        raise ValueError("sos_cascade_unrolled (B13) needs at least one section")
     _check(x2, None, s, "sos_cascade_unrolled", tile_rows)
-    if not _on_cuda(x2):
-        return _sos_plain(x2, rows, None)[0]
-    if x2.shape[1] == 0:
+    if _on_cuda(x2) and x2.shape[1] == 0:
         return torch.empty_like(x2)
-    y = _launch_unrolled(x2, rows, tile_rows)
-    sos_cascade_unrolled.launches += 1
+    y = x2
+    for g0, g1 in section_groups(s, MAX_UNROLLED):
+        if _on_cuda(x2):
+            y = _launch_unrolled(y, rows[g0:g1], tile_rows)
+            sos_cascade_unrolled.launches += 1
+        else:
+            y = _sos_plain(y, rows[g0:g1], None)[0]
     return y
 
 
@@ -724,19 +741,30 @@ def sos_cascade_mxu(x2: torch.Tensor, rows: np.ndarray, *,
 
     B12's function with each section's in-segment pass a float64
     tensor-core product of the samples against the section's T
-    (:func:`mxu_tables`); ``rows``: (S, 6) float32, S <= MAX_SECTIONS.
+    (:func:`mxu_tables`); ``rows``: (S, 6) float32, any S: groups of
+    MAX_SECTIONS sections (:func:`section_groups`), one launch each.
     """
     rows = _sos_rows(rows)
     s = rows.shape[0]
-    if not 1 <= s <= MAX_SECTIONS:
-        raise ValueError(f"sos_cascade_mxu (B14) takes 1..{MAX_SECTIONS} sections, got {s}")
+    if s < 1:
+        raise ValueError("sos_cascade_mxu (B14) needs at least one section")
     _check(x2, None, s, "sos_cascade_mxu", tile_rows)
-    if not _on_cuda(x2):
-        return _sos_plain(x2, rows, None)[0]
+    if _on_cuda(x2) and x2.shape[1] == 0:
+        return torch.empty_like(x2)
+    y = x2
+    for g0, g1 in section_groups(s, MAX_SECTIONS):
+        if _on_cuda(x2):
+            y = _launch_mxu(y, rows[g0:g1], tile_rows)
+            sos_cascade_mxu.launches += 1
+        else:
+            y = _sos_plain(y, rows[g0:g1], None)[0]
+    return y
+
+
+def _launch_mxu(x2, rows, tile_rows):
     c, t = x2.shape
+    s = rows.shape[0]
     y = torch.empty_like(x2)
-    if t == 0:
-        return y
     tile = pick_tile(c, t, tile_rows)
     tab, frags, m = _mxu_device_tables(rows.tobytes(), tile, str(x2.device))
     carry = torch.empty(c * cdiv(t, tile) * 2 * s, dtype=torch.float32, device=x2.device)
@@ -747,7 +775,6 @@ def sos_cascade_mxu(x2: torch.Tensor, rows: np.ndarray, *,
             m.data_ptr(), t, c, s, tile, _stream(x2),
         )
     _build.check(err, "sos_cascade_mxu")
-    sos_cascade_mxu.launches += 1
     return y
 
 

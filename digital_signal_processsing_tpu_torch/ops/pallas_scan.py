@@ -2,7 +2,9 @@
 
 Counterpart of ``digital_signal_processsing_tpu/ops/pallas_scan.py``:
 
-- :func:`windowed_averager`        B1, ``csrc/windowed.cu``
+- :func:`windowed_averager`        B1, ``csrc/windowed.cu`` (B3's span kernel of
+  ``csrc/run_tile.cuh`` with the Hillis-Steele scan, seeded, over any range
+  of tiles)
 - :func:`windowed_averager_packed` B2, ``csrc/windowed.cu`` on int32 pair words
 - :func:`scan_averager`            B3, ``csrc/scan.cu`` (three in-tile scans, each thread's
   samples in registers, two block barriers a tile; three in the generic
@@ -18,10 +20,11 @@ to the plain version.
 
 The tile geometry (frames per block, segments of the in-block scan, spans,
 shared memory) is computed here, in Python, so the CPU tests reach it.
-``tile_samples`` on B1 is the counterpart of the reference's ``tile_rows``
-(``tile_rows * 128`` samples); by default a tile is about TILE_SAMPLES. B3's
-tile is always 8192 samples; its ``tile_samples`` only bounds the window, as
-the reference's ``tile_rows`` does.
+``tile_samples`` on B2 is the counterpart of the reference's ``tile_rows``
+(``tile_rows * 128`` samples); by default a tile is about TILE_SAMPLES. B1's
+and B3's tile is always 8192 samples; B3's ``tile_samples`` only bounds the
+window, as the reference's ``tile_rows`` does, and B1's selects nothing (the
+reference's windowed kernel grows its tile to hold the halo).
 """
 
 from __future__ import annotations
@@ -46,11 +49,15 @@ SMEM_MAX = 232448
 # Shared memory of one H100 SM (228 KB); each resident block also holds 1 KB.
 SMEM_PER_SM = 233472
 # The buffers of the windowed kernels (B1, B2) and of the scan kernel (B3)
-# grow with the halo k*C. Measured at 64M samples, C=2 and C=16 (PERF.md),
-# they beat the two-pass route while two blocks fit on an SM and lose from
-# the first window at which only one does, so that is where `windowed` and
-# `scan*` switch route; phase 5 of chip_smoke.py times both sides.
+# grow with the halo k*C. B2's block-local buffer (the design B1 had
+# before its ring) beat the two-pass route at 64M samples, C=2 and C=16, while two
+# blocks fit on an SM and lost from the first window at which only one does
+# (PERF.md), so that is where `packed` and `scan*` switch route. B1's ring
+# of prefixes beats it wherever the ring fits shared memory, one block an SM
+# included (chip_smoke.py phase 5 times both sides): `windowed` takes B1 up
+# to WINDOWED_SMEM_MAX.
 TWO_BLOCKS_SMEM_MAX = SMEM_PER_SM // 2 - 1024
+WINDOWED_SMEM_MAX = SMEM_MAX
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,10 +107,6 @@ def tile_geometry(
     return TileGeometry(channels, lead_frames, tf, r, cdiv(nf, r))
 
 
-def windowed_geometry(window: int, channels: int, tile_samples: int | None = None) -> TileGeometry:
-    return tile_geometry(window, channels, tile_samples=tile_samples)
-
-
 def packed_geometry(window: int, channels: int) -> TileGeometry:
     # B2 reads whole words, so the halo is rounded up to an even sample count
     # by loading one frame more when k*C is odd; that frame is outside every
@@ -114,15 +117,6 @@ def packed_geometry(window: int, channels: int) -> TileGeometry:
 
 def cumsum_geometry(channels: int) -> TileGeometry:
     return tile_geometry(0, channels)
-
-
-def windowed_supported(window: int, channels: int, tile_samples: int | None = None) -> bool:
-    """True iff B1 takes this configuration: any C, while two blocks fit on an SM."""
-    return (
-        channels >= 1
-        and 1 <= window
-        and windowed_geometry(window, channels, tile_samples).smem_bytes <= TWO_BLOCKS_SMEM_MAX
-    )
 
 
 def packed_supported(window: int, channels: int) -> bool:
@@ -151,8 +145,11 @@ def _on_cuda(x: torch.Tensor) -> bool:
 def _check_stream(x, dtype: torch.dtype, channels: int, name: str, samples: int) -> None:
     """Checks the kernels rely on: a dense 1-D tensor of whole frames.
 
-    The kernels load single elements (2 or 4 bytes), so any element-aligned
-    view, a streaming tail included, is aligned enough.
+    Any element-aligned view is taken, a streaming tail of ``serve.py``
+    included. B1 and B3 load and store 16 bytes a run only where x and y are
+    both 16-byte aligned, and otherwise a sample at a time; B2, B4 and B5
+    load single elements. The samples read and the sums taken are the same
+    either way, so an aligned and a misaligned view give the same result.
     """
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(x).__name__}")
@@ -185,14 +182,15 @@ def windowed_averager(
     ``seed``: the ``window * channels`` int16 samples that precede ``x`` in
     the stream (the streaming state's tail); without it the positions
     before the start read zero, the golden model's ramp-up. Needs
-    ``windowed_supported(window, channels, tile_samples)``.
+    ``windowed_supported(window, channels)``; ``tile_samples`` selects
+    nothing (B1's tile is 8192 samples).
     """
     validate_window(window)
     _check_stream(x, torch.int16, channels, "x", x.numel())
     halo = window * channels
     if not windowed_supported(window, channels, tile_samples):
         raise ValueError(
-            f"windowed kernel takes halos whose buffer leaves two blocks an SM, "
+            f"windowed kernel takes halos whose ring fits shared memory, "
             f"got window*channels = {halo}; use moving_average_two_pass"
         )
     if seed is not None:
@@ -206,7 +204,7 @@ def windowed_averager(
         if seed is None:
             return moving_average_xla(x, window, channels)
         return moving_average_xla(torch.cat([seed, x]), window, channels)[halo:]
-    return launch_windowed(x, window, channels, seed, tile_samples)
+    return launch_windowed(x, window, channels, seed)
 
 
 def launch_windowed(
@@ -214,32 +212,56 @@ def launch_windowed(
     window: int,
     channels: int,
     seed: torch.Tensor | None = None,
-    tile_samples: int | None = None,
+    span_tiles: int | None = None,
 ) -> torch.Tensor:
     """Launch B1 on a CUDA stream the caller has checked, at any halo that fits.
 
-    :func:`windowed_averager` holds the buffer to TWO_BLOCKS_SMEM_MAX;
-    ``chip_smoke.py`` also launches beyond it, to time B1 against the
-    two-pass route on both sides of the bound. Raises if the buffer exceeds
-    shared memory.
+    :func:`windowed_averager` holds the ring to WINDOWED_SMEM_MAX;
+    ``chip_smoke.py`` also times spans of ``span_tiles`` tiles (None: one
+    wave of resident blocks). Raises if the ring exceeds shared memory.
     """
-    g = windowed_geometry(window, channels, tile_samples)
+    g = windowed_geometry(window, channels)
     if g.smem_bytes > SMEM_MAX:
         raise ValueError(f"windowed kernel needs {g.smem_bytes} bytes of shared memory")
-    n = x.numel()
     y = torch.empty_like(x)
-    if n == 0:
+    if x.numel() == 0:
         return y
-    lib = _build.library()
     with torch.cuda.device(x.device):
-        err = lib.dsp_windowed_i16(
-            x.data_ptr(), y.data_ptr(), None if seed is None else seed.data_ptr(),
-            n, window, channels, g.lead_frames, g.tile_frames, g.seg_frames,
-            g.segs, g.smem_bytes, _stream(x),
+        err = launch_windowed_range(
+            x, y, window, channels, None if seed is None else seed.data_ptr(), 0,
+            g.tiles(x.numel()), _stream(x), span_tiles,
         )
     _build.check(err, "windowed_averager")
     windowed_averager.launches += 1
     return y
+
+
+def launch_windowed_range(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    window: int,
+    channels: int,
+    seed: int | None,
+    begin: int,
+    end: int,
+    stream: int,
+    span_tiles: int | None = None,
+) -> int:
+    """One launch of B1 over tiles ``[begin, end)`` of ``x`` into ``y`` (tile t
+    owns outputs [t * 8192, (t + 1) * 8192)) on ``stream``: its CUDA error code.
+
+    ``seed``: the data pointer of the ``window * channels`` samples before
+    ``x``, or None for zeros. Spans of ``span_tiles`` tiles, by default one
+    wave of the kernel's resident blocks over the range. The caller counts
+    the launch.
+    """
+    g = windowed_geometry(window, channels)
+    if span_tiles is None:
+        span_tiles = g.range_span(end - begin, _resident(x.device, g))
+    return _build.library().dsp_windowed_i16_range(
+        x.data_ptr(), y.data_ptr(), seed, x.numel(), window, channels, g.kernel_c, g.nrun,
+        begin, end, span_tiles, g.smem_bytes, stream,
+    )
 
 
 windowed_averager.launches = 0
@@ -307,7 +329,7 @@ windowed_averager_packed.launches = 0
 SCAN_VARIANTS = {"blelloch": 0, "hillis_steele": 1, "mxu": 2}
 TC_ROW = 16  # the reference's tensor-core row: mxu takes C dividing 16, as the JAX kernel does
 SCAN_RUN = 8  # samples a run: one 16-byte vector of int16
-SCAN_RUNS = 4  # runs a thread (dsp::b3::kNQ): 32 samples, 8192 a tile
+SCAN_RUNS = 4  # runs a thread (dsp::runs::kNQ): 32 samples, 8192 a tile
 SCAN_NATIVE_C = (1, 2, 4, 8, 16)  # channel counts with an instance of their own
 
 
@@ -364,8 +386,41 @@ class ScanGeometry:
     def span_tiles(self, n: int, resident: int) -> int:
         """Tiles a block walks: one wave of ``resident`` blocks (the card's SMs
         times the kernel's blocks an SM) covers the stream."""
-        tiles = self.tiles(n)
+        return self.range_span(self.tiles(n), resident)
+
+    @staticmethod
+    def range_span(tiles: int, resident: int) -> int:
+        """Tiles a block walks so that one wave of ``resident`` blocks covers
+        ``tiles`` tiles."""
         return cdiv(tiles, max(1, min(tiles, resident)))
+
+
+# B1's in-tile scan: the fastest of B3's three on the H100 (PERF.md)
+WINDOWED_VARIANT = "hillis_steele"
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowedGeometry(ScanGeometry):
+    """Launch geometry of B1 (``csrc/windowed.cu``): B3's tiles, ring, spans
+    and channel instances (``csrc/run_tile.cuh``) with the Hillis-Steele scan;
+    a launch covers any range of tiles, each span seeded from x or the seed."""
+
+    variant: str = WINDOWED_VARIANT
+
+
+def windowed_geometry(window: int, channels: int, tile_samples: int | None = None) -> WindowedGeometry:
+    """B1's geometry; ``tile_samples`` (the reference's ``tile_rows``) selects nothing."""
+    return WindowedGeometry(window, channels)
+
+
+def windowed_supported(window: int, channels: int, tile_samples: int | None = None) -> bool:
+    """True iff B1 takes this configuration: any C, while its ring fits
+    WINDOWED_SMEM_MAX."""
+    return (
+        channels >= 1
+        and 1 <= window
+        and windowed_geometry(window, channels).smem_bytes <= WINDOWED_SMEM_MAX
+    )
 
 
 def _check_scan_variant(variant: str, channels: int) -> None:
@@ -460,11 +515,9 @@ def launch_scan(
         return y
     lib = _build.library()
     with torch.cuda.device(x.device):
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        resident = sms * _scan_attrs(x.device.index, variant, g.kernel_c, g.smem_bytes)[3]
         err = lib.dsp_scan_i16(
             x.data_ptr(), y.data_ptr(), n, window, channels, SCAN_VARIANTS[variant], g.kernel_c,
-            g.nrun, g.span_tiles(n, resident), g.smem_bytes, _stream(x),
+            g.nrun, g.span_tiles(n, _resident(x.device, g)), g.smem_bytes, _stream(x),
         )
     _build.check(err, f"scan_averager[{variant}]")
     scan_averager.launches[variant] += 1
@@ -475,13 +528,30 @@ scan_averager.launches = dict.fromkeys(SCAN_VARIANTS, 0)  # by variant
 
 
 @functools.lru_cache(maxsize=None)
-def _scan_attrs(device: int | None, variant: str, kernel_c: int, smem_bytes: int) -> tuple:
+def _kernel_attrs(device: int | None, windowed: bool, variant: str, kernel_c: int,
+                  smem_bytes: int) -> tuple:
+    """B1's (``windowed``) or B3's kernel attributes: as :func:`scan_kernel_attrs`."""
     lib = _build.library()
     out = (ctypes.c_int64 * 4)()
     with torch.cuda.device(device):
-        _build.check(lib.dsp_scan_attrs(SCAN_VARIANTS[variant], kernel_c, smem_bytes,
-                                        ctypes.addressof(out)), "scan_kernel_attrs")
+        if windowed:
+            err = lib.dsp_windowed_attrs(kernel_c, smem_bytes, ctypes.addressof(out))
+        else:
+            err = lib.dsp_scan_attrs(SCAN_VARIANTS[variant], kernel_c, smem_bytes,
+                                     ctypes.addressof(out))
+        _build.check(err, "windowed_kernel_attrs" if windowed else "scan_kernel_attrs")
     return tuple(out)
+
+
+def _attrs_of(device: int | None, g: ScanGeometry) -> tuple:
+    return _kernel_attrs(device, isinstance(g, WindowedGeometry), g.variant, g.kernel_c,
+                         g.smem_bytes)
+
+
+def _resident(device: torch.device, g: ScanGeometry) -> int:
+    """Blocks of g's kernel the card holds at once: its SMs times blocks an SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * _attrs_of(device.index, g)[3]
 
 
 def scan_kernel_attrs(window: int, channels: int = 2, variant: str = "blelloch") -> tuple:
@@ -489,8 +559,13 @@ def scan_kernel_attrs(window: int, channels: int = 2, variant: str = "blelloch")
     blocks an SM at ``window`` (the card only): (registers a thread, local bytes a
     thread, shared bytes a block, blocks an SM). The launch sizes its spans by
     the last."""
-    g = scan_geometry(window, channels, variant)
-    return _scan_attrs(torch.cuda.current_device(), variant, g.kernel_c, g.smem_bytes)
+    return _attrs_of(torch.cuda.current_device(), scan_geometry(window, channels, variant))
+
+
+def windowed_kernel_attrs(window: int, channels: int = 2) -> tuple:
+    """What the compiler gave B1's kernel for ``channels``, and its blocks an SM
+    at ``window`` (the card only): as :func:`scan_kernel_attrs`."""
+    return _attrs_of(torch.cuda.current_device(), windowed_geometry(window, channels))
 
 
 def cumsum(x: torch.Tensor, channels: int = 1) -> torch.Tensor:
@@ -536,8 +611,10 @@ __all__ = [
     "TILE_SAMPLES",
     "TWO_BLOCKS_SMEM_MAX",
     "SCAN_VARIANTS",
+    "WINDOWED_SMEM_MAX",
     "TileGeometry",
     "ScanGeometry",
+    "WindowedGeometry",
     "tile_geometry",
     "windowed_geometry",
     "packed_geometry",
@@ -549,6 +626,8 @@ __all__ = [
     "scan_supported",
     "windowed_averager",
     "launch_windowed",
+    "launch_windowed_range",
+    "windowed_kernel_attrs",
     "packed_seed_words",
     "windowed_averager_packed",
     "scan_averager",

@@ -10,11 +10,11 @@ Counterpart of ``digital_signal_processsing_tpu/parallel/ring_pallas.py``:
 - :func:`fused_ring_windowed_shard`: B7, the windowed averager (B1) over a
   shard with the halo put in flight under the interior blocks. The
   reference rotates a sequential grid so that tile 0, the one needing the
-  remote halo, runs last. B1's blocks carry nothing (each reloads its own
-  halo), so here one call is: the put of the shard's trailing
-  ``window * channels`` samples on a side stream, B1 over the blocks whose
+  remote halo, runs last. B1's spans carry nothing (each scans the halo
+  before it), so here one call is: the put of the shard's trailing
+  ``window * channels`` samples on a side stream, B1 over the tiles whose
   window lies inside the shard, a wait for the left neighbour's put, and B1
-  over the head blocks seeded from the received halo (``csrc/windowed.cu``,
+  over the head tiles seeded from the received halo (``csrc/windowed.cu``,
   ``dsp_windowed_i16_range``).
 
 For CPU tensors both take their plain version, the ``ppermute`` spelling
@@ -56,6 +56,7 @@ from .. import _build
 from ..ops.pallas_scan import (
     _on_cuda,
     _stream,
+    launch_windowed_range,
     windowed_averager,
     windowed_geometry,
     windowed_supported,
@@ -254,12 +255,13 @@ def ring_shift_right(x: torch.Tensor, mesh: Mesh, axis: str = TIME_AXIS) -> torc
 
 
 def fused_ring_split(n: int, window: int, channels: int, tile_samples: int | None = None):
-    """B7's launch geometry for a shard of ``n`` samples: (B1's tile geometry,
-    head blocks, blocks). Blocks ``[0, head)`` read samples before the shard
-    (the received halo); blocks ``[head, blocks)`` lie inside it."""
+    """B7's launch geometry for a shard of ``n`` samples: (B1's geometry, head
+    tiles, tiles). The windows of tiles ``[0, head)`` reach before the shard
+    (the received halo); those of tiles ``[head, tiles)``, and the H samples
+    a span starting there scans first, lie inside it."""
     g = windowed_geometry(window, channels, tile_samples)
-    blocks = g.blocks(n)
-    return g, min(blocks, cdiv(window * channels, g.tile_samples)), blocks
+    tiles = g.tiles(n)
+    return g, min(tiles, cdiv(window * channels, g.tile_samples)), tiles
 
 
 def fused_ring_windowed_shard(
@@ -297,15 +299,12 @@ def fused_ring_windowed_shard(
         return windowed_averager(xs, window, channels, seed=shift_right(tail, mesh),
                                  tile_samples=tile_samples)
     _check_mesh(xs, mesh)
-    g, head, blocks = fused_ring_split(n, window, channels, tile_samples)
+    _, head, tiles = fused_ring_split(n, window, channels, tile_samples)
     y = torch.empty_like(xs)
-    lib = _build.library()
+    _build.library()  # a failed build raises before any CUDA call
 
     def launch(begin: int, end: int, seed: int | None) -> None:
-        err = lib.dsp_windowed_i16_range(
-            xs.data_ptr(), y.data_ptr(), seed, n, window, channels, g.lead_frames,
-            g.tile_frames, g.seg_frames, g.segs, g.smem_bytes, begin, end, stream,
-        )
+        err = launch_windowed_range(xs, y, window, channels, seed, begin, end, stream)
         _build.check(err, "fused_ring_windowed_shard")
 
     with torch.cuda.device(xs.device):
@@ -315,8 +314,8 @@ def fused_ring_windowed_shard(
         stream = compute.cuda_stream
         ring.side.wait_stream(compute)  # xs is ready
         ring.put(tail, slot, ring.side.cuda_stream)
-        if head < blocks:
-            launch(head, blocks, None)  # interior: the window lies inside the shard
+        if head < tiles:
+            launch(head, tiles, None)  # interior: the window lies inside the shard
         host_barrier(mesh)
         ring.wait_sent(slot, stream)
         compute.wait_stream(ring.side)  # later work on xs follows the put

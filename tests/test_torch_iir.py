@@ -9,7 +9,9 @@ launches: zero-state tile end states, the carry scan of one warp a channel
 with the rounded M, and the seeded re-run; inside a tile the sub-tiles, each
 thread's segment, the warp's Hillis-Steele steps with the table's powers,
 thread 0's chain over the warps, the correction pass and the ragged end
-state. They are held against scipy.
+state: B15's launches, one section at a time, and B10's. ``emulate_lookback``
+does B12's single pass and B13's (the same pass with the sections fixed).
+They are held against scipy.
 
 Tolerance: 1e-5 of max|y| everywhere, against the JAX package and against
 scipy's float64 filter run with the same float32 coefficients (a float32
@@ -162,6 +164,143 @@ def test_unrolled_sections_match_jax(rng):
     got = iir.sosfilt_pallas_fused(sos, t(x), unroll_sections=True).numpy()
     assert rel_err(got, want) < TOL
     assert rel_err(got, scipy_sos(sos, x)) < TOL
+
+
+# --- any section count: groups of the kernels' largest instance -------------------
+#
+# The wrappers of B12, B13 and B14 chain groups of at most MAX_SECTIONS (B12,
+# B14) or MAX_UNROLLED (B13) sections, each from its slice of the state. At 17
+# and 24 sections of butter(34, 0.1) and butter(48, 0.1) any float32 cascade
+# lies further than TOL from float64 (scipy's own float32 filter 3.0e-5 and
+# 2.9e-4 of max|y| on these inputs; the JAX package's 1.5e-5 to 1.9e-4): the
+# tolerance is the 4-section cases' TOL, widened where float32 itself is
+# further off to HIGHQ_FACTOR x scipy's float32 error (the high-Q rule of the
+# 16-section cases below), against float64 and against the JAX package.
+
+HIGH_ORDER = {17: iir.design_butterworth(34, 0.1), 24: iir.design_butterworth(48, 0.1)}
+
+
+def high_order_tol(sos, x, filtfilt=False):
+    """TOL, or HIGHQ_FACTOR x scipy's float32 filter's own error against float64."""
+    fn = sps.sosfiltfilt if filtfilt else sps.sosfilt
+    s32 = np.asarray(sos, F32)
+    err32 = rel_err(fn(s32, x.astype(F32), axis=-1), fn(s32.astype(np.float64), x.astype(np.float64), axis=-1))
+    return max(TOL, HIGHQ_FACTOR * err32)
+
+
+HIGH_ORDER_SPELLINGS = {"fused": {}, "unrolled": {"unroll_sections": True}, "mxu": {"lane_pass": "mxu"}}
+
+
+@pytest.fixture(scope="module")
+def high_order_jax():
+    """Per section count: the input and the JAX package's sosfilt auto, each
+    spelling of sosfilt_pallas_fused (its kernels in interpret mode) and
+    sosfiltfilt on it, computed once."""
+    out = {}
+    for sections, sos in HIGH_ORDER.items():
+        x = sig(np.random.default_rng(sections), (2, 1500))
+        runs = {"auto": np.asarray(jax_iir.sosfilt(sos, x)),
+                "filtfilt": np.asarray(jax_iir.sosfiltfilt(sos, x))}
+        for name, kw in HIGH_ORDER_SPELLINGS.items():
+            runs[name] = np.asarray(jax_iir.sosfilt_pallas_fused(sos, x, tile_rows=8, **kw))
+        out[sections] = x, runs
+    return out
+
+
+@pytest.mark.parametrize("sections", [17, 24])
+@pytest.mark.parametrize("spelling", ["auto", "fused", "unrolled", "mxu"])
+def test_high_order_sosfilt_matches_jax(high_order_jax, sections, spelling):
+    sos = HIGH_ORDER[sections]
+    x, jax_runs = high_order_jax[sections]
+    if spelling == "auto":
+        got = iir.sosfilt(sos, t(x)).numpy()
+    else:
+        got = iir.sosfilt_pallas_fused(sos, t(x), **HIGH_ORDER_SPELLINGS[spelling]).numpy()
+    tol = high_order_tol(sos, x)
+    assert rel_err(got, jax_runs[spelling]) < tol
+    assert rel_err(got, scipy_sos(sos, x)) < tol
+
+
+@pytest.mark.parametrize("sections", [17, 24])
+def test_high_order_sosfiltfilt_and_decimate(high_order_jax, sections):
+    sos = HIGH_ORDER[sections]
+    x, jax_runs = high_order_jax[sections]
+    got = iir.sosfiltfilt(sos, t(x)).numpy()
+    tol = high_order_tol(sos, x, filtfilt=True)
+    assert rel_err(got, jax_runs["filtfilt"]) < tol
+    assert rel_err(got, sps.sosfiltfilt(np.asarray(sos, F32).astype(np.float64),
+                                        x.astype(np.float64))) < tol
+    # decimate's Chebyshev I of order 34: 17 sections (at order 48 its 0.05 dB
+    # design is unstable in float32 itself, scipy's own float32 filter included)
+    design = iir.design_chebyshev1(34, 0.05, 0.2)
+    assert design.shape[0] == 17
+    got = iir.decimate_iir(t(x), 4, order=34).numpy()
+    want = sps.sosfiltfilt(design.astype(np.float64), x.astype(np.float64))[..., ::4]
+    assert rel_err(got, want) < high_order_tol(design, x, filtfilt=True)
+
+
+@pytest.mark.parametrize("sections", [17, 24])
+def test_high_order_chunks_match_one_shot(high_order_jax, sections):
+    sos = HIGH_ORDER[sections]
+    x, jax_runs = high_order_jax[sections]
+    st = iir.sosfilt_init(sos, (2,), device="cpu")
+    ys = []
+    for a, b in ((0, 400), (400, 1031), (1031, 1500)):
+        st, y = iir.sosfilt_chunk(st, sos, t(x[:, a:b]))
+        ys.append(y.numpy())
+    got = np.concatenate(ys, axis=1)
+    tol = high_order_tol(sos, x)
+    assert rel_err(got, iir.sosfilt(sos, t(x)).numpy()) < tol
+    assert rel_err(got, jax_runs["auto"]) < tol
+    zf = scipy_sos(sos, x, zi=np.zeros((sections, 2, 2)))[1]
+    assert np.abs(st.numpy() - zf).max() < tol * np.abs(scipy_sos(sos, x)).max()
+
+
+def test_unrolled_groups_match_jax(rng):
+    # B13 past its largest instance at 9 sections, groups of MAX_UNROLLED
+    # sections (17 in test_high_order_sosfilt_matches_jax)
+    sos = iir.design_butterworth(18, 0.1)
+    x = sig(rng, (2, 1500))
+    got = iir.sosfilt_pallas_fused(sos, t(x), unroll_sections=True).numpy()
+    want = np.asarray(jax_iir.sosfilt_pallas_fused(sos, x, tile_rows=8, unroll_sections=True))
+    tol = high_order_tol(sos, x)
+    assert rel_err(got, want) < tol
+    assert rel_err(got, scipy_sos(sos, x)) < tol
+
+
+def test_section_groups_launch_once_each(monkeypatch, rng):
+    """One launch a group, each from its slice of the state: the wrappers taken
+    through their CUDA branch with the launches replaced by the plain version."""
+    assert iir.section_groups(17, 16) == [(0, 16), (16, 17)]
+    assert iir.section_groups(24, 8) == [(0, 8), (8, 16), (16, 24)]
+    assert iir.section_groups(8, 8) == [(0, 8)]
+    sos = HIGH_ORDER[17]
+    x = t(sig(rng, (2, 1500)))
+    state = t((0.1 * rng.normal(size=(17, 2, 2))).astype(F32))
+    want_y, want_end = iir.sos_cascade(x, sos, state)  # the plain version, grouped alike
+    want_b13 = iir.sos_cascade_unrolled(x, sos)
+    calls = []
+
+    def plain_launch(y, rows, st, tile_rows):
+        calls.append(rows.shape[0])
+        return iir._sos_plain(y, rows, st)
+
+    monkeypatch.setattr(iir, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(iir, "_launch_lookback", plain_launch)
+    monkeypatch.setattr(iir, "_launch_unrolled", lambda y, rows, tr: plain_launch(y, rows, None, tr)[0])
+    monkeypatch.setattr(iir, "_launch_mxu", lambda y, rows, tr: plain_launch(y, rows, None, tr)[0])
+    before = (iir.sos_cascade.launches, iir.sos_cascade_unrolled.launches,
+              iir.sos_cascade_mxu.launches)
+    y, end = iir.sos_cascade(x, sos, state)
+    assert calls == [16, 1] and torch.equal(y, want_y) and torch.equal(end, want_end)
+    calls.clear()
+    assert torch.equal(iir.sos_cascade_unrolled(x, sos), want_b13) and calls == [8, 8, 1]
+    calls.clear()
+    iir.sos_cascade_mxu(x, sos)
+    assert calls == [16, 1]
+    after = (iir.sos_cascade.launches, iir.sos_cascade_unrolled.launches,
+             iir.sos_cascade_mxu.launches)
+    assert [a - b for a, b in zip(after, before)] == [2, 3, 2]
 
 
 @pytest.mark.parametrize("shape", [(700,), (2, 3, 700), (1, 1)])
@@ -375,8 +514,8 @@ def test_fused_and_first_order_refusals_raise_by_name(rng):
         iir.iir_first_order_pallas(x, 0.9, tile_rows=64, row_pass="compact")
     with pytest.raises(ValueError, match="unroll_sections"):
         iir.sosfilt_pallas_fused(sos, x, tile_rows=128, unroll_sections=True, row_pass="compact")
-    with pytest.raises(ValueError, match="B13"):
-        iir.sosfilt_pallas_fused(np.tile(sos, (5, 1)), x, unroll_sections=True)  # 10 sections
+    with pytest.raises(ValueError, match="B13"):  # no section (10 take two groups, F2)
+        iir.sosfilt_pallas_fused(np.zeros((0, 6), F32), x, unroll_sections=True)
     with pytest.raises(ValueError, match="method"):
         iir.sosfilt(sos, x, method="nope")
     with pytest.raises(ValueError, match="kernel"):
@@ -486,8 +625,20 @@ def _tile(xc, t_idx, tile, n, ntiles, tab, car, want_state):
 
 
 def emulate_cascade(x, sos, state=None, tile_rows=None):
-    """The three launches of dsp_sos_cascade on (C, n) float32: (y, end state)."""
+    """dsp_sos_sections (B15) on (C, n) float32: each section's three launches
+    of sos_tile_kernel<1> on the previous section's output, seeded from its
+    slice of the state: (y, end state)."""
     rows = np.asarray(sos, F32).reshape(-1, 6)
+    ys, ends = x, []
+    for k in range(rows.shape[0]):
+        st = None if state is None else state[k : k + 1]
+        ys, end = _emulate_section_launches(ys, rows[k : k + 1], st, tile_rows)
+        ends.append(end)
+    return ys, np.concatenate(ends)
+
+
+def _emulate_section_launches(x, rows, state, tile_rows):
+    """sos_tile_kernel's three launches of one section, M its own Phi^tile."""
     s = rows.shape[0]
     c, n = x.shape
     tile = iir.pick_tile(c, n, tile_rows)
@@ -659,7 +810,8 @@ def test_sections_and_cascade_plain_versions_agree(rng):
 # in order), the fixed-depth look-back resolved by blocks that take tickets in
 # order and advance in a shuffled order, and the cascade once from s_t (the
 # warp scan, every warp's chain of the warps' totals, the correction) with the
-# end-state thread. The three launches above (emulate_cascade) are B13's.
+# end-state thread. B13 is this pass with the section count fixed
+# (``unrolled``); the three launches above (emulate_cascade) are B15's.
 
 
 def _mv(m, v, init):
@@ -797,15 +949,21 @@ def _lb_section(v, tb, car):
     return r
 
 
-def emulate_lookback(x, sos, state=None, tile_rows=None, order=0, resident=5):
-    """B12's one launch on (C, n) float32: (y, end state or None).
+def emulate_lookback(x, sos, state=None, tile_rows=None, order=0, resident=5, unrolled=False):
+    """B12's one launch on (C, n) float32: (y, end state or None); B13's with
+    ``unrolled``.
 
     ``order`` seeds the shuffled order in which the resident blocks (each with
     a ticket, taken in order) advance; a block waiting on a record it cannot
-    read yet does not advance.
+    read yet does not advance. B13 is the same kernel with NS = S sections
+    fixed at compile time (1..MAX_UNROLLED, zero state): D = 2 NS and the
+    butterfly's DP follow from NS, every D-term sum and the sections unroll
+    with their terms in B12's order, so each float operation is B12's.
     """
     rows = np.asarray(sos, F32).reshape(-1, 6)
     s = rows.shape[0]
+    if unrolled:
+        assert 1 <= s <= iir.MAX_UNROLLED and state is None
     c, n = x.shape
     tile = iir.lookback_tile(c, n, tile_rows)
     ntiles = -(-n // tile)
@@ -960,6 +1118,23 @@ def test_lookback_block_matches_jax(rng, s, n, tile_rows):
     scale = np.abs(np.asarray(jy)).max()
     assert rel_err(y, np.asarray(jy)) < TOL
     assert np.abs(end - np.asarray(jst)).max() < TOL * scale
+
+
+@pytest.mark.parametrize("s,n,tile_rows", [(1, 5 * iir.LB_SUB + 3, 32), (4, 9 * iir.LB_SUB + 77, 32),
+                                           (4, 3 * iir.LB_SUB + 77, None), (8, 10 * iir.LB_SUB + 3, 64)])
+def test_unrolled_block_algorithm(rng, s, n, tile_rows):
+    """B13: B12's pass with the sections fixed, from zero state, against scipy's
+    float64 filter and the JAX package's sosfilt_pallas_fused(unroll_sections=True)
+    within TOL of max|y|, and bit-identical over completion orders."""
+    sos, x, _ = _lb_case(rng, s, n, seeded=False)
+    y, end = emulate_lookback(x, sos, None, tile_rows, order=s, unrolled=True)
+    assert end is None
+    assert rel_err(y, scipy_sos(sos, x)) < TOL
+    want = np.asarray(jax_iir.sosfilt_pallas_fused(sos, x, tile_rows=8, unroll_sections=True))
+    assert rel_err(y, want) < TOL
+    assert rel_err(iir.sos_cascade_unrolled(t(x), sos, tile_rows=tile_rows).numpy(), y) < TOL
+    y2, _ = emulate_lookback(x, sos, None, tile_rows, order=s + 7, resident=9, unrolled=True)
+    assert np.array_equal(y, y2)
 
 
 @pytest.mark.parametrize("s", [4, 16])

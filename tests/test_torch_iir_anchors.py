@@ -146,8 +146,8 @@ def test_anchor_refusals(rng):
         iir.sosfilt_pallas_fused(sos, x, lane_pass="mxu", row_pass="rows")
     with pytest.raises(ValueError, match="compact"):
         iir.sosfilt_pallas_fused(sos, x, lane_pass="mxu", row_pass="compact", tile_rows=64)
-    with pytest.raises(ValueError, match="B14"):
-        iir.sosfilt_pallas_fused(np.tile(sos, (5, 1)), x, lane_pass="mxu")  # 20 sections
+    with pytest.raises(ValueError, match="B14"):  # no section (20 take two groups, F2)
+        iir.sosfilt_pallas_fused(np.zeros((0, 6), np.float32), x, lane_pass="mxu")
     with pytest.raises(ValueError, match="tile_rows"):
         iir.iir_first_order_pallas(x, 0.9, kernel="tile", tile_rows=8)
     # as the reference, lane_pass='mxu' ignores unroll_sections

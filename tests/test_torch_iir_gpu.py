@@ -103,6 +103,9 @@ def test_b12_kernel_attrs(dev):
         regs, local, smem, blocks = iir.cascade_kernel_attrs(sections)
         assert local <= (0 if sections <= 8 else 40), (sections, local)
         assert 0 < regs <= 255 and blocks >= 1 and smem > 0
+    for sections in range(1, iir.MAX_UNROLLED + 1):  # B13's instances
+        regs, local, smem, blocks = iir.cascade_kernel_attrs(sections, unrolled=True)
+        assert 0 < regs <= 255 and blocks >= 1 and smem > 0, sections
 
 
 @pytest.mark.parametrize("sections", range(1, 9))
@@ -115,6 +118,7 @@ def test_b13_matches_plain(dev, sections):
         assert iir.sos_cascade_unrolled.launches == before + 1
         assert rel_err(y, iir._sos_plain(x, sos, None)[0]) < 1e-5, (sections, t)
         assert rel_err(y, scipy64(sos, x)) < 1e-4
+        assert torch.equal(iir.sos_cascade_unrolled(x, sos), y)  # the look-back's fixed order
 
 
 @pytest.mark.parametrize("sections", [1, 4, 8])
@@ -206,9 +210,20 @@ def test_stream_sosfilt_on_the_card(dev, tmp_path):
 def test_refusals_on_the_card(dev, monkeypatch):
     x, _ = case(dev, 2, 5000, 1)
     with pytest.raises(ValueError, match="B13"):
-        iir.sos_cascade_unrolled(x, sos_of(9))
+        iir.sos_cascade_unrolled(x, np.zeros((0, 6), np.float32))
     with pytest.raises(ValueError, match="B12"):
-        iir.sos_cascade(x, np.tile(sos_of(1), (17, 1)))
+        iir.sos_cascade(x, np.zeros((0, 6), np.float32))
+    # past the largest instances the wrappers chain groups, a launch each
+    for fn, sos, groups in ((iir.sos_cascade_unrolled, sos_of(9), 2),
+                            (lambda v, s: iir.sos_cascade(v, s)[0], np.tile(sos_of(1), (17, 1)), 2),
+                            (iir.sos_cascade_mxu, np.tile(sos_of(1), (17, 1)), 2)):
+        counts = (iir.sos_cascade.launches, iir.sos_cascade_unrolled.launches,
+                  iir.sos_cascade_mxu.launches)
+        y = fn(x, sos)
+        after = (iir.sos_cascade.launches, iir.sos_cascade_unrolled.launches,
+                 iir.sos_cascade_mxu.launches)
+        assert sum(after) - sum(counts) == groups
+        assert rel_err(y, iir._sos_plain(x, sos, None)[0]) < 1e-5
 
     def broken():
         raise RuntimeError("nvcc failed")

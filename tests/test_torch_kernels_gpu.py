@@ -86,6 +86,34 @@ def test_int16_min(dev, window, channels):
     assert torch.equal(moving_average(x, window, channels).cpu(), want)
 
 
+@pytest.mark.parametrize("offset", [1, 3, 7])
+@pytest.mark.parametrize("window,channels", [(1024, 2), (100, 3), (1, 1)])
+def test_windowed_misaligned_views(dev, window, channels, offset):
+    # a view off the 16-byte grid takes B1's loads sample by sample: the same output
+    base = stream(dev, 70001 + offset, channels)
+    x = base[offset * channels :]
+    assert x.data_ptr() % 16 != 0
+    assert torch.equal(ps.windowed_averager(x, window, channels), moving_average_xla(x, window, channels))
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_windowed_range_split(dev, seeded):
+    # the range entry: tiles [0, b) and [b, tiles) in two launches, at every b
+    window, channels = 3000, 3
+    x = stream(dev, 9 * 8192 // 3 - 5, channels)
+    seed = stream(dev, window, channels, seed=1) if seeded else None
+    full = ps.windowed_averager(x, window, channels, seed=seed)
+    tiles = ps.windowed_geometry(window, channels).tiles(x.numel())
+    for b in range(1, tiles):
+        y = torch.empty_like(x)
+        for lo, hi in ((b, tiles), (0, b)):
+            err = ps.launch_windowed_range(x, y, window, channels,
+                                           None if seed is None else seed.data_ptr(), lo, hi,
+                                           torch.cuda.current_stream().cuda_stream)
+            assert err == 0
+        assert torch.equal(y, full), b
+
+
 def test_seeded_matches_suffix(dev):
     window, channels = 1024, 2
     x = stream(dev, 50000, channels)

@@ -108,8 +108,8 @@ def test_packed_two_pass_route(rng):
     "window,channels,route",
     [
         (16, 2, "windowed"),
-        (1070, 16, "windowed"),  # the last window at which two B1 blocks fit an SM
-        (1071, 16, "windowed:two_pass_fallback"),
+        (3103, 16, "windowed"),  # the last window whose B1 ring fits shared memory
+        (3104, 16, "windowed:two_pass_fallback"),
         (65535, 1, "windowed:two_pass_fallback"),
         (100, 3, "windowed"),  # any channel count takes the kernel
     ],

@@ -1,15 +1,17 @@
 """B7's two launches and B2's seeded blocks, emulated in NumPy at the wrappers' geometry.
 
 ``fused_ring_windowed_shard`` runs B1 over one shard in two launches of
-``dsp_windowed_i16_range``: the interior blocks unseeded while the halo is
-in flight, then the head blocks seeded from the received halo (zeros on
-rank 0). Each block below does what a block of ``csrc/windowed.cu`` does
-(``tests/test_torch_geometry.py``'s ``block_prefix``) with the split that
-``ring_pallas.fused_ring_split`` gives; every output must be written exactly
-once, the head blocks must be exactly those whose window reaches before the
-shard, no interior block may read before the shard, and the shards together
-must give the golden result bit for bit. The same for B2 seeded with the
-pair words before its stream, the sharded packed route.
+``dsp_windowed_i16_range``: the interior tiles unseeded while the halo is
+in flight, then the head tiles seeded from the received halo (zeros on
+rank 0). Each launch below does what the launch of ``csrc/windowed.cu``
+does (``tests/test_torch_scan.py``'s ``emulate_scan`` with B1's geometry:
+spans of tiles over the launch's range, each span first scanning the H
+samples before it) with the split that ``ring_pallas.fused_ring_split``
+gives; every output must be written exactly once, the head tiles must be
+exactly those whose window reaches before the shard, no span of the
+interior launch may read before the shard, and the shards together must
+give the golden result bit for bit. The same for B2 seeded with the pair
+words before its stream, the sharded packed route.
 """
 
 import numpy as np
@@ -21,48 +23,32 @@ from digital_signal_processsing_tpu_torch.ops import pallas_scan as ps
 from digital_signal_processsing_tpu_torch.parallel.ring_pallas import fused_ring_split
 from tests.conftest import make_interleaved
 from tests.test_torch_geometry import block_prefix, widen
+from tests.test_torch_scan import emulate_scan
 
 
-def emulate_block(x, seed, g, window, b, y, writes, reads_before):
-    """One block of windowed_kernel at grid offset b (the launch's block0 + blockIdx.x)."""
-    n, tile, c = x.size, g.tile_samples, g.channels
-    halo, lead = window * c, g.lead_frames * c
-    t0 = b * tile
-    idx = np.arange(t0 - lead, t0 + tile)
-    buf = np.zeros(idx.size, np.uint32)
-    inside = (idx >= 0) & (idx < n)
-    buf[inside] = widen(x[idx[inside]])
-    before = (idx < 0) & (idx >= -halo)
-    reads_before[b] = bool(before.any())
-    if seed is not None:
-        buf[before] = widen(seed[halo + idx[before]])
-    p, _ = block_prefix(buf, g, g.lead_frames + g.tile_frames)
-    t = np.arange(min(tile, n - t0))
-    wsum = (p[lead + t] - p[lead + t - halo]).view(np.int32).astype(np.int64)
-    y[t0 + t] = np.where(wsum >= 0, wsum // window, -((-wsum) // window)).astype(np.int16)
-    writes[t0 + t] += 1
-
-
-def emulate_fused_ring(shards, window, channels, tile_samples):
-    """Every rank's two launches; returns the outputs and each rank's split."""
+def emulate_fused_ring(shards, window, channels, tile_samples, resident=3):
+    """Every rank's two launches; returns the outputs and each rank's split.
+    ``resident`` blocks a wave: spans of several tiles where a range is long."""
     halo = window * channels
     outs, splits = [], []
     for d, xs in enumerate(shards):
-        g, head, blocks = fused_ring_split(xs.size, window, channels, tile_samples)
+        g, head, tiles = fused_ring_split(xs.size, window, channels, tile_samples)
         y = np.zeros(xs.size, np.int16)
         writes = np.zeros(xs.size, np.int64)
-        reads_before = {}
-        for b in range(head, blocks):  # interior launch, no seed
-            emulate_block(xs, None, g, window, b, y, writes, reads_before)
+        launch = dict(g=g, out=y, written=writes, resident=resident)
+        if head < tiles:  # interior launch, no seed
+            stats = {}
+            emulate_scan(xs, window, channels, None, tile_range=(head, tiles), stats=stats, **launch)
+            assert stats["least_lo"] >= 0  # no span reads before the shard
         seed = shards[d - 1][-halo:] if d > 0 else None  # the put's payload; rank 0: null
-        for b in range(head):
-            emulate_block(xs, seed, g, window, b, y, writes, reads_before)
+        stats = {}
+        emulate_scan(xs, window, channels, None, seed=seed, tile_range=(0, head), stats=stats,
+                     **launch)
+        assert stats["least_lo"] < 0  # the head's windows reach before the shard
         np.testing.assert_array_equal(writes, 1)  # every output written exactly once
-        assert not any(reads_before[b] for b in range(head, blocks))
-        assert all(reads_before[b] for b in range(head))  # head = windows reaching before
-        assert head == sum(1 for b in range(blocks) if b * g.tile_samples < halo)
+        assert head == sum(1 for t in range(tiles) if t * g.tile_samples < halo)
         outs.append(y)
-        splits.append((head, blocks))
+        splits.append((head, tiles))
     return np.concatenate(outs), splits
 
 
@@ -77,6 +63,7 @@ def emulate_fused_ring(shards, window, channels, tile_samples):
     ],
 )
 def test_fused_ring_split(rng, window, channels, shard_frames, tile_samples):
+    # tile_samples (the reference's tile_rows) selects nothing: B1's tile is 8192
     assert ps.windowed_supported(window, channels, tile_samples)
     x = make_interleaved(rng, 4 * shard_frames, channels)
     shards = np.split(x, 4)
@@ -86,13 +73,16 @@ def test_fused_ring_split(rng, window, channels, shard_frames, tile_samples):
 
 
 def test_fused_ring_split_counts():
-    # 8192-sample tiles (TILE_SAMPLES) at k=1024, C=2: the halo of 2048 samples
-    # reaches into block 0 only; a 64M stream in 4 shards has 2048 blocks a shard
-    g, head, blocks = fused_ring_split(16 * 2**20, 1024, 2)
-    assert g.tile_samples == ps.TILE_SAMPLES and (head, blocks) == (1, 2048)
+    # 8192-sample tiles at k=1024, C=2: the halo of 2048 samples reaches into
+    # tile 0 only; a 64M stream in 4 shards has 2048 tiles a shard
+    g, head, tiles = fused_ring_split(16 * 2**20, 1024, 2)
+    assert g.tile_samples == 8192 and (head, tiles) == (1, 2048)
     assert fused_ring_split(2048, 1024, 2)[1:] == (1, 1)  # the whole shard is the head
-    g, head, blocks = fused_ring_split(4096, 1000, 1, 256)
-    assert (head, blocks) == (4, 16)
+    assert fused_ring_split(100000, 20000, 1, 256)[1:] == (3, 13)  # a halo over three tiles
+    x = make_interleaved(np.random.default_rng(5), 4 * 30000, 1)
+    got, splits = emulate_fused_ring(np.split(x, 4), 20000, 1, None)
+    assert splits[0] == (3, 4)
+    np.testing.assert_array_equal(got, moving_average_golden(x, 20000, 1))
 
 
 def emulate_packed_seeded(x, window, channels, seed):

@@ -369,13 +369,25 @@ def generic_rows(ring: np.ndarray, carry: np.ndarray, r0: int, c0: int, g: ps.Sc
             carry += incl[:, 31]
 
 
-def emulate_scan(x, window, channels, variant, *, resident=4 * H100_SMS):
-    """The launch of csrc/scan.cu: every block walks its seed tiles and its span
-    through the ring, from the geometry the wrapper passes; ``resident`` is one
-    wave of blocks (the card's SMs times the kernel's blocks an SM). C outside
-    SCAN_NATIVE_C takes scan_generic_kernel: the raw samples through a flat,
-    skewed ring, each channel scanned there in rows."""
-    g = ps.scan_geometry(window, channels, variant)
+def emulate_scan(x, window, channels, variant, *, resident=4 * H100_SMS, g=None, seed=None,
+                 tile_range=None, span=None, aligned=True, out=None, written=None, stats=None):
+    """A launch of csrc/run_tile.cuh's span kernels: every block walks its seed
+    tiles and its span through the ring, from the geometry the wrapper passes;
+    ``resident`` is one wave of blocks (the card's SMs times the kernel's blocks
+    an SM). C outside SCAN_NATIVE_C takes scan_generic_kernel: the raw samples
+    through a flat, skewed ring, each channel scanned there in rows.
+
+    B3 by default. B1 (``g`` a WindowedGeometry) takes the tiles ``tile_range``
+    (all by default) in spans of ``span`` tiles (one wave over the range by
+    default), and reads positions before the stream from ``seed`` (the H
+    samples before it) where one is given. Each run loads and stores 16 bytes
+    where the launch is ``aligned`` (x and y 16-byte aligned) and it lies inside
+    the stream (every run of a tile wholly inside at once), else sample by
+    sample: the emulation checks that a 16-byte access never leaves the stream
+    or its 8-sample grid, and counts both kinds in ``stats``. Outputs go to
+    ``out`` (written counted in ``written``), which it returns."""
+    g = ps.scan_geometry(window, channels, variant) if g is None else g
+    variant = g.variant
     n, nq = x.size, ps.SCAN_RUNS
     tile, h, nrun = g.tile_samples, g.halo, g.nrun
     generic = g.kernel_c == 0
@@ -385,24 +397,41 @@ def emulate_scan(x, window, channels, variant, *, resident=4 * H100_SMS):
     else:
         assert g.smem_bytes == 4 * (rs + WARPS * channels)
     assert nrun % 32 == 0 and nrun >= tile // RUN + -(-h // RUN) + 1 and g.seed_tiles * tile >= h
+    assert seed is None or (isinstance(g, ps.WindowedGeometry) and seed.size == h)
     u = u_fragment(channels) if variant == "mxu" else None
-    out = np.zeros(n, np.int16)
-    written = np.zeros(n, np.int64)
-    tiles = g.tiles(n)
-    span = g.span_tiles(n, resident)
+    out = np.zeros(n, np.int16) if out is None else out
+    written = np.zeros(n, np.int64) if written is None else written
+    stats = {} if stats is None else stats
+    begin, stop = (0, g.tiles(n)) if tile_range is None else tile_range
+    assert 0 <= begin < stop <= g.tiles(n)
+    span = g.range_span(stop - begin, resident) if span is None else span
     run = (np.arange(WARPS)[:, None, None] * nq + np.arange(nq)[None, :, None]) * 32 + LANE
     pos = run[..., None] * RUN + np.arange(RUN)  # (warps, NQ, 32, 8): sample of the tile
     assert np.array_equal(np.sort(pos.ravel()), np.arange(tile))
-    for b in range(cdiv(tiles, span)):
-        first, end = b * span, min(b * span + span, tiles)
-        lo, base = max(first * tile - h, 0), first - g.seed_tiles
+    ext = x if seed is None else np.concatenate([seed, x])  # sample p at ext[p + front]
+    front = 0 if seed is None else h
+    for b in range(cdiv(stop - begin, span)):
+        first = begin + b * span
+        end = min(first + span, stop)
+        lo, base = first * tile - h, first - g.seed_tiles
+        stats["least_lo"] = min(stats.get("least_lo", lo), lo)  # before clipping
+        lo = lo if seed is not None else max(lo, 0)  # Span's first read
+        vlo = max(lo, 0)  # a 16-byte load never reads before the stream
         carry = np.zeros(channels, np.uint32)
         # stale words must never be read
         ring = np.full(skew(rs) if generic else (RUN, nrun), 0xDEADBEEF, np.uint32)
         for t in range(base, end):
             p = t * tile + pos
+            p0 = t * tile + run * RUN  # each run's first sample
+            whole = aligned and vlo <= t * tile and t * tile + tile <= n
+            vec = whole | (aligned & (p0 >= vlo) & (p0 + RUN <= n))
+            assert (p0[vec] >= 0).all() and (p0[vec] + RUN <= n).all() and (p0 % RUN == 0).all()
+            stats["vector loads"] = stats.get("vector loads", 0) + int(vec.sum())
+            stats["scalar loads"] = stats.get("scalar loads", 0) + int((~vec).sum())
             ok = (p >= lo) & (p < n)
-            v = np.where(ok, x[np.clip(p, 0, max(n - 1, 0))], 0).astype(np.int32).view(np.uint32)
+            assert (p[ok] >= -front).all()  # before the stream: inside the seed
+            v = np.where(ok, ext[np.clip(p + front, 0, max(ext.size - 1, 0))], 0)
+            v = v.astype(np.int32).view(np.uint32)
             r0 = ((t - base) * tile) % rs  # the slot of the tile's sample 0
             if generic:
                 at = (r0 + pos) % rs
@@ -434,7 +463,10 @@ def emulate_scan(x, window, channels, variant, *, resident=4 * H100_SMS):
             keep = p < n
             out[p[keep]] = o[keep]
             written[p[keep]] += 1
-    assert (written == 1).all()
+            store_vec = aligned & (p0 + RUN <= n)
+            stats["vector stores"] = stats.get("vector stores", 0) + int(store_vec.sum())
+    if tile_range is None:
+        assert (written == 1).all()
     return out
 
 

@@ -9,13 +9,17 @@ the paths whose speed a change to a kernel could move: the flagship receiver
 chain (``DspChain.forward_planar`` on 16 x 2^22 float32 I/Q), the wideband
 receiver (64 channels, 2^26 samples), the averager's main path
 (``moving_average`` on 64M int16 samples at k=1024, C=2, the B1 route), the
-``scan*`` methods on the same stream (B3), and ``fir_filter`` at 8194 taps on
-16 x 2^22 (B9); each timed as the median host wall time of 10 synchronised
-calls after 3 warm-ups. Then B3 alone (``scan_averager``, Blelloch and
-Hillis-Steele) on the same stream at k=1024 and C = 2, 3, 5, 6, checked
-bit-exact against the plain version and timed as the median device time of
-20 calls after 5 warm-ups, by CUDA events: C=2 has an instance of its own,
-the others take the generic one. Each tree runs in its own process, which
+``scan*`` methods on the same stream (B3), ``fir_filter`` at 8194 taps on
+16 x 2^22 (B9), the averager's serving loop (``stream_moving_average`` over
+two stereo WAVs of 4M frames in chunks of 2^20 samples, B1 seeded a chunk)
+and the IIR main path (``sosfilt`` on 16 x 2^22 float32 through
+butter(8, 0.1), B12, and with ``unroll_sections=True``, B13); each timed as
+the median host wall time of 10 synchronised calls after 3 warm-ups (the
+serving loop 5 after 1). Then the kernels alone, as the median device time
+of 20 calls after 5 warm-ups, by CUDA events: B1 (``windowed_averager``) and
+B3 (``scan_averager``, every variant) on the same stream at k=1024, C=2,
+Blelloch and Hillis-Steele at C = 3, 5, 6 (the generic kernel), each checked
+bit-exact against the plain version; B12, B13 and B15 at the IIR main path. Each tree runs in its own process, which
 builds its own kernels, in the order other, this, this, other. Needs a CUDA
 device and nvcc.
 """
@@ -31,13 +35,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 CHILD = r'''
-import json, statistics, sys, time
+import json, statistics, sys, tempfile, time
+from pathlib import Path
 sys.path.insert(0, sys.argv[1])
 import numpy as np, torch
 from digital_signal_processsing_tpu_torch import _build
 from digital_signal_processsing_tpu_torch.models import ChainConfig, DspChain, WidebandConfig, WidebandFmReceiver
-from digital_signal_processsing_tpu_torch.ops import fir, moving_average
+from digital_signal_processsing_tpu_torch.io import write_wav
+from digital_signal_processsing_tpu_torch.ops import fir, iir, moving_average
 from digital_signal_processsing_tpu_torch.ops import pallas_scan as ps
+from digital_signal_processsing_tpu_torch.serve import stream_moving_average
 from digital_signal_processsing_tpu_torch.ops.scan_xla import moving_average_xla
 
 _build.build()
@@ -46,12 +53,12 @@ rng = np.random.default_rng(0)
 dev = torch.device("cuda")
 
 
-def wall(fn):
-    for _ in range(3):
+def wall(fn, warmup=3, reps=10):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     out = []
-    for _ in range(10):
+    for _ in range(reps):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -78,6 +85,12 @@ wide = WidebandFmReceiver(WidebandConfig(n_channels=64), device=dev)
 xw = torch.from_numpy(rng.standard_normal(1 << 26, dtype=np.float32)).to(dev)
 x = torch.from_numpy(rng.integers(-32768, 32768, size=64 * 2**20, dtype=np.int16)).to(dev)
 h9 = (rng.standard_normal(8194) / np.sqrt(8193)).astype(np.float32)
+sos = iir.design_butterworth(8, 0.1)
+wav = rng.integers(-32768, 32768, size=2 * (2 * 4 * 2**20 - 1), dtype=np.int16)
+tmp = Path(tempfile.mkdtemp())
+paths = [tmp / "a.wav", tmp / "b.wav"]
+write_wav(paths[0], wav[: 8 * 2**20], 48000, 2)
+write_wav(paths[1], wav[8 * 2**20 :], 48000, 2)
 res = {
     "flagship chain": wall(lambda: chain.forward_planar(i, q)),
     "wideband receiver": wall(lambda: wide(xw)),
@@ -85,15 +98,27 @@ res = {
     **{f"moving_average {m}": wall(lambda m=m: moving_average(x, 1024, 2, method=m))
        for m in ("scan", "scan_hillis", "scan_mxu")},
     "fir_filter 8194 taps": wall(lambda: fir.fir_filter(i, h9)),
+    "averager serving loop": wall(lambda: stream_moving_average(
+        paths, tmp / "out.wav", 1024, chunk_samples=1 << 20, device="cuda"), 1, 5),
+    "IIR main path (sosfilt)": wall(lambda: iir.sosfilt(sos, i)),
+    "sosfilt unroll_sections": wall(lambda: iir.sosfilt_pallas_fused(sos, i, unroll_sections=True)),
 }
+want = moving_average_xla(x, 1024, 2)
+if not torch.equal(ps.windowed_averager(x, 1024, 2), want):
+    raise AssertionError("B1 differs from plain")
+res["B1 k=1024 C=2 (device)"] = device(lambda: ps.windowed_averager(x, 1024, 2))
 for c in (2, 3, 5, 6):
     xc = x[: x.numel() // c * c]
     want = moving_average_xla(xc, 1024, c)
-    for v in ("blelloch", "hillis_steele"):
+    for v in ("blelloch", "hillis_steele", "mxu") if c == 2 else ("blelloch", "hillis_steele"):
         if not torch.equal(ps.scan_averager(xc, 1024, c, variant=v), want):
             raise AssertionError(f"B3 {v} C={c} differs from plain")
         res[f"B3 {v} k=1024 C={c} (device)"] = device(lambda: ps.scan_averager(xc, 1024, c, variant=v))
     del want
+rows = iir._sos_rows(sos)
+res["B12 (device)"] = device(lambda: iir.sos_cascade(i, rows))
+res["B13 (device)"] = device(lambda: iir.sos_cascade_unrolled(i, rows))
+res["B15 (device)"] = device(lambda: iir.sos_sections(i, rows))
 print("RESULT " + json.dumps(res))
 '''
 

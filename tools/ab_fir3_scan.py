@@ -3,7 +3,8 @@
 
     python3 tools/ab_fir3_scan.py [--csrc DIR]
 
-Builds variants of ``fused_fir3.cu`` and ``scan.cu`` with nvcc, each from a
+Builds variants of ``fused_fir3.cu`` and ``scan.cu`` (its tile in
+``run_tile.cuh`` where the sources have one) with nvcc, each from a
 copy of the sources in DIR (default: the package's ``csrc/``) with one part
 of the kernel left out or one constant changed, and times them with CUDA
 events (20 calls after 5 warm-ups, in two rounds, the variants in turns) at
@@ -216,8 +217,8 @@ NEW_SCAN_HOOKS = [
      "    }\n#else\n    // 6. cum[i] - cum[i - H], divided"),
     ("      store_run(a, y, t0 + static_cast<long long>(run) * kRun, o);\n    }\n",
      "      store_run(a, y, t0 + static_cast<long long>(run) * kRun, o);\n    }\n#endif\n"),
-    ("__launch_bounds__(kThreads, C >= 8 ? 3 : 4) scan_kernel(Args a)",
-     "__launch_bounds__(kThreads, AB_MINB) scan_kernel(Args a)"),
+    ("__launch_bounds__(kThreads, C >= 8 ? 3 : 4) scan_kernel(",
+     "__launch_bounds__(kThreads, AB_MINB) scan_kernel("),
 ]
 NEW_SCAN_DEFAULTS = {"AB_MODE": 0, "AB_MINB": 4}
 NEW_SCAN_VARIANTS = {"": {}, " without the in-tile scan": {"AB_MODE": 1},
@@ -289,7 +290,13 @@ def main() -> int:
         if old:
             patched(args.csrc / "fft.cuh", OLD_FFT_HOOKS, work)
         fir_src = patched(args.csrc / "fused_fir3.cu", fir_hooks, work)
-        scan_src = patched(args.csrc / "scan.cu", scan_hooks, work)
+        # the register-resident design's tile lives in run_tile.cuh where the sources have one
+        tile_src = args.csrc / "run_tile.cuh"
+        if not old and tile_src.exists():
+            patched(tile_src, scan_hooks, work)
+            scan_src = work / "scan.cu"
+        else:
+            scan_src = patched(args.csrc / "scan.cu", scan_hooks, work)
         jobs = {}
         for i, (name, (d, _)) in enumerate(fir_variants.items()):
             jobs[name] = (fir_src, d, tmp / f"fir{i}.so")
