@@ -22,6 +22,9 @@ failure exits non-zero:
    C=3, which is checked), frames in {1, 127, 129, 2^20+C}, all-INT16_MIN
    input, seeded calls, an int32 wrap, B3 with windows across span
    boundaries and at the largest halo it takes, and at all-INT16_MAX input at k = 1 and that halo;
+   B4 at C in {1, 3, 16, 4099, the largest it takes}, on views 2 to 14 bytes off the
+   16-byte grid, over streams of many more tiles than resident blocks (up to
+   2^24 samples), three calls bit-identical, and wrapping at C = 16;
    B1 also against the NumPy golden model on a slice, on views 2 to 14 bytes
    off the 16-byte grid (seeded too), with its range entry split into two
    launches at every tile boundary of a 9-tile stream (seeded and not), in
@@ -68,8 +71,8 @@ failure exits non-zero:
    with a0 != 1, seeded, unseeded and zero-seeded (bit for bit), the expand
    route at frame_len 100,
    impulses at tile edges, zeros exact; B22 (the LPC recurrence) at p {1, 2,
-   12, 32, 40}, L {8, 256} and ragged frame counts, bit for bit against plain
-   and within 1e-5 of float64; then the anchors B11 (first order, per-sample
+   12, 32, 40}, L {8, 33, 100, 256} and ragged frame counts, its full and
+   state-only entries bit for bit against plain and within 1e-5 of float64; then the anchors B11 (first order, per-sample
    affine maps) at a {0.5, -0.3, 0.99, 0.9999} and B14 (the cascade with its
    lane pass on the FP64 tensor cores) at sections {1, 2, 4, 8, 16} and on
    butter, cheby2 and elliptic designs of ``iir_design``, both row passes,
@@ -121,8 +124,8 @@ failure exits non-zero:
    ``method="pallas"`` (B22 x 2) and ``"scan"`` against the float64 golden
    on every stream, and ``lpc_synthesis`` auto on frame-constant sets at pole
    radius 0.95-0.999 (``factored``, B18) within 64x the sequential float32
-   error; every launch count asserted; then, outside the counts, B22 bit for
-   bit against plain on the vocoder's 65536 frames, from rest and seeded, and
+   error; every launch count asserted; then, outside the counts, B22 (full and
+   state-only) bit for bit against plain on the vocoder's 65536 frames, from rest and seeded, and
    high Q: B16 and the scan route (B17 a section) on the swept rows at pole
    radius up to 0.95 and B18 on the notch's rows, each kernel and plain
    against float64; then, counts reset
@@ -140,7 +143,12 @@ failure exits non-zero:
 5. times: each kernel against its plain version at the main path's shapes
    (CUDA events between back-to-back calls, median of 10 after 5 warm-ups,
    in turns plain, kernel, kernel, plain), with a device-to-device copy of
-   the same bytes and B4's library call (``torch.cumsum``); then B1 and B3
+   the same bytes; B4 at C = 16 and C = 1 (median, min and max of 20) beside
+   ``torch.cumsum`` of the same samples (the library call: the 1-D stream at
+   C = 1, the outer-dimension scan of the (4M, 16) view at C = 16), its time
+   before its redesign, its prediction, bound and registers, local bytes,
+   shared bytes and blocks an SM (``pallas_scan.cumsum_kernel_attrs``), and at
+   C = 3 (the generic kernel); then B1 and B3
    against the two-pass route at halos on both sides of the bounds that
    send ``windowed`` and ``scan*`` to two-pass (``TWO_BLOCKS_SMEM_MAX``);
    each B3 variant at k=1024, C=2 (median, min and max of 20) beside its time
@@ -171,9 +179,12 @@ failure exits non-zero:
    ``torch.fft.fft`` of the same rows as a yardstick, B19 by taps a phase
    (1 to 16) at 64 and 1024 channels, and B21 against the ``matmul`` route
    at 441/2560, 160/147 and 3/2, the table that sets
-   ``ops.farrow.MATMUL_MAX_PRODUCT_CUDA``; B16, B17, B18 and B22 at the
+   ``ops.farrow.MATMUL_MAX_PRODUCT_CUDA``; B16, B17, B18 and B22 (its full
+   and state-only entries) at the
    time-varying main path's shapes (median, min and max of 20) against their
-   plain versions, bounds and B12's time in the same call, the tile kernels'
+   plain versions, bounds and B12's time in the same call, B22 beside its
+   time before its redesign and its predictions, ``refine``'s three B22
+   passes, B22's attributes by order (``lpc.lpc_kernel_attrs``), the tile kernels'
    registers, local bytes, shared bytes, blocks an SM and columns a block,
    B16's, B17's and B18's time by launch, the
    transpose B22 skips, and frames (B18) against expand (B16) against
@@ -353,7 +364,10 @@ DIRECT_FIRST_MS = {64: 0.6232, 256: 2.1516}
 # B1 and B7 before B1's redesign (PERF.md §6), and the predictions written in PERF.md
 # before the redesigns' first chip call
 B1_EARLIER_MS = {"B1": 0.3418, "B7": 0.1363}
-PREDICTED_MS = {"B1": (0.09, 0.14), "B13": (0.30, 0.42)}
+# B4 (C = 16) and B22 (a pass at the vocoder's shape) before their redesign (PERF.md §6)
+B4_B22_EARLIER_MS = {"B4": 0.6456, "B22": 0.1087}
+PREDICTED_MS = {"B1": (0.09, 0.14), "B13": (0.30, 0.42), "B4": (0.14, 0.20), "B22": (0.05, 0.08),
+                "B22 state": (0.03, 0.05), "B22 refine": (0.12, 0.18)}
 # B20's plans: every power of two 2..8192, 3 * 2^a up to 6144 (the radix-3 route), and
 # the direct DFT's 1 and 7
 PFB_PLAN_NS = (*(1 << e for e in range(1, 14)), *(3 << e for e in range(12)), 1, 7)
@@ -457,15 +471,20 @@ class Checker:
             raise AssertionError(f"{what}: max abs error {err}, want 0 (bit-exact)")
 
 
-def device_ms(fn, warmup: int, reps: int) -> list[float]:
+def device_ms(fn, warmup: int, reps: int, lead: float = 0.0) -> list[float]:
     """Device ms of each of ``reps`` calls queued back to back after ``warmup``.
 
     An event after each call, so an interval is the card's time for one call
-    and not the host's time to issue it.
+    and not the host's time to issue it. ``lead``: a sleep kernel of about
+    ``lead`` ms a call first, during which the host queues the calls, so that
+    a call shorter than the host's time to issue it is timed without the gaps
+    between them.
     """
     for _ in range(warmup):
         fn()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    if lead:
+        torch.cuda._sleep(int(2e6 * lead * reps))  # cycles, at about 2 GHz
     events[0].record()
     for ev in events[1:]:
         fn()
@@ -653,12 +672,14 @@ def phase_corners(rng, dev, check: Checker) -> None:
     if not np.array_equal(got, want):
         raise AssertionError("B1 disagrees with the NumPy golden model")
     b1_largest = b1_corners(stream, dev, check)
+    b4_largest = b4_corners(stream, dev, check)
     print(
         "[3 corners] bit-exact: "
         + ", ".join(f"{k} {check.count[k]} checks" for k in AVERAGER_KERNELS)
         + "; B1 against golden on 262144 samples; tensor-core B3 refused C=3; B3's largest "
         + "windows: " + ", ".join(f"{v} C={c} k={k}" for (v, c), k in largest.items())
         + "; B1's: " + ", ".join(f"C={c} k={k}" for c, k in b1_largest.items())
+        + f"; B4's largest C {b4_largest}"
     )
 
 
@@ -709,6 +730,66 @@ def b1_corners(stream, dev, check: Checker) -> dict:
             check.same("B1", ps.windowed_averager(x, largest[c], c),
                        moving_average_xla(x, largest[c], c), f"B1 {v} k={largest[c]} C={c}")
     return largest
+
+
+def b4_corners(stream, dev, check: Checker) -> int:
+    """B4's redesign at its corners, bit-exact against plain: C = 1, 3, 16, a large C
+    and the largest it takes (the generic kernel's tile of one frame); views 2 to 14
+    bytes off the 16-byte grid; streams of many more tiles than resident blocks,
+    called three times bit-identical; int32 wraparound at C = 16. Returns the
+    largest C."""
+    largest = 4096
+    while ps.cumsum_supported(largest * 2):
+        largest *= 2
+    lo, hi = largest, largest * 2  # cumsum_supported(lo), not hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if ps.cumsum_supported(mid) else (lo, mid)
+    largest = lo
+    for c, frames in ((1, 2**24 + 5), (3, 2**22 + 1), (16, 2**20 + 3), (4099, 1001),
+                      (largest, 41)):
+        base = stream(frames + 8, c)
+        for off in (1, 3, 7, 0):  # a view `off` samples past an aligned start, then aligned
+            x = base[off : off + frames * c]
+            check.same("B4", ps.cumsum(x, c), cumsum_ref(x, c), f"B4 view {2 * off} bytes off C={c}")
+        first = ps.cumsum(x, c)
+        for _ in range(2):
+            check.same("B4", ps.cumsum(x, c), first, f"B4 repeated C={c} frames={frames}")
+    x = torch.full((16 * 2**17,), 32767, dtype=torch.int16, device=dev)  # wraps at C = 16
+    check.same("B4", ps.cumsum(x, 16), cumsum_ref(x, 16), "B4 int32 wrap C=16")
+    return largest
+
+
+def phase_b4_times(x: torch.Tensor, bk: tuple[float, str]) -> float:
+    """B4 redesigned on the 64M stream: at C = 16 (the two-pass averager's) and C = 1,
+    median (min-max) of 20 after 5 warm-ups, beside ``torch.cumsum`` of the same samples
+    (at C = 1 the 1-D stream, CUB's single-pass device scan, 20 calls; at C = 16 the
+    outer-dimension scan of ``x.view(-1, 16)``, which walks 4M rows, 3 calls after one),
+    its time before its redesign, the prediction, the bound and its attributes; and
+    the generic kernel at C = 3. Returns torch.cumsum's median at C = 16."""
+    n = x.numel()
+    library = {}
+    for c in (TWO_PASS_CHANNELS, 1):
+        d = device_ms(lambda c=c: ps.cumsum(x, c), 5, 20)
+        if c == 1:
+            lib = device_ms(lambda: torch.cumsum(x, 0, dtype=torch.int32), 5, 20)
+        else:
+            lib = device_ms(lambda: torch.cumsum(x.view(-1, c), dim=0, dtype=torch.int32), 1, 3)
+        med, library[c] = statistics.median(d), statistics.median(lib)
+        was = f"before its redesign {B4_B22_EARLIER_MS['B4']:.4f} " \
+              f"({B4_B22_EARLIER_MS['B4'] / med:.2f}x); " if c == TWO_PASS_CHANNELS else ""
+        print(f"  B4 cumsum C={c} {med:.4f} ms ({min(d):.4f}-{max(d):.4f}) median (min-max) of 20; "
+              f"{was}predicted {PREDICTED_MS['B4'][0]}-{PREDICTED_MS['B4'][1]}; bound {bk[0]:.4f} "
+              f"({bk[1]}), kernel/bound {med / bk[0]:.2f}; torch.cumsum {library[c]:.4f} "
+              f"({min(lib):.4f}-{max(lib):.4f}, {len(lib)} calls; "
+              f"{'the 1-D stream' if c == 1 else 'the outer-dimension scan'}), kernel/library "
+              f"{med / library[c]:.3f}; attrs (registers, local bytes, shared bytes, blocks an SM) "
+              f"{ps.cumsum_kernel_attrs(c)}")
+    x3 = x[: n // 3 * 3]
+    d = device_ms(lambda: ps.cumsum(x3, 3), 5, 20)
+    print(f"  B4 cumsum C=3 (generic) {statistics.median(d):.4f} ms ({min(d):.4f}-{max(d):.4f}); "
+          f"attrs {ps.cumsum_kernel_attrs(3)}")
+    return library[TWO_PASS_CHANNELS]
 
 
 def phase_halo_bound(x: torch.Tensor, check: Checker) -> None:
@@ -2253,7 +2334,7 @@ def phase_tv_corners(rng, dev, check: Checker) -> None:
         raise AssertionError("a zero input gave a nonzero time-varying output or state")
     # B22: a thread a frame; bit for bit against its plain version, 1e-5 of float64
     for p in (1, 2, 12, 32, 40):  # 40: past the register instantiations (1..32)
-        for length in (8, 256):
+        for length in (8, 33, 100, 256):  # 33: rows off the 16-byte grid; 100: a ragged chunk
             for frames in (129, 1000):
                 label = f"B22 p={p} L={length} frames={frames}"
                 # sum |a_i| <= 0.9: a stable recurrence whatever the signs
@@ -2265,6 +2346,8 @@ def phase_tv_corners(rng, dev, check: Checker) -> None:
                 yp, zp = lpc._lpc_pass_plain(a_f, s0, e)
                 check.close("B22", y, yp, f"{label} against plain", 0.0)
                 check.close("B22", z, zp, f"{label} end state against plain", 0.0)
+                check.close("B22", lpc.lpc_synth_state(a_f, s0, e), zp,
+                            f"{label} state-only entry against plain", 0.0)
                 want, zf = lpc64(a_f, s0, e)
                 check.close("B22", y, want, f"{label} against float64", TV_RTOL)
                 check.close("B22", z, zf, f"{label} end state against float64", TV_RTOL, want)
@@ -2276,8 +2359,8 @@ def phase_tv_corners(rng, dev, check: Checker) -> None:
         + ", ".join(f"{k} {check.count[k]} checks" for k in TV_KERNELS)
         + f" within {TV_RTOL} of plain and of float64 (x max|y|; float64 over the first {prefix} "
         "samples or past the first frame edge); the expand route at frame_len 100, impulses at "
-        "sub-tile and tile edges, zeros exact; B22 at p {1, 2, 12, 32, 40}, L {8, 256}, frames "
-        "{129, 1000} bit for bit against plain; max abs error "
+        "sub-tile and tile edges, zeros exact; B22 at p {1, 2, 12, 32, 40}, L {8, 33, 100, 256}, "
+        "frames {129, 1000}, full and state-only, bit for bit against plain; max abs error "
         + ", ".join(f"{k} {check.max_err[k]:.3e}" for k in TV_KERNELS)
     )
 
@@ -2487,6 +2570,8 @@ def phase_tv_main(rng, dev, check: Checker) -> tuple[dict, dict]:
         what = f"B22 {a_f.shape[0]} frames x {LPC_L}, p {LPC_P}, {label}"
         check.close("B22", y, yp, f"{what}, against plain", 0.0)
         check.close("B22", z, zp, f"{what}, end state against plain", 0.0)
+        check.close("B22", lpc.lpc_synth_state(a_f, s0, e_f), zp,
+                    f"{what}, state-only entry against plain", 0.0)
         z3 = z.view(LPC_STREAMS, LPC_FRAMES, LPC_P)
         s0 = torch.cat([torch.zeros_like(z3[:, :1]), z3[:, :-1]], 1).reshape(-1, LPC_P)
     del y, yp, z, zp, z3, s0
@@ -2542,11 +2627,12 @@ def phase_tv_main(rng, dev, check: Checker) -> tuple[dict, dict]:
     return launches, main
 
 
-def time_spread(kernel_fn, plain_fn) -> tuple[float, float, float, float]:
-    """(median, min, max) device ms of the kernel, 10 after 5 warm-ups twice, and the
-    plain version's median (3 after 1 twice), in turns plain, kernel, kernel, plain."""
+def time_spread(kernel_fn, plain_fn, lead: float = 0.0) -> tuple[float, float, float, float]:
+    """(median, min, max) device ms of the kernel, 10 after 5 warm-ups twice (``lead``:
+    behind a sleep kernel, as ``device_ms``), and the plain version's median (3 after
+    1 twice), in turns plain, kernel, kernel, plain."""
     plain = device_ms(plain_fn, 1, 3)
-    kernel = device_ms(kernel_fn, 5, 10) + device_ms(kernel_fn, 5, 10)
+    kernel = device_ms(kernel_fn, 5, 10, lead) + device_ms(kernel_fn, 5, 10, lead)
     plain += device_ms(plain_fn, 1, 3)
     return statistics.median(kernel), min(kernel), max(kernel), statistics.median(plain)
 
@@ -2569,8 +2655,11 @@ def phase_tv_times(main: dict, b12_ms: float) -> dict:
                            lambda: iir._tv_plain(x, rows[:1], 1, None)),
         "B18": time_spread(lambda: iir.tv_frames_cascade(x, fr, 1024),
                            lambda: iir._tv_plain(x, fr, 1024, None)),
+        # B22's passes are about as short as the host's time to issue one: behind a lead
         "B22": time_spread(lambda: lpc.lpc_synth_pass(a_f, s0, e_f),
-                           lambda: lpc._lpc_pass_plain(a_f, s0, e_f)),
+                           lambda: lpc._lpc_pass_plain(a_f, s0, e_f), lead=0.1),
+        "B22 state": time_spread(lambda: lpc.lpc_synth_state(a_f, s0, e_f),
+                                 lambda: lpc._lpc_pass_plain(a_f, s0, e_f), lead=0.1),
     }
     # bounds: x read once and y written once, each row read once; a section's
     # five FMAs a sample and channel; B22: e read, y written, a, s0 and z once,
@@ -2580,6 +2669,7 @@ def phase_tv_times(main: dict, b12_ms: float) -> dict:
         "B17": bound(8 * n + 24 * t, 10 * n, FP32_FLOPS_PER_S),
         "B18": bound(8 * n + 24 * s * fr.shape[2], 10 * s * n, FP32_FLOPS_PER_S),
         "B22": bound(8 * samples + 12 * a_f.numel(), 2 * p * samples, FP32_FLOPS_PER_S),
+        "B22 state": bound(4 * samples + 12 * a_f.numel(), 2 * p * samples, FP32_FLOPS_PER_S),
     }
     copy_dst = torch.empty_like(x)
     copy_ms = statistics.median(device_ms(lambda: copy_dst.copy_(x), 5, 10))
@@ -2593,6 +2683,20 @@ def phase_tv_times(main: dict, b12_ms: float) -> dict:
               f"({by}); kernel/bound {ms / b:.2f}; kernel/B12 {ms / b12_ms:.2f}")
     print(f"  B12 in this call (phase 5 IIR times, butter(8, 0.1) on the same shape): "
           f"{b12_ms:.4f} ms")
+    # B22 redesigned: beside its time before, the predictions and its attributes; refine's
+    # three passes (two state-only, one full) as lpc_synthesis runs them
+    was = B4_B22_EARLIER_MS["B22"]
+    for name in ("B22", "B22 state"):
+        lo_p, hi_p = PREDICTED_MS[name]
+        print(f"  {name}: before its redesign {was:.4f} ms ({was / out[name][0]:.2f}x); predicted "
+              f"{lo_p}-{hi_p}")
+    refine = device_ms(lambda: (lpc.lpc_synth_state(a_f, s0, e_f), lpc.lpc_synth_state(a_f, s0, e_f),
+                                lpc.lpc_synth_pass(a_f, s0, e_f)), 5, 20, lead=0.3)
+    print(f"  refine's three B22 passes {statistics.median(refine):.4f} ms ({min(refine):.4f}-"
+          f"{max(refine):.4f}) median (min-max) of 20; before its redesign about {3 * was:.4f}; "
+          f"predicted {PREDICTED_MS['B22 refine'][0]}-{PREDICTED_MS['B22 refine'][1]}; B22 attrs "
+          f"(registers, local bytes, shared bytes, blocks an SM) by p: "
+          + "; ".join(f"p={q} {lpc.lpc_kernel_attrs(q)}" for q in (1, 2, 12, 32, 40)))
     # what the compiler gave each tile kernel of csrc/iir_tv.cu (cudaFuncGetAttributes,
     # cudaOccupancyMaxActiveBlocksPerMultiprocessor at the launch's shared memory)
     for shared in (True, False):
@@ -3387,9 +3491,6 @@ def main() -> int:
     b4_ms, b4_plain = time_pair(
         lambda: ps.cumsum(x, TWO_PASS_CHANNELS), lambda: cumsum_ref(x, TWO_PASS_CHANNELS)
     )
-    b4_library = statistics.median(device_ms(
-        lambda: torch.cumsum(x.view(-1, TWO_PASS_CHANNELS), dim=0, dtype=torch.int32), 1, 3
-    ))
     tp_ms, tp_plain = time_pair(
         lambda: ps.moving_average_two_pass(x, TWO_PASS_WINDOW, TWO_PASS_CHANNELS),
         lambda: moving_average_xla(x, TWO_PASS_WINDOW, TWO_PASS_CHANNELS),
@@ -3424,10 +3525,7 @@ def main() -> int:
     print(f"  B2 packed k=1024 C=2          {gss(b2_ms)}; plain {gss(b2_plain)}")
     for v, (ms, plain) in b3.items():
         print(f"  B3 {v:13s} k=1024 C=2  {gss(ms)}; plain {gss(plain)}; /B1 {ms / b1_ms:.3f}")
-    print(
-        f"  B4 cumsum C=16                {gss(b4_ms)}; plain {gss(b4_plain)}; "
-        f"library torch.cumsum {b4_library:.4f} ms"
-    )
+    print(f"  B4 cumsum C=16                {gss(b4_ms)}; plain {gss(b4_plain)}")
     print(f"  two-pass k=65535 C=16         {gss(tp_ms)}; plain {gss(tp_plain)}")
     for k, (ms, plain) in b5.items():
         print(f"  B5 direct k={k:<3d} C=2          {gss(ms)}; plain {gss(plain)}")
@@ -3473,6 +3571,7 @@ def main() -> int:
     d = device_ms(lambda: ps.windowed_averager(x3, MAIN_WINDOW, 3), 5, 20)
     print(f"  B1 k={MAIN_WINDOW} C=3 (generic) {statistics.median(d):.4f} ms "
           f"({min(d):.4f}-{max(d):.4f}); attrs {ps.windowed_kernel_attrs(MAIN_WINDOW, 3)}")
+    b4_library = phase_b4_times(x, bounds["B4"])
     phase_halo_bound(x, check)
     fir_times = phase_fir_times(chain_main)
     mark("5 averager and FIR times")

@@ -43,9 +43,12 @@ _SIGNATURES = {
     # x32, y32, seed32, n32, window, channels, lead, tile_frames, seg_frames,
     # segs, smem_bytes, stream
     "dsp_windowed_packed": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, y, totals, n, channels, tile_frames, seg_frames, segs, smem_bytes,
-    # stream
-    "dsp_cumsum_i16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, y, rec (ticket and status words), n, channels, kernel_c, tile_frames,
+    # seg_frames, segs, smem_bytes, stream
+    "dsp_cumsum_i16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # kernel_c, smem_bytes, out: registers, local bytes, shared bytes, blocks
+    # an SM (4 int64)
+    "dsp_cumsum_attrs": (_I, _I, _P),
     # x, y, n, window, channels, variant, kernel_c, nrun, span_tiles,
     # smem_bytes, stream
     "dsp_scan_i16": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -104,6 +107,8 @@ _SIGNATURES = {
     "dsp_tv_attrs": (_I, _I, _I, _P),
     # a, s0, e, y, z, history scratch, frames, frame length, order, stream
     "dsp_lpc_synth": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # p, out: registers, local bytes, shared bytes, blocks an SM (4 int64)
+    "dsp_lpc_attrs": (_I, _P),
     # src, dst, bytes, stream
     "dsp_ring_put": (_P, _P, _I, _P),
     # bytes, out pointer, out 64-byte IPC handle

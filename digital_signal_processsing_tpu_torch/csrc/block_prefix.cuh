@@ -11,8 +11,8 @@
 //
 // Three phases, each followed by __syncthreads() in the caller:
 //   segment_sums     seg[c * S + s] = sum of the segment
-//   segment_offsets  seg becomes the exclusive prefix over segments, plus a
-//                    carry per channel; the channel's total can be written out
+//   segment_offsets  seg becomes the exclusive prefix over segments; each
+//                    channel's total goes to the caller's `total`
 //   segment_apply    buf becomes the inclusive per-channel prefix
 //
 // All sums are uint32, where wraparound is defined: the callers only use
@@ -76,18 +76,15 @@ static __device__ void segment_sums(const uint32_t* buf, uint32_t* seg, int nf,
   }
 }
 
-// One warp per channel. `carry_in` (global, may be null) is added to every
-// offset of channel c; `total_out` (global, may be null) receives the
-// channel's sum over the whole tile, without the carry.
-static __device__ void segment_offsets(uint32_t* seg, int C, int S,
-                                       const uint32_t* carry_in,
-                                       uint32_t* total_out) {
+// One warp per channel; total(c, sum) receives channel c's sum over the tile
+// (from the warp's lane 0).
+template <typename Total>
+static __device__ void segment_offsets(uint32_t* seg, int C, int S, Total total) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   for (int c = warp; c < C; c += nwarps) {
-    const uint32_t base = carry_in != nullptr ? carry_in[c] : 0u;
-    uint32_t run = base;
+    uint32_t run = 0;
     for (int s0 = 0; s0 < S; s0 += 32) {
       const int s = s0 + lane;
       const uint32_t v = s < S ? seg[c * S + s] : 0u;
@@ -95,7 +92,7 @@ static __device__ void segment_offsets(uint32_t* seg, int C, int S,
       if (s < S) seg[c * S + s] = run + incl - v;
       run += __shfl_sync(0xffffffffu, incl, 31);
     }
-    if (total_out != nullptr && lane == 0) total_out[c] = run - base;
+    if (lane == 0) total(c, run);
   }
 }
 

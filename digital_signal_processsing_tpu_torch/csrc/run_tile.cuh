@@ -1,6 +1,6 @@
 // The tile of runs shared by the averager's two span kernels: B3, the
 // carried scan averager (scan.cu), and B1, the windowed averager
-// (windowed.cu).
+// (windowed.cu); the cumsum (B4, cumsum.cu) takes its steps 1-4.
 //
 // Both compute out[i] = trunc((cum[i] - cum[i - k*C]) / k) over an
 // interleaved int16 stream, cum the per-channel inclusive prefix, with the
@@ -351,6 +351,94 @@ static __device__ __forceinline__ void row_products(uint32_t (&v)[kNQ][kRun], in
   }
 }
 
+// ---- steps 2-4 of a tile -----------------------------------------------------
+
+// v: the thread's runs as loaded -> their in-run inclusive prefixes (step 2);
+// off[q][c]: run q's offset in the tile (lanes and warps, step 3-4) plus
+// carry[c], for channel SL * phase + c; carry advanced by the tile's totals.
+// wt: kWarps * C words of shared memory, written by lanes < PH, then one
+// barrier. Shared by scan_kernel below and the cumsum (cumsum.cu, B4), which
+// starts every tile from carry 0.
+template <int V, int C>
+static __device__ __forceinline__ void tile_prefix(uint32_t (&v)[kNQ][kRun],
+                                                   uint32_t (&off)[kNQ][C < kRun ? C : kRun],
+                                                   uint32_t (&carry)[C < kRun ? C : kRun],
+                                                   uint32_t* wt, int lane, int warp,
+                                                   const uint32_t (&u)[4][2]) {
+  constexpr int SL = C < kRun ? C : kRun;  // channels a run
+  constexpr int PH = C / SL;                // phases of the lanes
+  const int phase = lane & (PH - 1);
+  // 2-3. in-run prefix, then the lanes' offsets chained over q
+  uint32_t wsum[SL];
+#pragma unroll
+  for (int c = 0; c < SL; ++c) wsum[c] = 0u;
+  if constexpr (V == kTensorCore) {
+#pragma unroll
+    for (int p = 0; p < kNQ / 2; ++p) row_products(v, p, u);
+  }
+#pragma unroll
+  for (int q = 0; q < kNQ; ++q) {
+    if constexpr (V == kBlelloch) {
+      bk_channels<kRun / SL, SL>(v[q]);
+    } else if constexpr (V == kHillisSteele) {
+#pragma unroll
+      for (int m = SL; m < kRun; ++m) v[q][m] += v[q][m - SL];
+    }
+#pragma unroll
+    for (int c = 0; c < SL; ++c) {
+      uint32_t incl, own;
+      if constexpr (V == kBlelloch) {
+        own = v[q][kRun - SL + c];
+        incl = bk_lanes<PH>(own, lane);
+      } else if constexpr (V == kHillisSteele) {
+        own = v[q][kRun - SL + c];
+        incl = ks_lanes(own, lane, PH);
+      } else {
+        // the row's total from the last lane of its group holding this
+        // channel; rows cross the warp's groups
+        own = __shfl_sync(kFull, v[q][kRun - SL + c], (lane & ~3) | (4 - PH) | phase);
+        incl = ks_lanes(own, lane, 4);
+      }
+      off[q][c] = wsum[c] + incl - own;
+      wsum[c] += __shfl_sync(kFull, incl, 32 - PH + phase);
+    }
+  }
+  // 4. the warp totals, and this warp's offset in the tile
+  if (lane < PH) {
+#pragma unroll
+    for (int c = 0; c < SL; ++c) wt[warp * C + SL * lane + c] = wsum[c];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < SL; ++c) {
+    uint32_t w[kWarps];
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) w[i] = wt[i * C + SL * phase + c];
+    uint32_t incl[kWarps];
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) incl[i] = w[i];
+    if constexpr (V == kBlelloch) {
+      bk_registers<kWarps, 1, 0>(incl);
+    } else if constexpr (V == kHillisSteele) {
+#pragma unroll
+      for (int d = 1; d < kWarps; d <<= 1) {
+#pragma unroll
+        for (int i = kWarps - 1; i >= d; --i) incl[i] += incl[i - d];
+      }
+    } else {
+#pragma unroll
+      for (int i = 1; i < kWarps; ++i) incl[i] += incl[i - 1];
+    }
+    uint32_t mine = 0;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) mine = i == warp ? incl[i] - w[i] : mine;
+    const uint32_t add = carry[c] + mine;
+#pragma unroll
+    for (int q = 0; q < kNQ; ++q) off[q][c] += add;
+    carry[c] += incl[kWarps - 1];
+  }
+}
+
 // ---- the kernel -------------------------------------------------------------
 
 // C: 1, 2, 4, 8 or 16, the stream's channels. A run holds SL channels,
@@ -361,14 +449,12 @@ static __device__ __forceinline__ void row_products(uint32_t (&v)[kNQ][kRun], in
 template <int V, int C, bool kSeedable>
 __global__ void __launch_bounds__(kThreads, C >= 8 ? 3 : 4) scan_kernel(Args a) {
   constexpr int SL = C < kRun ? C : kRun;  // channels a run
-  constexpr int PH = C / SL;                // phases of the lanes
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* ring = smem;                       // kRun * nrun words
   uint32_t* wt = smem + kRun * a.nrun;         // kWarps * C words
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int phase = lane & (PH - 1);
   const int16_t* x = a.x;
   int16_t* y = a.y;
   const Span<kSeedable> sp(a);
@@ -388,75 +474,8 @@ __global__ void __launch_bounds__(kThreads, C >= 8 ? 3 : 4) scan_kernel(Args a) 
     const long long t0 = tile * kTile;
     uint32_t v[kNQ][kRun];
     load_tile<kSeedable>(a, x, t0, lo, v);
-    // 2-3. in-run prefix, then the lanes' offsets chained over q
-    uint32_t off[kNQ][SL], wsum[SL];
-#pragma unroll
-    for (int c = 0; c < SL; ++c) wsum[c] = 0u;
-    if constexpr (V == kTensorCore) {
-#pragma unroll
-      for (int p = 0; p < kNQ / 2; ++p) row_products(v, p, u);
-    }
-#pragma unroll
-    for (int q = 0; q < kNQ; ++q) {
-      if constexpr (V == kBlelloch) {
-        bk_channels<kRun / SL, SL>(v[q]);
-      } else if constexpr (V == kHillisSteele) {
-#pragma unroll
-        for (int m = SL; m < kRun; ++m) v[q][m] += v[q][m - SL];
-      }
-#pragma unroll
-      for (int c = 0; c < SL; ++c) {
-        uint32_t incl, own;
-        if constexpr (V == kBlelloch) {
-          own = v[q][kRun - SL + c];
-          incl = bk_lanes<PH>(own, lane);
-        } else if constexpr (V == kHillisSteele) {
-          own = v[q][kRun - SL + c];
-          incl = ks_lanes(own, lane, PH);
-        } else {
-          // the row's total from the last lane of its group holding this
-          // channel; rows cross the warp's groups
-          own = __shfl_sync(kFull, v[q][kRun - SL + c], (lane & ~3) | (4 - PH) | phase);
-          incl = ks_lanes(own, lane, 4);
-        }
-        off[q][c] = wsum[c] + incl - own;
-        wsum[c] += __shfl_sync(kFull, incl, 32 - PH + phase);
-      }
-    }
-    // 4. the warp totals, and this warp's offset in the tile
-    if (lane < PH) {
-#pragma unroll
-      for (int c = 0; c < SL; ++c) wt[warp * C + SL * lane + c] = wsum[c];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < SL; ++c) {
-      uint32_t w[kWarps];
-#pragma unroll
-      for (int i = 0; i < kWarps; ++i) w[i] = wt[i * C + SL * phase + c];
-      uint32_t incl[kWarps];
-#pragma unroll
-      for (int i = 0; i < kWarps; ++i) incl[i] = w[i];
-      if constexpr (V == kBlelloch) {
-        bk_registers<kWarps, 1, 0>(incl);
-      } else if constexpr (V == kHillisSteele) {
-#pragma unroll
-        for (int d = 1; d < kWarps; d <<= 1) {
-#pragma unroll
-          for (int i = kWarps - 1; i >= d; --i) incl[i] += incl[i - d];
-        }
-      } else {
-#pragma unroll
-        for (int i = 1; i < kWarps; ++i) incl[i] += incl[i - 1];
-      }
-      uint32_t mine = 0;
-#pragma unroll
-      for (int i = 0; i < kWarps; ++i) mine = i == warp ? incl[i] - w[i] : mine;
-      const uint32_t add = carry[c] + mine;
-#pragma unroll
-      for (int q = 0; q < kNQ; ++q) off[q][c] += add;
-      carry[c] += incl[kWarps - 1];
-    }
+    uint32_t off[kNQ][SL];
+    tile_prefix<V, C>(v, off, carry, wt, lane, warp, u);
     // 5. absolute prefixes into the ring; r0: the slot of the tile's run 0
     const int r0 = static_cast<int>(((tile - base) * kTileRuns) % a.nrun);
 #pragma unroll

@@ -81,7 +81,7 @@ packed_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   __syncthreads();
   segment_sums(buf, seg, nf, C, R, S);
   __syncthreads();
-  segment_offsets(seg, C, S, nullptr, nullptr);
+  segment_offsets(seg, C, S, [](int, uint32_t) {});
   __syncthreads();
   segment_apply(buf, seg, nf, C, R, S);
   __syncthreads();

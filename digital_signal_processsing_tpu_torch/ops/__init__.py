@@ -98,6 +98,7 @@ from .lpc import (  # noqa: F401
     ar_psd,
     levinson,
     lpc_synth_pass,
+    lpc_synth_state,
     lpc_synthesis,
     lpc_synthesis_factored,
     lpc_synthesis_pallas,

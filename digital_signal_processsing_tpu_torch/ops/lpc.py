@@ -16,10 +16,11 @@ across frames, by five methods with the reference's names:
 - ``auto``: ``factored`` for a frame-constant set whose largest pole radius
   is 0.95 or more, else ``refine`` (``scan`` when ``frame_len % 8 != 0``).
 
-The passes of ``refine`` and ``pallas`` are :func:`lpc_synth_pass`, kernel
-B22 (``csrc/lpc.cu``: a thread walks one frame with its history in
-registers); on a CPU tensor it takes its plain version, the same recurrence
-vectorised over frames, bit for bit. The p x p products and the scan over
+The passes of ``refine`` and ``pallas`` are kernel B22 (``csrc/lpc.cu``: a
+thread walks one frame with its history in registers): :func:`lpc_synth_pass`
+where y is kept, :func:`lpc_synth_state` (the end state alone, half the
+bytes) where it is thrown away; on a CPU tensor each takes its plain
+version, the same recurrence vectorised over frames, bit for bit. The p x p products and the scan over
 frames are plain PyTorch, pinned to IEEE float32.
 
 Where this module differs from the reference on purpose:
@@ -35,6 +36,8 @@ Where this module differs from the reference on purpose:
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -183,6 +186,39 @@ def _lpc_pass_plain(a_f: torch.Tensor, s0: torch.Tensor, e: torch.Tensor):
     return y, (torch.stack(h, 1) if p else s0.clone())
 
 
+def _check_pass(a_f: torch.Tensor, s0: torch.Tensor, e: torch.Tensor, name: str) -> None:
+    for arg, v in (("a_f", a_f), ("s0", s0), ("e", e)):
+        if not isinstance(v, torch.Tensor) or v.dim() != 2 or v.dtype != torch.float32:
+            raise ValueError(f"{name}: {arg} must be a 2-D float32 tensor")
+        if v.device != e.device:
+            raise ValueError(f"{name}: {arg} on {v.device}, e on {e.device}")
+    frames = e.shape[0]
+    p = a_f.shape[1]
+    if a_f.shape[0] != frames or tuple(s0.shape) != (frames, p):
+        raise ValueError(
+            f"{name}: a_f {tuple(a_f.shape)} and s0 {tuple(s0.shape)} for {frames} frames"
+        )
+
+
+def _launch_pass(a_f: torch.Tensor, s0: torch.Tensor, e: torch.Tensor, keep_y: bool, name: str):
+    """One launch of B22 on CUDA tensors the caller has checked: (y or None, end state)."""
+    p = a_f.shape[1]
+    a_f, s0, e = a_f.contiguous(), s0.contiguous(), e.contiguous()
+    y = torch.empty_like(e) if keep_y else None
+    z = torch.empty_like(s0)
+    hist = torch.empty_like(s0) if p > MAX_UNROLLED_ORDER else None
+    lib = _build.library()
+    with torch.cuda.device(e.device):
+        err = lib.dsp_lpc_synth(
+            a_f.data_ptr(), s0.data_ptr(), e.data_ptr(), None if y is None else y.data_ptr(),
+            z.data_ptr(), None if hist is None else hist.data_ptr(), e.shape[0], e.shape[1], p,
+            _stream(e),
+        )
+    _build.check(err, name)
+    lpc_synth_pass.launches += 1
+    return y, z
+
+
 def lpc_synth_pass(a_f: torch.Tensor, s0: torch.Tensor, e: torch.Tensor):
     """One seeded synthesis sweep by B22: ``(y, end state)``.
 
@@ -191,35 +227,35 @@ def lpc_synth_pass(a_f: torch.Tensor, s0: torch.Tensor, e: torch.Tensor):
     ``e``: (frames, L) the scaled excitation. All float32 on one device; the
     end state has ``s0``'s layout.
     """
-    for name, v in (("a_f", a_f), ("s0", s0), ("e", e)):
-        if not isinstance(v, torch.Tensor) or v.dim() != 2 or v.dtype != torch.float32:
-            raise ValueError(f"lpc_synth_pass: {name} must be a 2-D float32 tensor")
-        if v.device != e.device:
-            raise ValueError(f"lpc_synth_pass: {name} on {v.device}, e on {e.device}")
-    frames, length = e.shape
-    p = a_f.shape[1]
-    if a_f.shape[0] != frames or tuple(s0.shape) != (frames, p):
-        raise ValueError(
-            f"lpc_synth_pass: a_f {tuple(a_f.shape)} and s0 {tuple(s0.shape)} for "
-            f"{frames} frames"
-        )
+    _check_pass(a_f, s0, e, "lpc_synth_pass")
     if not _on_cuda(e):
         return _lpc_pass_plain(a_f, s0, e)
-    if frames == 0 or length == 0 or p == 0:
+    if e.numel() == 0 or a_f.shape[1] == 0:
         return e.clone(), s0.clone()
-    a_f, s0, e = a_f.contiguous(), s0.contiguous(), e.contiguous()
-    y = torch.empty_like(e)
-    z = torch.empty_like(s0)
-    hist = torch.empty_like(s0) if p > MAX_UNROLLED_ORDER else None
-    lib = _build.library()
-    with torch.cuda.device(e.device):
-        err = lib.dsp_lpc_synth(
-            a_f.data_ptr(), s0.data_ptr(), e.data_ptr(), y.data_ptr(), z.data_ptr(),
-            None if hist is None else hist.data_ptr(), frames, length, p, _stream(e),
-        )
-    _build.check(err, "lpc_synth_pass")
-    lpc_synth_pass.launches += 1
-    return y, z
+    return _launch_pass(a_f, s0, e, True, "lpc_synth_pass")
+
+
+def lpc_synth_state(a_f: torch.Tensor, s0: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """The end state of :func:`lpc_synth_pass` alone, by B22's state-only
+    launch: e and the state are read and only the end state is written (4
+    bytes a sample against 8). Bit for bit the full pass's end state; counted
+    among B22's launches."""
+    _check_pass(a_f, s0, e, "lpc_synth_state")
+    if not _on_cuda(e):
+        return _lpc_pass_plain(a_f, s0, e)[1]
+    if e.numel() == 0 or a_f.shape[1] == 0:
+        return s0.clone()
+    return _launch_pass(a_f, s0, e, False, "lpc_synth_state")[1]
+
+
+def lpc_kernel_attrs(p: int) -> tuple:
+    """What the compiler gave B22's kernel for order ``p`` (the card only):
+    (registers a thread, local bytes a thread, shared bytes a block, blocks an SM)."""
+    out = (ctypes.c_int64 * 4)()
+    with torch.cuda.device(torch.cuda.current_device()):
+        err = _build.library().dsp_lpc_attrs(p, ctypes.addressof(out))
+    _build.check(err, "lpc_kernel_attrs")
+    return tuple(out)
 
 
 lpc_synth_pass.launches = 0
@@ -311,7 +347,8 @@ def lpc_synthesis_refine(a, gain, excitation: torch.Tensor, frame_len: int, *,
     Entry-state errors contract by the frame's zero-input decay a sweep, so
     two sweeps reach the sequential float32 floor for damped polynomials;
     poles hugging the unit circle need ``factored``. Needs
-    ``frame_len % 8 == 0``, as the reference does.
+    ``frame_len % 8 == 0``, as the reference does. Every pass but the last
+    keeps only its end state (:func:`lpc_synth_state`).
     """
     if frame_len % _LPC_BT != 0:
         raise ValueError(f"frame_len must be a multiple of {_LPC_BT}, got {frame_len}")
@@ -319,29 +356,29 @@ def lpc_synthesis_refine(a, gain, excitation: torch.Tensor, frame_len: int, *,
     p = a.shape[-1] - 1
     a_f, e_f = _frames_of(a[..., 1:], p), _frames_of(e, frame_len)
     s0 = torch.zeros_like(a_f)
-    for sweep in range(sweeps + 1):
-        y, z = lpc_synth_pass(a_f, s0, e_f)
-        if sweep == sweeps:
-            break
+    for _ in range(sweeps):
+        z = lpc_synth_state(a_f, s0, e_f)
         # entry of frame f <- end of frame f-1, zero at each stream's head
         z = z.reshape(batch + (nf, p))
         s0 = _frames_of(torch.cat([torch.zeros_like(z[..., :1, :]), z[..., :-1, :]], -2), p)
+    y, _ = lpc_synth_pass(a_f, s0, e_f)
     return y.reshape(batch + (nf * frame_len,))
 
 
 def lpc_synthesis_pallas(a, gain, excitation: torch.Tensor, frame_len: int) -> torch.Tensor:
     """All-pole synthesis by two passes of B22 around the affine compose.
 
-    Pass 1 runs every frame from rest for its end state; the frame-entry
-    states come from the compose (A^L by squaring, a scan over frames);
-    pass 2 re-runs every frame seeded. Needs ``frame_len % 8 == 0``.
+    Pass 1 runs every frame from rest for its end state alone
+    (:func:`lpc_synth_state`); the frame-entry states come from the compose
+    (A^L by squaring, a scan over frames); pass 2 re-runs every frame seeded.
+    Needs ``frame_len % 8 == 0``.
     """
     if frame_len % _LPC_BT != 0:
         raise ValueError(f"frame_len must be a multiple of {_LPC_BT}, got {frame_len}")
     a, e, batch, nf = _scaled(a, gain, excitation, frame_len)
     p = a.shape[-1] - 1
     a_f, e_f = _frames_of(a[..., 1:], p), _frames_of(e, frame_len)
-    _, z = lpc_synth_pass(a_f, torch.zeros_like(a_f), e_f)
+    z = lpc_synth_state(a_f, torch.zeros_like(a_f), e_f)
     m = _matrix_power(_companion(a), frame_len)
     s0 = _compose_frames(m, z.reshape(batch + (nf, p)), len(batch))
     y, _ = lpc_synth_pass(a_f, _frames_of(s0, p), e_f)

@@ -9,7 +9,9 @@ Counterpart of ``digital_signal_processsing_tpu/ops/pallas_scan.py``:
 - :func:`scan_averager`            B3, ``csrc/scan.cu`` (three in-tile scans, each thread's
   samples in registers, two block barriers a tile; three in the generic
   kernel for C outside 1, 2, 4, 8, 16)
-- :func:`cumsum`                   B4, ``csrc/cumsum.cu`` (three launches)
+- :func:`cumsum`                   B4, ``csrc/cumsum.cu`` (one launch and a memset: B3's
+  tile in registers for C in 1, 2, 4, 8, 16, a tile of whole frames in shared
+  memory for any other C, the carry by a decoupled look-back over tiles)
 - :func:`moving_average_two_pass`  B4, then the difference in plain PyTorch
 
 Each wrapper takes its plain version (``scan_xla.py``) for a tensor on the
@@ -116,7 +118,28 @@ def packed_geometry(window: int, channels: int) -> TileGeometry:
 
 
 def cumsum_geometry(channels: int) -> TileGeometry:
+    """B4's generic kernel's tile (C outside SCAN_NATIVE_C): whole frames in
+    shared memory, scanned in segments."""
     return tile_geometry(0, channels)
+
+
+def cumsum_kernel_c(channels: int) -> int:
+    """B4's instance for ``channels`` (``csrc/cumsum.cu``): C itself for C in
+    SCAN_NATIVE_C (B3's tile of runs in registers), else 0 (the generic kernel)."""
+    return channels if channels in SCAN_NATIVE_C else 0
+
+
+def cumsum_tile_samples(channels: int) -> int:
+    """Samples of one of B4's tiles: B3's 8192, or the generic kernel's whole frames."""
+    if cumsum_kernel_c(channels):
+        return THREADS * SCAN_RUN * SCAN_RUNS
+    return cumsum_geometry(channels).tile_samples
+
+
+def cumsum_status_words(n: int, channels: int) -> int:
+    """int64 words of B4's scratch for an n-sample stream: the ticket, then one
+    status word a tile and channel."""
+    return 1 + cdiv(n, cumsum_tile_samples(channels)) * channels
 
 
 def packed_supported(window: int, channels: int) -> bool:
@@ -129,7 +152,8 @@ def packed_supported(window: int, channels: int) -> bool:
 
 
 def cumsum_supported(channels: int) -> bool:
-    """True iff B4 takes this channel count (one tile must fit in shared memory)."""
+    """True iff B4 takes this channel count: C in SCAN_NATIVE_C, or one tile of
+    whole frames (the generic kernel's) fits shared memory, about 29000 channels."""
     return channels >= 1 and cumsum_geometry(channels).smem_bytes <= SMEM_MAX
 
 
@@ -147,9 +171,12 @@ def _check_stream(x, dtype: torch.dtype, channels: int, name: str, samples: int)
 
     Any element-aligned view is taken, a streaming tail of ``serve.py``
     included. B1 and B3 load and store 16 bytes a run only where x and y are
-    both 16-byte aligned, and otherwise a sample at a time; B2, B4 and B5
-    load single elements. The samples read and the sums taken are the same
-    either way, so an aligned and a misaligned view give the same result.
+    both 16-byte aligned, and otherwise a sample at a time; B4's instances
+    load 16 bytes a run where x is aligned and store two 16-byte words a run
+    where y is, each independently, and otherwise go a sample at a time; B2,
+    B4's generic kernel and B5 load single elements. The samples read and
+    the sums taken are the same either way, so an aligned and a misaligned
+    view give the same result.
     """
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(x).__name__}")
@@ -569,7 +596,13 @@ def windowed_kernel_attrs(window: int, channels: int = 2) -> tuple:
 
 
 def cumsum(x: torch.Tensor, channels: int = 1) -> torch.Tensor:
-    """Per-channel int32 modular inclusive prefix sum of an interleaved stream (B4)."""
+    """Per-channel int32 modular inclusive prefix sum of an interleaved stream (B4).
+
+    One launch after a memset of its scratch (``cumsum_status_words``): every
+    tile publishes its per-channel totals and looks back over its
+    predecessors for its carry, so the stream is read once. Needs
+    ``cumsum_supported(channels)``.
+    """
     _check_stream(x, torch.int16, channels, "x", x.numel())
     if not cumsum_supported(channels):
         raise ValueError(f"cumsum kernel takes at most a tile's worth of channels, got {channels}")
@@ -580,11 +613,11 @@ def cumsum(x: torch.Tensor, channels: int = 1) -> torch.Tensor:
     if n == 0:
         return y
     g = cumsum_geometry(channels)
-    totals = torch.empty(g.blocks(n) * channels, dtype=torch.int32, device=x.device)
+    rec = torch.empty(cumsum_status_words(n, channels), dtype=torch.int64, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.dsp_cumsum_i16(
-            x.data_ptr(), y.data_ptr(), totals.data_ptr(), n, channels,
+            x.data_ptr(), y.data_ptr(), rec.data_ptr(), n, channels, cumsum_kernel_c(channels),
             g.tile_frames, g.seg_frames, g.segs, g.smem_bytes, _stream(x),
         )
     _build.check(err, "cumsum")
@@ -593,6 +626,18 @@ def cumsum(x: torch.Tensor, channels: int = 1) -> torch.Tensor:
 
 
 cumsum.launches = 0
+
+
+def cumsum_kernel_attrs(channels: int) -> tuple:
+    """What the compiler gave B4's kernel for ``channels`` (the card only):
+    (registers a thread, local bytes a thread, shared bytes a block, blocks an SM)."""
+    kernel_c = cumsum_kernel_c(channels)
+    smem = 0 if kernel_c else cumsum_geometry(channels).smem_bytes
+    out = (ctypes.c_int64 * 4)()
+    with torch.cuda.device(torch.cuda.current_device()):
+        err = _build.library().dsp_cumsum_attrs(kernel_c, smem, ctypes.addressof(out))
+    _build.check(err, "cumsum_kernel_attrs")
+    return tuple(out)
 
 
 def moving_average_two_pass(x: torch.Tensor, window: int, channels: int = 1) -> torch.Tensor:
@@ -619,6 +664,10 @@ __all__ = [
     "windowed_geometry",
     "packed_geometry",
     "cumsum_geometry",
+    "cumsum_kernel_c",
+    "cumsum_tile_samples",
+    "cumsum_status_words",
+    "cumsum_kernel_attrs",
     "scan_geometry",
     "windowed_supported",
     "packed_supported",

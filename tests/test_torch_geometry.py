@@ -7,22 +7,27 @@ to the launch, and must give the golden result bit for bit. B1 is
 ``csrc/run_tile.cuh``'s span kernel (``tests/test_torch_scan.py``'s
 ``emulate_scan`` with B1's geometry: each span's seed tiles from x or the
 seed, every thread's runs of 8 and their 16-byte or sample-by-sample loads
-and stores, the Hillis-Steele levels, the ring, any range of tiles); B2 and
-B4 load the halo and tile into shared memory and form a per-channel prefix
-by segments in uint32.
+and stores, the Hillis-Steele levels, the ring, any range of tiles); B2 loads
+the halo and tile into shared memory and forms a per-channel prefix by
+segments in uint32. B4 (``emulate_cumsum``) is B3's tile from carry 0 for C
+in 1, 2, 4, 8, 16 (B2's segments over a tile of whole frames for any other
+C), and the carry between tiles by its decoupled look-back: persistent
+blocks taking tickets when ready, status words published and read back in
+batches, tiles advancing in a shuffled order.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from digital_signal_processsing_tpu.ops.pallas_scan import cumsum_pallas
 from digital_signal_processsing_tpu_torch.golden import (
     cumsum_per_channel_golden,
     moving_average_golden,
 )
 from digital_signal_processsing_tpu_torch.ops import pallas_scan as ps
 from tests.conftest import make_interleaved
-from tests.test_torch_scan import H100_SMS, emulate_scan
+from tests.test_torch_scan import H100_SMS, LANE, RUN, WARPS, emulate_scan, tile_prefix
 
 
 def block_prefix(buf: np.ndarray, g: ps.TileGeometry, nf: int, carry=None) -> np.ndarray:
@@ -73,22 +78,157 @@ def emulate_windowed(x, window, channels, *, seed=None, packed=False, resident=4
     return out
 
 
-def emulate_cumsum(x, channels):
+B4_BATCH = 8  # kBatch of csrc/cumsum.cu: status words a generic look-back loads at once
+AGG, INCL = 1, 2  # the status words' flags (0: not yet published)
+
+
+def b4_tile(x, t, channels, aligned, stats):
+    """Tile t's in-tile prefix from carry 0 and its per-channel totals, as B4's block
+    computes them: (prefix at each position, totals (C,), positions, each position's
+    channel). Instances (C in 1, 2, 4, 8, 16): each thread's runs of 8, loaded 16 bytes
+    at a time where the tile lies inside the stream and x is aligned, else run by run
+    and sample by sample, stored as two 16-byte words a run where y is aligned; B3's
+    Hillis-Steele tile (run_tile.cuh steps 2-4). Any other C: the tile of whole frames
+    in shared memory, block_prefix.cuh's segments."""
+    n = x.size
+    if ps.cumsum_kernel_c(channels):
+        tile = ps.cumsum_tile_samples(channels)
+        assert tile == ps.THREADS * ps.SCAN_RUNS * RUN
+        nq = ps.SCAN_RUNS
+        run = (np.arange(WARPS)[:, None, None] * nq + np.arange(nq)[None, :, None]) * 32 + LANE
+        pos = t * tile + run[..., None] * RUN + np.arange(RUN)
+        p0 = t * tile + run * RUN
+        whole = aligned and t * tile + tile <= n
+        vec = whole | (aligned & (p0 + RUN <= n))
+        assert (p0 % RUN == 0).all() and (p0[vec] + RUN <= n).all()
+        stats["vector loads"] = stats.get("vector loads", 0) + int(vec.sum())
+        stats["scalar loads"] = stats.get("scalar loads", 0) + int((~vec & (p0 < n)).sum())
+        stats["vector stores"] = stats.get("vector stores", 0) + int((aligned & (p0 + RUN <= n)).sum())
+        v = np.where(pos < n, x[np.clip(pos, 0, n - 1)], 0).astype(np.int32).view(np.uint32)
+        totals = np.zeros(channels, np.uint32)
+        cum = tile_prefix(v, ps.scan_geometry(1, channels, "hillis_steele"), None, totals)
+        return cum.ravel(), totals, pos.ravel(), pos.ravel() % channels
     g = ps.cumsum_geometry(channels)
-    n, tile, blocks = x.size, g.tile_samples, g.blocks(x.size)
-    tiles = np.zeros(blocks * tile, np.uint32)
-    tiles[:n] = widen(x)
-    totals = np.stack(
-        [block_prefix(tiles[b * tile : (b + 1) * tile], g, g.tile_frames)[1] for b in range(blocks)]
-    )
-    carry = np.cumsum(totals, axis=0, dtype=np.uint32) - totals  # cumsum_carry_kernel
-    out = np.concatenate(
-        [
-            block_prefix(tiles[b * tile : (b + 1) * tile], g, g.tile_frames, carry[b])[0]
-            for b in range(blocks)
-        ]
-    )
-    return out[:n].view(np.int32)
+    tile = g.tile_samples
+    assert tile == ps.cumsum_tile_samples(channels) and g.smem_bytes <= ps.SMEM_MAX
+    buf = np.zeros(tile, np.uint32)
+    chunk = x[t * tile : (t + 1) * tile]
+    buf[: chunk.size] = widen(chunk)
+    stats["scalar loads"] = stats.get("scalar loads", 0) + chunk.size
+    cum, totals = block_prefix(buf, g, g.tile_frames)
+    pos = t * tile + np.arange(tile)
+    return cum, totals, pos, np.arange(tile) % channels
+
+
+def emulate_cumsum(x, channels, *, resident=4 * H100_SMS, order=0, aligned=True, stats=None):
+    """B4's launch (csrc/cumsum.cu) over the wrapper's geometry: ``resident``
+    persistent blocks, each taking the next ticket when it is ready to start a tile
+    (tiles start in ticket order); the tile's prefix and totals (``b4_tile``); its
+    totals published as each channel's status word (tile 0 as inclusive prefixes);
+    then the look-back: for C in 1, 2, 4, 8, 16 the block's rounds (its threads read
+    256 / C tiles of every open channel at once, spin on words not yet published,
+    then at the round's barrier each channel sums its words up to the shallowest
+    inclusive prefix), for any other C a thread a channel (B4_BATCH words read at
+    once, walked newest first, spinning, adding aggregates until an inclusive
+    prefix); the inclusive prefixes published; the tile stored with its carry.
+    Every step of every block is one step of a scheduler that picks a block at
+    random (``order`` seeds it), so tiles finish in shuffled orders. ``stats``
+    counts loads, stores, spins, rounds, the aggregates the look-backs added and
+    the depths at which they met an inclusive prefix."""
+    n = x.size
+    tile = ps.cumsum_tile_samples(channels)
+    tiles = -(-n // tile)
+    assert ps.cumsum_status_words(n, channels) == 1 + tiles * channels
+    flag = np.zeros((tiles, channels), np.int64)
+    val = np.zeros((tiles, channels), np.uint32)
+    out = np.zeros(n, np.uint32)
+    written = np.zeros(n, np.int64)
+    stats = {} if stats is None else stats
+    stats.setdefault("depths", set())
+    ticket = [0]
+
+    def read(t, c):
+        return (INCL, 0) if t < 0 else (int(flag[t, c]), int(val[t, c]))
+
+    def look_back(t, c, ex):
+        acc, t1 = 0, t - 1
+        while True:
+            w = [read(t1 - k, c) for k in range(B4_BATCH)]  # in flight together
+            yield
+            for k in range(B4_BATCH):
+                while w[k][0] == 0:
+                    stats["spins"] = stats.get("spins", 0) + 1
+                    yield
+                    w[k] = read(t1 - k, c)
+                acc = (acc + w[k][1]) % 2**32
+                if w[k][0] == INCL:
+                    stats["depths"].add(t - (t1 - k))
+                    ex[c] = acc
+                    return
+                stats["aggregates"] = stats.get("aggregates", 0) + 1
+            t1 -= B4_BATCH
+
+    def block_rounds(t, ex):
+        depth = ps.THREADS // channels  # tiles a round
+        open_, r = set(range(channels)), 0
+        while open_:
+            stats["rounds"] = stats.get("rounds", 0) + 1
+            at = {(c, j): t - 1 - j - r * depth for c in open_ for j in range(depth)}
+            words = {k: read(pt, k[0]) for k, pt in at.items()}  # in flight together
+            yield
+            while any(w[0] == 0 for w in words.values()):  # each thread spins on its own
+                stats["spins"] = stats.get("spins", 0) + sum(w[0] == 0 for w in words.values())
+                yield
+                words = {k: w if w[0] else read(at[k], k[0]) for k, w in words.items()}
+            for c in sorted(open_):  # the round's barrier: every channel's shallowest inclusive
+                incl = [j for j in range(depth) if words[c, j][0] == INCL]
+                first = min(incl) if incl else depth
+                ex[c] = (int(ex[c]) + sum(words[c, j][1] for j in range(min(first + 1, depth)))) % 2**32
+                stats["aggregates"] = stats.get("aggregates", 0) + min(first, depth)
+                if incl:
+                    stats["depths"].add(first + 1 + r * depth)
+                    open_.discard(c)
+            r += 1
+
+    def block():
+        while True:
+            t = ticket[0]
+            ticket[0] += 1
+            if t >= tiles:
+                return
+            yield  # the loads in flight
+            cum, totals, pos, chan = b4_tile(x, t, channels, aligned, stats)
+            flag[t], val[t] = (INCL if t == 0 else AGG), totals
+            yield
+            ex = np.zeros(channels, np.uint32)
+            if t > 0 and ps.cumsum_kernel_c(channels):
+                yield from block_rounds(t, ex)
+                flag[t], val[t] = INCL, ex + totals
+            elif t > 0:
+                walks = [look_back(t, c, ex) for c in range(channels)]
+                while walks:
+                    walks = [w for w in walks if next(w, StopIteration) is not StopIteration]
+                    if walks:
+                        yield
+                flag[t], val[t] = INCL, ex + totals
+            yield
+            keep = pos < n
+            out[pos[keep]] = (cum + ex[chan])[keep]
+            written[pos[keep]] += 1
+
+    rng = np.random.default_rng(order)
+    blocks = [block() for _ in range(min(resident, tiles))]
+    steps = 0
+    while blocks:
+        i = int(rng.integers(len(blocks)))
+        if next(blocks[i], StopIteration) is StopIteration:
+            blocks.pop(i)
+        steps += 1
+        assert steps < 10_000_000, "the look-back did not end"
+    assert (written == 1).all() and (flag == INCL).all()
+    # the last tile's inclusive prefixes are the stream's per-channel totals
+    assert np.array_equal(val[-1][np.arange(n - channels, n) % channels], out[n - channels :])
+    return out.view(np.int32)
 
 
 @pytest.mark.parametrize(
@@ -196,17 +336,75 @@ def test_windowed_channels_and_extremes(rng, channels):
             np.testing.assert_array_equal(emulate_windowed(x, window, channels, resident=3), want)
 
 
-@pytest.mark.parametrize("channels,frames", [(1, 50001), (2, 20000), (3, 9000), (16, 3000)])
+@pytest.mark.parametrize(
+    "channels,frames",
+    [(1, 50001), (2, 20000), (3, 9000), (16, 3000), (5, 7001), (17, 1001), (128, 300),
+     (4099, 7), (20000, 3), (1, 8192), (16, 100), (8, 1)],  # one tile, partial tiles
+)
 def test_cumsum_block_algorithm(rng, channels, frames):
     x = make_interleaved(rng, frames, channels)
     want = cumsum_per_channel_golden(x, channels).astype(np.int32)
-    np.testing.assert_array_equal(emulate_cumsum(x, channels), want)
+    got = emulate_cumsum(x, channels, resident=3)
+    np.testing.assert_array_equal(got, want)
+    if 128 % channels == 0:  # the channel counts the JAX kernel takes
+        np.testing.assert_array_equal(got, np.asarray(cumsum_pallas(x, channels)))
 
 
-def test_cumsum_block_algorithm_wraps():
-    x = np.full(3 * ps.TILE_SAMPLES * 11, 32767, np.int16)
-    want = cumsum_per_channel_golden(x, 1).astype(np.int32)
-    np.testing.assert_array_equal(emulate_cumsum(x, 1), want)
+@pytest.mark.parametrize("channels", [1, 3, 16])
+def test_cumsum_block_algorithm_wraps(channels):
+    x = np.full(3 * ps.TILE_SAMPLES * 11 // channels * channels, 32767, np.int16)
+    want = cumsum_per_channel_golden(x, channels).astype(np.int32)
+    np.testing.assert_array_equal(emulate_cumsum(x, channels, resident=5), want)
+    if 128 % channels == 0:
+        np.testing.assert_array_equal(want, np.asarray(cumsum_pallas(x, channels)))
+
+
+@pytest.mark.parametrize(
+    "channels,resident,deeper",
+    [(1, 64, 0), (2, 7, 0), (16, 1, 0), (16, 64, 16), (8, 100, 32), (5, 33, B4_BATCH)],
+)
+def test_cumsum_look_back_in_any_order(rng, channels, resident, deeper):
+    """120 tiles finishing in shuffled orders, one resident block to many: the same
+    bits every time; with many blocks the look-backs meet inclusive prefixes at
+    several depths, past a round of the block's loads (``deeper``: 256 / C tiles)
+    or a batch of a generic thread's, add aggregates and spin on words not yet
+    published."""
+    x = make_interleaved(rng, 120 * 8192 // channels, channels)
+    want = cumsum_per_channel_golden(x, channels).astype(np.int32)
+    stats = {}
+    for order in range(3):
+        np.testing.assert_array_equal(
+            emulate_cumsum(x, channels, resident=resident, order=order, stats=stats), want)
+    if resident == 1:
+        assert stats["depths"] == {1} and "spins" not in stats
+    else:
+        assert {1, 2, 3} <= stats["depths"] and stats["aggregates"] > 0 and stats["spins"] > 0
+    if deeper:
+        assert max(stats["depths"]) > deeper
+
+
+@pytest.mark.parametrize("channels,frames", [(1, 8 * 4096 + 7), (2, 20003), (16, 1025), (3, 5461)])
+def test_cumsum_runs_and_edges(rng, channels, frames):
+    """B4's loads and stores: 16 bytes a run inside the stream, run by run and sample
+    by sample at its ragged end, every load of a misaligned view sample by sample
+    (the generic kernel's always); the same output either way. The plain wrapper
+    takes the misaligned view too."""
+    x = make_interleaved(rng, frames, channels)
+    want = cumsum_per_channel_golden(x, channels).astype(np.int32)
+    aligned, misaligned = {}, {}
+    np.testing.assert_array_equal(emulate_cumsum(x, channels, resident=4, stats=aligned), want)
+    np.testing.assert_array_equal(
+        emulate_cumsum(x, channels, resident=4, aligned=False, stats=misaligned), want)
+    if ps.cumsum_kernel_c(channels):
+        assert aligned["vector loads"] and aligned["vector stores"]
+        assert bool(aligned["scalar loads"]) == (x.size % RUN != 0)  # a partial run at the end
+        assert misaligned["vector loads"] == misaligned["vector stores"] == 0
+    else:
+        assert "vector loads" not in aligned
+    buf = np.concatenate([np.zeros(1, np.int16), x])
+    view = torch.from_numpy(buf)[1:]
+    assert view.data_ptr() % 16 != 0
+    np.testing.assert_array_equal(ps.cumsum(view, channels).numpy(), want)
 
 
 def largest_window(channels: int) -> int:

@@ -20,8 +20,8 @@ scan of the state alone; then warp 0's scan of the warp totals in lanes of
 eight from the carry, the entry state (the inclusive map shifted up a lane, or
 Psi^lane by the lane's bits plus the exclusive sum), all in float64, the
 float32 re-run from it and the ragged end state.
-``emulate_b22`` does B22's block: frames staged in chunks through the padded
-buffer, a thread a frame.
+``emulate_b22`` (tests/test_torch_lpc.py) does B22's block: frames staged in
+chunks through a ring of stages, a thread a frame, the history unrolled.
 
 Tolerance: 1e-5 of max|y| for the IIR family, against the JAX package and
 against float64 (the JAX package's own bound for these kernels,
@@ -36,6 +36,7 @@ from digital_signal_processsing_tpu.ops import iir as jax_iir
 from digital_signal_processsing_tpu.utils.dispatch import last_choice as jax_last_choice
 from digital_signal_processsing_tpu_torch.ops import iir, lpc
 from digital_signal_processsing_tpu_torch.utils import last_choice
+from tests.test_torch_lpc import emulate_b22
 
 TOL = 1e-5
 F32 = np.float32
@@ -783,34 +784,7 @@ def test_emulated_unit_columns_give_the_tile_transition():
     assert np.abs(mt.astype(np.float64) @ s0.reshape(-1) - zf.reshape(-1)).max() < 1e-5
 
 
-# --- B22 emulated block by block --------------------------------------------------------
-
-B22_FRAMES, B22_CHUNK = 128, 32
-
-
-def emulate_b22(a_f, s0, e):
-    """B22's blocks: kChunk samples of kFrames frames staged, a thread a frame."""
-    frames, length = e.shape
-    p = a_f.shape[1]
-    y = np.zeros_like(e)
-    z = np.zeros_like(s0)
-    for f0 in range(0, frames, B22_FRAMES):
-        fr = slice(f0, min(frames, f0 + B22_FRAMES))
-        nb = fr.stop - f0
-        h = s0[fr].copy()
-        for t0 in range(0, length, B22_CHUNK):
-            cnt = min(B22_CHUNK, length - t0)
-            buf = np.zeros((B22_FRAMES, B22_CHUNK + 1), F32)
-            buf[:nb, :cnt] = e[fr, t0 : t0 + cnt]
-            for j in range(cnt):
-                acc = buf[:nb, j].copy()
-                for i in range(p):
-                    acc = (acc - mul(a_f[fr, i], h[:, i])).astype(F32)
-                h = np.concatenate([acc[:, None], h[:, :-1]], 1)
-                buf[:nb, j] = acc
-            y[fr, t0 : t0 + cnt] = buf[:nb, :cnt]
-        z[fr] = h
-    return y, z
+# --- B22 emulated block by block (emulate_b22: tests/test_torch_lpc.py) -----------------
 
 
 @pytest.mark.parametrize("p, length, frames", [(1, 8, 3), (12, 40, 129), (33, 33, 5), (2, 64, 128)])

@@ -262,7 +262,7 @@ def test_ragged_and_short_chunks_run_their_kernels(dev):
 
 
 @pytest.mark.parametrize("p", [1, 2, 12, 32, 40])
-@pytest.mark.parametrize("length", [8, 256])
+@pytest.mark.parametrize("length", [8, 33, 100, 256])
 def test_b22_bit_exact_against_plain(dev, p, length):
     rng = np.random.default_rng(p * 1000 + length)
     for frames in (1, 127, 129, 1000):
@@ -275,6 +275,8 @@ def test_b22_bit_exact_against_plain(dev, p, length):
         torch.cuda.synchronize()
         assert lpc.lpc_synth_pass.launches == before + 1
         assert torch.equal(y, yp) and torch.equal(z, zp), (p, length, frames)
+        assert torch.equal(lpc.lpc_synth_state(a, s0, e), zp), (p, length, frames)
+        assert lpc.lpc_synth_pass.launches == before + 2
 
 
 def test_lpc_routes_launch_b22_and_b18(dev):

@@ -66,6 +66,38 @@ def test_cumsum_matches_plain(dev, channels, frames):
     assert torch.equal(ps.cumsum(x, channels), cumsum_ref(x, channels))
 
 
+@pytest.mark.parametrize("channels", [5, 17, 4099, 20000])
+def test_cumsum_generic_channels(dev, channels):
+    # the generic kernel: tiles of whole frames, one look-back thread a channel
+    x = stream(dev, max(3, 2_000_000 // channels), channels)
+    assert torch.equal(ps.cumsum(x, channels), cumsum_ref(x, channels))
+
+
+def test_cumsum_largest_channels(dev):
+    # the largest C B4 takes: the generic kernel's tile of one frame fills the
+    # 227 KB a block may have
+    c = 16384
+    while ps.cumsum_supported(c + 1):
+        c += 1
+    x = stream(dev, 37, c)
+    assert torch.equal(ps.cumsum(x, c), cumsum_ref(x, c))
+
+
+@pytest.mark.parametrize("channels", [1, 3, 16])
+def test_cumsum_views_and_repeats(dev, channels):
+    # views 2 to 14 bytes off the 16-byte grid (sample-by-sample loads), and
+    # repeated calls over far more tiles than resident blocks: bit-identical
+    x = stream(dev, 300_001, channels)
+    buf = torch.cat([torch.zeros(8, dtype=torch.int16, device=dev), x])
+    for off in range(1, 8):
+        view = buf[off : off + x.numel()]
+        assert torch.equal(ps.cumsum(view, channels), cumsum_ref(view, channels)), off
+    first = ps.cumsum(x, channels)
+    assert torch.equal(first, cumsum_ref(x, channels))
+    for _ in range(3):
+        assert torch.equal(ps.cumsum(x, channels), first)
+
+
 def test_cumsum_wraps_like_int32(dev):
     x = torch.full((1 << 20,), 32767, dtype=torch.int16, device=dev)
     want = (np.arange(1, (1 << 20) + 1, dtype=np.int64) * 32767).astype(np.int32)

@@ -376,3 +376,185 @@ def test_synth_pass_refusals():
         lpc.lpc_synth_pass(torch.zeros(5, 3), z, torch.zeros(4, 8))
     with pytest.raises(ValueError, match="float32"):
         lpc.lpc_synth_pass(z.double(), z, torch.zeros(4, 8))
+
+
+# --- B22 emulated block by block (csrc/lpc.cu) ----------------------------------------------
+
+# kFrames, kChunk, kRow, kStages, kMaxUnrolled of csrc/lpc.cu
+B22_FRAMES, B22_CHUNK, B22_ROW, B22_STAGES, B22_UNROLLED = 128, 32, 36, 3, 32
+
+
+def _mul(a, b):
+    return (np.asarray(a, F32) * np.asarray(b, F32)).astype(F32)
+
+
+def emulate_b22(a_f, s0, e, *, keep_y=True, aligned=True, stats=None):
+    """B22's blocks as csrc/lpc.cu runs them, in NumPy float32 in the kernel's order.
+
+    A block holds kFrames frames, a thread each. Chunk c of every frame (kChunk
+    samples) is staged into stage c % kStages (rows of kRow floats) by the
+    thread's copies of piece q = tid % 8: 16 bytes where the rows lie on the
+    16-byte grid (``aligned`` and L % 4 == 0) and the piece is whole, else 4
+    bytes a sample; chunk c + 1 is staged while c is computed and c - 1 stored.
+    The stages start as NaN, so a stale word that reached an output would show.
+    Orders up to 32 keep the history as a ring of P registers: step j of a
+    chunk reads h[i] at hr[(j - 1 - i) % P] and writes hr[j % P]; a whole chunk
+    ends with the ring rotated by kChunk mod P back to h[i] = hr[P - 1 - i]; the
+    last chunk guards its steps and the end state is read out of the ring by
+    its count. Orders past 32 keep a circular row, h[i] at hist[(pos + i) % p].
+    ``keep_y=False`` is the state-only entry: nothing is stored.
+    """
+    frames, length = e.shape
+    p = a_f.shape[1]
+    vec = aligned and length % 4 == 0
+    stats = {} if stats is None else stats
+    y = np.full_like(e, np.nan) if keep_y else None
+    z = np.zeros_like(s0)
+    nch = -(-length // B22_CHUNK)
+
+    def count(key, k):
+        stats[key] = stats.get(key, 0) + k
+
+    for f0 in range(0, frames, B22_FRAMES):
+        nb = min(B22_FRAMES, frames - f0)
+        fr = slice(f0, f0 + nb)
+        stages = np.full((B22_STAGES, B22_FRAMES, B22_ROW), np.nan, F32)
+
+        def load(st, t0, cnt):
+            for q in range(B22_CHUNK // 4):
+                lo = 4 * q
+                if vec and lo + 4 <= cnt:
+                    stages[st, :nb, lo : lo + 4] = e[fr, t0 + lo : t0 + lo + 4]
+                    count("vector copies", nb)
+                else:
+                    for i in range(min(4, max(cnt - lo, 0))):
+                        stages[st, :nb, lo + i] = e[fr, t0 + lo + i]
+                        count("scalar copies", nb)
+
+        def store(st, t0, cnt):
+            for q in range(B22_CHUNK // 4):
+                lo = 4 * q
+                if vec and lo + 4 <= cnt:
+                    y[fr, t0 + lo : t0 + lo + 4] = stages[st, :nb, lo : lo + 4]
+                    count("vector stores", nb)
+                else:
+                    for i in range(min(4, max(cnt - lo, 0))):
+                        y[fr, t0 + lo + i] = stages[st, :nb, lo + i]
+                        count("scalar stores", nb)
+
+        a = a_f[fr]
+        if p <= B22_UNROLLED:
+            hr = np.empty((nb, p), F32)
+            hr[:, p - 1 - np.arange(p)] = s0[fr]
+        else:
+            hist, pos = s0[fr].copy(), 0
+        load(0, 0, min(length, B22_CHUNK))
+        cur = 0
+        for c in range(nch):
+            t0 = c * B22_CHUNK
+            if c + 1 < nch:
+                load((cur + 1) % B22_STAGES, t0 + B22_CHUNK, min(B22_CHUNK, length - t0 - B22_CHUNK))
+            if c > 0 and keep_y:
+                store((cur - 1) % B22_STAGES, t0 - B22_CHUNK, B22_CHUNK)
+            row = stages[cur, :nb]
+            cnt = min(B22_CHUNK, length - t0)
+            if p <= B22_UNROLLED:
+                last = c + 1 == nch
+                for j in range(B22_CHUNK):
+                    if last and j >= cnt:
+                        count("guarded steps", 1)
+                        continue
+                    acc = row[:, j].copy()
+                    for i in range(p):
+                        acc = (acc - _mul(a[:, i], hr[:, (j - 1 - i) % p])).astype(F32)
+                    hr[:, j % p] = acc
+                    row[:, j] = acc
+                if not last:
+                    hr = hr[:, (np.arange(p) + B22_CHUNK) % p]
+                    count("rotations", 1)
+            else:
+                for j in range(cnt):
+                    acc = row[:, j].copy()
+                    for i in range(p):
+                        acc = (acc - _mul(a[:, i], hist[:, (pos + i) % p])).astype(F32)
+                    pos = p - 1 if pos == 0 else pos - 1
+                    hist[:, pos] = acc
+                    row[:, j] = acc
+            cur = (cur + 1) % B22_STAGES
+        if keep_y:
+            t0 = (nch - 1) * B22_CHUNK
+            store((cur - 1) % B22_STAGES, t0, length - t0)
+        if p <= B22_UNROLLED:
+            cnt = length - (nch - 1) * B22_CHUNK
+            for m in range(p):
+                z[fr, (cnt - 1 - m) % p] = hr[:, m]
+        else:
+            z[fr] = hist[:, (pos + np.arange(p)) % p]
+    return y, z
+
+
+def b22_case(p, length, frames, seed=0):
+    rng = np.random.default_rng(seed * 1000 + p)
+    a_f = (0.9 / p * rng.uniform(-1, 1, (frames, p))).astype(F32)
+    s0 = rng.standard_normal((frames, p)).astype(F32)
+    e = rng.standard_normal((frames, length)).astype(F32)
+    return a_f, s0, e
+
+
+@pytest.mark.parametrize("p", [1, 2, 12, 32, 40])
+@pytest.mark.parametrize("length,frames", [(256, 129), (100, 300), (33, 7), (8, 128), (70, 1)])
+def test_b22_block_algorithm(p, length, frames):
+    """The staging ring, the history unrolled by p with its rotation at whole chunks
+    (a remainder when 32 % p != 0), the guarded last chunk (L not a multiple of the
+    chunk), frames not a multiple of the block: bit for bit the plain version; the
+    state-only entry's end state bit for bit the full pass's."""
+    a_f, s0, e = b22_case(p, length, frames)
+    stats = {}
+    y, z = emulate_b22(a_f, s0, e, stats=stats)
+    yp, zp = lpc._lpc_pass_plain(t(a_f), t(s0), t(e))
+    assert np.array_equal(y, yp.numpy()) and np.array_equal(z, zp.numpy())
+    _, zs = emulate_b22(a_f, s0, e, keep_y=False)
+    assert np.array_equal(zs, z)
+    assert np.array_equal(lpc.lpc_synth_state(t(a_f), t(s0), t(e)).numpy(), z)
+    chunks = -(-length // B22_CHUNK)
+    if p <= B22_UNROLLED:
+        assert stats.get("rotations", 0) == -(-frames // B22_FRAMES) * (chunks - 1)
+        assert stats.get("guarded steps", 0) == -(-frames // B22_FRAMES) * (chunks * B22_CHUNK - length)
+    assert bool(stats.get("vector copies")) == (length % 4 == 0 and length >= 4)
+
+
+@pytest.mark.parametrize("length", [256, 100])
+def test_b22_rows_off_the_grid(length):
+    """Rows off the 16-byte grid go 4 bytes a sample, with the same bits."""
+    a_f, s0, e = b22_case(12, length, 130, seed=3)
+    aligned, misaligned = {}, {}
+    y, z = emulate_b22(a_f, s0, e, stats=aligned)
+    y2, z2 = emulate_b22(a_f, s0, e, aligned=False, stats=misaligned)
+    assert np.array_equal(y, y2) and np.array_equal(z, z2)
+    assert aligned["vector copies"] and aligned["vector stores"]
+    assert "vector copies" not in misaligned and "vector stores" not in misaligned
+
+
+@pytest.mark.parametrize("method,state_passes", [("refine", 2), ("pallas", 1)])
+def test_refine_and_pallas_take_the_state_only_entry(order12, monkeypatch, method, state_passes):
+    """Every pass whose y is thrown away is the state-only entry (B22 writes only the
+    end state); one full pass; the result within the existing tolerances of the JAX
+    package's and of float64."""
+    a, gain, e, fl, ref, jax = order12
+    calls = {"state": 0, "pass": 0}
+    real_state, real_pass = lpc.lpc_synth_state, lpc.lpc_synth_pass
+
+    def state(*args):
+        calls["state"] += 1
+        return real_state(*args)
+
+    def full(*args):
+        calls["pass"] += 1
+        return real_pass(*args)
+
+    monkeypatch.setattr(lpc, "lpc_synth_state", state)
+    monkeypatch.setattr(lpc, "lpc_synth_pass", full)
+    got = lpc.lpc_synthesis(t(a), t(gain), t(e), fl, method=method).numpy()
+    assert calls == {"state": state_passes, "pass": 1}
+    assert rel(got, ref) < 5e-3
+    assert rel(got, jax["refine"] if method == "refine" else jax["scan"]) < (1e-4 if method == "refine" else 5e-3)

@@ -12,14 +12,21 @@ receiver (64 channels, 2^26 samples), the averager's main path
 ``scan*`` methods on the same stream (B3), ``fir_filter`` at 8194 taps on
 16 x 2^22 (B9), the averager's serving loop (``stream_moving_average`` over
 two stereo WAVs of 4M frames in chunks of 2^20 samples, B1 seeded a chunk)
-and the IIR main path (``sosfilt`` on 16 x 2^22 float32 through
-butter(8, 0.1), B12, and with ``unroll_sections=True``, B13); each timed as
+the IIR main path (``sosfilt`` on 16 x 2^22 float32 through
+butter(8, 0.1), B12, and with ``unroll_sections=True``, B13), the
+averager's two-pass route (the 64M stream as 16 channels at k=65535, B4)
+and ``lpc_synthesis`` by ``refine`` on 128 streams x 512 frames x 256 at
+p = 12 (the vocoder's shape, B22 x 3); each timed as
 the median host wall time of 10 synchronised calls after 3 warm-ups (the
 serving loop 5 after 1). Then the kernels alone, as the median device time
 of 20 calls after 5 warm-ups, by CUDA events: B1 (``windowed_averager``) and
 B3 (``scan_averager``, every variant) on the same stream at k=1024, C=2,
 Blelloch and Hillis-Steele at C = 3, 5, 6 (the generic kernel), each checked
-bit-exact against the plain version; B12, B13 and B15 at the IIR main path. Each tree runs in its own process, which
+bit-exact against the plain version; B12, B13 and B15 at the IIR main path;
+B4 at C = 16 and C = 1 on the 64M stream and B22 on the vocoder's 65536
+frames (a full pass), each checked bit for bit against its plain version; and
+B1's and B3's registers, local bytes, shared bytes and blocks an SM in
+each tree. Each tree runs in its own process, which
 builds its own kernels, in the order other, this, this, other. Needs a CUDA
 device and nvcc.
 """
@@ -42,10 +49,10 @@ import numpy as np, torch
 from digital_signal_processsing_tpu_torch import _build
 from digital_signal_processsing_tpu_torch.models import ChainConfig, DspChain, WidebandConfig, WidebandFmReceiver
 from digital_signal_processsing_tpu_torch.io import write_wav
-from digital_signal_processsing_tpu_torch.ops import fir, iir, moving_average
+from digital_signal_processsing_tpu_torch.ops import fir, iir, lpc, moving_average
 from digital_signal_processsing_tpu_torch.ops import pallas_scan as ps
 from digital_signal_processsing_tpu_torch.serve import stream_moving_average
-from digital_signal_processsing_tpu_torch.ops.scan_xla import moving_average_xla
+from digital_signal_processsing_tpu_torch.ops.scan_xla import cumsum_ref, moving_average_xla
 
 _build.build()
 _build.library()
@@ -91,6 +98,10 @@ tmp = Path(tempfile.mkdtemp())
 paths = [tmp / "a.wav", tmp / "b.wav"]
 write_wav(paths[0], wav[: 8 * 2**20], 48000, 2)
 write_wav(paths[1], wav[8 * 2**20 :], 48000, 2)
+voice = torch.from_numpy(rng.standard_normal((128, 512 * 256), dtype=np.float32)).to(dev)
+voice = torch.cumsum(voice, 1) * 0.05  # a red spectrum: well-conditioned order-12 fits
+a_lpc, gain = lpc.lpc(voice, 12, 256)
+ev = torch.from_numpy(rng.standard_normal((128, 512 * 256), dtype=np.float32)).to(dev)
 res = {
     "flagship chain": wall(lambda: chain.forward_planar(i, q)),
     "wideband receiver": wall(lambda: wide(xw)),
@@ -102,6 +113,9 @@ res = {
         paths, tmp / "out.wav", 1024, chunk_samples=1 << 20, device="cuda"), 1, 5),
     "IIR main path (sosfilt)": wall(lambda: iir.sosfilt(sos, i)),
     "sosfilt unroll_sections": wall(lambda: iir.sosfilt_pallas_fused(sos, i, unroll_sections=True)),
+    "averager two-pass route k=65535 C=16": wall(lambda: moving_average(x, 65535, 16)),
+    "lpc_synthesis refine 128 x 512 x 256": wall(
+        lambda: lpc.lpc_synthesis(a_lpc, gain, ev, 256, method="refine")),
 }
 want = moving_average_xla(x, 1024, 2)
 if not torch.equal(ps.windowed_averager(x, 1024, 2), want):
@@ -119,6 +133,22 @@ rows = iir._sos_rows(sos)
 res["B12 (device)"] = device(lambda: iir.sos_cascade(i, rows))
 res["B13 (device)"] = device(lambda: iir.sos_cascade_unrolled(i, rows))
 res["B15 (device)"] = device(lambda: iir.sos_sections(i, rows))
+for c in (16, 1):
+    if not torch.equal(ps.cumsum(x, c), cumsum_ref(x, c)):
+        raise AssertionError(f"B4 C={c} differs from plain")
+    res[f"B4 C={c} (device)"] = device(lambda c=c: ps.cumsum(x, c))
+a_f = a_lpc[..., 1:].reshape(-1, 12).contiguous()
+e_f = ev.reshape(-1, 256).contiguous()
+s0 = torch.zeros_like(a_f)
+y, z = lpc.lpc_synth_pass(a_f, s0, e_f)
+yp, zp = lpc._lpc_pass_plain(a_f, s0, e_f)
+if not (torch.equal(y, yp) and torch.equal(z, zp)):
+    raise AssertionError("B22 differs from plain")
+res["B22 pass (device)"] = device(lambda: lpc.lpc_synth_pass(a_f, s0, e_f))
+attrs = {"B1 k=1024 C=2": ps.windowed_kernel_attrs(1024, 2),
+         **{f"B3 {v} k=1024 C={c}": ps.scan_kernel_attrs(1024, c, v)
+            for c in (2, 3) for v in ("blelloch", "hillis_steele", "mxu") if c == 2 or v != "mxu"}}
+print("ATTRS " + json.dumps(attrs))
 print("RESULT " + json.dumps(res))
 '''
 
@@ -127,9 +157,14 @@ def run(root: Path) -> dict:
     out = subprocess.run([sys.executable, "-c", CHILD, str(root)], capture_output=True, text=True,
                          cwd=root)
     for line in out.stdout.splitlines():
+        if line.startswith("ATTRS "):
+            run.attrs[root] = line[len("ATTRS "):]
         if line.startswith("RESULT "):
             return json.loads(line[len("RESULT "):])
     raise RuntimeError(f"{root}: no result\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+
+
+run.attrs = {}  # root -> the span kernels' (registers, local bytes, shared bytes, blocks an SM)
 
 
 def main() -> int:
@@ -149,6 +184,9 @@ def main() -> int:
         print(f"  {path:36s} other {' '.join(f'{v:.3f}' for v in got['other'])}; "
               f"this {' '.join(f'{v:.3f}' for v in got['this'])}; this/other "
               f"{statistics.mean(got['this']) / statistics.mean(got['other']):.3f}")
+    for who, root in (("other", other), ("this", ROOT)):
+        print(f"  {who}: B1's and B3's (registers, local bytes, shared bytes, blocks an SM) "
+              f"{run.attrs.get(root)}")
     return 0
 
 
