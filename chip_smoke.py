@@ -215,14 +215,21 @@ failure exits non-zero:
    against B1 over the whole stream, then the same over k in {1, 16, 1024} x
    C in {1, 2, 16}, a shard of exactly one halo, one shorter than a tile,
    and calls back to back with new data around another key; each rank's
-   device time a call (the contexts time-slice the card: printed as it is);
+   device time a call (the contexts time-slice the card: printed as it is)
+   beside ``host_barrier`` alone and B6's and B7's times before their
+   redesign, B7 by launch under ``torch.profiler``, and the host steps
+   (barriers, object gathers, synchronisations) of calls back to back after
+   a key's first, asserted 0 on every rank; B6's put on every rank but the
+   last, whose right neighbour (rank 0) receives zeros, asserted exactly;
    then world size 1 over NCCL in this process, counts reset around: the
    averager at 64M by every ``halo_impl``, ``scan`` by both ``carry_impl``s
    and the ring, the packed view (B2 seeded), ``sharded_cumsum`` (B4),
    ``sharded_fir_filter`` at 257 and 8193 taps on 16 x 2^22 (B8),
    ``sharded_chain_planar`` on the flagship, ``pipelined_fir_cascade``,
    ``sharded_sosfilt_tv`` (B16) and ``sharded_lpc_synthesis`` (B22) against
-   the one-card entry points; B6 and B7 timed alone on the ring's shard.
+   the one-card entry points (B6 puts nothing in a world of one, asserted);
+   B6, B7 (beside B1 and its time before), the put alone into a local
+   buffer (beside ``copy_``) and B7's kernel attributes on the ring's shard.
 
 Each phase prints its seconds. The last two lines are the kernels' JSON
 record (B1-B22, each with
@@ -232,6 +239,7 @@ and library ms) and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -3061,8 +3069,9 @@ def phase_anchor_times(main: dict) -> dict:
 
 
 # 8. The sharded path (parallel/): a ring of RING_WORLD processes on the one
-# card (gloo coordinates the hosts; the halos move by B6's put through CUDA
-# IPC mappings of the neighbours' receive buffers), each rank on a quarter of
+# card (gloo coordinates the hosts at a key's first call; the halos move by
+# B6's put through CUDA IPC mappings of the neighbours' receive buffers,
+# ordered by counters there on the device), each rank on a quarter of
 # the main stream, then every sharded entry point at world size 1 over NCCL
 # at full width against the one-card entry point.
 RING_WORLD = 4
@@ -3074,6 +3083,10 @@ RING_CORNERS = [(k, c, k + 777) for k in (1, 16, 1024) for c in (1, 2, 16)] + [
 ]
 # calls of one ring key back to back with new data, and another key between
 RING_SEQ = [(16, 2), (1000, 1), (16, 2), (16, 2)]
+# B6 and B7 before the ring's ordering moved onto the device (PERF.md §6: in the ring
+# of four, and B7 alone at world size 1; NVIDIA H100 80GB HBM3, 700.00 W)
+RING_EARLIER_MS = {"B6": 1.4376, "B7": 1.7347, "B7 alone": 0.1124}
+RING_B2B = 10  # calls of each key back to back whose host steps are counted
 SHARDED_FIR_TAPS = (257, 8193)
 CASCADE_MICRO = 8
 
@@ -3103,12 +3116,23 @@ def ring_timed(fn, mesh, reps: int = RING_REPS) -> tuple[list[float], list[float
     return dev_ms, wall_ms
 
 
+def kernel_ms_by_launch(fn, name: str, calls: int) -> list[float]:
+    """Device ms of each launch of kernel ``name`` in ``calls`` calls of ``fn``
+    (torch.profiler), in launch order; empty where the profiler saw none."""
+    with torch.profiler.profile(activities=PROFILE_ACTIVITIES) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+
+
 def ring_worker(rank: int, tmp: str) -> None:
     """One rank of the one-card ring: its quarter of the main stream, then the corners."""
     import torch.distributed as dist
 
     from digital_signal_processsing_tpu_torch import parallel as par
-    from digital_signal_processsing_tpu_torch.parallel.mesh import shift_right
+    from digital_signal_processsing_tpu_torch.parallel.mesh import host_barrier, shift_right
 
     torch.cuda.set_device(0)
     par.initialize_multihost(f"file://{tmp}/ring.store", RING_WORLD, rank, backend="gloo")
@@ -3141,6 +3165,7 @@ def ring_worker(rank: int, tmp: str) -> None:
     }
     info["err"] = err
     info["times"] = {
+        "host_barrier": ring_timed(lambda: host_barrier(mesh), mesh),
         "B6": ring_timed(lambda: par.ring_shift_right_shard(xs, mesh), mesh),
         "B6 plain": ring_timed(lambda: shift_right(xs, mesh), mesh, 3),
         "B7": ring_timed(lambda: par.fused_ring_windowed_shard(xs, MAIN_WINDOW, 2, mesh), mesh),
@@ -3148,6 +3173,20 @@ def ring_worker(rank: int, tmp: str) -> None:
         "pallas_ring": ring_timed(lambda: par.sharded_moving_average(
             xs, MAIN_WINDOW, 2, mesh=mesh, halo_impl="pallas_ring"), mesh),
     }
+    # B7 by launch (the put and the interior, then the head behind the wait)
+    info["B7 by launch"] = kernel_ms_by_launch(
+        lambda: par.fused_ring_windowed_shard(xs, MAIN_WINDOW, 2, mesh), "ring_windowed_kernel",
+        RING_REPS)
+
+    # after a key's first call, a call takes no host step: calls back to back
+    with par.HostSteps() as steps:
+        for _ in range(RING_B2B):
+            par.ring_shift_right_shard(xs, mesh)
+            par.fused_ring_windowed_shard(xs, MAIN_WINDOW, 2, mesh)
+    info["host steps"] = steps.counts
+    flush = ctypes.c_int64()
+    _build.check(_build.library().dsp_ring_can_flush(ctypes.byref(flush)), "dsp_ring_can_flush")
+    info["can flush"] = flush.value
 
     # corners, back-to-back calls of one key and two keys interleaved
     for i, (w, c, frames) in enumerate(RING_CORNERS):
@@ -3191,8 +3230,14 @@ def phase_sharded_ring(x: torch.Tensor, y_main: torch.Tensor, check: Checker) ->
             xi = torch.from_numpy(ring_stream(400 + i, RING_WORLD * 8192)).to(dev)
             check.same("B7", whole(f"seq {i}"), ps.windowed_averager(xi, w, c), f"ring call {i}")
     for r, info in enumerate(infos):
-        if info["launches"]["B6"] < 1 or info["launches"]["B7"] < 1 or any(info["err"].values()):
+        # B6's put: ring_shift_right_shard and pallas_ring's halo on every rank but the
+        # last, whose right neighbour (rank 0) receives zeros; B7 on every rank
+        b6 = 2 if r < RING_WORLD - 1 else 0
+        if info["launches"]["B6"] != b6 or info["launches"]["B7"] != 1 or any(info["err"].values()):
             raise AssertionError(f"ring rank {r}: launches {info['launches']}, errors {info['err']}")
+        if any(info["host steps"].values()):
+            raise AssertionError(f"ring rank {r}: host steps in {RING_B2B} calls back to back "
+                                 f"after a key's first: {info['host steps']}")
     launches = {k: sum(info["launches"][k] for info in infos) for k in ("B1", "B6", "B7")}
 
     def per_rank(key: str, i: int) -> list[float]:
@@ -3202,17 +3247,35 @@ def phase_sharded_ring(x: torch.Tensor, y_main: torch.Tensor, check: Checker) ->
     print(f"[8 ring] {RING_WORLD} processes on one card ({spawn_s:.1f} s with the spawn), "
           f"{n_loc} samples a rank: B6 and B7 bit-exact against plain on every rank and against "
           f"B1 over the whole 64M stream, {len(RING_CORNERS)} corners, {len(RING_SEQ)} calls back "
-          f"to back; launches (all ranks) {launches}. Device ms a call on each rank's stream "
-          "(the four contexts time-slice the card and the call waits for its neighbours: not a "
-          "kernel's time alone, not a scaling number), median of "
-          f"{RING_REPS} (plain: 3) after a warm-up, by rank; whole ring: the slowest rank's host ms:")
-    for key in ("B6", "B6 plain", "B7", "B7 plain", "pallas_ring"):
+          f"to back; launches (all ranks) {launches}; host steps (barriers, object gathers, "
+          f"synchronisations) in {RING_B2B} calls of B6 and B7 back to back after each key's "
+          f"first call: 0 on every rank; the card flushes remote writes after a stream wait "
+          f"(CU_DEVICE_ATTRIBUTE_CAN_FLUSH_REMOTE_WRITES): {bool(infos[0]['can flush'])}. "
+          "Device ms a call on each rank's stream (the four "
+          "contexts time-slice the card and the call waits for its neighbours: not a kernel's "
+          f"time alone, not a scaling number), median of {RING_REPS} (plain: 3) after a warm-up, "
+          "by rank; whole ring: the slowest rank's host ms; before: with a host barrier a call:")
+    for key in ("host_barrier", "B6", "B6 plain", "B7", "B7 plain", "pallas_ring"):
         dev_ms, wall = per_rank(key, 0), per_rank(key, 1)
         all_dev = [v for info in infos for v in info["times"][key][0]]
         times[key] = (statistics.median(all_dev), min(all_dev), max(all_dev))
+        was = f"; before {RING_EARLIER_MS[key]:.4f}" if key in ("B6", "B7") else ""
         print(f"  {key:12s} device {', '.join(f'{v:.4f}' for v in dev_ms)} "
               f"(all ranks: median {times[key][0]:.4f}, min {times[key][1]:.4f}, max "
-              f"{times[key][2]:.4f}); whole ring {max(wall):.4f}")
+              f"{times[key][2]:.4f}); whole ring {max(wall):.4f}, host ms by rank "
+              f"{', '.join(f'{v:.4f}' for v in wall)}{was}")
+    for r, info in enumerate(infos):
+        put = "the put and " if r < RING_WORLD - 1 else ""
+        parts = ([f"{put}the interior", "the head behind the wait"] if r > 0 else
+                 ["the put, the interior and the head: rank 0 receives no halo"])
+        by, per_call = info["B7 by launch"], len(parts)
+        if len(by) != per_call * RING_REPS:
+            print(f"  B7 by launch, rank {r}: not measured (the profiler saw {len(by)} of "
+                  f"{per_call * RING_REPS} launches)")
+            continue
+        cols = [statistics.median(by[i::per_call]) for i in range(per_call)]
+        print(f"  B7 by launch, rank {r} (device ms, median of {RING_REPS} under torch.profiler): "
+              + ", ".join(f"{v:.4f} ({part})" for v, part in zip(cols, parts)))
     return {"launches": launches, "times": times}
 
 
@@ -3222,6 +3285,7 @@ def phase_sharded_world1(x, y_main, chain_main: dict, tv_main: dict, check: Chec
     import torch.distributed as dist
 
     from digital_signal_processsing_tpu_torch import parallel as par
+    from digital_signal_processsing_tpu_torch.parallel import ring_pallas
     from digital_signal_processsing_tpu_torch.parallel.mesh import shift_right
 
     dev = x.device
@@ -3260,10 +3324,13 @@ def phase_sharded_world1(x, y_main, chain_main: dict, tv_main: dict, check: Chec
                                           mesh=mesh)
     torch.cuda.synchronize()
     launches = launch_counts()
-    path = ("B1", "B2", "B4", "B6", "B7", "B8", "B16", "B22")
+    # B6 puts nothing in a world of one (its one rank receives zeros and sends to none);
+    # the ring of four launches it
+    path = ("B1", "B2", "B4", "B7", "B8", "B16", "B22")
     print(f"[8 world 1] topology {topo}; launches {launches}")
-    if min(launches[k] for k in path) < 1:
-        raise AssertionError(f"a kernel of the sharded path was never launched: {launches}")
+    if min(launches[k] for k in path) < 1 or launches["B6"] != 0:
+        raise AssertionError(f"a kernel of the sharded path was never launched, or B6 put in a "
+                             f"world of one: {launches}")
 
     for h, kernel in (("ppermute", "B1"), ("pallas_ring", "B6"), ("fused_ring", "B7")):
         check.same(kernel, ys[f"windowed {h}"], y_main, f"world 1 windowed {h} 64M against B1")
@@ -3304,18 +3371,48 @@ def phase_sharded_world1(x, y_main, chain_main: dict, tv_main: dict, check: Chec
         left = shift_right(xs[n_loc - halo :], mesh)
         return moving_average_xla(torch.cat([left, xs]), MAIN_WINDOW, 2)[halo:]
 
+    lib = _build.library()
+
+    def put_alone():  # B6's put kernel into a local buffer, no counter
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(lib.dsp_ring_put(xs.data_ptr(), dst.data_ptr(), 2 * n_loc, None, 0, None,
+                                      stream), "dsp_ring_put")
+
+    put_alone()
+    check.same("B6", dst, xs, "the put alone into a local buffer, 32 MB")
+
+    def b7():
+        return par.fused_ring_windowed_shard(xs, MAIN_WINDOW, 2, mesh)
+
+    def b1():
+        return ps.windowed_averager(xs, MAIN_WINDOW, 2)
+
+    # behind a lead sleep kernel (the card's time for a call), and without it (where
+    # the host's time to issue a call is the longer)
     alone = {
-        "B6": device_ms(lambda: par.ring_shift_right_shard(xs, mesh), 5, 20),
-        "copy of the shard (yardstick)": device_ms(lambda: dst.copy_(xs), 5, 20),
-        "B7": device_ms(lambda: par.fused_ring_windowed_shard(xs, MAIN_WINDOW, 2, mesh), 5, 20),
+        "B6 (a zero fill: nothing to put)": device_ms(
+            lambda: par.ring_shift_right_shard(xs, mesh), 5, 20, lead=0.3),
+        "the put alone (dsp_ring_put, local)": device_ms(put_alone, 5, 20, lead=0.3),
+        "copy of the shard (yardstick)": device_ms(lambda: dst.copy_(xs), 5, 20, lead=0.3),
+        "B7": device_ms(b7, 5, 20, lead=0.3),
+        "B1": device_ms(b1, 5, 20, lead=0.3),
+        "B7 host-paced": device_ms(b7, 5, 20),
+        "B1 host-paced": device_ms(b1, 5, 20),
         "B7 plain": device_ms(plain_fused, 1, 5),
-        "B1": device_ms(lambda: ps.windowed_averager(xs, MAIN_WINDOW, 2), 5, 20),
     }
     stats = {k: (statistics.median(v), min(v), max(v)) for k, v in alone.items()}
+    put_ms, copy_ms = stats["the put alone (dsp_ring_put, local)"][0], stats[
+        "copy of the shard (yardstick)"][0]
     print(f"[8 world 1] alone on the card, {n_loc} samples (the ring's shard), device ms median "
-          "(min-max) of 20 after 5 warm-ups (B7 plain: 5 after 1): "
+          "(min-max) of 20 after 5 warm-ups, behind a sleep kernel while the host queues them, "
+          "or host-paced without it (B7 plain: 5 after 1): "
           + "; ".join(f"{k} {m:.4f} ({lo:.4f}-{hi:.4f})" for k, (m, lo, hi) in stats.items())
-          + f"; B7 before B1's redesign {B1_EARLIER_MS['B7']:.4f}")
+          + f"; B7/B1 {stats['B7'][0] / stats['B1'][0]:.3f} (before: "
+          f"{RING_EARLIER_MS['B7 alone']:.4f} ms; before B1's redesign {B1_EARLIER_MS['B7']:.4f}); "
+          f"the put/copy_ {put_ms / copy_ms:.3f}; B7's kernel "
+          f"{ring_pallas.fused_ring_kernel_attrs(MAIN_WINDOW, 2)} (registers, local bytes, "
+          f"shared bytes, blocks an SM; B1's "
+          f"{ps.windowed_kernel_attrs(MAIN_WINDOW, 2)})")
     mesh.close()
     dist.destroy_process_group()
     return {"launches": launches, "alone": stats}

@@ -109,22 +109,25 @@ _SIGNATURES = {
     "dsp_lpc_synth": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # p, out: registers, local bytes, shared bytes, blocks an SM (4 int64)
     "dsp_lpc_attrs": (_I, _P),
-    # src, dst, bytes, stream
-    "dsp_ring_put": (_P, _P, _I, _P),
+    # src, dst, bytes, sent counter (or null), call, done count, stream
+    "dsp_ring_put": (_P, _P, _I, _P, _I, _P, _P),
+    # x, y, seed, n, window, channels, kernel_c, nrun, interior_begin,
+    # interior_end, span_tiles, head_tiles, smem_bytes, tail, slot, sent,
+    # consumed, call, stream
+    "dsp_ring_windowed": (_P, _P, _P, *(_I,) * 10, _P, _P, _P, _P, _I, _P),
+    # kernel_c, smem_bytes, out: as dsp_windowed_attrs
+    "dsp_ring_windowed_attrs": (_I, _I, _P),
+    # counter, value, stream
+    "dsp_ring_wait": (_P, _I, _P),
+    # out: 1 where the card's stream waits flush remote writes (one int64)
+    "dsp_ring_can_flush": (_P,),
+    "dsp_ring_signal": (_P, _I, _P),
     # bytes, out pointer, out 64-byte IPC handle
     "dsp_ring_alloc": (_I, _PP, ctypes.c_char_p),
     "dsp_ring_free": (_P,),
     # 64-byte IPC handle, out pointer
     "dsp_ring_open": (ctypes.c_char_p, _PP),
     "dsp_ring_close": (_P,),
-    # out event, out 64-byte IPC handle
-    "dsp_ring_event": (_PP, ctypes.c_char_p),
-    "dsp_ring_event_open": (ctypes.c_char_p, _PP),
-    "dsp_ring_event_destroy": (_P,),
-    # event, stream
-    "dsp_ring_record": (_P, _P),
-    # stream, event
-    "dsp_ring_wait": (_P, _P),
 }
 
 

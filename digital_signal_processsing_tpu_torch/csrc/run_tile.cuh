@@ -49,6 +49,10 @@
 // end_tile) only, and the positions before the stream read the seed (the H
 // samples before it, a shard's or a chunk's halo) where one is given.
 //
+// Each kernel's body is a device function of its block's span (scan_span,
+// scan_generic_span), so that the fused ring averager (B7, ring.cu) runs the
+// same spans in blocks of its own.
+//
 // The in-tile scans (a template parameter), each its algorithm at every
 // level where it runs:
 //   kBlelloch      Brent-Kung's inclusive up-sweep and down-sweep: over the
@@ -203,20 +207,26 @@ static __device__ __forceinline__ void load_tile(const Args& a, const int16_t* x
   }
 }
 
-// The first tile and the end of block b's span of the launch's tiles, and its
-// first read: H samples before the span, clipped to the stream unless a seed
-// (B1) stands before it. B3's launch starts at tile 0.
+// A span of tiles [first, end) and its first read: H samples before the
+// span, clipped to the stream unless a seed (B1) stands before it.
 template <bool kSeedable>
 struct Span {
   long long first, end, lo;
-  __device__ __forceinline__ explicit Span(const Args& a) {
-    first = static_cast<long long>(blockIdx.x) * a.span_tiles;
-    if constexpr (kSeedable) first += a.first_tile;
-    end = first + a.span_tiles < a.end_tile ? first + a.span_tiles : a.end_tile;
+  __device__ __forceinline__ Span(const Args& a, long long first_, long long end_)
+      : first(first_), end(end_) {
     lo = first * kTile - a.halo;
     if (!kSeedable || a.seed == nullptr) lo = lo > 0 ? lo : 0;
   }
 };
+
+// Span b of the launch's tiles, the span of block b. B3's launch starts at tile 0.
+template <bool kSeedable>
+static __device__ __forceinline__ Span<kSeedable> span_of(const Args& a, long long b) {
+  long long first = b * a.span_tiles;
+  if constexpr (kSeedable) first += a.first_tile;
+  return Span<kSeedable>(a, first, first + a.span_tiles < a.end_tile ? first + a.span_tiles
+                                                                     : a.end_tile);
+}
 
 // ---- Brent-Kung (kBlelloch) ---------------------------------------------------
 
@@ -447,7 +457,7 @@ static __device__ __forceinline__ void tile_prefix(uint32_t (&v)[kNQ][kRun],
 // the lane's phase its parity) and each half scans across the lanes of its
 // own phase.
 template <int V, int C, bool kSeedable>
-__global__ void __launch_bounds__(kThreads, C >= 8 ? 3 : 4) scan_kernel(Args a) {
+static __device__ __forceinline__ void scan_span(const Args& a, const Span<kSeedable>& sp) {
   constexpr int SL = C < kRun ? C : kRun;  // channels a run
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* ring = smem;                       // kRun * nrun words
@@ -457,7 +467,6 @@ __global__ void __launch_bounds__(kThreads, C >= 8 ? 3 : 4) scan_kernel(Args a) 
   const int warp = threadIdx.x >> 5;
   const int16_t* x = a.x;
   int16_t* y = a.y;
-  const Span<kSeedable> sp(a);
   const long long first = sp.first, end = sp.end, lo = sp.lo;  // lo: the first read
   const long long base = first - a.seed_tiles;  // ring runs count from this tile
 
@@ -511,6 +520,11 @@ __global__ void __launch_bounds__(kThreads, C >= 8 ? 3 : 4) scan_kernel(Args a) 
   }
 }
 
+template <int V, int C, bool kSeedable>
+__global__ void __launch_bounds__(kThreads, C >= 8 ? 3 : 4) scan_kernel(Args a) {
+  scan_span<V, C, kSeedable>(a, span_of<kSeedable>(a, blockIdx.x));
+}
+
 // ---- any other C: the generic kernel ----------------------------------------
 
 constexpr int kRows = 4;  // rows of a channel scanned together
@@ -534,7 +548,8 @@ static __device__ __forceinline__ int skew(int r) { return r + (r >> 5); }
 // A barrier before step 1 keeps the last tile's outputs ahead of the next
 // tile's samples, so the ring needs only a tile and H + 8 slots.
 template <int V, bool kSeedable>
-__global__ void __launch_bounds__(kThreads, 4) scan_generic_kernel(Args a) {
+static __device__ __forceinline__ void scan_generic_span(const Args& a,
+                                                         const Span<kSeedable>& sp) {
   static_assert(V != kTensorCore, "the tensor cores take C dividing 16 only");
   extern __shared__ __align__(16) uint32_t smem[];
   const int rs = kRun * a.nrun;                // ring slots
@@ -543,7 +558,6 @@ __global__ void __launch_bounds__(kThreads, 4) scan_generic_kernel(Args a) {
   const int C = a.channels;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const Span<kSeedable> sp(a);
   const long long first = sp.first, end = sp.end, lo = sp.lo;
   const long long base = first - a.seed_tiles;
   const int step = static_cast<int>((32LL * C) % rs);  // a lane's slot, row to row
@@ -612,6 +626,11 @@ __global__ void __launch_bounds__(kThreads, 4) scan_generic_kernel(Args a) {
   }
 }
 
+template <int V, bool kSeedable>
+__global__ void __launch_bounds__(kThreads, 4) scan_generic_kernel(Args a) {
+  scan_generic_span<V, kSeedable>(a, span_of<kSeedable>(a, blockIdx.x));
+}
+
 // ---- the launch (host) ------------------------------------------------------
 
 struct Launch {
@@ -652,14 +671,14 @@ static bool pick_c(int c, Launch* out) {
   }
 }
 
-// Launches `l` over tiles [tile_begin, tile_end) of the n-sample stream
-// (tile_end < 0: to its end) in spans of span_tiles tiles, one block a span.
+// The arguments of a launch over tiles [tile_begin, tile_end) of the
+// n-sample stream (tile_end < 0: to its end) in spans of span_tiles tiles.
 // nrun: the ring's runs; seed: the H samples before the stream or null. The
 // geometry as ops/pallas_scan.py's ScanGeometry computes it; a cudaError_t.
-static int launch_runs(const Launch& l, const int16_t* x, int16_t* y, const int16_t* seed,
-                       int64_t n, int64_t window, int64_t channels, int64_t kernel_c,
-                       int64_t nrun, int64_t tile_begin, int64_t tile_end, int64_t span_tiles,
-                       int64_t smem_bytes, void* stream) {
+static int runs_args(Args* a, const int16_t* x, int16_t* y, const int16_t* seed, int64_t n,
+                     int64_t window, int64_t channels, int64_t kernel_c, int64_t nrun,
+                     int64_t tile_begin, int64_t tile_end, int64_t span_tiles,
+                     int64_t smem_bytes) {
   if (n <= 0 || window < 1 || window > 65535 || channels < 1 || n % channels != 0 ||
       span_tiles < 1 || nrun < 32 || nrun % 32 != 0 || (kernel_c != 0 && kernel_c != channels)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -674,24 +693,38 @@ static int launch_runs(const Launch& l, const int16_t* x, int16_t* y, const int1
       tile_end > tiles) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Args a;
-  a.x = x;
-  a.y = y;
-  a.seed = seed;
-  a.len = n;
-  a.first_tile = tile_begin;
-  a.end_tile = tile_end;
-  a.magic = ~0ull / static_cast<unsigned long long>(window) + 1;
-  a.channels = static_cast<int>(channels);
-  a.window = static_cast<int>(window);
-  a.halo = static_cast<int>(halo);
+  a->x = x;
+  a->y = y;
+  a->seed = seed;
+  a->len = n;
+  a->first_tile = tile_begin;
+  a->end_tile = tile_end;
+  a->magic = ~0ull / static_cast<unsigned long long>(window) + 1;
+  a->channels = static_cast<int>(channels);
+  a->window = static_cast<int>(window);
+  a->halo = static_cast<int>(halo);
   const int64_t range = tile_end - tile_begin;
-  a.span_tiles = static_cast<int>(span_tiles < range ? span_tiles : range);
-  a.seed_tiles = static_cast<int>((halo + kTile - 1) / kTile);
-  a.nrun = static_cast<int>(nrun);
-  a.vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  const int64_t blocks = (range + a.span_tiles - 1) / a.span_tiles;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  a->span_tiles = static_cast<int>(span_tiles < range ? span_tiles : range);
+  a->seed_tiles = static_cast<int>((halo + kTile - 1) / kTile);
+  a->nrun = static_cast<int>(nrun);
+  a->vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  if ((range + a->span_tiles - 1) / a->span_tiles > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+// Launches `l` over tiles [tile_begin, tile_end), one block a span (as
+// runs_args); a cudaError_t.
+static int launch_runs(const Launch& l, const int16_t* x, int16_t* y, const int16_t* seed,
+                       int64_t n, int64_t window, int64_t channels, int64_t kernel_c,
+                       int64_t nrun, int64_t tile_begin, int64_t tile_end, int64_t span_tiles,
+                       int64_t smem_bytes, void* stream) {
+  Args a;
+  const int bad = runs_args(&a, x, y, seed, n, window, channels, kernel_c, nrun, tile_begin,
+                            tile_end, span_tiles, smem_bytes);
+  if (bad != 0) return bad;
+  const int64_t blocks = (a.end_tile - a.first_tile + a.span_tiles - 1) / a.span_tiles;
   cudaError_t err = allow_smem(l.kernel, l.allowed, static_cast<int>(smem_bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&a};

@@ -19,7 +19,7 @@
 // anything to another: block b of a launch owns the outputs of its span
 // only, and dsp_windowed_i16_range runs any range of tiles, tile t owning
 // outputs [t * 8192, (t + 1) * 8192). The fused ring averager (B7,
-// parallel/ring_pallas.py) runs the tiles whose window lies inside the shard
+// ring.cu) runs the same spans: the tiles whose window lies inside the shard
 // while the halo is in flight, then the head tiles seeded from the received
 // halo; the split changes no output.
 //

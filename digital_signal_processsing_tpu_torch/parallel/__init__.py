@@ -1,6 +1,7 @@
 from .mesh import (  # noqa: F401
     CHANNEL_AXIS,
     TIME_AXIS,
+    HostSteps,
     Mesh,
     make_mesh,
     make_time_mesh,
@@ -23,6 +24,7 @@ __all__ = [
     "TIME_AXIS",
     "CHANNEL_AXIS",
     "Mesh",
+    "HostSteps",
     "make_mesh",
     "make_time_mesh",
     "time_sharding",

@@ -264,6 +264,33 @@ def host_barrier(mesh: Mesh) -> None:
         dist.barrier(group=mesh.host_group)
 
 
+class HostSteps:
+    """Counts, while entered, the host steps a ring call could take: barriers,
+    object gathers and device synchronisations (``dist.barrier``,
+    ``dist.all_gather_object``, ``torch.cuda.synchronize``). The ring's
+    tests and ``chip_smoke.py`` hold its calls after a key's first to zero."""
+
+    PATCHED = ((dist, "barrier"), (dist, "all_gather_object"), (torch.cuda, "synchronize"))
+
+    def __enter__(self):
+        self.counts = {name: 0 for _, name in self.PATCHED}
+        self._saved = [(mod, name, getattr(mod, name)) for mod, name in self.PATCHED]
+        for mod, name, fn in self._saved:
+            setattr(mod, name, self._counting(name, fn))
+        return self
+
+    def _counting(self, name, fn):
+        def counted(*a, **k):
+            self.counts[name] += 1
+            return fn(*a, **k)
+
+        return counted
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
 __all__ = [
     "TIME_AXIS",
     "CHANNEL_AXIS",
@@ -277,4 +304,5 @@ __all__ = [
     "all_gather",
     "psum",
     "host_barrier",
+    "HostSteps",
 ]

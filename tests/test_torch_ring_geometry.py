@@ -1,17 +1,20 @@
-"""B7's two launches and B2's seeded blocks, emulated in NumPy at the wrappers' geometry.
+"""B7's launches and B2's seeded blocks, emulated in NumPy at the wrappers' geometry.
 
-``fused_ring_windowed_shard`` runs B1 over one shard in two launches of
-``dsp_windowed_i16_range``: the interior tiles unseeded while the halo is
-in flight, then the head tiles seeded from the received halo (zeros on
-rank 0). Each launch below does what the launch of ``csrc/windowed.cu``
-does (``tests/test_torch_scan.py``'s ``emulate_scan`` with B1's geometry:
-spans of tiles over the launch's range, each span first scanning the H
-samples before it) with the split that ``ring_pallas.fused_ring_split``
-gives; every output must be written exactly once, the head tiles must be
-exactly those whose window reaches before the shard, no span of the
-interior launch may read before the shard, and the shards together must
-give the golden result bit for bit. The same for B2 seeded with the pair
-words before its stream, the sharded packed route.
+``fused_ring_windowed_shard`` runs B1's spans over one shard in the
+launches ``ring_pallas.fused_ring_launches`` gives a rank: where a halo
+arrives (every rank but rank 0), one launch of ``ring_windowed_kernel``
+whose block 0 puts the shard's tail (every rank but the last) and whose
+blocks run the interior tiles unseeded, then, behind the stream's wait for
+the left neighbour's put, one block over the head tiles seeded from the
+received halo; on rank 0 one launch with the head, unseeded, in its last
+block. Each launch below does what ``csrc/ring.cu``'s does
+(``tests/test_torch_scan.py``'s ``emulate_scan`` with B1's geometry: spans
+of tiles over the launch's range, each span first scanning the H samples
+before it); every output must be written exactly once, the head tiles must
+be exactly those whose window reaches before the shard, no span of the
+interior may read before the shard, and the shards together must give the
+golden result bit for bit. The same for B2 seeded with the pair words
+before its stream, the sharded packed route.
 """
 
 import numpy as np
@@ -20,31 +23,48 @@ import torch
 
 from digital_signal_processsing_tpu_torch.golden import moving_average_golden
 from digital_signal_processsing_tpu_torch.ops import pallas_scan as ps
-from digital_signal_processsing_tpu_torch.parallel.ring_pallas import fused_ring_split
+from digital_signal_processsing_tpu_torch.parallel.ring_pallas import (
+    fused_ring_launches,
+    fused_ring_split,
+    ring_roles,
+)
 from tests.conftest import make_interleaved
 from tests.test_torch_geometry import block_prefix, widen
 from tests.test_torch_scan import emulate_scan
 
 
 def emulate_fused_ring(shards, window, channels, tile_samples, resident=3):
-    """Every rank's two launches; returns the outputs and each rank's split.
+    """Every rank's launches; returns the outputs and each rank's split.
     ``resident`` blocks a wave: spans of several tiles where a range is long."""
     halo = window * channels
     outs, splits = [], []
     for d, xs in enumerate(shards):
         g, head, tiles = fused_ring_split(xs.size, window, channels, tile_samples)
+        left, right = ring_roles(len(shards), d)
+        launches = fused_ring_launches(xs.size, window, channels, resident, left=left,
+                                       right=right, tile_samples=tile_samples)
+        # the put in the first launch's block 0; with a halo, the head alone in the
+        # last launch, behind the wait; without, one launch
+        assert [ln.put for ln in launches] == [right] + [False] * (len(launches) - 1)
+        assert len(launches) == (1 if not left else 2 if head < tiles or right else 1)
+        assert [ln.head_tiles for ln in launches][-1] == head
+        assert all(ln.head_tiles == 0 for ln in launches[:-1])
         y = np.zeros(xs.size, np.int16)
         writes = np.zeros(xs.size, np.int64)
-        launch = dict(g=g, out=y, written=writes, resident=resident)
-        if head < tiles:  # interior launch, no seed
-            stats = {}
-            emulate_scan(xs, window, channels, None, tile_range=(head, tiles), stats=stats, **launch)
-            assert stats["least_lo"] >= 0  # no span reads before the shard
-        seed = shards[d - 1][-halo:] if d > 0 else None  # the put's payload; rank 0: null
-        stats = {}
-        emulate_scan(xs, window, channels, None, seed=seed, tile_range=(0, head), stats=stats,
-                     **launch)
-        assert stats["least_lo"] < 0  # the head's windows reach before the shard
+        launch = dict(g=g, out=y, written=writes)
+        seed = shards[d - 1][-halo:] if left else None  # the put's payload; rank 0: none
+        for ln in launches:
+            begin, end = ln.interior
+            if begin < end:  # the interior: B1's spans, no seed read
+                stats = {}
+                emulate_scan(xs, window, channels, None, tile_range=(begin, end),
+                             span=ln.span_tiles, stats=stats, **launch)
+                assert stats["least_lo"] >= 0  # no span reads before the shard
+            if ln.head_tiles:  # the last block: the head tiles as one span
+                stats = {}
+                emulate_scan(xs, window, channels, None, seed=seed, tile_range=(0, ln.head_tiles),
+                             span=ln.head_tiles, stats=stats, **launch)
+                assert stats["least_lo"] < 0  # the head's windows reach before the shard
         np.testing.assert_array_equal(writes, 1)  # every output written exactly once
         assert head == sum(1 for t in range(tiles) if t * g.tile_samples < halo)
         outs.append(y)

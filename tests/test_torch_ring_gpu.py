@@ -4,10 +4,14 @@ Skipped without a CUDA device. On a machine with one (JAX is not needed):
 
     python -m pytest --noconftest tests/test_torch_ring_gpu.py -q
 
-Four processes share the one card as a ring (gloo coordinates the hosts;
-the halos move by B6's put through CUDA IPC mappings of the neighbours'
-receive buffers), and every gathered output is held bit for bit against
-the golden model over the whole stream; then world size 1 in this process.
+Four processes share the one card as a ring (gloo coordinates the hosts
+at a key's first call; the halos move by B6's put through CUDA IPC mappings
+of the neighbours' receive buffers, ordered by counters there on the
+device), and every gathered output is held bit for bit against the golden
+model over the whole stream: the corners, 64 calls of two keys interleaved
+back to back with no host step between a key's second call and its last,
+and calls after one rank's stream or host was held back; then world size 1
+in this process.
 """
 
 import numpy as np
@@ -19,7 +23,11 @@ from digital_signal_processsing_tpu_torch.ops import launch_counts, reset_launch
 from digital_signal_processsing_tpu_torch.ops import pallas_scan as ps
 from digital_signal_processsing_tpu_torch.ops.scan_xla import moving_average_xla
 from torch_sharded_cases import (  # tests/ is on the path: pytest puts it there
+    B2B_AVERAGER,
+    B2B_CALLS,
     HALO_IMPLS,
+    HELD,
+    HELD_CALLS,
     PACKED,
     RING_CORNERS,
     RING_SHAPES,
@@ -27,6 +35,8 @@ from torch_sharded_cases import (  # tests/ is on the path: pytest puts it there
     WORLD,
     packed_input,
     ring_corner_input,
+    b2b_input,
+    b2b_shift_input,
     ring_input,
     run_suite,
     seq_input,
@@ -100,6 +110,37 @@ def test_ring_launch_counts(ring):
     assert counts["B7"] == b7 and counts["B6"] == b6, counts
 
 
+def shifted(x: np.ndarray) -> np.ndarray:
+    n_loc = x.shape[-1] // WORLD
+    return np.concatenate([np.zeros_like(x[..., :n_loc]), x[..., :-n_loc]], axis=-1)
+
+
+@pytest.mark.parametrize("j", range(B2B_CALLS))
+def test_ring_back_to_back_calls(ring, j):
+    """Call j of two keys interleaved, 64 calls each with new data, every rank."""
+    w, c = B2B_AVERAGER
+    want = moving_average_golden(b2b_input(j), w, c)
+    np.testing.assert_array_equal(ring[f"b2b/fused/{j}"], want)
+    np.testing.assert_array_equal(ring[f"b2b/shift/{j}"], shifted(b2b_shift_input(j)))
+
+
+def test_ring_no_host_steps_after_first_call(ring):
+    """No barrier, object gather or device synchronisation on any rank between
+    a key's second call and its last."""
+    none = {"barrier": 0, "all_gather_object": 0, "synchronize": 0}
+    assert ring["b2b/host_steps"] == [none] * WORLD
+
+
+@pytest.mark.parametrize("how", list(HELD))
+def test_ring_rank_held_back(ring, how):
+    """One rank's stream held by a device sleep, or its host asleep, before its calls."""
+    w, c = B2B_AVERAGER
+    for j in range(HELD_CALLS):
+        np.testing.assert_array_equal(ring[f"held/{how}/fused/{j}"],
+                                      moving_average_golden(b2b_input(j), w, c))
+        np.testing.assert_array_equal(ring[f"held/{how}/shift/{j}"], shifted(b2b_shift_input(j)))
+
+
 @pytest.mark.parametrize("tile_samples", [None, 256])
 @pytest.mark.parametrize("channels", [1, 2, 16])
 @pytest.mark.parametrize("window", [1, 16, 1024])
@@ -114,7 +155,8 @@ def test_world_of_one(mesh1, window, channels, tile_samples):
                                                 tile_samples=tile_samples)
     assert torch.equal(got, moving_average_xla(x, window, channels))
     assert torch.equal(ring_pallas.ring_shift_right_shard(x, mesh1), torch.zeros_like(x))
-    assert launch_counts()["B7"] == 1 and launch_counts()["B6"] == 1
+    # a world of one puts nothing: its one rank receives zeros and sends to none
+    assert launch_counts()["B7"] == 1 and launch_counts()["B6"] == 0
 
 
 @pytest.mark.parametrize("window,channels", [(700, 2), (16, 3), (1, 1), (1023, 2)])

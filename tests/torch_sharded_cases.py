@@ -364,6 +364,29 @@ def ring_corner_input(i: int) -> np.ndarray:
     return stream(200 + i, WORLD * frames, c)
 
 
+# calls of two ring keys interleaved back to back, new data each call, no host
+# step between them: B7 at (k, C) = B2B_AVERAGER, B6 on shards of B2B_SHIFT samples
+B2B_CALLS = 64
+B2B_AVERAGER = (16, 2)
+B2B_SHIFT = 8192
+# the same after one rank's stream is held back (a device sleep) or its host sleeps
+HELD_CALLS = 8
+HELD = {"stream": 1, "host": 2}  # how a rank is held: the rank held
+HELD_SLEEP_CYCLES = 50_000_000  # torch.cuda._sleep: about 25 ms on the H100
+HELD_SLEEP_S = 0.2
+
+
+def b2b_input(j: int) -> np.ndarray:
+    """Call j's whole stream of B7's key (B2B_AVERAGER)."""
+    w, c = B2B_AVERAGER
+    return stream(500 + j, WORLD * B2B_SHIFT // c, c)
+
+
+def b2b_shift_input(j: int) -> np.ndarray:
+    """Call j's whole stream of B6's key."""
+    return stream(700 + j, WORLD * B2B_SHIFT, 1)
+
+
 def _cases_ring_gpu(par, out: dict) -> None:
     """The ring kernels (B6, B7) across processes on the card: every rank on cuda:0."""
     import torch
@@ -400,6 +423,43 @@ def _cases_ring_gpu(par, out: dict) -> None:
     run("ring/odd", lambda: par.ring_shift_right_shard(odd[1:], mesh))  # a misaligned source
     torch.cuda.synchronize()
     out["counts"] = launch_counts()
+
+    # two keys' calls interleaved back to back, new data each call; the host
+    # steps counted from each key's second call to its last
+    w, c = B2B_AVERAGER
+    xa = [flat.shard(torch.from_numpy(b2b_input(j)).to(dev)) for j in range(B2B_CALLS)]
+    xb = [flat.shard(torch.from_numpy(b2b_shift_input(j)).to(dev)) for j in range(B2B_CALLS)]
+    torch.cuda.synchronize()
+    ya = [par.fused_ring_windowed_shard(xa[0], w, c, mesh)]
+    yb = [par.ring_shift_right_shard(xb[0], mesh)]
+    with par.HostSteps() as steps:
+        for j in range(1, B2B_CALLS):
+            ya.append(par.fused_ring_windowed_shard(xa[j], w, c, mesh))
+            yb.append(par.ring_shift_right_shard(xb[j], mesh))
+    every = [None] * WORLD
+    torch.distributed.all_gather_object(every, steps.counts)
+    out["b2b/host_steps"] = every
+    for j in range(B2B_CALLS):
+        out[f"b2b/fused/{j}"] = flat.gather(ya[j]).cpu().numpy()
+        out[f"b2b/shift/{j}"] = flat.gather(yb[j]).cpu().numpy()
+
+    # one rank's stream held back by a device sleep, or its host asleep, before its calls
+    import time
+
+    for how, held in HELD.items():
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        if mesh.t == held:
+            if how == "stream":
+                torch.cuda._sleep(HELD_SLEEP_CYCLES)
+            else:
+                time.sleep(HELD_SLEEP_S)
+        ya = [par.fused_ring_windowed_shard(xa[j], w, c, mesh) for j in range(HELD_CALLS)]
+        yb = [par.ring_shift_right_shard(xb[j], mesh) for j in range(HELD_CALLS)]
+        for j in range(HELD_CALLS):
+            out[f"held/{how}/fused/{j}"] = flat.gather(ya[j]).cpu().numpy()
+            out[f"held/{how}/shift/{j}"] = flat.gather(yb[j]).cpu().numpy()
+    torch.cuda.synchronize()
     mesh.close()
 
 

@@ -27,8 +27,13 @@ B4 at C = 16 and C = 1 on the 64M stream and B22 on the vocoder's 65536
 frames (a full pass), each checked bit for bit against its plain version; and
 B1's and B3's registers, local bytes, shared bytes and blocks an SM in
 each tree. Each tree runs in its own process, which
-builds its own kernels, in the order other, this, this, other. Needs a CUDA
-device and nvcc.
+builds its own kernels, in the order other, this, this, other. Then the
+sharded averager in the ring of four processes on the card
+(``sharded_moving_average`` with ``halo_impl`` ``pallas_ring``, B6's halo
+into B1, and ``fused_ring``, B7; 16M samples a rank, k=1024, C=2), by
+``tools/ab_ring.py``'s workers in the same order: each rank's device ms a
+call, started together and queued back to back, and the slowest rank's host
+ms. Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -187,7 +192,32 @@ def main() -> int:
     for who, root in (("other", other), ("this", ROOT)):
         print(f"  {who}: B1's and B3's (registers, local bytes, shared bytes, blocks an SM) "
               f"{run.attrs.get(root)}")
+    ring_runs(other)
     return 0
+
+
+def ring_runs(other: Path) -> None:
+    """The ring's sharded averager of both trees, in turns."""
+    import tempfile
+
+    import ab_ring
+
+    got = {"other": [], "this": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for who in ("other", "this", "this", "other"):
+            tree = other if who == "other" else ROOT
+            got[who].append(ab_ring.ring_rows(ab_ring.run("e2e", tree, ab_ring.WORLD, Path(tmp),
+                                                          Path(tmp) / "none")))
+    print(f"the ring of {ab_ring.WORLD} on the card, 16M samples a rank, k=1024 C=2 (ms a call; "
+          "device: the median over ranks; host: the slowest rank), in turns other, this, this, "
+          "other:")
+    for path in ("pallas_ring", "fused_ring"):
+        for metric in ("device", "b2b device", "host", "b2b host"):
+            o = [r[path][metric][0] for r in got["other"]]
+            s = [r[path][metric][0] for r in got["this"]]
+            print(f"  {path:12s} {metric:11s} other {' '.join(f'{v:.4f}' for v in o)}; this "
+                  f"{' '.join(f'{v:.4f}' for v in s)}; this/other "
+                  f"{statistics.mean(s) / statistics.mean(o):.3f}")
 
 
 if __name__ == "__main__":
