@@ -30,6 +30,11 @@ failure exits non-zero:
    launches at every tile boundary of a 9-tile stream (seeded and not), in
    spans of one tile, at C in {1, 2, 3, 5, 16} for k = 1, a halo past a
    tile and the largest halo it takes, and at INT16_MIN and INT16_MAX there;
+   B2 (B1's launch on the pair words' int16 view) at C in {1, 2, 3, 16} for
+   k = 1, a halo past a tile and the two largest windows of its bound, unseeded
+   and seeded (odd k*C: a seed of k + 1 frames), at INT16_MIN and INT16_MAX,
+   and on views 4, 8 and 12 bytes off the 16-byte grid, each call one B2
+   launch and no B1 launch;
    then B8 and B9 (the fused overlap-save FIR) against their plain versions
    (within 1e-5 of max|y|) and a float64 FIR on a slice (1e-4) over taps
    {1, 2, 63, 257, the crossover +- 1, the largest B8 takes, the first B9
@@ -148,16 +153,18 @@ failure exits non-zero:
    C = 1, the outer-dimension scan of the (4M, 16) view at C = 16), its time
    before its redesign, its prediction, bound and registers, local bytes,
    shared bytes and blocks an SM (``pallas_scan.cumsum_kernel_attrs``), and at
-   C = 3 (the generic kernel); then B1 and B3
-   against the two-pass route at halos on both sides of the bounds that
-   send ``windowed`` and ``scan*`` to two-pass (``TWO_BLOCKS_SMEM_MAX``);
+   C = 3 (the generic kernel); then B1, B2 and B3
+   against the two-pass route at halos on both sides of two blocks an SM
+   (``TWO_BLOCKS_SMEM_MAX``) up to the largest ring that fits (B2 at its
+   former bound, k = 10118 and 10119 at C = 2, 1070 and 1071 at C = 16, and
+   B1's largest window; B3 also at C = 3, the generic kernel);
    each B3 variant at k=1024, C=2 (median, min and max of 20) beside its time
    before its redesign, its bound and its registers, local bytes,
    shared bytes and blocks an SM (``pallas_scan.scan_kernel_attrs``); B1 the
    same beside its time before its redesign and its prediction, in spans of
-   one wave and of one tile (the two halo sources), and at C=3; B1 against
-   the two-pass route on both sides of two blocks an SM up to the largest
-   halo it takes;
+   one wave and of one tile (the two halo sources), and at C=3; B2 beside B1
+   in the same call (in turns, median, min and max of 40 and 40) with its
+   time before its redesign and its prediction;
    B8 (at 257 and 8193 taps, beside its times at its redesign) and B9 (beside
    its time before its redesign) at phase 4's
    shapes (median, min and max) against their plain versions, bounds, their
@@ -219,7 +226,9 @@ failure exits non-zero:
    beside ``host_barrier`` alone and B6's and B7's times before their
    redesign, B7 by launch under ``torch.profiler``, and the host steps
    (barriers, object gathers, synchronisations) of calls back to back after
-   a key's first, asserted 0 on every rank; B6's put on every rank but the
+   a key's first, asserted 0 on every rank; the packed sharded path (B6's
+   halo of pair words into B2 seeded) on the 64M stream and four corners (odd
+   and even k*C) against B1; B6's put on every rank but the
    last, whose right neighbour (rank 0) receives zeros, asserted exactly;
    then world size 1 over NCCL in this process, counts reset around: the
    averager at 64M by every ``halo_impl``, ``scan`` by both ``carry_impl``s
@@ -372,6 +381,10 @@ DIRECT_FIRST_MS = {64: 0.6232, 256: 2.1516}
 # B1 and B7 before B1's redesign (PERF.md §6), and the predictions written in PERF.md
 # before the redesigns' first chip call
 B1_EARLIER_MS = {"B1": 0.3418, "B7": 0.1363}
+# B2 before it became B1's launch on the pair words' int16 view (PERF.md §6), and the
+# prediction written in PERF.md: its ms, and B2 / B1 in the same call at most 1.05
+B2_EARLIER_MS = 0.2253
+B2_PREDICTED = (0.11, 0.13, 1.05)
 # B4 (C = 16) and B22 (a pass at the vocoder's shape) before their redesign (PERF.md §6)
 B4_B22_EARLIER_MS = {"B4": 0.6456, "B22": 0.1087}
 PREDICTED_MS = {"B1": (0.09, 0.14), "B13": (0.30, 0.42), "B4": (0.14, 0.20), "B22": (0.05, 0.08),
@@ -680,6 +693,7 @@ def phase_corners(rng, dev, check: Checker) -> None:
     if not np.array_equal(got, want):
         raise AssertionError("B1 disagrees with the NumPy golden model")
     b1_largest = b1_corners(stream, dev, check)
+    b2_largest = b2_corners(stream, dev, check)
     b4_largest = b4_corners(stream, dev, check)
     print(
         "[3 corners] bit-exact: "
@@ -687,6 +701,8 @@ def phase_corners(rng, dev, check: Checker) -> None:
         + "; B1 against golden on 262144 samples; tensor-core B3 refused C=3; B3's largest "
         + "windows: " + ", ".join(f"{v} C={c} k={k}" for (v, c), k in largest.items())
         + "; B1's: " + ", ".join(f"C={c} k={k}" for c, k in b1_largest.items())
+        + "; B2's (one B2 launch and no B1 launch a call): "
+        + ", ".join(f"C={c} k={k}" for c, k in b2_largest.items())
         + f"; B4's largest C {b4_largest}"
     )
 
@@ -737,6 +753,52 @@ def b1_corners(stream, dev, check: Checker) -> dict:
             x = torch.full(((3 * largest[c] + 7) * c,), v, dtype=torch.int16, device=dev)
             check.same("B1", ps.windowed_averager(x, largest[c], c),
                        moving_average_xla(x, largest[c], c), f"B1 {v} k={largest[c]} C={c}")
+    return largest
+
+
+def b2_corners(stream, dev, check: Checker) -> dict:
+    """B2 (B1's launch on the pair words' int16 view) at B1's corners, bit-exact against
+    plain, every call one B2 launch and no B1 launch: C = 1, 2, 3 and 16 at k = 1, a halo
+    past a tile, the largest window of its bound and one below it (odd k*C at odd C),
+    unseeded and seeded (a seed of k + 1 frames where k*C is odd, its first frame
+    skipped), int16 min and max at the largest; views 4, 8 and 12 bytes off the 16-byte
+    grid, seeded too. Returns the largest windows."""
+    def packed(x32, k, c, seed=None):
+        before = launch_counts()
+        got = ps.windowed_averager_packed(x32, k, c, seed=seed)
+        after = launch_counts()
+        if after["B2"] != before["B2"] + 1 or after["B1"] != before["B1"]:
+            raise AssertionError(f"B2 k={k} C={c}: launches B2 {after['B2'] - before['B2']}, "
+                                 f"B1 {after['B1'] - before['B1']}; want 1 and 0")
+        return got.view(torch.int16)
+
+    def seeded(x, k, c, label):
+        words = ps.packed_seed_words(k, c)
+        sx = stream(2 * words // c, c)
+        want = moving_average_xla(torch.cat([sx, x]), k, c)[2 * words :]
+        check.same("B2", packed(x.view(torch.int32), k, c, sx.view(torch.int32)), want,
+                   f"B2 seeded ({words} words, k*C {'odd' if k * c % 2 else 'even'}) {label}")
+
+    largest = {}
+    for c in (1, 2, 3, 16):
+        largest[c] = largest_window(lambda w, c=c: ps.packed_supported(w, c))
+        for k in (1, 8192 // c + 3, largest[c] - 1, largest[c]):
+            x = stream(2 * (k + 25_001), c)  # whole frames, whole words
+            check.same("B2", packed(x.view(torch.int32), k, c), moving_average_xla(x, k, c),
+                       f"B2 k={k} C={c}")
+            seeded(x, k, c, f"k={k} C={c}")
+        for v in (-32768, 32767):
+            x = torch.full((2 * (largest[c] + 7) * c,), v, dtype=torch.int16, device=dev)
+            check.same("B2", packed(x.view(torch.int32), largest[c], c),
+                       moving_average_xla(x, largest[c], c), f"B2 {v} k={largest[c]} C={c}")
+    for c, k, frames in ((2, 1024, 2**18 + 6), (3, 101, 30002), (1, 15, 65538), (16, 7, 4100)):
+        base = stream(frames + 8, c).view(torch.int32)
+        for off in (1, 2, 3):  # a view `off` words past an aligned start
+            x32 = base[off : off + frames * c // 2]
+            x = x32.view(torch.int16)
+            check.same("B2", packed(x32, k, c), moving_average_xla(x, k, c),
+                       f"B2 view {4 * off} bytes off k={k} C={c}")
+            seeded(x, k, c, f"a view {4 * off} bytes off k={k} C={c}")
     return largest
 
 
@@ -801,7 +863,7 @@ def phase_b4_times(x: torch.Tensor, bk: tuple[float, str]) -> float:
 
 
 def phase_halo_bound(x: torch.Tensor, check: Checker) -> None:
-    """B1 and B3 against the two-pass route on both sides of their bounds, at 64M."""
+    """B1, B2 and B3 against the two-pass route on both sides of their bounds, at 64M."""
     print(
         "[5 halo bound] B1 vs two-pass, 64M samples; `windowed` takes B1 while its ring is "
         f"<= {ps.WINDOWED_SMEM_MAX} bytes (two blocks an SM up to {ps.TWO_BLOCKS_SMEM_MAX}):"
@@ -826,31 +888,53 @@ def phase_halo_bound(x: torch.Tensor, check: Checker) -> None:
                 f"{ps.windowed_kernel_attrs(k, c)[3]} blocks an SM): B1 {b1:.4f} ms, two-pass "
                 f"{tp:.4f} ms, B1/two-pass {b1 / tp:.3f}"
             )
+    # B2 on the int32 pair view: its former bound (two blocks an SM of its own block
+    # buffer: k = 10118 at C = 2, 1070 at C = 16), one past it, and B1's largest window
+    x32 = x.view(torch.int32)
+    print("[5 halo bound] B2 vs two-pass on the int32 view, 64M samples; the packed route takes "
+          "B2 while B1's ring fits (before: k <= 10118 at C=2, 1070 at C=16):")
+    for c, ks in ((2, (10118, 10119, largest_window(lambda w: ps.packed_supported(w, 2)))),
+                  (16, (1070, 1071, largest_window(lambda w: ps.packed_supported(w, 16))))):
+        for k in ks:
+            check.same("B2", ps.windowed_averager_packed(x32, k, c).view(torch.int16),
+                       moving_average_xla(x, k, c), f"B2 halo {k * c} k={k} C={c}")
+            b2, tp = time_pair(
+                lambda: ps.windowed_averager_packed(x32, k, c),
+                lambda: ps.moving_average_two_pass(x, k, c),
+            )
+            side = "inside" if ps.packed_supported(k, c) else "beyond"
+            print(f"  k={k} C={c} halo {k * c} ({side}): B2 {b2:.4f} ms, two-pass {tp:.4f} ms, "
+                  f"B2/two-pass {b2 / tp:.3f}")
     print(
-        "[5 halo bound] B3 vs two-pass, 64M samples; `scan*` take B3 while its buffers are "
-        f"<= {ps.TWO_BLOCKS_SMEM_MAX} bytes (two blocks an SM):"
+        "[5 halo bound] B3 vs two-pass, 64M samples, at half and at the largest window whose "
+        f"ring leaves two blocks an SM (<= {ps.TWO_BLOCKS_SMEM_MAX} bytes), one past it, and "
+        f"the largest that fits ({ps.SMEM_MAX} bytes); `scan*` take B3 while its ring is "
+        f"<= {ps.WINDOWED_SMEM_MAX} bytes (before: {ps.TWO_BLOCKS_SMEM_MAX}):"
     )
     for v in VARIANTS:
-        for c in (2, 16):
-            inside = largest_window(lambda w, c=c, v=v: ps.scan_supported(w, c, v))
+        for c in (2, 16) if v == "mxu" else (2, 3, 16):  # C = 3: the generic kernel
+            two = largest_window(
+                lambda w, c=c, v=v: ps.scan_geometry(w, c, v).smem_bytes <= ps.TWO_BLOCKS_SMEM_MAX
+            )
             launchable = largest_window(
                 lambda w, c=c, v=v: ps.scan_geometry(w, c, v).smem_bytes <= ps.SMEM_MAX
             )
-            for k in sorted({inside // 2, inside, inside + 1, launchable}):
+            xc = x[: x.numel() // c * c]  # whole frames
+            for k in sorted({two // 2, two, two + 1, launchable}):
                 g = ps.scan_geometry(k, c, v)
                 check.same(
-                    f"B3/{v}", ps.launch_scan(x, k, c, v), moving_average_xla(x, k, c),
+                    f"B3/{v}", ps.launch_scan(xc, k, c, v), moving_average_xla(xc, k, c),
                     f"B3 {v} halo {k * c} k={k} C={c}",
                 )
-                b3, two = time_pair(
-                    lambda: ps.launch_scan(x, k, c, v),
-                    lambda: ps.moving_average_two_pass(x, k, c),
+                b3, two_pass = time_pair(
+                    lambda: ps.launch_scan(xc, k, c, v),
+                    lambda: ps.moving_average_two_pass(xc, k, c),
                 )
                 side = "inside" if ps.scan_supported(k, c, v) else "beyond"
                 print(
                     f"  {v} k={k} C={c} halo {k * c} ({side}, {g.smem_bytes} B, "
-                    f"{ps.scan_kernel_attrs(k, c, v)[3]} blocks an SM): B3 {b3:.4f} ms, two-pass {two:.4f} ms, "
-                    f"B3/two-pass {b3 / two:.3f}"
+                    f"{ps.scan_kernel_attrs(k, c, v)[3]} blocks an SM): B3 {b3:.4f} ms, "
+                    f"two-pass {two_pass:.4f} ms, B3/two-pass {b3 / two_pass:.3f}"
                 )
 
 
@@ -3083,6 +3167,9 @@ RING_CORNERS = [(k, c, k + 777) for k in (1, 16, 1024) for c in (1, 2, 16)] + [
 ]
 # calls of one ring key back to back with new data, and another key between
 RING_SEQ = [(16, 2), (1000, 1), (16, 2), (16, 2)]
+# k x C x frames a shard of the packed sharded path (B2 seeded with the pair words
+# before the shard) beside the main stream's: odd k*C (a seed of k + 1 frames) and even
+RING_PACKED = [(5, 3, 8192), (1023, 1, 8192), (16, 16, 1000), (1, 2, 4096)]
 # B6 and B7 before the ring's ordering moved onto the device (PERF.md §6: in the ring
 # of four, and B7 alone at world size 1; NVIDIA H100 80GB HBM3, 700.00 W)
 RING_EARLIER_MS = {"B6": 1.4376, "B7": 1.7347, "B7 alone": 0.1124}
@@ -3196,6 +3283,13 @@ def ring_worker(rank: int, tmp: str) -> None:
     for i, (w, c) in enumerate(RING_SEQ):
         xi = flat.shard(torch.from_numpy(ring_stream(400 + i, RING_WORLD * 8192)).to(dev))
         out[f"seq {i}"] = par.sharded_moving_average(xi, w, c, mesh=mesh, halo_impl="fused_ring")
+    # the packed sharded path: B6's halo of pair words into B2 seeded
+    out["packed"] = par.sharded_moving_average(xs.view(torch.int32), MAIN_WINDOW, 2, mesh=mesh,
+                                               halo_impl="pallas_ring").view(torch.int16)
+    for i, (w, c, frames) in enumerate(RING_PACKED):
+        xi = flat.shard(torch.from_numpy(ring_stream(500 + i, RING_WORLD * frames * c)).to(dev))
+        out[f"packed {i}"] = par.sharded_moving_average(
+            xi.view(torch.int32), w, c, mesh=mesh, halo_impl="pallas_ring").view(torch.int16)
     torch.cuda.synchronize()
     np.savez(f"{tmp}/rank{rank}.npz", **{k: v.cpu().numpy() for k, v in out.items()})
     Path(f"{tmp}/rank{rank}.json").write_text(json.dumps(info))
@@ -3229,6 +3323,11 @@ def phase_sharded_ring(x: torch.Tensor, y_main: torch.Tensor, check: Checker) ->
         for i, (w, c) in enumerate(RING_SEQ):
             xi = torch.from_numpy(ring_stream(400 + i, RING_WORLD * 8192)).to(dev)
             check.same("B7", whole(f"seq {i}"), ps.windowed_averager(xi, w, c), f"ring call {i}")
+        check.same("B2", whole("packed"), y_main, "ring of 4: packed 64M k=1024 C=2 vs B1")
+        for i, (w, c, frames) in enumerate(RING_PACKED):
+            xi = torch.from_numpy(ring_stream(500 + i, RING_WORLD * frames * c)).to(dev)
+            check.same("B2", whole(f"packed {i}"), ps.windowed_averager(xi, w, c),
+                       f"ring packed k={w} C={c} (seed of {ps.packed_seed_words(w, c)} words)")
     for r, info in enumerate(infos):
         # B6's put: ring_shift_right_shard and pallas_ring's halo on every rank but the
         # last, whose right neighbour (rank 0) receives zeros; B7 on every rank
@@ -3247,7 +3346,8 @@ def phase_sharded_ring(x: torch.Tensor, y_main: torch.Tensor, check: Checker) ->
     print(f"[8 ring] {RING_WORLD} processes on one card ({spawn_s:.1f} s with the spawn), "
           f"{n_loc} samples a rank: B6 and B7 bit-exact against plain on every rank and against "
           f"B1 over the whole 64M stream, {len(RING_CORNERS)} corners, {len(RING_SEQ)} calls back "
-          f"to back; launches (all ranks) {launches}; host steps (barriers, object gathers, "
+          f"to back; the packed path (B2 seeded) on the 64M stream and {len(RING_PACKED)} corners "
+          f"bit-exact against B1; launches (all ranks) {launches}; host steps (barriers, object gathers, "
           f"synchronisations) in {RING_B2B} calls of B6 and B7 back to back after each key's "
           f"first call: 0 on every rank; the card flushes remote writes after a stream wait "
           f"(CU_DEVICE_ATTRIBUTE_CAN_FLUSH_REMOTE_WRITES): {bool(infos[0]['can flush'])}. "
@@ -3668,6 +3768,23 @@ def main() -> int:
     d = device_ms(lambda: ps.windowed_averager(x3, MAIN_WINDOW, 3), 5, 20)
     print(f"  B1 k={MAIN_WINDOW} C=3 (generic) {statistics.median(d):.4f} ms "
           f"({min(d):.4f}-{max(d):.4f}); attrs {ps.windowed_kernel_attrs(MAIN_WINDOW, 3)}")
+    # B2 redesigned (B1's launch on the pair words' int16 view) beside B1 in the same
+    # call: 20 after 5 warm-ups each, in turns B1, B2, B2, B1
+    b1_fn = lambda: ps.windowed_averager(x, MAIN_WINDOW, 2)  # noqa: E731
+    b2_fn = lambda: ps.windowed_averager_packed(x32, MAIN_WINDOW, 2)  # noqa: E731
+    d1 = device_ms(b1_fn, 5, 20)
+    d2 = device_ms(b2_fn, 5, 20) + device_ms(b2_fn, 5, 20)
+    d1 += device_ms(b1_fn, 5, 20)
+    m1, m2, bk = statistics.median(d1), statistics.median(d2), bounds["B2"]
+    lo, hi, ratio = B2_PREDICTED
+    met = lo <= m2 <= hi and m2 / m1 <= ratio and m2 < B2_EARLIER_MS
+    print(f"  B2 k={MAIN_WINDOW} C=2 {m2:.4f} ms ({min(d2):.4f}-{max(d2):.4f}) median (min-max) "
+          f"of 40; B1 in the same call {m1:.4f} ({min(d1):.4f}-{max(d1):.4f}); B2/B1 "
+          f"{m2 / m1:.3f}; before its redesign {B2_EARLIER_MS:.4f} ({B2_EARLIER_MS / m2:.2f}x); "
+          f"predicted {lo}-{hi} ms, B2/B1 <= {ratio} and below {B2_EARLIER_MS}: "
+          f"{'met' if met else 'missed'}; bound {bk[0]:.4f} ({bk[1]}), kernel/bound "
+          f"{m2 / bk[0]:.2f}; attrs (registers, local bytes, shared bytes, blocks an SM: B1's "
+          f"kernel) {ps.windowed_kernel_attrs(MAIN_WINDOW, 2)}")
     b4_library = phase_b4_times(x, bounds["B4"])
     phase_halo_bound(x, check)
     fir_times = phase_fir_times(chain_main)
@@ -3713,9 +3830,13 @@ def main() -> int:
     record = {
         "kernels": [
             entry("windowed_averager", "B1", "windowed.cu", REPLACES + "492", b1_ms, b1_plain),
-            entry(
-                "windowed_averager_packed", "B2", "windowed.cu", REPLACES + "530", b2_ms, b2_plain
-            ),
+            {
+                **entry("windowed_averager_packed", "B2", "windowed.cu", REPLACES + "530", b2_ms,
+                        b2_plain),
+                # B1's launch (dsp_windowed_i16_range) on the pair words' int16 view
+                "kernel": "scan_kernel<1, 2, true> (run_tile.cuh), B1's span kernel",
+                "registers": ps.windowed_kernel_attrs(MAIN_WINDOW, 2)[0],
+            },
             *(
                 entry(f"scan_averager[{v}]", f"B3/{v}", "scan.cu", REPLACES + "847", *b3[v])
                 for v in VARIANTS

@@ -40,9 +40,6 @@ _SIGNATURES = {
     # kernel_c, smem_bytes, out: registers, local bytes, shared bytes, blocks
     # an SM (4 int64)
     "dsp_windowed_attrs": (_I, _I, _P),
-    # x32, y32, seed32, n32, window, channels, lead, tile_frames, seg_frames,
-    # segs, smem_bytes, stream
-    "dsp_windowed_packed": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, y, rec (ticket and status words), n, channels, kernel_c, tile_frames,
     # seg_frames, segs, smem_bytes, stream
     "dsp_cumsum_i16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

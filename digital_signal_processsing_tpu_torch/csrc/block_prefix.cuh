@@ -1,7 +1,7 @@
 // Per-channel prefix sums of an interleaved tile held in shared memory.
 //
-// Shared by the windowed averager (windowed.cu) and the cumsum (cumsum.cu);
-// scan.cu and direct.cu take its helpers (widen, window_mean, allow_smem).
+// Used by the cumsum's generic kernel (cumsum.cu); the other kernels take its
+// helpers (kThreads, widen, allow_smem).
 // A tile of `nf` frames by `C` channels sits in shared memory as uint32,
 // frame-major: buf[f * C + c]. The frames are cut into S segments of R
 // frames (the last may be shorter). Work item w = s * C + c walks one
@@ -45,13 +45,6 @@ static cudaError_t allow_smem(Kernel kernel, int* allowed, int bytes) {
 
 static __device__ __forceinline__ uint32_t widen(int16_t v) {
   return static_cast<uint32_t>(static_cast<int32_t>(v));
-}
-
-// trunc(window sum / window) as int16, from the sum mod 2^32.
-static __device__ __forceinline__ int16_t window_mean(uint32_t wsum, int window) {
-  // |true window sum| <= 65535 * 32768 < 2^31, so the int32 reading is the
-  // true sum; C++ signed division truncates toward zero.
-  return static_cast<int16_t>(static_cast<int32_t>(wsum) / window);
 }
 
 static __device__ __forceinline__ uint32_t warp_inclusive_scan(uint32_t v) {

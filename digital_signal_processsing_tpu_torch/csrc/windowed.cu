@@ -1,5 +1,5 @@
-// Windowed moving averager over an interleaved int16 stream (B1), and the
-// same function over the stream's int32 pair view (B2).
+// Windowed moving averager over an interleaved int16 stream (B1), and over
+// the stream's int32 pair view (B2, the same launch on the same bytes).
 //
 // Replaces digital_signal_processsing_tpu/ops/pallas_scan.py
 //   _windowed_averager_kernel (B1) and _windowed_packed_kernel (B2).
@@ -32,70 +32,19 @@
 // (0.08 ms at 64M samples). The ring is 4 bytes a sample of H plus a tile,
 // so a large halo leaves one block an SM (windowed_supported).
 //
-// B2 loads and stores 32-bit words, each holding two adjacent samples (the
-// reference's int2 rung): each block loads its tile and a lead of halo into
-// shared memory and forms the block-local per-channel prefix there
-// (block_prefix.cuh); the buffer and tile are kept even in length. Its seed
-// is the lead*C samples before the stream, as lead*C/2 words. It is simple,
-// not yet fast: its loads are 4 bytes a thread, not 16.
+// B2, the same function over the stream's int32 pair view, is this launch:
+// on the card an int32 word is two adjacent int16 samples at the same
+// address, so the wrapper (ops/pallas_scan.py windowed_averager_packed)
+// passes the words' int16 view and its output's to dsp_windowed_i16_range,
+// seeded from the last H samples of the pair-word seed. The reference packs
+// pairs for its TPU's transport (int16 tiles relayout more slowly there);
+// B1's 16-byte runs already move 8 samples a load here.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-#include "block_prefix.cuh"
 #include "run_tile.cuh"
-
-namespace dsp {
-
-// B2. n: samples in the stream (2 * words). lead >= window frames of halo
-// are loaded before the tile; lead*C and tf*C are even.
-__global__ void __launch_bounds__(kThreads)
-packed_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-              const uint32_t* __restrict__ seed32, int64_t n, int window, int C, int lead,
-              int tf, int R, int S) {
-  extern __shared__ uint32_t smem[];
-  const int T = tf * C;
-  const int H = window * C;
-  const int Hl = lead * C;
-  const int L = Hl + T;
-  const int nf = lead + tf;
-  uint32_t* buf = smem;
-  uint32_t* seg = smem + L;
-  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * T;
-  const int64_t start = t0 - Hl;
-  const int64_t n32 = n / 2;
-  const int64_t w0 = start / 2;  // start is even
-  const int64_t hw = Hl / 2;     // seed words
-  for (int j = threadIdx.x; j < L / 2; j += blockDim.x) {
-    const int64_t gw = w0 + j;
-    uint32_t w = 0u;
-    if (gw >= 0) {
-      if (gw < n32) w = x[gw];
-    } else if (seed32 != nullptr && gw >= -hw) {
-      w = seed32[hw + gw];
-    }
-    buf[2 * j] = widen(static_cast<int16_t>(w & 0xffffu));
-    buf[2 * j + 1] = widen(static_cast<int16_t>(w >> 16));
-  }
-  __syncthreads();
-  segment_sums(buf, seg, nf, C, R, S);
-  __syncthreads();
-  segment_offsets(seg, C, S, [](int, uint32_t) {});
-  __syncthreads();
-  segment_apply(buf, seg, nf, C, R, S);
-  __syncthreads();
-  for (int p = threadIdx.x; p < T / 2; p += blockDim.x) {
-    const int64_t gw = t0 / 2 + p;
-    if (gw >= n32) break;
-    const int i = Hl + 2 * p;
-    const uint32_t lo = static_cast<uint16_t>(window_mean(buf[i] - buf[i - H], window));
-    const uint32_t hi = static_cast<uint16_t>(window_mean(buf[i + 1] - buf[i + 1 - H], window));
-    y[gw] = lo | (hi << 16);
-  }
-}
-
-}  // namespace dsp
 
 // B1 over tiles [tile_begin, tile_end) (tile_end < 0: to the stream's end)
 // of the n-sample stream x into y, in spans of span_tiles. seed: the
@@ -124,27 +73,6 @@ extern "C" int dsp_windowed_attrs(int64_t kernel_c, int64_t smem_bytes, int64_t*
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return runs_attrs(l, smem_bytes, out);
-}
-
-// B2. n32: int32 words; the stream holds 2 * n32 samples. seed32: the lead *
-// channels / 2 words before the stream, or null for zeros.
-extern "C" int dsp_windowed_packed(const int32_t* x, int32_t* y, const int32_t* seed32,
-                                   int64_t n32, int64_t window, int64_t channels, int64_t lead,
-                                   int64_t tile_frames, int64_t seg_frames, int64_t segs,
-                                   int64_t smem_bytes, void* stream) {
-  const int64_t tile = tile_frames * channels;
-  const int64_t blocks = (2 * n32 + tile - 1) / tile;
-  if (n32 < 1 || blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  static int allowed[dsp::kMaxDevices] = {};
-  cudaError_t err = dsp::allow_smem(dsp::packed_kernel, allowed, static_cast<int>(smem_bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dsp::packed_kernel<<<static_cast<unsigned>(blocks), dsp::kThreads,
-                       static_cast<size_t>(smem_bytes), static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const uint32_t*>(x), reinterpret_cast<uint32_t*>(y),
-      reinterpret_cast<const uint32_t*>(seed32), 2 * n32, static_cast<int>(window),
-      static_cast<int>(channels), static_cast<int>(lead), static_cast<int>(tile_frames),
-      static_cast<int>(seg_frames), static_cast<int>(segs));
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* dsp_error_string(int err) {

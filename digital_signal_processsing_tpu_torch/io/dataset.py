@@ -30,7 +30,8 @@ class WavChunkLoader:
 
     ``packed=True`` yields the int32 little-endian pair view of each chunk
     instead (``chunk.view(np.int32)``, free on the host), which
-    ``moving_average`` sends to the packed windowed kernel (B2). Requires
+    ``moving_average`` sends to B2 (B1's launch over the words' int16
+    view on the card; the reference packs pairs for its TPU). Requires
     ``chunk_samples % 256 == 0``, as the reference package does.
     """
 

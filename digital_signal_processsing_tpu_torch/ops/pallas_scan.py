@@ -5,7 +5,8 @@ Counterpart of ``digital_signal_processsing_tpu/ops/pallas_scan.py``:
 - :func:`windowed_averager`        B1, ``csrc/windowed.cu`` (B3's span kernel of
   ``csrc/run_tile.cuh`` with the Hillis-Steele scan, seeded, over any range
   of tiles)
-- :func:`windowed_averager_packed` B2, ``csrc/windowed.cu`` on int32 pair words
+- :func:`windowed_averager_packed` B2, ``csrc/windowed.cu``: B1's launch over the
+  int16 view of the int32 pair words (the same bytes), counted as B2
 - :func:`scan_averager`            B3, ``csrc/scan.cu`` (three in-tile scans, each thread's
   samples in registers, two block barriers a tile; three in the generic
   kernel for C outside 1, 2, 4, 8, 16)
@@ -20,11 +21,9 @@ launches, and adds one to its ``launches`` count (B3 keeps one count per
 variant); it raises if the build or the launch fails, and never falls back
 to the plain version.
 
-The tile geometry (frames per block, segments of the in-block scan, spans,
-shared memory) is computed here, in Python, so the CPU tests reach it.
-``tile_samples`` on B2 is the counterpart of the reference's ``tile_rows``
-(``tile_rows * 128`` samples); by default a tile is about TILE_SAMPLES. B1's
-and B3's tile is always 8192 samples; B3's ``tile_samples`` only bounds the
+The tile geometry (rings, spans, shared memory; B4's generic tiles and
+segments) is computed here, in Python, so the CPU tests reach it. B1's and
+B3's tile is always 8192 samples; B3's ``tile_samples`` only bounds the
 window, as the reference's ``tile_rows`` does, and B1's selects nothing (the
 reference's windowed kernel grows its tile to hold the halo).
 """
@@ -50,30 +49,26 @@ SEG_ITEMS = 4096
 SMEM_MAX = 232448
 # Shared memory of one H100 SM (228 KB); each resident block also holds 1 KB.
 SMEM_PER_SM = 233472
-# The buffers of the windowed kernels (B1, B2) and of the scan kernel (B3)
-# grow with the halo k*C. B2's block-local buffer (the design B1 had
-# before its ring) beat the two-pass route at 64M samples, C=2 and C=16, while two
-# blocks fit on an SM and lost from the first window at which only one does
-# (PERF.md), so that is where `packed` and `scan*` switch route. B1's ring
-# of prefixes beats it wherever the ring fits shared memory, one block an SM
-# included (chip_smoke.py phase 5 times both sides): `windowed` takes B1 up
-# to WINDOWED_SMEM_MAX.
+# The rings of the span kernels (B1, B2, B3) grow with the halo k*C. Each
+# beats the two-pass route wherever its ring fits shared memory, one block an
+# SM included (chip_smoke.py phase 5 times both sides of TWO_BLOCKS_SMEM_MAX,
+# which leaves two blocks an SM): `windowed`, the int32 pair view (B2, B1's
+# launch) and `scan*` take their kernel up to WINDOWED_SMEM_MAX.
 TWO_BLOCKS_SMEM_MAX = SMEM_PER_SM // 2 - 1024
 WINDOWED_SMEM_MAX = SMEM_MAX
 
 
 @dataclasses.dataclass(frozen=True)
 class TileGeometry:
-    """Launch geometry shared by the kernels of ``csrc/``.
+    """Launch geometry of B4's generic kernel (``csrc/cumsum.cu``).
 
-    A block loads ``lead_frames`` of halo and ``tile_frames`` of tile into
-    shared memory as uint32, and scans it per channel in ``segs`` segments
-    of ``seg_frames`` frames; a scratch of ``segs * channels`` words holds
+    A block loads ``tile_frames`` frames into shared memory as uint32 and
+    scans them per channel in ``segs`` segments of ``seg_frames`` frames
+    (``csrc/block_prefix.cuh``); a scratch of ``segs * channels`` words holds
     the segment sums.
     """
 
     channels: int
-    lead_frames: int
     tile_frames: int
     seg_frames: int
     segs: int
@@ -84,43 +79,21 @@ class TileGeometry:
 
     @property
     def smem_bytes(self) -> int:
-        frames = self.lead_frames + self.tile_frames
-        return 4 * (frames + self.segs) * self.channels
+        return 4 * (self.tile_frames + self.segs) * self.channels
 
     def blocks(self, n: int) -> int:
         return cdiv(n, self.tile_samples)
 
 
-def tile_geometry(
-    lead_frames: int, channels: int, *, even: bool = False, tile_samples: int | None = None
-) -> TileGeometry:
-    """Geometry for a tile of about ``tile_samples`` with ``lead_frames`` of halo.
-
-    ``even`` keeps the tile an even number of samples (B2 moves pairs).
-    The segment length is odd so that one warp's segment starts fall on
-    distinct shared-memory banks.
-    """
-    tf = cdiv(TILE_SAMPLES if tile_samples is None else tile_samples, channels)
-    if even and (tf * channels) % 2:
-        tf += 1
-    nf = lead_frames + tf
-    target = max(1, min(THREADS, SEG_ITEMS // channels))
-    r = cdiv(nf, target) | 1
-    return TileGeometry(channels, lead_frames, tf, r, cdiv(nf, r))
-
-
-def packed_geometry(window: int, channels: int) -> TileGeometry:
-    # B2 reads whole words, so the halo is rounded up to an even sample count
-    # by loading one frame more when k*C is odd; that frame is outside every
-    # window and only pads the buffer.
-    lead = window if (window * channels) % 2 == 0 else window + 1
-    return tile_geometry(lead, channels, even=True)
-
-
 def cumsum_geometry(channels: int) -> TileGeometry:
-    """B4's generic kernel's tile (C outside SCAN_NATIVE_C): whole frames in
-    shared memory, scanned in segments."""
-    return tile_geometry(0, channels)
+    """B4's generic kernel's tile (C outside SCAN_NATIVE_C): about TILE_SAMPLES
+    of whole frames in shared memory, scanned in segments. The segment length
+    is odd so that one warp's segment starts fall on distinct shared-memory
+    banks."""
+    tf = cdiv(TILE_SAMPLES, channels)
+    target = max(1, min(THREADS, SEG_ITEMS // channels))
+    r = cdiv(tf, target) | 1
+    return TileGeometry(channels, tf, r, cdiv(tf, r))
 
 
 def cumsum_kernel_c(channels: int) -> int:
@@ -143,12 +116,8 @@ def cumsum_status_words(n: int, channels: int) -> int:
 
 
 def packed_supported(window: int, channels: int) -> bool:
-    """True iff B2 takes this configuration (as B1, with its even buffer)."""
-    return (
-        channels >= 1
-        and 1 <= window
-        and packed_geometry(window, channels).smem_bytes <= TWO_BLOCKS_SMEM_MAX
-    )
+    """True iff B2 takes this configuration: B2 is B1's launch, so B1's bound."""
+    return windowed_supported(window, channels)
 
 
 def cumsum_supported(channels: int) -> bool:
@@ -173,8 +142,10 @@ def _check_stream(x, dtype: torch.dtype, channels: int, name: str, samples: int)
     included. B1 and B3 load and store 16 bytes a run only where x and y are
     both 16-byte aligned, and otherwise a sample at a time; B4's instances
     load 16 bytes a run where x is aligned and store two 16-byte words a run
-    where y is, each independently, and otherwise go a sample at a time; B2,
-    B4's generic kernel and B5 load single elements. The samples read and
+    where y is, each independently, and otherwise go a sample at a time; B2
+    is B1's launch on the int16 view, so a pair view whose word offset is not
+    a multiple of 4 goes a sample at a time; B4's generic kernel and B5 load
+    single elements. The samples read and
     the sums taken are the same either way, so an aligned and a misaligned
     view give the same result.
     """
@@ -295,8 +266,11 @@ windowed_averager.launches = 0
 
 
 def packed_seed_words(window: int, channels: int) -> int:
-    """Words of B2's seed: the ``lead_frames * channels`` samples before the stream."""
-    return packed_geometry(window, channels).lead_frames * channels // 2
+    """Words of B2's seed: the ``lead * channels`` samples before the stream as
+    int32 pair words, ``lead`` = ``window``, or ``window + 1`` where k*C is odd
+    (a whole word more; its first C samples lie outside every window)."""
+    lead = window + (window * channels) % 2
+    return lead * channels // 2
 
 
 def windowed_averager_packed(
@@ -309,12 +283,18 @@ def windowed_averager_packed(
     on ``x32.view(torch.int16)``. Any channel count, odd included. ``seed``:
     the ``packed_seed_words(window, channels)`` int32 words before ``x32`` in
     the stream (a shard's halo), or None for zeros.
+
+    On the card a pair word is two adjacent samples at the same address, so
+    B2 is one launch of B1's span kernel over ``x32.view(torch.int16)`` into
+    the int16 view of its output, seeded from the last ``window * channels``
+    samples of the seed's int16 view: no copy, no unpack pass, no allocation
+    but the output. It counts as B2, not B1.
     """
     validate_window(window)
     _check_stream(x32, torch.int32, channels, "x32", 2 * x32.numel())
     if not packed_supported(window, channels):
         raise ValueError(
-            f"packed kernel takes halos whose buffer leaves two blocks an SM, got "
+            f"packed kernel takes halos whose ring fits shared memory, got "
             f"window*channels = {window * channels}; use moving_average_two_pass "
             "on the int16 view"
         )
@@ -326,23 +306,23 @@ def windowed_averager_packed(
                 f"seed must be the {words} contiguous int32 words before x32, on "
                 f"{x32.device}; got {seed.dtype}{tuple(seed.shape)} on {seed.device}"
             )
+    x16 = x32.view(torch.int16)
     if not _on_cuda(x32):
-        x16 = x32.view(torch.int16)
         if seed is None:
             return moving_average_xla(x16, window, channels).view(torch.int32)
         ext = torch.cat([seed.view(torch.int16), x16])
         return moving_average_xla(ext, window, channels)[2 * words :].view(torch.int32)
-    n32 = x32.numel()
     y = torch.empty_like(x32)
-    if n32 == 0:
+    if x32.numel() == 0:
         return y
-    g = packed_geometry(window, channels)
-    lib = _build.library()
+    # B1 reads the window * channels samples before the stream: skip the seed's
+    # first C samples where it holds a whole word more
+    skip = 2 * words - window * channels
+    seed_ptr = None if seed is None else seed.data_ptr() + 2 * skip
     with torch.cuda.device(x32.device):
-        err = lib.dsp_windowed_packed(
-            x32.data_ptr(), y.data_ptr(), None if seed is None else seed.data_ptr(), n32,
-            window, channels, g.lead_frames, g.tile_frames, g.seg_frames, g.segs,
-            g.smem_bytes, _stream(x32),
+        err = launch_windowed_range(
+            x16, y.view(torch.int16), window, channels, seed_ptr, 0,
+            windowed_geometry(window, channels).tiles(x16.numel()), _stream(x32),
         )
     _build.check(err, "windowed_averager_packed")
     windowed_averager_packed.launches += 1
@@ -482,14 +462,14 @@ def scan_geometry(
 def scan_supported(
     window: int, channels: int, variant: str = "blelloch", tile_samples: int | None = None
 ) -> bool:
-    """True iff B3 takes this configuration: its ring leaves two blocks an SM.
+    """True iff B3 takes this configuration: its ring fits WINDOWED_SMEM_MAX.
 
     ``variant`` must be known and, for ``mxu``, take the channel count.
     """
     _check_scan_variant(variant, channels)
     if window < 1 or (tile_samples is not None and window > cdiv(tile_samples, channels)):
         return False
-    return scan_geometry(window, channels, variant, tile_samples).smem_bytes <= TWO_BLOCKS_SMEM_MAX
+    return scan_geometry(window, channels, variant, tile_samples).smem_bytes <= WINDOWED_SMEM_MAX
 
 
 def scan_averager(
@@ -509,9 +489,9 @@ def scan_averager(
     """
     validate_window(window)
     _check_stream(x, torch.int16, channels, "x", x.numel())
-    if scan_geometry(window, channels, variant, tile_samples).smem_bytes > TWO_BLOCKS_SMEM_MAX:
+    if scan_geometry(window, channels, variant, tile_samples).smem_bytes > WINDOWED_SMEM_MAX:
         raise ValueError(
-            f"scan kernel takes halos whose ring leaves two blocks an SM, got "
+            f"scan kernel takes halos whose ring fits shared memory, got "
             f"window*channels = {window * channels}; use moving_average_two_pass"
         )
     if not _on_cuda(x):
@@ -528,10 +508,8 @@ def launch_scan(
 ) -> torch.Tensor:
     """Launch B3 on a CUDA stream the caller has checked, at any halo that fits.
 
-    :func:`scan_averager` holds the ring to TWO_BLOCKS_SMEM_MAX;
-    ``chip_smoke.py`` also launches beyond it, to time B3 against the
-    two-pass route on both sides of the bound. Raises if the ring exceeds
-    shared memory.
+    ``chip_smoke.py`` times it against the two-pass route on both sides of
+    two blocks an SM. Raises if the ring exceeds shared memory.
     """
     g = scan_geometry(window, channels, variant, tile_samples)
     if g.smem_bytes > SMEM_MAX:
@@ -660,9 +638,7 @@ __all__ = [
     "TileGeometry",
     "ScanGeometry",
     "WindowedGeometry",
-    "tile_geometry",
     "windowed_geometry",
-    "packed_geometry",
     "cumsum_geometry",
     "cumsum_kernel_c",
     "cumsum_tile_samples",

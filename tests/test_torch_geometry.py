@@ -7,11 +7,12 @@ to the launch, and must give the golden result bit for bit. B1 is
 ``csrc/run_tile.cuh``'s span kernel (``tests/test_torch_scan.py``'s
 ``emulate_scan`` with B1's geometry: each span's seed tiles from x or the
 seed, every thread's runs of 8 and their 16-byte or sample-by-sample loads
-and stores, the Hillis-Steele levels, the ring, any range of tiles); B2 loads
-the halo and tile into shared memory and forms a per-channel prefix by
-segments in uint32. B4 (``emulate_cumsum``) is B3's tile from carry 0 for C
-in 1, 2, 4, 8, 16 (B2's segments over a tile of whole frames for any other
-C), and the carry between tiles by its decoupled look-back: persistent
+and stores, the Hillis-Steele levels, the ring, any range of tiles); B2 is
+B1's launch over the int16 view of the int32 pair words, seeded from the last
+H samples of the pair-word seed. B4 (``emulate_cumsum``) is B3's tile from
+carry 0 for C in 1, 2, 4, 8, 16 (``block_prefix.cuh``'s segments over a tile
+of whole frames for any other C), and the carry between tiles by its
+decoupled look-back: persistent
 blocks taking tickets when ready, status words published and read back in
 batches, tiles advancing in a shuffled order.
 """
@@ -52,30 +53,19 @@ def widen(v: np.ndarray) -> np.ndarray:
 def emulate_windowed(x, window, channels, *, seed=None, packed=False, resident=4 * H100_SMS,
                      **launch):
     """B1's launch (``launch``: emulate_scan's range, span, alignment and
-    counts), or B2's blocks with ``packed``."""
-    if not packed:
-        g = ps.windowed_geometry(window, channels)
-        return emulate_scan(x, window, channels, None, g=g, seed=seed, resident=resident, **launch)
-    g = ps.packed_geometry(window, channels)
-    n, tile = x.size, g.tile_samples
-    halo, lead = window * channels, g.lead_frames * channels
-    out = np.empty(n, np.int16)
-    for b in range(g.blocks(n)):
-        t0 = b * tile
-        idx = np.arange(t0 - lead, t0 + tile)
-        assert (t0 - lead) % 2 == 0 and idx.size % 2 == 0  # word loads: the buffer starts on a word
-        buf = np.zeros(idx.size, np.uint32)
-        inside = (idx >= 0) & (idx < n)
-        buf[inside] = widen(x[idx[inside]])
+    counts), or B2's with ``packed``: the same launch over the int16 view of
+    the pair words ``x.view(np.int32)``, its ``seed`` the int16 view of the
+    ``packed_seed_words`` words before them, of which the launch reads the
+    last H samples (skipping the first C where k*C is odd)."""
+    g = ps.windowed_geometry(window, channels)
+    if packed:
+        assert ps.packed_supported(window, channels) == ps.windowed_supported(window, channels)
+        x = x.view(np.int32).view(np.int16)  # the words' int16 view: the same samples
         if seed is not None:
-            before = (idx < 0) & (idx >= -halo)
-            buf[before] = widen(seed[halo + idx[before]])
-        p, _ = block_prefix(buf, g, g.lead_frames + g.tile_frames)
-        t = np.arange(min(tile, n - t0))
-        wsum = (p[lead + t] - p[lead + t - halo]).view(np.int32).astype(np.int64)
-        q = np.where(wsum >= 0, wsum // window, -((-wsum) // window))
-        out[t0 + t] = q.astype(np.int16)
-    return out
+            words = ps.packed_seed_words(window, channels)
+            assert seed.size == 2 * words and 0 <= 2 * words - g.halo < 2 * channels
+            seed = seed.view(np.int32).view(np.int16)[2 * words - g.halo :]
+    return emulate_scan(x, window, channels, None, g=g, seed=seed, resident=resident, **launch)
 
 
 B4_BATCH = 8  # kBatch of csrc/cumsum.cu: status words a generic look-back loads at once
@@ -235,7 +225,7 @@ def emulate_cumsum(x, channels, *, resident=4 * H100_SMS, order=0, aligned=True,
     "window,channels,frames",
     [(1, 1, 20000), (16, 2, 9000), (1024, 2, 12289), (1024, 16, 1500), (16384, 1, 30001),
      (7, 3, 5000), (100, 5, 4000), (3, 128, 200), (1, 4096, 3),
-     (10118, 2, 9000), (1070, 16, 1500)],  # the largest buffers B2 takes at C=2 and 16
+     (10118, 2, 9000), (1070, 16, 1500)],  # the largest windows of B2's former two-block bound
 )
 def test_windowed_block_algorithm(rng, window, channels, frames):
     x = make_interleaved(rng, frames, channels)
@@ -244,6 +234,43 @@ def test_windowed_block_algorithm(rng, window, channels, frames):
     np.testing.assert_array_equal(emulate_windowed(x, window, channels, resident=2), want)  # spans
     if x.size % 2 == 0:
         np.testing.assert_array_equal(emulate_windowed(x, window, channels, packed=True), want)
+
+
+@pytest.mark.parametrize(
+    "window,channels,word_offset",
+    [(5, 3, 0), (7, 3, 1), (1023, 5, 2), (15, 1, 1), (1024, 2, 1), (1024, 2, 2), (16, 16, 2),
+     (3, 3, 3), (24828, 2, 1), (3103, 16, 2)],  # odd k*C (lead = k + 1), views off the grid
+)
+def test_packed_block_algorithm_seeded(rng, window, channels, word_offset):
+    """B2 seeded: B1's launch over the words' int16 view from the seed's last H
+    samples, at odd k*C (a seed of k + 1 frames) and on views whose word offset
+    leaves them off the 16-byte grid (every access sample by sample); the plain
+    wrapper on the same views."""
+    words = ps.packed_seed_words(window, channels)
+    frames = 2 * (window // 2 + 4100 // channels)  # an even sample count for every C
+    x = make_interleaved(rng, 2 * words // channels + frames, channels)
+    seed, body = x[: 2 * words], x[2 * words :]
+    want = moving_average_golden(x, window, channels)[2 * words :]
+    stats = {}
+    aligned = word_offset % 4 == 0
+    got = emulate_windowed(body, window, channels, seed=seed, packed=True, resident=3,
+                           aligned=aligned, stats=stats)
+    np.testing.assert_array_equal(got, want)
+    assert bool(stats["vector loads"]) == aligned
+    buf = torch.zeros(word_offset + body.size // 2, dtype=torch.int32)  # a view off the grid
+    view = buf[word_offset:]
+    view.copy_(torch.from_numpy(body.copy()).view(torch.int32))
+    assert (view.data_ptr() % 16 == 0) == aligned
+    plain = ps.windowed_averager_packed(view, window, channels,
+                                        seed=torch.from_numpy(seed.copy()).view(torch.int32))
+    np.testing.assert_array_equal(plain.view(torch.int16).numpy(), want)
+
+
+@pytest.mark.parametrize("window,channels,words", [(16, 2, 16), (5, 3, 9), (1, 1, 1), (15, 3, 24),
+                                                   (1023, 2, 1023), (700, 2, 700), (7, 16, 56)])
+def test_packed_seed_words(window, channels, words):
+    """The sharded packed route's halo: k*C samples as words, a frame more where k*C is odd."""
+    assert ps.packed_seed_words(window, channels) == words
 
 
 @pytest.mark.parametrize("window,channels", [(1024, 2), (5, 3), (16384, 1)])
@@ -423,18 +450,16 @@ def largest_window(channels: int) -> int:
 def test_geometry_fits_the_card(channels):
     largest = largest_window(channels)
     for window in sorted({1, 2, 7, 64, largest} - {0}):
-        for g, even in [
-            (ps.packed_geometry(window, channels), True),
-            (ps.cumsum_geometry(channels), False),
-        ]:
-            nf = g.lead_frames + g.tile_frames
-            assert g.seg_frames % 2 == 1
-            assert (g.segs - 1) * g.seg_frames < nf <= g.segs * g.seg_frames
-            assert g.segs * channels <= max(ps.SEG_ITEMS, channels)
-            assert g.tile_samples >= ps.TILE_SAMPLES
-            if even:
-                assert g.tile_samples % 2 == 0 and (g.lead_frames * channels) % 2 == 0
-                assert g.lead_frames >= window
+        g = ps.cumsum_geometry(channels)
+        nf = g.tile_frames
+        assert g.seg_frames % 2 == 1
+        assert (g.segs - 1) * g.seg_frames < nf <= g.segs * g.seg_frames
+        assert g.segs * channels <= max(ps.SEG_ITEMS, channels)
+        assert g.tile_samples >= ps.TILE_SAMPLES
+        # B2 is B1's launch: its seed holds the halo in whole words, at most a frame more
+        words = ps.packed_seed_words(window, channels)
+        assert 0 <= 2 * words - window * channels < 2 * channels
+        assert ps.packed_supported(window, channels) == ps.windowed_supported(window, channels)
         g = ps.windowed_geometry(window, channels)
         assert g.tile_samples == 8192 and g.kernel_c == (channels if channels in ps.SCAN_NATIVE_C else 0)
         assert g.nrun % 32 == 0 and g.nrun >= g.tile_samples // 8 + -(-g.halo // 8) + 1
@@ -452,11 +477,11 @@ def test_geometry_fits_the_card(channels):
 def test_halo_bound():
     # B1 takes every halo whose ring fits shared memory (one block an SM
     # included: chip_smoke.py phase 5 times both sides against two-pass);
-    # B2 keeps its two-blocks bound (PERF.md)
+    # B2, B1's launch on the pair words' int16 view, takes the same bound
     for c, k in [(1, 49656), (2, 24828), (3, 16040), (16, 3103)]:
-        assert ps.windowed_supported(k, c)
-        assert not ps.windowed_supported(k + 1, c)
+        assert ps.windowed_supported(k, c) and ps.packed_supported(k, c)
+        assert not ps.windowed_supported(k + 1, c) and not ps.packed_supported(k + 1, c)
     assert ps.windowed_supported(10119, 2) and ps.windowed_supported(1071, 16)
-    assert ps.packed_supported(10118, 2) and not ps.packed_supported(10119, 2)
+    assert ps.packed_supported(10119, 2) and ps.packed_supported(1071, 16)
     assert not ps.windowed_supported(65535, 1)
     assert not ps.windowed_supported(0, 1)

@@ -54,9 +54,32 @@ def test_windowed_matches_plain(dev, window, channels, frames):
 @pytest.mark.parametrize("channels", [1, 2, 3, 16])
 @pytest.mark.parametrize("window", [1, 16, 1023])
 def test_packed_matches_plain(dev, window, channels, frames):
+    # B2 is one launch of B1's kernel on the int16 view, counted as B2 only
     x = stream(dev, frames, channels)
+    b1, b2 = ps.windowed_averager.launches, ps.windowed_averager_packed.launches
     got = ps.windowed_averager_packed(x.view(torch.int32), window, channels)
+    assert ps.windowed_averager_packed.launches == b2 + 1
+    assert ps.windowed_averager.launches == b1
     assert torch.equal(got.view(torch.int16), moving_average_xla(x, window, channels))
+
+
+@pytest.mark.parametrize("window,channels,word_offset", [(5, 3, 0), (1023, 3, 1), (15, 1, 2),
+                                                         (7, 5, 3), (1024, 2, 1)])
+def test_packed_seeded_odd_halo(dev, window, channels, word_offset):
+    # seeded at odd k*C (a seed of k + 1 frames, the first skipped) and on views off
+    # the 16-byte grid: one B2 launch, no B1 launch, bit-exact with plain
+    words = ps.packed_seed_words(window, channels)
+    frames = 2 * 20001
+    x = stream(dev, 2 * words // channels + frames + 8, channels)
+    x32 = x[: 2 * words + frames * channels + 8].view(torch.int32)
+    seed, body = x32[:words], x32[words + word_offset : words + word_offset + frames * channels // 2]
+    b1, b2 = ps.windowed_averager.launches, ps.windowed_averager_packed.launches
+    got = ps.windowed_averager_packed(body, window, channels, seed=seed)
+    assert ps.windowed_averager_packed.launches == b2 + 1
+    assert ps.windowed_averager.launches == b1
+    ext = torch.cat([seed.view(torch.int16), body.view(torch.int16)])
+    want = moving_average_xla(ext, window, channels)[2 * words :]
+    assert torch.equal(got.view(torch.int16), want)
 
 
 @pytest.mark.parametrize("frames", [1, 127, 8193, 300001])
@@ -231,8 +254,9 @@ def test_scan_methods_route(dev, method):
 
 def test_scan_kernel_attrs(dev):
     """Every B3 instance the wrapper picks holds the geometry's shared bytes and
-    fits the two blocks an SM that ``scan_supported`` keeps (its spans are sized
-    by the blocks this reports); at the main path's k=1024, C=2, four."""
+    fits at least one block an SM at the largest ring ``scan_supported`` takes
+    (its spans are sized by the blocks this reports); at the main path's
+    k=1024, C=2, four."""
     for variant in ps.SCAN_VARIANTS:
         for channels in (1, 2, 3, 4, 8, 16):
             if variant == "mxu" and 16 % channels:
@@ -240,7 +264,7 @@ def test_scan_kernel_attrs(dev):
             for window in (1, 1024 // channels, largest_scan_window(channels, variant)):
                 g = ps.scan_geometry(window, channels, variant)
                 regs, local, smem, blocks = ps.scan_kernel_attrs(window, channels, variant)
-                assert smem >= g.smem_bytes and blocks >= 2, (variant, channels, window)
+                assert smem >= g.smem_bytes and blocks >= 1, (variant, channels, window)
                 assert regs <= 80, (variant, channels, regs)
         assert ps.scan_kernel_attrs(1024, 2, variant)[3] == 4, variant
 

@@ -105,6 +105,26 @@ def test_packed_two_pass_route(rng):
 
 
 @pytest.mark.parametrize(
+    "window,channels,frames,route",
+    [
+        (10119, 2, 12000, "windowed_packed"),  # past B2's former two-block bound
+        (24828, 2, 26000, "windowed_packed"),  # the last window whose B1 ring fits
+        (3103, 16, 3500, "windowed_packed"),
+        (24829, 2, 26000, "windowed:two_pass_fallback"),
+    ],
+)
+def test_packed_route_takes_b1_bound(rng, window, channels, frames, route):
+    """int32 input takes B2 wherever the int16 stream takes B1, bit-exact with the
+    JAX package on the same view (its unpack fallback there) and golden."""
+    x = make_interleaved(rng, frames, channels)
+    got = port_packed(x, window, channels)
+    assert last_choice("moving_average") == route
+    want = np.asarray(jax_moving_average(x.view(np.int32), window, channels)).view(np.int16)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, moving_average_golden(x, window, channels))
+
+
+@pytest.mark.parametrize(
     "window,channels,route",
     [
         (16, 2, "windowed"),

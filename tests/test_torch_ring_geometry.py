@@ -14,7 +14,8 @@ before it); every output must be written exactly once, the head tiles must
 be exactly those whose window reaches before the shard, no span of the
 interior may read before the shard, and the shards together must give the
 golden result bit for bit. The same for B2 seeded with the pair words
-before its stream, the sharded packed route.
+before its stream, the sharded packed route (B1's launch on their int16
+view).
 """
 
 import numpy as np
@@ -29,7 +30,7 @@ from digital_signal_processsing_tpu_torch.parallel.ring_pallas import (
     ring_roles,
 )
 from tests.conftest import make_interleaved
-from tests.test_torch_geometry import block_prefix, widen
+from tests.test_torch_geometry import emulate_windowed
 from tests.test_torch_scan import emulate_scan
 
 
@@ -106,25 +107,11 @@ def test_fused_ring_split_counts():
 
 
 def emulate_packed_seeded(x, window, channels, seed):
-    """B2's blocks: word loads, the seed's words before the stream (its lead)."""
-    g = ps.packed_geometry(window, channels)
-    n, tile = x.size, g.tile_samples
-    halo, lead = window * channels, g.lead_frames * channels
-    assert seed.size == lead and lead % 2 == 0 and tile % 2 == 0
-    out = np.empty(n, np.int16)
-    for b in range(g.blocks(n)):
-        t0 = b * tile
-        idx = np.arange(t0 - lead, t0 + tile)
-        buf = np.zeros(idx.size, np.uint32)
-        inside = (idx >= 0) & (idx < n)
-        buf[inside] = widen(x[idx[inside]])
-        before = idx < 0  # start >= -lead: every position before the stream is seeded
-        buf[before] = widen(seed[lead + idx[before]])
-        p, _ = block_prefix(buf, g, g.lead_frames + g.tile_frames)
-        t = np.arange(min(tile, n - t0))
-        wsum = (p[lead + t] - p[lead + t - halo]).view(np.int32).astype(np.int64)
-        out[t0 + t] = np.where(wsum >= 0, wsum // window, -((-wsum) // window))
-    return out
+    """B2 seeded: B1's launch over the int16 view of the words, from the last H
+    samples of the seed's (``packed_seed_words`` words, a frame more where k*C
+    is odd)."""
+    assert seed.size == 2 * ps.packed_seed_words(window, channels) and x.size % 2 == 0
+    return emulate_windowed(x, window, channels, seed=seed, packed=True, resident=3)
 
 
 @pytest.mark.parametrize("window,channels", [(700, 2), (16, 3), (1, 1), (15, 3), (1023, 2)])

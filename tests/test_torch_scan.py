@@ -111,8 +111,10 @@ def test_scan_int16_min(method):
         ("scan_mxu", 1024, 16, "scan_mxu"),  # a halo of 16384 samples: the ring takes it
         ("scan", 65535, 1, "scan:two_pass_fallback"),
         ("scan_hillis", 5000, 16, "scan_hillis:two_pass_fallback"),
-        ("scan_mxu", 1280, 16, "scan_mxu:two_pass_fallback"),
-        ("scan_hillis", 10237, 2, "scan_hillis:two_pass_fallback"),
+        ("scan_mxu", 1280, 16, "scan_mxu"),  # past two blocks an SM: the ring still fits
+        ("scan_hillis", 10237, 2, "scan_hillis"),
+        ("scan_mxu", 3104, 16, "scan_mxu:two_pass_fallback"),  # past the largest ring
+        ("scan", 24829, 2, "scan:two_pass_fallback"),
         ("scan", 5000, 3, "scan"),  # the generic kernel: a halo of 15000
         ("scan", 100, 3, "scan"),  # any channel count takes the kernel
     ],
@@ -628,8 +630,8 @@ def test_scan_geometry_fits_the_card(variant, channels):
         assert g.kernel_c == (channels if channels in ps.SCAN_NATIVE_C else 0)
         assert g.nrun % 32 == 0 and g.nrun >= g.tile_samples // 8 + cdiv(g.halo, 8) + 1
         assert g.seed_tiles * g.tile_samples >= g.halo
-        assert g.smem_bytes <= ps.TWO_BLOCKS_SMEM_MAX
-        assert ps.SMEM_PER_SM // (g.smem_bytes + 1024) >= 2  # two blocks an SM by shared memory
+        assert g.smem_bytes <= ps.WINDOWED_SMEM_MAX <= ps.SMEM_MAX
+        assert ps.SMEM_PER_SM // (g.smem_bytes + 1024) >= 1  # at least one block an SM
         for resident in (2 * H100_SMS, 4 * H100_SMS):  # the launch bounds allow 3 or 4
             for n in (channels, 10**6 // channels * channels, 64 * 2**20):
                 span = g.span_tiles(n, resident)
@@ -640,13 +642,15 @@ def test_scan_geometry_fits_the_card(variant, channels):
 
 
 def test_scan_halo_bound():
-    # two blocks an SM, as B1 (chip_smoke.py phase 5 times both sides): the ring
+    # while the ring fits shared memory, one block an SM included, as B1
+    # (chip_smoke.py phase 5 times both sides of two blocks an SM): the ring
     # of 8192 + H samples and the warp totals
     for variant in ps.SCAN_VARIANTS:
-        for c, k in [(1, 20472), (2, 10236), (4, 5118), (16, 1279)]:
+        for c, k in [(1, 49656), (2, 24828), (4, 12414), (16, 3103)]:
             assert ps.scan_supported(k, c, variant)
             assert not ps.scan_supported(k + 1, c, variant)
+            assert ps.scan_supported(k, c, variant) == ps.windowed_supported(k, c)
     for variant in ("blelloch", "hillis_steele"):  # the generic kernel: its skewed ring and C carries
-        for c, k in [(3, 6568), (5, 3940), (17, 1159)]:
+        for c, k in [(3, 16040), (5, 9624), (17, 2830)]:
             assert ps.scan_supported(k, c, variant) and not ps.scan_supported(k + 1, c, variant)
-    assert ps.scan_supported(2559, 8, "mxu") and not ps.scan_supported(2560, 8, "blelloch")
+    assert ps.scan_supported(6207, 8, "mxu") and not ps.scan_supported(6208, 8, "blelloch")
