@@ -239,6 +239,23 @@ failure exits non-zero:
    the one-card entry points (B6 puts nothing in a world of one, asserted);
    B6, B7 (beside B1 and its time before), the put alone into a local
    buffer (beside ``copy_``) and B7's kernel attributes on the ring's shard.
+9. the spectral and correlation slice, through its entry points at full size,
+   counts reset around: ``stft``/``istft`` (nfft 1024, hop 512, sqrt-hann) on
+   8 x 2^21 float32, ``welch``, ``csd`` and ``coherence`` on it, ``mfcc`` (nfft
+   512, hop 256, 40 mels, 13 coefficients), ``czt`` by its chirp-matrix product
+   (16 x 4096, m = 2048) and ``tone_power`` with TF32 turned on by the caller
+   (their IEEE float32 pin), ``czt`` by Bluestein (16 x 2^20, m = 4096),
+   ``hilbert`` by FFT and by FIR (B8) on 16 x 2^22 and by FFT on one 2^26
+   stream, ``oaconvolve`` at 257 (B8) and 8194 taps (B9) on 16 x 2^22, the
+   radar matched filter (``correlate_complex`` valid, 64 x 2^20 against a
+   128-sample chirp) by ``auto`` (``direct``), ``direct_gauss`` and the FFT,
+   and ``pitch_shift`` by 2^(3/12) on 2 x 2^22 tones (B21); every route
+   asserted, B8, B9 and B21 launched, each output against float64 on a slice
+   (1e-5 of max|want|, 1e-4 for the FIRs and the phase vocoder); then
+   ``stream_mfcc`` and ``stream_time_stretch`` (rate 1.25, nfft 2048) over
+   phase 4's two WAVs against one shot (the vocoder by its magnitude
+   spectrogram against float64, within twice the one shot's), their wall ms
+   and device ms and idle share; and each call's wall ms and device ms.
 
 Each phase prints its seconds. The last two lines are the kernels' JSON
 record (B1-B22, each with
@@ -290,6 +307,10 @@ from digital_signal_processsing_tpu_torch.ops import channelizer as chz
 from digital_signal_processsing_tpu_torch.ops import farrow as fw
 from digital_signal_processsing_tpu_torch.ops import fft_mxu as fm
 from digital_signal_processsing_tpu_torch.ops import cic, fir, gain, iir, iir_design, lpc
+from digital_signal_processsing_tpu_torch.ops import correlate as cor
+from digital_signal_processsing_tpu_torch.ops import fft as spec
+from digital_signal_processsing_tpu_torch.ops import mel
+from digital_signal_processsing_tpu_torch.ops import phase_vocoder as pv
 from digital_signal_processsing_tpu_torch.ops import resample, splines, streaming
 from digital_signal_processsing_tpu_torch.ops import pallas_direct as pd
 from digital_signal_processsing_tpu_torch.ops import pallas_scan as ps
@@ -297,7 +318,12 @@ from digital_signal_processsing_tpu_torch.ops.demod import fm_demodulate, oscill
 from digital_signal_processsing_tpu_torch.ops.direct_xla import moving_average_reduce_window
 from digital_signal_processsing_tpu_torch.ops.resample import decimate
 from digital_signal_processsing_tpu_torch.ops.scan_xla import cumsum_ref, moving_average_xla
-from digital_signal_processsing_tpu_torch.serve import stream_moving_average, stream_sosfilt
+from digital_signal_processsing_tpu_torch.serve import (
+    stream_mfcc,
+    stream_moving_average,
+    stream_sosfilt,
+    stream_time_stretch,
+)
 from digital_signal_processsing_tpu_torch.utils import last_choice
 
 MAIN_SAMPLES = 64 * 2**20  # bench.py's headline stream: 64M stereo int16 samples
@@ -3518,6 +3544,412 @@ def phase_sharded_world1(x, y_main, chain_main: dict, tv_main: dict, check: Chec
     return {"launches": launches, "alone": stats}
 
 
+SPEC_C, SPEC_T = 8, 1 << 21  # the STFT and MFCC rows' shape (8 x 2^21 float32)
+SPEC_NFFT, SPEC_HOP = 1024, 512
+MFCC_NFFT, MFCC_HOP, MFCC_MELS, MFCC_COEFS, MFCC_RATE = 512, 256, 40, 13, 16000.0
+HILB_C, HILB_T, HILB_LONG = 16, 1 << 22, 1 << 26
+OA_TAPS = (257, 8194)  # B8's and B9's
+RADAR_PULSES, RADAR_RANGE, RADAR_PULSE_LEN = 64, 1 << 20, 128  # RadarConfig's matched filter
+CZT_MATMUL = (16, 4096, 2048)  # channels, t, m: t*m = 2^23, the dense product's bound
+CZT_BLUESTEIN = (16, 1 << 20, 4096)
+PITCH_C, PITCH_T, PITCH_FACTOR, PITCH_PREFIX = 2, 1 << 22, 2 ** (3 / 12), 1 << 18
+STRETCH_RATE, STRETCH_NFFT = 1.25, 2048
+SPEC_RTOL = 1e-5  # float32 transforms and products against float64, x max|want|
+# The phase vocoder against float64: its float32 analysis leaves each weak bin's phase
+# increment a few ulp off, a random walk through the (float64) synthesis phase of about
+# 1e-5 of max|y| over 150 frames (the CPU 8.8e-6, an H100 3.1e-5 on phase 9's tones); the
+# reference's float32 running phase errs 2.2e-3 over 254 such frames (ROADMAP H11)
+PITCH_RTOL = 1e-4
+
+
+def ts64(x: np.ndarray, rate: float, nfft: int) -> np.ndarray:
+    """The phase vocoder's time stretch in float64 on the host (its algorithm, sample
+    for sample: sqrt-hann frames at the analysis hop, wrapped phase increments, the
+    running synthesis phase, WOLA at nfft/4)."""
+    x = np.asarray(x, np.float64)
+    hs = nfft // 4
+    ha = max(1, int(round(hs * rate)))
+    k = np.arange(nfft)
+    w = np.sqrt(0.5 - 0.5 * np.cos(2 * np.pi * k / nfft))
+    frames = (x.shape[-1] - nfft) // ha + 1
+    s = np.fft.rfft(x[..., np.arange(frames)[:, None] * ha + k] * w, axis=-1)
+    mag, ph = np.abs(s), np.angle(s)
+    del s
+    wk = 2 * np.pi * np.arange(nfft // 2 + 1) / nfft
+    dph = ph[..., 1:, :] - ph[..., :-1, :] - wk * ha
+    inst = wk + (dph - 2 * np.pi * np.round(dph / (2 * np.pi))) / ha
+    phs = np.concatenate([ph[..., :1, :], ph[..., :1, :] + np.cumsum(hs * inst, axis=-2)], axis=-2)
+    seg = np.fft.irfft(mag * np.exp(1j * phs), n=nfft, axis=-1) * w
+    r = nfft // hs
+    y = np.zeros(x.shape[:-1] + (frames + r - 1, hs))
+    parts = seg.reshape(x.shape[:-1] + (frames, r, hs))
+    for i in range(r):
+        y[..., i : i + frames, :] += parts[..., i, :]
+    return y.reshape(x.shape[:-1] + (-1,)) * (2.0 * hs / nfft)
+
+
+def bin_tones(channels: int, t: int, nfft: int) -> np.ndarray:
+    """Two tones a channel on bin centres of ``nfft`` (the phase vocoder's wraps stay
+    away from a half there)."""
+    n = np.arange(t, dtype=np.float64)
+    return np.stack([0.4 * np.sin(2 * np.pi * (37 + 16 * c) * n / nfft)
+                     + 0.3 * np.cos(2 * np.pi * (211 + 9 * c) * n / nfft)
+                     for c in range(channels)]).astype(np.float32)
+
+
+def stft64(x: np.ndarray, nfft: int, hop: int, w: np.ndarray, frames: int) -> np.ndarray:
+    idx = np.arange(frames)[:, None] * hop + np.arange(nfft)[None, :]
+    return np.fft.rfft(np.asarray(x, np.float64)[..., idx] * w, axis=-1)
+
+
+def mag_frames(y: np.ndarray, nfft: int = 2048) -> np.ndarray:
+    """|rfft| of the whole nfft-sample frames of each channel (the magnitude spectrogram)."""
+    n = y.shape[-1] // nfft * nfft
+    return np.abs(np.fft.rfft(y[..., :n].reshape(y.shape[:-1] + (-1, nfft)), axis=-1))
+
+
+def mag_stft(y: np.ndarray, nfft: int = 2048, hop: int = 512) -> np.ndarray:
+    """|STFT| of each channel in float64: periodic hann frames of nfft at hop."""
+    frames = (y.shape[-1] - nfft) // hop + 1
+    w = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(nfft) / nfft)
+    return np.abs(stft64(y, nfft, hop, w, frames))
+
+
+def host_rel(got, want: np.ndarray) -> float:
+    """max|got - want| / max|want|, complex or real, in float64 on the host."""
+    g = got.cpu().resolve_conj().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    g = g.astype(np.complex128 if np.iscomplexobj(g) else np.float64)
+    if g.shape != want.shape:
+        raise AssertionError(f"shape {g.shape}, want {want.shape}")
+    return float(np.abs(g - want).max() / np.abs(want).max())
+
+
+def phase_spectral_main(rng, dev) -> dict:
+    """The spectral and correlation slice through its entry points at full size,
+    counts reset around; each output against float64 on the host, routes asserted."""
+    routes, errs, calls = {}, {}, {}
+
+    def close(name: str, got, want: np.ndarray, rtol: float = SPEC_RTOL) -> None:
+        errs[name] = e = host_rel(got, want)
+        if not e <= rtol:  # also fails on NaN
+            raise AssertionError(f"[9 spectral] {name}: {e:.3e} of max|want| > {rtol}")
+
+    x = torch.from_numpy(rng.standard_normal((SPEC_C, SPEC_T), dtype=np.float32)).to(dev)
+    y = 0.6 * x + 0.8 * torch.from_numpy(rng.standard_normal((SPEC_C, SPEC_T), dtype=np.float32)).to(dev)
+    x16 = torch.from_numpy(rng.standard_normal((HILB_C, HILB_T), dtype=np.float32)).to(dev)
+    xl = torch.from_numpy(rng.standard_normal(HILB_LONG, dtype=np.float32)).to(dev)
+    ar, ai = (torch.from_numpy(rng.standard_normal((RADAR_PULSES, RADAR_RANGE), dtype=np.float32)).to(dev)
+              for _ in range(2))
+    n = np.arange(RADAR_PULSE_LEN)
+    chirp = np.exp(1j * np.pi * 0.5 * n * n / RADAR_PULSE_LEN)  # LFM over half the band
+    vr, vi = (torch.from_numpy(p.astype(np.float32)).to(dev) for p in (chirp.real, chirp.imag))
+    xp = torch.from_numpy(bin_tones(PITCH_C, PITCH_T, STRETCH_NFFT)).to(dev)
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    # STFT/ISTFT round trip, nfft 1024, hop 512, sqrt-hann (the WOLA pair)
+    calls["stft"] = lambda: spec.stft(x, nfft=SPEC_NFFT, hop=SPEC_HOP, window="sqrt_hann")
+    calls["istft"] = lambda: spec.istft(s, nfft=SPEC_NFFT, hop=SPEC_HOP, window="sqrt_hann")
+    s = calls["stft"]()
+    yr = calls["istft"]()
+    # the PSD family on the same input
+    calls["welch"] = lambda: spec.welch(x, nfft=SPEC_NFFT)
+    calls["csd"] = lambda: spec.csd(x, y, nfft=SPEC_NFFT)
+    calls["coherence"] = lambda: spec.coherence(x, y, nfft=SPEC_NFFT)
+    pw, pc, ch = calls["welch"](), calls["csd"](), calls["coherence"]()
+    # the products with TF32 turned on by the caller: mfcc's mel and DCT, czt's chirp
+    # matrix and tone_power's bank are pinned to IEEE float32
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        calls["mfcc"] = lambda: mel.mfcc(x, sample_rate=MFCC_RATE, n_mfcc=MFCC_COEFS, nfft=MFCC_NFFT,
+                                         hop=MFCC_HOP, n_mels=MFCC_MELS)
+        cm = calls["mfcc"]()
+        c_, t_, m_ = CZT_MATMUL
+        xc = x16[:c_, :t_]
+        zoom = (0.05, 0.15)  # a band of a tenth of the sampling rate, in m bins
+        zw = complex(np.exp(-2j * np.pi * (zoom[1] - zoom[0]) / m_))
+        za = complex(np.exp(2j * np.pi * zoom[0]))
+        calls["czt matmul"] = lambda: spec.czt(xc, m_, zw, za)
+        zc = calls["czt matmul"]()
+        routes["czt matmul"] = last_choice("czt")
+        freqs = np.array([0.01, 0.0123456, 0.1, 0.2, 0.25, 0.3, 0.4, 0.49], np.float32)
+        calls["tone_power"] = lambda: spec.tone_power(x16, freqs)
+        tp = calls["tone_power"]()
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    cb_, tb_, mb_ = CZT_BLUESTEIN
+    xb = x16[:cb_, :tb_]
+    zwb = complex(np.exp(-2j * np.pi * 0.1 / mb_))
+    calls["czt bluestein"] = lambda: spec.czt(xb, mb_, zwb, za)
+    zb = calls["czt bluestein"]()
+    routes["czt bluestein"] = last_choice("czt")
+    # the analytic signal: exact FFT and the FIR (B8) on 16 x 2^22, exact on one 2^26 stream
+    calls["hilbert fft"] = lambda: spec.hilbert(x16, method="fft")
+    zf = calls["hilbert fft"]()
+    routes["hilbert fft"] = last_choice("hilbert")
+    calls["hilbert fir"] = lambda: spec.hilbert(x16, method="fir")
+    zr = calls["hilbert fir"]()
+    routes["hilbert fir"] = last_choice("hilbert")
+    calls["hilbert fft 2^26"] = lambda: spec.hilbert(xl, method="fft")
+    zl = calls["hilbert fft 2^26"]()
+    routes["hilbert fft 2^26"] = last_choice("hilbert")
+    # overlap-save convolution: B8 at 257 taps, B9 at 8194
+    taps = {k: (rng.standard_normal(k) / np.sqrt(k)).astype(np.float32) for k in OA_TAPS}
+    oa = {}
+    for k in OA_TAPS:
+        calls[f"oaconvolve {k}"] = lambda k=k: cor.oaconvolve(x16, taps[k])
+        oa[k] = calls[f"oaconvolve {k}"]()
+        routes[f"oaconvolve {k}"] = last_choice("fir_filter")
+    # the radar matched filter: complex correlation, valid mode, by each route
+    radar = {}
+    for route in ("auto", "direct_gauss", "xla"):
+        calls[f"correlate_complex {route}"] = lambda route=route: cor.correlate_complex(
+            ar, ai, vr, vi, "valid", method=route)
+        radar[route] = calls[f"correlate_complex {route}"]()
+        routes[f"correlate_complex {route}"] = last_choice("correlate_complex")
+    # pitch shift on tones: the stretch, then the Farrow resampler (B21)
+    calls["pitch_shift"] = lambda: pv.pitch_shift(xp, PITCH_FACTOR)
+    ps_ = calls["pitch_shift"]()
+    routes["pitch_shift"] = last_choice("resample_farrow")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+
+    want_routes = {
+        "czt matmul": "matmul", "czt bluestein": "bluestein", "hilbert fft": "fft",
+        "hilbert fir": "fir", "hilbert fft 2^26": "fft", "oaconvolve 257": "overlap_save_fused",
+        "oaconvolve 8194": "overlap_save_fused", "correlate_complex auto": "direct",
+        "correlate_complex direct_gauss": "direct_gauss", "correlate_complex xla": "fft",
+        "pitch_shift": "segmented",
+    }
+    print(f"[9 spectral] routes {routes}; launches {launches}")
+    if routes != want_routes:
+        raise AssertionError(f"routes {routes}; want {want_routes}")
+    if min(launches[k] for k in ("B8", "B9", "B21")) < 1:
+        raise AssertionError(f"B8, B9 or B21 was not launched: {launches}")
+
+    # checks against float64 on the host
+    x0 = x[0].double().cpu().numpy()
+    y0 = y[0].double().cpu().numpy()
+    w = spec.spectral_window("sqrt_hann", SPEC_NFFT).astype(np.float64)
+    close("stft (channel 0, 256 frames)", s[0, :256], stft64(x0, SPEC_NFFT, SPEC_HOP, w, 256))
+    inner = slice(SPEC_NFFT, SPEC_T - SPEC_NFFT)
+    close("istft(stft) interior", yr[:, inner], x[:, inner].double().cpu().numpy())
+    kw = dict(nperseg=SPEC_NFFT, noverlap=SPEC_NFFT - SPEC_HOP, window="hann", detrend=False)
+    close("welch (channel 0)", pw[0], sps.welch(x0, **kw)[1])
+    csd64 = sps.csd(x0, y0, **kw)[1]
+    close("csd real (channel 0)", pc[0].real, csd64.real)
+    close("csd imag (channel 0)", pc[0].imag, csd64.imag, SPEC_RTOL * np.abs(csd64).max() / np.abs(csd64.imag).max())
+    close("coherence (channel 0)", ch[0], sps.coherence(x0, y0, **kw)[1])
+    hann = spec.spectral_window("hann", MFCC_NFFT).astype(np.float64)
+    p64 = np.abs(stft64(x0, MFCC_NFFT, MFCC_HOP, hann, 512)) ** 2
+    fb = mel.mel_filterbank(MFCC_MELS, MFCC_NFFT, MFCC_RATE).astype(np.float64)
+    c64 = np.log(np.maximum(p64 @ fb.T, 1e-10)) @ mel.dct_matrix(MFCC_COEFS, MFCC_MELS).astype(np.float64).T
+    close("mfcc (channel 0, 512 frames; TF32 on)", cm[0, :512], c64)
+    zc64 = sps.czt(xc[0].double().cpu().numpy(), m_, zw, za)
+    close("czt matmul real (channel 0; TF32 on)", zc[0].real, zc64.real)
+    close("czt matmul imag (channel 0; TF32 on)", zc[0].imag, zc64.imag)
+    zb64 = sps.czt(xb[0].double().cpu().numpy(), mb_, zwb, za)
+    close("czt bluestein real (channel 0)", zb[0].real, zb64.real)
+    close("czt bluestein imag (channel 0)", zb[0].imag, zb64.imag)
+    x16_0 = x16[0].double().cpu().numpy()
+    ph = 2 * np.pi * np.outer(freqs.astype(np.float64), np.arange(HILB_T))
+    tp64 = 2 * ((x16_0 @ np.cos(ph).T / HILB_T) ** 2 + (x16_0 @ np.sin(ph).T / HILB_T) ** 2)
+    del ph
+    close("tone_power (channel 0; TF32 on)", tp[0], tp64)
+    h64 = sps.hilbert(x16_0)
+    close("hilbert fft real (channel 0)", zf[0].real, h64.real)
+    close("hilbert fft imag (channel 0)", zf[0].imag, h64.imag)
+    hf = spec.design_hilbert_fir(513).astype(np.float64)
+    d, npre = 256, 1 << 16
+    close("hilbert fir imag (channel 0, 2^16 samples)", zr[0, :npre].imag,
+          np.convolve(x16_0[: npre + d], hf)[d : d + npre], FIR64_RTOL)
+    if not torch.equal(zr.real, x16):
+        raise AssertionError("hilbert fir: the real part is not the input")
+    import scipy.fft as sfft
+
+    xl64 = xl.double().cpu().numpy()
+    spec64 = sfft.fft(xl64, workers=8)
+    spec64[1 : HILB_LONG // 2] *= 2.0
+    spec64[HILB_LONG // 2 + 1 :] = 0.0
+    hl64 = sfft.ifft(spec64, workers=8)
+    del spec64
+    close("hilbert fft 2^26 real", zl.real, hl64.real)
+    close("hilbert fft 2^26 imag", zl.imag, hl64.imag)
+    del hl64, xl64
+    for k in OA_TAPS:
+        full64 = np.convolve(x16_0[:npre], taps[k].astype(np.float64))[:npre]
+        close(f"oaconvolve {k} (channel 0, first 2^16)", oa[k][0, :npre], full64, FIR64_RTOL)
+        tail64 = fir64_tail(torch.nn.functional.pad(x16[:1], (0, k - 1)), taps[k], 4096)
+        close(f"oaconvolve {k} (channel 0, last 4096)", oa[k][:1, -4096:], tail64, FIR64_RTOL)
+    a0 = ar[0].double().cpu().numpy()[: 1 << 14] + 1j * ai[0].double().cpu().numpy()[: 1 << 14]
+    r64 = np.correlate(a0, chirp, "valid")
+    for route, (rr, ri) in radar.items():
+        close(f"correlate_complex {route} real (pulse 0)", rr[0, : r64.size], r64.real)
+        close(f"correlate_complex {route} imag (pulse 0)", ri[0, : r64.size], r64.imag)
+    # pitch shift: the card, and the CPU on a prefix, against float64 over the first
+    # 2^16 outputs (about 150 frames), within PITCH_RTOL
+    up, down = fw.as_rational_rate(1 / PITCH_FACTOR)
+    pre = xp[:, :PITCH_PREFIX].cpu()
+    st64 = torch.from_numpy(ts64(pre.numpy(), 1 / PITCH_FACTOR, STRETCH_NFFT))
+    ps64 = farrow64(st64, up, down, npre)
+    close("pitch_shift (first 2^16 outputs)", ps_[:, :npre], ps64, PITCH_RTOL)
+    close("pitch_shift on the CPU (first 2^16 outputs)", pv.pitch_shift(pre, PITCH_FACTOR)[:, :npre],
+          ps64, PITCH_RTOL)
+    print(
+        f"[9 spectral] stft/istft and welch/csd/coherence on {SPEC_C} x 2^21, mfcc ({MFCC_MELS} mels, "
+        f"{MFCC_COEFS} coefficients), czt at {CZT_MATMUL} and {CZT_BLUESTEIN} (channels, t, m), "
+        f"tone_power, hilbert fft and fir on {HILB_C} x 2^22 and fft on 2^26, oaconvolve at "
+        f"{OA_TAPS} taps on {HILB_C} x 2^22, correlate_complex valid {RADAR_PULSES} x 2^20 with a "
+        f"{RADAR_PULSE_LEN}-sample chirp by auto, direct_gauss and the FFT, pitch_shift by 2^(3/12) "
+        f"on {PITCH_C} x 2^22 tones; against float64 (x max|want|; bound {SPEC_RTOL}, FIR "
+        f"{FIR64_RTOL}, pitch_shift {PITCH_RTOL}): "
+        + "; ".join(f"{k} {v:.2e}" for k, v in errs.items())
+    )
+    return calls
+
+
+def phase_spectral_times(calls: dict) -> None:
+    """Each call of the spectral main path: wall ms (synchronized, median of 3 after a
+    warm-up) and device ms under torch.profiler (one call after lead kernels)."""
+    print(f"[9 spectral times] wall ms median of 3 after a warm-up; device ms of one profiled call:")
+    for name, fn in calls.items():
+        fn()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        _, dev_ms, rows = profiled(fn)
+        ours = sum(r[2] for r in rows if r[0].startswith("void dsp::"))
+        top = max(rows, key=lambda r: r[2]) if rows else ("none", 0, 0.0)
+        print(f"  {name:32s} wall {statistics.median(walls):9.3f} ms; device {dev_ms:9.3f} ms in "
+              f"{sum(r[1] for r in rows):4d} kernels ({ours:.3f} ms in the package's); largest "
+              f"{top[2]:.3f} ms {top[0][:50]}")
+
+
+def served_time_stretch(paths, out: Path) -> tuple[int, np.ndarray]:
+    """``stream_time_stretch`` of the WAVs at phase 9's rate and nfft on the card:
+    (frames written, the served WAV as (2, frames) float64 in [-1, 1))."""
+    written = stream_time_stretch(paths, out, STRETCH_RATE, nfft=STRETCH_NFFT,
+                                  chunk_samples=1 << 20, device="cuda")
+    return written, read_wav(out)[1].reshape(-1, 2).T.astype(np.float64) / 32768.0
+
+
+def loop_stream(wav: np.ndarray) -> np.ndarray:
+    """The stream ``stream_time_stretch`` processes for an interleaved stereo ``wav``
+    in chunks of 2^20: primed with nfft - ha zeros, the loader's zero-padded last
+    chunk, the remainder zero-padded to a hop; (2, n) float32."""
+    ha = round(STRETCH_NFFT // 4 * STRETCH_RATE)
+    frames = -(-wav.size // (1 << 20)) * (1 << 20) // 2
+    frames = -(-frames // ha) * ha
+    seen = np.zeros((2, STRETCH_NFFT - ha + frames), np.float32)
+    seen[:, STRETCH_NFFT - ha : STRETCH_NFFT - ha + wav.size // 2] = (
+        wav.reshape(-1, 2).T.astype(np.float32) / 32768.0)
+    return seen
+
+
+def int16_scaled(y: np.ndarray) -> np.ndarray:
+    """Float samples rounded to int16 and back, as the serving loop writes them."""
+    return np.clip(np.rint(y.astype(np.float64) * 32768.0), -32768, 32767) / 32768.0
+
+
+def phase_spectral_serve(wav: np.ndarray, split: int) -> None:
+    """stream_mfcc and stream_time_stretch over phase 4's two stereo WAVs: wall ms (3
+    runs) and the device time and idle share of a profiled run; the MFCC stream
+    against one shot, and the time stretch against one shot on two WAVs of tones
+    (on noise the phase wrap flips bins, whose later frames then differ by O(1))."""
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [Path(tmp) / "a.wav", Path(tmp) / "b.wav"]
+        write_wav(paths[0], wav[:split], 48000, 2)
+        write_wav(paths[1], wav[split:], 48000, 2)
+        frames = wav.size // 2
+        pcm = wav.reshape(-1, 2).T.astype(np.float32) / 32768.0
+        reset_launch_counts()
+        feats = stream_mfcc(paths, chunk_samples=1 << 20, device="cuda")
+        hop = 256
+        primed = np.pad(pcm, ((0, 0), (512 - hop, (-frames) % hop)))
+        one = mel.mfcc(torch.from_numpy(primed).cuda(), sample_rate=48000.0, n_mfcc=13, nfft=512,
+                       hop=hop, n_mels=40)
+        e_mfcc = host_rel(torch.from_numpy(feats), one.double().cpu().numpy())
+        if not (feats.shape == tuple(one.shape) and e_mfcc <= SPEC_RTOL):
+            raise AssertionError(f"stream_mfcc: {feats.shape} against one shot {tuple(one.shape)}, "
+                                 f"{e_mfcc:.3e}")
+        out = Path(tmp) / "ts.wav"
+        written, served = served_time_stretch(paths, out)
+        seen = loop_stream(wav)
+        want_frames = (seen.shape[1] - STRETCH_NFFT) // round(STRETCH_NFFT // 4 * STRETCH_RATE) * (
+            STRETCH_NFFT // 4) + STRETCH_NFFT  # whole hops of the stream and a frame's tail
+        if served.shape != (2, want_frames) or written != want_frames or not np.isfinite(served).all():
+            raise AssertionError(f"stream_time_stretch: {served.shape}, {written}; want {want_frames}")
+        one_ts = int16_scaled(pv.time_stretch(torch.from_numpy(seen).cuda(), STRETCH_RATE,
+                                              nfft=STRETCH_NFFT).cpu().numpy())
+        y64 = int16_scaled(ts64(seen, STRETCH_RATE, STRETCH_NFFT))
+        m64 = mag_frames(y64)
+        e_one, e_served = host_rel(mag_frames(one_ts), m64), host_rel(mag_frames(served), m64)
+        # tones: the served stream and one shot against float64 by their magnitude
+        # spectrograms, up to the fade-out. A bin's synthesis phase integrates its whole
+        # history, so a wrap that two float32 evaluations round apart while the bin is
+        # weak shifts that bin's phase for the rest of the stream, which the magnitudes
+        # do not see; where weak bins grow strong (the fade-out), the wrap makes the
+        # algorithm discontinuous in its input (on the CPU a 1e-7 relative change of the
+        # input moved samples there by 15 LSB), so that span is not compared. A tone a
+        # channel half a bin off the centres of nfft 2048 (no bin's increment at ha = 640
+        # near the half turn while the tone dominates it), faded in and out by raised
+        # cosines of 8192 samples; the second file of an odd frame count
+        n = np.arange((1 << 21) - 1)
+        fade = np.minimum(1.0, np.minimum(n, n.size - 1 - n) / 8192.0)
+        fade = 0.5 - 0.5 * np.cos(np.pi * fade)
+        tone_wav = np.stack([0.7 * fade * np.sin(2 * np.pi * (b + 0.5) * n / STRETCH_NFFT)
+                             for b in (60, 131)])
+        tone_wav = np.round(32768 * tone_wav).astype(np.int16).T.reshape(-1)
+        tpaths = [Path(tmp) / "ta.wav", Path(tmp) / "tb.wav"]
+        write_wav(tpaths[0], tone_wav[: 1 << 21], 48000, 2)
+        write_wav(tpaths[1], tone_wav[1 << 21 :], 48000, 2)
+        _, tserved = served_time_stretch(tpaths, Path(tmp) / "tts.wav")
+        tseen = loop_stream(tone_wav)
+        tone_one = int16_scaled(pv.time_stretch(torch.from_numpy(tseen).cuda(), STRETCH_RATE,
+                                                nfft=STRETCH_NFFT).cpu().numpy())
+        ha = round(STRETCH_NFFT // 4 * STRETCH_RATE)
+        keep = int((STRETCH_NFFT - ha + n.size - 8192) / STRETCH_RATE) - 2 * STRETCH_NFFT
+        t64 = mag_stft(int16_scaled(ts64(tseen, STRETCH_RATE, STRETCH_NFFT))[:, :keep])
+        e_tone_served = host_rel(mag_stft(tserved[:, :keep]), t64)
+        e_tone_one = host_rel(mag_stft(tone_one[:, :keep]), t64)
+        if not (e_tone_served <= PITCH_RTOL and e_tone_one <= PITCH_RTOL):
+            raise AssertionError(f"stream_time_stretch on tones: magnitude spectrogram {e_tone_served:.3e} "
+                                 f"from float64, one shot {e_tone_one:.3e} (bound {PITCH_RTOL})")
+        launches = {k: v for k, v in launch_counts().items() if v}
+        print(f"[9 spectral serve] {wav.size} samples (stereo, 48 kHz) in chunks of 2^20: "
+              f"stream_mfcc {feats.shape} within {e_mfcc:.2e} of one shot; stream_time_stretch "
+              f"rate {STRETCH_RATE}, nfft {STRETCH_NFFT}: {written} frames, finite; magnitude "
+              f"spectrogram (2048-sample frames) against float64: served {e_served:.3e}, one shot "
+              f"{e_one:.3e} (noise: not bounded); on 2 x 2^21 tones up to the fade-out ({keep} of "
+              f"{tserved.shape[1]} frames), by the magnitude spectrogram (hann, 2048, hop 512) "
+              f"against float64: served {e_tone_served:.2e}, one shot "
+              f"{e_tone_one:.2e} (bound {PITCH_RTOL}); package kernels launched {launches or 'none'}")
+
+        loops = {
+            "stream_mfcc": lambda: stream_mfcc(paths, chunk_samples=1 << 20, device="cuda"),
+            "stream_time_stretch": lambda: served_time_stretch(paths, out),
+        }
+        for name, fn in loops.items():
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            wall, dev_ms, rows = profiled(fn)
+            print(f"  {name}: wall " + ", ".join(f"{v:.1f}" for v in walls)
+                  + f" ms; profiled wall {wall:.1f} ms, device {dev_ms:.3f} ms, device idle "
+                  f"{1 - dev_ms / wall:.3f}; lead records lost {profiled.last}")
+            for key, count, ms in rows[:8]:
+                print(f"    {ms:9.3f} ms  {count:5d} x  {key[:80]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3815,6 +4247,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         world1 = phase_sharded_world1(x, y_main, chain_main, tv_main, check, tmp)
     mark("8 sharded world 1")
+
+    # 9. the spectral and correlation slice, its serving loops, and their times
+    spectral_calls = phase_spectral_main(rng, dev)
+    mark("9 spectral main path")
+    phase_spectral_serve(wav, 2 * frames_a)
+    mark("9 spectral serving")
+    phase_spectral_times(spectral_calls)
+    del spectral_calls
+    mark("9 spectral times")
     n_loc = MAIN_SAMPLES // RING_WORLD
     ring_bounds = {"B6": bound(2 * 2 * n_loc, 0), "B7": bound(4 * n_loc, 4 * n_loc)}
     print("  bounds (ms, by): " + ", ".join(f"{k} {b:.4f} {by}" for k, (b, by) in ring_bounds.items()))

@@ -39,7 +39,66 @@ from .farrow import (  # noqa: F401
     resample_farrow,
     resample_farrow_segmented,
 )
-from .fft import get_window, rfft, spectral_window  # noqa: F401
+from .cepstrum import (  # noqa: F401
+    cepstral_pitch,
+    complex_cepstrum,
+    inverse_complex_cepstrum,
+    real_cepstrum,
+    unwrap,
+)
+# ``fft`` and ``correlate`` stay the names of their modules (as in the
+# reference package); their functions of those names are
+# ``ops.fft.fft`` and ``ops.correlate.correlate``.
+from .correlate import (  # noqa: F401
+    DIRECT_MAX_TAPS,
+    DIRECT_MIN_STREAM,
+    MODES,
+    autocorrelate,
+    choose_conv_method,
+    convolve,
+    correlate_complex,
+    correlation_lags,
+    fftconvolve,
+    find_delay,
+    find_delay_phat,
+    gcc_phat,
+    oaconvolve,
+    vectorstrength,
+)
+from .fft import (  # noqa: F401
+    CZT,
+    FFT_METHODS,
+    HILBERT_BLOCKED_MIN_T,
+    HILBERT_XLA_MAX_T,
+    XLA_FFT_MAX_N,
+    ZoomFFT,
+    check_cola,
+    check_nola,
+    coherence,
+    csd,
+    czt,
+    czt_points,
+    design_hilbert_fir,
+    dpss_windows,
+    envelope,
+    get_window,
+    hilbert,
+    hilbert2,
+    hilbert_fir,
+    ifft,
+    irfft,
+    istft,
+    multitaper_psd,
+    periodogram,
+    power_spectrum,
+    rfft,
+    spectral_window,
+    spectrogram,
+    stft,
+    tone_power,
+    welch,
+    zoomfft,
+)
 from .fft_mxu import (  # noqa: F401
     FUSED3_MAX_NFFT,
     FUSED_MAX_NFFT,
@@ -94,6 +153,19 @@ from .iir import (  # noqa: F401
     tv_section,
 )
 from .iir_design import ellipord, iirdesign, iirfilter  # noqa: F401
+from .mel import (  # noqa: F401
+    dct_matrix,
+    delta,
+    hz_to_mel,
+    log_melspectrogram,
+    mel_filterbank,
+    mel_frequencies,
+    mel_to_hz,
+    melspectrogram,
+    mfcc,
+    mfcc_chunk,
+    mfcc_init,
+)
 from .lpc import (  # noqa: F401
     ar_psd,
     levinson,
@@ -115,12 +187,32 @@ from .pallas_scan import (  # noqa: F401
     windowed_averager,
     windowed_averager_packed,
 )
+from .phase_vocoder import (  # noqa: F401
+    TimeStretchState,
+    pitch_shift,
+    spectral_subtract,
+    time_stretch,
+    time_stretch_chunk,
+    time_stretch_flush,
+    time_stretch_init,
+    time_stretch_state_from_jax,
+)
 from .pfb_os import pfb_analyze_os, pfb_synthesize_os  # noqa: F401
 from .resample import decimate, interpolate, resample_fft, resample_poly, upfirdn  # noqa: F401
 from .scan_xla import cumsum_ref, moving_average_xla  # noqa: F401
 from .splines import cspline1d, qspline1d  # noqa: F401
+from .stft_class import ShortTimeFFT, closest_STFT_dual_window  # noqa: F401
 from .streaming import (  # noqa: F401
     FirState,
+    IstftState,
+    StftState,
+    istft_chunk,
+    istft_flush,
+    istft_init,
+    istft_state_from_jax,
+    stft_chunk,
+    stft_init,
+    stft_state_from_jax,
     MovingAverageState,
     fir_chunk,
     fir_init,

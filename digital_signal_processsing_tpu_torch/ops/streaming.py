@@ -1,4 +1,4 @@
-"""Stateful streaming: the moving average and the FIR, chunk by chunk.
+"""Stateful streaming: the moving average, the FIR and the STFT, chunk by chunk.
 
 Counterpart of the moving-average and FIR parts of
 ``digital_signal_processsing_tpu/ops/streaming.py``. The averager's state
@@ -9,7 +9,10 @@ as its seed, and halos too large for it take the two-pass path over tail +
 chunk, bit-exact with one shot. The FIR's state is the last ``taps - 1``
 input samples of each channel; each chunk runs ``fir_direct`` over tail +
 chunk, so chunks of any length give one shot's output up to float32
-rounding.
+rounding. The streaming STFT carries the last ``nfft - hop`` inputs, the
+WOLA synthesis the not yet complete ``nfft - hop`` outputs (the
+reference's ``StftState``/``IstftState``); every ``*_state_from_jax``
+continues a stream that the reference package started.
 """
 
 from __future__ import annotations
@@ -129,7 +132,153 @@ def fir_chunk(state: FirState, x: torch.Tensor, taps) -> tuple[FirState, torch.T
     return FirState(tail=new_tail), (y[0] if squeeze else y)
 
 
+# --- streaming STFT / WOLA synthesis -------------------------------------------
+
+
+def _float_tail(tail, what: str, device) -> torch.Tensor:
+    tail = np.asarray(tail)
+    if tail.dtype != np.float32 or tail.ndim != 2:
+        raise ValueError(f"expected a float32 (channels, n) {what}, got {tail.dtype} {tail.shape}")
+    return torch.from_numpy(tail.copy()).to(resolve_device(device))
+
+
+def _hop_divides(nfft: int, hop: int, what: str) -> None:
+    if hop < 1 or nfft % hop != 0:
+        raise ValueError(f"streaming {what} needs hop | nfft, got {hop}/{nfft}")
+
+
+@dataclasses.dataclass
+class StftState:
+    """Carry for streaming analysis: the last nfft-hop input samples.
+
+    Zero at stream start, so the streamed frame sequence equals the
+    one-shot :func:`ops.fft.stft` of the stream PREFIXED with nfft-hop
+    zeros (the standard real-time priming); dropping the first
+    ``nfft//hop - 1`` frames recovers exact unprimed one-shot parity.
+    """
+
+    tail: torch.Tensor  # (channels, nfft - hop) float32, on the stream's device
+
+
+def stft_init(nfft: int, hop: int, channels: int = 1, *, device="cuda") -> StftState:
+    """Zero state for :func:`stft_chunk` on ``device`` (the card by default)."""
+    _hop_divides(nfft, hop, "stft")
+    return StftState(tail=torch.zeros((channels, nfft - hop), dtype=torch.float32,
+                                      device=resolve_device(device)))
+
+
+def stft_state_from_jax(tail, *, device="cuda") -> StftState:
+    """The state of the reference package's ``stft_chunk``, carried over.
+
+    ``tail`` is ``np.asarray(state.tail)`` of a
+    ``digital_signal_processsing_tpu.ops.streaming.StftState``.
+    """
+    return StftState(tail=_float_tail(tail, "tail", device))
+
+
+def stft_chunk(
+    state: StftState,
+    x: torch.Tensor,
+    *,
+    nfft: int = 1024,
+    hop: int = 512,
+    window: str = "sqrt_hann",
+    method: str = "auto",
+) -> tuple[StftState, torch.Tensor]:
+    """One chunk of the streaming STFT: (channels, L) -> (channels,
+    L//hop, nfft//2+1), L a nonzero multiple of hop, on ``x``'s device.
+    """
+    from .fft import stft
+
+    squeeze = x.dim() == 1
+    xp = (x[None, :] if squeeze else x).to(torch.float32)
+    L = xp.shape[-1]
+    if L % hop != 0 or L == 0:
+        raise ValueError(
+            f"chunk length {L} must be a nonzero multiple of hop {hop}"
+        )
+    if state.tail.shape[-1] != nfft - hop:
+        raise ValueError(f"state holds {state.tail.shape[-1]} samples a channel, need {nfft - hop}")
+    ext = torch.cat([state.tail, xp], dim=-1)
+    out = stft(ext, nfft=nfft, hop=hop, window=window, method=method)
+    return StftState(tail=ext[..., L:].clone()), (out[0] if squeeze else out)
+
+
+@dataclasses.dataclass
+class IstftState:
+    """Carry for streaming WOLA synthesis: the not-yet-complete OLA tail
+    (nfft - hop samples)."""
+
+    tail: torch.Tensor  # (channels, nfft - hop) float32, on the stream's device
+
+
+def istft_init(nfft: int, hop: int, channels: int = 1, *, device="cuda") -> IstftState:
+    """Zero state for :func:`istft_chunk` on ``device`` (the card by default)."""
+    _hop_divides(nfft, hop, "istft")
+    return IstftState(tail=torch.zeros((channels, nfft - hop), dtype=torch.float32,
+                                       device=resolve_device(device)))
+
+
+def istft_state_from_jax(tail, *, device="cuda") -> IstftState:
+    """The state of the reference package's ``istft_chunk``, carried over.
+
+    ``tail`` is ``np.asarray(state.tail)`` of a
+    ``digital_signal_processsing_tpu.ops.streaming.IstftState``.
+    """
+    return IstftState(tail=_float_tail(tail, "tail", device))
+
+
+def istft_chunk(
+    state: IstftState,
+    s: torch.Tensor,
+    *,
+    nfft: int = 1024,
+    hop: int = 512,
+    window: str = "sqrt_hann",
+    method: str = "auto",
+) -> tuple[IstftState, torch.Tensor]:
+    """One chunk of WOLA synthesis: (channels, f, nfft//2+1) frames ->
+    (channels, f*hop) fully-summed output samples.
+
+    Concatenated chunk outputs + a final :func:`istft_flush` equal the
+    one-shot :func:`ops.fft.istft` of the concatenated frames. With
+    ``window='sqrt_hann'``, ``hop = nfft//2`` frames from
+    :func:`stft_chunk`, the round trip reconstructs the input delayed by
+    nfft - hop samples (the WOLA pipeline latency).
+    """
+    from .fft import _overlap_add, _check_fft_method, _window_on
+
+    _hop_divides(nfft, hop, "istft")
+    _check_fft_method(method)
+    squeeze = s.dim() == 2
+    sp = s[None] if squeeze else s
+    f = sp.shape[1]
+    if f < 1:
+        raise ValueError("need at least one frame per chunk")
+    if state.tail.shape[-1] != nfft - hop:
+        raise ValueError(f"state holds {state.tail.shape[-1]} samples a channel, need {nfft - hop}")
+    frames = torch.fft.irfft(sp, n=nfft, dim=-1) * _window_on(window, nfft, str(sp.device))
+    flat = _overlap_add(frames, hop)
+    flat[:, : nfft - hop] += state.tail
+    out = flat[:, : f * hop]
+    return IstftState(tail=flat[:, f * hop :].clone()), (out[0] if squeeze else out)
+
+
+def istft_flush(state: IstftState) -> torch.Tensor:
+    """The final nfft-hop OLA tail after the last chunk."""
+    return state.tail
+
+
 __all__ = [
+    "StftState",
+    "stft_init",
+    "stft_chunk",
+    "stft_state_from_jax",
+    "IstftState",
+    "istft_init",
+    "istft_chunk",
+    "istft_flush",
+    "istft_state_from_jax",
     "FirState",
     "fir_init",
     "fir_chunk",

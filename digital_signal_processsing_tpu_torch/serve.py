@@ -1,8 +1,9 @@
-"""Serving: WAV files as one stream through the chunked averager or an SOS cascade.
+"""Serving: WAV files as one stream through a chunked op on the device.
 
-Counterpart of ``stream_moving_average`` and ``run_chunks`` in
-``digital_signal_processsing_tpu/serve.py``, and of ``stream_sosfilt``: decode on the host (the shared
-NumPy loader), filter each chunk on the device with the state carried
+Counterpart of ``run_chunks``, ``stream_moving_average``,
+``stream_sosfilt``, ``stream_time_stretch`` and ``stream_mfcc`` in
+``digital_signal_processsing_tpu/serve.py``: decode on the host (the shared
+NumPy loader), process each chunk on the device with the state carried
 across chunk and file boundaries, and write the result as it comes, so
 memory stays bounded by the chunk size.
 """
@@ -133,4 +134,136 @@ def stream_sosfilt(
     return written
 
 
-__all__ = ["run_chunks", "stream_moving_average", "stream_sosfilt"]
+def _planar(chunk: np.ndarray, channels: int, dev: torch.device) -> torch.Tensor:
+    """int16 interleaved -> (channels, frames) float32 in [-1, 1) on ``dev``."""
+    x = torch.from_numpy(chunk).to(dev).reshape(-1, channels).T
+    return x.to(torch.float32) / 32768.0
+
+
+def stream_time_stretch(
+    paths,
+    out_path: str | Path,
+    rate: float,
+    *,
+    nfft: int = 2048,
+    chunk_samples: int = 1 << 20,
+    device="cuda",
+) -> int:
+    """Phase-vocoder time stretch over a list of WAVs as ONE stream.
+
+    Counterpart of the reference's ``stream_time_stretch``: int16
+    interleaved chunks go to ``device`` as planar float, are buffered there
+    to analysis-hop multiples and pushed through
+    ``ops.phase_vocoder.time_stretch_chunk`` (STFT tail, phase chain and
+    WOLA tail carried across chunk AND file boundaries), then come back
+    re-interleaved as int16. As in the reference, the loader's zero-padded
+    last chunk is processed as it comes, and any sub-hop remainder at the
+    end is zero-padded into a final hop. Without a card, ``device="cuda"``
+    raises. Returns samples written per channel.
+    """
+    from .ops import phase_vocoder as _pv
+
+    dev = resolve_device(device)
+    paths = list(paths)
+    channels, srate, _ = _stream_layout(paths)
+    ha = max(1, int(round(nfft // 4 * rate)))
+    chunk_samples -= chunk_samples % max(channels, 1)
+    state = _pv.time_stretch_init(rate, nfft=nfft, channels=channels, device=dev)
+    buf = torch.zeros((channels, 0), dtype=torch.float32, device=dev)
+    written = 0
+
+    def emit(sink, y: torch.Tensor) -> None:
+        nonlocal written
+        out = torch.round(y * 32768.0).clamp_(-32768, 32767).to(torch.int16).T.reshape(-1)
+        sink.append(out.cpu().numpy())
+        written += out.numel() // channels
+
+    with WavWriter(out_path, srate, channels) as sink:
+        for chunk in WavChunkLoader(paths, chunk_samples):
+            buf = torch.cat([buf, _planar(chunk, channels, dev)], dim=-1)
+            use = buf.shape[-1] // ha * ha
+            if use:
+                state, y = _pv.time_stretch_chunk(state, buf[:, :use], rate=rate, nfft=nfft)
+                buf = buf[:, use:]
+                emit(sink, y)
+        if buf.shape[-1]:
+            state, y = _pv.time_stretch_chunk(
+                state, torch.nn.functional.pad(buf, (0, ha - buf.shape[-1])), rate=rate, nfft=nfft
+            )
+            emit(sink, y)
+        emit(sink, _pv.time_stretch_flush(state))
+    return written
+
+
+def stream_mfcc(
+    paths,
+    out_path: str | Path | None = None,
+    *,
+    n_mfcc: int = 13,
+    nfft: int = 512,
+    hop: int = 256,
+    n_mels: int = 40,
+    window: str = "hann",
+    lifter: float = 0.0,
+    chunk_samples: int = 1 << 20,
+    device="cuda",
+) -> np.ndarray:
+    """MFCC features over a list of WAVs as ONE stream, chunked.
+
+    Counterpart of the reference's ``stream_mfcc``: int16 interleaved
+    chunks go to ``device`` as planar float, trimmed to the true stream
+    length (the loader zero-pads its last chunk), buffered to hop multiples
+    and pushed through ``ops.mel.mfcc_chunk`` (streaming-STFT tail carried
+    across chunk AND file boundaries). The features stay on the device until
+    the stream ends; the result is (channels, frames, n_mfcc) float32 on the
+    host, saved as .npy with ``out_path``. It equals the one-shot
+    ``ops.mel.mfcc`` of the zero-primed concatenated stream (any sub-hop
+    tail zero-padded into the final hop). Without a card, ``device="cuda"``
+    raises.
+    """
+    from .ops import mel as _mel
+
+    dev = resolve_device(device)
+    paths = list(paths)
+    channels, rate, total = _stream_layout(paths)
+    chunk_samples -= chunk_samples % max(channels, 1)
+    remaining = total // channels
+    state = _mel.mfcc_init(nfft, hop, channels, device=dev)
+    buf = torch.zeros((channels, 0), dtype=torch.float32, device=dev)
+    feats: list[torch.Tensor] = []
+
+    def push(block: torch.Tensor) -> None:
+        nonlocal state
+        state, c = _mel.mfcc_chunk(
+            state, block, sample_rate=float(rate), n_mfcc=n_mfcc, nfft=nfft, hop=hop,
+            window=window, n_mels=n_mels, lifter=lifter,
+        )
+        feats.append(c)
+
+    for chunk in WavChunkLoader(paths, chunk_samples):
+        planar = _planar(chunk, channels, dev)[:, : max(0, remaining)]
+        remaining -= planar.shape[-1]
+        buf = torch.cat([buf, planar], dim=-1)
+        use = buf.shape[-1] // hop * hop
+        if use:
+            push(buf[:, :use])
+            buf = buf[:, use:]
+    if buf.shape[-1]:
+        push(torch.nn.functional.pad(buf, (0, hop - buf.shape[-1])))
+    out = (
+        torch.cat(feats, dim=1).cpu().numpy()
+        if feats
+        else np.zeros((channels, 0, n_mfcc), np.float32)
+    )
+    if out_path is not None:
+        np.save(out_path, out)
+    return out
+
+
+__all__ = [
+    "run_chunks",
+    "stream_moving_average",
+    "stream_sosfilt",
+    "stream_time_stretch",
+    "stream_mfcc",
+]

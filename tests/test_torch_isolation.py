@@ -159,6 +159,25 @@ assert resample.upfirdn(taps, xf, 3, 2).shape == (2, 4599)
 assert resample.resample_fft(xf, 1234).shape == (2, 1234)
 assert fir.savgol_filter(xf, 11, 3).shape == (2, 3000)
 assert splines.cspline1d(xf).shape == splines.qspline1d(xf).shape == (2, 3000)
+from digital_signal_processsing_tpu_torch.ops import cepstrum, mel, phase_vocoder, stft_class  # noqa: F401
+import digital_signal_processsing_tpu_torch.ops.correlate  # noqa: F401
+from digital_signal_processsing_tpu_torch.ops.correlate import correlate, correlate_complex, oaconvolve
+from digital_signal_processsing_tpu_torch.ops.fft import czt, hilbert, istft, stft, welch
+from digital_signal_processsing_tpu_torch.serve import stream_mfcc, stream_time_stretch
+xs = xf[:, :2048]
+assert istft(stft(xs, nfft=256, hop=128, window="sqrt_hann"), nfft=256, hop=128).shape == (2, 2048)
+assert welch(xs, nfft=256).shape == (2, 129) and czt(xs, 64).shape == (2, 64)
+assert hilbert(xs, method="fir", num_taps=33).shape == hilbert(xs).shape == (2, 2048)
+assert correlate(xs, xs[0, :33]).shape == oaconvolve(xs, xs[0, :33]).shape == (2, 2080)
+assert correlate_complex(xs, xs, xs[0, :33], xs[0, :33], "valid")[0].shape == (2, 2016)
+assert mel.mfcc(xs, sample_rate=8000.0, nfft=256, hop=128, n_mels=20).shape == (2, 15, 13)
+assert phase_vocoder.time_stretch(xs, 1.25, nfft=256).shape[0] == 2
+assert cepstrum.complex_cepstrum(xs)[0].shape == (2, 2048)
+assert stft_class.ShortTimeFFT(np.hanning(16), 4, 1.0).stft(xs).shape[:2] == (2, 9)
+feats = stream_mfcc([sys.argv[1] + "/in.wav"], chunk_samples=1000, nfft=256, hop=128, device="cpu")
+assert feats.shape == (2, 16, 13)
+assert stream_time_stretch([sys.argv[1] + "/in.wav"], sys.argv[1] + "/ts.wav", 1.25, nfft=256,
+                           chunk_samples=1000, device="cpu") > 0
 import torch.distributed as dist
 from digital_signal_processsing_tpu_torch import parallel
 from digital_signal_processsing_tpu_torch.parallel import (  # noqa: F401
@@ -222,6 +241,19 @@ def test_cuda_device_without_a_card_raises(tmp_path):
         fir_init(201, 16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cspline1d(np.zeros((2, 64)))
+    from digital_signal_processsing_tpu_torch.ops import mel, phase_vocoder, streaming
+    from digital_signal_processsing_tpu_torch.ops.fft import stft
+    from digital_signal_processsing_tpu_torch.serve import stream_mfcc, stream_time_stretch
+
+    for call in (
+        lambda: streaming.stft_init(512, 256), lambda: streaming.istft_init(512, 256),
+        lambda: mel.mfcc_init(512, 256), lambda: phase_vocoder.time_stretch_init(1.25),
+        lambda: stft(np.zeros((2, 2048), np.float32)),
+        lambda: stream_mfcc([tmp_path / "in.wav"]),
+        lambda: stream_time_stretch([tmp_path / "in.wav"], tmp_path / "ts.wav", 1.25),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     from digital_signal_processsing_tpu_torch.__main__ import main
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -297,6 +329,24 @@ def test_cpu_tensors_never_build_kernels(monkeypatch, rng):
     fir_chunk(fir_init(201, 3, device="cpu"), xf, np.ones(201) / 201)
     cspline1d(xf)
     qspline1d(xf)
+    from digital_signal_processsing_tpu_torch.ops import mel, phase_vocoder
+    from digital_signal_processsing_tpu_torch.ops.correlate import (
+        convolve, correlate, correlate_complex, oaconvolve,
+    )
+    from digital_signal_processsing_tpu_torch.ops.fft import czt, hilbert, hilbert_fir, tone_power
+
+    hilbert(xf, method="fir", num_taps=513)
+    hilbert_fir(xf, num_taps=65, row_len=1000)
+    for k in (257, 8194):
+        oaconvolve(xf, np.ones(k, np.float32) / k)
+        convolve(xf, np.ones(k, np.float32) / k)
+    for method in ("auto", "direct", "direct_gauss", "xla", "mxu"):
+        correlate_complex(xf, xf, xf[0, :128], xf[0, :128], "valid", method=method)
+    correlate(xf, xf[0, :128], method="direct")
+    czt(xf[:, :1000], 100)
+    tone_power(xf, [0.1, 0.2])
+    mel.mfcc(xf, sample_rate=8000.0, nfft=256, hop=128, n_mels=20)
+    phase_vocoder.pitch_shift(xf, 2 ** (3 / 12), nfft=256)
     assert not any(launch_counts().values()), launch_counts()
 
 
