@@ -255,7 +255,23 @@ failure exits non-zero:
    ``stream_mfcc`` and ``stream_time_stretch`` (rate 1.25, nfft 2048) over
    phase 4's two WAVs against one shot (the vocoder by its magnitude
    spectrogram against float64, within twice the one shot's), their wall ms
-   and device ms and idle share; and each call's wall ms and device ms.
+   and device ms and idle share; and each call's wall ms and device ms;
+10. the model families at the reference's family-row shapes, with TF32
+   turned on by the caller (the families' products and convolutions pin
+   IEEE float32) and the counts reset around: radar ``detect`` on one CPI of
+   64 x 2^20, pulse 128, its noise from PyTorch's generator on the card,
+   seed 0 (every target detected at its cell); ``track_detections`` over 16
+   CPIs of 64 x 16384 (the 3 tracks within 0.5 bin); the 16QAM modem's
+   ``receive`` on 65536 payload symbols, sps 8, delay 37, cfo 2.4e-4, 22 dB
+   with both trackers (BER under 1e-3; B8 twice a call); ``OfdmReceiver`` on
+   8 bursts at nfft 1024, cp 64, 512 symbols, 768 active, 25 dB in one call
+   (BER under 1e-3; B8 once); ``spectrum_batch`` MVDR at M=16 (64 x 16384)
+   and MVDR and MUSIC at M=64 (16 x 16384) (DOA error within a grid step);
+   no other kernel launched; then the port on the CPU: tracking and its
+   detection cut to the first 4 CPIs (detections equal outside 1e-4 of the
+   threshold, ids, flags and hits equal), the modem, OFDM and beamform at
+   full size (bits and integer diagnostics equal; 1e-5 of max|want|, MUSIC
+   2e-4); and each call's wall ms and device ms, the modem's DD loop alone.
 
 Each phase prints its seconds. The last two lines are the kernels' JSON
 record (B1-B22, each with
@@ -288,9 +304,14 @@ from digital_signal_processsing_tpu_torch.models import (
     DspChain,
     WidebandConfig,
     WidebandFmReceiver,
+    beamform,
     chain_stream_chunk,
     chain_stream_init,
+    modem,
     notch_rows,
+    ofdm,
+    radar,
+    tracking,
     tracking_notch,
 )
 from digital_signal_processsing_tpu_torch.ops import (
@@ -574,9 +595,10 @@ PROFILE_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU, torch.profiler.Profil
 # it collects, whatever the time between its start and the first kernel (on the H100
 # runs PERF.md records, 2 or 3 records in most profiles, 16 or more in one; a fresh
 # process none). An earlier wideband profile so lost its whole channelize stage (a copy
-# and B19), the chain's mix and one of the channel FIR's two B8 launches. The lead
-# kernels take the loss and are left out of the rows; a profile that lost all of them is
-# taken again with more, after a pause.
+# and B19), the chain's mix and one of the channel FIR's two B8 launches, and one that
+# lost 15 of 16 leads lost the chain's channel FIR stage after them too. The lead
+# kernels take the loss and are left out of the rows; a profile that lost more than half
+# of them is taken again with more, after a pause.
 PROFILE_LEADS = ((16, 0.0), (64, 0.05), (256, 0.2), (1024, 1.0))  # (kernels, seconds before)
 LEAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's
 
@@ -597,12 +619,12 @@ def profiled(fn) -> tuple[float, float, list]:
             wall = (time.perf_counter() - t0) * 1e3
         rows = device_rows(prof)
         lost = kernels - sum(r[1] for r in rows if LEAD_KERNEL in r[0])
-        if lost < kernels:
+        if lost <= kernels // 2:
             profiled.last = f"{lost} of {kernels}"
             profiled.lost = max(profiled.lost, lost)
             rows = [r for r in rows if LEAD_KERNEL not in r[0]]
             return wall, sum(r[2] for r in rows), rows
-    raise AssertionError(f"the profiler lost all of {kernels} lead kernels: the call's own "
+    raise AssertionError(f"the profiler lost {lost} of {kernels} lead kernels: the call's own "
                          "records may be lost")
 
 
@@ -3809,10 +3831,10 @@ def phase_spectral_main(rng, dev) -> dict:
     return calls
 
 
-def phase_spectral_times(calls: dict) -> None:
-    """Each call of the spectral main path: wall ms (synchronized, median of 3 after a
-    warm-up) and device ms under torch.profiler (one call after lead kernels)."""
-    print(f"[9 spectral times] wall ms median of 3 after a warm-up; device ms of one profiled call:")
+def call_times(label: str, calls: dict) -> None:
+    """Each call of a main path: wall ms (synchronized, median of 3 after a warm-up)
+    and device ms under torch.profiler (one call after lead kernels)."""
+    print(f"[{label}] wall ms median of 3 after a warm-up; device ms of one profiled call:")
     for name, fn in calls.items():
         fn()
         walls = []
@@ -3948,6 +3970,264 @@ def phase_spectral_serve(wav: np.ndarray, split: int) -> None:
                   f"{1 - dev_ms / wall:.3f}; lead records lost {profiled.last}")
             for key, count, ms in rows[:8]:
                 print(f"    {ms:9.3f} ms  {count:5d} x  {key[:80]}")
+
+
+# Phase 10: the model families at the reference's family-row shapes
+# (BENCH_NOTES.md:502, :758-763; benchmarks/r5_family_rows.py)
+MODEL_RADAR = radar.RadarConfig(n_pulses=64, n_range=1 << 20, pulse_len=128)
+MODEL_RADAR_TARGETS = ((100_000, 0.25, 1.0), (524_288, -0.125, 0.6), (900_001, 0.0625, 0.4))
+MODEL_RADAR_NOISE = 0.05
+MODEL_TRACK_CPIS = 16
+MODEL_TRACK_CPU_CPIS = 4  # the CPU's cut: the first 4 of the 16 CPIs
+MODEL_TRACK_RADAR = radar.RadarConfig(n_pulses=64, n_range=16384, pulse_len=128, guard=(2, 4),
+                                      train=(4, 16))
+MODEL_TRACKER = tracking.TrackerConfig(max_tracks=16, max_meas=4, vel_scale=64.0)
+MODEL_MODEM_PAYLOAD = 65536
+MODEL_OFDM = ofdm.OfdmConfig(n_fft=1024, cp=64, n_symbols=512, active=768)
+MODEL_OFDM_BURSTS = 8
+MODEL_BEAM_ROWS = ((16, 64, "mvdr"), (64, 16, "mvdr"), (64, 16, "music"))  # (M, blocks, method)
+MODEL_BEAM_SNAPS = 16384
+MODEL_BEAM_TRUTH = np.array([-12.0, 23.0])
+MODEL_TOL = 1e-5  # card against the CPU: maps, spectra, symbols, positions, of max|want|
+MODEL_MUSIC_TOL = 2e-4  # MUSIC: float32 eigenvectors from two solvers
+MODEL_DET_MARGIN = 1e-4  # detections compared outside this relative margin of the threshold
+MODEL_BER_CEILING = 1e-3
+
+
+def radar_echo(cfg, targets, noise_power: float, gen, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """``radar.synthesize``'s echo built on the card: each target's chirp train added in
+    place, then complex noise from PyTorch's generator ``gen``."""
+    pr, pi_ = radar.lfm_pulse(cfg)
+    pulse = pr.astype(np.float64) + 1j * pi_.astype(np.float64)
+    i = torch.zeros(cfg.n_pulses, cfg.n_range, device=dev)
+    q = torch.zeros_like(i)
+    for rbin, fd, amp in targets:
+        e = amp * np.outer(np.exp(2j * np.pi * fd * np.arange(cfg.n_pulses)), pulse)
+        i[:, rbin : rbin + cfg.pulse_len] += torch.from_numpy(e.real.astype(np.float32)).to(dev)
+        q[:, rbin : rbin + cfg.pulse_len] += torch.from_numpy(e.imag.astype(np.float32)).to(dev)
+    sigma = float(np.sqrt(noise_power / 2.0))
+    i += sigma * torch.randn(i.shape, generator=gen, device=dev)
+    q += sigma * torch.randn(q.shape, generator=gen, device=dev)
+    return i, q
+
+
+def track_scene(n_cpis: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The tracking row's CPIs (r5_family_rows.py:279-300): three targets moving at
+    their Doppler's velocity, noise 0.05, CPI c seeded c; and the truth at the last CPI."""
+    cfg = MODEL_TRACK_RADAR
+    i = np.empty((n_cpis, cfg.n_pulses, cfg.n_range), np.float32)
+    q = np.empty_like(i)
+    for c in range(n_cpis):
+        targets = [(500 + round(1.28 * c), 0.02, 4.0), (1200 - round(1.92 * c), -0.03, 3.0),
+                   (900, 0.0, 3.5)]
+        i[c], q[c] = radar.synthesize(cfg, targets, noise_power=0.05, seed=c)
+    last = n_cpis - 1
+    return i, q, np.array([500 + round(1.28 * last), 1200 - round(1.92 * last), 900.0])
+
+
+def ofdm_bursts() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The OFDM row's bursts (r5_family_rows.py:134-170): each delayed by 13 + b samples,
+    turned by 1.1e-4 cycles/sample, at 25 dB, padded to one length."""
+    cfg, batch = MODEL_OFDM, MODEL_OFDM_BURSTS
+    rng = np.random.default_rng(7)
+    bi, bq, bits_all = [], [], []
+    for b in range(batch):
+        bits = rng.integers(0, 2, 2 * cfg.active * cfg.n_symbols)
+        ti, tq = ofdm.ofdm_modulate(cfg, bits)
+        x = ti.astype(np.float64) + 1j * tq.astype(np.float64)
+        x = np.concatenate([np.zeros(13 + b, complex), x, np.zeros(64, complex)])
+        x = x * np.exp(1j * 2 * np.pi * 1.1e-4 * np.arange(x.size))
+        noise = rng.standard_normal(x.size) + 1j * rng.standard_normal(x.size)
+        x = x + 10 ** (-25 / 20) * noise / np.sqrt(2)
+        x = np.concatenate([x, np.zeros(batch - 1 - b, complex)])
+        bi.append(x.real.astype(np.float32))
+        bq.append(x.imag.astype(np.float32))
+        bits_all.append(bits)
+    return np.stack(bi), np.stack(bq), np.stack(bits_all)
+
+
+def same_detections(det, power, thresh, want_det) -> int:
+    """Detections equal to ``want_det`` outside MODEL_DET_MARGIN of the threshold
+    (ROADMAP H5); returns the cells inside the margin."""
+    p, th = power.double().cpu(), thresh.double().cpu()
+    inside = (p - th).abs() <= MODEL_DET_MARGIN * th.abs()
+    if not torch.equal(det.cpu()[~inside], want_det.cpu()[~inside]):
+        raise AssertionError("[10 models] detections differ outside the H5 margin")
+    return int(inside.sum())
+
+
+def phase_models_main(dev) -> dict:
+    """The model families through their entry points at the family-row shapes, TF32 on,
+    counts reset around: each against the reference's anchor and the port on the CPU."""
+    errs, notes, calls = {}, [], {}
+
+    def close(name: str, got, want, rtol: float = MODEL_TOL) -> None:
+        g, w = got.detach().double().cpu(), want.detach().double().cpu()
+        if g.shape != w.shape:
+            raise AssertionError(f"[10 models] {name}: shape {tuple(g.shape)}, want {tuple(w.shape)}")
+        errs[name] = e = float((g - w).abs().max() / w.abs().max())
+        if not e <= rtol:  # also fails on NaN
+            raise AssertionError(f"[10 models] {name}: {e:.3e} of max|want| > {rtol}")
+
+    def launched(before: dict) -> dict:
+        torch.cuda.synchronize()
+        return {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    ri, rq = radar_echo(MODEL_RADAR, MODEL_RADAR_TARGETS, MODEL_RADAR_NOISE, gen, dev)
+    ti, tq, truth = track_scene(MODEL_TRACK_CPIS)
+    ti_d, tq_d = torch.from_numpy(ti).to(dev), torch.from_numpy(tq).to(dev)
+    mcfg = {t: modem.ModemConfig(bits_per_symbol=4, sps=8, tracker=t) for t in ("dd", "vv")}
+    mbits = np.random.default_rng(5).integers(0, 2, MODEL_MODEM_PAYLOAD * 4)
+    mi, mq = modem.channel(*modem.transmit(mcfg["dd"], mbits, device=dev), delay=37, cfo=2.4e-4,
+                           phase=0.8, symbol_snr_db=22.0, seed=1)
+    mi_d, mq_d = torch.from_numpy(mi).to(dev), torch.from_numpy(mq).to(dev)
+    oi, oq, obits = ofdm_bursts()
+    oi_d, oq_d = torch.from_numpy(oi).to(dev), torch.from_numpy(oq).to(dev)
+    beams = []
+    for m, blocks, method in MODEL_BEAM_ROWS:
+        bcfg = beamform.ArrayConfig(n_sensors=m)
+        snaps = [beamform.synthesize(bcfg, MODEL_BEAM_TRUTH, MODEL_BEAM_SNAPS, snr_db=10.0, seed=b)
+                 for b in range(blocks)]
+        beams.append((bcfg, method, np.stack([s[0] for s in snaps]), np.stack([s[1] for s in snaps])))
+    torch.cuda.synchronize()
+
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")  # TF32 on: the families' products pin IEEE float32
+    try:
+        reset_launch_counts()
+        before = launch_counts()
+        # radar: one CPI of 64 x 2^20, pulse 128 (BENCH_NOTES.md:502)
+        calls["radar detect 64 x 2^20"] = lambda: radar.detect(MODEL_RADAR, ri, rq)
+        det, power, thresh = calls["radar detect 64 x 2^20"]()
+        for rbin, fd, _ in MODEL_RADAR_TARGETS:
+            row = MODEL_RADAR.n_pulses // 2 + round(fd * MODEL_RADAR.n_pulses)
+            if not bool(det[row, rbin]):
+                raise AssertionError(f"[10 models] radar target at ({row}, {rbin}) not detected")
+        if not bool(torch.isfinite(power).all() and torch.isfinite(thresh).all()):
+            raise AssertionError("[10 models] radar power or threshold not finite")
+        notes.append(f"radar: the 3 targets detected at their cells, {int(det.sum())} detections "
+                     f"in {det.numel()} cells (pfa {MODEL_RADAR.pfa})")
+        del det, power, thresh
+        # tracking: 16 CPIs of 64 x 16384 (r5_family_rows.py:279-300)
+        calls["track_detections 16 x 64 x 16384"] = lambda: tracking.track_detections(
+            MODEL_TRACK_RADAR, MODEL_TRACKER, ti_d, tq_d)
+        state, _ = calls["track_detections 16 x 64 x 16384"]()
+        conf = (state.active & (state.hits >= MODEL_TRACKER.confirm_hits)).cpu().numpy()
+        pos = state.x[:, 0].cpu().numpy()[conf]
+        terr = [float(np.min(np.abs(pos - t))) if pos.size else np.inf for t in truth]
+        if not max(terr) <= 0.5:
+            raise AssertionError(f"[10 models] tracks off the targets: {terr} bins")
+        notes.append(f"tracking: {int(conf.sum())} confirmed tracks, per-target error "
+                     f"{np.round(terr, 4).tolist()} bins (bound 0.5)")
+        radar_launches = launched(before)
+        # modem: 16QAM, 65536 payload symbols, sps 8, delay 37, cfo 2.4e-4, 22 dB, both trackers
+        before = launch_counts()
+        rx_bits, rx_diag = {}, {}
+        for t, cfg in mcfg.items():
+            calls[f"modem receive {t}"] = lambda cfg=cfg: modem.receive(
+                cfg, mi_d, mq_d, MODEL_MODEM_PAYLOAD)
+            rx_bits[t], rx_diag[t] = calls[f"modem receive {t}"]()
+        modem_launches = launched(before)
+        ber = {t: float((b.cpu().numpy() != mbits).mean()) for t, b in rx_bits.items()}
+        if not max(ber.values()) < MODEL_BER_CEILING:
+            raise AssertionError(f"[10 models] modem BER {ber}")
+        eq, pre_c, _ = modem._equalized(mcfg["dd"], mi_d, mq_d, MODEL_MODEM_PAYLOAD)
+        known = modem._known(pre_c, MODEL_MODEM_PAYLOAD)
+        calls["modem DD loop alone"] = lambda: modem._dd_phase_track(eq, *known, 4, 32)
+        dd = rx_diag["dd"]
+        notes.append(f"modem: BER dd {ber['dd']}, vv {ber['vv']} (ceiling {MODEL_BER_CEILING}); "
+                     f"evm dd {float(dd['evm']):.4f}, frame start {int(dd['frame_start'])}, "
+                     f"timing phase {int(dd['timing_phase'])}")
+        # OFDM: 8 bursts, nfft 1024, cp 64, 512 symbols, 768 active, 25 dB, one call
+        before = launch_counts()
+        orx = ofdm.OfdmReceiver(MODEL_OFDM, device=dev)
+        calls["ofdm 8 bursts"] = lambda: orx.demodulate(oi_d, oq_d, *orx.synchronize(oi_d, oq_d))
+        o_d, o_cfo = orx.synchronize(oi_d, oq_d)
+        o_er, o_ei = orx.demodulate(oi_d, oq_d, o_d, o_cfo)
+        ofdm_launches = launched(before)
+        sym = o_er.cpu().numpy() + 1j * o_ei.cpu().numpy()
+        o_ber = float((ofdm.qpsk_demod(sym).reshape(obits.shape) != obits).mean())
+        if not o_ber < MODEL_BER_CEILING:
+            raise AssertionError(f"[10 models] OFDM BER {o_ber}")
+        notes.append(f"ofdm: BER {o_ber} over {MODEL_OFDM_BURSTS} bursts, timing {o_d.tolist()}")
+        # beamform: spectrum_batch MVDR M=16 (64 x 16384), MVDR and MUSIC M=64 (16 x 16384)
+        before = launch_counts()
+        spectra = []
+        for bcfg, method, xi, xq in beams:
+            xi_d, xq_d = torch.from_numpy(xi).to(dev), torch.from_numpy(xq).to(dev)
+            key = f"spectrum_batch {method} M={bcfg.n_sensors} ({xi.shape[0]} x {MODEL_BEAM_SNAPS})"
+            calls[key] = lambda bcfg=bcfg, method=method, xi_d=xi_d, xq_d=xq_d: beamform.spectrum_batch(
+                bcfg, xi_d, xq_d, method=method, n_sources=2)
+            spec_d = calls[key]()
+            angles = beamform.scan_angles(bcfg)
+            derr = max(float(np.abs(beamform._pick_peaks(angles, s, 2) - MODEL_BEAM_TRUTH).max())
+                       for s in spec_d.cpu().numpy())
+            step = float(angles[1] - angles[0])
+            if not derr <= step:
+                raise AssertionError(f"[10 models] {key}: DOA error {derr} deg > a grid step {step}")
+            notes.append(f"{key}: DOA error {derr:.4f} deg over every block (grid step {step})")
+            spectra.append(spec_d)
+        beam_launches = launched(before)
+    finally:
+        torch.set_float32_matmul_precision(saved)
+
+    print(f"[10 models] launches: radar and tracking {radar_launches or 'none'}, modem (dd and vv) "
+          f"{modem_launches}, OFDM {ofdm_launches}, beamform {beam_launches or 'none'}")
+    if radar_launches or beam_launches or set(modem_launches) != {"B8"} or set(ofdm_launches) != {"B8"}:
+        raise AssertionError("[10 models] the families launched other kernels than B8 by the "
+                             "modem and the OFDM receiver")
+    if modem_launches["B8"] != 4 or ofdm_launches["B8"] != 1:
+        raise AssertionError(f"[10 models] B8: modem {modem_launches['B8']} (want 2 a call), OFDM "
+                             f"{ofdm_launches['B8']} (want 1)")
+
+    # the port on the CPU: tracking (and its radar) cut to the first 4 of the 16 CPIs; the
+    # modem, the OFDM bursts and the beamform rows at full size
+    cut = MODEL_TRACK_CPU_CPIS
+    cdet = radar.detect_batch(MODEL_TRACK_RADAR, torch.from_numpy(ti[:cut]), torch.from_numpy(tq[:cut]))
+    gdet = radar.detect_batch(MODEL_TRACK_RADAR, ti_d[:cut], tq_d[:cut])
+    close("radar detect power (4 CPIs of 64 x 16384)", gdet[1], cdet[1])
+    close("radar detect threshold (4 CPIs of 64 x 16384)", gdet[2], cdet[2])
+    inside = same_detections(gdet[0], cdet[1], cdet[2], cdet[0])
+    cstate, _ = tracking.track_detections(MODEL_TRACK_RADAR, MODEL_TRACKER,
+                                          torch.from_numpy(ti[:cut]), torch.from_numpy(tq[:cut]))
+    gstate, _ = tracking.track_detections(MODEL_TRACK_RADAR, MODEL_TRACKER, ti_d[:cut], tq_d[:cut])
+    for name in ("active", "hits", "misses", "tid", "next_id"):
+        if not torch.equal(getattr(gstate, name).cpu(), getattr(cstate, name)):
+            raise AssertionError(f"[10 models] tracker {name} differs from the CPU's")
+    close("tracker positions (4 CPIs)", gstate.x, cstate.x)
+    for t, cfg in mcfg.items():
+        cbits, cdiag = modem.receive(cfg, mi, mq, MODEL_MODEM_PAYLOAD, device="cpu")
+        if not torch.equal(rx_bits[t].cpu(), cbits):
+            raise AssertionError(f"[10 models] modem {t}: bits differ from the CPU's")
+        for key in ("timing_phase", "frame_start"):
+            if int(rx_diag[t][key]) != int(cdiag[key]):
+                raise AssertionError(f"[10 models] modem {t}: {key} differs from the CPU's")
+        for key in ("cfo_coarse", "cfo_fine_per_symbol", "evm"):
+            errs[f"modem {t} {key} (abs)"] = e = abs(float(rx_diag[t][key]) - float(cdiag[key]))
+            if not e <= MODEL_TOL:
+                raise AssertionError(f"[10 models] modem {t} {key}: {e:.3e} from the CPU's")
+    crx = ofdm.OfdmReceiver(MODEL_OFDM, device="cpu")
+    c_d, c_cfo = crx.synchronize(torch.from_numpy(oi), torch.from_numpy(oq))
+    c_er, c_ei = crx.demodulate(torch.from_numpy(oi), torch.from_numpy(oq), c_d, c_cfo)
+    if not torch.equal(o_d.cpu(), c_d):
+        raise AssertionError("[10 models] OFDM timing differs from the CPU's")
+    close("ofdm cfo", o_cfo, c_cfo)
+    close("ofdm symbols real", o_er, c_er)
+    close("ofdm symbols imag", o_ei, c_ei)
+    for (bcfg, method, xi, xq), spec_d in zip(beams, spectra):
+        want = beamform.spectrum_batch(bcfg, torch.from_numpy(xi), torch.from_numpy(xq), method=method,
+                                       n_sources=2)
+        close(f"spectrum_batch {method} M={bcfg.n_sensors}", spec_d, want,
+              MODEL_MUSIC_TOL if method == "music" else MODEL_TOL)
+    for line in notes:
+        print(f"[10 models] {line}")
+    print(f"[10 models] against the port on the CPU with TF32 on at the card (x max|want|; bound "
+          f"{MODEL_TOL}, MUSIC {MODEL_MUSIC_TOL}): " + "; ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; detections equal outside the {MODEL_DET_MARGIN} margin ({inside} cells inside it); "
+          "tracker ids, flags and hits, modem bits and integer diagnostics, OFDM timing equal")
+    return calls
 
 
 def main() -> int:
@@ -4253,9 +4533,21 @@ def main() -> int:
     mark("9 spectral main path")
     phase_spectral_serve(wav, 2 * frames_a)
     mark("9 spectral serving")
-    phase_spectral_times(spectral_calls)
+    call_times("9 spectral times", spectral_calls)
     del spectral_calls
     mark("9 spectral times")
+
+    # 10. the model families at the reference's family-row shapes, and their times
+    model_calls = phase_models_main(dev)
+    mark("10 model families")
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        call_times("10 model times", model_calls)
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    del model_calls
+    mark("10 model times")
     n_loc = MAIN_SAMPLES // RING_WORLD
     ring_bounds = {"B6": bound(2 * 2 * n_loc, 0), "B7": bound(4 * n_loc, 4 * n_loc)}
     print("  bounds (ms, by): " + ", ".join(f"{k} {b:.4f} {by}" for k, (b, by) in ring_bounds.items()))

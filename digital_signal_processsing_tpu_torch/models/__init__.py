@@ -10,6 +10,15 @@ from .chain import (  # noqa: F401
     chain_stream_init,
 )
 from .wideband import WidebandConfig, WidebandFmReceiver, wideband_from_jax  # noqa: F401
+from .ofdm import OfdmConfig, OfdmReceiver  # noqa: F401
+from .modem import ModemConfig  # noqa: F401
+from . import modem  # noqa: F401
+from .radar import RadarConfig  # noqa: F401
+from . import radar  # noqa: F401
+from .beamform import ArrayConfig  # noqa: F401
+from . import beamform  # noqa: F401
+from .tracking import TrackerConfig, tracker_state_from_jax  # noqa: F401
+from . import tracking  # noqa: F401
 
 __all__ = [
     "estimate_tone_frequency",
@@ -28,4 +37,15 @@ __all__ = [
     "WidebandConfig",
     "WidebandFmReceiver",
     "wideband_from_jax",
+    "ArrayConfig",
+    "beamform",
+    "TrackerConfig",
+    "tracker_state_from_jax",
+    "tracking",
+    "ModemConfig",
+    "modem",
+    "RadarConfig",
+    "radar",
+    "OfdmConfig",
+    "OfdmReceiver",
 ]

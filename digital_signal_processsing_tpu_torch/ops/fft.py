@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.device import resolve_device
+from ..utils.device import as_tensor
 from ..utils.dispatch import record_choice
 from ..utils.layout import overlapping_frames
 
@@ -52,9 +52,7 @@ def _check_fft_method(method: str) -> None:
 
 def as_signal(x) -> torch.Tensor:
     """A tensor stays where it is; anything else goes to the card (raises without one)."""
-    if isinstance(x, torch.Tensor):
-        return x
-    return torch.as_tensor(np.asarray(x), device=resolve_device("cuda"))
+    return as_tensor(x)
 
 
 def as_signal_like(v, ref: torch.Tensor) -> torch.Tensor:

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -22,4 +23,19 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device"]
+def as_tensor(x, device="cuda") -> torch.Tensor:
+    """A tensor stays where it is; anything else goes to ``device``, checked by
+    :func:`resolve_device` (so NumPy input and the default raise without a card)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(np.asarray(x), device=resolve_device(device))
+
+
+def as_planar(i, q, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """Planar (i, q) as float32 tensors on one device: ``i``'s where it is a
+    tensor, else ``device`` (see :func:`as_tensor`)."""
+    i = as_tensor(i, device).to(torch.float32)
+    return i, as_tensor(q, i.device).to(i.device, torch.float32)
+
+
+__all__ = ["as_planar", "as_tensor", "resolve_device"]

@@ -178,6 +178,32 @@ feats = stream_mfcc([sys.argv[1] + "/in.wav"], chunk_samples=1000, nfft=256, hop
 assert feats.shape == (2, 16, 13)
 assert stream_time_stretch([sys.argv[1] + "/in.wav"], sys.argv[1] + "/ts.wav", 1.25, nfft=256,
                            chunk_samples=1000, device="cpu") > 0
+from digital_signal_processsing_tpu_torch.models import (
+    ArrayConfig, ModemConfig, OfdmConfig, OfdmReceiver, RadarConfig, TrackerConfig, beamform, kalman,
+    modem, radar, tracker_state_from_jax, tracking,
+)
+rc = RadarConfig(n_pulses=16, n_range=256, pulse_len=32, guard=(1, 2), train=(2, 4))
+ri, rq = (torch.from_numpy(np.stack([a] * 2)) for a in radar.synthesize(rc, [(60, 0.25, 1.0)], noise_power=0.01))
+det = radar.detect_batch(rc, ri, rq)[0]
+assert det.shape == (2, 16, 225) and bool(det[0, 12, 60])
+st, hist = tracking.track_detections(rc, TrackerConfig(max_tracks=4, max_meas=4), ri, rq)
+assert hist["x"].shape == (2, 4, 2)
+assert tracker_state_from_jax(tuple(t.numpy() for t in st), device="cpu").hits.dtype == torch.int32
+assert kalman.kalman_filter(np.eye(2), np.eye(2), np.eye(2), np.eye(2), torch.zeros(5, 2))[0].shape == (5, 2)
+mc = ModemConfig(bits_per_symbol=4)
+mbits = np.random.default_rng(3).integers(0, 2, 4 * 256)
+mi, mq = (torch.from_numpy(a) for a in modem.channel(*modem.transmit(mc, mbits, device="cpu"), delay=5))
+for tracker in ("dd", "vv"):
+    got = modem.receive(ModemConfig(bits_per_symbol=4, tracker=tracker), mi, mq, 256)[0]
+    assert (got.numpy() == mbits).all()
+oc = OfdmConfig(n_symbols=4)
+from digital_signal_processsing_tpu_torch.models.ofdm import ofdm_modulate
+obits = np.random.default_rng(4).integers(0, 2, 2 * 48 * 4)
+oi, oq = (np.pad(a, (7, 30)) for a in ofdm_modulate(oc, obits))
+assert (OfdmReceiver(oc, device="cpu").receive_bits(torch.from_numpy(oi), torch.from_numpy(oq)) == obits).all()
+xi, xq = (torch.from_numpy(a) for a in beamform.synthesize(ArrayConfig(), [-20.0, 30.0], 256))
+assert beamform.estimate_doa(ArrayConfig(), xi, xq, n_sources=2).shape == (2,)
+assert beamform.spectrum_batch(ArrayConfig(), xi[None], xq[None], method="mvdr").shape == (1, 361)
 import torch.distributed as dist
 from digital_signal_processsing_tpu_torch import parallel
 from digital_signal_processsing_tpu_torch.parallel import (  # noqa: F401
@@ -258,6 +284,29 @@ def test_cuda_device_without_a_card_raises(tmp_path):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([str(tmp_path / "in.wav"), "4", "--out", str(tmp_path / "o.wav")])
+    from digital_signal_processsing_tpu_torch.models import (
+        ArrayConfig, ModemConfig, OfdmConfig, OfdmReceiver, RadarConfig, TrackerConfig, beamform,
+        kalman, modem, radar, tracking,
+    )
+
+    rc = RadarConfig(n_pulses=8, n_range=128, pulse_len=16)
+    e = np.zeros((8, 128), np.float32)
+    xs = np.zeros((8, 64), np.float32)
+    for call in (
+        lambda: radar.detect(rc, e, e), lambda: radar.detect_batch(rc, e[None], e[None]),
+        lambda: radar.pulse_compress(rc, e, e), lambda: radar.ambiguity(e[0], e[0]),
+        lambda: radar.ca_cfar(e, guard=(1, 1), train=(2, 2), pfa=1e-3),
+        lambda: tracking.tracker_init(TrackerConfig()),
+        lambda: tracking.track_detections(rc, TrackerConfig(), e[None], e[None]),
+        lambda: kalman.kalman_filter(np.eye(2), np.eye(2), np.eye(2), np.eye(2), np.zeros((4, 2))),
+        lambda: modem.receive(ModemConfig(), e[0], e[0], 4), lambda: modem.transmit(ModemConfig(), [0, 1]),
+        lambda: OfdmReceiver(OfdmConfig()),
+        lambda: beamform.estimate_doa(ArrayConfig(), xs, xs, n_sources=1),
+        lambda: beamform.spectrum_batch(ArrayConfig(), xs[None], xs[None]),
+        lambda: beamform.wideband_music_spectrum(ArrayConfig(), xs, n_sources=1, spacing_samples=1.0),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_cpu_tensors_never_build_kernels(monkeypatch, rng):
@@ -347,6 +396,13 @@ def test_cpu_tensors_never_build_kernels(monkeypatch, rng):
     tone_power(xf, [0.1, 0.2])
     mel.mfcc(xf, sample_rate=8000.0, nfft=256, hop=128, n_mels=20)
     phase_vocoder.pitch_shift(xf, 2 ** (3 / 12), nfft=256)
+    from digital_signal_processsing_tpu_torch.models import modem, ofdm
+
+    xm = xf[0, :2048]
+    for tracker in ("dd", "vv"):
+        modem.receive(modem.ModemConfig(tracker=tracker), xm, xm, 16)
+    rx = ofdm.OfdmReceiver(ofdm.OfdmConfig(n_symbols=4), device="cpu")
+    rx.receive_bits(xf[:, :500], xf[:, :500])
     assert not any(launch_counts().values()), launch_counts()
 
 
