@@ -272,9 +272,27 @@ failure exits non-zero:
    threshold, ids, flags and hits equal), the modem, OFDM and beamform at
    full size (bits and integer diagnostics equal; 1e-5 of max|want|, MUSIC
    2e-4); and each call's wall ms and device ms, the modem's DD loop alone.
+11. the training path at full width, with TF32 turned on by the caller (the
+   trainer's ``conv1d`` and the designer's products pin IEEE float32) and the
+   counts reset around: ``identify_system`` of a 256-tap decaying random echo
+   path on (64, 16384) batches, 200 steps (the path recovered within 1e-3 in
+   norm; its first 20 steps against the port on the CPU within 1e-4 of
+   max|h|); ``design_pr_prototype`` at n = 8 (the reference's 600 steps)
+   and 64 (200 steps, a depth cut), P = 8, B20 launched once a step (asserted), step 0's gradient through B20 against
+   autograd through the plain route on the card (1e-4 of max|g|), 50 steps
+   against the CPU (1e-5 of max|h|), the reconstruction SNR and stopband (at
+   n = 8 above 45 dB and below -25 dB); ``nlms`` (S1) at p = 256 on 64 x
+   65536 and ``rls`` (S2) at p = 32 on 64 x 32768 and at p = 240, past P's
+   shared-memory limit, on 2 x 4096, one launch each (asserted), each against
+   its plain loop on the card over the first 2048 samples (1e-5 of max|d|, of
+   max|w| for the taps) and over the whole run against the reference's anchors
+   (NLMS within 0.05 of the true taps, RLS within 5e-3); the sharded step at
+   world size 1 over NCCL bit for bit the single step; S1 and S2 beside their
+   plain loops, their bounds and per-sample chain floors, B20 in the designer;
+   and each call's wall ms and device ms.
 
 Each phase prints its seconds. The last two lines are the kernels' JSON
-record (B1-B22, each with
+record (B1-B22, S1 and S2, each with
 its launches on the main path, max abs error, device ms, plain ms, bound ms
 and library ms) and ``{"ok": true, "device": {...}}``.
 """
@@ -299,6 +317,7 @@ from digital_signal_processsing_tpu_torch.__main__ import main as cli_main
 from digital_signal_processsing_tpu_torch.golden import moving_average_golden
 from digital_signal_processsing_tpu_torch.harness import CSV_COLUMNS, sweep
 from digital_signal_processsing_tpu_torch.io import WavChunkLoader, read_wav, write_wav
+from digital_signal_processsing_tpu_torch.models import adaptive
 from digital_signal_processsing_tpu_torch.models import (
     ChainConfig,
     DspChain,
@@ -331,6 +350,7 @@ from digital_signal_processsing_tpu_torch.ops import cic, fir, gain, iir, iir_de
 from digital_signal_processsing_tpu_torch.ops import correlate as cor
 from digital_signal_processsing_tpu_torch.ops import fft as spec
 from digital_signal_processsing_tpu_torch.ops import mel
+from digital_signal_processsing_tpu_torch.ops import pfb_os
 from digital_signal_processsing_tpu_torch.ops import phase_vocoder as pv
 from digital_signal_processsing_tpu_torch.ops import resample, splines, streaming
 from digital_signal_processsing_tpu_torch.ops import pallas_direct as pd
@@ -359,8 +379,9 @@ PFB_KERNELS = ("B19", "B20", "B21")
 TV_KERNELS = ("B16", "B17", "B18", "B22")
 ANCHOR_KERNELS = ("B11", "B14")
 RING_KERNELS = ("B6", "B7")
+ADAPTIVE_KERNELS = ("S1", "S2")
 KERNELS = (*AVERAGER_KERNELS, "B8", "B9", *IIR_KERNELS, *PFB_KERNELS, *TV_KERNELS,
-           *ANCHOR_KERNELS, *RING_KERNELS)
+           *ANCHOR_KERNELS, *RING_KERNELS, *ADAPTIVE_KERNELS)
 SOURCE = "digital_signal_processsing_tpu_torch/csrc/"
 REPLACES = "digital_signal_processsing_tpu/ops/pallas_scan.py:"
 REPLACES_DIRECT = "digital_signal_processsing_tpu/ops/pallas_direct.py:"
@@ -588,6 +609,9 @@ def device_rows(prof) -> list[tuple[str, int, float]]:
 
 
 PROFILE_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+# the package's kernels in a profile: templates demangle with their return type, plain
+# functions (S2's rls_kernel) without
+OURS = ("void dsp::", "dsp::")
 
 
 # Lead kernels each profiled call launches inside the profiler's window before it
@@ -641,7 +665,7 @@ def profile_stages(stages: dict, what: str) -> None:
         _, dev_ms, stage_rows = profiled(fn)  # one call
         launched = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
         top = max(stage_rows, key=lambda r: r[2]) if stage_rows else ("none", 0, 0.0)
-        ours = sum(r[2] for r in stage_rows if r[0].startswith("void dsp::"))
+        ours = sum(r[2] for r in stage_rows if r[0].startswith(OURS))
         print(
             f"  {name:12s} device {dev_ms:8.3f} ms in {sum(r[1] for r in stage_rows):3d} "
             f"kernels ({ours:.3f} ms in the package's, launched {launched or 'none'}; lead "
@@ -3845,7 +3869,7 @@ def call_times(label: str, calls: dict) -> None:
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         _, dev_ms, rows = profiled(fn)
-        ours = sum(r[2] for r in rows if r[0].startswith("void dsp::"))
+        ours = sum(r[2] for r in rows if r[0].startswith(OURS))
         top = max(rows, key=lambda r: r[2]) if rows else ("none", 0, 0.0)
         print(f"  {name:32s} wall {statistics.median(walls):9.3f} ms; device {dev_ms:9.3f} ms in "
               f"{sum(r[1] for r in rows):4d} kernels ({ours:.3f} ms in the package's); largest "
@@ -4230,6 +4254,284 @@ def phase_models_main(dev) -> dict:
     return calls
 
 
+# Phase 11: the training path (models/adaptive.py, utils/checkpoint.py, the designer of
+# ops/pfb_os.py) at full width
+TRAIN_TAPS = 256  # a decaying random echo path
+TRAIN_BATCH = (64, 16384)
+TRAIN_STEPS = 200
+TRAIN_CPU_STEPS = 20  # the CPU's cut: the first 20 of the 200 steps
+TRAIN_WORLD1_STEPS = 5
+TRAIN_RTOL = 1e-4  # card against the CPU after 20 steps, of max|true taps|: the FIR's sums
+TRAIN_REC_MAX = 1e-3  # ||taps - true|| / ||true|| after the 200 steps
+NLMS_P, NLMS_SHAPE = 256, (64, 65536)
+RLS_P, RLS_SHAPE = 32, (64, 32768)
+RLS_BIG_P, RLS_BIG_SHAPE = 240, (2, 4096)  # past S2's shared-memory limit (236 taps)
+ADAPT_PREFIX = 2048
+# S1 and S2 against their plain loops on the prefix: y and e of max|d|, w of max|w| (the
+# same operations summed in other orders; tests/test_torch_adaptive_scan.py's emulations
+# hold the kernels' order to plain within 1e-5 on the CPU)
+ADAPT_RTOL = 1e-5
+NLMS_ANCHOR, RLS_ANCHOR = 0.05, 5e-3  # max|w - h|, tests/test_models.py:232, :262-272
+DESIGN_P = 8
+# steps at each width: the reference's 600 at n = 8, where its anchors hold; n = 64 cut to
+# 200 (a depth cut: each step is a launch-bound loop of about 320 small kernels)
+DESIGN_STEPS = {8: 600, 64: 200}
+DESIGN_NS = tuple(DESIGN_STEPS)
+DESIGN_CPU_STEPS = 50  # card against the CPU after these steps, of max|h|
+DESIGN_RTOL = 1e-5
+DESIGN_GRAD_RTOL = 1e-4  # step 0's gradient through B20 against the plain route, of max|g|
+DESIGN_TIMED_STEPS = 20
+SM_CLOCK_HZ = 1.98e9
+
+
+def echo_path(rng, dev, p: int, shape: tuple, noise: float, decay: float):
+    """(h, x, d): a decaying random p-tap path, white x, d = h * x + noise, d by a
+    float64 causal FIR on the card."""
+    h = (rng.standard_normal(p) * np.exp(-np.arange(p) / decay)).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    n = torch.from_numpy(rng.standard_normal(shape)).to(dev)
+    h64 = torch.from_numpy(h.astype(np.float64)).to(dev)
+    xp = torch.nn.functional.pad(x.double()[:, None, :], (p - 1, 0))
+    d = torch.nn.functional.conv1d(xp, h64.flip(0)[None, None, :])[:, 0, :]
+    return h, x, (d + noise * n).float()
+
+
+def adaptive_bounds(kind: str, p: int, b: int, n: int) -> dict:
+    """S1's or S2's least time by bytes and float32 operations (the contract's bound),
+    and the floor of its per-sample chain: each sample needs the taps the previous one
+    left, through at least the dependent operations counted here, each 4 cycles or
+    more (a shuffle or a barrier takes more) at 1.98 GHz."""
+    r = -(-p // 32)
+    by = 16 * b * n + 4 * b * p  # x, d read; y, e written; the taps
+    if kind == "S1":
+        flops = 6 * p * b * n  # w.u, u.u, the update: a multiply and an add each
+        deps = 1 + r + 10 + 1 + 2 + 1 + 2  # shift, lane sum, butterfly, e, norm, g, w
+    else:
+        flops = (6 * p * p + 7 * p) * b * n  # P u, the pair updates and symmetrisation
+        deps = 2 * r + 10 + 6 + 2  # P u, u.pu's butterflies, k, P's update, 2 barriers
+    return {"bound": bound(by, flops, FP32_FLOPS_PER_S),
+            "chain": n * deps * 4 / SM_CLOCK_HZ * 1e3}
+
+
+def stopband_db(h: np.ndarray, n: int) -> float:
+    w = np.fft.rfft(h, 4096)
+    f = np.linspace(0, 1, w.size)
+    return float(20 * np.log10(np.max(np.abs(w[f > 2.2 / n])) / np.max(np.abs(w))))
+
+
+def roundtrip_snr_db(h: np.ndarray, n: int, dev) -> float:
+    """Full-band reconstruction through the port's bank (tests/test_pfb_os.py:40-52)."""
+    d = n // 2
+    k = h.size
+    x = np.random.default_rng(2).normal(size=d * 4096).astype(np.float32)
+    xt = torch.from_numpy(x).to(dev)
+    yi, yq = pfb_analyze_os(xt, n, torch.from_numpy(h).to(dev))
+    rec = pfb_synthesize_os(yi, yq, n, torch.from_numpy(h * d).to(dev)).cpu().numpy()
+    a, b = rec[k:], x[: rec.size - k]
+    g = 2 * k
+    err = a[g:-g] - b[g:-g]
+    return float(10 * np.log10(np.sum(b[g:-g] ** 2) / np.sum(err ** 2)))
+
+
+def phase_training_main(dev, tmp: str) -> dict:
+    """The training path through its entry points with TF32 on and the counts reset
+    around: identify_system, NLMS (S1), RLS (S2, both routes of P), the designer (B20
+    forward and back every step); then the checks outside the counted run."""
+    import torch.distributed as dist
+
+    from digital_signal_processsing_tpu_torch import parallel as par
+
+    rng = np.random.default_rng(11)
+    check, notes, errs, calls = Checker(), [], {}, {}
+    last = [time.perf_counter()]
+
+    def tick(what: str) -> None:
+        now = time.perf_counter()
+        print(f"[11 training] {what}: {now - last[0]:.1f} s", flush=True)
+        last[0] = now
+
+    h_sys = (0.5 * rng.standard_normal(TRAIN_TAPS) * np.exp(-np.arange(TRAIN_TAPS) / 48.0)
+             ).astype(np.float32)
+    hN, xN, dN = echo_path(rng, dev, NLMS_P, NLMS_SHAPE, 0.01, 64.0)
+    hR, xR, dR = echo_path(rng, dev, RLS_P, RLS_SHAPE, 0.003, 8.0)
+    hB, xB, dB = echo_path(rng, dev, RLS_BIG_P, RLS_BIG_SHAPE, 0.003, 48.0)
+    torch.cuda.synchronize()
+    train_kw = dict(batch=TRAIN_BATCH, seed=3)
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")  # TF32 on: the port pins IEEE float32
+    try:
+        tick("inputs")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        taps, loss = adaptive.identify_system(h_sys, steps=TRAIN_STEPS, **train_kw)
+        train_wall = time.perf_counter() - t0
+        tick("identify_system")
+        designs, design_walls = {}, {}
+        for n in DESIGN_NS:
+            before = launch_counts()
+            t0 = time.perf_counter()
+            designs[n] = pfb_os.design_pr_prototype(n, DESIGN_P, steps=DESIGN_STEPS[n])
+            design_walls[n] = time.perf_counter() - t0
+            got = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+            if got != {"B20": DESIGN_STEPS[n]}:
+                raise AssertionError(f"[11 training] design n={n}: launched {got}, want B20 "
+                                     f"once a step ({DESIGN_STEPS[n]})")
+        tick("design_pr_prototype")
+        yN, eN, wN = adaptive.nlms(xN, dN, NLMS_P)
+        yR, eR, wR = adaptive.rls(xR, dR, RLS_P, forget=0.999)
+        yB, eB, wB = adaptive.rls(xB, dB, RLS_BIG_P, forget=0.999)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    print(f"[11 training] launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}")
+    want = {"B20": sum(DESIGN_STEPS.values()), "S1": 1, "S2": 2}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"[11 training] launches {launches}, want {want}")
+
+    # the echo path identified; the first 20 steps against the port on the CPU
+    rec = float(np.linalg.norm(taps - h_sys) / np.linalg.norm(h_sys))
+    notes.append(f"identify_system {TRAIN_TAPS} taps, {TRAIN_BATCH[0]} x {TRAIN_BATCH[1]}, "
+                 f"{TRAIN_STEPS} steps: wall {train_wall:.2f} s, loss {loss:.3e}, max|taps - h| "
+                 f"{np.abs(taps - h_sys).max():.3e}, ||taps - h|| / ||h|| {rec:.3e} (bound "
+                 f"{TRAIN_REC_MAX})")
+    if not rec <= TRAIN_REC_MAX:
+        raise AssertionError(f"[11 training] echo path not identified: {rec:.3e}")
+    tick("nlms and rls")
+    cuda20, _ = adaptive.identify_system(h_sys, steps=TRAIN_CPU_STEPS, **train_kw)
+    cpu20, _ = adaptive.identify_system(h_sys, steps=TRAIN_CPU_STEPS, device="cpu", **train_kw)
+    tick("identify_system 20 steps on the card and the CPU")
+    errs["identify_system 20 steps, card against the CPU (of max|h|)"] = e = float(
+        np.abs(cuda20 - cpu20).max() / np.abs(h_sys).max())
+    if not e <= TRAIN_RTOL:
+        raise AssertionError(f"[11 training] 20 steps: card {e:.3e} of max|h| from the CPU")
+
+    # the sharded step at world size 1 over NCCL: bit for bit the single step
+    par.initialize_multihost(f"file://{tmp}/train.store", 1, 0, backend="nccl")
+    try:
+        step = adaptive.make_sharded_train_step(par.make_mesh(device="cuda"))
+        sh = adaptive.identify_system(h_sys, steps=TRAIN_WORLD1_STEPS, train_step=step, **train_kw)
+    finally:
+        dist.destroy_process_group()
+    one = adaptive.identify_system(h_sys, steps=TRAIN_WORLD1_STEPS, **train_kw)
+    if not (np.array_equal(sh[0], one[0]) and sh[1] == one[1]):
+        raise AssertionError("[11 training] the sharded step at world size 1 differs from the "
+                             f"single step: {np.abs(sh[0] - one[0]).max():.3e}")
+    notes.append(f"make_sharded_train_step at world size 1 (NCCL), {TRAIN_WORLD1_STEPS} steps: "
+                 "taps and loss bit for bit the single step's")
+    tick("world size 1")
+
+    # S1 and S2 against their plain loops on the card over the prefix; the anchors
+    pre = slice(0, ADAPT_PREFIX)
+    for kernel, scan, plain, x, d, p, kw in (
+        ("S1", adaptive.nlms_scan, adaptive._nlms_plain, xN, dN, NLMS_P, (0.5, 1e-6)),
+        ("S2", adaptive.rls_scan, adaptive._rls_plain, xR, dR, RLS_P, (0.999, 1e2)),
+        ("S2", adaptive.rls_scan, adaptive._rls_plain, xB, dB, RLS_BIG_P, (0.999, 1e2)),
+    ):
+        xs, ds = x[:, pre].contiguous(), d[:, pre].contiguous()
+        got, want = scan(xs, ds, p, *kw), plain(xs, ds, p, *kw)
+        what = f"{kernel} p={p} {x.shape[0]} x {ADAPT_PREFIX} against plain"
+        check.close(kernel, got[0], want[0], what + " y", ADAPT_RTOL, scale_of=ds)
+        check.close(kernel, got[1], want[1], what + " e", ADAPT_RTOL, scale_of=ds)
+        check.close(kernel, got[2], want[2], what + " w", ADAPT_RTOL)
+    for name, w, h, bound_ in (("nlms", wN, hN, NLMS_ANCHOR), ("rls p=32", wR, hR, RLS_ANCHOR),
+                               ("rls p=240", wB, hB, RLS_ANCHOR)):
+        errs[f"{name} max|w - h|"] = e = float((w.cpu() - torch.from_numpy(h)).abs().max())
+        if not e < bound_:
+            raise AssertionError(f"[11 training] {name}: max|w - h| {e:.3e} >= {bound_}")
+    for name, y, e in (("nlms", yN, eN), ("rls p=32", yR, eR), ("rls p=240", yB, eB)):
+        if not bool(torch.isfinite(y).all() and torch.isfinite(e).all()):
+            raise AssertionError(f"[11 training] {name}: output not finite")
+
+    tick("S1 and S2 against plain on the prefix")
+    # the designer: step 0's gradient through B20 against autograd through the plain
+    # route on the card; the card against the CPU; the reference's anchors at n=8
+    for n in DESIGN_NS:
+        x, m_cos, m_sin, h0 = pfb_os._design_setup(n, DESIGN_P, 0, dev)
+        grads = []
+        for fused in (True, False):
+            h = h0.clone().requires_grad_()
+            pfb_os._design_loss(h, x, n, m_cos, m_sin, 0.05, fused=fused).backward()
+            grads.append(h.grad)
+        check.close("B20", grads[0], grads[1], f"design n={n} step 0: the gradient through B20 "
+                    "against the plain route", DESIGN_GRAD_RTOL)
+        errs[f"design n={n} step-0 gradient, B20 against plain (of max|g|)"] = float(
+            (grads[0] - grads[1]).abs().max() / grads[1].abs().max())
+        snr, sb = roundtrip_snr_db(designs[n], n, dev), stopband_db(designs[n], n)
+        notes.append(f"design_pr_prototype n={n}, P={DESIGN_P}, {DESIGN_STEPS[n]} steps: wall "
+                     f"{design_walls[n]:.2f} s, reconstruction {snr:.2f} dB, stopband {sb:.2f} dB")
+        if n == DESIGN_NS[0] and not (snr > 45 and sb < -25):
+            raise AssertionError(f"[11 training] design n={n}: {snr:.2f} dB, stopband {sb:.2f} dB")
+        if not np.isfinite(designs[n]).all():
+            raise AssertionError(f"[11 training] design n={n}: taps not finite")
+    hc = pfb_os.design_pr_prototype(DESIGN_NS[0], DESIGN_P, steps=DESIGN_CPU_STEPS)
+    hh = pfb_os.design_pr_prototype(DESIGN_NS[0], DESIGN_P, steps=DESIGN_CPU_STEPS, device="cpu")
+    errs[f"design n=8 {DESIGN_CPU_STEPS} steps, card against the CPU (of max|h|)"] = e = float(
+        np.abs(hc - hh).max() / np.abs(hh).max())
+    if not e <= DESIGN_RTOL:
+        raise AssertionError(f"[11 training] design: card {e:.3e} of max|h| from the CPU")
+
+    tick("the designer's checks")
+    for line in notes:
+        print(f"[11 training] {line}")
+    print("[11 training] " + "; ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + "; S1/S2 against plain (max abs): " + ", ".join(
+              f"{k} {check.max_err[k]:.3e}" for k in ADAPTIVE_KERNELS)
+          + f"; B20's gradient {check.max_err['B20']:.3e}")
+
+    # times: the kernels (median of 3 after a warm-up; S2 at p = 240 one call, about half
+    # a second) beside their plain loops on the same inputs (one call each: the loops
+    # launch about ten kernels a sample), bounds and chains
+    fx = {
+        "S1": (lambda: adaptive.nlms_scan(xN, dN, NLMS_P),
+               lambda: adaptive._nlms_plain(xN, dN, NLMS_P, 0.5, 1e-6), NLMS_P, NLMS_SHAPE),
+        "S2": (lambda: adaptive.rls_scan(xR, dR, RLS_P, 0.999),
+               lambda: adaptive._rls_plain(xR, dR, RLS_P, 0.999, 1e2), RLS_P, RLS_SHAPE),
+        "S2 p=240": (lambda: adaptive.rls_scan(xB, dB, RLS_BIG_P, 0.999),
+                     lambda: adaptive._rls_plain(xB, dB, RLS_BIG_P, 0.999, 1e2), RLS_BIG_P,
+                     RLS_BIG_SHAPE),
+    }
+    times = {}
+    print(f"[11 training] times on {torch.cuda.get_device_name(0)}: device ms, median of 3 "
+          "after a warm-up (S2 p=240 one call); plain one call:")
+    for key, (kfn, pfn, p, (b, n)) in fx.items():
+        k_ms = statistics.median(device_ms(kfn, *((1, 3) if p < RLS_BIG_P else (0, 1))))
+        p_ms = device_ms(pfn, 0, 1)[0]
+        bk = adaptive_bounds(key[:2], p, b, n)
+        g = adaptive.rls_geometry(p) if key.startswith("S2") else None
+        times[key] = {"ms": k_ms, "plain": p_ms, **bk}
+        print(f"  {key[:2]} p={p} {b} x {n}: {k_ms:.4f} ms; plain {p_ms:.2f} ms ({p_ms / k_ms:.0f}x); "
+              f"bound {bk['bound'][0]:.4f} ({bk['bound'][1]}); chain floor {bk['chain']:.4f}, "
+              f"kernel/chain {k_ms / bk['chain']:.2f}; attrs (registers, local bytes, static "
+              f"shared, slots) {adaptive.adaptive_kernel_attrs(key[:2], p)}"
+              + (f"; P in {'shared' if g.shared_p else 'device'} memory, {g.threads} threads, "
+                 f"{g.smem_bytes} shared bytes" if g else ""))
+    b20 = {}
+    for n in DESIGN_NS:
+        x, m_cos, m_sin, h0 = pfb_os._design_setup(n, DESIGN_P, 0, dev)
+        h = h0.clone().requires_grad_()
+        hq = chz._phase_taps(h, n, x.device)
+        w_lo = chz.commutate(x, n // 2)
+        u = torch.cat([w_lo, torch.nn.functional.pad(w_lo[:-1], (0, 0, 1, 0))], 1).contiguous()
+        with torch.no_grad():
+            b20[n] = statistics.median(device_ms(
+                lambda: chz.fused_branch_dft(u, hq.detach(), dilation=2, layout="channels"), 3, 10))
+        print(f"  B20 in the designer n={n} ({u.shape[0]} x {n}, dilation 2): {b20[n]:.4f} ms")
+
+    tick("times")
+    fir_ = adaptive.AdaptiveFir.create(TRAIN_TAPS, device=dev)
+    xb = torch.from_numpy(np.random.default_rng(4).normal(size=TRAIN_BATCH).astype(np.float32)).to(dev)
+    db = adaptive._fir_batched(xb, torch.from_numpy(h_sys).to(dev)).detach()
+    calls[f"lms_train_step {TRAIN_BATCH[0]} x {TRAIN_BATCH[1]}, {TRAIN_TAPS} taps"] = (
+        lambda: adaptive.lms_train_step(fir_, xb, db))
+    calls[f"nlms {NLMS_SHAPE[0]} x {NLMS_SHAPE[1]} p={NLMS_P}"] = fx["S1"][0]
+    calls[f"rls {RLS_SHAPE[0]} x {RLS_SHAPE[1]} p={RLS_P}"] = fx["S2"][0]
+    n = DESIGN_NS[0]  # the designer's steps are launch-bound alike at both widths
+    calls[f"design_pr_prototype n={n} {DESIGN_TIMED_STEPS} steps"] = (
+        lambda: pfb_os.design_pr_prototype(n, DESIGN_P, steps=DESIGN_TIMED_STEPS))
+    return {"launches": launches, "check": check, "times": times, "calls": calls, "b20": b20}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4548,6 +4850,18 @@ def main() -> int:
         torch.set_float32_matmul_precision(saved)
     del model_calls
     mark("10 model times")
+
+    # 11. the training path, and its times
+    with tempfile.TemporaryDirectory() as tmp:
+        train = phase_training_main(dev, tmp)
+    mark("11 training path")
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        call_times("11 training times", train["calls"])
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    mark("11 training times")
     n_loc = MAIN_SAMPLES // RING_WORLD
     ring_bounds = {"B6": bound(2 * 2 * n_loc, 0), "B7": bound(4 * n_loc, 4 * n_loc)}
     print("  bounds (ms, by): " + ", ".join(f"{k} {b:.4f} {by}" for k, (b, by) in ring_bounds.items()))
@@ -4614,7 +4928,9 @@ def main() -> int:
             *(
                 {
                     "name": name, "route": "cuda", "source": SOURCE + source, "replaces": replaces,
-                    "launches": wide_launches[kernel], "max_abs_err": check.max_err[kernel],
+                    # B20 also runs in every step of the designer (phase 11)
+                    "launches": wide_launches[kernel] + train["launches"].get(kernel, 0),
+                    "max_abs_err": max(check.max_err[kernel], train["check"].max_err[kernel]),
                     "ms": wide_times[key]["ms"], "plain_ms": wide_times[key]["plain"],
                     "bound_ms": wide_times[key]["bound"][0], "bound_by": wide_times[key]["bound"][1],
                     "library_ms": None,
@@ -4672,6 +4988,21 @@ def main() -> int:
                     ("ring_shift_right_shard", "B6", "42", None),
                     ("fused_ring_windowed_shard", "B7", "174", None),
                 )
+            ),
+            *(
+                {
+                    "name": name, "route": "cuda", "source": SOURCE + "adaptive.cu",
+                    # no Pallas kernel: the reference runs the recursion as one lax.scan
+                    "replaces": "digital_signal_processsing_tpu/models/adaptive.py:" + line,
+                    "launches": train["launches"][kernel],
+                    "max_abs_err": train["check"].max_err[kernel],
+                    "ms": train["times"][kernel]["ms"], "plain_ms": train["times"][kernel]["plain"],
+                    "bound_ms": train["times"][kernel]["bound"][0],
+                    "bound_by": train["times"][kernel]["bound"][1],
+                    # no PyTorch call runs an NLMS or RLS recursion
+                    "library_ms": None,
+                }
+                for name, kernel, line in (("nlms_scan", "S1", "227"), ("rls_scan", "S2", "267"))
             ),
         ]
     }

@@ -125,6 +125,14 @@ _SIGNATURES = {
     # 64-byte IPC handle, out pointer
     "dsp_ring_open": (ctypes.c_char_p, _PP),
     "dsp_ring_close": (_P,),
+    # x, d, y, e, w, scratch, streams, n, p, step, eps, stream
+    "dsp_nlms": (_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P),
+    # x, d, y, e, w, P scratch, streams, n, p, ld, ring, shared P, threads,
+    # smem_bytes, forget, delta, stream
+    "dsp_rls": (*(_P,) * 6, *(_I,) * 8, ctypes.c_float, ctypes.c_float, _P),
+    # kind (0 S1, 1 S2), p, out: registers, local bytes, static shared bytes,
+    # slots a lane (4 int64)
+    "dsp_adaptive_attrs": (_I, _I, _P),
 }
 
 

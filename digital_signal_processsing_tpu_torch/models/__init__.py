@@ -1,4 +1,16 @@
-from .adaptive import estimate_tone_frequency, notch_rows, tracking_notch  # noqa: F401
+from .adaptive import (  # noqa: F401
+    AdaptiveFir,
+    estimate_tone_frequency,
+    identify_system,
+    lms_train_step,
+    make_sharded_train_step,
+    nlms,
+    notch_rows,
+    opt_state_from_optax,
+    rls,
+    tracking_notch,
+)
+from . import adaptive  # noqa: F401
 from .averager_zoo import AVERAGER_ZOO, VariantInfo, run_variant  # noqa: F401
 from .chain import (  # noqa: F401
     ChainConfig,
@@ -21,6 +33,14 @@ from .tracking import TrackerConfig, tracker_state_from_jax  # noqa: F401
 from . import tracking  # noqa: F401
 
 __all__ = [
+    "AdaptiveFir",
+    "adaptive",
+    "identify_system",
+    "lms_train_step",
+    "make_sharded_train_step",
+    "nlms",
+    "opt_state_from_optax",
+    "rls",
     "estimate_tone_frequency",
     "notch_rows",
     "tracking_notch",

@@ -197,7 +197,7 @@ from .phase_vocoder import (  # noqa: F401
     time_stretch_init,
     time_stretch_state_from_jax,
 )
-from .pfb_os import pfb_analyze_os, pfb_synthesize_os  # noqa: F401
+from .pfb_os import design_pr_prototype, pfb_analyze_os, pfb_synthesize_os  # noqa: F401
 from .resample import decimate, interpolate, resample_fft, resample_poly, upfirdn  # noqa: F401
 from .scan_xla import cumsum_ref, moving_average_xla  # noqa: F401
 from .splines import cspline1d, qspline1d  # noqa: F401
@@ -226,8 +226,10 @@ from .streaming import (  # noqa: F401
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel of csrc/ since the last reset, B3 by variant.
 
-    B6 and B7 are the ring kernels of ``parallel/ring_pallas.py``.
+    B6 and B7 are the ring kernels of ``parallel/ring_pallas.py``; S1 and S2
+    the NLMS and RLS recursions of ``models/adaptive.py``.
     """
+    from ..models import adaptive
     from ..parallel import ring_pallas
 
     return {
@@ -253,11 +255,14 @@ def launch_counts() -> dict[str, int]:
         "B20": fused_branch_dft.launches,
         "B21": resample_farrow_segmented.launches,
         "B22": lpc_synth_pass.launches,
+        "S1": adaptive.nlms_scan.launches,
+        "S2": adaptive.rls_scan.launches,
     }
 
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
+    from ..models import adaptive
     from ..parallel import ring_pallas
 
     for fn in (
@@ -266,7 +271,7 @@ def reset_launch_counts() -> None:
         iir1_block_scan, iir1_affine_scan, sos_cascade, sos_cascade_unrolled, sos_cascade_mxu,
         sos_sections, tv_cascade, tv_section,
         tv_frames_cascade, fused_pfb_raw, fused_branch_dft, resample_farrow_segmented,
-        lpc_synth_pass,
+        lpc_synth_pass, adaptive.nlms_scan, adaptive.rls_scan,
     ):
         fn.launches = 0
     scan_averager.launches = dict.fromkeys(SCAN_VARIANTS, 0)

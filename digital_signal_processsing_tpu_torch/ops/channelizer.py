@@ -296,7 +296,7 @@ def branch_fir(u: torch.Tensor, hq: torch.Tensor, *, dilation: int = 1) -> torch
     """
     p, _ = hq.shape
     m = u.shape[-2]
-    up = F.pad(u.to(torch.float32), (0, 0, dilation * (p - 1), 0))
+    up = F.pad(u.to(hq.dtype), (0, 0, dilation * (p - 1), 0))
     v = None
     for r in range(p):
         off = dilation * (p - 1 - r)
@@ -306,19 +306,23 @@ def branch_fir(u: torch.Tensor, hq: torch.Tensor, *, dilation: int = 1) -> torch
 
 
 @functools.lru_cache(maxsize=32)
-def _dft_constants(n: int, sign: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """cos and sign*sin of 2*pi*q*k/N, in float64 rounded to float32 (the reference's)."""
+def _dft_constants(n: int, sign: int, device: str,
+                   dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos and sign*sin of 2*pi*q*k/N, in float64 rounded to ``dtype`` (float32: the
+    reference's)."""
     qk = np.outer(np.arange(n), np.arange(n)) * (2.0 * np.pi / n)
-    cos = torch.from_numpy(np.cos(qk).astype(np.float32)).to(device)
-    sin = torch.from_numpy((np.sin(qk) * sign).astype(np.float32)).to(device)
+    cos = torch.from_numpy(np.cos(qk)).to(device, dtype)
+    sin = torch.from_numpy(np.sin(qk) * sign).to(device, dtype)
     return cos, sin
 
 
 def dft_matmul(
     re_in: torch.Tensor, im_in: torch.Tensor | None, n: int, *, sign: int = 1
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(..., N) @ DFT_N as matmuls: sum_q v[q] e^{sign*2*pi*i*q*k/N}, in IEEE float32."""
-    cos, sin = _dft_constants(n, sign, str(re_in.device))
+    """(..., N) @ DFT_N as matmuls: sum_q v[q] e^{sign*2*pi*i*q*k/N}, in IEEE float32
+    (float64 for float64 input)."""
+    dtype = torch.float64 if re_in.dtype == torch.float64 else torch.float32
+    cos, sin = _dft_constants(n, sign, str(re_in.device), dtype)
     with ieee_fp32_matmul():
         if im_in is None:
             return re_in @ cos, re_in @ sin
@@ -395,25 +399,86 @@ def _check_options(sign: int, dilation: int, layout: str) -> None:
         raise ValueError(f"unknown layout {layout!r}; options {LAYOUTS}")
 
 
+def _b20(u: torch.Tensor, hq: torch.Tensor, sign: int, dilation: int, layout: str):
+    m, n = u.shape
+    y = _launch("dsp_pfb_branch", u.to(torch.float32).contiguous(), hq, m, n, sign, dilation,
+                layout)
+    fused_branch_dft.launches += 1
+    return y
+
+
+class BranchDftTapsGrad(torch.autograd.Function):
+    """B20 (the plain pair on the CPU) with its gradient with respect to ``hq``.
+
+    With ``re[m, k] = sum_q v[m, q] C[q, k]``, ``im[m, k] = sum_q v[m, q] S[q, k]``
+    (C, S the cos and sign*sin of the DFT) and ``v[m, q] = sum_r hq[r, q]
+    u[m - d r, q]``: the incoming (re, im) gradients go back through the DFT's
+    adjoint, ``gv = g_re C^T + g_im S^T``, and ``g_hq[r, q] = sum_m gv[m, q]
+    u[m - d r, q]`` correlates them with u at the dilation. Plain PyTorch (IEEE
+    float32 products; float64 on the CPU for float64 input): the reference has
+    no backward kernel. No gradient with respect to ``u``.
+    """
+
+    @staticmethod
+    def forward(ctx, u, hq, sign: int, dilation: int, layout: str):
+        ctx.save_for_backward(u, hq)
+        ctx.options = (sign, dilation, layout)
+        if _on_cuda(u):
+            return _b20(u, hq, sign, dilation, layout)
+        return _pfb_plain(u, hq, sign, dilation, layout)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        u, hq = ctx.saved_tensors
+        sign, dilation, layout = ctx.options
+        p, n = hq.shape
+        m = u.shape[0]
+        if layout == "complex":
+            g = grads[0]
+            g_re, g_im = (None, None) if g is None else (g.real.T, g.imag.T)
+        elif layout == "channels":
+            g_re, g_im = (None if g is None else g.T for g in grads)
+        else:
+            g_re, g_im = grads
+        cos, sin = _dft_constants(n, sign, str(u.device), hq.dtype)
+        gv = torch.zeros((m, n), dtype=hq.dtype, device=u.device)
+        with ieee_fp32_matmul():
+            if g_re is not None:
+                gv = gv + g_re.to(hq.dtype) @ cos.T
+            if g_im is not None:
+                gv = gv + g_im.to(hq.dtype) @ sin.T
+        up = F.pad(u.to(hq.dtype), (0, 0, dilation * (p - 1), 0))
+        g_hq = torch.stack([
+            (gv * up[dilation * (p - 1 - r) : dilation * (p - 1 - r) + m]).sum(0) for r in range(p)
+        ])
+        return None, g_hq, None, None, None
+
+
 def fused_branch_dft(
     u: torch.Tensor, hq: torch.Tensor, *, sign: int = 1, dilation: int = 1, layout: str = "rows"
 ):
     """Fused ``branch_fir`` + ``dft_matmul`` (real input) by B20: (M, N) -> planes.
 
     Returns (re, im) in ``layout`` "rows" (M, N) or "channels" (N, M), or one
-    (N, M) complex64 tensor for "complex".
+    (N, M) complex64 tensor for "complex". Where grad mode is on and ``hq``
+    requires a gradient the call goes through :class:`BranchDftTapsGrad`, B20
+    forward on the card; a ``u`` that requires a gradient raises.
     """
     _check_options(sign, dilation, layout)
     if not isinstance(u, torch.Tensor) or u.dim() != 2:
         raise ValueError("u must be an (M, N) tensor")
-    m, n = u.shape
-    hq = _check_taps(hq, n, u.device)
+    grad = torch.is_grad_enabled()
+    if grad and u.requires_grad:
+        raise NotImplementedError(
+            "fused_branch_dft has no gradient with respect to u (ROADMAP queue 1, item 3: the "
+            "input gradient of B20); detach u, or use branch_fir and dft_matmul"
+        )
+    hq = _check_taps(hq, u.shape[1], u.device)
+    if grad and hq.requires_grad:
+        return BranchDftTapsGrad.apply(u, hq, sign, dilation, layout)
     if not _on_cuda(u):
         return _pfb_plain(u, hq, sign, dilation, layout)
-    y = _launch("dsp_pfb_branch", u.to(torch.float32).contiguous(), hq, m, n, sign, dilation,
-                layout)
-    fused_branch_dft.launches += 1
-    return y
+    return _b20(u, hq, sign, dilation, layout)
 
 
 fused_branch_dft.launches = 0

@@ -217,7 +217,20 @@ for method in ("windowed", "scan"):
         got = parallel.sharded_moving_average(torch.from_numpy(x), 64, 2, mesh=tm, method=method,
                                               halo_impl=h)
         assert (got.numpy() == y).all()
+step = adaptive.make_sharded_train_step(parallel.make_mesh(device="cpu"))
+taps, loss = adaptive.identify_system(np.array([0.5, -0.25], np.float32), steps=3, batch=(2, 256),
+                                      train_step=step, device="cpu")
+assert taps.shape == (2,) and np.isfinite(loss)
 dist.destroy_process_group()
+from digital_signal_processsing_tpu_torch.utils import checkpoint
+from digital_signal_processsing_tpu_torch.ops.pfb_os import design_pr_prototype
+fir = adaptive.AdaptiveFir.create(4, device="cpu")
+adaptive.lms_train_step(fir, xf[:, :512], xf[:, 1:513])
+checkpoint.save_training_state(sys.argv[1] + "/train.npz", fir.taps, fir.opt_state(), 1)
+assert checkpoint.load_training_state(sys.argv[1] + "/train.npz", fir.opt_state())[2] == 1
+for algo in (adaptive.nlms, adaptive.rls):
+    assert algo(xf, xf, 4)[2].shape == (2, 4)
+assert design_pr_prototype(4, 4, steps=2, device="cpu").shape == (16,)
 assert not [m for m in sys.modules if m.startswith("jax") and sys.modules[m] is not None]
 reference = [m for m in sys.modules
              if m == "digital_signal_processsing_tpu" or m.startswith("digital_signal_processsing_tpu.")]
@@ -242,6 +255,8 @@ def test_port_runs_without_jax(tmp_path):
 
 
 def test_cuda_device_without_a_card_raises(tmp_path):
+    from types import SimpleNamespace
+
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     write_wav(tmp_path / "in.wav", np.zeros(64, np.int16), 8000, 2)
@@ -284,6 +299,19 @@ def test_cuda_device_without_a_card_raises(tmp_path):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([str(tmp_path / "in.wav"), "4", "--out", str(tmp_path / "o.wav")])
+    from digital_signal_processsing_tpu_torch.models import adaptive
+    from digital_signal_processsing_tpu_torch.ops.pfb_os import design_pr_prototype
+
+    z = np.zeros((2, 64), np.float32)
+    for call in (
+        lambda: adaptive.AdaptiveFir.create(4), lambda: adaptive.identify_system(np.ones(3)),
+        lambda: adaptive.nlms(z, z, 4), lambda: adaptive.rls(z, z, 4),
+        lambda: adaptive.opt_state_from_optax((SimpleNamespace(count=1, mu=z[0, :4],
+                                                               nu=z[0, :4]),), z[0, :4]),
+        lambda: design_pr_prototype(8, steps=1),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     from digital_signal_processsing_tpu_torch.models import (
         ArrayConfig, ModemConfig, OfdmConfig, OfdmReceiver, RadarConfig, TrackerConfig, beamform,
         kalman, modem, radar, tracking,
@@ -403,6 +431,15 @@ def test_cpu_tensors_never_build_kernels(monkeypatch, rng):
         modem.receive(modem.ModemConfig(tracker=tracker), xm, xm, 16)
     rx = ofdm.OfdmReceiver(ofdm.OfdmConfig(n_symbols=4), device="cpu")
     rx.receive_bits(xf[:, :500], xf[:, :500])
+    from digital_signal_processsing_tpu_torch.models import adaptive
+    from digital_signal_processsing_tpu_torch.ops.pfb_os import design_pr_prototype
+
+    for p in (3, 1030):
+        adaptive.nlms(xf[:, :300], xf[:, :300], p)
+    for p in (3, 240):
+        adaptive.rls(xf[:, :40], xf[:, :40], p)
+    adaptive.identify_system(np.ones(3, np.float32), steps=2, batch=(2, 256), device="cpu")
+    design_pr_prototype(8, 2, steps=2, device="cpu")
     assert not any(launch_counts().values()), launch_counts()
 
 
@@ -463,6 +500,29 @@ def test_ring_wrappers_raise_when_the_build_fails(monkeypatch, rng):
     assert launch_counts()["B6"] == launch_counts()["B7"] == 0 and not mesh.rings
 
 
+def test_recursion_wrappers_raise_when_the_build_fails(monkeypatch, rng):
+    """S1 and S2 on tensors the wrappers take for CUDA ones: the failed build raises,
+    and neither the plain loop nor a launch count is taken."""
+    from digital_signal_processsing_tpu_torch.models import adaptive
+
+    def broken():
+        raise RuntimeError("nvcc failed on adaptive.cu")
+
+    def no_plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(adaptive, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(_build, "library", broken)
+    monkeypatch.setattr(adaptive, "_nlms_plain", no_plain)
+    monkeypatch.setattr(adaptive, "_rls_plain", no_plain)
+    reset_launch_counts()
+    xf = torch.from_numpy(rng.normal(size=(2, 100)).astype(np.float32))
+    for call in (lambda: adaptive.nlms(xf, xf, 8), lambda: adaptive.rls(xf, xf, 8)):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            call()
+    assert launch_counts()["S1"] == launch_counts()["S2"] == 0
+
+
 def test_other_devices_are_refused():
     x = torch.zeros(8, dtype=torch.int16, device="meta")
     for wrapper in (windowed_averager, scan_averager, direct_averager):
@@ -497,6 +557,11 @@ def test_other_devices_are_refused():
         ring_pallas.ring_shift_right_shard(xm, None)
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
         ring_pallas.fused_ring_windowed_shard(x, 2, 1, None)
+    from digital_signal_processsing_tpu_torch.models import adaptive
+
+    for scan in (adaptive.nlms_scan, adaptive.rls_scan):
+        with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+            scan(xf, xf, 4)
     rows = torch.ones(1, 1, 8, 6, device="meta")
     for call in (
         lambda: tv_cascade(xf, rows), lambda: tv_section(xf, rows),
@@ -529,6 +594,6 @@ def test_build_is_keyed_by_the_sources():
     assert path == _build.library_path()  # stable for unchanged sources
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "windowed.cu", "cumsum.cu", "scan.cu", "direct.cu", "fused_fir.cu", "fused_fir3.cu",
-        "iir.cu", "pfb.cu", "farrow.cu", "iir_tv.cu", "lpc.cu", "ring.cu",
+        "iir.cu", "pfb.cu", "farrow.cu", "iir_tv.cu", "lpc.cu", "ring.cu", "adaptive.cu",
     }
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

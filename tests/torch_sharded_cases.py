@@ -463,8 +463,53 @@ def _cases_ring_gpu(par, out: dict) -> None:
     mesh.close()
 
 
+# the reference's sharded-step case (tests/test_models.py:97-108)
+TRAIN = dict(true=(0.8, -0.4, 0.1), steps=60, batch=(8, 4096), lr=2e-2, seed=5)
+
+
+def _cases_training(par, out: dict) -> None:
+    """The block-LMS trainer's sharded step: a 2 x 4 (channel, time) mesh on 8
+    ranks, or the world of one against the single step."""
+    import torch
+    import torch.distributed as dist
+
+    from digital_signal_processsing_tpu_torch.models import adaptive
+
+    true = np.asarray(TRAIN["true"], np.float32)
+    kw = {k: TRAIN[k] for k in ("steps", "batch", "lr", "seed")}
+    world = dist.get_world_size()
+    if world == 1:
+        step = adaptive.make_sharded_train_step(par.make_mesh(device="cpu"))
+        out["world1/sharded"] = adaptive.identify_system(true, train_step=step, device="cpu", **kw)
+        out["world1/single"] = adaptive.identify_system(true, device="cpu", **kw)
+        return
+    mesh = par.make_mesh(n_time=4, n_channel=2, device="cpu")
+    step = adaptive.make_sharded_train_step(mesh)
+    taps, loss = adaptive.identify_system(true, train_step=step, device="cpu", **kw)
+    mine = torch.from_numpy(np.append(taps, np.float32(loss)))
+    parts = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(parts, mine)
+    out["sharded/by_rank"] = torch.stack(parts).numpy()
+    out["sharded/shape"] = tuple(step.sharding.shard(torch.zeros(TRAIN["batch"])).shape)
+    if dist.get_rank() == 0:
+        out["single"] = adaptive.identify_system(true, device="cpu", **kw)
+    fir = adaptive.AdaptiveFir.create(3, device="cpu")
+    z = torch.zeros(4, 1024)
+    errors = {
+        "shapes": lambda: step(fir, z, z[:, :-1]),
+        "halo": lambda: step(adaptive.AdaptiveFir.create(2000, device="cpu"), z, z),
+    }
+    for name, fn in errors.items():
+        try:
+            fn()
+            out[f"error/{name}"] = None
+        except Exception as err:  # noqa: BLE001
+            out[f"error/{name}"] = ("error", type(err).__name__, str(err))
+
+
 SUITES = {
     "averager": _cases_averager,
+    "training": _cases_training,
     "ring_gpu": _cases_ring_gpu,
     "world1": _cases_world1,
     "fir": _cases_fir,
