@@ -290,9 +290,35 @@ failure exits non-zero:
    world size 1 over NCCL bit for bit the single step; S1 and S2 beside their
    plain loops, their bounds and per-sample chain floors, B20 in the designer;
    and each call's wall ms and device ms.
+12. the rest of the op surface and the scipy.signal facade (``compat``), TF32
+   turned on by the caller and the counts reset around, in at most 60 s: on 16 x
+   2^22 float32 ``sosfilt``, ``lfilter``, ``sosfiltfilt``, ``filtfilt`` and
+   ``decimate(q=4, ftype="iir")`` with butter(8, 0.1) (B12), ``oaconvolve`` and
+   ``convolve(method="fft")`` at 257 taps (B8), ``hilbert`` (B8 by ``auto``'s FIR
+   at 2^22), ``resample_poly(3, 2)`` and ``savgol_filter(31, 3)``, each against
+   scipy's float64 on channel 0 (1e-4 of max|want|; the hilbert FIR against the
+   FIR in float64); ``medfilt``, ``rank_filter`` and ``wiener`` (k = 5) against the
+   port on the CPU over channel 0 (the rank filters equal, wiener 1e-5 of max|y|);
+   ``cwt`` (ricker, widths 1..32, 4 x 2^20) and ``lombscargle`` (16384 uneven
+   samples x 4096 frequencies) against float64 NumPy on a slice; ``find_peaks``
+   with height, prominence and width on a 2^22 stream equal to scipy's, and
+   ``find_peaks_cwt`` on 2^16 finding every pulse; ``convolve2d`` (same, symm,
+   5 x 5) and ``medfilt2d`` (5 x 5) on 4096 x 4096 and ``spline_filter`` on 1024 x
+   1024 against scipy on a crop; mu-law and A-law round trips of phase 4's 64M
+   int16 stream, the card bit for bit the CPU over every int16 value and code,
+   every code back through encode(decode(c)); ``tone_metrics`` of a tone
+   through ``sosfilt``, a mild cubic distortion and int16 quantisation, against
+   the CPU (1e-3 dB); ``lsim``
+   of an 8-state system over 2^20 steps and ``dlsim`` at n = 8 and n = 300 (A
+   past shared memory) over 65536 steps, one S3 launch each, against S3's plain
+   loop on the card over 2048 steps (1e-5 of max|y|) and scipy's float64
+   ``dlsim`` over 4096 (1e-4); S3 by CUDA events beside its plain loop, its bound
+   and chain floor; F3: each float kernel wrapper (B8-B19 but B20, B21, B22,
+   S1-S3) refuses a requires_grad input in grad mode on the card and runs under
+   ``torch.no_grad()``; and each call's wall ms and device ms.
 
 Each phase prints its seconds. The last two lines are the kernels' JSON
-record (B1-B22, S1 and S2, each with
+record (B1-B22, S1, S2 and S3, each with
 its launches on the main path, max abs error, device ms, plain ms, bound ms
 and library ms) and ``{"ok": true, "device": {...}}``.
 """
@@ -380,8 +406,9 @@ TV_KERNELS = ("B16", "B17", "B18", "B22")
 ANCHOR_KERNELS = ("B11", "B14")
 RING_KERNELS = ("B6", "B7")
 ADAPTIVE_KERNELS = ("S1", "S2")
+SURFACE_KERNELS = ("S3",)
 KERNELS = (*AVERAGER_KERNELS, "B8", "B9", *IIR_KERNELS, *PFB_KERNELS, *TV_KERNELS,
-           *ANCHOR_KERNELS, *RING_KERNELS, *ADAPTIVE_KERNELS)
+           *ANCHOR_KERNELS, *RING_KERNELS, *ADAPTIVE_KERNELS, *SURFACE_KERNELS)
 SOURCE = "digital_signal_processsing_tpu_torch/csrc/"
 REPLACES = "digital_signal_processsing_tpu/ops/pallas_scan.py:"
 REPLACES_DIRECT = "digital_signal_processsing_tpu/ops/pallas_direct.py:"
@@ -4532,6 +4559,392 @@ def phase_training_main(dev, tmp: str) -> dict:
     return {"launches": launches, "check": check, "times": times, "calls": calls, "b20": b20}
 
 
+# --- phase 12: the rest of the op surface and the scipy.signal facade -------------------
+
+SURF_C, SURF_T = 16, 1 << 22  # the IIR benchmark point (BENCH_NOTES.md:149)
+SURF_TAPS = 257
+SURF_RTOL = 1e-4  # each facade output against scipy's float64 on channel 0, of max|want|
+RANK_K = 5
+WIENER_RTOL = 1e-5  # the card against the CPU, of max|y|
+CWT_SHAPE, CWT_WIDTHS, CWT_SLICE = (4, 1 << 20), np.arange(1, 33), 4096
+LOMB_N, LOMB_F, LOMB_CHECK = 16384, 4096, 256
+PEAKS_T, PEAKS_PULSES, PEAKS_CWT_T, PEAKS_CWT_PULSES = 1 << 22, 64, 1 << 16, 40
+TWOD_N, TWOD_CROP, SPLINE_N, SPLINE_EDGE = 4096, 256, 1024, 32
+METRICS_T, METRICS_RTOL_DB = 1 << 20, 1e-3
+METRICS_F0 = 12899 / METRICS_T  # on a bin: the window leaks nothing past the line
+METRICS_CUBIC = 3e-3
+LSIM_STATES, LSIM_T = 8, 1 << 20
+DLSIM_CASES = ((8, 1, 1), (300, 2, 3))  # (n, p, q); 300 states put A past shared memory
+DLSIM_T, DLSIM_PLAIN, DLSIM_SCIPY = 65536, 2048, 4096
+DLSIM_RTOL, DLSIM_SCIPY_RTOL = 1e-5, 1e-4
+SURFACE_BUDGET_S = 60.0
+
+
+def stable_system(rng, n: int, p: int, q: int, radius: float = 0.95):
+    """A random discrete (A, B, C, D) in float64 with A's spectral radius ``radius``."""
+    a = rng.standard_normal((n, n))
+    a *= radius / np.max(np.abs(np.linalg.eigvals(a)))
+    return (a, rng.standard_normal((n, p)) / np.sqrt(p), rng.standard_normal((q, n)) / np.sqrt(n),
+            rng.standard_normal((q, p)))
+
+
+def dlsim_bounds(n: int, p: int, q: int, t: int) -> dict:
+    """S3's least time by bytes and float32 operations, and the floor of its step
+    chain: n dependent multiply-adds and the step's barrier, 4 cycles each at 1.98 GHz."""
+    by = 4 * (t * (p + q + n) + n * n + n * p + q * n + q * p + n)
+    flops = 2 * t * (n * n + n * p + q * n + q * p)
+    return {"bound": bound(by, flops, FP32_FLOPS_PER_S), "chain": t * (n + 1) * 4 / SM_CLOCK_HZ * 1e3}
+
+
+def f3_cases(dev) -> dict:
+    """Each float kernel wrapper (B8-B19 but B20, B21, B22, S1-S3) as a function of
+    one float input, the data, that the caller may mark as requiring a gradient."""
+    from digital_signal_processsing_tpu_torch.ops import lti
+
+    sos = iir.design_butterworth(4, 0.2)
+    rows = torch.tensor([0.3, 0.1, 0.05, 1.25, -0.5, 0.2], device=dev)
+    g5, g9 = (fm.fused_geometry(k, fm.pick_fused_block(k)) for k in (5, 8194))
+    r5 = fm.tap_response(np.ones(5, np.float32), g5, dev)
+    r9 = fm.tap_response(np.ones(8194, np.float32), g9, dev)
+    hq = torch.ones(8, 64, device=dev)
+    a_f, s0 = torch.full((4, 2), 0.1, device=dev), torch.zeros(4, 2, device=dev)
+    m = (0.5 * torch.eye(3, device=dev), torch.ones(3, 1, device=dev), torch.ones(1, 3, device=dev),
+         torch.ones(1, 1, device=dev))
+    return {
+        "B8": lambda x: fm.fused_fir(x, r5),
+        "B9": lambda x: fm.fused_fir3(x, r9),
+        "B10": lambda x: iir.iir1_block_scan(x, 0.5),
+        "B11": lambda x: iir.iir1_affine_scan(x, 0.5),
+        "B12": lambda x: iir.sos_cascade(x, sos),
+        "B13": lambda x: iir.sos_cascade_unrolled(x, sos),
+        "B14": lambda x: iir.sos_cascade_mxu(x, sos),
+        "B15": lambda x: iir.sos_sections(x, sos),
+        "B16": lambda x: iir.tv_cascade(x, rows.expand(1, 1, x.shape[1], 6).contiguous()),
+        "B17": lambda x: iir.tv_section(x, rows.expand(1, 1, x.shape[1], 6).contiguous()),
+        "B18": lambda x: iir.tv_frames_cascade(x, rows.expand(1, 1, x.shape[1] // 64, 6).contiguous(), 64),
+        "B19": lambda x: chz.fused_pfb_raw(x.reshape(-1), 64, hq),
+        "B21": lambda x: fw.resample_farrow_segmented(x, FARROW_MAIN_RATE),
+        "B22": lambda x: lpc.lpc_synth_pass(a_f, s0, x.reshape(4, -1)),
+        "S1": lambda x: adaptive.nlms_scan(x, x.detach(), 8),
+        "S2": lambda x: adaptive.rls_scan(x, x.detach(), 8),
+        "S3": lambda x: lti.dlsim_scan(*m, x.reshape(-1, 1), torch.zeros(3, device=dev)),
+    }
+
+
+def phase_surface_main(dev, stream: torch.Tensor) -> dict:
+    """The rest of the op surface through its entry points (``compat`` and the new
+    ops) at sizes their users call real, TF32 on and the counts reset around: the
+    facade's filters (B12, B8), the rank filters, cwt and lombscargle, the peak
+    finders, the 2-D filters and spline_filter, companding of ``stream`` (phase 4's
+    64M int16 samples), the metrics, lsim and dlsim (S3); then S3's times and F3's
+    refusals on the card. Returns the launches, the checker, S3's times and the calls."""
+    from digital_signal_processsing_tpu_torch import compat
+    from digital_signal_processsing_tpu_torch.ops import companding as cmp
+    from digital_signal_processsing_tpu_torch.ops import lti, metrics, rank
+
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(12)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    check, errs, notes, calls = Checker(), {}, [], {}
+    last = [t_start]
+
+    def tick(what: str) -> None:
+        now = time.perf_counter()
+        print(f"[12 surface] {what}: {now - last[0]:.1f} s", flush=True)
+        last[0] = now
+
+    def close(name: str, got, want: np.ndarray, rtol: float = SURF_RTOL) -> None:
+        errs[name] = e = host_rel(got, want)
+        if not e <= rtol:  # also fails on NaN
+            raise AssertionError(f"[12 surface] {name}: {e:.3e} of max|want| > {rtol}")
+
+    # inputs: noise and tones on the card; the host streams of the peak finders
+    n_idx = torch.arange(SURF_T, device=dev, dtype=torch.float32)
+    x = 0.3 * torch.randn(SURF_C, SURF_T, generator=gen, device=dev)
+    x += torch.sin(2 * np.pi * 0.013 * n_idx) + 0.5 * torch.sin(2 * np.pi * 0.31 * n_idx)
+    sos = compat.butter(8, 0.1, output="sos")
+    b_ba, a_ba = compat.butter(8, 0.1)
+    h = compat.firwin(SURF_TAPS, 0.2)
+    xc = x[: CWT_SHAPE[0], : CWT_SHAPE[1]].contiguous()
+    tl = torch.sort(torch.rand(LOMB_N, generator=gen, device=dev) * 100.0).values
+    yl = torch.sin(1.7 * tl) + 0.3 * torch.randn(LOMB_N, generator=gen, device=dev)
+    fl = torch.linspace(0.01, 5.0, LOMB_F, device=dev)
+    t_p = np.arange(PEAKS_T)
+    xpk = 0.1 * rng.standard_normal(PEAKS_T)
+    for p_, amp in zip(rng.choice(np.arange(200, PEAKS_T - 200), PEAKS_PULSES, replace=False),
+                       rng.uniform(1.0, 3.0, PEAKS_PULSES)):
+        xpk[p_ - 100 : p_ + 100] += amp * np.exp(-0.5 * ((t_p[p_ - 100 : p_ + 100] - p_) / 10.0) ** 2)
+    pos_cwt = np.sort(rng.choice(np.arange(200, PEAKS_CWT_T - 200), PEAKS_CWT_PULSES, replace=False))
+    t_c = np.arange(PEAKS_CWT_T)
+    vcwt = 0.05 * rng.standard_normal(PEAKS_CWT_T)
+    for p_ in pos_cwt:
+        vcwt += np.exp(-0.5 * ((t_c - p_) / 8.0) ** 2)
+    img = torch.randn(TWOD_N, TWOD_N, generator=gen, device=dev)
+    k55 = rng.standard_normal((5, 5)).astype(np.float32)
+    img_s = rng.standard_normal((SPLINE_N, SPLINE_N))
+    A8 = -np.diag(np.linspace(0.5, 4.0, LSIM_STATES)) + 0.1 * rng.standard_normal((LSIM_STATES,) * 2)
+    sys_c = (A8, rng.standard_normal((LSIM_STATES, 1)), rng.standard_normal((1, LSIM_STATES)),
+             np.zeros((1, 1)))
+    t_lsim = np.arange(LSIM_T) * 1e-3
+    u_lsim = np.sin(2 * np.pi * 0.7 * t_lsim)
+    dsys = {nq: stable_system(rng, *nq) for nq in DLSIM_CASES}
+    u_d = {nq: torch.randn(DLSIM_T, nq[1], generator=gen, device=dev) for nq in DLSIM_CASES}
+    torch.cuda.synchronize()
+    tick("inputs")
+
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")  # TF32 on: the products pin IEEE float32
+    try:
+        reset_launch_counts()
+        calls["sosfilt"] = lambda: compat.sosfilt(sos, x)
+        calls["lfilter"] = lambda: compat.lfilter(b_ba, a_ba, x)
+        calls["sosfiltfilt"] = lambda: compat.sosfiltfilt(sos, x)
+        calls["filtfilt"] = lambda: compat.filtfilt(b_ba, a_ba, x)
+        calls["decimate q=4 iir"] = lambda: compat.decimate(x, 4, ftype="iir")
+        calls["oaconvolve 257"] = lambda: compat.oaconvolve(x, h)
+        calls["convolve fft 257"] = lambda: compat.convolve(x, h, method="fft")
+        calls["hilbert"] = lambda: compat.hilbert(x)
+        calls["resample_poly 3/2"] = lambda: compat.resample_poly(x, 3, 2)
+        calls["savgol_filter 31 3"] = lambda: compat.savgol_filter(x, 31, 3)
+        out = {k: fn() for k, fn in calls.items()}
+        facade = launch_counts()
+        hilbert_route = last_choice("hilbert")
+        calls["medfilt 5"] = lambda: compat.medfilt(x, RANK_K)
+        calls["wiener 5"] = lambda: compat.wiener(x, RANK_K)
+        calls["rank_filter 5 1"] = lambda: rank.rank_filter(x, RANK_K, 1)
+        calls["cwt ricker 1..32"] = lambda: compat.cwt(xc, compat.ricker, CWT_WIDTHS)
+        calls["lombscargle"] = lambda: compat.lombscargle(tl, yl, fl)
+        calls["find_peaks 2^22"] = lambda: compat.find_peaks(xpk, height=0.8, prominence=0.5, width=3)
+        calls["find_peaks_cwt 2^16"] = lambda: compat.find_peaks_cwt(vcwt, np.arange(4, 33, 2), device=dev)
+        calls["convolve2d same symm"] = lambda: compat.convolve2d(img, k55, "same", "symm")
+        calls["medfilt2d 5"] = lambda: compat.medfilt2d(img, 5)
+        calls["spline_filter 1024"] = lambda: compat.spline_filter(img_s, device=dev)
+        calls["mulaw round trip 64M"] = lambda: cmp.mulaw_decode(cmp.mulaw_encode(stream))
+        calls["alaw round trip 64M"] = lambda: cmp.alaw_decode(cmp.alaw_encode(stream))
+        for k in list(calls)[len(out):]:
+            out[k] = calls[k]()
+        torch.cuda.synchronize()
+        tick("the facade and the new ops")
+        # the metrics of an int16-quantised tone through the facade's sosfilt
+        from digital_signal_processsing_tpu_torch.ops import signal as gen_ops
+
+        tq = compat.sosfilt(compat.butter(4, 0.2, output="sos"),
+                            gen_ops.tone(METRICS_F0, METRICS_T + 4096, amplitude=0.9, device=dev))
+        tq = tq[4096:]  # past the filter's start-up
+        # a converter's mild cubic distortion, so that THD and SFDR read harmonics above
+        # the float32 FFT's floor, then int16 quantisation
+        tq = torch.round((tq - METRICS_CUBIC * tq**3) * 32767.0) / 32767.0
+        calls["tone_metrics 2^20"] = lambda: metrics.tone_metrics(tq)
+        out["tone_metrics 2^20"] = calls["tone_metrics 2^20"]()
+        # lsim (8 states, 2^20 steps) and dlsim (S3 one launch each)
+        s3 = {}
+        before = launch_counts()["S3"]
+        out["lsim"] = compat.lsim(sys_c, u_lsim, t_lsim, device=dev)
+        s3["lsim"] = launch_counts()["S3"] - before
+        for nq in DLSIM_CASES:
+            before = launch_counts()["S3"]
+            out[f"dlsim n={nq[0]}"] = compat.dlsim(dsys[nq], u_d[nq])
+            s3[f"dlsim n={nq[0]}"] = launch_counts()["S3"] - before
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    tick("metrics, lsim and dlsim")
+    print(f"[12 surface] launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}; "
+          f"the facade's filters {{{', '.join(f'{k}: {v}' for k, v in facade.items() if v)}}}")
+    if not (facade["B12"] >= 1 and facade["B8"] >= 1):
+        raise AssertionError(f"[12 surface] the facade's filters launched {facade}: want B12 and B8")
+    if any(v != 1 for v in s3.values()):
+        raise AssertionError(f"[12 surface] S3 launches by call {s3}: want one each")
+
+    # the facade's outputs against scipy's float64 on channel 0
+    x0 = x[0].double().cpu().numpy()
+    sos64, (b64, a64) = np.asarray(sos, np.float64), (np.asarray(b_ba), np.asarray(a_ba))
+    close("sosfilt", out["sosfilt"][0], sps.sosfilt(sos64, x0))
+    close("lfilter", out["lfilter"][0], sps.lfilter(b64, a64, x0))
+    close("sosfiltfilt", out["sosfiltfilt"][0], sps.sosfiltfilt(sos64, x0))
+    close("filtfilt", out["filtfilt"][0], sps.filtfilt(b64, a64, x0))
+    close("decimate q=4 iir", out["decimate q=4 iir"][0], sps.decimate(x0, 4, ftype="iir"))
+    full64 = np.convolve(x0, h)
+    close("oaconvolve 257", out["oaconvolve 257"][0], full64)
+    close("convolve fft 257", out["convolve fft 257"][0], full64)
+    del full64
+    if hilbert_route == "fir":  # auto's route from HILBERT_BLOCKED_MIN_T: the FIR (B8)
+        hf = spec.design_hilbert_fir(513).astype(np.float64)
+        close("hilbert imag (the FIR in float64)", out["hilbert"][0].imag,
+              np.convolve(np.pad(x0, (0, 256)), hf)[256 : 256 + SURF_T])
+    else:
+        close("hilbert imag", out["hilbert"][0].imag, sps.hilbert(x0).imag)
+    close("resample_poly 3/2", out["resample_poly 3/2"][0], sps.resample_poly(x0, 3, 2))
+    close("savgol_filter 31 3", out["savgol_filter 31 3"][0], sps.savgol_filter(x0, 31, 3))
+    tick("the facade against scipy")
+    # the rank filters against the port on the CPU over channel 0
+    x0c = x[0].cpu()
+    for name, fn, exact in (("medfilt 5", lambda v: rank.medfilt(v, RANK_K), True),
+                            ("rank_filter 5 1", lambda v: rank.rank_filter(v, RANK_K, 1), True),
+                            ("wiener 5", lambda v: rank.wiener(v, RANK_K), False)):
+        got, want = out[name][0].cpu(), fn(x0c)
+        errs[f"{name} card against the CPU"] = e = float((got - want).abs().max() / want.abs().max())
+        if (exact and not torch.equal(got, want)) or not e <= WIENER_RTOL:
+            raise AssertionError(f"[12 surface] {name}: the card {e:.3e} of max|y| from the CPU")
+    tick("the rank filters against the CPU")
+    # cwt and lombscargle against float64 NumPy on a slice
+    xc0 = xc[0].double().cpu().numpy()
+    s0_ = CWT_SHAPE[1] // 2
+    for wi in (0, 7, 31):
+        w_ = float(CWT_WIDTHS[wi])
+        k = np.conj(compat.ricker(int(min(10 * w_, CWT_SHAPE[1])), w_))
+        # output t correlates x[t - L // 2 : t - L // 2 + L] with the kernel
+        seg = xc0[s0_ - k.size // 2 : s0_ + CWT_SLICE - k.size // 2 + k.size - 1]
+        want = np.correlate(seg, k, "valid")
+        close(f"cwt width {w_:g} (channel 0, {CWT_SLICE} samples)",
+              out["cwt ricker 1..32"][0, wi, s0_ : s0_ + CWT_SLICE], want)
+    t64, y64, f64 = (v.double().cpu().numpy() for v in (tl, yl, fl[:LOMB_CHECK]))
+    arg = f64[:, None] * t64[None, :]
+    tau = 0.5 * np.arctan2(np.sin(2 * arg).sum(-1), np.cos(2 * arg).sum(-1))
+    c_, s_ = np.cos(arg - tau[:, None]), np.sin(arg - tau[:, None])
+    close(f"lombscargle ({LOMB_CHECK} frequencies)", out["lombscargle"][:LOMB_CHECK],
+          0.5 * ((c_ @ y64) ** 2 / (c_ * c_).sum(-1) + (s_ @ y64) ** 2 / (s_ * s_).sum(-1)))
+    del arg, c_, s_
+    tick("cwt and lombscargle against float64")
+    # the peak finders: scipy's indices; the pulses under the wavelet peaks
+    pk, props = out["find_peaks 2^22"]
+    pk_s, props_s = sps.find_peaks(xpk, height=0.8, prominence=0.5, width=3)
+    if not np.array_equal(pk, pk_s):
+        raise AssertionError(f"[12 surface] find_peaks: {pk.size} peaks against scipy's {pk_s.size}")
+    for key in ("prominences", "widths", "peak_heights"):
+        if not np.allclose(props[key], props_s[key], rtol=1e-12, atol=1e-12):
+            raise AssertionError(f"[12 surface] find_peaks: {key} differ from scipy's")
+    got_cwt = out["find_peaks_cwt 2^16"]
+    missed = [int(p_) for p_ in pos_cwt if np.min(np.abs(got_cwt - p_)) > 2]
+    if missed:
+        raise AssertionError(f"[12 surface] find_peaks_cwt missed the pulses at {missed}")
+    notes.append(f"find_peaks 2^22: {pk.size} peaks, scipy's indices and properties; "
+                 f"find_peaks_cwt 2^16: {got_cwt.size} peaks, every one of {PEAKS_CWT_PULSES} "
+                 f"pulses within 2 samples (scipy's own: {sps.find_peaks_cwt(vcwt, np.arange(4, 33, 2)).size} peaks)")
+    tick("the peak finders")
+    # 2-D: scipy on a crop
+    c0 = TWOD_N // 4
+    crop, wide = slice(c0, c0 + TWOD_CROP), slice(c0 - 2, c0 + TWOD_CROP + 2)
+    img64 = img[wide, wide].double().cpu().numpy()
+    close("convolve2d same symm 5x5 (crop)", out["convolve2d same symm"][crop, crop],
+          sps.convolve2d(img64, k55.astype(np.float64), "valid"))
+    med = out["medfilt2d 5"][crop, crop].cpu()
+    if not np.array_equal(med.numpy(), sps.medfilt2d(img[wide, wide].cpu().numpy(), 5)[2:-2, 2:-2]):
+        raise AssertionError("[12 surface] medfilt2d 5x5 differs from scipy's on the crop")
+    # the reference's mirror start-up differs from scipy's near the edges (both within
+    # 5e-3, tests/test_splines.py:108): held on the interior, 32 samples in
+    inner = slice(SPLINE_EDGE, SPLINE_N - SPLINE_EDGE)
+    close("spline_filter 1024 (interior)", out["spline_filter 1024"][inner, inner],
+          sps.spline_filter(img_s, 5.0)[inner, inner])
+    tick("2-D against scipy")
+    # companding: the card bit for bit the CPU over every int16 value and code
+    all16 = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    for enc, dec in ((cmp.mulaw_encode, cmp.mulaw_decode), (cmp.alaw_encode, cmp.alaw_decode)):
+        if not (torch.equal(enc(all16.to(dev)).cpu(), enc(all16)) and
+                torch.equal(dec(codes.to(dev)).cpu(), dec(codes))):
+            raise AssertionError(f"[12 surface] {enc.__name__}/{dec.__name__}: card differs from the CPU")
+        back = enc(dec(codes.to(dev))).cpu()
+        want = codes.clone()
+        if enc is cmp.mulaw_encode:
+            want[0x7F] = 0xFF  # mu-law's negative zero decodes to 0, encoded as 0xFF
+        if not torch.equal(back, want):
+            raise AssertionError(f"[12 surface] {enc.__name__}(decode(c)) loses codes")
+    for name in ("mulaw round trip 64M", "alaw round trip 64M"):
+        y_ = out[name]
+        if y_.shape != stream.shape or y_.dtype != torch.int16:
+            raise AssertionError(f"[12 surface] {name}: {y_.dtype}{tuple(y_.shape)}")
+        errs[f"{name} max|y - x|"] = float((y_.int() - stream.int()).abs().max())
+    # the metrics: card against the CPU
+    mc, mh = out["tone_metrics 2^20"], metrics.tone_metrics(tq.cpu())
+    for key in ("thd_db", "snr_db", "sinad_db", "sfdr_db", "enob"):
+        errs[f"tone_metrics {key} card - CPU (dB)"] = e = abs(float(mc[key]) - float(mh[key]))
+        if not e <= METRICS_RTOL_DB:
+            raise AssertionError(f"[12 surface] tone_metrics {key}: card {e:.3e} dB from the CPU")
+    notes.append(f"tone {METRICS_F0:.6f} through compat.sosfilt, cubic {METRICS_CUBIC}, int16: ENOB {float(mc['enob']):.3f}, "
+                 f"SINAD {float(mc['sinad_db']):.2f} dB, THD {float(mc['thd_db']):.2f} dBc")
+    tick("companding and metrics")
+    # lsim and dlsim: S3 against its plain loop on the card, and scipy's float64 dlsim
+    ad, bd, cd, dd, _ = lti.cont2discrete(sys_c, 1e-3, method="foh")
+    cases = {"lsim": ((ad, bd, cd, dd), torch.from_numpy(u_lsim[:, None]).to(dev).float(),
+                      out["lsim"][1][:, None])}
+    for nq in DLSIM_CASES:
+        cases[f"dlsim n={nq[0]}"] = (dsys[nq], u_d[nq], out[f"dlsim n={nq[0]}"][0])
+    for name, (sysd, u_, y_) in cases.items():
+        mats = [torch.from_numpy(np.atleast_2d(m)).float().to(dev) for m in sysd]
+        x0z = torch.zeros(mats[0].shape[0], device=dev)
+        y_t = torch.as_tensor(y_, device=dev)
+        plain_y, _ = lti._dlsim_plain(*mats, u_[:DLSIM_PLAIN], x0z)
+        check.close("S3", y_t[:DLSIM_PLAIN], plain_y, f"{name} S3 against plain over {DLSIM_PLAIN} steps",
+                    DLSIM_RTOL)
+        # scipy in float64 on the float32 matrices S3 was given: the recursion's rounding
+        # alone, not the matrices' (Ad within 5e-4 of I amplifies their rounding 2000x)
+        sys32 = tuple(np.atleast_2d(m).astype(np.float32).astype(np.float64) for m in sysd)
+        _, want = sps.dlsim((*sys32, 1.0), u_[:DLSIM_SCIPY].double().cpu().numpy())[:2]
+        close(f"{name} against scipy's float64 dlsim ({DLSIM_SCIPY} steps)", y_t[:DLSIM_SCIPY],
+              np.asarray(want).reshape(DLSIM_SCIPY, -1), DLSIM_SCIPY_RTOL)
+    tick("lsim and dlsim against plain and scipy")
+    # S3's times: CUDA events beside its plain loop (one call), its bound and chain floor
+    times = {}
+    print(f"[12 surface] S3 on {torch.cuda.get_device_name(0)}: device ms, median of 3 after a "
+          "warm-up; plain one call; attrs (registers, local bytes, static shared, most threads) "
+          f"{lti.dlsim_kernel_attrs()}")
+    for nq in DLSIM_CASES:
+        n_, p_, q_ = nq
+        mats = [torch.from_numpy(np.atleast_2d(m)).float().to(dev) for m in dsys[nq]]
+        x0z = torch.zeros(n_, device=dev)
+        k_ms = statistics.median(device_ms(lambda: lti.dlsim_scan(*mats, u_d[nq], x0z), 1, 3))
+        p_ms = device_ms(lambda: lti._dlsim_plain(*mats, u_d[nq], x0z), 0, 1)[0]
+        bk, g = dlsim_bounds(n_, p_, q_, DLSIM_T), lti.dlsim_geometry(n_, p_, q_)
+        times[f"S3 n={n_}"] = {"ms": k_ms, "plain": p_ms, **bk}
+        print(f"  S3 n={n_} p={p_} q={q_} T={DLSIM_T}: {k_ms:.4f} ms; plain {p_ms:.2f} ms "
+              f"({p_ms / k_ms:.0f}x); bound {bk['bound'][0]:.4f} ({bk['bound'][1]}); chain floor "
+              f"{bk['chain']:.4f}, kernel/chain {k_ms / bk['chain']:.2f}; {g.threads} threads, "
+              f"matrices in {'shared' if g.shared_mats else 'device'} memory, {g.smem_bytes} "
+              "shared bytes")
+    tick("S3 times")
+    # F3 on the card: a float input that requires a gradient is refused in grad mode
+    for kernel, fn in f3_cases(dev).items():
+        xg = torch.randn(2, 8192, generator=gen, device=dev).requires_grad_()
+        if kernel == "B19":
+            xg = torch.randn(1, 64 * 128, generator=gen, device=dev).requires_grad_()
+        try:
+            fn(xg)
+        except NotImplementedError as exc:
+            if "F3" not in str(exc):
+                raise AssertionError(f"[12 surface] F3 {kernel}: refused without naming F3: {exc}")
+        else:
+            raise AssertionError(f"[12 surface] F3 {kernel}: a requires_grad input was not refused")
+        with torch.no_grad():
+            fn(xg)
+    torch.cuda.synchronize()
+    notes.append("F3: B8-B19 (not B20), B21, B22, S1, S2 and S3 refuse a requires_grad input "
+                 "in grad mode and run under torch.no_grad()")
+    tick("F3 refusals")
+    for line in notes:
+        print(f"[12 surface] {line}")
+    print("[12 surface] " + "; ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; S3 against plain (max abs) {check.max_err['S3']:.3e}")
+    seconds = time.perf_counter() - t_start
+    print(f"[12 surface] phase 12 took {seconds:.1f} s (budget {SURFACE_BUDGET_S:.0f} s)")
+    if seconds > SURFACE_BUDGET_S:
+        raise AssertionError(f"[12 surface] {seconds:.1f} s past the phase's budget")
+    del out
+    return {"launches": launches, "check": check, "times": times, "calls": calls}
+
+
+def surface_times(calls: dict) -> None:
+    """Each call of phase 12: wall ms and device ms of one call under torch.profiler
+    (after lead kernels), TF32 on as in the phase."""
+    print("[12 surface times] wall and device ms of one profiled call:")
+    for name, fn in calls.items():
+        wall, dev_ms, rows = profiled(fn)
+        ours = sum(r[2] for r in rows if r[0].startswith(OURS))
+        print(f"  {name:24s} wall {wall:9.3f} ms; device {dev_ms:9.3f} ms in "
+              f"{sum(r[1] for r in rows):5d} kernels ({ours:.3f} ms in the package's)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4864,6 +5277,17 @@ def main() -> int:
     mark("11 training times")
     n_loc = MAIN_SAMPLES // RING_WORLD
     ring_bounds = {"B6": bound(2 * 2 * n_loc, 0), "B7": bound(4 * n_loc, 4 * n_loc)}
+
+    # 12. the rest of the op surface and the scipy.signal facade, and its times
+    surface = phase_surface_main(dev, x)
+    mark("12 surface")
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        surface_times(surface["calls"])
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    mark("12 surface times")
     print("  bounds (ms, by): " + ", ".join(f"{k} {b:.4f} {by}" for k, (b, by) in ring_bounds.items()))
 
     def entry(name, kernel, source, replaces, ms, plain_ms, library_ms=None):
@@ -5004,6 +5428,18 @@ def main() -> int:
                 }
                 for name, kernel, line in (("nlms_scan", "S1", "227"), ("rls_scan", "S2", "267"))
             ),
+            {
+                "name": "dlsim_scan", "route": "cuda", "source": SOURCE + "lti.cu",
+                # no Pallas kernel: the reference runs dlsim as one lax.scan
+                "replaces": "digital_signal_processsing_tpu/ops/lti.py:195",
+                "launches": surface["launches"]["S3"],
+                "max_abs_err": surface["check"].max_err["S3"],
+                "ms": surface["times"]["S3 n=8"]["ms"], "plain_ms": surface["times"]["S3 n=8"]["plain"],
+                "bound_ms": surface["times"]["S3 n=8"]["bound"][0],
+                "bound_by": surface["times"]["S3 n=8"]["bound"][1],
+                # no PyTorch call runs a state-space recursion
+                "library_ms": None,
+            },
         ]
     }
     print(json.dumps(record))

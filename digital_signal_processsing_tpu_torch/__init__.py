@@ -19,6 +19,10 @@ package, WAV out, bit-exact against the golden model.
 - ``golden``   the NumPy oracle
 - ``io``       the WAV codec and chunk loader (NumPy only)
 - ``utils``    numerics, shape arithmetic, dispatch records, device checks
+- ``compat``   scipy.signal drop-in namespace: every public scipy.signal
+               callable under its scipy name and signature, delegating to
+               the port's ops (``from digital_signal_processsing_tpu_torch
+               import compat as signal``)
 
 A CUDA tensor always goes through its kernel, and a CPU tensor through the
 plain PyTorch version; nothing moves between them on its own.
@@ -26,4 +30,4 @@ plain PyTorch version; nothing moves between them on its own.
 
 __version__ = "0.1.0"
 
-__all__ = ["io", "golden", "ops", "models", "harness", "utils", "serve"]
+__all__ = ["io", "golden", "ops", "models", "harness", "utils", "serve", "compat"]

@@ -133,6 +133,11 @@ _SIGNATURES = {
     # kind (0 S1, 1 S2), p, out: registers, local bytes, static shared bytes,
     # slots a lane (4 int64)
     "dsp_adaptive_attrs": (_I, _I, _P),
+    # A^T, B^T, C^T, D^T, u, x0, y, xs, steps, n, p, q, chunk, shared matrices,
+    # threads, smem_bytes, stream
+    "dsp_dlsim": (*(_P,) * 8, *(_I,) * 8, _P),
+    # out: registers, local bytes, static shared bytes, most threads a block (4 int64)
+    "dsp_dlsim_attrs": (_P,),
 }
 
 

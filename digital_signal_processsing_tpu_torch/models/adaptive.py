@@ -51,6 +51,7 @@ from ..ops.fir import ieee_fp32_conv
 from ..ops.pallas_scan import SMEM_MAX, _on_cuda, _stream
 from ..parallel.mesh import CHANNEL_AXIS, TIME_AXIS, Mesh, planar_sharding, psum, shift_right
 from ..utils.device import as_tensor, resolve_device
+from ..utils.dispatch import refuse_grad
 from ..utils.layout import overlapping_frames
 
 
@@ -436,6 +437,7 @@ def nlms_scan(xb: torch.Tensor, db: torch.Tensor, p: int, step: float = 0.5, eps
     xb, db = xb.to(torch.float32).contiguous(), db.to(torch.float32).contiguous()
     if not _on_cuda(xb):
         return _nlms_plain(xb, db, p, step, eps)
+    refuse_grad("nlms_scan (S1)", xb, db)
     y, e, w = _outputs(xb, p)
     b, n = xb.shape
     if b == 0:
@@ -469,6 +471,7 @@ def rls_scan(xb: torch.Tensor, db: torch.Tensor, p: int, forget: float = 0.99,
     xb, db = xb.to(torch.float32).contiguous(), db.to(torch.float32).contiguous()
     if not _on_cuda(xb):
         return _rls_plain(xb, db, p, forget, delta)
+    refuse_grad("rls_scan (S2)", xb, db)
     g = rls_geometry(p)
     y, e, w = _outputs(xb, p)
     b, n = xb.shape

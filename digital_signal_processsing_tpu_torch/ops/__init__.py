@@ -13,6 +13,14 @@ from .channelizer import (  # noqa: F401
     pfb_synthesize_planar,
 )
 from .cic import cic_decimate, cic_interpolate, design_cic_compensator  # noqa: F401
+from .companding import (  # noqa: F401
+    alaw_decode,
+    alaw_encode,
+    mu_compress,
+    mu_expand,
+    mulaw_decode,
+    mulaw_encode,
+)
 from .demod import (  # noqa: F401
     am_demodulate,
     fm_demodulate,
@@ -46,9 +54,9 @@ from .cepstrum import (  # noqa: F401
     real_cepstrum,
     unwrap,
 )
-# ``fft`` and ``correlate`` stay the names of their modules (as in the
-# reference package); their functions of those names are
-# ``ops.fft.fft`` and ``ops.correlate.correlate``.
+# ``fft``, ``correlate`` and ``lti`` stay the names of their modules (as in
+# the reference package); their functions of those names are ``ops.fft.fft``,
+# ``ops.correlate.correlate`` and ``ops.lti.lti``.
 from .correlate import (  # noqa: F401
     DIRECT_MAX_TAPS,
     DIRECT_MIN_STREAM,
@@ -166,6 +174,37 @@ from .mel import (  # noqa: F401
     mfcc_chunk,
     mfcc_init,
 )
+from .lti import (  # noqa: F401
+    DLSIM_MAX_STATES,
+    StateSpace,
+    TransferFunction,
+    ZerosPolesGain,
+    abcd_normalize,
+    bode,
+    cont2discrete,
+    dbode,
+    dfreqresp,
+    dimpulse,
+    dlsim,
+    dlsim_scan,
+    dlti,
+    dstep,
+    freqresp,
+    freqz_zpk,
+    impulse,
+    invres,
+    invresz,
+    lsim,
+    place_poles,
+    residue,
+    residuez,
+    ss2tf,
+    ss2zpk,
+    step,
+    tf2ss,
+    unique_roots,
+    zpk2ss,
+)
 from .lpc import (  # noqa: F401
     ar_psd,
     levinson,
@@ -177,6 +216,7 @@ from .lpc import (  # noqa: F401
     lpc_synthesis_refine,
     lpc_vocoder,
 )
+from .metrics import enob, sfdr, sinad, snr_tone, thd, tone_metrics  # noqa: F401
 from .moving_average import METHODS, moving_average  # noqa: F401
 from .pallas_direct import MAX_DIRECT_WINDOW, direct_averager  # noqa: F401
 from .pallas_scan import (  # noqa: F401
@@ -197,11 +237,35 @@ from .phase_vocoder import (  # noqa: F401
     time_stretch_init,
     time_stretch_state_from_jax,
 )
+from .peaks import (  # noqa: F401
+    argrelextrema,
+    argrelmax,
+    argrelmin,
+    find_peaks,
+    find_peaks_cwt,
+    peak_mask,
+    peak_prominences,
+    peak_widths,
+)
 from .pfb_os import design_pr_prototype, pfb_analyze_os, pfb_synthesize_os  # noqa: F401
+from .rank import medfilt, order_filter, rank_filter, wiener  # noqa: F401
 from .resample import decimate, interpolate, resample_fft, resample_poly, upfirdn  # noqa: F401
 from .scan_xla import cumsum_ref, moving_average_xla  # noqa: F401
-from .splines import cspline1d, qspline1d  # noqa: F401
+from .signal import (  # noqa: F401
+    chirp,
+    gausspulse,
+    max_len_seq,
+    sawtooth,
+    square,
+    sweep_poly,
+    tone,
+    unit_impulse,
+    white_noise,
+)
+from .splines import cspline1d, qspline1d, spline_filter  # noqa: F401
 from .stft_class import ShortTimeFFT, closest_STFT_dual_window  # noqa: F401
+from .twod import convolve2d, correlate2d, medfilt2d, sepfir2d  # noqa: F401
+from .wavelets import cwt, lombscargle, morlet2, ricker  # noqa: F401
 from .streaming import (  # noqa: F401
     FirState,
     IstftState,
@@ -227,7 +291,8 @@ def launch_counts() -> dict[str, int]:
     """Launches of each kernel of csrc/ since the last reset, B3 by variant.
 
     B6 and B7 are the ring kernels of ``parallel/ring_pallas.py``; S1 and S2
-    the NLMS and RLS recursions of ``models/adaptive.py``.
+    the NLMS and RLS recursions of ``models/adaptive.py``; S3 the state-space
+    recursion of ``ops/lti.py``.
     """
     from ..models import adaptive
     from ..parallel import ring_pallas
@@ -257,6 +322,7 @@ def launch_counts() -> dict[str, int]:
         "B22": lpc_synth_pass.launches,
         "S1": adaptive.nlms_scan.launches,
         "S2": adaptive.rls_scan.launches,
+        "S3": dlsim_scan.launches,
     }
 
 
@@ -271,7 +337,7 @@ def reset_launch_counts() -> None:
         iir1_block_scan, iir1_affine_scan, sos_cascade, sos_cascade_unrolled, sos_cascade_mxu,
         sos_sections, tv_cascade, tv_section,
         tv_frames_cascade, fused_pfb_raw, fused_branch_dft, resample_farrow_segmented,
-        lpc_synth_pass, adaptive.nlms_scan, adaptive.rls_scan,
+        lpc_synth_pass, adaptive.nlms_scan, adaptive.rls_scan, dlsim_scan,
     ):
         fn.launches = 0
     scan_averager.launches = dict.fromkeys(SCAN_VARIANTS, 0)

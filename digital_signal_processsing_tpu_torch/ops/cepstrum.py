@@ -56,7 +56,8 @@ def complex_cepstrum(x) -> tuple[torch.Tensor, torch.Tensor]:
     spec = torch.fft.fft(xf, dim=-1)
     phase = unwrap(torch.angle(spec))
     center = (n + 1) // 2
-    ndelay = torch.round(phase[..., center] * (n / (2.0 * math.pi * center)))
+    # at n = 1 the centre bin is past the end: the reference's gather clamps it to n - 1
+    ndelay = torch.round(phase[..., min(center, n - 1)] * (n / (2.0 * math.pi * center)))
     k = torch.arange(n, dtype=torch.float32, device=xf.device)
     phase = phase - 2.0 * math.pi * ndelay[..., None] * k / n
     logspec = torch.complex(torch.log(torch.clamp(spec.abs(), min=1e-30)), phase)

@@ -44,7 +44,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..utils.device import resolve_device
-from ..utils.dispatch import record_choice
+from ..utils.dispatch import record_choice, refuse_grad
 from ..utils.layout import cdiv
 from .fft_mxu import _twiddles
 from .fir import _taps_on, design_lowpass, ieee_fp32_matmul
@@ -510,6 +510,7 @@ def fused_pfb_raw(
     hq = _check_taps(hq, n, x.device)
     if not _on_cuda(x):
         return _pfb_plain(commutate(x, n), hq, sign, dilation, layout)
+    refuse_grad("fused_pfb_raw (B19)", x, hq)
     y = _launch("dsp_pfb_raw", x.to(torch.float32).contiguous(), hq, t // n, n, sign, dilation,
                 layout)
     fused_pfb_raw.launches += 1

@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from ..utils.dispatch import record_choice
+from ..utils.dispatch import record_choice, refuse_grad
 from ..utils.device import resolve_device
 from ..utils.layout import cdiv, overlapping_frames
 from .fir import _as_planar, ieee_fp32_matmul
@@ -381,6 +381,7 @@ def resample_farrow_segmented(x: torch.Tensor, rate, *, segment: int = 512) -> t
     if not _on_cuda(xp):
         y = segmented_plain(xp, up, down, m_out)
         return y[0] if squeeze else y
+    refuse_grad("resample_farrow_segmented (B21)", xp)
     if c > 65535:
         raise ValueError(f"resample_farrow_segmented takes at most 65535 channels, got {c}")
     xc = xp.to(torch.float32).contiguous()

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.dispatch import refuse_grad
 from ..utils.layout import cdiv
 from .fir import _as_planar, _pick_block, _taps_on, overlap_save_frames
 from .pallas_scan import SMEM_MAX, _on_cuda, _stream
@@ -321,6 +322,7 @@ def fused_fir(x: torch.Tensor, response: TapResponse) -> torch.Tensor:
     _check_launch(x, response, "B8")
     if not _on_cuda(x):
         return overlap_save_plain(x, response)
+    refuse_grad("fused_fir (B8)", x, response.h_kernel)
     g = response.geometry
     c, t = x.shape
     y = torch.empty_like(x)
@@ -369,6 +371,7 @@ def fused_fir3(x: torch.Tensor, response: TapResponse) -> torch.Tensor:
     _check_launch(x, response, "B9")
     if not _on_cuda(x):
         return overlap_save_plain(x, response)
+    refuse_grad("fused_fir3 (B9)", x, response.h_kernel)
     g = response.geometry
     c, t = x.shape
     y = torch.empty_like(x)

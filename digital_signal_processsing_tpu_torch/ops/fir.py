@@ -866,13 +866,14 @@ def savgol_filter(
             return torch.from_numpy((ve @ pf).astype(np.float32)).to(xf.device)
 
         if half:
-            y[..., :half] = torch.einsum(
-                "hw,cw->ch", edge(np.arange(half, dtype=np.float64)), xf[..., :window_length])
-            y[..., -half:] = torch.einsum(
-                "hw,cw->ch",
-                edge(np.arange(window_length - half, window_length, dtype=np.float64)),
-                xf[..., -window_length:],
-            )
+            with ieee_fp32_matmul():  # a caller's TF32 would leave 1e-4 at the edges
+                y[..., :half] = torch.einsum(
+                    "hw,cw->ch", edge(np.arange(half, dtype=np.float64)), xf[..., :window_length])
+                y[..., -half:] = torch.einsum(
+                    "hw,cw->ch",
+                    edge(np.arange(window_length - half, window_length, dtype=np.float64)),
+                    xf[..., -window_length:],
+                )
     else:
         if mode not in _SAVGOL_MODES:
             raise ValueError(f"unknown mode {mode!r}")

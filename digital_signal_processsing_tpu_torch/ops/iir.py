@@ -49,7 +49,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..utils.device import resolve_device
-from ..utils.dispatch import record_choice
+from ..utils.dispatch import record_choice, refuse_grad
 from ..utils.layout import cdiv
 from .iir_design import iirfilter
 from .pallas_scan import _on_cuda, _stream
@@ -521,6 +521,8 @@ def sos_cascade(x2: torch.Tensor, rows: np.ndarray, state: torch.Tensor | None =
     _check(x2, state, s, "sos_cascade", tile_rows)
     if _on_cuda(x2) and x2.shape[1] == 0:
         return torch.empty_like(x2), None if state is None else state.clone()
+    if _on_cuda(x2):
+        refuse_grad("sos_cascade (B12)", x2, state)
     y, ends = x2, []
     for g0, g1 in section_groups(s, MAX_SECTIONS):
         st = None if state is None else state[g0:g1]
@@ -545,6 +547,8 @@ def sos_cascade_unrolled(x2: torch.Tensor, rows: np.ndarray, *,
     if s < 1:
         raise ValueError("sos_cascade_unrolled (B13) needs at least one section")
     _check(x2, None, s, "sos_cascade_unrolled", tile_rows)
+    if _on_cuda(x2):
+        refuse_grad("sos_cascade_unrolled (B13)", x2)
     if _on_cuda(x2) and x2.shape[1] == 0:
         return torch.empty_like(x2)
     y = x2
@@ -571,6 +575,7 @@ def sos_sections(x2: torch.Tensor, rows: np.ndarray, state: torch.Tensor | None 
     if not _on_cuda(x2):
         y, end = _sections_plain(x2, rows, state)
         return y, None if state is None else end
+    refuse_grad("sos_sections (B15)", x2, state)
     c, t = x2.shape
     if t == 0:
         return torch.empty_like(x2), None if state is None else state.clone()
@@ -603,6 +608,7 @@ def iir1_block_scan(x2: torch.Tensor, a: float, b: float = 1.0, *,
     _check(x2, None, 1, "iir1_block_scan", tile_rows)
     if not _on_cuda(x2):
         return _iir1_plain(x2, a, b)
+    refuse_grad("iir1_block_scan (B10)", x2)
     c, t = x2.shape
     y = torch.empty_like(x2)
     if t == 0:
@@ -715,6 +721,7 @@ def iir1_affine_scan(x2: torch.Tensor, a: float, b: float = 1.0, *,
     _check(x2, None, 1, "iir1_affine_scan", tile_rows)
     if not _on_cuda(x2):
         return _iir1_plain(x2, a, b)
+    refuse_grad("iir1_affine_scan (B11)", x2)
     c, t = x2.shape
     y = torch.empty_like(x2)
     if t == 0:
@@ -749,6 +756,8 @@ def sos_cascade_mxu(x2: torch.Tensor, rows: np.ndarray, *,
     if s < 1:
         raise ValueError("sos_cascade_mxu (B14) needs at least one section")
     _check(x2, None, s, "sos_cascade_mxu", tile_rows)
+    if _on_cuda(x2):
+        refuse_grad("sos_cascade_mxu (B14)", x2)
     if _on_cuda(x2) and x2.shape[1] == 0:
         return torch.empty_like(x2)
     y = x2
@@ -1526,6 +1535,7 @@ def _tv_kernel(kind: int, fn, x2, rows4, frame_len, state, tile_rows):
     if not _on_cuda(x2):
         y, end = _tv_plain(x2, rows4, frame_len, state)
         return y, None if state is None else end
+    refuse_grad(f"{fn.__name__} (B{16 + kind})", x2, rows4, state)
     if x2.shape[1] == 0:
         return torch.empty_like(x2), None if state is None else state.clone()
     y, end = _launch_tv(kind, x2, rows4, frame_len, state, tile_rows)

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..utils.dispatch import record_choice
+from ..utils.dispatch import record_choice, refuse_grad
 from ..utils.layout import overlapping_frames
 from .fft import spectral_window
 from .fir import ieee_fp32_matmul
@@ -230,6 +230,7 @@ def lpc_synth_pass(a_f: torch.Tensor, s0: torch.Tensor, e: torch.Tensor):
     _check_pass(a_f, s0, e, "lpc_synth_pass")
     if not _on_cuda(e):
         return _lpc_pass_plain(a_f, s0, e)
+    refuse_grad("lpc_synth_pass (B22)", a_f, s0, e)
     if e.numel() == 0 or a_f.shape[1] == 0:
         return e.clone(), s0.clone()
     return _launch_pass(a_f, s0, e, True, "lpc_synth_pass")
@@ -243,6 +244,7 @@ def lpc_synth_state(a_f: torch.Tensor, s0: torch.Tensor, e: torch.Tensor) -> tor
     _check_pass(a_f, s0, e, "lpc_synth_state")
     if not _on_cuda(e):
         return _lpc_pass_plain(a_f, s0, e)[1]
+    refuse_grad("lpc_synth_state (B22)", a_f, s0, e)
     if e.numel() == 0 or a_f.shape[1] == 0:
         return s0.clone()
     return _launch_pass(a_f, s0, e, False, "lpc_synth_state")[1]

@@ -341,6 +341,19 @@ def qspline2d(signal, lamb: float = 0.0, precision: float = -1.0, *, device="cud
     return symiirorder1(out.T.contiguous(), -r * 8.0, r, precision=precision).T
 
 
+def spline_filter(Iin, lmbda: float = 5.0, *, device="cuda") -> np.ndarray:
+    """Cubic smoothing-spline filter of a rank-2 array (scipy.signal.spline_filter):
+    coefficients by :func:`cspline2d` (seeded recursions through
+    ``sosfilt_chunk``, B12 on the card), reconstruction by the separable mirror
+    FIR [1, 4, 1] / 6 (``twod.sepfir2d``). Returns NumPy float64, as the
+    reference does."""
+    from .twod import sepfir2d
+
+    ck = cspline2d(Iin, lmbda, device=device)
+    h = np.array([1.0, 4.0, 1.0]) / 6.0
+    return sepfir2d(ck, h, h).cpu().numpy().astype(np.float64)
+
+
 __all__ = [
     "gauss_spline",
     "bspline2",
@@ -351,6 +364,7 @@ __all__ = [
     "qspline1d_eval",
     "cspline2d",
     "qspline2d",
+    "spline_filter",
     "symiirorder1",
     "symiirorder2",
 ]

@@ -18,6 +18,8 @@ import os
 import sys
 import threading
 
+import torch
+
 _lock = threading.Lock()
 _choices: dict[str, str] = {}
 
@@ -43,4 +45,25 @@ def choices() -> dict[str, str]:
         return dict(_choices)
 
 
-__all__ = ["record_choice", "last_choice", "choices"]
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise where a float kernel would drop an autograd graph (ROADMAP §3 F3).
+
+    A ctypes launch returns tensors with no graph, so a loss through it would
+    get no gradient from the stage and nothing would say so. Each float
+    kernel wrapper calls this on its kernel branch with the data, taps, rows,
+    seeds and states it hands the kernel; ``None`` and non-tensors are
+    skipped. Under ``torch.no_grad()`` nothing is refused, and the plain
+    versions on the CPU carry the graph as they always did.
+    """
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.requires_grad:
+            raise NotImplementedError(
+                f"{kernel} has no backward (ROADMAP §3 F3): an input requires a gradient "
+                "in grad mode; detach it, call under torch.no_grad(), or run on the CPU, "
+                "whose plain version carries the graph"
+            )
+
+
+__all__ = ["record_choice", "last_choice", "choices", "refuse_grad"]

@@ -44,4 +44,45 @@ def wrap_int32(v: torch.Tensor) -> torch.Tensor:
     return v.to(torch.int32)
 
 
-__all__ = ["MAX_EXACT_WINDOW", "trunc_div", "wrap_int32"]
+def float_reciprocal_quantize(wsum: torch.Tensor, window: int, out_dtype=torch.int16) -> torch.Tensor:
+    """The reference GPU variants' quantization: ``sum * (1.0 / window)`` in
+    float32, then a truncating cast.
+
+    They multiply by a precomputed reciprocal instead of dividing, which lands
+    one LSB away from integer division for a few (sum, k) pairs. For A/B
+    parity studies only: every averager of the port divides exactly
+    (:func:`trunc_div`).
+    """
+    inv = np.float32(1.0) / np.float32(window)
+    q = torch.trunc(wsum.to(torch.float32) * float(inv)).to(torch.float64)
+    info = torch.iinfo(out_dtype)  # out of range saturates, as the reference's cast does
+    return torch.clamp(q, info.min, info.max).to(out_dtype)
+
+
+def exact_window_bound(sample_bits: int = 16) -> int:
+    """Largest window for which int32 modular window sums are exact."""
+    max_abs = 1 << (sample_bits - 1)  # 32768 for int16 (|-32768| dominates)
+    return (2**31 - 1) // max_abs
+
+
+def snr_db(reference, test) -> float:
+    """Signal-to-noise ratio of ``test`` against ``reference``, in dB (float64)."""
+    ref = np.asarray(reference, dtype=np.float64)
+    err = np.asarray(test, dtype=np.float64) - ref
+    p_sig = float(np.sum(ref * ref))
+    p_err = float(np.sum(err * err))
+    if p_err == 0.0:
+        return float("inf")
+    if p_sig == 0.0:
+        return float("-inf")
+    return 10.0 * np.log10(p_sig / p_err)
+
+
+__all__ = [
+    "MAX_EXACT_WINDOW",
+    "trunc_div",
+    "wrap_int32",
+    "float_reciprocal_quantize",
+    "exact_window_bound",
+    "snr_db",
+]

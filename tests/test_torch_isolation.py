@@ -231,6 +231,23 @@ assert checkpoint.load_training_state(sys.argv[1] + "/train.npz", fir.opt_state(
 for algo in (adaptive.nlms, adaptive.rls):
     assert algo(xf, xf, 4)[2].shape == (2, 4)
 assert design_pr_prototype(4, 4, steps=2, device="cpu").shape == (16,)
+from digital_signal_processsing_tpu_torch import compat
+from digital_signal_processsing_tpu_torch.ops import (  # noqa: F401
+    companding, lti, metrics, peaks, rank, signal, twod, wavelets,
+)
+from digital_signal_processsing_tpu_torch.utils import numerics
+assert compat.sosfilt(compat.butter(4, 0.2, output="sos"), xf).shape == (2, 3000)
+assert compat.medfilt(xf, 5).shape == compat.wiener(xf, 5).shape == (2, 3000)
+assert compat.cwt(xf[0, :256], compat.ricker, [1, 2, 4]).shape == (3, 256)
+assert compat.find_peaks(np.cumsum(np.random.default_rng(5).normal(size=500)))[0].ndim == 1
+assert compat.convolve2d(xf[:, :64], np.ones((3, 3)), "same", "symm").shape == (2, 64)
+assert companding.mulaw_decode(companding.mulaw_encode(torch.from_numpy(x))).shape == x.shape
+assert float(metrics.enob(signal.tone(0.0123, 4096, device="cpu"))) > 0
+yl, xl = compat.dlsim(compat.tf2ss([1.0, 0.5], [1.0, -1.2, 0.5]), xf[0, :100, None])
+assert yl.shape == (100, 1) and xl.shape == (100, 2)
+assert compat.lsim(([1.0], [1.0, 0.5]), np.ones(50), np.linspace(0, 1, 50), device="cpu")[1].shape == (50,)
+assert compat.spline_filter(np.ones((40, 40)), device="cpu").shape == (40, 40)
+assert numerics.exact_window_bound() == 65535
 assert not [m for m in sys.modules if m.startswith("jax") and sys.modules[m] is not None]
 reference = [m for m in sys.modules
              if m == "digital_signal_processsing_tpu" or m.startswith("digital_signal_processsing_tpu.")]
@@ -332,6 +349,25 @@ def test_cuda_device_without_a_card_raises(tmp_path):
         lambda: beamform.estimate_doa(ArrayConfig(), xs, xs, n_sources=1),
         lambda: beamform.spectrum_batch(ArrayConfig(), xs[None], xs[None]),
         lambda: beamform.wideband_music_spectrum(ArrayConfig(), xs, n_sources=1, spacing_samples=1.0),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    from digital_signal_processsing_tpu_torch import compat
+    from digital_signal_processsing_tpu_torch.ops import (
+        companding, lti, metrics, peaks, rank, signal, twod, wavelets,
+    )
+
+    tf = lti.tf2ss([1.0, 0.5], [1.0, -1.2, 0.5])
+    for call in (
+        lambda: companding.mulaw_encode(np.zeros(8, np.int16)), lambda: signal.tone(0.1, 64),
+        lambda: signal.white_noise(64), lambda: metrics.tone_metrics(np.zeros(64, np.float32)),
+        lambda: rank.medfilt(z, 3), lambda: rank.wiener(z, 3), lambda: wavelets.cwt(z[0], wavelets.ricker, [1]),
+        lambda: wavelets.lombscargle(z[0], z[0], z[0]), lambda: peaks.peak_mask(z),
+        lambda: peaks.find_peaks_cwt(z[0], [2, 4]), lambda: twod.medfilt2d(z),
+        lambda: twod.convolve2d(z, np.ones((3, 3))), lambda: lti.dlsim(tf, np.ones(8)),
+        lambda: lti.dstep(([1.0], [1.0, 0.5]), 8), lambda: lti.lsim(([1.0], [1.0, 0.5]), None, np.arange(4.0)),
+        lambda: compat.sosfilt(compat.butter(2, 0.3, output="sos"), z), lambda: compat.hilbert(z),
+        lambda: compat.welch(z, nperseg=16), lambda: compat.spline_filter(np.ones((40, 40))),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -440,6 +476,21 @@ def test_cpu_tensors_never_build_kernels(monkeypatch, rng):
         adaptive.rls(xf[:, :40], xf[:, :40], p)
     adaptive.identify_system(np.ones(3, np.float32), steps=2, batch=(2, 256), device="cpu")
     design_pr_prototype(8, 2, steps=2, device="cpu")
+    from digital_signal_processsing_tpu_torch import compat
+
+    sos = compat.butter(4, 0.2, output="sos")
+    for call in (lambda: compat.sosfilt(sos, xf), lambda: compat.sosfilt(sos, xf, zi=np.zeros((2, 3, 2))),
+                 lambda: compat.lfilter(*compat.butter(4, 0.2), xf), lambda: compat.sosfiltfilt(sos, xf),
+                 lambda: compat.filtfilt(*compat.butter(4, 0.2), xf), lambda: compat.decimate(xf, 4),
+                 lambda: compat.oaconvolve(xf, np.ones(257) / 257),
+                 lambda: compat.convolve(xf, np.ones(257) / 257, method="fft"),
+                 lambda: compat.hilbert(xf), lambda: compat.resample_poly(xf, 3, 2),
+                 lambda: compat.savgol_filter(xf, 31, 3),
+                 lambda: compat.spline_filter(np.ones((40, 40)), device="cpu"),
+                 lambda: compat.dlsim(compat.tf2ss([1.0], [1.0, 0.5]), xf[0, :64, None]),
+                 lambda: compat.lsim(([1.0], [1.0, 0.5]), None, np.arange(64.0), device="cpu"),
+                 lambda: compat.find_peaks_cwt(xf[0], [2, 4])):
+        call()
     assert not any(launch_counts().values()), launch_counts()
 
 
@@ -511,16 +562,23 @@ def test_recursion_wrappers_raise_when_the_build_fails(monkeypatch, rng):
     def no_plain(*a, **k):
         raise AssertionError("fell back to the plain version")
 
+    from digital_signal_processsing_tpu_torch.ops import lti
+
     monkeypatch.setattr(adaptive, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(lti, "_on_cuda", lambda x: True)
     monkeypatch.setattr(_build, "library", broken)
     monkeypatch.setattr(adaptive, "_nlms_plain", no_plain)
     monkeypatch.setattr(adaptive, "_rls_plain", no_plain)
+    monkeypatch.setattr(lti, "_dlsim_plain", no_plain)
     reset_launch_counts()
     xf = torch.from_numpy(rng.normal(size=(2, 100)).astype(np.float32))
-    for call in (lambda: adaptive.nlms(xf, xf, 8), lambda: adaptive.rls(xf, xf, 8)):
+    tf = lti.tf2ss([1.0, 0.5], [1.0, -1.2, 0.5])
+    for call in (lambda: adaptive.nlms(xf, xf, 8), lambda: adaptive.rls(xf, xf, 8),
+                 lambda: lti.dlsim(tf, xf[0, :, None]), lambda: lti.dstep(tf, 10, device="cpu"),
+                 lambda: lti.lsim(([1.0], [1.0, 0.5]), None, np.arange(5.0), device="cpu")):
         with pytest.raises(RuntimeError, match="nvcc failed"):
             call()
-    assert launch_counts()["S1"] == launch_counts()["S2"] == 0
+    assert launch_counts()["S1"] == launch_counts()["S2"] == launch_counts()["S3"] == 0
 
 
 def test_other_devices_are_refused():
@@ -562,6 +620,11 @@ def test_other_devices_are_refused():
     for scan in (adaptive.nlms_scan, adaptive.rls_scan):
         with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
             scan(xf, xf, 4)
+    from digital_signal_processsing_tpu_torch.ops import lti
+
+    m = torch.zeros(2, 2, device="meta")
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        lti.dlsim_scan(m, m[:, :1], m[:1], m[:1, :1], torch.zeros(8, 1, device="meta"), m[0])
     rows = torch.ones(1, 1, 8, 6, device="meta")
     for call in (
         lambda: tv_cascade(xf, rows), lambda: tv_section(xf, rows),
@@ -594,6 +657,6 @@ def test_build_is_keyed_by_the_sources():
     assert path == _build.library_path()  # stable for unchanged sources
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "windowed.cu", "cumsum.cu", "scan.cu", "direct.cu", "fused_fir.cu", "fused_fir3.cu",
-        "iir.cu", "pfb.cu", "farrow.cu", "iir_tv.cu", "lpc.cu", "ring.cu", "adaptive.cu",
+        "iir.cu", "pfb.cu", "farrow.cu", "iir_tv.cu", "lpc.cu", "ring.cu", "adaptive.cu", "lti.cu",
     }
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
