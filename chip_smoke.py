@@ -282,14 +282,16 @@ failure exits non-zero:
    autograd through the plain route on the card (1e-4 of max|g|), 50 steps
    against the CPU (1e-5 of max|h|), the reconstruction SNR and stopband (at
    n = 8 above 45 dB and below -25 dB); ``nlms`` (S1) at p = 256 on 64 x
-   65536 and ``rls`` (S2) at p = 32 on 64 x 32768 and at p = 240, past P's
-   shared-memory limit, on 2 x 4096, one launch each (asserted), each against
-   its plain loop on the card over the first 2048 samples (1e-5 of max|d|, of
-   max|w| for the taps) and over the whole run against the reference's anchors
-   (NLMS within 0.05 of the true taps, RLS within 5e-3); the sharded step at
-   world size 1 over NCCL bit for bit the single step; S1 and S2 beside their
-   plain loops, their bounds and per-sample chain floors, B20 in the designer;
-   and each call's wall ms and device ms.
+   65536 and ``rls`` (S2) at p = 32 on 64 x 32768 (the warp route) and at
+   p = 240 on 2 x 4096 (the block route, P's triangle in shared memory), one
+   launch each (asserted), each against its plain loop on the card over the
+   first 2048 samples (1e-5 of max|d|, of max|w| for the taps), with S2 at
+   p = 400 on 2 x 1024 (the triangle in device memory) outside the counted run,
+   and over the whole run against the reference's anchors (NLMS within 0.05 of
+   the true taps, RLS within 5e-3); the sharded step at world size 1 over NCCL
+   bit for bit the single step; S1 and S2 beside their plain loops, the previous
+   designs' times, their bounds, per-sample chain floors and routes' chains, B20
+   in the designer; and each call's wall ms and device ms.
 12. the rest of the op surface and the scipy.signal facade (``compat``), TF32
    turned on by the caller and the counts reset around, in at most 60 s: on 16 x
    2^22 float32 ``sosfilt``, ``lfilter``, ``sosfiltfilt``, ``filtfilt`` and
@@ -309,11 +311,14 @@ failure exits non-zero:
    every code back through encode(decode(c)); ``tone_metrics`` of a tone
    through ``sosfilt``, a mild cubic distortion and int16 quantisation, against
    the CPU (1e-3 dB); ``lsim``
-   of an 8-state system over 2^20 steps and ``dlsim`` at n = 8 and n = 300 (A
-   past shared memory) over 65536 steps, one S3 launch each, against S3's plain
-   loop on the card over 2048 steps (1e-5 of max|y|) and scipy's float64
-   ``dlsim`` over 4096 (1e-4); S3 by CUDA events beside its plain loop, its bound
-   and chain floor; F3: each float kernel wrapper (B8-B19 but B20, B21, B22,
+   of an 8-state system over 2^20 steps and ``dlsim`` at n = 8 (S3's warp
+   route) and n = 300 (a cluster of CTAs) over 65536 steps, one S3 launch
+   each, and outside the counted run at n = 1100 over 2048 steps (M read from
+   device memory), against S3's plain loop on the card over 2048 steps (1e-5 of
+   max|y|) and scipy's float64 ``dlsim`` over 4096 (1e-4); S3 by CUDA events
+   beside its plain loop, the previous design's time, its bound and chain floor
+   (and the sequential order's), each route's registers, local and shared bytes; F3: each
+   float kernel wrapper (B8-B19 but B20, B21, B22,
    S1-S3) refuses a requires_grad input in grad mode on the card and runs under
    ``torch.no_grad()``; and each call's wall ms and device ms.
 
@@ -4292,7 +4297,11 @@ TRAIN_RTOL = 1e-4  # card against the CPU after 20 steps, of max|true taps|: the
 TRAIN_REC_MAX = 1e-3  # ||taps - true|| / ||true|| after the 200 steps
 NLMS_P, NLMS_SHAPE = 256, (64, 65536)
 RLS_P, RLS_SHAPE = 32, (64, 32768)
-RLS_BIG_P, RLS_BIG_SHAPE = 240, (2, 4096)  # past S2's shared-memory limit (236 taps)
+RLS_BIG_P, RLS_BIG_SHAPE = 240, (2, 4096)  # S2's block route, P's triangle in shared memory
+RLS_HUGE_P, RLS_HUGE_SHAPE = 400, (2, 1024)  # past the triangle's shared limit (332 taps)
+# S1-S3 of the previous designs (commit f68d781; PERF.md §6, NVIDIA H100 80GB HBM3, 700.00 W)
+RECURSION_EARLIER_MS = {"S1": 13.3592, "S2": 86.0704, "S2 p=240": 515.4058, "S3 n=8": 39.7884,
+                        "S3 n=300": 1630.2509}
 ADAPT_PREFIX = 2048
 # S1 and S2 against their plain loops on the prefix: y and e of max|d|, w of max|w| (the
 # same operations summed in other orders; tests/test_torch_adaptive_scan.py's emulations
@@ -4327,17 +4336,26 @@ def adaptive_bounds(kind: str, p: int, b: int, n: int) -> dict:
     """S1's or S2's least time by bytes and float32 operations (the contract's bound),
     and the floor of its per-sample chain: each sample needs the taps the previous one
     left, through at least the dependent operations counted here, each 4 cycles or
-    more (a shuffle or a barrier takes more) at 1.98 GHz."""
+    more (a shuffle or a barrier takes more) at 1.98 GHz. For S2 also ``route``, the
+    chain of the route that runs: the warp route's four partials, shuffles and
+    division, the block route's lane sums, butterflies and three barriers; the floor
+    stays the shortest order counted, the previous design's lane sums."""
     r = -(-p // 32)
     by = 16 * b * n + 4 * b * p  # x, d read; y, e written; the taps
+    out = {}
     if kind == "S1":
         flops = 6 * p * b * n  # w.u, u.u, the update: a multiply and an add each
         deps = 1 + r + 10 + 1 + 2 + 1 + 2  # shift, lane sum, butterfly, e, norm, g, w
     else:
         flops = (6 * p * p + 7 * p) * b * n  # P u, the pair updates and symmetrisation
         deps = 2 * r + 10 + 6 + 2  # P u, u.pu's butterflies, k, P's update, 2 barriers
+        if p <= adaptive.RLS_WARP_TAPS:  # 2 x (quarter sums + 2 + a product), 2 shuffles,
+            route = 2 * (-(-p // 4) + 3) + 2 + 1 + 1 + 4  # denom, k, the pair update
+        else:  # 2 x (lane sums + a product + the butterfly), denom, k, the update, 3 barriers
+            route = 2 * (r + 1 + 10) + 1 + 1 + 4 + 3
+        out["route"] = n * route * 4 / SM_CLOCK_HZ * 1e3
     return {"bound": bound(by, flops, FP32_FLOPS_PER_S),
-            "chain": n * deps * 4 / SM_CLOCK_HZ * 1e3}
+            "chain": n * deps * 4 / SM_CLOCK_HZ * 1e3, **out}
 
 
 def stopband_db(h: np.ndarray, n: int) -> float:
@@ -4382,6 +4400,7 @@ def phase_training_main(dev, tmp: str) -> dict:
     hN, xN, dN = echo_path(rng, dev, NLMS_P, NLMS_SHAPE, 0.01, 64.0)
     hR, xR, dR = echo_path(rng, dev, RLS_P, RLS_SHAPE, 0.003, 8.0)
     hB, xB, dB = echo_path(rng, dev, RLS_BIG_P, RLS_BIG_SHAPE, 0.003, 48.0)
+    _, xH, dH = echo_path(rng, dev, RLS_HUGE_P, RLS_HUGE_SHAPE, 0.003, 48.0)
     torch.cuda.synchronize()
     train_kw = dict(batch=TRAIN_BATCH, seed=3)
     saved = torch.get_float32_matmul_precision()
@@ -4454,6 +4473,7 @@ def phase_training_main(dev, tmp: str) -> dict:
         ("S1", adaptive.nlms_scan, adaptive._nlms_plain, xN, dN, NLMS_P, (0.5, 1e-6)),
         ("S2", adaptive.rls_scan, adaptive._rls_plain, xR, dR, RLS_P, (0.999, 1e2)),
         ("S2", adaptive.rls_scan, adaptive._rls_plain, xB, dB, RLS_BIG_P, (0.999, 1e2)),
+        ("S2", adaptive.rls_scan, adaptive._rls_plain, xH, dH, RLS_HUGE_P, (0.999, 1e2)),
     ):
         xs, ds = x[:, pre].contiguous(), d[:, pre].contiguous()
         got, want = scan(xs, ds, p, *kw), plain(xs, ds, p, *kw)
@@ -4506,9 +4526,8 @@ def phase_training_main(dev, tmp: str) -> dict:
               f"{k} {check.max_err[k]:.3e}" for k in ADAPTIVE_KERNELS)
           + f"; B20's gradient {check.max_err['B20']:.3e}")
 
-    # times: the kernels (median of 3 after a warm-up; S2 at p = 240 one call, about half
-    # a second) beside their plain loops on the same inputs (one call each: the loops
-    # launch about ten kernels a sample), bounds and chains
+    # times: the kernels (median of 3 after a warm-up) beside their plain loops on the same
+    # inputs (one call each: the loops launch about ten kernels a sample), bounds and chains
     fx = {
         "S1": (lambda: adaptive.nlms_scan(xN, dN, NLMS_P),
                lambda: adaptive._nlms_plain(xN, dN, NLMS_P, 0.5, 1e-6), NLMS_P, NLMS_SHAPE),
@@ -4517,22 +4536,32 @@ def phase_training_main(dev, tmp: str) -> dict:
         "S2 p=240": (lambda: adaptive.rls_scan(xB, dB, RLS_BIG_P, 0.999),
                      lambda: adaptive._rls_plain(xB, dB, RLS_BIG_P, 0.999, 1e2), RLS_BIG_P,
                      RLS_BIG_SHAPE),
+        "S2 p=400": (lambda: adaptive.rls_scan(xH, dH, RLS_HUGE_P, 0.999),
+                     lambda: adaptive._rls_plain(xH, dH, RLS_HUGE_P, 0.999, 1e2), RLS_HUGE_P,
+                     RLS_HUGE_SHAPE),
     }
     times = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"[11 training] times on {torch.cuda.get_device_name(0)}: device ms, median of 3 "
-          "after a warm-up (S2 p=240 one call); plain one call:")
+          "after a warm-up; plain one call; before: the previous design (PERF.md):")
     for key, (kfn, pfn, p, (b, n)) in fx.items():
-        k_ms = statistics.median(device_ms(kfn, *((1, 3) if p < RLS_BIG_P else (0, 1))))
+        k_ms = statistics.median(device_ms(kfn, 1, 3))
         p_ms = device_ms(pfn, 0, 1)[0]
         bk = adaptive_bounds(key[:2], p, b, n)
-        g = adaptive.rls_geometry(p) if key.startswith("S2") else None
+        g = adaptive.rls_geometry(p, b, sms) if key.startswith("S2") else None
         times[key] = {"ms": k_ms, "plain": p_ms, **bk}
-        print(f"  {key[:2]} p={p} {b} x {n}: {k_ms:.4f} ms; plain {p_ms:.2f} ms ({p_ms / k_ms:.0f}x); "
-              f"bound {bk['bound'][0]:.4f} ({bk['bound'][1]}); chain floor {bk['chain']:.4f}, "
-              f"kernel/chain {k_ms / bk['chain']:.2f}; attrs (registers, local bytes, static "
-              f"shared, slots) {adaptive.adaptive_kernel_attrs(key[:2], p)}"
-              + (f"; P in {'shared' if g.shared_p else 'device'} memory, {g.threads} threads, "
-                 f"{g.smem_bytes} shared bytes" if g else ""))
+        before = RECURSION_EARLIER_MS.get(key)
+        print(f"  {key[:2]} p={p} {b} x {n}: {k_ms:.4f} ms"
+              + (f" (before {before:.4f}, {before / k_ms:.1f}x)" if before else "")
+              + f"; plain {p_ms:.2f} ms ({p_ms / k_ms:.0f}x); bound {bk['bound'][0]:.4f} "
+              f"({bk['bound'][1]}); chain floor {bk['chain']:.4f}, kernel/chain "
+              f"{k_ms / bk['chain']:.2f}"
+              + (f"; the route's own chain {bk['route']:.4f}, kernel/route chain "
+                 f"{k_ms / bk['route']:.2f}" if g else "")
+              + f"; attrs (registers, local bytes, static shared, slots) "
+              f"{adaptive.adaptive_kernel_attrs(key[:2], p)}"
+              + (f"; route {g.name}, {g.threads} threads a block, {g.smem_bytes} shared bytes"
+                 if g else ""))
     b20 = {}
     for n in DESIGN_NS:
         x, m_cos, m_sin, h0 = pfb_os._design_setup(n, DESIGN_P, 0, dev)
@@ -4574,8 +4603,9 @@ METRICS_T, METRICS_RTOL_DB = 1 << 20, 1e-3
 METRICS_F0 = 12899 / METRICS_T  # on a bin: the window leaks nothing past the line
 METRICS_CUBIC = 3e-3
 LSIM_STATES, LSIM_T = 8, 1 << 20
-DLSIM_CASES = ((8, 1, 1), (300, 2, 3))  # (n, p, q); 300 states put A past shared memory
+DLSIM_CASES = ((8, 1, 1), (300, 2, 3))  # (n, p, q): S3's warp route; a cluster of CTAs
 DLSIM_T, DLSIM_PLAIN, DLSIM_SCIPY = 65536, 2048, 4096
+DLSIM_BIG, DLSIM_BIG_T = (1100, 1, 1), 2048  # past the cluster's shared memory: M from device memory
 DLSIM_RTOL, DLSIM_SCIPY_RTOL = 1e-5, 1e-4
 SURFACE_BUDGET_S = 60.0
 
@@ -4589,11 +4619,17 @@ def stable_system(rng, n: int, p: int, q: int, radius: float = 0.95):
 
 
 def dlsim_bounds(n: int, p: int, q: int, t: int) -> dict:
-    """S3's least time by bytes and float32 operations, and the floor of its step
-    chain: n dependent multiply-adds and the step's barrier, 4 cycles each at 1.98 GHz."""
+    """S3's least time by bytes and float32 operations, and the floor of its step chain
+    at 4 cycles a dependent operation, 1.98 GHz: the shorter of its two orders, the
+    sequential row sum (n multiply-adds and the step's hand-over) and
+    the split one (ceil(n / 32) lane sums, a product, the five-step butterfly, + bu,
+    the hand-over to the peers and the wait on it); ``chain_before`` the sequential one's."""
     by = 4 * (t * (p + q + n) + n * n + n * p + q * n + q * p + n)
     flops = 2 * t * (n * n + n * p + q * n + q * p)
-    return {"bound": bound(by, flops, FP32_FLOPS_PER_S), "chain": t * (n + 1) * 4 / SM_CLOCK_HZ * 1e3}
+    before = t * (n + 1) * 4 / SM_CLOCK_HZ * 1e3
+    split = t * (-(-n // 32) + 1 + 5 + 1 + 2) * 4 / SM_CLOCK_HZ * 1e3
+    return {"bound": bound(by, flops, FP32_FLOPS_PER_S), "chain": min(before, split),
+            "chain_before": before}
 
 
 def f3_cases(dev) -> dict:
@@ -4687,8 +4723,9 @@ def phase_surface_main(dev, stream: torch.Tensor) -> dict:
              np.zeros((1, 1)))
     t_lsim = np.arange(LSIM_T) * 1e-3
     u_lsim = np.sin(2 * np.pi * 0.7 * t_lsim)
-    dsys = {nq: stable_system(rng, *nq) for nq in DLSIM_CASES}
-    u_d = {nq: torch.randn(DLSIM_T, nq[1], generator=gen, device=dev) for nq in DLSIM_CASES}
+    dsys = {nq: stable_system(rng, *nq) for nq in (*DLSIM_CASES, DLSIM_BIG)}
+    u_d = {nq: torch.randn(DLSIM_T if nq != DLSIM_BIG else DLSIM_BIG_T, nq[1], generator=gen,
+                           device=dev) for nq in dsys}
     torch.cuda.synchronize()
     tick("inputs")
 
@@ -4871,6 +4908,9 @@ def phase_surface_main(dev, stream: torch.Tensor) -> dict:
                       out["lsim"][1][:, None])}
     for nq in DLSIM_CASES:
         cases[f"dlsim n={nq[0]}"] = (dsys[nq], u_d[nq], out[f"dlsim n={nq[0]}"][0])
+    # past the cluster's capacity, outside the counted run: M read from device memory
+    cases[f"dlsim n={DLSIM_BIG[0]}"] = (dsys[DLSIM_BIG], u_d[DLSIM_BIG],
+                                        compat.dlsim(dsys[DLSIM_BIG], u_d[DLSIM_BIG])[0])
     for name, (sysd, u_, y_) in cases.items():
         mats = [torch.from_numpy(np.atleast_2d(m)).float().to(dev) for m in sysd]
         x0z = torch.zeros(mats[0].shape[0], device=dev)
@@ -4881,28 +4921,34 @@ def phase_surface_main(dev, stream: torch.Tensor) -> dict:
         # scipy in float64 on the float32 matrices S3 was given: the recursion's rounding
         # alone, not the matrices' (Ad within 5e-4 of I amplifies their rounding 2000x)
         sys32 = tuple(np.atleast_2d(m).astype(np.float32).astype(np.float64) for m in sysd)
-        _, want = sps.dlsim((*sys32, 1.0), u_[:DLSIM_SCIPY].double().cpu().numpy())[:2]
-        close(f"{name} against scipy's float64 dlsim ({DLSIM_SCIPY} steps)", y_t[:DLSIM_SCIPY],
-              np.asarray(want).reshape(DLSIM_SCIPY, -1), DLSIM_SCIPY_RTOL)
+        ts = min(DLSIM_SCIPY, u_.shape[0])
+        _, want = sps.dlsim((*sys32, 1.0), u_[:ts].double().cpu().numpy())[:2]
+        close(f"{name} against scipy's float64 dlsim ({ts} steps)", y_t[:ts],
+              np.asarray(want).reshape(ts, -1), DLSIM_SCIPY_RTOL)
     tick("lsim and dlsim against plain and scipy")
     # S3's times: CUDA events beside its plain loop (one call), its bound and chain floor
     times = {}
     print(f"[12 surface] S3 on {torch.cuda.get_device_name(0)}: device ms, median of 3 after a "
-          "warm-up; plain one call; attrs (registers, local bytes, static shared, most threads) "
-          f"{lti.dlsim_kernel_attrs()}")
-    for nq in DLSIM_CASES:
+          "warm-up; plain one call; before: the previous design (PERF.md); chain floor (the "
+          "sequential order's)")
+    for nq in (*DLSIM_CASES, DLSIM_BIG):
         n_, p_, q_ = nq
+        t_ = u_d[nq].shape[0]
         mats = [torch.from_numpy(np.atleast_2d(m)).float().to(dev) for m in dsys[nq]]
         x0z = torch.zeros(n_, device=dev)
         k_ms = statistics.median(device_ms(lambda: lti.dlsim_scan(*mats, u_d[nq], x0z), 1, 3))
         p_ms = device_ms(lambda: lti._dlsim_plain(*mats, u_d[nq], x0z), 0, 1)[0]
-        bk, g = dlsim_bounds(n_, p_, q_, DLSIM_T), lti.dlsim_geometry(n_, p_, q_)
+        bk, g = dlsim_bounds(n_, p_, q_, t_), lti.dlsim_geometry(n_, p_, q_)
         times[f"S3 n={n_}"] = {"ms": k_ms, "plain": p_ms, **bk}
-        print(f"  S3 n={n_} p={p_} q={q_} T={DLSIM_T}: {k_ms:.4f} ms; plain {p_ms:.2f} ms "
-              f"({p_ms / k_ms:.0f}x); bound {bk['bound'][0]:.4f} ({bk['bound'][1]}); chain floor "
-              f"{bk['chain']:.4f}, kernel/chain {k_ms / bk['chain']:.2f}; {g.threads} threads, "
-              f"matrices in {'shared' if g.shared_mats else 'device'} memory, {g.smem_bytes} "
-              "shared bytes")
+        before = RECURSION_EARLIER_MS.get(f"S3 n={n_}")
+        print(f"  S3 n={n_} p={p_} q={q_} T={t_}: {k_ms:.4f} ms"
+              + (f" (before {before:.4f}, {before / k_ms:.1f}x)" if before else "")
+              + f"; plain {p_ms:.2f} ms ({p_ms / k_ms:.0f}x); bound {bk['bound'][0]:.4f} "
+              f"({bk['bound'][1]}); chain floor {bk['chain']:.4f} ({bk['chain_before']:.4f}), "
+              f"kernel/chain {k_ms / bk['chain']:.2f}; route {g.name}, cluster {g.cluster}, "
+              f"{g.rows_cta} rows and {g.threads} threads a CTA, {g.smem_bytes} shared bytes; "
+              "attrs (registers, local bytes, static shared, most threads) "
+              f"{lti.dlsim_kernel_attrs(n_, p_, q_)}")
     tick("S3 times")
     # F3 on the card: a float input that requires a gradient is refused in grad mode
     for kernel, fn in f3_cases(dev).items():

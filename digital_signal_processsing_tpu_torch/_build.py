@@ -127,17 +127,18 @@ _SIGNATURES = {
     "dsp_ring_close": (_P,),
     # x, d, y, e, w, scratch, streams, n, p, step, eps, stream
     "dsp_nlms": (_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P),
-    # x, d, y, e, w, P scratch, streams, n, p, ld, ring, shared P, threads,
-    # smem_bytes, forget, delta, stream
+    # x, d, y, e, w, P's triangle scratch, streams, n, p, route, warps a block,
+    # ring, triangle in shared memory, smem_bytes, forget, delta, stream
     "dsp_rls": (*(_P,) * 6, *(_I,) * 8, ctypes.c_float, ctypes.c_float, _P),
     # kind (0 S1, 1 S2), p, out: registers, local bytes, static shared bytes,
     # slots a lane (4 int64)
     "dsp_adaptive_attrs": (_I, _I, _P),
-    # A^T, B^T, C^T, D^T, u, x0, y, xs, steps, n, p, q, chunk, shared matrices,
-    # threads, smem_bytes, stream
-    "dsp_dlsim": (*(_P,) * 8, *(_I,) * 8, _P),
-    # out: registers, local bytes, static shared bytes, most threads a block (4 int64)
-    "dsp_dlsim_attrs": (_P,),
+    # [[A B]; [C D]], u, x0, y, xs, steps, n, p, q, route, cluster, rows a CTA,
+    # state slots, chunk, threads, smem_bytes, stream
+    "dsp_dlsim": (*(_P,) * 5, *(_I,) * 11, _P),
+    # route, slots, out: registers, local bytes, static shared bytes, most
+    # threads a block (4 int64)
+    "dsp_dlsim_attrs": (_I, _I, _P),
 }
 
 

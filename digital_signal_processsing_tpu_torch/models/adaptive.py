@@ -333,41 +333,56 @@ def opt_state_from_optax(opt_state, taps, learning_rate: float = 1e-2, *,
 # --- the sample-recursive filters: S1 (NLMS) and S2 (RLS) -------------------------
 
 NLMS_REGISTER_TAPS = 1024  # S1 keeps taps in registers up to 32 a lane; a scratch past that
-RLS_CHUNK = 256  # samples S2 stages a chunk (csrc/adaptive.cu kRlsChunk)
-RLS_MAX_THREADS = 256
+RLS_CHUNK = 256  # samples S2's block route stages a chunk (csrc/adaptive.cu kRlsChunk)
+RLS_WARP_TAPS = 32  # S2's warp route: a lane a row of P, up to 32 taps
+RLS_WARP_STREAMS = 4  # most streams (warps) a block of the warp route
+RLS_MAX_WARPS = 32  # the block route's warps a block
+RLS_SMS = 132  # the H100's SMs, over which the warp route spreads its blocks
+RLS_ROUTES = ("warp", "block, triangle in shared memory", "block, triangle in device memory")
 
 
 @dataclasses.dataclass(frozen=True)
 class RlsGeometry:
-    """S2's launch for ``p`` taps: P's row stride ``ld`` (odd), the x ring (a power
-    of two of at least p - 1 + RLS_CHUNK), threads a block, whether P sits in
-    shared memory, and the block's dynamic shared bytes."""
+    """S2's launch for ``p`` taps over ``streams`` streams: the route (0 the
+    warp, 1 the block), warps a block (streams a block on the warp route), the
+    block route's x ring (a power of two of at least p - 1 + RLS_CHUNK), whether
+    its packed triangle of P sits in shared memory, and the dynamic shared bytes."""
 
-    ld: int
+    route: int
+    warps: int
     ring: int
-    threads: int
-    shared_p: bool
+    shared_tri: bool
     smem_bytes: int
 
+    @property
+    def name(self) -> str:
+        return RLS_ROUTES[0 if self.route == 0 else 1 if self.shared_tri else 2]
 
-def rls_geometry(p: int) -> RlsGeometry:
-    """S2's geometry; raises where even the staging buffers exceed shared memory."""
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps
+
+
+def rls_geometry(p: int, streams: int = 1, sms: int = RLS_SMS) -> RlsGeometry:
+    """S2's geometry; raises where even the block route's staging buffers exceed
+    shared memory."""
     if p < 1:
         raise ValueError(f"num_taps must be >= 1, got {p}")
-    ld = p if p % 2 else p + 1
+    if p <= RLS_WARP_TAPS:
+        return RlsGeometry(0, max(1, min(RLS_WARP_STREAMS, -(-streams // sms))), 0, False, 0)
     ring = 1 << (p - 1 + RLS_CHUNK - 1).bit_length()
     vectors = ring + 3 * RLS_CHUNK + 3 * p  # x ring; d, y, e stages; pu, k, w
-    shared_p = 4 * (p * ld + vectors) <= SMEM_MAX
-    smem = 4 * ((p * ld if shared_p else 0) + vectors)
+    tri = p * (p + 1) // 2
+    shared_tri = 4 * (tri + vectors) <= SMEM_MAX
+    smem = 4 * ((tri if shared_tri else 0) + vectors)
     if smem > SMEM_MAX:
         raise ValueError(f"rls: {p} taps need {smem} bytes of shared memory beside P, "
                          f"more than {SMEM_MAX}")
-    threads = 32 * min(RLS_MAX_THREADS // 32, max(1, -(-p // 4)))
-    return RlsGeometry(ld, ring, threads, shared_p, smem)
+    return RlsGeometry(1, min(RLS_MAX_WARPS, -(-p // 4)), ring, shared_tri, smem)
 
 
-# the most taps whose P fits in shared memory beside S2's staging buffers
-RLS_SHARED_MAX_TAPS = max(p for p in range(1, 512) if rls_geometry(p).shared_p)
+# the most taps whose packed triangle of P fits in shared memory beside S2's buffers
+RLS_SHARED_MAX_TAPS = max(p for p in range(RLS_WARP_TAPS + 1, 1024) if rls_geometry(p).shared_tri)
 
 
 def _stacked(rows: list, like: torch.Tensor) -> torch.Tensor:
@@ -463,28 +478,29 @@ def rls_scan(xb: torch.Tensor, db: torch.Tensor, p: int, forget: float = 0.99,
     """RLS over (streams, n) float32 by S2: ``(y, e, w)``, w (streams, p).
 
     A CPU tensor takes the plain per-sample loop; a CUDA tensor one launch of
-    S2, P in shared memory up to ``RLS_SHARED_MAX_TAPS`` taps and in a
-    device-memory scratch of p x ld floats a stream past that, counted in
-    ``launches``, or raises.
+    S2 (``csrc/adaptive.cu``), counted in ``launches``, or raises: a warp a
+    stream up to ``RLS_WARP_TAPS`` taps, else a block a stream with P's packed
+    upper triangle in shared memory up to ``RLS_SHARED_MAX_TAPS`` taps and in a
+    device-memory scratch of p (p + 1) / 2 floats a stream past that.
     """
     _check_streams(xb, db, p, "rls_scan")
     xb, db = xb.to(torch.float32).contiguous(), db.to(torch.float32).contiguous()
     if not _on_cuda(xb):
         return _rls_plain(xb, db, p, forget, delta)
     refuse_grad("rls_scan (S2)", xb, db)
-    g = rls_geometry(p)
     y, e, w = _outputs(xb, p)
     b, n = xb.shape
     if b == 0:
         return y, e, w
-    gp = None if g.shared_p else xb.new_empty(b, p * g.ld)
     lib = _build.library()
+    g = rls_geometry(p, b, torch.cuda.get_device_properties(xb.device).multi_processor_count)
+    gp = xb.new_empty(b, p * (p + 1) // 2) if g.route == 1 and not g.shared_tri else None
     with torch.cuda.device(xb.device):
         err = lib.dsp_rls(
             xb.data_ptr(), db.data_ptr(), y.data_ptr(), e.data_ptr(), w.data_ptr(),
-            None if gp is None else gp.data_ptr(), b, n, p, g.ld, g.ring, int(g.shared_p),
-            g.threads, g.smem_bytes, float(np.float32(forget)), float(np.float32(delta)),
-            _stream(xb),
+            None if gp is None else gp.data_ptr(), b, n, p, g.route, g.warps, g.ring,
+            int(g.shared_tri), g.smem_bytes, float(np.float32(forget)),
+            float(np.float32(delta)), _stream(xb),
         )
     _build.check(err, "rls_scan")
     rls_scan.launches += 1
@@ -495,9 +511,10 @@ rls_scan.launches = 0
 
 
 def adaptive_kernel_attrs(kind: str, p: int) -> tuple:
-    """What the compiler gave S1 (``kind="S1"``, for ``p`` taps) or S2 (the card
-    only): (registers a thread, local bytes a thread, static shared bytes, S1's
-    register slots a lane or 0)."""
+    """What the compiler gave S1 (``kind="S1"``) or S2 for ``p`` taps (the card
+    only): (registers a thread, local bytes a thread, static shared bytes,
+    register slots a lane: S1's taps, S2's row of P on the warp route and its
+    columns on the block route, 0 for the kernels that keep them in memory)."""
     out = (ctypes.c_int64 * 4)()
     with torch.cuda.device(torch.cuda.current_device()):
         err = _build.library().dsp_adaptive_attrs(0 if kind == "S1" else 1, p,

@@ -175,7 +175,6 @@ from .mel import (  # noqa: F401
     mfcc_init,
 )
 from .lti import (  # noqa: F401
-    DLSIM_MAX_STATES,
     StateSpace,
     TransferFunction,
     ZerosPolesGain,

@@ -204,37 +204,75 @@ def cont2discrete(system, dt: float, method: str = "zoh", alpha=None):
 
 # --- discrete-time simulation: kernel S3 -----------------------------------------
 
-DLSIM_MAX_STATES = 1024  # S3: one thread a state row (and an output row), one block
-DLSIM_CHUNK = 256  # steps of u S3 stages in shared memory at a time
-DLSIM_STAGE_FLOATS = 16384  # the most floats of u a stage holds (fewer steps for wide u)
+DLSIM_WARP_STATES = 32  # the warp route: a lane a state row and an output row
+DLSIM_WARP_INPUTS = 64  # ... and u, B u, D u, x_t and y_t staged beside each other
+DLSIM_WARP_CHUNK = 256  # steps the warp route stages
+DLSIM_WARP_SLOTS = (2, 4, 8, 16, 32)  # the warp route's state registers (csrc/lti.cu kWarpSlots)
+DLSIM_SLOTS = (1, 2, 3, 4, 6, 8, 10, 12, 16)  # the rows route's, n <= 32 slots (kSlots), else 0
+DLSIM_CLUSTER_MAX = 16  # the rows route: CTAs of one cluster, on neighbouring SMs (past 8
+# the H100's non-portable cluster sizes)
+DLSIM_REG_WARPS = 16  # the rows route with state slots: warps a CTA, two rows of M each in
+# registers (csrc/lti.cu kRegThreads)
+DLSIM_CHUNK = 256  # steps of B u and D u the rows route computes at a time
+DLSIM_BUS_FLOATS = 16384  # ... at most this many floats of them a CTA
+DLSIM_ROUTES = ("warp", "rows in shared memory", "rows in device memory")
 
 
 @dataclasses.dataclass(frozen=True)
 class DlsimGeometry:
-    """S3's launch for n states, p inputs and q outputs: threads (a warp's
-    multiple of max(n, q)), steps of u a stage, whether A, B, C and D sit in
-    shared memory (else they are read from device memory), and the block's
-    dynamic shared bytes."""
+    """S3's launch for n states, p inputs and q outputs: the route (0 the warp,
+    1 the rows of M in the cluster's shared memory, 2 the rows read from device
+    memory), CTAs in the cluster and rows of M each, state registers a lane,
+    steps a stage (the warp route's u, the rows route's B u), threads and
+    dynamic shared bytes a CTA."""
 
-    threads: int
+    route: int
+    cluster: int
+    rows_cta: int
+    slots: int
     chunk: int
-    shared_mats: bool
+    threads: int
     smem_bytes: int
+
+    @property
+    def name(self) -> str:
+        return DLSIM_ROUTES[self.route]
 
 
 def dlsim_geometry(n: int, p: int, q: int) -> DlsimGeometry:
-    """S3's geometry; raises past ``DLSIM_MAX_STATES`` states or outputs."""
-    if n > DLSIM_MAX_STATES or q > DLSIM_MAX_STATES:
-        raise ValueError(
-            f"dlsim on the card (S3) takes at most {DLSIM_MAX_STATES} states and outputs "
-            f"(one thread each in one block), got n={n}, q={q}"
-        )
-    chunk = max(1, min(DLSIM_CHUNK, DLSIM_STAGE_FLOATS // max(p, 1)))
-    base = 2 * n + chunk * p  # x double-buffered; the u stage
-    mats = n * n + p * n + n * q + p * q
-    shared = 4 * (base + mats) <= SMEM_MAX
-    threads = 32 * max(1, -(-max(n, q) // 32))
-    return DlsimGeometry(threads, chunk, shared, 4 * (base + (mats if shared else 0)))
+    """S3's geometry for n states, p inputs and q outputs: the rows route takes the
+    fewest CTAs that hold every row in registers. Raises past about 14,080 states,
+    where three copies of the state and a chunk of B u leave no room in shared
+    memory (a difference by design: the reference's ``lax.scan`` has no cap)."""
+    if n <= DLSIM_WARP_STATES and q <= DLSIM_WARP_STATES and p <= DLSIM_WARP_INPUTS:
+        chunk = DLSIM_WARP_CHUNK
+        slots = next(s for s in DLSIM_WARP_SLOTS if n <= s)
+        return DlsimGeometry(0, 1, n + q, slots, chunk, 32, 4 * chunk * (p + 66 + n + q))
+    slots = next((s for s in DLSIM_SLOTS if n <= 32 * s), 0)
+    cluster = 1
+    while cluster < DLSIM_CLUSTER_MAX and (slots == 0 or
+                                           _rows_share(n + q, cluster) > 2 * DLSIM_REG_WARPS):
+        cluster *= 2
+    return _rows_geometry(n, p, q, slots, cluster)
+
+
+def _rows_share(rows: int, cluster: int) -> int:
+    """A CTA's rows of M over ``cluster`` CTAs: a multiple of 4, so its block is 16 bytes."""
+    return 4 * -(-rows // (4 * cluster))
+
+
+def _rows_geometry(n: int, p: int, q: int, slots: int, cluster: int) -> DlsimGeometry:
+    """The rows route over ``cluster`` CTAs with ``slots`` state registers a lane."""
+    rows_cta = _rows_share(n + q, cluster)
+    chunk = max(1, min(DLSIM_CHUNK, DLSIM_BUS_FLOATS // rows_cta))
+    base = 32 + 4 * (3 * 4 * -(-n // 4) + rows_cta * chunk)  # mbarriers; x; B u
+    if base > SMEM_MAX:
+        raise ValueError(f"dlsim on the card (S3): {n} states need {base} bytes of shared "
+                         f"memory for the state and B u, more than {SMEM_MAX}")
+    route = 1 if base + 4 * rows_cta * (n + p) <= SMEM_MAX else 2
+    warps = (min(DLSIM_REG_WARPS, -(-rows_cta // 2)) if slots else min(32, rows_cta))
+    smem = base + (4 * rows_cta * (n + p) if route == 1 else 0)
+    return DlsimGeometry(route, cluster, rows_cta, slots, chunk, 32 * warps, smem)
 
 
 def _dlsim_plain(a, b, c, d, u, x0):
@@ -260,8 +298,8 @@ def dlsim_scan(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, d: torch.Tenso
 
     ``a`` (n, n), ``b`` (n, p), ``c`` (q, n), ``d`` (q, p), ``x0`` (n,), all
     float32 on one device. A CPU tensor takes the plain per-step loop; a CUDA
-    tensor one launch of S3 (``csrc/lti.cu``), counted in ``launches``, or
-    raises (past ``DLSIM_MAX_STATES`` states or outputs with ``ValueError``).
+    tensor one launch of S3 (``csrc/lti.cu``) on the route :func:`dlsim_geometry`
+    picks, counted in ``launches``, or raises.
     """
     n, p, q, t = a.shape[0], b.shape[1], c.shape[0], u.shape[0]
     shapes = {"a": (n, n), "b": (n, p), "c": (q, n), "d": (q, p), "u": (t, p), "x0": (n,)}
@@ -281,14 +319,13 @@ def dlsim_scan(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, d: torch.Tenso
     xs = u.new_empty((t, n))
     if t == 0:
         return y, xs
-    at, bt, ct, dt = (v.t().contiguous() for v in (a, b, c, d))  # columns as rows
+    m = torch.cat([torch.cat([a, b], 1), torch.cat([c, d], 1)], 0).contiguous()  # [[A B]; [C D]]
     u, x0 = u.contiguous(), x0.contiguous()
     lib = _build.library()
     with torch.cuda.device(u.device):
         err = lib.dsp_dlsim(
-            at.data_ptr(), bt.data_ptr(), ct.data_ptr(), dt.data_ptr(), u.data_ptr(),
-            x0.data_ptr(), y.data_ptr(), xs.data_ptr(), t, n, p, q, g.chunk,
-            int(g.shared_mats), g.threads, g.smem_bytes, _stream(u),
+            m.data_ptr(), u.data_ptr(), x0.data_ptr(), y.data_ptr(), xs.data_ptr(), t, n, p, q,
+            g.route, g.cluster, g.rows_cta, g.slots, g.chunk, g.threads, g.smem_bytes, _stream(u),
         )
     _build.check(err, "dlsim_scan")
     dlsim_scan.launches += 1
@@ -298,12 +335,14 @@ def dlsim_scan(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, d: torch.Tenso
 dlsim_scan.launches = 0
 
 
-def dlsim_kernel_attrs() -> tuple:
-    """What the compiler gave S3 (the card only): (registers a thread, local bytes
-    a thread, static shared bytes, most threads a block)."""
+def dlsim_kernel_attrs(n: int, p: int, q: int) -> tuple:
+    """What the compiler gave S3's kernel for n states, p inputs and q outputs
+    (the card only): (registers a thread, local bytes a thread, static shared
+    bytes, most threads a block)."""
+    g = dlsim_geometry(n, p, q)
     out = (ctypes.c_int64 * 4)()
     with torch.cuda.device(torch.cuda.current_device()):
-        err = _build.library().dsp_dlsim_attrs(ctypes.addressof(out))
+        err = _build.library().dsp_dlsim_attrs(g.route, g.slots, ctypes.addressof(out))
     _build.check(err, "dlsim_kernel_attrs")
     return tuple(out)
 
@@ -980,7 +1019,6 @@ __all__ = [
     "dlsim_scan",
     "dlsim_geometry",
     "dlsim_kernel_attrs",
-    "DLSIM_MAX_STATES",
     "dimpulse",
     "dstep",
     "unique_roots",

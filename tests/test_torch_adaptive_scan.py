@@ -14,9 +14,13 @@ run, which is held to them rather than trajectory for trajectory.
 NumPy float32: S1's lane layout (tap j in slot j // 32 of lane j % 32), its
 shift by a rotation of each register with lane 0 taking the register before,
 each lane's partial over its slots and the butterfly of five xor steps; S2's
-rows of P u as lane partials and butterflies, its deferred taps update, its
-pair updates of P symmetrised. Each is held to the plain loop within 1e-5 of
-max|y| (the same operations summed in another order).
+two routes: the warp route's sums over j as four partials (j mod 4) and its
+taps updated at once, the block route's rows of P u as lane partials and
+butterflies and its deferred taps update; both update P by pairs,
+((P_ij - k_i pu_j) + (P_ij - k_j pu_i)) * (0.5 * (1 / forget)), which keeps
+it bitwise symmetric. Each is held to the plain loop within 1e-5 of max|y|
+(the same operations summed in another order, the reference's two divisions
+an entry a product with one reciprocal).
 """
 
 import numpy as np
@@ -187,29 +191,43 @@ def emulate_s1(x, d, p, step=0.5, eps=1e-6):
     return y, e, w.transpose(0, 2, 1).reshape(b, 32 * slots)[:, :p]
 
 
-def emulate_s2(x, d, p, forget=0.99, delta=1e2):
-    """S2: rows of P u by lane partials and butterflies; u.pu and w.u the same way;
-    the taps update deferred to the next sample; P's pairs symmetrised."""
+def quad_sum(prod):
+    """S2's warp route: four partials over j = c mod 4, each ascending from 0,
+    then (s0 + s1) + (s2 + s3)."""
+    acc = [np.zeros(prod.shape[:-1], F32) for _ in range(4)]
+    for j in range(prod.shape[-1]):
+        acc[j % 4] = acc[j % 4] + prod[..., j]
+    return (acc[0] + acc[1]) + (acc[2] + acc[3])
+
+
+def emulate_s2(x, d, p, forget=0.99, delta=1e2, route="block"):
+    """S2 (``route`` "warp" or "block"): P u, u.pu and w.u by four partials on
+    the warp route and by lane partials and butterflies on the block route (which
+    defers the taps update to the next sample); P updated by pairs, both halves
+    from the same two terms."""
     b, n = x.shape
     forget = F32(forget)
+    h = F32(0.5) * (F32(1) / forget)
     P = np.zeros((b, p, p), F32)
     P[:, np.arange(p), np.arange(p)] = F32(delta)
     w, u, kv = (np.zeros((b, p), F32) for _ in range(3))
     e_prev = np.zeros(b, F32)
     y, e = np.zeros((b, n), F32), np.zeros((b, n), F32)
+    dot = quad_sum if route == "warp" else (lambda v: warp_sum(lane_partials(v)))
     for t in range(n):
         u = np.concatenate([x[:, t : t + 1], u[:, :-1]], 1)
-        if t > 0:
+        if route == "block" and t > 0:
             w = w + kv * e_prev[:, None]
-        pu = warp_sum(lane_partials(P * u[:, None, :]))
-        denom = forget + warp_sum(lane_partials(u * pu))
-        y[:, t] = warp_sum(lane_partials(w * u))
-        e[:, t] = d[:, t] - y[:, t]
+        pu = dot(P * u[:, None, :])
+        denom = forget + dot(u * pu)
         kv = pu / denom[:, None]
-        a = (P - kv[:, :, None] * pu[:, None, :]) / forget
-        P = F32(0.5) * (a + a.transpose(0, 2, 1))
+        y[:, t] = dot(w * u)
+        e[:, t] = d[:, t] - y[:, t]
+        if route == "warp":
+            w = w + kv * e[:, t][:, None]
+        P = ((P - kv[:, :, None] * pu[:, None, :]) + (P - kv[:, None, :] * pu[:, :, None])) * h
         e_prev = e[:, t]
-    if n:
+    if route == "block" and n:
         w = w + kv * e_prev[:, None]
     return y, e, w
 
@@ -233,30 +251,59 @@ def test_s1_emulation_past_the_register_taps(rng):
         assert rel(g, w.numpy()) < TOL
 
 
-@pytest.mark.parametrize("p, n", [(1, 200), (8, 1200), (32, 400), (45, 300)])
-def test_s2_emulation_matches_plain(p, n, rng):
+@pytest.mark.parametrize("p, n, route", [
+    (1, 200, "warp"), (8, 1200, "warp"), (32, 400, "warp"), (32, 2048, "warp"),
+    (33, 300, "block"), (45, 300, "block"), (70, 200, "block"),
+])
+def test_s2_emulation_matches_plain(p, n, route, rng):
     _, x, d, _ = sysid(rng, n=n, p=min(p, 8), streams=2)
-    got = emulate_s2(x, d, p, forget=0.999)
+    got = emulate_s2(x, d, p, forget=0.999, route=route)
     want = adaptive._rls_plain(torch.from_numpy(x), torch.from_numpy(d), p, 0.999, 1e2)
     for g, w in zip(got, want):
         assert rel(g, w.numpy()) < TOL
 
 
-@pytest.mark.parametrize("p", [1, 2, 8, 32, 100, 236, 237, 240, 1000])
+def test_s2_emulation_keeps_p_symmetric(rng):
+    """The pair update gives P_ij and P_ji the same bits, so the block route may
+    keep the upper triangle alone."""
+    _, x, d, _ = sysid(rng, n=200, p=8, streams=1)
+    p, forget = 12, F32(0.999)
+    h = F32(0.5) * (F32(1) / forget)
+    P = np.eye(p, dtype=F32) * F32(100)
+    u = np.zeros(p, F32)
+    for t in range(x.shape[1]):
+        u = np.concatenate([x[0, t : t + 1], u[:-1]])
+        pu = warp_sum(lane_partials(P * u[None, :]))
+        k = pu / (forget + warp_sum(lane_partials(u * pu)))
+        P = ((P - k[:, None] * pu[None, :]) + (P - k[None, :] * pu[:, None])) * h
+        assert np.array_equal(P, P.T)
+
+
+@pytest.mark.parametrize("p", [1, 2, 8, 32, 33, 100, 236, 240, 332, 333, 400, 1000])
 def test_s2_route_by_taps(p):
-    """P in shared memory up to RLS_SHARED_MAX_TAPS (236), in a device-memory
-    scratch past it; the row stride odd, the ring a power of two that holds
+    """A warp a stream up to RLS_WARP_TAPS (32) taps; past it a block a stream,
+    P's packed upper triangle in shared memory up to RLS_SHARED_MAX_TAPS (332)
+    and in a device-memory scratch past it; the ring a power of two that holds
     p - 1 samples of history beside a chunk, everything within 227 KB."""
     g = adaptive.rls_geometry(p)
-    assert adaptive.RLS_SHARED_MAX_TAPS == 236
-    assert g.shared_p == (p <= 236)
-    assert g.ld % 2 == 1 and g.ld in (p, p + 1)
+    assert adaptive.RLS_SHARED_MAX_TAPS == 332
+    if p <= 32:
+        assert g.route == 0 and g.smem_bytes == 0 and g.name == "warp"
+        return
+    assert g.route == 1 and g.shared_tri == (p <= 332)
     assert g.ring & (g.ring - 1) == 0 and g.ring >= p - 1 + adaptive.RLS_CHUNK
     vectors = g.ring + 3 * adaptive.RLS_CHUNK + 3 * p
-    assert g.smem_bytes == 4 * ((p * g.ld if g.shared_p else 0) + vectors) <= 232448
-    assert g.threads % 32 == 0 and 32 <= g.threads <= 256
-    # banks: a column walk of P (stride ld) meets 32 distinct banks
-    assert len({(i * g.ld) % 32 for i in range(min(p, 32))}) == min(p, 32)
+    tri = p * (p + 1) // 2
+    assert g.smem_bytes == 4 * ((tri if g.shared_tri else 0) + vectors) <= 232448
+    assert 32 <= g.threads <= 1024 and g.threads == 32 * g.warps
+    assert g.name.endswith("shared memory" if g.shared_tri else "device memory")
+
+
+@pytest.mark.parametrize("streams, warps", [(1, 1), (64, 1), (132, 1), (133, 2), (300, 3),
+                                            (528, 4), (100000, 4)])
+def test_s2_warp_route_spreads_streams(streams, warps):
+    """The warp route packs as many streams a block as spread them over 132 SMs."""
+    assert adaptive.rls_geometry(8, streams).warps == warps
 
 
 def test_s2_refuses_taps_past_its_staging():

@@ -7,7 +7,10 @@ Skipped without a CUDA device. On a machine with one (JAX is not needed):
 
 Tolerances: S3 within 1e-5 of max|y| (and of max|x|) of its plain loop on the
 card (the same products summed in another order), at n in {1, 3, 32, 33, 300,
-1024}, T in {1, 4096}, p = q = 1 and p = 2, q = 3.
+1024, 1100}, T in {1, 4096}, p = q = 1, p = 2, q = 3 and p = 1, q = 40: every
+route (the warp, the rows in one CTA, in a cluster, from device memory); and at
+n = 300, q = 300 (rows walked past the register rows) and n = 64, p = 4096 (state
+registers with the rows read from device memory).
 """
 
 import numpy as np
@@ -35,12 +38,23 @@ def system(rng, n, p, q, dev, radius=0.95):
     return [torch.from_numpy(m.astype(np.float32)).to(dev) for m in mats]
 
 
-@pytest.mark.parametrize("n", [1, 3, 32, 33, 300, 1024])
+@pytest.mark.parametrize("n", [1, 3, 32, 33, 300, 1024, 1100])
 @pytest.mark.parametrize("t", [1, 4096])
-@pytest.mark.parametrize("pq", [(1, 1), (2, 3)])
+@pytest.mark.parametrize("pq", [(1, 1), (2, 3), (1, 40)])
 def test_s3_matches_plain(dev, n, t, pq):
+    check_s3(dev, n, *pq, t)
+
+
+@pytest.mark.parametrize("n, p, q, route, walked", [(300, 1, 300, 1, True), (64, 4096, 1, 2, False)])
+@pytest.mark.parametrize("t", [1, 4096])
+def test_s3_register_rows_corners(dev, n, p, q, route, walked, t):
+    g = lti.dlsim_geometry(n, p, q)
+    assert g.slots > 0 and g.route == route and (g.rows_cta > 2 * lti.DLSIM_REG_WARPS) == walked
+    check_s3(dev, n, p, q, t)
+
+
+def check_s3(dev, n, p, q, t):
     rng = np.random.default_rng(n + t)
-    p, q = pq
     mats = system(rng, n, p, q, dev)
     u = torch.from_numpy(rng.standard_normal((t, p)).astype(np.float32)).to(dev)
     x0 = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
@@ -64,10 +78,15 @@ def test_s3_entry_points(dev):
     assert launch_counts()["S3"] == 2
     assert lti.dlsim(lti.tf2ss([1.0], [1.0, 0.5]), np.zeros(0))[0].shape == (0, 1)
     assert launch_counts()["S3"] == 2  # T = 0 launches nothing
-    with pytest.raises(ValueError, match="at most 1024 states"):
-        lti.dlsim_scan(torch.eye(1025, device=dev), torch.ones(1025, 1, device=dev),
-                       torch.ones(1, 1025, device=dev), torch.ones(1, 1, device=dev),
-                       torch.ones(4, 1, device=dev), torch.zeros(1025, device=dev))
+    # no cap on states or outputs: 1100 of each, one launch
+    a = 0.5 * torch.eye(1100, device=dev)
+    y, xs = lti.dlsim_scan(a, torch.ones(1100, 1, device=dev), torch.ones(1100, 1100, device=dev),
+                           torch.ones(1100, 1, device=dev), torch.ones(4, 1, device=dev),
+                           torch.zeros(1100, device=dev))
+    torch.cuda.synchronize()
+    assert launch_counts()["S3"] == 3 and y.shape == (4, 1100) and xs.shape == (4, 1100)
+    assert torch.equal(xs[:, 0].cpu(), torch.tensor([0.0, 1.0, 1.5, 1.75]))
+    assert torch.equal(y[:, 0].cpu(), torch.tensor([1.0, 1101.0, 1651.0, 1926.0]))
 
 
 def test_f3_refusals_on_the_card(dev):

@@ -53,6 +53,8 @@ def close(got, want, scale, what):
 @pytest.mark.parametrize("algo, p, b, n", [
     ("nlms", 8, 5, 3000), ("nlms", 256, 4, 2048), ("nlms", 1030, 2, 1500),
     ("rls", 8, 5, 2000), ("rls", 32, 4, 2048), ("rls", 240, 2, 1024),
+    ("rls", 16, 300, 512), ("rls", 33, 3, 1024), ("rls", 100, 2, 700), ("rls", 300, 2, 1024),
+    ("rls", 400, 2, 1024),
 ])
 def test_recursion_kernel_matches_plain(dev, algo, p, b, n):
     rng = np.random.default_rng(p + n)

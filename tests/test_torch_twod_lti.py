@@ -1,14 +1,14 @@
 """The 2-D filters, ``spline_filter`` and the LTI surface of the port against the
-JAX package on the same NumPy inputs (CPU), and kernel S3's block order
-emulated in NumPy against its plain loop.
+JAX package on the same NumPy inputs (CPU), and kernel S3's two orders (the
+warp route's and the rows route's) emulated in NumPy against its plain loop.
 
 Tolerances: convolve2d, correlate2d, sepfir2d and spline_filter within 1e-5 of
 max|y| (float32 conv2d against XLA's convolution); medfilt2d equal; every LTI
 design function within 1e-10 (host float64 in both); dlsim, lsim, dimpulse and
 dstep within 1e-5 of max|y| at T <= 4096 (float32 recursions summed in
-another order); S3's emulation within 1e-5 of max|y| of the plain loop (which
-sums as PyTorch's matrix-vector product does) and bit for bit where A and C
-hold a single entry a row.
+another order); S3's emulations within 1e-5 of max|y| of the plain loop (which
+sums as PyTorch's matrix-vector product does) and the warp route's bit for bit
+where A and C hold a single entry a row.
 """
 
 import numpy as np
@@ -250,14 +250,16 @@ def test_lsim_impulse_step(interp, x0, rng):
     assert _rel(out[1], jd.output(u[:60], t[:60])[1]) <= SIM_RTOL
 
 
-# --- S3's block order in NumPy ---------------------------------------------------------
+# --- S3's orders in NumPy -------------------------------------------------------------
+
+LANES = np.arange(32)
 
 
 def emulate_s3(a, b, c, d, u, x0):
-    """S3 (csrc/lti.cu) in NumPy float32: thread i's rows summed j (and k)
-    ascending from 0, each product and sum rounded apart, ``ax + bu`` and
-    ``cy + du`` added last; the state double-buffered a step at a time.
-    ``np.add.accumulate`` sums sequentially in float32, the kernel's order."""
+    """S3's warp route (csrc/lti.cu) in NumPy float32: lane i's rows summed j (and
+    k) ascending from 0, each product and sum rounded apart, ``ax + bu`` and
+    ``cy + du`` added last, a step at a time. ``np.add.accumulate`` sums
+    sequentially in float32, the kernel's order."""
     f32 = np.float32
     a, b, c, d, u, x = (np.asarray(v, f32) for v in (a, b, c, d, u, x0))
     t, n, p, q = u.shape[0], a.shape[0], b.shape[1], c.shape[0]
@@ -275,6 +277,42 @@ def emulate_s3(a, b, c, d, u, x0):
     return ys, xs
 
 
+def split_rows(m, x):
+    """The rows route's A x (or C x): a lane's partial over j = lane + 32 m, m
+    ascending from 0, then the butterfly of five xor steps (16, 8, 4, 2, 1)."""
+    f32 = np.float32
+    r, n = m.shape
+    slots = -(-n // 32)
+    prod = np.zeros((r, 32 * slots), f32)
+    prod[:, :n] = m * x[None, :]
+    acc = np.zeros((r, 32), f32)
+    for k in range(slots):
+        acc = acc + prod[:, 32 * k : 32 * (k + 1)]
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, LANES ^ off]
+    return acc[:, 0]
+
+
+def emulate_s3_rows(a, b, c, d, u, x0):
+    """S3's rows route in NumPy float32: ``ax`` and ``cy`` by :func:`split_rows`,
+    ``bu`` and ``du`` k ascending from 0, then ``ax + bu`` and ``cy + du``."""
+    f32 = np.float32
+    a, b, c, d, u, x = (np.asarray(v, f32) for v in (a, b, c, d, u, x0))
+    t, n, q = u.shape[0], a.shape[0], c.shape[0]
+    ys, xs = np.empty((t, q), f32), np.empty((t, n), f32)
+
+    def seq(m, v):
+        if m.shape[1] == 0:
+            return np.zeros(m.shape[0], f32)
+        return np.add.accumulate(m * v[None, :], axis=1, dtype=f32)[:, -1]
+
+    for k in range(t):
+        xs[k] = x
+        ys[k] = split_rows(c, x) + seq(d, u[k])
+        x = split_rows(a, x) + seq(b, u[k])
+    return ys, xs
+
+
 @pytest.mark.parametrize("n", [1, 3, 32, 33, 300])
 @pytest.mark.parametrize("t", [0, 1, 4096])
 @pytest.mark.parametrize("pq", [(1, 1), (2, 3)])
@@ -285,7 +323,8 @@ def test_s3_emulation_against_plain(n, t, pq, rng):
     mats = [m.astype(np.float32) for m in _discrete(rng, n, p, q, radius=0.95)]
     u = rng.normal(size=(t, p)).astype(np.float32)
     x0 = rng.normal(size=n).astype(np.float32)
-    ey, ex = emulate_s3(*mats, u, x0)
+    warp = lti.dlsim_geometry(n, p, q).route == 0
+    ey, ex = (emulate_s3 if warp else emulate_s3_rows)(*mats, u, x0)
     tm = [torch.from_numpy(m) for m in mats]
     py, px = lti.dlsim_scan(*tm, torch.from_numpy(u), torch.from_numpy(x0))
     assert py.shape == (t, q) and px.shape == (t, n)
@@ -311,18 +350,60 @@ def test_s3_emulation_is_exact_on_diagonal_systems(rng):
     np.testing.assert_array_equal(py.numpy(), ey)
 
 
+@pytest.mark.parametrize("n, p, q, t", [(33, 1, 1, 600), (40, 3, 40, 300), (3, 1, 40, 300),
+                                        (70, 2, 1, 200), (0, 2, 35, 50)])
+def test_s3_rows_emulation_against_plain(n, p, q, t, rng):
+    """The rows route (more than 32 states or outputs, or more than 64 inputs)."""
+    assert lti.dlsim_geometry(n, p, q).route in (1, 2)
+    mats = [m.astype(np.float32) for m in _discrete(rng, n, p, q, radius=0.95)]
+    u = rng.normal(size=(t, p)).astype(np.float32)
+    x0 = rng.normal(size=n).astype(np.float32)
+    ey, ex = emulate_s3_rows(*mats, u, x0)
+    py, px = lti.dlsim_scan(*(torch.from_numpy(v) for v in mats), torch.from_numpy(u),
+                            torch.from_numpy(x0))
+    assert _rel(py, ey) <= SIM_RTOL
+    if n:
+        assert _rel(px, ex) <= SIM_RTOL
+
+
 def test_s3_geometry_and_refusals():
+    """The warp route up to 32 states and outputs (and 64 inputs); past it the
+    rows of M = [[A B]; [C D]] over a cluster of up to 16 CTAs, a multiple of 4
+    rows a CTA, two rows a warp in registers while n <= 512, in shared memory
+    while a CTA's share fits, read from device memory past that. No cap on p or
+    q; n up to 14,079, where three copies of the state and a chunk of B u fill
+    shared memory."""
     g = lti.dlsim_geometry(8, 1, 1)
-    assert g.shared_mats and g.threads == 32 and g.chunk == 256
-    g = lti.dlsim_geometry(300, 2, 3)
-    assert not g.shared_mats and g.threads == 320  # A past shared memory
-    assert g.smem_bytes == 4 * (2 * 300 + 256 * 2)
-    assert lti.dlsim_geometry(1024, 1, 1024).threads == 1024
-    assert lti.dlsim_geometry(4, 100000, 1).chunk == 1
-    with pytest.raises(ValueError, match="at most 1024 states"):
-        lti.dlsim_geometry(1025, 1, 1)
-    with pytest.raises(ValueError, match="at most 1024 states"):
-        lti.dlsim_geometry(3, 1, 1025)
+    assert (g.route, g.threads, g.chunk, g.slots, g.name) == (0, 32, 256, 8, "warp")
+    assert g.smem_bytes == 4 * 256 * (1 + 2 * 33 + 8 + 1) <= lti.SMEM_MAX
+    assert lti.dlsim_geometry(32, 64, 32).smem_bytes <= lti.SMEM_MAX
+    assert lti.dlsim_geometry(32, 64, 32).route == 0 and lti.dlsim_geometry(32, 64, 32).slots == 32
+    assert [lti.dlsim_geometry(n, 1, 1).slots for n in (0, 2, 3, 9, 17)] == [2, 2, 4, 16, 32]
+    assert lti.dlsim_geometry(32, 65, 32).route == 1
+    g = lti.dlsim_geometry(300, 2, 3)  # 303 rows: 20 a CTA over 16, all in registers
+    assert (g.route, g.cluster, g.rows_cta, g.slots, g.threads) == (1, 16, 20, 10, 320)
+    assert g.smem_bytes == 32 + 4 * (3 * 300 + 20 * g.chunk + 20 * 302) <= lti.SMEM_MAX
+    g = lti.dlsim_geometry(300, 2, 300)  # 600 rows: 40 a CTA over 16, 8 walked a CTA
+    assert (g.route, g.cluster, g.rows_cta, g.slots, g.threads) == (1, 16, 40, 10, 512)
+    g = lti.dlsim_geometry(64, 4096, 1)  # state registers, rows read from device memory
+    assert (g.route, g.cluster, g.rows_cta, g.slots) == (2, 4, 20, 2)
+    g = lti.dlsim_geometry(33, 1, 1)
+    assert (g.route, g.cluster, g.rows_cta, g.slots, g.threads) == (1, 2, 20, 2, 320)
+    for n, q in ((1100, 1), (1, 1100), (1100, 1100), (5000, 3)):
+        g = lti.dlsim_geometry(n, 1, q)
+        assert g.rows_cta * g.cluster >= n + q and g.rows_cta % 4 == 0
+        assert g.smem_bytes <= lti.SMEM_MAX
+        assert g.threads % 32 == 0 and 32 <= g.threads <= 1024
+        rows_bytes = 4 * g.rows_cta * (n + 1)
+        assert g.route == (2 if g.smem_bytes + rows_bytes > lti.SMEM_MAX + (rows_bytes if g.route == 1 else 0)
+                           else 1)
+    g = lti.dlsim_geometry(1100, 1, 1)
+    assert (g.name, g.cluster, g.slots) == ("rows in device memory", 16, 0)  # x in shared memory
+    assert lti.dlsim_geometry(4, 100000, 1).route == 2  # any number of inputs
+    assert lti.dlsim_geometry(14079, 1, 1).route == 2
+    for n in (14080, 60000):
+        with pytest.raises(ValueError, match="shared memory"):
+            lti.dlsim_geometry(n, 1, 1)
     z = torch.zeros
     with pytest.raises(ValueError, match="dlsim_scan"):
         lti.dlsim_scan(z(3, 3), z(3, 1), z(1, 3), z(1, 1), z(10, 2), z(3))
