@@ -285,7 +285,8 @@ failure exits non-zero:
    65536 and ``rls`` (S2) at p = 32 on 64 x 32768 (the warp route) and at
    p = 240 on 2 x 4096 (the block route, P's triangle in shared memory), one
    launch each (asserted), each against its plain loop on the card over the
-   first 2048 samples (1e-5 of max|d|, of max|w| for the taps), with S2 at
+   first 2048 samples (1e-5 of max|d|, of max|w| for the taps), with S1 on an
+   AR(1) input (x_t = 0.95 x_{t-1} + white) at p = 256 on 64 x 2048 and S2 at
    p = 400 on 2 x 1024 (the triangle in device memory) outside the counted run,
    and over the whole run against the reference's anchors (NLMS within 0.05 of
    the true taps, RLS within 5e-3); the sharded step at world size 1 over NCCL
@@ -4299,7 +4300,8 @@ NLMS_P, NLMS_SHAPE = 256, (64, 65536)
 RLS_P, RLS_SHAPE = 32, (64, 32768)
 RLS_BIG_P, RLS_BIG_SHAPE = 240, (2, 4096)  # S2's block route, P's triangle in shared memory
 RLS_HUGE_P, RLS_HUGE_SHAPE = 400, (2, 1024)  # past the triangle's shared limit (332 taps)
-# S1-S3 of the previous designs (commit f68d781; PERF.md §6, NVIDIA H100 80GB HBM3, 700.00 W)
+# S1-S3 of the previous designs (S1 a warp a stream, commit b2bd615; S2 and S3 commit f68d781;
+# PERF.md §6, NVIDIA H100 80GB HBM3, 700.00 W)
 RECURSION_EARLIER_MS = {"S1": 13.3592, "S2": 86.0704, "S2 p=240": 515.4058, "S3 n=8": 39.7884,
                         "S3 n=300": 1630.2509}
 ADAPT_PREFIX = 2048
@@ -4332,20 +4334,38 @@ def echo_path(rng, dev, p: int, shape: tuple, noise: float, decay: float):
     return h, x, (d + noise * n).float()
 
 
+def ar1_path(rng, dev, p: int, shape: tuple, rho: float, decay: float):
+    """(x, d): x_t = rho x_{t-1} + white (S1's correlations far from diagonal), d through
+    a decaying random p-tap path by a float64 causal FIR on the card."""
+    w = rng.standard_normal(shape)
+    x = np.zeros(shape)
+    for t in range(shape[1]):
+        x[:, t] = w[:, t] + (rho * x[:, t - 1] if t else 0.0)
+    h = torch.from_numpy(rng.standard_normal(p) * np.exp(-np.arange(p) / decay)).to(dev)
+    xt = torch.from_numpy(x.astype(np.float32)).to(dev)
+    xp = torch.nn.functional.pad(xt.double()[:, None, :], (p - 1, 0))
+    return xt, torch.nn.functional.conv1d(xp, h.flip(0)[None, None, :])[:, 0, :].float()
+
+
 def adaptive_bounds(kind: str, p: int, b: int, n: int) -> dict:
-    """S1's or S2's least time by bytes and float32 operations (the contract's bound),
-    and the floor of its per-sample chain: each sample needs the taps the previous one
-    left, through at least the dependent operations counted here, each 4 cycles or
-    more (a shuffle or a barrier takes more) at 1.98 GHz. For S2 also ``route``, the
-    chain of the route that runs: the warp route's four partials, shuffles and
-    division, the block route's lane sums, butterflies and three barriers; the floor
-    stays the shortest order counted, the previous design's lane sums."""
+    """S1's or S2's least time by bytes and float32 operations (the contract's bound:
+    the function's own work, not the block recursion's extra correlations), and the
+    floor of its per-sample chain in the sample-by-sample order: each sample needs the
+    taps the previous one left, through at least the dependent operations counted
+    here, each 4 cycles or more (a shuffle or a barrier takes more) at 1.98 GHz.
+    ``route`` is the chain of the design that runs: S1's block recursion, a
+    subtraction, the division (a product and four FMAs, ``nlms_div``), the step's
+    product, the next row's product and sum a sample, and a block's barrier, start
+    sum and shuffle over its L samples; S2's warp
+    route's four partials, shuffles and division, or its block route's lane sums,
+    butterflies and three barriers."""
     r = -(-p // 32)
     by = 16 * b * n + 4 * b * p  # x, d read; y, e written; the taps
     out = {}
     if kind == "S1":
         flops = 6 * p * b * n  # w.u, u.u, the update: a multiply and an add each
         deps = 1 + r + 10 + 1 + 2 + 1 + 2  # shift, lane sum, butterfly, e, norm, g, w
+        out["route"] = n * (1 + 5 + 1 + 2 + 3 / adaptive.NLMS_BLOCK) * 4 / SM_CLOCK_HZ * 1e3
     else:
         flops = (6 * p * p + 7 * p) * b * n  # P u, the pair updates and symmetrisation
         deps = 2 * r + 10 + 6 + 2  # P u, u.pu's butterflies, k, P's update, 2 barriers
@@ -4398,6 +4418,8 @@ def phase_training_main(dev, tmp: str) -> dict:
     h_sys = (0.5 * rng.standard_normal(TRAIN_TAPS) * np.exp(-np.arange(TRAIN_TAPS) / 48.0)
              ).astype(np.float32)
     hN, xN, dN = echo_path(rng, dev, NLMS_P, NLMS_SHAPE, 0.01, 64.0)
+    xA, dA = ar1_path(np.random.default_rng(12), dev, NLMS_P, (NLMS_SHAPE[0], ADAPT_PREFIX), 0.95,
+                      64.0)
     hR, xR, dR = echo_path(rng, dev, RLS_P, RLS_SHAPE, 0.003, 8.0)
     hB, xB, dB = echo_path(rng, dev, RLS_BIG_P, RLS_BIG_SHAPE, 0.003, 48.0)
     _, xH, dH = echo_path(rng, dev, RLS_HUGE_P, RLS_HUGE_SHAPE, 0.003, 48.0)
@@ -4471,13 +4493,15 @@ def phase_training_main(dev, tmp: str) -> dict:
     pre = slice(0, ADAPT_PREFIX)
     for kernel, scan, plain, x, d, p, kw in (
         ("S1", adaptive.nlms_scan, adaptive._nlms_plain, xN, dN, NLMS_P, (0.5, 1e-6)),
+        ("S1", adaptive.nlms_scan, adaptive._nlms_plain, xA, dA, NLMS_P, (0.5, 1e-6)),
         ("S2", adaptive.rls_scan, adaptive._rls_plain, xR, dR, RLS_P, (0.999, 1e2)),
         ("S2", adaptive.rls_scan, adaptive._rls_plain, xB, dB, RLS_BIG_P, (0.999, 1e2)),
         ("S2", adaptive.rls_scan, adaptive._rls_plain, xH, dH, RLS_HUGE_P, (0.999, 1e2)),
     ):
         xs, ds = x[:, pre].contiguous(), d[:, pre].contiguous()
         got, want = scan(xs, ds, p, *kw), plain(xs, ds, p, *kw)
-        what = f"{kernel} p={p} {x.shape[0]} x {ADAPT_PREFIX} against plain"
+        what = (f"{kernel} p={p} {x.shape[0]} x {ADAPT_PREFIX}"
+                + (" AR(1)" if x is xA else "") + " against plain")
         check.close(kernel, got[0], want[0], what + " y", ADAPT_RTOL, scale_of=ds)
         check.close(kernel, got[1], want[1], what + " e", ADAPT_RTOL, scale_of=ds)
         check.close(kernel, got[2], want[2], what + " w", ADAPT_RTOL)
@@ -4548,20 +4572,25 @@ def phase_training_main(dev, tmp: str) -> dict:
         k_ms = statistics.median(device_ms(kfn, 1, 3))
         p_ms = device_ms(pfn, 0, 1)[0]
         bk = adaptive_bounds(key[:2], p, b, n)
-        g = adaptive.rls_geometry(p, b, sms) if key.startswith("S2") else None
+        if key.startswith("S2"):
+            g = adaptive.rls_geometry(p, b, sms)
+            geo = f"route {g.name}, {g.threads} threads a block, {g.smem_bytes} shared bytes"
+        else:
+            g = adaptive.nlms_geometry(p, b)
+            geo = (f"block length {adaptive.NLMS_BLOCK}, {g.ctas} CTAs of "
+                   f"{adaptive.NLMS_THREADS} threads, "
+                   f"{g.smem_bytes} shared bytes, ring {g.ring} and taps in "
+                   f"{'shared' if g.shared else 'device'} memory")
         times[key] = {"ms": k_ms, "plain": p_ms, **bk}
         before = RECURSION_EARLIER_MS.get(key)
         print(f"  {key[:2]} p={p} {b} x {n}: {k_ms:.4f} ms"
               + (f" (before {before:.4f}, {before / k_ms:.1f}x)" if before else "")
               + f"; plain {p_ms:.2f} ms ({p_ms / k_ms:.0f}x); bound {bk['bound'][0]:.4f} "
-              f"({bk['bound'][1]}); chain floor {bk['chain']:.4f}, kernel/chain "
-              f"{k_ms / bk['chain']:.2f}"
-              + (f"; the route's own chain {bk['route']:.4f}, kernel/route chain "
-                 f"{k_ms / bk['route']:.2f}" if g else "")
-              + f"; attrs (registers, local bytes, static shared, slots) "
-              f"{adaptive.adaptive_kernel_attrs(key[:2], p)}"
-              + (f"; route {g.name}, {g.threads} threads a block, {g.smem_bytes} shared bytes"
-                 if g else ""))
+              f"({bk['bound'][1]}); chain floor (sample by sample) {bk['chain']:.4f}, "
+              f"kernel/chain {k_ms / bk['chain']:.2f}; the design's own chain "
+              f"{bk['route']:.4f}, kernel/its chain {k_ms / bk['route']:.2f}"
+              + f"; attrs (registers, local bytes, static shared, S1's block or S2's slots) "
+              f"{adaptive.adaptive_kernel_attrs(key[:2], p)}; {geo}")
     b20 = {}
     for n in DESIGN_NS:
         x, m_cos, m_sin, h0 = pfb_os._design_setup(n, DESIGN_P, 0, dev)

@@ -125,13 +125,15 @@ _SIGNATURES = {
     # 64-byte IPC handle, out pointer
     "dsp_ring_open": (ctypes.c_char_p, _PP),
     "dsp_ring_close": (_P,),
-    # x, d, y, e, w, scratch, streams, n, p, step, eps, stream
-    "dsp_nlms": (_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P),
+    # x, d, y, e, w, ring and taps scratch, streams, n, p, ring, ring and taps
+    # in shared memory, smem_bytes, step, eps, stream
+    "dsp_nlms": (*(_P,) * 6, *(_I,) * 6, ctypes.c_float, ctypes.c_float, _P),
     # x, d, y, e, w, P's triangle scratch, streams, n, p, route, warps a block,
     # ring, triangle in shared memory, smem_bytes, forget, delta, stream
     "dsp_rls": (*(_P,) * 6, *(_I,) * 8, ctypes.c_float, ctypes.c_float, _P),
-    # kind (0 S1, 1 S2), p, out: registers, local bytes, static shared bytes,
-    # slots a lane (4 int64)
+    # kind (0 S1 with its ring and taps in shared memory, 2 in device memory,
+    # 1 S2), p, out: registers, local bytes, static shared bytes, S1's block
+    # length or S2's slots a lane (4 int64)
     "dsp_adaptive_attrs": (_I, _I, _P),
     # [[A B]; [C D]], u, x0, y, xs, steps, n, p, q, route, cluster, rows a CTA,
     # state slots, chunk, threads, smem_bytes, stream

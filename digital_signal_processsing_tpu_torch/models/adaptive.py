@@ -17,9 +17,10 @@ gives the same bits every time (a resumed run continues bit for bit).
 
 **NLMS and RLS** (:func:`nlms`, :func:`rls`) adapt a sample at a time, the
 leading axes independent streams. On the card each is one launch of a kernel
-of ``csrc/adaptive.cu`` (S1 ``nlms_kernel``, one warp a stream; S2
-``rls_kernel``, one block a stream): the reference runs them as one
-``lax.scan``, which eager PyTorch would spell as about ten launches a sample.
+of ``csrc/adaptive.cu`` (S1 ``nlms_block_kernel``, one CTA a stream running
+the exact block recursion, :func:`nlms_geometry`; S2 by :func:`rls_geometry`):
+the reference runs them as one ``lax.scan``, which eager PyTorch would spell
+as about ten launches a sample.
 On the CPU the wrappers take their plain versions, per-sample loops in the
 reference's order of operations.
 
@@ -332,7 +333,8 @@ def opt_state_from_optax(opt_state, taps, learning_rate: float = 1e-2, *,
 
 # --- the sample-recursive filters: S1 (NLMS) and S2 (RLS) -------------------------
 
-NLMS_REGISTER_TAPS = 1024  # S1 keeps taps in registers up to 32 a lane; a scratch past that
+NLMS_BLOCK = 16  # S1's block length L (csrc/adaptive.cu kNlmsBlock)
+NLMS_THREADS = 416  # S1's CTA: the chain warp, group A's 4 warps, group B's 8
 RLS_CHUNK = 256  # samples S2's block route stages a chunk (csrc/adaptive.cu kRlsChunk)
 RLS_WARP_TAPS = 32  # S2's warp route: a lane a row of P, up to 32 taps
 RLS_WARP_STREAMS = 4  # most streams (warps) a block of the warp route
@@ -383,6 +385,47 @@ def rls_geometry(p: int, streams: int = 1, sms: int = RLS_SMS) -> RlsGeometry:
 
 # the most taps whose packed triangle of P fits in shared memory beside S2's buffers
 RLS_SHARED_MAX_TAPS = max(p for p in range(RLS_WARP_TAPS + 1, 1024) if rls_geometry(p).shared_tri)
+
+
+@dataclasses.dataclass(frozen=True)
+class NlmsGeometry:
+    """S1's launch for ``taps`` taps over ``ctas`` streams, one CTA of
+    ``NLMS_THREADS`` a stream: the ring of x (a power of two of at least
+    taps + 5 NLMS_BLOCK, mirrored: 2 ring floats), whether the ring and the
+    taps sit in shared memory beside the correlation tables (else a
+    device-memory scratch of 2 ring + taps floats a stream), and the dynamic
+    shared bytes."""
+
+    ring: int
+    shared: bool
+    smem_bytes: int
+    ctas: int
+    taps: int
+
+    @property
+    def scratch_floats(self) -> int:
+        """Device-memory floats a stream: 0 when everything sits in shared memory."""
+        return 0 if self.shared else 2 * self.ring + self.taps
+
+
+def nlms_geometry(p: int, streams: int = 1) -> NlmsGeometry:
+    """S1's geometry: three correlation tables of 2 L^2 floats (L =
+    ``NLMS_BLOCK``), d, 1 / nu and nu thrice, W u and g twice, then the mirrored
+    ring and the taps while they fit. Refuses only what no launch can take: no
+    taps, more CTAs than a grid."""
+    if p < 1:
+        raise ValueError(f"num_taps must be >= 1, got {p}")
+    if not 1 <= streams <= 2**31 - 1:
+        raise ValueError(f"nlms: {streams} streams; a launch takes 1 to 2^31 - 1")
+    block = NLMS_BLOCK
+    tables = 6 * block * block + 13 * block
+    ring = 1 << (p + 5 * block - 1).bit_length()
+    shared = 4 * (tables + 2 * ring + p) <= SMEM_MAX
+    return NlmsGeometry(ring, shared, 4 * (tables + (2 * ring + p if shared else 0)), streams, p)
+
+
+# the most taps S1 keeps in shared memory beside its tables
+NLMS_SHARED_MAX_TAPS = max(p for p in range(1, 1 << 15) if nlms_geometry(p).shared)
 
 
 def _stacked(rows: list, like: torch.Tensor) -> torch.Tensor:
@@ -446,7 +489,9 @@ def nlms_scan(xb: torch.Tensor, db: torch.Tensor, p: int, step: float = 0.5, eps
     """NLMS over (streams, n) float32 by S1: ``(y, e, w)``, w (streams, p).
 
     A CPU tensor takes the plain per-sample loop; a CUDA tensor one launch of
-    S1 (``csrc/adaptive.cu``), counted in ``launches``, or raises.
+    S1 (``csrc/adaptive.cu``), counted in ``launches``, or raises: one CTA a
+    stream, its ring of x and the taps in shared memory up to
+    ``NLMS_SHARED_MAX_TAPS`` taps and in a device-memory scratch past that.
     """
     _check_streams(xb, db, p, "nlms_scan")
     xb, db = xb.to(torch.float32).contiguous(), db.to(torch.float32).contiguous()
@@ -457,13 +502,15 @@ def nlms_scan(xb: torch.Tensor, db: torch.Tensor, p: int, step: float = 0.5, eps
     b, n = xb.shape
     if b == 0:
         return y, e, w
-    scratch = xb.new_empty(b, 2 * p) if p > NLMS_REGISTER_TAPS else None
+    g = nlms_geometry(p, b)
+    scratch = xb.new_empty(b, g.scratch_floats) if g.scratch_floats else None
     lib = _build.library()
     with torch.cuda.device(xb.device):
         err = lib.dsp_nlms(
             xb.data_ptr(), db.data_ptr(), y.data_ptr(), e.data_ptr(), w.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), b, n, p,
-            float(np.float32(step)), float(np.float32(eps)), _stream(xb),
+            None if scratch is None else scratch.data_ptr(), b, n, p, g.ring, int(g.shared),
+            g.smem_bytes, float(np.float32(step)), float(np.float32(eps)),
+            _stream(xb),
         )
     _build.check(err, "nlms_scan")
     nlms_scan.launches += 1
@@ -511,14 +558,14 @@ rls_scan.launches = 0
 
 
 def adaptive_kernel_attrs(kind: str, p: int) -> tuple:
-    """What the compiler gave S1 (``kind="S1"``) or S2 for ``p`` taps (the card
-    only): (registers a thread, local bytes a thread, static shared bytes,
-    register slots a lane: S1's taps, S2's row of P on the warp route and its
-    columns on the block route, 0 for the kernels that keep them in memory)."""
+    """What the compiler gave the instance of S1 (``kind="S1"``) or S2 that runs
+    ``p`` taps (the card only): (registers a thread, local bytes a thread, static
+    shared bytes, S1's block length, or S2's register slots a lane: its row of P
+    on the warp route and its columns on the block route, 0 past 256 taps)."""
     out = (ctypes.c_int64 * 4)()
+    code = (0 if nlms_geometry(p).shared else 2) if kind == "S1" else 1
     with torch.cuda.device(torch.cuda.current_device()):
-        err = _build.library().dsp_adaptive_attrs(0 if kind == "S1" else 1, p,
-                                                  ctypes.addressof(out))
+        err = _build.library().dsp_adaptive_attrs(code, p, ctypes.addressof(out))
     _build.check(err, "adaptive_kernel_attrs")
     return tuple(out)
 
@@ -569,6 +616,8 @@ __all__ = [
     "rls",
     "nlms_scan",
     "rls_scan",
+    "nlms_geometry",
+    "NLMS_SHARED_MAX_TAPS",
     "rls_geometry",
     "RLS_SHARED_MAX_TAPS",
     "adaptive_kernel_attrs",

@@ -11,10 +11,13 @@ its float32 P does not yet amplify rounding); the reference's own anchors
 run, which is held to them rather than trajectory for trajectory.
 
 ``emulate_s1`` and ``emulate_s2`` walk the kernels of ``csrc/adaptive.cu`` in
-NumPy float32: S1's lane layout (tap j in slot j // 32 of lane j % 32), its
-shift by a rotation of each register with lane 0 taking the register before,
-each lane's partial over its slots and the butterfly of five xor steps; S2's
-two routes: the warp route's sums over j as four partials (j mod 4) and its
+NumPy float32: S1's exact block recursion (group B's correlation tables, each
+entry a sum of its own window's products as core, head and tail, or direct
+for p < L; group A's folds of g into the taps, sample by sample, and its rows
+W.u by chunks and butterflies; the chain warp's walk of the triangle and its
+sums over the next block's cross terms), held on white and AR(1) inputs, at
+ragged and short n, p = 1 and p < L < n, and silence
+after a burst, where the tables read exact zeros; S2's two routes: the warp route's sums over j as four partials (j mod 4) and its
 taps updated at once, the block route's rows of P u as lane partials and
 butterflies and its deferred taps update; both update P by pairs,
 ((P_ij - k_i pu_j) + (P_ij - k_j pu_i)) * (0.5 * (1 / forget)), which keeps
@@ -163,32 +166,146 @@ def lane_partials(prod):
     return acc
 
 
+def xat(x, t):
+    """x[:, t] for an array of times t, zero before the start and past the end."""
+    n = x.shape[1]
+    t = np.asarray(t)
+    return np.where((t >= 0) & (t < n), x[:, np.clip(t, 0, n - 1)], F32(0)).astype(F32)
+
+
+def seq_sum(terms):
+    """Sum over the last axis one term at a time from 0, float32."""
+    acc = np.zeros(terms.shape[:-1], F32)
+    for r in range(terms.shape[-1]):
+        acc = acc + terms[..., r]
+    return acc
+
+
+def group_sum(v):
+    """The xor butterfly over the last axis (G lanes), float32: every lane's total."""
+    g = v.shape[-1]
+    idx = np.arange(g)
+    off = g // 2
+    while off:
+        v = v + v[..., idx ^ off]
+        off //= 2
+    return v[..., 0]
+
+
+def lane_sums(terms):
+    """Lane q's sum over its contiguous chunk q K .. q K + K - 1 of the last axis (K
+    odd, 32 K >= the terms), in order, then the butterfly over the 32 lanes."""
+    size = terms.shape[-1]
+    k = ((size + 31) // 32) | 1
+    pad = np.zeros(terms.shape[:-1] + (32 * k - size,), F32)
+    return group_sum(seq_sum(np.concatenate([terms, pad], -1).reshape(terms.shape[:-1] + (32, k))))
+
+
+def s1_table(x, t0, p, L, eps):
+    """Group B's table of block rows t0 + i: C[:, i, m] = u_i.u_{i-m}, m < 2L, and
+    eps + u_i.u_i at m = 0. For p >= L: (core + head) + tail, the core's lane
+    sums, head and tail over H lanes a lag of L / H rows each (H = 32 over the
+    lags of a warp: 2L over group B's 8 warps), their blocks' sums passed on in
+    order."""
+    b = x.shape[0]
+    m = np.arange(2 * L)
+
+    def prods(s):  # (b, 2L, len(s)): x[t0 + s] x[t0 + s - m]
+        s = np.asarray(s)
+        return (xat(x, t0 + s)[:, None, :] * xat(x, (t0 + s)[None, :] - m[:, None])).astype(F32)
+
+    C = np.zeros((b, L, 2 * L), F32)
+    if p >= L:
+        core = lane_sums(prods(np.arange(L - p, 1)))
+        lanes = 32 // (2 * L // 8)  # a lag's lanes
+        rpl = L // lanes
+        head_f = lambda s: prods([s])[..., 0]  # noqa: E731
+        tail_f = lambda u: prods([u - p + 1])[..., 0]  # noqa: E731
+        hl, tl, tot = [], [], []
+        for h in range(lanes):
+            rows = [np.zeros((b, 2 * L), F32)]
+            for k in range(1, rpl):
+                rows.append(rows[-1] + head_f(h * rpl + k))
+            hl.append(rows)
+            tot.append(rows[-1] + head_f((h + 1) * rpl) if h < lanes - 1 else None)
+            t, rows = np.zeros((b, 2 * L), F32), [None] * rpl
+            for k in range(rpl - 1, -1, -1):
+                if h * rpl + k <= L - 2:
+                    t = t + tail_f(h * rpl + k)
+                rows[k] = t
+            tl.append(rows)
+        for h in range(lanes):
+            ph, sh = np.zeros((b, 2 * L), F32), np.zeros((b, 2 * L), F32)
+            for hh in range(h):
+                ph = ph + tot[hh]
+            for hh in range(lanes - 1, h, -1):
+                sh = sh + tl[hh][0]
+            for k in range(rpl):
+                C[:, h * rpl + k] = (core + (ph + hl[h][k])) + (tl[h][k] + sh)
+    else:
+        for i in range(L):
+            C[:, i] = seq_sum(prods(np.arange(i - p + 1, i + 1)))
+    C[:, :, 0] = F32(eps) + C[:, :, 0]
+    return C
+
+
 def emulate_s1(x, d, p, step=0.5, eps=1e-6):
-    """S1: a warp a stream, tap j in slot j // 32 of lane j % 32 (the register
-    instances, and the generic one past 1024 taps in the same order)."""
+    """S1's exact block recursion in its order: group B's tables, group A's folds
+    and rows W.u (lane sums and butterflies), the chain warp's walk of the
+    triangle and its sums over Q; rows past n take g = 0."""
     b, n = x.shape
-    slots = -(-p // 32)
-    valid = (LANES[:, None] + 32 * np.arange(slots)[None, :]) < p
-    w = np.zeros((b, 32, slots), F32)
-    u = np.zeros((b, 32, slots), F32)
+    L = adaptive.NLMS_BLOCK
+    step = F32(step)
+    nb = -(-n // L)
+    W = np.zeros((b, p), F32)
+    c = np.arange(p)
     y, e = np.zeros((b, n), F32), np.zeros((b, n), F32)
-    step, eps = F32(step), F32(eps)
-    for t in range(n):
-        rot = np.roll(u, 1, axis=1)  # lane l takes lane l-1's entry
-        new = rot.copy()
-        new[:, 0, 0] = x[:, t]
-        new[:, 0, 1:] = rot[:, 0, :-1]  # lane 0 takes lane 31's entry of the slot before
-        u = np.where(valid, new, F32(0))
-        acc = np.zeros((b, 32), F32)
-        nrm = np.zeros((b, 32), F32)
-        for r in range(slots):
-            acc = acc + w[:, :, r] * u[:, :, r]
-            nrm = nrm + u[:, :, r] * u[:, :, r]
-        y[:, t] = warp_sum(acc)
-        e[:, t] = d[:, t] - y[:, t]
-        g = step * (e[:, t] / (eps + warp_sum(nrm)))
-        w = w + g[:, None, None] * u
-    return y, e, w.transpose(0, 2, 1).reshape(b, 32 * slots)[:, :p]
+    tables = {}
+    gs = {}
+
+    def table(k):
+        if k not in tables:
+            tables[k] = s1_table(x, k * L, p, L, eps)
+        return tables[k]
+
+    def fold(W, k):
+        t0 = k * L
+        for j in range(L):
+            W = W + gs[k][:, j : j + 1] * xat(x, t0 + j - c)
+        return W
+
+    yhat = np.zeros((b, L), F32)
+    rows = np.arange(L)
+    for k in range(nb):
+        if k >= 2:
+            W = fold(W, k - 2)
+        t0 = k * L
+        P = lane_sums(W[:, None, :] * xat(x, t0 + rows[:, None] - c[None, :]).reshape(b, L, p))
+        C = table(k)
+        yv = P + yhat
+        dv = xat(d, t0 + rows)
+        acc = np.zeros((b, L), F32)
+        Q = None
+        if k + 1 < nb:  # Q[:, i, j] = u_j.u_i, rows j of block k, i of block k + 1
+            Cn = table(k + 1)
+            Q = Cn[:, rows[:, None], L + rows[:, None] - rows[None, :]]
+        g = np.zeros((b, L), F32)
+        for j in range(L):
+            ej = dv[:, j] - yv[:, j]
+            gj = step * (ej / C[:, j, 0])
+            if j + 1 < L:
+                m = rows[j + 1 :]
+                yv[:, j + 1 :] = yv[:, j + 1 :] + gj[:, None] * C[:, m, m - j]
+            if Q is not None:
+                acc = acc + gj[:, None] * Q[:, :, j]
+            if t0 + j < n:
+                y[:, t0 + j], e[:, t0 + j], g[:, j] = yv[:, j], ej, gj
+        gs[k] = g
+        yhat = acc
+    for k in (nb - 2, nb - 1):
+        if k >= 0:
+            W = fold(W, k)
+    return y, e, W
 
 
 def quad_sum(prod):
@@ -232,23 +349,104 @@ def emulate_s2(x, d, p, forget=0.99, delta=1e2, route="block"):
     return y, e, w
 
 
+def held_to_plain(x, d, p, **kw):
+    got = emulate_s1(x, d, p, **kw)
+    want = adaptive._nlms_plain(torch.from_numpy(x), torch.from_numpy(d), p, 0.5, 1e-6)
+    for g, w in zip(got, want):
+        assert rel(g, w.numpy()) < TOL
+
+
+def ar1(rng, streams, n, p, rho=0.95, noise=0.01):
+    """x_t = rho x_{t-1} + white: the correlations far from diagonal; d through a
+    decaying p-tap path."""
+    w = rng.standard_normal((streams, n))
+    x = np.zeros((streams, n))
+    for t in range(n):
+        x[:, t] = w[:, t] + (rho * x[:, t - 1] if t else 0.0)
+    h = rng.standard_normal(p) * np.exp(-np.arange(p) / max(p / 4, 2))
+    d = np.stack([np.convolve(r, h)[:n] for r in x]) + noise * rng.standard_normal((streams, n))
+    return x.astype(F32), d.astype(F32)
+
+
 @pytest.mark.parametrize("p, n", [(1, 300), (8, 1500), (31, 600), (33, 600), (70, 300)])
 def test_s1_emulation_matches_plain(p, n, rng):
     _, x, d, _ = sysid(rng, n=n, p=p, streams=3)
-    got = emulate_s1(x, d, p)
-    want = adaptive._nlms_plain(torch.from_numpy(x), torch.from_numpy(d), p, 0.5, 1e-6)
-    for g, w in zip(got, want):
-        assert rel(g, w.numpy()) < TOL
+    held_to_plain(x, d, p)
 
 
 def test_s1_emulation_past_the_register_taps(rng):
-    """p > 1024 takes the generic instance: the same lane order, held here at 1030."""
+    """p = 1030, past the 1024 taps the design before kept in registers: the same
+    block recursion, its taps still in shared memory."""
     p = 1030
     _, x, d, _ = sysid(rng, n=1200, p=16, streams=2)
-    got = emulate_s1(x, d, p)
-    want = adaptive._nlms_plain(torch.from_numpy(x), torch.from_numpy(d), p, 0.5, 1e-6)
-    for g, w in zip(got, want):
-        assert rel(g, w.numpy()) < TOL
+    held_to_plain(x, d, p)
+
+
+@pytest.mark.parametrize("case, p, n", [
+    ("ar1", 64, 700), ("ar1", 256, 600), ("ragged n", 40, 301), ("n < L", 12, 10),
+    ("p = 1", 1, 257), ("p < L < n", 5, 100), ("p < L < n", 15, 150),
+    ("ragged n", 16, 333), ("ar1", 70, 333), ("silence after a burst", 24, 400),
+])
+def test_s1_block_emulation_matches_plain(case, p, n, rng):
+    """The block recursion where its sums are tested hardest: correlated input,
+    blocks cut by n, fewer taps than a block, and a window that falls silent
+    (plain reads u = 0 there; the tables' sums of their own products give exact
+    zeros, where a sliding difference would leave rounding residue over nu = eps)."""
+    if case.startswith("ar1"):
+        x, d = ar1(rng, 2, n, p)
+    else:
+        _, x, d, _ = sysid(rng, n=n, p=min(p, 8), streams=2)
+    if case.startswith("silence"):
+        x[:, 200:] = 0.0
+        x[:, 150:200] *= 1000.0
+    held_to_plain(x, d, p)
+
+
+def test_s1_division_is_ieee():
+    """The chain warp's e / nu: q0 = e r from r = RN(1 / nu), then two corrections
+    by the residual, each an FMA rounded once (emulated through 80-bit products,
+    exact here), gives IEEE's quotient, so the emulation's e / nu is the kernel's."""
+    rng = np.random.default_rng(7)
+    m = 100000
+    e = (rng.standard_normal(m) * 10.0 ** (rng.random(m) * 10 - 6)).astype(F32)
+    nu = (1e-6 + 10.0 ** (rng.random(m) * 11 - 6)).astype(F32)
+    ld = np.longdouble
+
+    def fma(a, b, c):
+        return (a.astype(ld) * b.astype(ld) + c.astype(ld)).astype(F32)
+
+    r = F32(1) / nu
+    q0 = e * r
+    q1 = fma(fma(-nu, q0, e), r, q0)
+    q = fma(fma(-nu, q1, e), r, q1)
+    assert np.array_equal(q, e / nu) and not np.array_equal(q0, e / nu)
+
+
+@pytest.mark.parametrize("p, streams, shared", [
+    (1, 1, True), (256, 64, True), (256, 300, True), (1030, 2, True),
+    (16304, 1, True), (16305, 1, False), (60000, 3, False), (8, 5, True),
+])
+def test_nlms_geometry(p, streams, shared):
+    """One CTA of 416 threads a stream (more streams than SMs queue); three tables of
+    2L^2 (L = 16), d, 1 / nu and nu thrice, W u and g twice, then the mirrored ring of x
+    (a power of two R >= p + 5L, 2R floats) and the taps while they fit in 227 KB: up
+    to 16304 taps, a device-memory scratch of 2R + p floats a stream past that."""
+    g = adaptive.nlms_geometry(p, streams)
+    L = adaptive.NLMS_BLOCK
+    assert L == 16 and adaptive.NLMS_THREADS == 416 and g.ctas == streams and g.taps == p
+    assert g.ring & (g.ring - 1) == 0 and p + 5 * L <= g.ring < 2 * (p + 5 * L)
+    tables = 6 * L * L + 13 * L
+    assert g.shared == shared
+    assert g.smem_bytes == 4 * (tables + (2 * g.ring + p if shared else 0)) <= 232448
+    assert g.scratch_floats == (0 if shared else 2 * g.ring + p)
+    assert adaptive.NLMS_SHARED_MAX_TAPS == 16304
+
+
+def test_nlms_geometry_refusals():
+    with pytest.raises(ValueError, match="num_taps"):
+        adaptive.nlms_geometry(0)
+    with pytest.raises(ValueError, match="streams"):
+        adaptive.nlms_geometry(8, 2**31)
 
 
 @pytest.mark.parametrize("p, n, route", [

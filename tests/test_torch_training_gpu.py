@@ -52,21 +52,30 @@ def close(got, want, scale, what):
 
 @pytest.mark.parametrize("algo, p, b, n", [
     ("nlms", 8, 5, 3000), ("nlms", 256, 4, 2048), ("nlms", 1030, 2, 1500),
-    ("rls", 8, 5, 2000), ("rls", 32, 4, 2048), ("rls", 240, 2, 1024),
+    ("nlms", 1, 5, 3000), ("nlms", 256, 300, 512), ("nlms ar1", 256, 4, 2048),
+    ("nlms", 60000, 2, 300), ("rls", 8, 5, 2000), ("rls", 32, 4, 2048), ("rls", 240, 2, 1024),
     ("rls", 16, 300, 512), ("rls", 33, 3, 1024), ("rls", 100, 2, 700), ("rls", 300, 2, 1024),
     ("rls", 400, 2, 1024),
 ])
 def test_recursion_kernel_matches_plain(dev, algo, p, b, n):
+    """S1 also on an AR(1) input (its correlations far from diagonal), more
+    streams than SMs, p = 1 and past the taps shared memory holds (60000)."""
     rng = np.random.default_rng(p + n)
     _, x, d = echo(rng, min(p, 64), b, n)
+    if algo.endswith("ar1"):
+        for t in range(1, n):
+            x[:, t] += np.float32(0.95) * x[:, t - 1]
+        h = rng.standard_normal(64) * np.exp(-np.arange(64) / 16.0)
+        d = np.stack([np.convolve(r, h)[:n] for r in x]).astype(np.float32)
     xd, dd = torch.from_numpy(x).to(dev), torch.from_numpy(d).to(dev)
-    scan = adaptive.nlms_scan if algo == "nlms" else adaptive.rls_scan
-    plain = adaptive._nlms_plain if algo == "nlms" else adaptive._rls_plain
-    kw = (0.5, 1e-6) if algo == "nlms" else (0.999, 1e2)
+    nl = algo.startswith("nlms")
+    scan = adaptive.nlms_scan if nl else adaptive.rls_scan
+    plain = adaptive._nlms_plain if nl else adaptive._rls_plain
+    kw = (0.5, 1e-6) if nl else (0.999, 1e2)
     reset_launch_counts()
     got = scan(xd, dd, p, *kw)
     torch.cuda.synchronize()
-    assert launch_counts()["S1" if algo == "nlms" else "S2"] == 1
+    assert launch_counts()["S1" if nl else "S2"] == 1
     want = plain(xd, dd, p, *kw)
     close(got[0], want[0], dd, "y")
     close(got[1], want[1], dd, "e")
