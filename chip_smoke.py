@@ -322,16 +322,36 @@ failure exits non-zero:
    float kernel wrapper (B8-B19 but B20, B21, B22,
    S1-S3) refuses a requires_grad input in grad mode on the card and runs under
    ``torch.no_grad()``; and each call's wall ms and device ms.
+13. the rest of the surface, counts reset around its main path: the native
+   library built from ``native/dsp_native.cpp`` (its path, the compiler's
+   version); ``stream_moving_average(use_native=True)`` over phase 4's two WAVs
+   (the native decode ring and encode thread, B1 on the card) and the Python
+   branch, both byte-identical to one-shot B1; ``device_chunks`` over phase 4's
+   loader, each chunk the loader's and on the card; B20's gradients with
+   respect to its input and its taps at the designer's (512, 8) and n = 48's
+   (2^20, 48) in the three layouts, within 1e-5 of max|g| of autograd through
+   ``branch_fir`` + ``dft_matmul`` on the card, one B20 launch a call; the
+   twelve examples (``digital_signal_processsing_tpu_torch/examples``) on the
+   card, each exit 0 with no ``MISS``, with their wall seconds; then, outside
+   the counted run, both loops' wall ms (median of 3, in turns) and the native
+   loop's device ms and idle share under ``torch.profiler``, the
+   ``device_chunks`` loop's wall, a ``trace`` of one B1 call naming B1's
+   kernel, and ``moving_average_native`` (the reference's serial C++ averager,
+   one host core) on the 64M stream at k=1024, bit-exact with B1, beside B1's
+   time and the host CPU's model name.
 
 Each phase prints its seconds. The last two lines are the kernels' JSON
 record (B1-B22, S1, S2 and S3, each with
-its launches on the main path, max abs error, device ms, plain ms, bound ms
+its launches on the main paths, phase 13's added, max abs error, device ms, plain ms, bound ms
 and library ms) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import importlib
+import io
 import json
 import statistics
 import subprocess
@@ -398,6 +418,9 @@ from digital_signal_processsing_tpu_torch.serve import (
     stream_time_stretch,
 )
 from digital_signal_processsing_tpu_torch.utils import last_choice
+from digital_signal_processsing_tpu_torch import examples as port_examples
+from digital_signal_processsing_tpu_torch.harness import trace
+from digital_signal_processsing_tpu_torch.io import device_chunks, native
 
 MAIN_SAMPLES = 64 * 2**20  # bench.py's headline stream: 64M stereo int16 samples
 MAIN_WINDOW = 1024
@@ -1054,7 +1077,8 @@ def phase_serve_profile(wav: np.ndarray, split: int) -> None:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             stream_moving_average(
-                paths, Path(tmp) / "out.wav", MAIN_WINDOW, chunk_samples=1 << 20, device="cuda"
+                paths, Path(tmp) / "out.wav", MAIN_WINDOW, chunk_samples=1 << 20,
+                use_native=False, device="cuda",
             )
             torch.cuda.synchronize()
             return (time.perf_counter() - t0) * 1e3
@@ -5020,6 +5044,209 @@ def surface_times(calls: dict) -> None:
               f"{sum(r[1] for r in rows):5d} kernels ({ours:.3f} ms in the package's)")
 
 
+# --- 13. the rest of the surface: the native serving path, device_chunks, trace, B20's
+# input gradient and the twelve examples ----------------------------------------------
+
+REST_CHUNK = 1 << 20
+REST_GRAD_SHAPES = ((512, 8, 2), (1 << 20, 48, 1))  # (M, N, dilation): the designer's, n=48's
+REST_GRAD_TAPS = 8
+REST_GRAD_RTOL = 1e-5  # of max|g|, against autograd through the plain route on the card
+REST_CPU_ROUNDS = 3
+# the JSON record's entries by the kernel each one names (its launches on the main path)
+ENTRY_KERNELS = {
+    "windowed_averager": "B1", "windowed_averager_packed": "B2",
+    **{f"scan_averager[{v}]": f"B3/{v}" for v in VARIANTS}, "cumsum": "B4",
+    "direct_averager": "B5", "fused_fir": "B8", "fused_fir3": "B9", "iir1_block_scan": "B10",
+    "sos_cascade": "B12", "sos_cascade_unrolled": "B13", "sos_sections": "B15",
+    "fused_pfb_raw": "B19", "fused_branch_dft": "B20", "resample_farrow_segmented": "B21",
+    "tv_cascade": "B16", "tv_section": "B17", "tv_frames_cascade": "B18",
+    "lpc_synth_pass": "B22", "iir1_affine_scan": "B11", "sos_cascade_mxu": "B14",
+    "ring_shift_right_shard": "B6", "fused_ring_windowed_shard": "B7", "nlms_scan": "S1",
+    "rls_scan": "S2", "dlsim_scan": "S3",
+}
+
+
+def rest_gradient(dev, gen, m: int, n: int, dilation: int, layout: str) -> tuple[float, int]:
+    """B20's gradients with respect to u and the taps on the card, one call, against
+    autograd through ``branch_fir`` + ``dft_matmul`` on the card: (error of max|g|, B20
+    launches in the call)."""
+    u0 = torch.randn(m, n, generator=gen, device=dev)
+    h0 = torch.randn(REST_GRAD_TAPS, n, generator=gen, device=dev)
+    w = torch.randn(2, m, n, generator=gen, device=dev)
+
+    def loss(re, im):
+        return (w[0] * re).sum() + (w[1] * im * im).sum()
+
+    u, h = u0.clone().requires_grad_(), h0.clone().requires_grad_()
+    before = chz.fused_branch_dft.launches
+    out = chz.fused_branch_dft(u, h, dilation=dilation, layout=layout)
+    re, im = (out.real.T, out.imag.T) if layout == "complex" else (
+        (out[0].T, out[1].T) if layout == "channels" else out)
+    loss(re, im).backward()
+    torch.cuda.synchronize()
+    launched = chz.fused_branch_dft.launches - before
+    ur, hr = u0.clone().requires_grad_(), h0.clone().requires_grad_()
+    v = chz.branch_fir(ur[None], hr, dilation=dilation)[0]
+    loss(*chz.dft_matmul(v, None, n)).backward()
+    err = 0.0
+    for got, want in ((u.grad, ur.grad), (h.grad, hr.grad)):
+        err = max(err, ((got - want).abs().max() / want.abs().max()).item())
+    return err, launched
+
+
+def run_example(name: str) -> tuple[int, str, float]:
+    """One of the port's examples on the card, in this process: (exit code, output, s)."""
+    module = importlib.import_module(f"digital_signal_processsing_tpu_torch.examples.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def phase_rest_main(dev, x: torch.Tensor, y_main: torch.Tensor, wav: np.ndarray,
+                    split: int) -> dict:
+    """The rest of the surface with the counts reset around its main path: the native
+    executor's serving loop over phase 4's WAVs (B1) against the Python branch and one
+    shot, ``device_chunks`` over phase 4's loader, B20's input gradient in the three
+    layouts, the twelve examples; then, outside the counted run, the native serial
+    averager on the 64M stream against B1, both loops' walls and the native loop's
+    device split, the device_chunks loop's wall and a trace of one B1 call. Returns
+    the launches."""
+    t_start = time.perf_counter()
+    t0 = time.perf_counter()
+    so = native.build()
+    native.load()
+    print(f"[13 rest] native library {so.relative_to(Path(__file__).resolve().parent)} built "
+          f"by {native.compiler_version()} ({' '.join(native.CXX_FLAGS)}) in "
+          f"{time.perf_counter() - t0:.1f} s; host CPU {native.host_cpu_model()}")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        paths = [tmp / "a.wav", tmp / "b.wav"]
+        write_wav(paths[0], wav[:split], 48000, 2)
+        write_wav(paths[1], wav[split:], 48000, 2)
+
+        def serve(use_native: bool) -> float:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = tmp / ("native.wav" if use_native else "python.wav")
+            written = stream_moving_average(paths, out, MAIN_WINDOW, chunk_samples=REST_CHUNK,
+                                            use_native=use_native, device="cuda")
+            torch.cuda.synchronize()
+            if written != wav.size:
+                raise AssertionError(f"[13 rest] served {written} of {wav.size} samples")
+            return (time.perf_counter() - t) * 1e3
+
+        # the counted main path
+        reset_launch_counts()
+        serve(True)
+        serve_launches = launch_counts()["B1"]
+        serve(False)
+        chunks = 0
+        for got, want in zip(device_chunks(WavChunkLoader(paths, REST_CHUNK), device=dev),
+                             WavChunkLoader(paths, REST_CHUNK), strict=True):
+            if not got.is_cuda or not torch.equal(got.cpu(), torch.from_numpy(want)):
+                raise AssertionError(f"[13 rest] device_chunks' chunk {chunks} differs")
+            chunks += 1
+        grads = {}
+        for m, n, d in REST_GRAD_SHAPES:
+            for layout in chz.LAYOUTS:
+                err, launched = rest_gradient(dev, gen, m, n, d, layout)
+                grads[(m, n, layout)] = err
+                if not err <= REST_GRAD_RTOL or launched != 1:
+                    raise AssertionError(
+                        f"[13 rest] B20's gradients at ({m}, {n}) {layout}: {err:.3e} of "
+                        f"max|g| (limit {REST_GRAD_RTOL}), {launched} B20 launches (want 1)")
+        ran = {}
+        saved_tmp = tempfile.tempdir
+        tempfile.tempdir = str(tmp)  # where audio_timestretch writes its WAVs
+        try:
+            for name in port_examples.NAMES:
+                rc, out, secs = run_example(name)
+                ran[name] = secs
+                last_line = out.strip().splitlines()[-1] if out.strip() else ""
+                print(f"[13 rest] example {name}: exit {rc} in {secs:.2f} s; {last_line[:90]}")
+                if rc != 0 or "MISS" in out:
+                    raise AssertionError(f"[13 rest] example {name} missed:\n{out}")
+        finally:
+            tempfile.tempdir = saved_tmp
+        torch.cuda.synchronize()
+        launches = launch_counts()
+
+        one_shot = moving_average(torch.from_numpy(wav).to(dev), MAIN_WINDOW, 2).cpu().numpy()
+        write_wav(tmp / "one_shot.wav", one_shot, 48000, 2)
+        want = (tmp / "one_shot.wav").read_bytes()
+        if (tmp / "native.wav").read_bytes() != want or (tmp / "python.wav").read_bytes() != want:
+            raise AssertionError("[13 rest] a served WAV differs from one-shot B1")
+        print(f"[13 rest] launches {({k: v for k, v in launches.items() if v})}; served "
+              f"{wav.size} samples by both branches byte-identical to one-shot B1 "
+              f"({serve_launches} B1 launches in the native loop); device_chunks: {chunks} "
+              f"chunks equal to the loader's, on the card; B20's gradients (u and taps) "
+              + ", ".join(f"{m}x{n} {lay} {e:.2e}" for (m, n, lay), e in grads.items())
+              + " of max|g|, one B20 launch a call; examples "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in ran.items()))
+        if min(launches[k] for k in ("B1", "B20")) < 1:
+            raise AssertionError(f"[13 rest] B1 or B20 never launched: {launches}")
+
+        # outside the counted run: the two loops' walls, the native loop's device split
+        walls = {True: [], False: []}
+        for use_native in (True, False, False, True, True, False):
+            walls[use_native].append(serve(use_native))
+        wall, dev_ms, rows = profiled(lambda: serve(True))
+        med = {k: statistics.median(v) for k, v in walls.items()}
+        print(f"[13 rest] serving {wav.size} samples in chunks of 2^20, k={MAIN_WINDOW}, on "
+              f"{torch.cuda.get_device_name(0)}: wall median of 3 native {med[True]:.1f} ms "
+              f"({', '.join(f'{w:.1f}' for w in walls[True])}), Python {med[False]:.1f} ms "
+              f"({', '.join(f'{w:.1f}' for w in walls[False])}); native profiled: wall "
+              f"{wall:.1f} ms, device {dev_ms:.3f} ms, idle {1 - dev_ms / wall:.3f}")
+        for key, count, ms in rows[:6]:
+            print(f"  {ms:9.3f} ms  {count:4d} x  {key[:80]}")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for got in device_chunks(WavChunkLoader(paths, REST_CHUNK), device=dev):
+            pass
+        torch.cuda.synchronize()
+        print(f"[13 rest] device_chunks loop over {chunks} chunks: "
+              f"{(time.perf_counter() - t) * 1e3:.1f} ms wall")
+        for leads, pause in PROFILE_LEADS:  # lead kernels take a late profile's lost records
+
+            def b1_call(leads=leads):
+                for _ in range(leads):
+                    torch.cuda._sleep(1)
+                return ps.windowed_averager(x, MAIN_WINDOW, 2)
+
+            time.sleep(pause)
+            path = trace(b1_call, tmp / "trace")
+            events = json.loads(path.read_text())["traceEvents"]
+            kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+            ours = sorted(k for k in kernels if "dsp::" in k)
+            if ours:
+                break
+        if not path.is_file() or not ours:
+            raise AssertionError(f"[13 rest] the trace of B1 names no kernel of the package: "
+                                 f"{sorted(kernels)[:5]}")
+        print(f"[13 rest] trace {path.name} ({leads} lead kernels): {len(events)} events, "
+              f"B1's kernel {ours}")
+
+    # the paper's comparison: the serial C++ averager on one host core against B1
+    host = x.cpu().numpy()
+    y_cpu = native.moving_average_native(host, MAIN_WINDOW, 2)
+    if not np.array_equal(y_cpu, y_main.cpu().numpy()):
+        raise AssertionError("[13 rest] moving_average_native differs from B1 on the 64M stream")
+    cpu_ms = native.bench_moving_average_native(host, MAIN_WINDOW, 2, warmup=1,
+                                                rounds=REST_CPU_ROUNDS)
+    b1 = device_ms(lambda: ps.windowed_averager(x, MAIN_WINDOW, 2), 5, 20)
+    b1_ms = statistics.median(b1)
+    print(f"[13 rest] 64M int16 stereo samples, k={MAIN_WINDOW}: moving_average_native "
+          f"{cpu_ms:.1f} ms (mean of {REST_CPU_ROUNDS} after a warm-up, one core of "
+          f"{native.host_cpu_model()}), bit-exact with B1; B1 {b1_ms:.4f} ms (median of 20, "
+          f"{torch.cuda.get_device_name(0)}), {cpu_ms / b1_ms:.0f}x")
+    print(f"[13 rest] phase 13 took {time.perf_counter() - t_start:.1f} s")
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5108,7 +5335,7 @@ def main() -> int:
         call("xla_direct", x, DIRECT_WINDOWS[0], 2, method="xla_direct")
         written = stream_moving_average(
             [tmp / "a.wav", tmp / "b.wav"], tmp / "served.wav", MAIN_WINDOW,
-            chunk_samples=1 << 20, device="cuda",
+            chunk_samples=1 << 20, use_native=False, device="cuda",
         )
         if cli_main([str(tmp / "ab.wav"), str(MAIN_WINDOW), "--out", str(tmp / "cli.wav")]) != 0:
             raise AssertionError("CLI exited non-zero")
@@ -5365,6 +5592,11 @@ def main() -> int:
     mark("12 surface times")
     print("  bounds (ms, by): " + ", ".join(f"{k} {b:.4f} {by}" for k, (b, by) in ring_bounds.items()))
 
+    # 13. the rest of the surface: the native serving path, device_chunks, trace, B20's
+    # input gradient and the twelve examples
+    rest = phase_rest_main(dev, x, y_main, wav, 2 * frames_a)
+    mark("13 rest of the surface")
+
     def entry(name, kernel, source, replaces, ms, plain_ms, library_ms=None):
         return {
             "name": name, "route": "cuda", "source": SOURCE + source, "replaces": replaces,
@@ -5517,6 +5749,8 @@ def main() -> int:
             },
         ]
     }
+    for e in record["kernels"]:  # phase 13's main path launches kernels of earlier slices
+        e["launches"] += rest["launches"][ENTRY_KERNELS[e["name"]]]
     print(json.dumps(record))
     print(json.dumps({
         "ok": True,

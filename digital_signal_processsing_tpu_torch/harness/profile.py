@@ -17,7 +17,9 @@ Timing needs a card: on any other device :func:`time_phases` raises.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
+from pathlib import Path
 from typing import Callable
 
 import numpy as np
@@ -170,4 +172,37 @@ def benchmark(
     return (time.perf_counter() - t0) * 1e3 / rounds
 
 
-__all__ = ["ProfileResult", "time_phases", "benchmark", "WARMUP_ROUNDS", "MEASUREMENT_ROUNDS"]
+def _sync() -> None:
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def trace(fn: Callable[[], object], trace_dir, *, warmup: int = 1) -> Path:
+    """Write a ``torch.profiler`` trace of one synchronised call of ``fn``.
+
+    The deep-profiling path, counterpart of the reference's
+    ``jax.profiler.trace`` (the paper points at Nsight Systems). Warms up
+    first, so the trace shows steady-state execution rather than kernel
+    builds, then records the host and, where there is a card, the device.
+    Returns the Chrome trace JSON written under ``trace_dir``
+    (chrome://tracing or Perfetto open it).
+    """
+    for _ in range(warmup):
+        fn()
+        _sync()
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        _sync()
+    out = Path(trace_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"trace_{os.getpid()}_{time.time_ns()}.json"
+    prof.export_chrome_trace(str(path))
+    return path
+
+
+__all__ = [
+    "ProfileResult", "time_phases", "benchmark", "trace", "WARMUP_ROUNDS", "MEASUREMENT_ROUNDS",
+]

@@ -27,6 +27,7 @@ from __future__ import annotations
 import argparse
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 
@@ -48,6 +49,22 @@ VARIANTS = (
     "windowed",  # carry-free windowed kernel (B1)
     "xla_scan",  # cumsum anchor
 )
+
+def generate_wav(path: Path, num_samples: int, channels: int = 2, seed: int = 0) -> np.ndarray:
+    """Synthetic random WAV (run_benchmarks.py:31-49 analog); returns its samples.
+
+    ``num_samples`` is the total interleaved count, cut to whole frames (the
+    reference halved it, run_benchmarks.py:37). The samples are the reference
+    package's for the same seed: NumPy's ``default_rng(seed)``.
+    """
+    from ..io import write_wav
+
+    rng = np.random.default_rng(seed)
+    frames = num_samples // channels
+    data = rng.integers(-32768, 32768, size=frames * channels, dtype=np.int16)
+    write_wav(path, data, 44100, channels)
+    return data
+
 
 def run_config(
     samples: np.ndarray,

@@ -1,12 +1,13 @@
 """WAV codec and chunk loader: the port's own NumPy-only copies.
 
-``wav`` and ``dataset`` are copies of the JAX package's ``io/wav.py`` and
-``io/dataset.py`` (the loader and ``prefetch``), which the port does not
-import. The native C++ codec and ``device_chunks`` are not ported.
+``wav``, ``dataset`` and ``native`` are copies of the JAX package's
+``io/wav.py``, ``io/dataset.py`` and ``io/native.py``, which the port does not
+import. ``native`` (the C++ codec, the serial CPU averager and the streaming
+executor) builds its library at first use and is imported on demand.
 """
 
 from . import dataset, wav  # noqa: F401
-from .dataset import WavChunkLoader, prefetch  # noqa: F401
+from .dataset import WavChunkLoader, device_chunks, prefetch  # noqa: F401
 from .wav import (  # noqa: F401
     WavInfo,
     WavWriter,
@@ -21,6 +22,7 @@ __all__ = [
     "dataset",
     "WavChunkLoader",
     "prefetch",
+    "device_chunks",
     "WavInfo",
     "WavWriter",
     "read_wav",

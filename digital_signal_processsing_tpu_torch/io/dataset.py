@@ -4,8 +4,10 @@ The port's own copy of ``WavChunkLoader`` and ``prefetch`` from
 ``digital_signal_processsing_tpu/io/dataset.py``, which it does not import:
 fixed-size interleaved chunks across a list of WAV files as one continuous
 stream (file boundaries are seamless, matching how the streaming averager
-carries its state). Decoding is NumPy only (``io/wav.py``); a file that
-cannot be decoded raises.
+carries its state), and :func:`device_chunks`, which stages them to the
+device one chunk ahead. Decoding is NumPy only (``io/wav.py``); a file that
+cannot be decoded raises. The native decode ring is ``io/native.py``'s
+``NativeChunkStream``.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ from pathlib import Path
 from typing import Iterator
 
 import numpy as np
+import torch
 
+from ..utils.device import resolve_device
 from .wav import read_wav, read_wav_info
 
 
@@ -118,4 +122,58 @@ def prefetch(iterator, depth: int = 2):
         yield item
 
 
-__all__ = ["WavChunkLoader", "prefetch"]
+def _pinned(chunks):
+    for chunk in chunks:
+        yield torch.from_numpy(np.ascontiguousarray(chunk)).pin_memory()
+
+
+def device_chunks(loader, *, device="cuda", depth: int = 2, sharding=None):
+    """Prefetched chunks staged to ``device`` (host IO overlaps device compute).
+
+    The loader runs on :func:`prefetch`'s thread, which also copies each chunk
+    into pinned host memory; the copy to the card is issued on a side stream
+    one chunk ahead of the consumer. Each tensor handed out is ready on the
+    consumer's current stream (which waits on its copy's event) and recorded
+    there, so the caching allocator keeps it until that stream's work on it is
+    done. On the CPU the chunks come as tensors over the loader's arrays.
+    Without a card, ``device="cuda"`` raises.
+    """
+    if sharding is not None:
+        raise NotImplementedError(
+            "device_chunks(sharding=) is ROADMAP queue 1, item 4 (the multi-card path, with "
+            "time_phases(sharding=))"
+        )
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return (torch.from_numpy(chunk) for chunk in prefetch(iter(loader), depth=depth))
+    return _staged(loader, dev, depth)
+
+
+def _staged(loader, dev: torch.device, depth: int):
+    side = torch.cuda.Stream(dev)
+
+    def upload(host: torch.Tensor):
+        with torch.cuda.stream(side):
+            x = host.to(dev, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        return x, done
+
+    staged = None
+    for host in prefetch(_pinned(loader), depth=depth):
+        ahead = upload(host)
+        if staged is not None:
+            yield _ready(*staged, dev)
+        staged = ahead
+    if staged is not None:
+        yield _ready(*staged, dev)
+
+
+def _ready(x: torch.Tensor, done, dev) -> torch.Tensor:
+    consumer = torch.cuda.current_stream(dev)
+    consumer.wait_event(done)
+    x.record_stream(consumer)
+    return x
+
+
+__all__ = ["WavChunkLoader", "prefetch", "device_chunks"]

@@ -408,15 +408,17 @@ def _b20(u: torch.Tensor, hq: torch.Tensor, sign: int, dilation: int, layout: st
 
 
 class BranchDftTapsGrad(torch.autograd.Function):
-    """B20 (the plain pair on the CPU) with its gradient with respect to ``hq``.
+    """B20 (the plain pair on the CPU) with its gradients with respect to ``u`` and ``hq``.
 
     With ``re[m, k] = sum_q v[m, q] C[q, k]``, ``im[m, k] = sum_q v[m, q] S[q, k]``
     (C, S the cos and sign*sin of the DFT) and ``v[m, q] = sum_r hq[r, q]
     u[m - d r, q]``: the incoming (re, im) gradients go back through the DFT's
-    adjoint, ``gv = g_re C^T + g_im S^T``, and ``g_hq[r, q] = sum_m gv[m, q]
-    u[m - d r, q]`` correlates them with u at the dilation. Plain PyTorch (IEEE
-    float32 products; float64 on the CPU for float64 input): the reference has
-    no backward kernel. No gradient with respect to ``u``.
+    adjoint, ``gv = g_re C^T + g_im S^T``; then ``g_hq[r, q] = sum_m gv[m, q]
+    u[m - d r, q]`` correlates them with u at the dilation, and ``g_u[m, q] =
+    sum_r hq[r, q] gv[m + d r, q]`` is the anti-causal correlation of gv with
+    the taps, cut at the end of the stream. Plain PyTorch (IEEE float32
+    products; float64 on the CPU for float64 input): the reference has no
+    backward kernel. Each gradient is computed only where it is asked for.
     """
 
     @staticmethod
@@ -447,11 +449,20 @@ class BranchDftTapsGrad(torch.autograd.Function):
                 gv = gv + g_re.to(hq.dtype) @ cos.T
             if g_im is not None:
                 gv = gv + g_im.to(hq.dtype) @ sin.T
-        up = F.pad(u.to(hq.dtype), (0, 0, dilation * (p - 1), 0))
-        g_hq = torch.stack([
-            (gv * up[dilation * (p - 1 - r) : dilation * (p - 1 - r) + m]).sum(0) for r in range(p)
-        ])
-        return None, g_hq, None, None, None
+        lag = dilation * (p - 1)
+        g_u = g_hq = None
+        if ctx.needs_input_grad[0]:
+            gvp = F.pad(gv, (0, 0, 0, lag))  # zeros past the stream's end
+            g_u = hq[0] * gvp[:m]
+            for r in range(1, p):
+                g_u = g_u + hq[r] * gvp[dilation * r : dilation * r + m]
+            g_u = g_u.to(u.dtype)
+        if ctx.needs_input_grad[1]:
+            up = F.pad(u.to(hq.dtype), (0, 0, lag, 0))
+            g_hq = torch.stack([
+                (gv * up[lag - dilation * r : lag - dilation * r + m]).sum(0) for r in range(p)
+            ])
+        return g_u, g_hq, None, None, None
 
 
 def fused_branch_dft(
@@ -460,21 +471,16 @@ def fused_branch_dft(
     """Fused ``branch_fir`` + ``dft_matmul`` (real input) by B20: (M, N) -> planes.
 
     Returns (re, im) in ``layout`` "rows" (M, N) or "channels" (N, M), or one
-    (N, M) complex64 tensor for "complex". Where grad mode is on and ``hq``
-    requires a gradient the call goes through :class:`BranchDftTapsGrad`, B20
-    forward on the card; a ``u`` that requires a gradient raises.
+    (N, M) complex64 tensor for "complex". Where grad mode is on and ``u`` or
+    ``hq`` requires a gradient the call goes through
+    :class:`BranchDftTapsGrad`: B20 forward on the card, the gradients in
+    plain PyTorch.
     """
     _check_options(sign, dilation, layout)
     if not isinstance(u, torch.Tensor) or u.dim() != 2:
         raise ValueError("u must be an (M, N) tensor")
-    grad = torch.is_grad_enabled()
-    if grad and u.requires_grad:
-        raise NotImplementedError(
-            "fused_branch_dft has no gradient with respect to u (ROADMAP queue 1, item 3: the "
-            "input gradient of B20); detach u, or use branch_fir and dft_matmul"
-        )
     hq = _check_taps(hq, u.shape[1], u.device)
-    if grad and hq.requires_grad:
+    if torch.is_grad_enabled() and (u.requires_grad or hq.requires_grad):
         return BranchDftTapsGrad.apply(u, hq, sign, dilation, layout)
     if not _on_cuda(u):
         return _pfb_plain(u, hq, sign, dilation, layout)

@@ -55,6 +55,12 @@ def cumsum_ref(x: torch.Tensor, channels: int = 1) -> torch.Tensor:
     return wrap_int32(channel_cumsum(x, channels)).t().reshape(-1)
 
 
+def cumsum_interleaved_xla(x: torch.Tensor, channels: int = 1) -> torch.Tensor:
+    """Per-channel int32 modular prefix sum, interleaved in and out (the scan
+    oracle, the reference's name for :func:`cumsum_ref`)."""
+    return cumsum_ref(x, channels)
+
+
 def windowed_difference(cum: torch.Tensor, window: int, channels: int = 1) -> torch.Tensor:
     """Second pass of the two-pass averager: ``trunc((cum[i] - cum[i-kC]) / k)``.
 
@@ -69,4 +75,7 @@ def windowed_difference(cum: torch.Tensor, window: int, channels: int = 1) -> to
     return trunc_div(wrap_int32(wsum), window).to(torch.int16)
 
 
-__all__ = ["channel_cumsum", "moving_average_xla", "cumsum_ref", "windowed_difference"]
+__all__ = [
+    "channel_cumsum", "moving_average_xla", "cumsum_ref", "cumsum_interleaved_xla",
+    "windowed_difference",
+]

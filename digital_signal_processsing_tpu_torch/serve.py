@@ -5,11 +5,13 @@ Counterpart of ``run_chunks``, ``stream_moving_average``,
 ``digital_signal_processsing_tpu/serve.py``: decode on the host (the shared
 NumPy loader), process each chunk on the device with the state carried
 across chunk and file boundaries, and write the result as it comes, so
-memory stays bounded by the chunk size.
+memory stays bounded by the chunk size. The averager's loop also runs on the
+native C++ executor (``io/native.py``), as the reference's does.
 """
 
 from __future__ import annotations
 
+import itertools
 from pathlib import Path
 from typing import Callable, Iterable, Iterator
 
@@ -62,6 +64,7 @@ def stream_moving_average(
     window: int,
     *,
     chunk_samples: int = 1 << 20,
+    use_native: bool | None = None,
     device="cuda",
 ) -> int:
     """Filter a list of WAVs as ONE stream into an output WAV, chunked.
@@ -69,6 +72,12 @@ def stream_moving_average(
     Bit-exact with the one-shot averager on the concatenated stream. The
     chunks are filtered on ``device``, which must exist: without a card,
     ``device="cuda"`` raises. Returns the samples written.
+
+    ``use_native``: run the host side on the native C++ executor
+    (``io.native.NativeChunkStream``'s decode ring and ``NativeWavSink``'s
+    encode thread, both off the GIL, so host IO overlaps the device's work).
+    ``None`` takes it where the library builds; the output is byte-identical
+    either way. ``True`` raises where it cannot be built.
     """
     from .ops.streaming import moving_average_chunk, moving_average_init
 
@@ -77,7 +86,15 @@ def stream_moving_average(
     channels, rate, total = _stream_layout(paths)
     chunk_samples -= chunk_samples % max(channels, 1)
 
+    if use_native is None:
+        from .io import native
+
+        use_native = native.available()
     state = moving_average_init(window, channels, device=dev)
+    if use_native:
+        return _native_moving_average(
+            paths, out_path, window, channels, rate, total, chunk_samples, state, dev
+        )
     written = 0
     loader = WavChunkLoader(paths, chunk_samples)
     with WavWriter(out_path, rate, channels) as sink:
@@ -90,6 +107,69 @@ def stream_moving_average(
                 break
             sink.append(out[:keep])
             written += keep
+    return written
+
+
+NATIVE_SLOTS = 3  # pinned buffers in flight each way: decode, upload and download overlap
+
+
+def _native_moving_average(paths, out_path, window, channels, rate, total, chunk_samples,
+                           state, dev) -> int:
+    """The native executor's loop: decode straight into pinned host buffers,
+    upload without blocking, B1 seeded on the device, download into pinned
+    buffers and hand each chunk to the encode thread one chunk late.
+
+    A slot's input buffer is decoded into again only after its upload's event
+    has completed, and its output buffer is written again only after the sink
+    has copied it (the sink lags one chunk behind, with three slots).
+    """
+    from .io.native import NativeChunkStream, NativeWavSink
+    from .ops.streaming import moving_average_chunk
+
+    cuda = dev.type == "cuda"
+    slots = [
+        (torch.empty(chunk_samples, dtype=torch.int16, pin_memory=cuda),
+         torch.empty(chunk_samples, dtype=torch.int16, pin_memory=cuda),
+         torch.cuda.Event() if cuda else None, torch.cuda.Event() if cuda else None)
+        for _ in range(NATIVE_SLOTS)
+    ]
+    pending: list[tuple[int, int]] = []  # (slot, samples) downloaded, not yet in the sink
+    written = 0
+    stream = NativeChunkStream(paths, chunk_samples)
+    try:
+        with NativeWavSink(out_path, rate, channels) as sink:
+
+            def drain(keep_last: int) -> None:
+                while len(pending) > keep_last:
+                    s, k = pending.pop(0)
+                    host, down = slots[s][1], slots[s][3]
+                    if down is not None:
+                        down.synchronize()
+                    sink.append(host[:k])
+
+            for i in itertools.count():
+                s = i % NATIVE_SLOTS
+                pin_in, pin_out, up, down = slots[s]
+                if up is not None:
+                    up.synchronize()  # this slot's last upload has read its buffer
+                if stream.read_into(pin_in) == 0:
+                    break
+                x = pin_in.to(dev, non_blocking=True)
+                if up is not None:
+                    up.record()
+                state, out = moving_average_chunk(state, x, window, channels)
+                keep = min(out.numel(), total - written)  # drop the stream's tail padding
+                if keep <= 0:
+                    break
+                pin_out[:keep].copy_(out[:keep], non_blocking=True)
+                if down is not None:
+                    down.record()
+                pending.append((s, keep))
+                written += keep
+                drain(1)
+            drain(0)
+    finally:
+        stream.close()
     return written
 
 

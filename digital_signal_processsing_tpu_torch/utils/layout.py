@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -15,6 +16,17 @@ def round_up(x: int, m: int) -> int:
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def interleaved_frames(num_samples: int, channels: int) -> int:
+    """Number of complete interleaved frames in a flat stream."""
+    if channels <= 0:
+        raise ValueError(f"channels must be positive, got {channels}")
+    if num_samples % channels != 0:
+        raise ValueError(
+            f"stream length {num_samples} is not a multiple of channels {channels}"
+        )
+    return num_samples // channels
 
 
 def validate_window(window: int, max_window: int | None = None) -> None:
@@ -40,4 +52,18 @@ def overlapping_frames(x: torch.Tensor, num_frames: int, hop: int, frame_len: in
     return x.unfold(-1, frame_len, hop)[..., :num_frames, :]
 
 
-__all__ = ["round_up", "cdiv", "validate_window", "overlapping_frames"]
+def as_numpy_int16(x) -> np.ndarray:
+    """``x`` as a host int16 array (a tensor is copied off its device); raises on
+    any other dtype."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    x = np.asarray(x)
+    if x.dtype != np.int16:
+        raise TypeError(f"expected int16 samples, got {x.dtype}")
+    return x
+
+
+__all__ = [
+    "round_up", "cdiv", "interleaved_frames", "validate_window", "overlapping_frames",
+    "as_numpy_int16",
+]

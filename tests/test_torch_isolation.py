@@ -644,6 +644,44 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok"' not in r.stdout
 
 
+NO_JAX_REST = """
+import importlib, shutil, sys
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+import numpy as np, torch
+from digital_signal_processsing_tpu_torch.examples import NAMES
+for name in NAMES:
+    importlib.import_module("digital_signal_processsing_tpu_torch.examples." + name)
+from digital_signal_processsing_tpu_torch.harness import trace
+from digital_signal_processsing_tpu_torch.harness.sweep import generate_wav
+from digital_signal_processsing_tpu_torch.io import WavChunkLoader, device_chunks, native
+from digital_signal_processsing_tpu_torch.ops.scan_xla import cumsum_interleaved_xla
+from digital_signal_processsing_tpu_torch.serve import stream_moving_average
+from digital_signal_processsing_tpu_torch.utils.layout import as_numpy_int16, interleaved_frames
+x = generate_wav(sys.argv[1] + "/in.wav", 4000, 2, seed=1)
+chunks = list(device_chunks(WavChunkLoader([sys.argv[1] + "/in.wav"], 1000), device="cpu"))
+assert (torch.cat(chunks).numpy() == x).all()
+assert trace(lambda: torch.ones(4).sum(), sys.argv[1] + "/trace").is_file()
+assert cumsum_interleaved_xla(torch.from_numpy(x), 2).dtype == torch.int32
+assert interleaved_frames(x.size, 2) == 2000 and as_numpy_int16(x) is x
+if shutil.which("g++"):
+    assert stream_moving_average([sys.argv[1] + "/in.wav"], sys.argv[1] + "/out.wav", 16,
+                                 chunk_samples=999, use_native=True, device="cpu") == x.size
+    assert (native.moving_average_native(x, 16, 2) ==
+            native.read_wav_native(sys.argv[1] + "/out.wav")[2]).all()
+assert not [m for m in sys.modules if m.startswith("jax") and sys.modules[m] is not None]
+reference = [m for m in sys.modules
+             if m == "digital_signal_processsing_tpu" or m.startswith("digital_signal_processsing_tpu.")]
+assert not reference, reference
+print("NO_JAX_REST_OK")
+"""
+
+
+def test_native_path_and_examples_run_without_jax(tmp_path):
+    r = run_python(["-c", NO_JAX_REST, str(tmp_path)], REPO, {"PYTHONPATH": str(REPO)})
+    assert r.returncode == 0, r.stderr
+    assert "NO_JAX_REST_OK" in r.stdout
+
+
 def test_chip_smoke_fails_alone(tmp_path):
     shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
     r = run_python(["chip_smoke.py"], tmp_path)

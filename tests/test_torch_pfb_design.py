@@ -5,8 +5,9 @@ package.
 the CPU; the gradient with respect to the branch taps by the DFT's adjoint and
 a correlation with u) is pinned by ``torch.autograd.gradcheck`` in float64
 through the CPU forward, in each layout, sign and dilation; in float32 its
-gradient equals autograd through the composed pair within 1e-6 of max|g|. A
-``u`` that requires a gradient raises, in grad mode only.
+gradient equals autograd through the composed pair within 1e-6 of max|g|. Its
+gradient with respect to ``u`` is held against ``jax.grad`` of the reference's
+plain route (``tests/test_torch_surface_rest.py`` holds it in every layout).
 
 The designer runs the reference's data (``default_rng(seed)``), delay, guard,
 stopband grid and loss. The JAX package designs on its CPU route, ``branch_fir``
@@ -24,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from digital_signal_processsing_tpu.ops import channelizer as jax_channelizer
 from digital_signal_processsing_tpu.ops import pfb_os as jax_pfb_os
 from digital_signal_processsing_tpu_torch.ops import channelizer, pfb_os
 
@@ -60,12 +62,26 @@ def test_b20_taps_gradient_matches_autograd_of_the_composed_pair(layout, rng):
 
 
 def test_b20_refuses_a_gradient_with_respect_to_u(rng):
-    u = torch.from_numpy(rng.normal(size=(32, 8)).astype(np.float32)).requires_grad_()
-    hq = torch.ones(2, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        channelizer.fused_branch_dft(u, hq)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        channelizer.fused_branch_dft(u, hq.clone().requires_grad_())
+    """B20 once refused a ``u`` that requires a gradient; it now gives that gradient,
+    held against ``jax.grad`` of the reference's plain route within 1e-5 of max|g|.
+    Under ``torch.no_grad()`` the forward runs alone, with no graph."""
+    u0 = rng.normal(size=(32, 8)).astype(np.float32)
+    hq0 = rng.normal(size=(2, 8)).astype(np.float32)
+    w = rng.normal(size=(2, 32, 8)).astype(np.float32)
+    u = torch.from_numpy(u0).requires_grad_()
+    hq = torch.from_numpy(hq0).requires_grad_()
+    re, im = channelizer.fused_branch_dft(u, hq)
+    ((torch.from_numpy(w[0]) * re).sum() + (torch.from_numpy(w[1]) * im * im).sum()).backward()
+
+    def jloss(uu, hh):
+        v = jax_channelizer.branch_fir(uu[None], hh)[0]
+        jre, jim = jax_channelizer.dft_matmul(v, None, 8)
+        return (w[0] * jre).sum() + (w[1] * jim * jim).sum()
+
+    gu, gh = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(u0), jnp.asarray(hq0))
+    for got, want in ((u.grad, gu), (hq.grad, gh)):
+        want = np.asarray(want)
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
     with torch.no_grad():  # no graph asked for: the forward alone
         re, _ = channelizer.fused_branch_dft(u, hq)
     assert re.shape == (32, 8) and not re.requires_grad

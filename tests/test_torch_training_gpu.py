@@ -8,7 +8,7 @@ Skipped without a CUDA device. On a machine with one (JAX is not needed):
 
 Tolerances: S1 and S2 within 1e-5 of max|d| (y, e) and of max|w| (taps) of
 their plain loops on the card (the same operations summed in other orders);
-B20's taps gradient within 1e-5 of max|g| of autograd through ``branch_fir``
+B20's gradients (taps and input) within 1e-5 of max|g| of autograd through ``branch_fir``
 + ``dft_matmul``; the trainer's taps within 1e-5 of max|true| of the CPU's after
 10 steps, and a step repeated gives the same bits (cuDNN's deterministic
 algorithms); the designer within 1e-5 of max|h| of the CPU's after 20 steps.
@@ -110,8 +110,18 @@ def test_b20_taps_gradient_on_the_card(dev):
     r2, i2 = channelizer.dft_matmul(v, None, 64)
     ((wts[0] * r2.T).sum() + (wts[1] * i2.T).sum()).backward()
     close(h.grad, ref.grad, ref.grad, "g_hq")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        channelizer.fused_branch_dft(u.clone().requires_grad_(), h)
+    # the gradient with respect to u (once refused) against autograd through the plain route
+    reset_launch_counts()
+    ug = u.clone().requires_grad_()
+    re, im = channelizer.fused_branch_dft(ug, h0, dilation=2, layout="channels")
+    ((wts[0] * re).sum() + (wts[1] * im).sum()).backward()
+    torch.cuda.synchronize()
+    assert launch_counts()["B20"] == 1
+    uref = u.clone().requires_grad_()
+    v = channelizer.branch_fir(uref[None], h0, dilation=2)[0]
+    r2, i2 = channelizer.dft_matmul(v, None, 64)
+    ((wts[0] * r2.T).sum() + (wts[1] * i2.T).sum()).backward()
+    close(ug.grad, uref.grad, uref.grad, "g_u")
 
 
 def test_trainer_on_the_card_matches_the_cpu_and_repeats_its_bits(dev):
