@@ -339,11 +339,26 @@ failure exits non-zero:
    kernel, and ``moving_average_native`` (the reference's serial C++ averager,
    one host core) on the 64M stream at k=1024, bit-exact with B1, beside B1's
    time and the host CPU's model name.
+14. the multi-card surface on the one card: four processes over gloo (phase 8's
+   spawn and ``FileStore``), each part's counts reset around it:
+   ``radar.detect_batch(mesh=)`` on phase 10's 16 tracking CPIs of 64 x 16384
+   over a 4x1 and a 2x2 (channel x time) mesh, ``beamform.spectrum_batch(mesh=)``
+   by MVDR and MUSIC on phase 10's 64 blocks of 16 x 16384, ``sharded_wideband``
+   on phase 7's 2^26-sample 64-channel stream (2^24 samples a rank plus its halo,
+   B19), the sharded averager at 64M k=1024 (B1), ``time_phases(sharding=)`` of
+   it and ``device_chunks(sharding=)`` over phase 4's WAVs; the parent holds each
+   gathered output against the one-card call (detections outside the 1e-4
+   margin, power and threshold within 1e-5 of max; MVDR rtol 1e-4 / atol 1e-6,
+   MUSIC 1e-3 / 1e-5; the wideband audio rtol 1e-4 / atol 1e-5 with the same
+   squelch gates; the averager and the chunks bit for bit) and prints each rank's
+   device and wall ms as time-sliced figures; then ``graft_entry.dryrun_multichip(4)``
+   and ``dryrun_multiprocess(4)`` on the card. Phase 8's world of one runs the
+   same entry points bit for bit against their one-card calls.
 
 Each phase prints its seconds. The last two lines are the kernels' JSON
 record (B1-B22, S1, S2 and S3, each with
-its launches on the main paths, phase 13's added, max abs error, device ms, plain ms, bound ms
-and library ms) and ``{"ok": true, "device": {...}}``.
+its launches on the main paths, phases 13's and 14's added, max abs error, device ms, plain ms,
+bound ms and library ms) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -419,6 +434,7 @@ from digital_signal_processsing_tpu_torch.serve import (
 )
 from digital_signal_processsing_tpu_torch.utils import last_choice
 from digital_signal_processsing_tpu_torch import examples as port_examples
+from digital_signal_processsing_tpu_torch import graft_entry
 from digital_signal_processsing_tpu_torch.harness import trace
 from digital_signal_processsing_tpu_torch.io import device_chunks, native
 
@@ -3508,8 +3524,8 @@ def phase_sharded_ring(x: torch.Tensor, y_main: torch.Tensor, check: Checker) ->
     return {"launches": launches, "times": times}
 
 
-def phase_sharded_world1(x, y_main, chain_main: dict, tv_main: dict, check: Checker,
-                         tmp: str) -> dict:
+def phase_sharded_world1(x, y_main, chain_main: dict, tv_main: dict, wide_main: dict,
+                         wav: np.ndarray, split: int, check: Checker, tmp: str) -> dict:
     """Every sharded entry point at world size 1 over NCCL, at full width."""
     import torch.distributed as dist
 
@@ -3589,6 +3605,7 @@ def phase_sharded_world1(x, y_main, chain_main: dict, tv_main: dict, check: Chec
         "chain; pipelined_fir_cascade within the same of fir_direct; sharded_sosfilt_tv and "
         "sharded_lpc_synthesis bit for bit with sosfilt_tv and lpc_synthesis"
     )
+    multicard_world1(mesh, x, y_main, wide_main, wav, split, tmp)
 
     # B6 and B7 alone (no other process on the card) on the ring's shard
     n_loc = MAIN_SAMPLES // RING_WORLD
@@ -4071,7 +4088,7 @@ MODEL_BEAM_SNAPS = 16384
 MODEL_BEAM_TRUTH = np.array([-12.0, 23.0])
 MODEL_TOL = 1e-5  # card against the CPU: maps, spectra, symbols, positions, of max|want|
 MODEL_MUSIC_TOL = 2e-4  # MUSIC: float32 eigenvectors from two solvers
-MODEL_DET_MARGIN = 1e-4  # detections compared outside this relative margin of the threshold
+MODEL_DET_MARGIN = radar.DETECTION_MARGIN  # detections compared outside this margin
 MODEL_BER_CEILING = 1e-3
 
 
@@ -4130,8 +4147,7 @@ def ofdm_bursts() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 def same_detections(det, power, thresh, want_det) -> int:
     """Detections equal to ``want_det`` outside MODEL_DET_MARGIN of the threshold
     (ROADMAP H5); returns the cells inside the margin."""
-    p, th = power.double().cpu(), thresh.double().cpu()
-    inside = (p - th).abs() <= MODEL_DET_MARGIN * th.abs()
+    inside = radar.near_threshold(power.cpu(), thresh.cpu(), MODEL_DET_MARGIN)
     if not torch.equal(det.cpu()[~inside], want_det.cpu()[~inside]):
         raise AssertionError("[10 models] detections differ outside the H5 margin")
     return int(inside.sum())
@@ -5247,6 +5263,292 @@ def phase_rest_main(dev, x: torch.Tensor, y_main: torch.Tensor, wav: np.ndarray,
     return {"launches": launches}
 
 
+# --- phase 14: the multi-card surface on the one card (ROADMAP queue 1 item 4) ----------
+MC_WORLD = 4
+MC_MESHES = {"4x1": (1, 4), "2x2": (2, 2)}  # (n_time, n_channel): the dp steps' batch over ch
+MC_BEAM = beamform.ArrayConfig(n_sensors=16)  # phase 10's M = 16 row: 64 blocks of 16384
+MC_BEAM_BLOCKS = 64
+MC_TOL = {"mvdr": (1e-4, 1e-6), "music": (1e-3, 1e-5)}  # rtol, atol: the reference's bounds
+MC_WIDE_TOL = (1e-4, 1e-5)
+MC_REPS = 3
+MC_ROUNDS = (1, 3)  # time_phases' warm-up and measured rounds
+MC_BUDGET_S = 90.0
+MC_WORLD1_CPIS, MC_WORLD1_BLOCKS = 4, 8  # the world of one's cut of the CPIs and the blocks
+
+
+def beam_blocks(blocks: int) -> tuple[np.ndarray, np.ndarray]:
+    """Phase 10's M = 16 row: blocks of 16384 snapshots at 10 dB, block b seeded b."""
+    snaps = [beamform.synthesize(MC_BEAM, MODEL_BEAM_TRUTH, MODEL_BEAM_SNAPS, snr_db=10.0, seed=b)
+             for b in range(blocks)]
+    return np.stack([s[0] for s in snaps]), np.stack([s[1] for s in snaps])
+
+
+def mc_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max|got - want| / max|want|, in float64."""
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def mc_timed(fn, reps: int = MC_REPS) -> tuple[list[float], list[float]]:
+    """This rank's device ms (events on its stream) and wall ms of ``reps`` calls,
+    every rank started together by a barrier."""
+    import torch.distributed as dist
+
+    dev_ms, wall_ms = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        dist.barrier()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(e0.elapsed_time(e1))
+    return dev_ms, wall_ms
+
+
+def multicard_worker(rank: int, tmp: str) -> None:
+    """One rank of phase 14: the dp steps, the wideband receiver, time_phases and
+    device_chunks through their sharded entry points, every rank on cuda:0."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from digital_signal_processsing_tpu_torch import parallel as par
+    from digital_signal_processsing_tpu_torch.harness.profile import time_phases
+
+    torch.cuda.set_device(0)
+    par.initialize_multihost(f"file://{tmp}/mc.store", MC_WORLD, rank, backend="gloo")
+    meshes = {m: par.make_mesh(n_time=t, n_channel=c, device="cuda")
+              for m, (t, c) in MC_MESHES.items()}
+    tmesh = par.make_time_mesh(device="cuda")
+    flat, dev = par.time_sharding(tmesh), tmesh.device
+
+    def load(name: str) -> np.ndarray:
+        return np.load(f"{tmp}/{name}.npy")
+
+    ti, tq, bi, bq = (torch.from_numpy(load(k)).to(dev) for k in ("ti", "tq", "bi", "bq"))
+    x_host = load("x")
+    n_loc = WIDE_T // MC_WORLD
+    xw = torch.from_numpy(load("wide")[rank * n_loc : (rank + 1) * n_loc]).to(dev)
+    rx = WidebandFmReceiver(WidebandConfig(), device=dev)
+    paths = [Path(tmp) / "a.wav", Path(tmp) / "b.wav"]
+    xs = flat.shard(x_host).to(dev)
+
+    calls = {}
+    for m, mesh in meshes.items():
+        calls[f"detect_batch {m}"] = lambda mesh=mesh: radar.detect_batch(
+            MODEL_TRACK_RADAR, ti, tq, mesh=mesh)
+        for method in MC_TOL:
+            calls[f"spectrum_batch {method} {m}"] = lambda mesh=mesh, method=method: (
+                beamform.spectrum_batch(MC_BEAM, bi, bq, method=method, n_sources=2, mesh=mesh))
+    calls["sharded_wideband 1x4"] = lambda: par.sharded_wideband(rx, xw, tmesh)
+    calls["sharded_moving_average 1x4"] = lambda: par.sharded_moving_average(
+        xs, MAIN_WINDOW, 2, mesh=tmesh)
+    torch.cuda.synchronize()
+
+    # the main path: each part's counts reset just before it and read just after
+    out, info = {}, {"launches": {}, "times": {}}
+    for name, fn in calls.items():
+        reset_launch_counts()
+        y = fn()
+        if name.startswith(("sharded_wideband", "sharded_moving_average")):
+            y = flat.gather(y)
+        torch.cuda.synchronize()
+        info["launches"][name] = launch_counts()
+        out[name] = y
+    reset_launch_counts()
+    res = time_phases(lambda v: par.sharded_moving_average(v, MAIN_WINDOW, 2, mesh=tmesh), x_host,
+                      sharding=flat, warmup=MC_ROUNDS[0], rounds=MC_ROUNDS[1])
+    torch.cuda.synchronize()
+    info["launches"]["time_phases"] = launch_counts()
+    info["time_phases"] = dataclasses.asdict(res)
+    reset_launch_counts()
+    chunks = 0
+    for got, want in zip(device_chunks(WavChunkLoader(paths, REST_CHUNK), sharding=flat),
+                         WavChunkLoader(paths, REST_CHUNK), strict=True):
+        if got.device != dev or not torch.equal(got.cpu(), flat.shard(want)):
+            raise AssertionError(f"[14 multi-card] rank {rank}: device_chunks' chunk {chunks} "
+                                 "is not the loader's shard")
+        chunks += 1
+    torch.cuda.synchronize()
+    info["launches"]["device_chunks"] = launch_counts()
+    info["chunks"] = chunks
+
+    # each call's time on each rank: the four contexts time-slice the one card
+    for name, fn in calls.items():
+        info["times"][name] = mc_timed(fn)
+    if rank == 0:
+        for name, y in out.items():
+            for j, v in enumerate(y if isinstance(y, tuple) else (y,)):
+                np.save(f"{tmp}/out {name} {j}.npy", v.cpu().numpy())
+    Path(f"{tmp}/mc{rank}.json").write_text(json.dumps(info))
+    tmesh.close()
+    dist.destroy_process_group()
+
+
+def phase_multicard(dev, x: torch.Tensor, y_main: torch.Tensor, wav: np.ndarray, split: int,
+                    wide_main: dict, smi: str) -> dict:
+    """Phase 14: four processes on the one card over gloo run the multi-card surface at
+    full width, each gathered output held against the one-card call on the same input;
+    then the port's dry runs on the card. Returns the main path's launches (all ranks)."""
+    t_start = time.perf_counter()
+    ti, tq, _ = track_scene(MODEL_TRACK_CPIS)
+    bi, bq = beam_blocks(MC_BEAM_BLOCKS)
+    xw = wide_main["x"]
+    rx = wide_main["rx64"]
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, v in (("ti", ti), ("tq", tq), ("bi", bi), ("bq", bq), ("x", x.cpu().numpy()),
+                        ("wide", xw.cpu().numpy())):
+            np.save(f"{tmp}/{name}.npy", v)
+        write_wav(Path(tmp) / "a.wav", wav[:split], 48000, 2)
+        write_wav(Path(tmp) / "b.wav", wav[split:], 48000, 2)
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(multicard_worker, args=(tmp,), nprocs=MC_WORLD, join=True)
+        spawn_s = time.perf_counter() - t0
+        infos = [json.loads(Path(f"{tmp}/mc{r}.json").read_text()) for r in range(MC_WORLD)]
+
+        def got(name: str, j: int = 0) -> torch.Tensor:
+            return torch.from_numpy(np.load(f"{tmp}/out {name} {j}.npy"))
+
+        # each gathered output against the one-card call on the same input
+        ti_d, tq_d = torch.from_numpy(ti).to(dev), torch.from_numpy(tq).to(dev)
+        det, power, thresh = (v.cpu() for v in radar.detect_batch(MODEL_TRACK_RADAR, ti_d, tq_d))
+        errs = {}
+        for m in MC_MESHES:
+            name = f"detect_batch {m}"
+            for j, (what, want) in enumerate((("power", power), ("threshold", thresh)), start=1):
+                errs[f"{name} {what}"] = e = float((got(name, j) - want).abs().max()
+                                                   / want.abs().max())
+                if not e <= MODEL_TOL:
+                    raise AssertionError(f"[14 multi-card] {name} {what}: {e:.3e} of max > {MODEL_TOL}")
+            same_detections(got(name), power, thresh, det)
+        bi_d, bq_d = torch.from_numpy(bi).to(dev), torch.from_numpy(bq).to(dev)
+        for method, (rtol, atol) in MC_TOL.items():
+            want = beamform.spectrum_batch(MC_BEAM, bi_d, bq_d, method=method, n_sources=2).cpu()
+            for m in MC_MESHES:
+                name = f"spectrum_batch {method} {m}"
+                errs[name] = mc_rel_err(got(name), want)
+                np.testing.assert_allclose(got(name).numpy(), want.numpy(), rtol=rtol, atol=atol)
+        want = rx(xw).cpu().numpy()
+        wide = got("sharded_wideband 1x4").numpy()
+        errs["sharded_wideband 1x4"] = mc_rel_err(torch.from_numpy(wide), torch.from_numpy(want))
+        np.testing.assert_allclose(wide, want, rtol=MC_WIDE_TOL[0], atol=MC_WIDE_TOL[1])
+        live = np.flatnonzero(np.abs(want).max(axis=1) > 0)
+        if not np.array_equal(live, np.flatnonzero(np.abs(wide).max(axis=1) > 0)):
+            raise AssertionError("[14 multi-card] sharded_wideband's squelch gates differ")
+        if not torch.equal(got("sharded_moving_average 1x4"), y_main.cpu()):
+            raise AssertionError("[14 multi-card] the sharded averager differs from B1 on 64M")
+    want_chunks = -(-wav.size // REST_CHUNK)
+    if any(info["chunks"] != want_chunks for info in infos):
+        raise AssertionError(f"[14 multi-card] device_chunks: {[i['chunks'] for i in infos]} chunks, "
+                             f"want {want_chunks} on every rank")
+    tp = [info["time_phases"] for info in infos]
+    if any(t != tp[0] for t in tp):
+        raise AssertionError(f"[14 multi-card] time_phases differs across ranks: {tp}")
+
+    # the kernels of each part, summed over the ranks
+    parts = {p: {k: sum(info["launches"][p][k] for info in infos) for k in KERNELS}
+             for p in infos[0]["launches"]}
+    wide_l, avg_l = parts["sharded_wideband 1x4"], parts["sharded_moving_average 1x4"]
+    tp_l = parts["time_phases"]
+    if wide_l["B19"] != MC_WORLD or avg_l["B1"] + avg_l["B7"] < MC_WORLD or tp_l["B1"] < MC_WORLD:
+        raise AssertionError(f"[14 multi-card] B19 in the wideband part {wide_l['B19']} (want "
+                             f"{MC_WORLD}), B1/B7 in the averager part {avg_l['B1']}/{avg_l['B7']}, "
+                             f"B1 in time_phases {tp_l['B1']}")
+    launches = {k: sum(p[k] for p in parts.values()) for k in KERNELS}
+    print(f"[14 multi-card] {MC_WORLD} processes on one card over gloo ({spawn_s:.1f} s with the "
+          f"spawn); detect_batch on {MODEL_TRACK_CPIS} CPIs of 64 x 16384 over a 4x1 and a 2x2 "
+          f"mesh: power and threshold within {MODEL_TOL} of max|want| of the one-card call, "
+          f"detections equal outside the {MODEL_DET_MARGIN} margin; spectrum_batch MVDR "
+          f"(rtol/atol {MC_TOL['mvdr']}) and MUSIC ({MC_TOL['music']}) on {MC_BEAM_BLOCKS} blocks "
+          f"of 16 x {MODEL_BEAM_SNAPS} over both meshes; sharded_wideband on the 2^26-sample "
+          f"64-channel stream over a 1x4 mesh ({WIDE_T // MC_WORLD} samples a rank plus its "
+          f"halo) within rtol/atol {MC_WIDE_TOL} of the receiver, the same squelch gates "
+          f"({live.size} channels live); the sharded averager at 64M k={MAIN_WINDOW} bit-exact "
+          f"against B1; device_chunks: {want_chunks} chunks, each rank's the loader's shard")
+    print("[14 multi-card] max|got - want| / max|want| against the one-card call: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    print("[14 multi-card] launches by part (all ranks): " + "; ".join(
+        f"{p} {({k: v for k, v in c.items() if v})}" for p, c in parts.items()))
+    print(f"[14 multi-card] on {smi}: time-sliced figures, four processes sharing one card (not "
+          f"a scaling number, not a kernel's time alone); device ms (events on each rank's "
+          f"stream) and wall ms, median of {MC_REPS} after the counted call, by rank:")
+    for name in infos[0]["times"]:
+        dev_ms = [statistics.median(info["times"][name][0]) for info in infos]
+        wall = [statistics.median(info["times"][name][1]) for info in infos]
+        print(f"  {name:32s} device {', '.join(f'{v:.3f}' for v in dev_ms)}; wall "
+              f"{', '.join(f'{v:.3f}' for v in wall)}")
+    r = tp[0]
+    n = r["rounds"]
+    print(f"  time_phases(sharding=time_sharding(mesh)) of sharded_moving_average, 64M k="
+          f"{MAIN_WINDOW}, {MC_ROUNDS[0]} warm-up and {n} rounds, the slowest rank's (the same on "
+          f"every rank): init {r['initialization_ms']:.3f} ms, h2d {r['h2d_ms'] / n:.3f}, compute "
+          f"{r['compute_ms'] / n:.3f}, d2h (with the gather) {r['d2h_ms'] / n:.3f}")
+
+    # the dry runs on the card: one process a rank, gloo on the one card
+    for run in (graft_entry.dryrun_multichip, graft_entry.dryrun_multiprocess):
+        t0 = time.perf_counter()
+        rec = run(4)
+        dry = {k: sum(c[k] for c in rec["launches"]) for k in KERNELS}
+        for k in KERNELS:
+            launches[k] += dry[k]
+        print(f"[14 multi-card] {run.__name__}(4) on the card ({rec['backend']}): "
+              f"{time.perf_counter() - t0:.1f} s with the spawn, each rank's seconds "
+              f"{', '.join(f'{s:.1f}' for s in rec['seconds'])}; launches (all ranks) "
+              f"{({k: v for k, v in dry.items() if v})}")
+    seconds = time.perf_counter() - t_start
+    print(f"[14 multi-card] phase 14 took {seconds:.1f} s (budget {MC_BUDGET_S:.0f} s)")
+    return {"launches": launches, "seconds": seconds}
+
+
+def multicard_world1(mesh, x: torch.Tensor, y_main: torch.Tensor, wide_main: dict,
+                     wav: np.ndarray, split: int, tmp: str) -> None:
+    """Phase 14's entry points once more at world size 1 over NCCL (phase 8), each bit
+    for bit against its one-card call."""
+    from digital_signal_processsing_tpu_torch import parallel as par
+    from digital_signal_processsing_tpu_torch.harness.profile import time_phases
+
+    dev = x.device
+    ti, tq, _ = track_scene(MC_WORLD1_CPIS)
+    ti, tq = torch.from_numpy(ti).to(dev), torch.from_numpy(tq).to(dev)
+    bi, bq = (torch.from_numpy(v).to(dev) for v in beam_blocks(MC_WORLD1_BLOCKS))
+    flat = par.time_sharding(mesh)
+    rx, xw = wide_main["rx64"], wide_main["x"]
+    paths = [Path(tmp) / "a.wav", Path(tmp) / "b.wav"]
+    write_wav(paths[0], wav[:split], 48000, 2)
+    write_wav(paths[1], wav[split:], 48000, 2)
+    pairs = {
+        "detect_batch": (radar.detect_batch(MODEL_TRACK_RADAR, ti, tq, mesh=mesh),
+                         radar.detect_batch(MODEL_TRACK_RADAR, ti, tq)),
+        **{f"spectrum_batch {m}": (beamform.spectrum_batch(MC_BEAM, bi, bq, method=m, n_sources=2,
+                                                            mesh=mesh),
+                                    beamform.spectrum_batch(MC_BEAM, bi, bq, method=m, n_sources=2))
+           for m in MC_TOL},
+        "sharded_wideband": (par.sharded_wideband(rx, xw, mesh), rx(xw)),
+        "device_chunks": (torch.cat(list(device_chunks(WavChunkLoader(paths, REST_CHUNK),
+                                                       sharding=flat))),
+                          torch.from_numpy(np.concatenate(list(WavChunkLoader(paths, REST_CHUNK))))
+                          .to(dev)),
+    }
+    for name, (got, want) in pairs.items():
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"[8 world 1] {name} differs from its one-card call")
+    res = time_phases(lambda v: par.sharded_moving_average(v, MAIN_WINDOW, 2, mesh=mesh),
+                      x.cpu().numpy(), sharding=flat, warmup=MC_ROUNDS[0], rounds=MC_ROUNDS[1])
+    if not res.compute_ms > 0:
+        raise AssertionError(f"[8 world 1] time_phases(sharding=): {res}")
+    print(f"[8 world 1] the multi-card surface: detect_batch ({MC_WORLD1_CPIS} CPIs of 64 x 16384) "
+          f"and spectrum_batch MVDR and MUSIC ({MC_WORLD1_BLOCKS} blocks of 16 x "
+          f"{MODEL_BEAM_SNAPS}) with the mesh, sharded_wideband on the 2^26 stream and "
+          "device_chunks(sharding=) over phase 4's WAVs bit for bit their one-card calls; "
+          f"time_phases(sharding=) of the averager at 64M: compute {res.compute_ms / res.rounds:.3f} "
+          f"ms a round, d2h {res.d2h_ms / res.rounds:.3f} ms")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5542,7 +5844,8 @@ def main() -> int:
     ring = phase_sharded_ring(x, y_main, check)
     mark("8 sharded ring")
     with tempfile.TemporaryDirectory() as tmp:
-        world1 = phase_sharded_world1(x, y_main, chain_main, tv_main, check, tmp)
+        world1 = phase_sharded_world1(x, y_main, chain_main, tv_main, wide_main, wav,
+                                      2 * frames_a, check, tmp)
     mark("8 sharded world 1")
 
     # 9. the spectral and correlation slice, its serving loops, and their times
@@ -5596,6 +5899,10 @@ def main() -> int:
     # input gradient and the twelve examples
     rest = phase_rest_main(dev, x, y_main, wav, 2 * frames_a)
     mark("13 rest of the surface")
+
+    # 14. the multi-card surface: four processes on the one card, then the dry runs
+    multicard = phase_multicard(dev, x, y_main, wav, 2 * frames_a, wide_main, smi)
+    mark("14 multi-card surface")
 
     def entry(name, kernel, source, replaces, ms, plain_ms, library_ms=None):
         return {
@@ -5749,8 +6056,9 @@ def main() -> int:
             },
         ]
     }
-    for e in record["kernels"]:  # phase 13's main path launches kernels of earlier slices
-        e["launches"] += rest["launches"][ENTRY_KERNELS[e["name"]]]
+    for e in record["kernels"]:  # phases 13 and 14 launch kernels of earlier slices
+        e["launches"] += (rest["launches"][ENTRY_KERNELS[e["name"]]]
+                          + multicard["launches"][ENTRY_KERNELS[e["name"]]])
     print(json.dumps(record))
     print(json.dumps({
         "ok": True,

@@ -11,6 +11,15 @@ kernel and D2H, averaged over 5 warm-up and 10 measured rounds
     compute = CUDA events around the call, on the current stream
     d2h     = host clock around the copy of the output back to NumPy
 
+With ``sharding`` (a ``parallel.Sharding``; every rank of the mesh calls
+:func:`time_phases` with the global host input), each phase ends when every
+rank's part of it has: each round stages this rank's shard, times its own
+call, fetches the global output through ``sharding.gather``, and the ranks
+take the maximum of each phase over the mesh (one all-reduce a round,
+outside the timed spans), the counterpart of the reference's ``put``
+through a sharding and its wait on the global array. Every rank reports the
+same numbers.
+
 Timing needs a card: on any other device :func:`time_phases` raises.
 """
 
@@ -25,6 +34,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..parallel.mesh import world_max
 from ..utils.device import resolve_device
 
 WARMUP_ROUNDS = 5  # gpu_utils.h:31
@@ -110,6 +120,7 @@ def time_phases(
     warmup: int = WARMUP_ROUNDS,
     rounds: int = MEASUREMENT_ROUNDS,
     resident: bool = False,
+    sharding=None,
 ) -> ProfileResult:
     """Warm-up-then-average phase-split benchmark (benchmark.h:116-132 analog).
 
@@ -119,14 +130,31 @@ def time_phases(
     the output, and ``h2d`` reads 0 (the serving steady state that the
     reference's Unified mode approximated, gpu_utils.h:26-65). The sweep
     logs both.
+
+    ``sharding``: ``fn`` takes this rank's shard and returns this rank's
+    output shard; the phases are the slowest rank's (module docstring), and
+    ``device`` is the mesh's.
     """
+    if sharding is not None:
+        device = sharding.mesh.device
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError(f"time_phases measures a CUDA device, got {dev}")
     res = ProfileResult()
+    local = host_input if sharding is None else sharding.shard(host_input).numpy()
 
     def put() -> torch.Tensor:
-        return torch.from_numpy(host_input).to(dev)
+        return torch.from_numpy(local).to(dev)
+
+    def fetch(out: torch.Tensor) -> np.ndarray:
+        if sharding is not None:
+            out = sharding.gather(out)
+        return out.cpu().numpy()
+
+    def slowest(ms: list[float]) -> list[float]:
+        if sharding is None:
+            return ms
+        return world_max(torch.tensor(ms, dtype=torch.float64, device=dev), sharding.mesh).tolist()
 
     t0 = time.perf_counter()
     x = put()
@@ -135,7 +163,7 @@ def time_phases(
     res.initialization_ms = (time.perf_counter() - t0) * 1e3
 
     for _ in range(warmup):
-        fn(x if resident else put()).cpu()
+        fetch(fn(x if resident else put()))
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -150,10 +178,11 @@ def time_phases(
         end.record()
         end.synchronize()
         t2 = time.perf_counter()
-        out.cpu().numpy()
+        fetch(out)
         t3 = time.perf_counter()
         h2d_ms = 0.0 if resident else (t1 - t0) * 1e3
-        res.accumulate(h2d_ms, start.elapsed_time(end), (t3 - t2) * 1e3)
+        res.accumulate(*slowest([h2d_ms, start.elapsed_time(end), (t3 - t2) * 1e3]))
+    res.initialization_ms = slowest([res.initialization_ms])[0]
     return res
 
 

@@ -137,12 +137,22 @@ def device_chunks(loader, *, device="cuda", depth: int = 2, sharding=None):
     there, so the caching allocator keeps it until that stream's work on it is
     done. On the CPU the chunks come as tensors over the loader's arrays.
     Without a card, ``device="cuda"`` raises.
+
+    With ``sharding`` (a ``parallel.Sharding``, the counterpart of
+    ``jax.device_put(chunk, sharding)``), each chunk becomes this rank's
+    shard, ``sharding.shard(chunk)``, cut on the host and staged the same way
+    to the mesh's device (``device`` is then the mesh's).
     """
     if sharding is not None:
-        raise NotImplementedError(
-            "device_chunks(sharding=) is ROADMAP queue 1, item 4 (the multi-card path, with "
-            "time_phases(sharding=))"
-        )
+        from ..parallel.mesh import Sharding
+
+        if not isinstance(sharding, Sharding):
+            raise TypeError(
+                f"sharding must be a parallel.Sharding (time_sharding(mesh), ...), got "
+                f"{type(sharding).__name__}"
+            )
+        device = sharding.mesh.device
+        loader = (sharding.shard(chunk).numpy() for chunk in loader)
     dev = resolve_device(device)
     if dev.type != "cuda":
         return (torch.from_numpy(chunk) for chunk in prefetch(iter(loader), depth=depth))

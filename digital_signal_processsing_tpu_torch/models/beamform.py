@@ -29,6 +29,7 @@ import torch
 
 from ..ops.fft import stft
 from ..ops.fir import ieee_fp32_matmul
+from ..parallel.mesh import batch_sharding, check_mesh
 from ..utils.device import as_planar, as_tensor
 
 __all__ = [
@@ -485,13 +486,18 @@ def spectrum_batch(
     device="cuda",
 ) -> torch.Tensor:
     """Batch of (batch, M, T) snapshot blocks -> (batch, n_grid) spectra in
-    one call: batched covariances, factorizations and products. The sharded
-    spelling (``mesh``) is not ported yet (ROADMAP queue 1 item 4)."""
+    one call: batched covariances, factorizations and products.
+
+    With ``mesh`` (the family's dp step, as :func:`radar.detect_batch`): every
+    rank passes the global batch, scans its ``ch`` share of the blocks on the
+    mesh's device, and gathers the spectra over ``ch``; no collective inside
+    the step.
+    """
+    sharding = None
     if mesh is not None:
-        raise NotImplementedError(
-            "spectrum_batch(mesh=...) is not ported yet: the sharded dp steps of the "
-            "model families are ROADMAP queue 1 item 4; pass mesh=None for one card"
-        )
+        sharding = batch_sharding(check_mesh(mesh))
+        xi, xq = (sharding.shard(v).to(mesh.device) for v in (xi, xq))
     ai, aq = steering(cfg, scan_angles(cfg))
     rr, ri = sample_covariance(xi, xq, device=device)
-    return _spectrum(cfg, rr, ri, ai, aq, method, n_sources)
+    spec = _spectrum(cfg, rr, ri, ai, aq, method, n_sources)
+    return spec if sharding is None else sharding.gather(spec)

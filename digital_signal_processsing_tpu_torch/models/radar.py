@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from ..ops.correlate import correlate_complex
 from ..ops.fft import get_window
 from ..ops.fir import fir_direct, ieee_fp32_matmul
+from ..parallel.mesh import batch_sharding, check_mesh
 from ..utils.device import as_planar, as_tensor
 
 __all__ = [
@@ -44,6 +45,8 @@ __all__ = [
     "pulse_compress",
     "doppler_map",
     "ca_cfar",
+    "near_threshold",
+    "DETECTION_MARGIN",
     "detect",
     "detect_batch",
     "ambiguity",
@@ -51,6 +54,9 @@ __all__ = [
 
 # the Doppler transform is a dense matrix pair up to this many pulses
 DFT_MAX_PULSES = 512
+# relative distance from the threshold inside which two float32 computations of
+# one CPI (another batch size, another library) may decide a cell differently
+DETECTION_MARGIN = 1e-4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,6 +263,13 @@ def ca_cfar(
     return _cfar_core(p, guard, train, pfa)
 
 
+def near_threshold(power, threshold, margin: float = DETECTION_MARGIN) -> torch.Tensor:
+    """Cells whose power lies within ``margin`` * |threshold| of the threshold
+    (compared in float64): outside them, two runs must detect alike."""
+    p, th = torch.as_tensor(power).double(), torch.as_tensor(threshold).double()
+    return (p - th).abs() <= margin * th.abs()
+
+
 def ambiguity(pulse_i, pulse_q, *, dopplers=None, n_doppler: int = 65, device="cuda"):
     """Normalized power ambiguity surface |chi(tau, nu)|^2 of a pulse.
 
@@ -295,18 +308,23 @@ def detect_batch(cfg: RadarConfig, i, q, *, mesh=None, device="cuda"):
     """Batch of CPIs through the full chain in one call.
 
     ``i``/``q``: (batch, n_pulses, n_range) planar echoes. Returns
-    (detections, power, threshold), each (batch, n_pulses, n_bins). The
-    sharded spelling (``mesh``) is not ported yet (ROADMAP queue 1 item 4).
+    (detections, power, threshold), each (batch, n_pulses, n_bins).
+
+    With ``mesh`` (the family's dp step): every rank passes the global batch,
+    runs :func:`detect` on its ``ch`` share (``parallel.batch_sharding``; a
+    batch that the ch axis does not divide is refused) on the mesh's device,
+    and gathers the three outputs over ``ch``, so every rank returns the
+    global batch. One CPI never spans ranks: no collective inside the step.
     """
+    sharding = None
     if mesh is not None:
-        raise NotImplementedError(
-            "detect_batch(mesh=...) is not ported yet: the sharded dp steps of the "
-            "model families are ROADMAP queue 1 item 4; pass mesh=None for one card"
-        )
+        sharding = batch_sharding(check_mesh(mesh))
+        i, q = (sharding.shard(v).to(mesh.device) for v in (i, q))
     i, q = as_planar(i, q, device)
     if i.dim() != 3:
         raise ValueError(f"expected (batch, n_pulses, n_range), got {tuple(i.shape)}")
-    return detect(cfg, i, q)
+    out = detect(cfg, i, q)
+    return out if sharding is None else tuple(sharding.gather(y) for y in out)
 
 
 def detect(cfg: RadarConfig, i, q, *, device="cuda"):

@@ -16,8 +16,8 @@ demodulates every channel in one batched pass:
 ``WidebandFmReceiver`` is an ``nn.Module`` whose prototype and audio taps
 are buffers on its device (the card unless ``device="cpu"``).
 ``wideband_from_jax`` carries the reference receiver's taps across. The
-reference's time-sharded run over several chips waits for the multi-card
-slice.
+reference's time-sharded run (GSPMD on a ``P("t")`` input) is
+``parallel.sharded_wideband``: the same stages on each rank's time block.
 """
 
 from __future__ import annotations
@@ -70,19 +70,27 @@ class WidebandFmReceiver(torch.nn.Module):
             raise ValueError(f"input on {x.device}, receiver on {self.prototype.device}")
         return pfb_channelize_planar(x.to(torch.float32), self.config.n_channels, self.prototype)
 
-    def squelch(self, audio: torch.Tensor, i: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-        """``audio`` with the channels below the squelch level zeroed."""
-        level = torch.mean(torch.sqrt(i * i + q * q), dim=-1)  # (N,)
+    def demodulate(self, i: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        """The discriminator and the audio FIR: (I, Q) planes -> (N, M) audio."""
+        audio = fm_demodulate(torch.complex(i, q), gain=self.config.fm_gain)
+        return fir_direct(audio, self.audio_taps)
+
+    def gate(self, audio: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
+        """``audio`` with the channels whose ``level`` (N,) is below the squelch
+        fraction of the strongest zeroed."""
         gate = level >= self.config.squelch * torch.max(level)
         return audio * gate[:, None].to(audio.dtype)
 
+    def squelch(self, audio: torch.Tensor, i: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        """``audio`` with the channels below the squelch level zeroed: each
+        channel's level is its mean baseband magnitude."""
+        return self.gate(audio, torch.mean(torch.sqrt(i * i + q * q), dim=-1))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(T,) real float32 -> (n_channels, T // n_channels) float32 audio."""
-        c = self.config
         i, q = self.channelize(x)
-        audio = fm_demodulate(torch.complex(i, q), gain=c.fm_gain)
-        audio = fir_direct(audio, self.audio_taps)
-        if c.squelch is not None:
+        audio = self.demodulate(i, q)
+        if self.config.squelch is not None:
             audio = self.squelch(audio, i, q)
         return audio
 

@@ -149,25 +149,41 @@ def make_time_mesh(*, device="cuda") -> Mesh:
 
 @dataclasses.dataclass(frozen=True)
 class Sharding:
-    """How a global tensor is cut into this rank's shard, and put back.
+    """How a global tensor is cut into this rank's shard, and put back. Made
+    by :func:`time_sharding`, :func:`planar_sharding` or :func:`batch_sharding`,
+    whose ``kind`` is:
 
-    ``planar=False``: the last axis over ``t`` (a flat stream, replicated
-    over ``ch``); ``planar=True``: a (channels, time) tensor with channels
-    over ``ch`` and time over ``t``.
+    - ``"time"``: the last axis over ``t`` (a flat stream, replicated over
+      ``ch``): the reference's ``P("t")``;
+    - ``"planar"``: a (channels, time) tensor with channels over ``ch`` and
+      time over ``t``: ``P("ch", "t")``;
+    - ``"batch"``: the leading (batch) axis over ``ch``, replicated over
+      ``t``: ``P("ch")``. A batch that ``n_channel`` does not divide is
+      refused, as ``jax.device_put`` refuses an uneven ``NamedSharding``.
     """
 
     mesh: Mesh
-    planar: bool
+    kind: str
 
-    def shard(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's contiguous shard of the global ``x``."""
+    def shard(self, x) -> torch.Tensor:
+        """This rank's contiguous shard of the global ``x`` (a tensor or an array),
+        where ``x`` is."""
         m = self.mesh
+        x = torch.as_tensor(x)
+        if self.kind == "batch":
+            if x.dim() < 1 or x.shape[0] % m.n_channel:
+                raise ValueError(
+                    f"batch sharding needs a leading axis divisible by {m.n_channel} "
+                    f"(the ch axis), got shape {tuple(x.shape)}"
+                )
+            b = x.shape[0] // m.n_channel
+            return x[m.ch * b : (m.ch + 1) * b].contiguous()
         t = x.shape[-1]
         if t % m.n_time:
             raise ValueError(f"time length {t} not divisible by {m.n_time} shards")
         tl = t // m.n_time
         x = x[..., m.t * tl : (m.t + 1) * tl]
-        if self.planar:
+        if self.kind == "planar":
             if x.dim() != 2 or x.shape[0] % m.n_channel:
                 raise ValueError(
                     f"planar sharding needs (channels, time) with channels divisible by "
@@ -180,38 +196,52 @@ class Sharding:
     def gather(self, y: torch.Tensor) -> torch.Tensor:
         """The global tensor from every rank's shard (on every rank)."""
         m = self.mesh
-        y = torch.cat(all_gather(y, m, TIME_AXIS), dim=-1)
-        if self.planar:
+        if self.kind != "batch":
+            y = torch.cat(all_gather(y, m, TIME_AXIS), dim=-1)
+        if self.kind != "time":
             y = torch.cat(all_gather(y, m, CHANNEL_AXIS), dim=0)
         return y
 
 
 def time_sharding(mesh: Mesh) -> Sharding:
     """Flat stream sharded into contiguous time blocks."""
-    return Sharding(mesh, planar=False)
+    return Sharding(mesh, "time")
 
 
 def planar_sharding(mesh: Mesh) -> Sharding:
     """(channels, time) planar signal: channels over ch, time over t."""
-    return Sharding(mesh, planar=True)
+    return Sharding(mesh, "planar")
+
+
+def batch_sharding(mesh: Mesh) -> Sharding:
+    """A batch of independent items (CPIs, snapshot blocks, streams): the
+    leading axis over ch, every rank of a channel row holding the same share."""
+    return Sharding(mesh, "batch")
+
+
+def check_mesh(mesh) -> Mesh:
+    """``mesh`` if it is a :class:`Mesh`, else TypeError."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.Mesh (make_mesh()), got {type(mesh).__name__}")
+    return mesh
 
 
 def _wire(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """``x`` as the data groups' backend moves it: real, contiguous and, for
-    gloo, on the host, with int16 as its bytes (gloo has no 16-bit integers)."""
+    gloo, on the host, with int16 and bool as their bytes (gloo has neither)."""
     if x.is_complex():
         x = torch.view_as_real(x)
     x = x.contiguous()
     if mesh.backend == "gloo":
         x = x.cpu()
-        if x.dtype == torch.int16:
+        if x.dtype in (torch.int16, torch.bool):
             x = x.view(torch.uint8)
     return x
 
 
 def _unwire(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    if like.dtype == torch.int16 and w.dtype != torch.int16:
-        w = w.view(torch.int16)
+    if like.dtype in (torch.int16, torch.bool) and w.dtype != like.dtype:
+        w = w.view(like.dtype)
     if like.is_complex():
         w = torch.view_as_complex(w)
     return w.to(like.device)
@@ -258,6 +288,15 @@ def psum(x: torch.Tensor, mesh: Mesh, axis: str = TIME_AXIS) -> torch.Tensor:
     return _unwire(buf, x)
 
 
+def world_max(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Elementwise maximum of every rank's ``x`` over the whole mesh, on every rank."""
+    if mesh.n_time * mesh.n_channel == 1:
+        return x
+    buf = _wire(x, mesh).clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=mesh.group)
+    return _unwire(buf, x)
+
+
 def host_barrier(mesh: Mesh) -> None:
     """Every rank of the time axis has reached this point (host side only)."""
     if mesh.n_time > 1:
@@ -300,9 +339,12 @@ __all__ = [
     "make_time_mesh",
     "time_sharding",
     "planar_sharding",
+    "batch_sharding",
+    "check_mesh",
     "shift_right",
     "all_gather",
     "psum",
+    "world_max",
     "host_barrier",
     "HostSteps",
 ]

@@ -12,14 +12,23 @@ Counterpart of ``digital_signal_processsing_tpu/parallel/pipeline.py``
   the one-card chain's.
 
 The same halo serves the chain's streamed chunks (``chain_stream_chunk``).
+
+The wideband receiver (``models/wideband.py``) shards the same way over
+``t`` (:func:`sharded_wideband`, the counterpart of the reference's GSPMD run
+on a ``P("t")`` input): one raw halo covers the PFB's look-back, the
+discriminator's previous sample and the audio FIR; the squelch's levels are
+means over the whole stream, so each rank sums its own samples' magnitudes
+and the sums meet in one ``psum`` over ``t``.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from ..utils.layout import round_up
-from .mesh import TIME_AXIS, Mesh, shift_right
+from ..utils.layout import cdiv, round_up
+from .mesh import TIME_AXIS, Mesh, psum, shift_right
 
 
 def chain_halo(chain) -> int:
@@ -75,4 +84,60 @@ def sharded_chain_planar(chain, i: torch.Tensor, q: torch.Tensor, mesh: Mesh) ->
     return sharded_chain(chain, torch.complex(i.to(torch.float32), q.to(torch.float32)), mesh)
 
 
-__all__ = ["chain_halo", "sharded_chain", "sharded_chain_planar"]
+# B19 (the raw-stream PFB kernel) takes a stream of a multiple of 128 samples
+# at 32, 64 and 128 channels: the halo keeps an extended shard on that grid
+_RAW_GRID = 128
+
+
+def wideband_halo(rx) -> int:
+    """Raw-sample causal memory of the wideband receiver, in whole commutator
+    steps of ``n_channels`` samples (and of 128 samples, so that a shard inside
+    B19's envelope stays there once extended).
+
+    Output column m of the PFB reads x[N*m - j] for j < len(prototype): the
+    look-back is ceil((len - 1) / N) steps. The discriminator reads the column
+    before (one step), the audio FIR ``audio_taps - 1`` columns before that.
+    """
+    n = rx.config.n_channels
+    steps = cdiv(int(rx.prototype.shape[0]) - 1, n) + 1 + int(rx.audio_taps.shape[0]) - 1
+    return round_up(steps * n, math.lcm(n, _RAW_GRID))
+
+
+def sharded_wideband(rx, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of the wideband receiver's audio: time over ``t``.
+
+    ``x``: this rank's contiguous time block of the (T,) float32 stream, a
+    whole number of commutator steps and at least one halo long, on the
+    receiver's device (ranks along ``ch`` hold the same block; blocks along
+    ``t`` may differ in length). Returns (n_channels, T_loc // n_channels).
+    The squelch gates each channel on its mean magnitude over the whole
+    stream: each rank's float32 sums and its column count meet in one
+    ``psum`` over ``t`` (in float64), in another order than the one-card
+    mean, so a channel within rounding of the threshold may gate differently.
+    """
+    c = rx.config
+    n = c.n_channels
+    if x.dim() != 1:
+        raise ValueError(f"expected a flat (time,) shard, got shape {tuple(x.shape)}")
+    t_loc = x.shape[0]
+    if t_loc % n:
+        raise ValueError(f"time shard {t_loc} must be whole commutator steps of {n} samples")
+    halo = wideband_halo(rx)
+    if halo > t_loc:
+        raise ValueError(f"wideband halo {halo} exceeds one time shard ({t_loc})")
+    left = shift_right(x[t_loc - halo :].contiguous(), mesh, TIME_AXIS)
+    # rank 0's halo is zeros, the one-card run's zero history: it runs on its block
+    # alone, as the receiver on one card does
+    drop = 0 if mesh.t == 0 else halo // n
+    i, q = rx.channelize(x if drop == 0 else torch.cat([left, x]))
+    audio = rx.demodulate(i, q)[:, drop:]
+    if c.squelch is None:
+        return audio
+    i, q = i[:, drop:], q[:, drop:]
+    sums = torch.sum(torch.sqrt(i * i + q * q), dim=-1).double()
+    total = psum(torch.cat([sums, sums.new_tensor([i.shape[1]])]), mesh, TIME_AXIS)
+    return rx.gate(audio, total[:-1] / total[-1])
+
+
+__all__ = ["chain_halo", "sharded_chain", "sharded_chain_planar", "wideband_halo",
+           "sharded_wideband"]

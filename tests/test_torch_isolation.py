@@ -222,6 +222,19 @@ taps, loss = adaptive.identify_system(np.array([0.5, -0.25], np.float32), steps=
                                       train_step=step, device="cpu")
 assert taps.shape == (2,) and np.isfinite(loss)
 dist.destroy_process_group()
+from digital_signal_processsing_tpu_torch import graft_entry
+fn, args = graft_entry.entry(device="cpu")
+assert fn(*args).shape == (16, 8192)
+for kind in ("multichip", "multiprocess"):  # each dry run's rank, in this process: a world of one
+    graft_entry._rank_main([kind, "0", "1", sys.argv[1] + "/" + kind + ".store", "cpu", "gloo",
+                            sys.argv[1] + "/" + kind + ".json"])
+wx = torch.from_numpy(np.random.default_rng(6).normal(size=8 * 512).astype(np.float32))
+dist.init_process_group("gloo", store=dist.FileStore(sys.argv[1] + "/store2", 1), rank=0,
+                        world_size=1)
+wm = parallel.make_mesh(device="cpu")
+assert parallel.sharded_wideband(rx, wx, wm).shape == (8, 512)
+assert radar.detect_batch(rc, ri, rq, mesh=wm)[0].shape == (2, 16, 225)
+dist.destroy_process_group()
 from digital_signal_processsing_tpu_torch.utils import checkpoint
 from digital_signal_processsing_tpu_torch.ops.pfb_os import design_pr_prototype
 fir = adaptive.AdaptiveFir.create(4, device="cpu")
@@ -316,6 +329,12 @@ def test_cuda_device_without_a_card_raises(tmp_path):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([str(tmp_path / "in.wav"), "4", "--out", str(tmp_path / "o.wav")])
+    from digital_signal_processsing_tpu_torch import graft_entry
+
+    for call in (graft_entry.entry, lambda: graft_entry.dryrun_multichip(4),
+                 lambda: graft_entry.dryrun_multiprocess(4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     from digital_signal_processsing_tpu_torch.models import adaptive
     from digital_signal_processsing_tpu_torch.ops.pfb_os import design_pr_prototype
 

@@ -167,14 +167,33 @@ def test_detect_batch_equals_detect_per_cpi(echoes):
         same_detections(det_b[k], det, power, thresh)
 
 
-def test_batches_refuse_a_mesh(echoes):
-    cfg, i, q = echoes
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        radar.detect_batch(cfg, t_(i[None]), t_(q[None]), mesh=object())
+def test_batches_refuse_a_mesh(echoes, tmp_path):
+    """The dp steps refuse a mesh that is not a ``parallel.Mesh``; over a world
+    of one (gloo, in this process) they are the one-card calls, bit for bit.
+    The four-process meshes are ``tests/test_torch_multichip.py``'s."""
+    import torch.distributed as dist
+
+    from digital_signal_processsing_tpu_torch import parallel
     from digital_signal_processsing_tpu_torch.models import beamform
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        beamform.spectrum_batch(beamform.ArrayConfig(), t_(i[None, :8]), t_(q[None, :8]), mesh=object())
+    cfg, i, q = echoes
+    with pytest.raises(TypeError, match="parallel.Mesh"):
+        radar.detect_batch(cfg, t_(i[None]), t_(q[None]), mesh=object())
+    bi, bq = t_(i[None, :8]), t_(q[None, :8])
+    with pytest.raises(TypeError, match="parallel.Mesh"):
+        beamform.spectrum_batch(beamform.ArrayConfig(), bi, bq, mesh=object())
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = parallel.make_mesh(device="cpu")
+        for got, want in zip(radar.detect_batch(cfg, i[None], q[None], mesh=mesh),
+                             radar.detect_batch(cfg, t_(i[None]), t_(q[None]))):
+            assert torch.equal(got, want)
+        got = beamform.spectrum_batch(beamform.ArrayConfig(), bi, bq, method="mvdr", mesh=mesh)
+        assert torch.equal(got, beamform.spectrum_batch(beamform.ArrayConfig(), bi, bq,
+                                                        method="mvdr"))
+    finally:
+        dist.destroy_process_group()
 
 
 # --- Kalman -----------------------------------------------------------------

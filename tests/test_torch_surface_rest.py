@@ -56,9 +56,25 @@ def test_device_chunks_on_the_cpu_are_the_loaders_chunks(rng, tmp_path, packed):
 
 
 def test_device_chunks_refusals(rng, tmp_path):
+    import torch.distributed as dist
+
+    from digital_signal_processsing_tpu_torch import parallel
+
     loader = WavChunkLoader(write_inputs(rng, tmp_path), 512)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(TypeError, match="parallel.Sharding"):
         device_chunks(loader, device="cpu", sharding=object())
+    # a sharding over a world of one (gloo, in this process) hands out the loader's chunks
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        flat = parallel.time_sharding(parallel.make_mesh(device="cpu"))
+        got = list(device_chunks(loader, sharding=flat))
+    finally:
+        dist.destroy_process_group()
+    want = list(loader)
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             device_chunks(loader)

@@ -14,6 +14,7 @@ arrays. Imports no JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 import subprocess
@@ -507,6 +508,206 @@ def _cases_training(par, out: dict) -> None:
             out[f"error/{name}"] = ("error", type(err).__name__, str(err))
 
 
+# --- the multi-card surface: the dp steps, the wideband receiver, the chunk staging
+
+# (n_time, n_channel) by the mesh's name, channels x time: the dp steps cut their
+# batch over ch ("4x1", "2x2"), the wideband receiver its stream over t ("1x4", "2x2")
+MC_MESHES = {"4x1": (1, 4), "1x4": (4, 1), "2x2": (2, 2)}
+BATCH_MESHES = ("4x1", "2x2")
+TIME_MESHES = ("1x4", "2x2")
+MC_RADAR = dict(n_pulses=16, n_range=256, pulse_len=32, guard=(1, 2), train=(2, 4), pfa=1e-3)
+MC_RADAR_BATCH = 8
+MC_BEAM = dict(n_sensors=6, n_grid=91)
+MC_BEAM_BATCH, MC_BEAM_SNAPS = 8, 128
+BEAM_METHODS = ("bartlett", "mvdr", "music")
+# name: (n_channels, audio_taps, squelch, kind); the stream's length by wideband_len
+WIDE = {
+    "ref": (16, 33, 0.1, "noise"),  # tests/test_wideband.py:51: 16 x 2048 samples
+    "tight": (16, 33, 0.1, "noise"),  # shards of 1024 samples, the halo 768 of them
+    "fm": (16, 33, 0.2, "fm"),  # an FM tone on channel 5: the squelch mutes the rest
+}
+WIDE_TIGHT_SHARD = 1024
+# blocks of unequal length over the 1x4 mesh, the FM case's 32768 samples
+WIDE_UNEVEN = (4096, 12288, 6144, 10240)
+MC_WAV_FRAMES = (5000, 3001)  # two stereo files, the second an odd frame count
+MC_CHUNK = 4096
+
+
+def radar_batch(batch: int = MC_RADAR_BATCH) -> tuple[np.ndarray, np.ndarray]:
+    from digital_signal_processsing_tpu_torch.models import radar
+
+    cfg = radar.RadarConfig(**MC_RADAR)
+    i = np.empty((batch, cfg.n_pulses, cfg.n_range), np.float32)
+    q = np.empty_like(i)
+    for b in range(batch):
+        i[b], q[b] = radar.synthesize(cfg, [(40 + 20 * b, 0.25 - 0.0625 * b, 1.0), (150, 0.0, 0.5)],
+                                      noise_power=0.02, seed=b)
+    return i, q
+
+
+def beam_batch() -> tuple[np.ndarray, np.ndarray]:
+    from digital_signal_processsing_tpu_torch.models import beamform
+
+    cfg = beamform.ArrayConfig(**MC_BEAM)
+    blocks = [beamform.synthesize(cfg, [-30.0 + 7.0 * b, 25.0], MC_BEAM_SNAPS, seed=b)
+              for b in range(MC_BEAM_BATCH)]
+    return np.stack([b[0] for b in blocks]), np.stack([b[1] for b in blocks])
+
+
+def wideband_len(name: str, n_time: int) -> int:
+    return WIDE_TIGHT_SHARD * n_time if name == "tight" else WIDE[name][0] * 2048
+
+
+def wideband_input(name: str, n_time: int) -> np.ndarray:
+    n, _, _, kind = WIDE[name]
+    t = wideband_len(name, n_time)
+    if kind == "noise":
+        return np.random.default_rng(0xD5B).normal(size=t).astype(np.float32)
+    idx = np.arange(t)  # tests/test_wideband.py:11-16, channel 5
+    msg = np.sin(2 * np.pi * 0.002 * idx)
+    return np.cos(2 * np.pi * (5 / n) * idx + (0.1 / n) * 2 * np.pi * np.cumsum(msg)).astype(np.float32)
+
+
+def wav_stream() -> np.ndarray:
+    return stream(31, sum(MC_WAV_FRAMES), 2)
+
+
+def _mc_wavs(where: Path) -> list[Path]:
+    from digital_signal_processsing_tpu_torch.io import write_wav
+
+    x, paths, at = wav_stream(), [], 0
+    where.mkdir(parents=True, exist_ok=True)
+    for i, frames in enumerate(MC_WAV_FRAMES):
+        paths.append(where / f"in{i}.wav")
+        write_wav(paths[-1], x[2 * at : 2 * (at + frames)], 8000, 2)
+        at += frames
+    return paths
+
+
+def _mc_receivers(taps_file: Path, device: str = "cpu") -> dict:
+    """The suite's receivers with the JAX package's taps (the test writes them)."""
+    from digital_signal_processsing_tpu_torch.models import WidebandConfig, wideband_from_jax
+
+    taps = np.load(taps_file)
+    out = {}
+    for name, (n, a, squelch, _) in WIDE.items():
+        params = {"prototype": taps[f"{n}/{a}/prototype"], "audio_taps": taps[f"{n}/{a}/audio"]}
+        out[name] = wideband_from_jax(params, WidebandConfig(n_channels=n, audio_taps=a,
+                                                             squelch=squelch), device=device)
+    return out
+
+
+def _cases_multichip(par, out: dict, store: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from digital_signal_processsing_tpu_torch.harness.profile import time_phases
+    from digital_signal_processsing_tpu_torch.io import WavChunkLoader, device_chunks
+    from digital_signal_processsing_tpu_torch.models import beamform, radar
+
+    meshes = {name: par.make_mesh(n_time=t, n_channel=c, device="cpu")
+              for name, (t, c) in MC_MESHES.items()}
+    rcfg = radar.RadarConfig(**MC_RADAR)
+    ri, rq = radar_batch()
+    bcfg = beamform.ArrayConfig(**MC_BEAM)
+    bi, bq = beam_batch()
+    for m in BATCH_MESHES:
+        det, power, thresh = radar.detect_batch(rcfg, ri, rq, mesh=meshes[m])
+        out[f"radar/{m}"] = (det.numpy(), power.numpy(), thresh.numpy())
+        for method in BEAM_METHODS:
+            out[f"beam/{method}/{m}"] = beamform.spectrum_batch(
+                bcfg, bi, bq, method=method, n_sources=2, mesh=meshes[m]).numpy()
+    receivers = _mc_receivers(Path(store).parent / "wideband_taps.npz")
+    for m in TIME_MESHES:
+        flat = par.time_sharding(meshes[m])
+        for name, rx in receivers.items():
+            x = torch.from_numpy(wideband_input(name, meshes[m].n_time))
+            out[f"wide/{name}/{m}"] = flat.gather(par.sharded_wideband(rx, flat.shard(x),
+                                                                       meshes[m])).numpy()
+    mesh = meshes["1x4"]
+    edges = np.cumsum((0, *WIDE_UNEVEN))
+    x = torch.from_numpy(wideband_input("fm", mesh.n_time))[edges[mesh.t] : edges[mesh.t + 1]]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, par.sharded_wideband(receivers["fm"], x, mesh).numpy())
+    out["wide/fm/uneven"] = np.concatenate(every, axis=1)
+    paths = _mc_wavs(Path(store).parent / f"wavs{dist.get_rank()}")
+    for m in TIME_MESHES:
+        sharding = par.time_sharding(meshes[m])
+        mine = [c.numpy() for c in device_chunks(WavChunkLoader(paths, MC_CHUNK), device="cpu",
+                                                 sharding=sharding)]
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        out[f"chunks/{m}"] = every
+    rx = receivers["tight"]
+    errors = {
+        "radar_uneven": lambda: radar.detect_batch(rcfg, ri[:6], rq[:6], mesh=meshes["4x1"]),
+        "beam_uneven": lambda: beamform.spectrum_batch(bcfg, bi[:3], bq[:3], mesh=meshes["2x2"]),
+        "not_a_mesh": lambda: radar.detect_batch(rcfg, ri, rq, mesh=object()),
+        "wide_halo": lambda: par.sharded_wideband(rx, torch.zeros(512), meshes["1x4"]),
+        "wide_grid": lambda: par.sharded_wideband(rx, torch.zeros(1032), meshes["1x4"]),
+        "wide_flat": lambda: par.sharded_wideband(rx, torch.zeros(2, 1024), meshes["1x4"]),
+        "chunks_uneven": lambda: list(device_chunks(WavChunkLoader(paths, MC_CHUNK + 2),
+                                                    sharding=par.time_sharding(meshes["1x4"]))),
+        "chunks_not_sharding": lambda: device_chunks(WavChunkLoader(paths, MC_CHUNK),
+                                                     device="cpu", sharding=object()),
+        "time_phases_cpu": lambda: time_phases(lambda v: v, np.zeros(64, np.int16),
+                                               sharding=par.time_sharding(meshes["1x4"])),
+    }
+    for name, fn in errors.items():
+        try:
+            fn()
+            out[f"error/{name}"] = None
+        except Exception as err:  # noqa: BLE001 - every rank records the same refusal
+            out[f"error/{name}"] = ("error", type(err).__name__, str(err))
+
+
+# the multi-card surface on the card: every rank on cuda:0, time-slicing it
+MC_GPU_AVG = (1 << 22, 1024, 2)  # samples, window, channels
+MC_GPU_WIDE = (64, 1 << 18)  # channels (B19's envelope), samples
+
+
+def _cases_multichip_gpu(par, out: dict, store: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from digital_signal_processsing_tpu_torch.harness.profile import time_phases
+    from digital_signal_processsing_tpu_torch.io import WavChunkLoader, device_chunks
+    from digital_signal_processsing_tpu_torch.models import WidebandConfig, WidebandFmReceiver, radar
+    from digital_signal_processsing_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    mesh = par.make_mesh(device="cuda")
+    mesh22 = par.make_mesh(n_time=2, n_channel=2, device="cuda")
+    flat, dev = par.time_sharding(mesh), mesh.device
+    n, k, c = MC_GPU_AVG
+    x = stream(41, n // c, c)
+    reset_launch_counts()
+    res = time_phases(lambda v: par.sharded_moving_average(v, k, c, mesh=mesh,
+                                                           halo_impl="fused_ring"),
+                      x, sharding=flat, warmup=1, rounds=3)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, dataclasses.asdict(res))
+    out["time_phases"] = every
+    out["avg"] = flat.gather(par.sharded_moving_average(flat.shard(torch.from_numpy(x).to(dev)),
+                                                        k, c, mesh=mesh)).cpu().numpy()
+    ri, rq = radar_batch()
+    rcfg = radar.RadarConfig(**MC_RADAR)
+    out["radar"] = [v.cpu().numpy() for v in radar.detect_batch(rcfg, ri, rq, mesh=mesh22)]
+    out["radar/one_card"] = [v.cpu().numpy() for v in radar.detect_batch(rcfg, ri, rq, device=dev)]
+    nw, tw = MC_GPU_WIDE
+    rx = WidebandFmReceiver(WidebandConfig(n_channels=nw), device=dev)
+    xw = torch.from_numpy(np.random.default_rng(9).normal(size=tw).astype(np.float32)).to(dev)
+    out["wide"] = flat.gather(par.sharded_wideband(rx, flat.shard(xw), mesh)).cpu().numpy()
+    out["wide/one_card"] = rx(xw).cpu().numpy()
+    paths = _mc_wavs(Path(store).parent / f"wavs{dist.get_rank()}")
+    out["chunks"] = [flat.gather(ch).cpu().numpy() for ch in device_chunks(
+        WavChunkLoader(paths, MC_CHUNK), sharding=flat)]
+    torch.cuda.synchronize()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, launch_counts())
+    out["counts"] = every
+    mesh.close()
+
+
 SUITES = {
     "averager": _cases_averager,
     "training": _cases_training,
@@ -514,7 +715,11 @@ SUITES = {
     "world1": _cases_world1,
     "fir": _cases_fir,
     "tv": _cases_tv,
+    "multichip": _cases_multichip,
+    "multichip_gpu": _cases_multichip_gpu,
 }
+# suites that also take the path of the FileStore (their inputs lie beside it)
+WITH_STORE = ("multichip", "multichip_gpu")
 
 
 def main(argv: list[str]) -> None:
@@ -531,7 +736,10 @@ def main(argv: list[str]) -> None:
     from digital_signal_processsing_tpu_torch import parallel as par
 
     out: dict = {}
-    SUITES[suite](par, out)
+    if suite in WITH_STORE:
+        SUITES[suite](par, out, store)
+    else:
+        SUITES[suite](par, out)
     if rank == 0:
         with open(out_path, "wb") as f:
             pickle.dump(out, f)
