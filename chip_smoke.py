@@ -355,9 +355,26 @@ failure exits non-zero:
    and ``dryrun_multiprocess(4)`` on the card. Phase 8's world of one runs the
    same entry points bit for bit against their one-card calls.
 
+15. parity with the JAX package, the counts reset around its main path:
+   ``time_phases(chain=16)`` of ``moving_average`` on the 64M stream at k=1024,
+   resident (B1; the reference's K-differential of chains of 16 and 4 calls, each on
+   the last one's output, a cross-check), the same chains with each call on the
+   stream itself, and ``chain=1``, beside phase 5's event median, each finite and
+   positive and B1's launches exactly the chains'; the reference's planar
+   DFT functions at its own shapes (``rfft_dense_framed`` on 8 x 2^21 at nfft 512 and
+   4096, hop nfft / 4, hann; ``dft_factored`` on 8 rows of 32768; ``fft_large`` on
+   one row of 2^22 and its inverse), each within 1e-4 of max|X| of float64 NumPy on
+   a slice, with its device ms; ``causal_conv`` (strides 1 and 4) and
+   ``interp_conv`` (up 2) on 16 x 2^22 at 257 taps against ``fir_filter``'s B8
+   route, within 1e-4 of max|y|, and their times beside B8's; F6 (``convolve2d`` and
+   ``correlate2d`` valid with a kernel larger than the image), F7 (``chirp`` of 0
+   samples) and F8 (``levinson`` of a NumPy array) on the card; then ``python -m
+   digital_signal_processsing_tpu_torch.harness.sweep --smoke --chain 4`` in a
+   process of its own, exit 0 and 35 rows of 14 columns.
+
 Each phase prints its seconds. The last two lines are the kernels' JSON
 record (B1-B22, S1, S2 and S3, each with
-its launches on the main paths, phases 13's and 14's added, max abs error, device ms, plain ms,
+its launches on the main paths, phases 13's to 15's added, max abs error, device ms, plain ms,
 bound ms and library ms) and ``{"ok": true, "device": {...}}``.
 """
 
@@ -5549,6 +5566,181 @@ def multicard_world1(mesh, x: torch.Tensor, y_main: torch.Tensor, wide_main: dic
           f"ms a round, d2h {res.d2h_ms / res.rounds:.3f} ms")
 
 
+# --- phase 15: parity with the JAX package: the harness's K-differential timer, the planar DFT
+# functions, the renamed convolutions and F6-F8 ------------------------------------------------
+PARITY_CHAIN = 16  # time_phases(chain=) on B1: chains of 16 and 4 calls a round
+PARITY_SWEEP_CHAIN = 4
+PARITY_RTOL = 1e-4  # of max|X| (max|y|), against float64 NumPy on a slice (fir_filter's B8)
+PARITY_STFT = (8, 1 << 21)  # the reference's stft point (its fft_mxu.py:120-125), hop nfft / 4
+PARITY_NFFTS = (512, 4096)
+PARITY_FACTORED = (8, 32768)
+PARITY_LARGE_N = 1 << 22
+PARITY_CONV = (16, 1 << 22, 257)  # channels, samples, taps
+PARITY_SLICE = 64  # rows or frames held against float64
+
+
+def parity_dft_cases(dev, gen) -> dict:
+    """name -> (call, float64 reference of the first PARITY_SLICE rows of the first plane or
+    channel, those rows of the call's output): the reference's planar DFT functions at its
+    own shapes."""
+    cases = {}
+    xs = torch.randn(*PARITY_STFT, generator=gen, device=dev)
+    for nfft in PARITY_NFFTS:
+        hop = nfft // 4
+        frames = (PARITY_STFT[1] - nfft) // hop + 1
+        w = spec.spectral_window("hann", nfft)
+        x0 = xs[0, : (PARITY_SLICE - 1) * hop + nfft].double().cpu().numpy()
+        fr = np.stack([x0[i * hop : i * hop + nfft] for i in range(PARITY_SLICE)])
+        cases[f"rfft_dense_framed nfft={nfft} (8, 2^21)"] = (
+            lambda hop=hop, nfft=nfft, frames=frames, w=w: fm.rfft_dense_framed(
+                xs, frames, hop, nfft, w),
+            lambda fr=fr, w=w: np.fft.rfft(fr * w, axis=-1),
+            lambda re, im: (re[0, :PARITY_SLICE], im[0, :PARITY_SLICE]),
+        )
+    xr, xi = (torch.randn(*PARITY_FACTORED, generator=gen, device=dev) for _ in range(2))
+    cases["dft_factored (8, 32768)"] = (
+        lambda: fm.dft_factored(xr, xi),
+        lambda: np.fft.fft(xr[:2].double().cpu().numpy() + 1j * xi[:2].double().cpu().numpy()),
+        lambda re, im: (re[:2], im[:2]),
+    )
+    zr, zi = (torch.randn(1, PARITY_LARGE_N, generator=gen, device=dev) for _ in range(2))
+    z64 = zr.double().cpu().numpy() + 1j * zi.double().cpu().numpy()
+    cases["fft_large (1, 2^22)"] = (
+        lambda: fm.fft_large(zr, zi), lambda: np.fft.fft(z64), lambda re, im: (re, im))
+    cases["fft_large inverse (1, 2^22)"] = (
+        lambda: fm.fft_large(zr, zi, inverse=True), lambda: np.fft.ifft(z64),
+        lambda re, im: (re, im))
+    return cases
+
+
+def phase_parity(dev, x: torch.Tensor, b1_ms: float, smi: str) -> dict:
+    """Parity with the JAX package, its counts reset around its main path: ``time_phases(
+    chain=16)`` (the reference's K-differential cross-check), the same with each call on the
+    stream itself, and ``chain=1`` of the averager on the 64M stream at k=1024 (B1) beside
+    phase 5's event median; the reference's planar
+    DFT functions at its own shapes; ``causal_conv`` (strides 1 and 4) and ``interp_conv`` on
+    16 x 2^22 at 257 taps against ``fir_filter``'s B8 route; F6, F7 and F8 on the card. Then,
+    outside the counted run, the sweep's command line with ``--smoke --chain 4`` in a process
+    of its own (14-column rows), and each DFT against float64 NumPy on a slice with its
+    device ms."""
+    from digital_signal_processsing_tpu_torch.harness import time_phases
+    from digital_signal_processsing_tpu_torch.harness.profile import (
+        MEASUREMENT_ROUNDS, WARMUP_ROUNDS,
+    )
+    from digital_signal_processsing_tpu_torch.ops import signal as gen_ops, twod
+
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    host = x.cpu().numpy()
+    dft = parity_dft_cases(dev, gen)
+    c, t, k = PARITY_CONV
+    xc = torch.randn(c, t, generator=gen, device=dev)
+    h = torch.from_numpy(fir.design_lowpass(k, 0.2).astype(np.float32)).to(dev)
+    stuffed = torch.zeros_like(xc)
+    stuffed[:, ::2] = xc[:, : t // 2]
+    convs = {  # name -> (the call, fir_filter's B8 route on the same input)
+        "causal_conv": (lambda: fir.causal_conv(xc, h),
+                        lambda: fir.fir_filter(xc, h, method="overlap_save_fused")),
+        "interp_conv up=2": (lambda: fir.interp_conv(xc[:, : t // 2], h, up=2),
+                             lambda: fir.fir_filter(stuffed, h, method="overlap_save_fused")),
+    }
+
+    reset_launch_counts()
+    averager = lambda v: moving_average(v, MAIN_WINDOW, 2)  # noqa: E731
+    kdiff = time_phases(averager, host, resident=True, chain=PARITY_CHAIN).averaged().compute_ms
+    # the same chains with every call on the stream itself, as phase 5's events time it
+    same = time_phases(lambda v: averager(x), host, resident=True,
+                       chain=PARITY_CHAIN).averaged().compute_ms
+    one = time_phases(averager, host, resident=True).averaged().compute_ms
+    outs = {name: call() for name, (call, _, _) in dft.items()}
+    ys = {name: (call(), b8()) for name, (call, b8) in convs.items()}
+    ys["causal_conv stride=4"] = (fir.causal_conv(xc, h, stride=4), ys["causal_conv"][1][:, ::4])
+    empties = {
+        (3, 3, 4, 5): twod.convolve2d(torch.ones(3, 3, device=dev), torch.ones(4, 5, device=dev),
+                                      "valid"),
+        (2, 3, 6, 4, 2): twod.correlate2d(torch.ones(2, 3, 6, device=dev),
+                                          torch.ones(4, 2, device=dev), "valid", "symm"),
+        0: gen_ops.chirp(10.0, 100.0, 0),
+    }
+    lev = lpc.levinson(np.array([[4.0, 2.0, 1.0, 0.5]], np.float32))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+
+    small = max(PARITY_CHAIN // 4, 1)
+    want_b1 = (2 * ((1 + WARMUP_ROUNDS) * PARITY_CHAIN + MEASUREMENT_ROUNDS * (PARITY_CHAIN + small))
+               + 1 + WARMUP_ROUNDS + MEASUREMENT_ROUNDS)
+    if launches["B1"] != want_b1 or launches["B8"] != len(convs):
+        raise AssertionError(f"[15 parity] launches {launches}; want B1 {want_b1}, B8 {len(convs)}")
+    if not all(np.isfinite(v) and v > 0 for v in (kdiff, same, one)):
+        raise AssertionError(f"[15 parity] time_phases compute: chain={PARITY_CHAIN} {kdiff}, "
+                             f"on the stream itself {same}, chain=1 {one}")
+    print(f"[15 parity] B1 k={MAIN_WINDOW} on the 64M stream, resident, {smi}: time_phases("
+          f"chain={PARITY_CHAIN}), the K-differential of {PARITY_CHAIN} and {small} calls a "
+          f"round, each on the last one's output, {kdiff:.4f} ms; the same chains with each "
+          f"call on the stream itself {same:.4f} ms; chain=1 (events around one call) "
+          f"{one:.4f} ms; phase 5's event median {b1_ms:.4f} ms; K-differential / events "
+          f"{kdiff / b1_ms:.3f}, on the stream itself {same / b1_ms:.3f}; launches "
+          f"{({n: v for n, v in launches.items() if v})}")
+    for name, (got, want) in ys.items():
+        scale = want.abs().max().item()
+        e = (got - want).abs().max().item() if got.shape == want.shape else float("inf")
+        if not e <= PARITY_RTOL * scale:
+            raise AssertionError(f"[15 parity] {name}: {tuple(got.shape)} against B8's "
+                                 f"{tuple(want.shape)}, max error {e:.3e} of max|y| {scale:.3e}")
+        print(f"[15 parity] {name} on {c} x 2^{t.bit_length() - 1} at {k} taps against "
+              f"fir_filter's B8 route: max error {e / scale:.3e} of max|y|")
+    shapes = {key: (str(v.device), v.dtype, tuple(v.shape)) for key, v in empties.items()}
+    want = {(3, 3, 4, 5): (0, 0), (2, 3, 6, 4, 2): (2, 0, 5), 0: (0,)}
+    if any(shapes[key][1:] != (torch.float32, want[key]) or not v.is_cuda
+           for key, v in empties.items()) or not all(v.is_cuda for v in lev):
+        raise AssertionError(f"[15 parity] F6/F7 on the card: {shapes}; F8: levinson of a "
+                             f"NumPy array on {lev[0].device}")
+    print(f"[15 parity] F6 convolve2d (3, 3) by (4, 5) valid {shapes[(3, 3, 4, 5)]}, "
+          f"correlate2d (2, 3, 6) by (4, 2) valid {shapes[(2, 3, 6, 4, 2)]}; F7 chirp of 0 "
+          f"samples {shapes[0]}; F8 levinson of a NumPy array on {lev[0].device}")
+
+    # the DFT functions against float64 on a slice, and their device ms
+    for name, (call, want64, part) in dft.items():
+        re, im = part(*outs[name])
+        got = re.double().cpu().numpy() + 1j * im.double().cpu().numpy()
+        ref = want64()
+        e = float(np.abs(got - ref).max() / np.abs(ref).max()) if got.shape == ref.shape else 1.0
+        if not e <= PARITY_RTOL:
+            raise AssertionError(f"[15 parity] {name}: {got.shape} against {ref.shape}, error "
+                                 f"{e:.3e} of max|X|")
+        ms = statistics.median(device_ms(call, 2, 5))
+        print(f"[15 parity] {name}: {ms:.4f} ms (median of 5); output {tuple(outs[name][0].shape)}"
+              f" x 2 planes; error {e:.3e} of max|X| against float64 NumPy on a slice")
+    for name, (call, b8) in convs.items():
+        ms, b8_ms = time_pair(call, b8, warmup=1, reps=3)
+        print(f"[15 parity] {name} (conv1d, IEEE float32) {ms:.4f} ms; fir_filter's B8 route "
+              f"{b8_ms:.4f} ms (medians of 6 and 6, in turns)")
+
+    # the sweep's command line with --chain, in a process of its own
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = Path(tmp) / "sweep.csv"
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-m", "digital_signal_processsing_tpu_torch.harness.sweep", "--smoke",
+             "--chain", str(PARITY_SWEEP_CHAIN), "--out", str(csv)],
+            capture_output=True, text=True, timeout=300, cwd=Path(__file__).resolve().parent,
+        )
+        rows = csv.read_text().splitlines() if csv.is_file() else []
+        want_rows = 1 + (6 + 6 + 4) * 2 + 3  # phase 4's smoke grid
+        if done.returncode != 0 or len(rows) != want_rows or rows[0] != CSV_COLUMNS or any(
+                len(r.split(",")) != 14 for r in rows):
+            raise AssertionError(f"[15 parity] sweep --smoke --chain {PARITY_SWEEP_CHAIN}: exit "
+                                 f"{done.returncode}, {len(rows)} lines (want {want_rows} of 14 "
+                                 f"columns)\n{done.stderr[-2000:]}")
+        resident = [r.split(",") for r in rows[1:] if ",resident,100000,128," in r]
+        print(f"[15 parity] sweep --smoke --chain {PARITY_SWEEP_CHAIN}: exit 0 in "
+              f"{time.perf_counter() - t0:.1f} s, {len(rows) - 1} rows of 14 columns; resident "
+              f"k=128 compute ms {', '.join(f'{r[0]} {r[6]}' for r in resident)}")
+    seconds = time.perf_counter() - t_start
+    print(f"[15 parity] phase 15 took {seconds:.1f} s")
+    return {"launches": launches, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5904,6 +6096,11 @@ def main() -> int:
     multicard = phase_multicard(dev, x, y_main, wav, 2 * frames_a, wide_main, smi)
     mark("14 multi-card surface")
 
+    # 15. parity with the JAX package: the K-differential timer, the planar DFT functions,
+    # the renamed convolutions and F6-F8
+    parity = phase_parity(dev, x, b1_ms, smi)
+    mark("15 parity")
+
     def entry(name, kernel, source, replaces, ms, plain_ms, library_ms=None):
         return {
             "name": name, "route": "cuda", "source": SOURCE + source, "replaces": replaces,
@@ -6056,9 +6253,9 @@ def main() -> int:
             },
         ]
     }
-    for e in record["kernels"]:  # phases 13 and 14 launch kernels of earlier slices
-        e["launches"] += (rest["launches"][ENTRY_KERNELS[e["name"]]]
-                          + multicard["launches"][ENTRY_KERNELS[e["name"]]])
+    for e in record["kernels"]:  # phases 13-15 launch kernels of earlier slices
+        e["launches"] += sum(part["launches"][ENTRY_KERNELS[e["name"]]]
+                             for part in (rest, multicard, parity))
     print(json.dumps(record))
     print(json.dumps({
         "ok": True,

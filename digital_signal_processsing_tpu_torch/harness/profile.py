@@ -20,6 +20,13 @@ outside the timed spans), the counterpart of the reference's ``put``
 through a sharding and its wait on the global array. Every rank reports the
 same numbers.
 
+With ``chain=K > 1`` the compute phase is the reference's K-differential
+cross-check: each round times K applications of ``fn`` (each on the last's
+output) and then K // 4 of them, both queued back to back on the stream from
+the same input, and takes the slope (:func:`k_differential`), which cancels
+what a call costs once whatever its length. The events above are the primary
+timer; the slope checks them.
+
 Timing needs a card: on any other device :func:`time_phases` raises.
 """
 
@@ -112,6 +119,38 @@ class ProfileResult:
         )
 
 
+def chain_lengths(chain: int) -> tuple[int, int]:
+    """The two chain lengths of a K-differential round: (K, max(K // 4, 1))."""
+    if chain < 1:
+        raise ValueError(f"chain must be >= 1, got {chain}")
+    return chain, max(chain // 4, 1)
+
+
+def k_differential(big_ms: float, small_ms: float, chain: int) -> float:
+    """Per-application ms from a round's two timed chains, the reference's slope:
+    max((t_K - t_small) / (K - small), 0) with (K, small) from :func:`chain_lengths`."""
+    big, small = chain_lengths(chain)
+    return max((big_ms - small_ms) / (big - small), 0.0)
+
+
+def chained(fn: Callable[[torch.Tensor], torch.Tensor], k: int):
+    """``fn`` applied ``k`` times, each call on the last one's output; refuses an
+    ``fn`` that does not keep its input's shape and dtype."""
+
+    def run(x: torch.Tensor) -> torch.Tensor:
+        y = x
+        for _ in range(k):
+            y = fn(y)
+            if y.shape != x.shape or y.dtype != x.dtype:
+                raise ValueError(
+                    f"chain needs fn to keep shape and dtype: {x.dtype}{tuple(x.shape)} became "
+                    f"{y.dtype}{tuple(y.shape)}"
+                )
+        return y
+
+    return run
+
+
 def time_phases(
     fn: Callable[[torch.Tensor], torch.Tensor],
     host_input: np.ndarray,
@@ -121,6 +160,7 @@ def time_phases(
     rounds: int = MEASUREMENT_ROUNDS,
     resident: bool = False,
     sharding=None,
+    chain: int = 1,
 ) -> ProfileResult:
     """Warm-up-then-average phase-split benchmark (benchmark.h:116-132 analog).
 
@@ -134,7 +174,13 @@ def time_phases(
     ``sharding``: ``fn`` takes this rank's shard and returns this rank's
     output shard; the phases are the slowest rank's (module docstring), and
     ``device`` is the mesh's.
+
+    ``chain > 1``: compute is the K-differential slope of each round (module
+    docstring) and ``fn`` must keep shape and dtype; d2h fetches the long
+    chain's output. ``chain=1`` times one call.
     """
+    big, small = chain_lengths(chain)
+    run_big = fn if chain == 1 else chained(fn, big)
     if sharding is not None:
         device = sharding.mesh.device
     dev = resolve_device(device)
@@ -158,30 +204,38 @@ def time_phases(
 
     t0 = time.perf_counter()
     x = put()
-    fn(x)
+    run_big(x)
     torch.cuda.synchronize(dev)
     res.initialization_ms = (time.perf_counter() - t0) * 1e3
 
     for _ in range(warmup):
-        fetch(fn(x if resident else put()))
+        fetch(run_big(x if resident else put()))
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+
+    def timed(run) -> tuple[torch.Tensor, float]:
+        start.record()
+        out = run(x)
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    run_small = None if chain == 1 else chained(fn, small)
     for _ in range(rounds):
         t0 = time.perf_counter()
         if not resident:
             x = put()
             torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
-        start.record()
-        out = fn(x)
-        end.record()
-        end.synchronize()
+        out, compute_ms = timed(run_big)
         t2 = time.perf_counter()
         fetch(out)
         t3 = time.perf_counter()
+        if run_small is not None:
+            compute_ms = k_differential(compute_ms, timed(run_small)[1], chain)
         h2d_ms = 0.0 if resident else (t1 - t0) * 1e3
-        res.accumulate(*slowest([h2d_ms, start.elapsed_time(end), (t3 - t2) * 1e3]))
+        res.accumulate(*slowest([h2d_ms, compute_ms, (t3 - t2) * 1e3]))
     res.initialization_ms = slowest([res.initialization_ms])[0]
     return res
 
@@ -233,5 +287,6 @@ def trace(fn: Callable[[], object], trace_dir, *, warmup: int = 1) -> Path:
 
 
 __all__ = [
-    "ProfileResult", "time_phases", "benchmark", "trace", "WARMUP_ROUNDS", "MEASUREMENT_ROUNDS",
+    "ProfileResult", "time_phases", "chain_lengths", "k_differential", "chained", "benchmark",
+    "trace", "WARMUP_ROUNDS", "MEASUREMENT_ROUNDS",
 ]

@@ -5,9 +5,11 @@ card). The reference picks a DFT engine with ``method``: ``xla`` (jnp.fft)
 or ``mxu`` (its factored-DFT matmuls for the TPU's matrix unit), ``auto``
 choosing ``mxu`` on a TPU only. The port accepts the same three names and
 raises on any other, as the reference does, and computes all three with
-``torch.fft``: cuFFT is the card's native transform, and the reference's
+``torch.fft``: cuFFT is the card's native transform. The reference's
 matmul engines (``fft_mxu.dft_factored``, ``fft_large``, ``rfft_dense``,
-``rfft_dense_framed``, ``irfft_dense``) are not ported. So ``method="mxu"``
+``rfft_dense_framed``, ``irfft_dense``) are in the port's ``fft_mxu`` as
+``torch.fft`` calls under the same contract, and no route here goes through
+them. So ``method="mxu"``
 here differs from the reference's ``mxu`` by that engine's rounding (about
 1e-5 of the output on its TPU at HIGH precision, ROADMAP H3; about 2e-7
 on the CPU), and from its ``xla`` not at all.

@@ -20,8 +20,13 @@ the same causal FIR with FFTs of its own, in its own segments:
 - :func:`overlap_save_plain` the plain version of both, the same segments
   and the same spectrum of the taps with ``torch.fft``;
 - :func:`overlap_save_mxu` the reference's XLA-composed matmul DFT route,
-  here the plain ``torch.fft`` overlap-save (the matmul DFT engines
-  ``dft_factored``, ``fft_large``, ``rfft_dense`` are not ported).
+  here the plain ``torch.fft`` overlap-save;
+- the reference's planar DFT functions (:func:`dft_factored`,
+  :func:`fft_large`, :func:`rfft_dense`, :func:`irfft_dense`,
+  :func:`rfft_dense_framed`) with its names, arguments, limits and
+  refusals, computed by ``torch.fft`` (cuFFT on the card) in IEEE float32:
+  the matrix-unit matmuls that spell them on the TPU are not ported, and
+  ``ops/fft.py`` does not route through them.
 
 A segment of ``block`` kept samples reads the k-1 samples before it too, so
 nfft is the power of two >= block + k - 1. Each wrapper takes its plain
@@ -40,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.device import as_tensor
 from ..utils.dispatch import refuse_grad
 from ..utils.layout import cdiv
 from .fir import _as_planar, _pick_block, _taps_on, overlap_save_frames
@@ -431,7 +437,113 @@ def overlap_save_mxu(x: torch.Tensor, taps, *, block: int, n1: int = 128) -> tor
     return y[0] if squeeze else y
 
 
+# The reference's limits of its matmul DFT engines, kept as its contract: the
+# factored DFT's largest single-level length (also each factor of fft_large)
+# and the dense real DFT's largest length.
+FACTORED_MAX_N = 32768
+DENSE_RFFT_MAX_N = 4096
+
+
+def _complex_in(x_re, x_im, device) -> torch.Tensor:
+    """Planar ``(x_re, x_im)`` as one complex64 tensor (``x_im=None``: the real
+    float32 one) on ``x_re``'s device, or ``device`` for NumPy input."""
+    re = as_tensor(x_re, device).to(torch.float32)
+    if x_im is None:
+        return re
+    return torch.complex(re, as_tensor(x_im, re.device).to(re.device, torch.float32))
+
+
+def _planar(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return z.real.contiguous(), z.imag.contiguous()
+
+
+def _dft(z: torch.Tensor, inverse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward DFT, or the inverse with its 1/N, over the last axis."""
+    return _planar(torch.fft.ifft(z) if inverse else torch.fft.fft(z))
+
+
+def dft_factored(x_re, x_im, *, n1: int = 128, inverse: bool = False,
+                 device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """Planar complex DFT over the last axis (the reference's two-stage matmul DFT).
+
+    ``x_im=None`` marks a real input. Returns planar float32 ``(re, im)``; the
+    inverse applies the 1/N scale. The last axis must be a multiple of ``n1``,
+    as in the reference, which factors N = n1 * (N / n1); here ``torch.fft``
+    computes it. A tensor stays on its device; NumPy input goes to ``device``.
+    """
+    n = np.shape(x_re)[-1]
+    if n % n1 != 0:
+        raise ValueError(f"factored DFT needs len % {n1} == 0, got {n}")
+    return _dft(_complex_in(x_re, x_im, device), inverse)
+
+
+def _check_large_length(n: int) -> None:
+    """The reference's refusals of its four-step split n = n1 * n2, both factors
+    multiples of 128 and at most FACTORED_MAX_N."""
+    if n % (128 * 128) != 0:
+        raise ValueError(
+            f"fft_large needs len % {128 * 128} == 0, got {n} "
+            "(use dft_factored / torch.fft for short transforms)"
+        )
+    m, most = n // (128 * 128), FACTORED_MAX_N // 128  # n1 = 128 d, n2 = 128 m / d
+    if not any(m % d == 0 and m // d <= most for d in range(1, most + 1)):
+        raise ValueError(
+            f"no balanced 128-multiple factorization of {n} with both factors <= {FACTORED_MAX_N}"
+        )
+
+
+def fft_large(x_re, x_im, *, inverse: bool = False,
+              device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """Planar complex DFT for large n (the reference's four-step split of two
+    factored DFTs): n a multiple of 128^2 with a split both of whose factors are
+    at most FACTORED_MAX_N, else the reference's ``ValueError``. ``torch.fft``
+    computes it; the arguments and outputs are :func:`dft_factored`'s."""
+    _check_large_length(np.shape(x_re)[-1])
+    return _dft(_complex_in(x_re, x_im, device), inverse)
+
+
+def rfft_dense(x, *, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """Real ``(..., n)`` -> planar ``(re, im)`` half spectrum ``(..., n//2 + 1)``, float32."""
+    return _planar(torch.fft.rfft(as_tensor(x, device).to(torch.float32)))
+
+
+def irfft_dense(s_re, s_im, nfft: int, *, device="cuda") -> torch.Tensor:
+    """Planar half spectrum ``(..., nfft//2 + 1)`` -> real ``(..., nfft)``, with the
+    1/nfft scale; the imaginary parts of the DC and (even nfft) Nyquist bins are
+    dropped, as the reference's synthesis matrices drop them."""
+    return torch.fft.irfft(_complex_in(s_re, s_im, device), n=nfft)
+
+
+def rfft_dense_framed(x, num_frames: int, hop: int, nfft: int, window, *,
+                      detrend: bool = False, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """Windowed framed real DFT: ``out[..., i, k] = sum_t w[t] x[..., i*hop + t] W[t, k]``.
+
+    The reference's contract: ``hop`` divides ``nfft`` and is a multiple of
+    128; a signal shorter than ``(num_frames - 1) * hop + nfft`` is padded
+    with zeros; ``detrend`` removes each frame's mean before the window.
+    Returns planar float32 ``(re, im)``, each ``(..., num_frames, nfft//2 + 1)``.
+    """
+    if nfft % hop or hop % 128:
+        raise ValueError(f"need hop | nfft and 128 | hop, got {nfft=} {hop=}")
+    xf = as_tensor(x, device).to(torch.float32)
+    need = (num_frames + nfft // hop - 1) * hop
+    if xf.shape[-1] < need:
+        xf = torch.nn.functional.pad(xf, (0, need - xf.shape[-1]))
+    frames = xf[..., :need].unfold(-1, nfft, hop)[..., :num_frames, :]
+    if detrend:
+        frames = frames - frames.mean(-1, keepdim=True)
+    w = torch.as_tensor(np.asarray(window, np.float32), device=xf.device)
+    return _planar(torch.fft.rfft(frames * w))
+
+
 __all__ = [
+    "FACTORED_MAX_N",
+    "DENSE_RFFT_MAX_N",
+    "dft_factored",
+    "fft_large",
+    "rfft_dense",
+    "irfft_dense",
+    "rfft_dense_framed",
     "FUSED_MAX_NFFT",
     "FUSED3_MAX_NFFT",
     "FUSED3_SCRATCH_BYTES",

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.device import resolve_device
 from ..utils.dispatch import record_choice, refuse_grad
 from ..utils.layout import overlapping_frames
 from .fft import spectral_window
@@ -58,16 +59,17 @@ def _host(v) -> np.ndarray:
     return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
-def levinson(r):
+def levinson(r, *, device="cuda"):
     """Batched Levinson-Durbin: Toeplitz autocorrelation -> AR coefficients.
 
-    ``r``: ``(..., p+1)`` lags (lag 0 first). Returns ``(a, k, err)``: the
+    ``r``: ``(..., p+1)`` lags (lag 0 first); a tensor stays on its device,
+    anything else goes to ``device``. Returns ``(a, k, err)``: the
     prediction polynomial ``(..., p+1)`` with ``a[..., 0] == 1``, the
     reflection coefficients ``(..., p)`` and the final prediction-error power
     ``(...,)``, all float32 (scipy's ``solve_toeplitz`` / librosa's
     convention: the synthesis filter is ``1/A(z)``).
     """
-    r = _coef(r, r.device if isinstance(r, torch.Tensor) else "cpu")
+    r = _coef(r, r.device if isinstance(r, torch.Tensor) else resolve_device(device))
     p = r.shape[-1] - 1
     a = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
     a[..., 0] = 1.0

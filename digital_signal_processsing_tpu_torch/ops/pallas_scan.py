@@ -334,6 +334,8 @@ windowed_averager_packed.launches = 0
 
 # B3's in-tile scans, and their codes in csrc/scan.cu (dsp::b3::ScanVariant)
 SCAN_VARIANTS = {"blelloch": 0, "hillis_steele": 1, "mxu": 2}
+# the reference cumsum's variants: its in-tile scans, and "fused", its MXU lane passes
+CUMSUM_VARIANTS = ("fused", *SCAN_VARIANTS)
 TC_ROW = 16  # the reference's tensor-core row: mxu takes C dividing 16, as the JAX kernel does
 SCAN_RUN = 8  # samples a run: one 16-byte vector of int16
 SCAN_RUNS = 4  # runs a thread (dsp::runs::kNQ): 32 samples, 8192 a tile
@@ -573,14 +575,18 @@ def windowed_kernel_attrs(window: int, channels: int = 2) -> tuple:
     return _attrs_of(torch.cuda.current_device(), windowed_geometry(window, channels))
 
 
-def cumsum(x: torch.Tensor, channels: int = 1) -> torch.Tensor:
+def cumsum(x: torch.Tensor, channels: int = 1, *, variant: str = "fused") -> torch.Tensor:
     """Per-channel int32 modular inclusive prefix sum of an interleaved stream (B4).
 
     One launch after a memset of its scratch (``cumsum_status_words``): every
     tile publishes its per-channel totals and looks back over its
     predecessors for its carry, so the stream is read once. Needs
-    ``cumsum_supported(channels)``.
+    ``cumsum_supported(channels)``. ``variant`` takes the reference's names
+    (:data:`CUMSUM_VARIANTS`), which pick its in-tile scan; every one runs
+    B4 here, bit-identical, as the modular sum is exact in any order.
     """
+    if variant not in CUMSUM_VARIANTS:  # the reference's refusal and message
+        raise ValueError(f"unknown variant {variant!r}; options {sorted(SCAN_VARIANTS)}")
     _check_stream(x, torch.int16, channels, "x", x.numel())
     if not cumsum_supported(channels):
         raise ValueError(f"cumsum kernel takes at most a tile's worth of channels, got {channels}")
@@ -618,22 +624,28 @@ def cumsum_kernel_attrs(channels: int) -> tuple:
     return tuple(out)
 
 
-def moving_average_two_pass(x: torch.Tensor, window: int, channels: int = 1) -> torch.Tensor:
+def moving_average_two_pass(
+    x: torch.Tensor, window: int, channels: int = 1, *, variant: str = "blelloch"
+) -> torch.Tensor:
     """Averager for halos beyond the windowed kernels: B4, then the difference.
 
     Pass 1 is the cumsum kernel (int32 modular); pass 2 the windowed
     difference and truncating division in plain PyTorch, as the reference
     package does it in XLA. Costs one int32 round trip through device memory
     more than the windowed kernel, but no work that grows with the window.
+    ``variant`` is the reference's cumsum variant (:data:`CUMSUM_VARIANTS`;
+    any other raises its ``ValueError``): every one runs B4, so the outputs
+    are bit-identical, the cumsum being exact.
     """
     validate_window(window)
-    return windowed_difference(cumsum(x, channels), window, channels)
+    return windowed_difference(cumsum(x, channels, variant=variant), window, channels)
 
 
 __all__ = [
     "TILE_SAMPLES",
     "TWO_BLOCKS_SMEM_MAX",
     "SCAN_VARIANTS",
+    "CUMSUM_VARIANTS",
     "WINDOWED_SMEM_MAX",
     "TileGeometry",
     "ScanGeometry",

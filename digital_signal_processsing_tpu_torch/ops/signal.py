@@ -57,9 +57,12 @@ def chirp(f0: float, f1: float, t: int, *, amplitude: float = 1.0, device="cuda"
     Instantaneous frequency f(n) = f0 + (f1 - f0) n / t; the phase is its
     integral 2 pi (f0 n + (f1 - f0) n^2 / (2t)). The linear term uses the exact
     fractional multiply; the quadratic term is float32 (phase error about
-    |f1 - f0| t 2^-25 cycles).
+    |f1 - f0| t 2^-25 cycles). ``t <= 0`` gives an empty tensor, as the
+    reference's does.
     """
     dev = resolve_device(device)
+    if t <= 0:
+        return torch.zeros(0, dtype=torch.float32, device=dev)
     n = torch.arange(t, dtype=torch.float32, device=dev)
     a = torch.as_tensor(f0, dtype=torch.float32, device=dev).reshape(1, 1)
     p_lin = _frac_mul_int(a, torch.arange(t, dtype=torch.int32, device=dev)[None, :])[0]

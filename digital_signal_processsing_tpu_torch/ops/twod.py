@@ -64,6 +64,11 @@ def _conv2d(in1, in2, mode: str, boundary: str, flip: bool, fillvalue: float, de
             ph, pw = ((kh - 1) // 2, kh // 2), ((kw - 1) // 2, kw // 2)
     elif mode == "valid":
         ph = pw = (0, 0)
+        h, w = xb.shape[-2:]
+        if kh > h or kw > w:
+            # the reference's VALID convolution gives no rows where the kernel is the
+            # larger (scipy swaps the inputs or raises instead)
+            return xf.new_zeros(tuple(batch) + (max(h - kh + 1, 0), max(w - kw + 1, 0)))
     else:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
     xb = _pad2d(xb, ph, pw, boundary, fillvalue)

@@ -55,8 +55,8 @@ def test_run_variant_rejects_unknown_keys(rng):
 def test_sweep_grid_matches_the_reference(monkeypatch, tmp_path):
     checked = []
 
-    def port_time_phases(fn, host_input, *, device, warmup, rounds, resident=False):
-        assert device == "cpu" and warmup == 1 and rounds == 2
+    def port_time_phases(fn, host_input, *, device, warmup, rounds, resident=False, chain=1):
+        assert device == "cpu" and warmup == 1 and rounds == 2 and chain == 1
         channels, window = 2, fn.keywords["window"]
         got = fn(torch.from_numpy(host_input)).numpy()
         np.testing.assert_array_equal(got, moving_average_golden(host_input, window, channels))
